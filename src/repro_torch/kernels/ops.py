@@ -1,0 +1,102 @@
+"""``merge_blocks`` — the executor's entry to the merge kernels.
+
+``merge_blocks(op, x0s, Ds, theta, masks=None, device=...)`` has the JAX
+package's signature and result (a float32 ``(NB, W)`` ndarray) plus the
+device to run on:
+
+    * a CUDA device -> the Hopper kernels of :mod:`.merge_block`
+      (launched, or raising — never a quiet CPU run);
+    * ``"cpu"``     -> their plain PyTorch versions (:mod:`.ref`).
+
+Inputs are staged to the device as they come: base blocks in their
+storage dtype (bf16 as its raw 16-bit words, half the bytes of float32)
+and upcast there; deltas as float32.  ``out_dtype`` casts the result on
+the device before the copy back, so a bf16 merge returns half the bytes.
+The TIES trim threshold (the keep-th largest |Δ| per row) is
+``torch.kthvalue`` on the same device, as the JAX package leaves it to an
+XLA sort outside its kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict, Union
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import merge_block as mb
+from repro_torch.kernels import ref
+from repro_torch.store import dtypes
+
+_TORCH_DTYPES = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float16): torch.float16,
+    np.dtype(np.float64): torch.float64,
+}
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """A CUDA device that is not there raises; it never becomes the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False "
+            "(pass device='cpu' to run the plain versions on the host)"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Stage a host block stack on ``device`` as float32."""
+    arr = np.ascontiguousarray(arr)
+    if dtypes.is_bfloat16(arr.dtype):
+        t = torch.from_numpy(arr.view(np.int16)).to(device)
+        return t.view(torch.bfloat16).float()
+    return torch.from_numpy(arr).to(device).float()
+
+
+def from_device(out: torch.Tensor, out_dtype) -> np.ndarray:
+    """Cast on the device, then copy to the host in storage form."""
+    dt = np.dtype(out_dtype)
+    if dtypes.is_bfloat16(dt):
+        words = out.to(torch.bfloat16).view(torch.int16).cpu().numpy()
+        return words.view(dtypes.BFLOAT16)
+    return out.to(_TORCH_DTYPES[dt]).cpu().numpy()
+
+
+def merge_blocks(
+    op: str,
+    x0s,
+    Ds,
+    theta: Dict,
+    masks=None,
+    device: Union[str, torch.device] = "cuda",
+    out_dtype=np.float32,
+) -> np.ndarray:
+    """Apply operator ``op`` to a batch of blocks.
+
+    x0s (NB, W) in any checkpoint float dtype; Ds (NB, K, W) float;
+    masks (NB, K, W) bool for DARE.  Returns an ``out_dtype`` ndarray
+    (NB, W), float32 by default.
+    """
+    dev = resolve_device(device)
+    x0 = to_device(x0s, dev)
+    D = to_device(Ds, dev)
+    lam = float(theta.get("lam", 1.0))
+    op = op.lower()
+    if op == "avg":
+        out = mb.linear_merge(x0, D, 1.0, float(D.shape[1] + 1))
+    elif op == "ta":
+        out = mb.linear_merge(x0, D, lam, 1.0)
+    elif op == "ties":
+        thresh = ref.ties_thresholds(D, float(theta.get("trim_frac", 0.2)))
+        out = mb.ties_merge(x0, D, thresh.contiguous(), lam)
+    elif op == "dare":
+        if masks is None:
+            raise ValueError("dare requires masks")
+        m = torch.from_numpy(np.ascontiguousarray(masks, dtype=np.bool_)).to(dev)
+        out = mb.dare_merge(x0, D, m, float(theta.get("density", 0.5)), lam)
+    else:
+        raise KeyError(f"unknown operator {op!r}")
+    return from_device(out, out_dtype)

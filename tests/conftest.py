@@ -9,6 +9,12 @@ from repro.store.iostats import IOStats
 from repro.testing.locktrace import LockTracer
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where there is none"
+    )
+
+
 @pytest.fixture
 def stats():
     """Debug-mode stats: every record_* call validates its category and
