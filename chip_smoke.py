@@ -5,20 +5,28 @@
 
 Configuration: Qwen2-1.5B at its published widths (d_model 1536, 12 heads
 / 2 KV heads, head_dim 128, d_ff 8960, vocab 151936, QKV bias, tied
-embedding), stored in bfloat16, depth cut to 4 of 28 decoder layers plus
-the embedding and the final norm.  A base model and K = 4 "full"
+embedding, rope_theta 1e6), stored in bfloat16, depth cut to 4 of 28
+decoder layers plus the embedding and the final norm, in the model's own
+layout: the port's ``flatten_tree`` of ``DecoderLM`` (layer-stacked
+tensors named as the JAX package names them, e.g. ``attn/wq`` of shape
+(L, 1536, 12, 128)).  A base model (``DecoderLM`` init) and K = 4 "full"
 experts (expert = base + 0.02 * N(0, 1) per tensor) are made on the card
 from ``--seed``; nothing is downloaded.  Default 128 KiB blocks.
 
 Phases, one JSON line each:
 
-  build    nvcc builds src/repro_torch/csrc/merge_block.cu (sm_90a)
-  kernels  each Hopper kernel against its plain PyTorch version at the
-           merge path's largest window group (NB = 32, K = 4, W = 65,536
-           float32): max abs error (rtol = atol = 1e-5), median CUDA-event
-           times of kernel, plain version, a device-to-device copy of the
-           same bytes and (where one exists) one PyTorch library call,
-           and the HBM-bytes bound
+  build    nvcc builds src/repro_torch/csrc/merge_block.cu and
+           flash_attention.cu (sm_90a), both at once; ptxas lines
+  kernels  each Hopper kernel against its plain PyTorch version: the
+           merge kernels at the merge path's largest window group (NB =
+           32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), flash
+           attention at the prefill shape (B, Sq, Sk, H, Hkv, hd) = (1,
+           2048, 2048, 12, 2, 128) bf16 causal, the same in float32 with
+           window 512, and a decode-style (1, 1, 2048, ...) with q_offset
+           2047 (tolerance 2e-5 float32, 2e-2 bf16): max abs error,
+           median CUDA-event times of kernel, plain version, a device
+           copy of the same bytes (merge kernels) and one PyTorch library
+           call where one computes the same function, and the bound
   parity   one full-width decoder layer, 50% budget: MergePipe.merge on
            the card (pipelined engine, torch kernels) against the numpy
            stream engine, for avg / ta / ties / dare: bf16 outputs within
@@ -28,6 +36,15 @@ Phases, one JSON line each:
            budget soundness, windows, kernel launches, and from
            torch.profiler the kernels' device time, the device's busy
            time by activity and its idle share
+  serve    the TIES snapshot of ``merge``, loaded into the port's
+           DecoderLM (``load_flat``) and served by ServeEngine(batch_slots
+           = 4, max_len = 4096): 8 requests, prompts of 256-2048 tokens
+           drawn from ``--seed``, 32 greedy tokens each.  First a parity
+           check in float32 compute, flash-attention kernel against its
+           plain version on the card (prefill logits within tolerance,
+           identical tokens); then the bf16 run: prefill and decode
+           rates, flash-attention launches, and from torch.profiler the
+           kernel's device time, busy time by activity and idle share
 
 Then the kernels' contract line, and last {"ok": true, "device": ...}.
 Any failure raises and exits non-zero.  The workspace lives under
@@ -36,6 +53,8 @@ build/ (gitignored) and is removed at the end.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -45,72 +64,73 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Qwen2-1.5B (HF Qwen/Qwen2-1.5B config.json)
-D_MODEL, N_HEADS, N_KV, HEAD_DIM, D_FF, VOCAB, N_LAYERS = (
-    1536, 12, 2, 128, 8960, 151936, 28)
 OPS = [("avg", {}), ("ta", {"lam": 0.7}), ("ties", {"trim_frac": 0.3}),
        ("dare", {"density": 0.5, "seed": 3})]
-# H100 data sheet (SXM): HBM bytes/s, float32 and float64 vector FLOP/s
-PEAK = {"bytes": 3.35e12, "f32": 67e12, "f64": 34e12}
+# H100 data sheet (SXM): HBM bytes/s, float32 and float64 vector FLOP/s,
+# bf16 dense tensor-core FLOP/s
+PEAK = {"bytes": 3.35e12, "f32": 67e12, "f64": 34e12, "bf16": 989e12}
 TOL = 1e-5
+# tests/test_kernels.py:133,149: float32 sums in another order; bf16
+# outputs one rounding apart
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (label, (B, Sq, Sk, H, Hkv, hd), dtype, causal, window, q_offset); the
+# first is the serving path's prefill shape and the contract line's row
+FA_CASES = [
+    ("prefill", (1, 2048, 2048, 12, 2, 128), "bfloat16", True, 0, 0),
+    ("prefill_window", (1, 2048, 2048, 12, 2, 128), "float32", True, 512, 0),
+    ("decode", (1, 1, 2048, 12, 2, 128), "bfloat16", True, 0, 2047),
+]
+SERVE = {"requests": 8, "min_prompt": 256, "max_prompt": 2048,
+         "new_tokens": 32, "batch_slots": 4, "max_len": 4096}
+# float32 serve parity, kernel against plain version: prefill logits of
+# std ~40 (vocab 151,936, d 1536) with attention sums in another order
+LOGIT_TOL = {"rtol": 1e-4, "atol": 2e-3}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def qwen2_shapes(n_layers: int, embed: bool):
-    shapes = {}
-    if embed:
-        shapes["model.embed_tokens.weight"] = (VOCAB, D_MODEL)
-    q, kv = N_HEADS * HEAD_DIM, N_KV * HEAD_DIM
-    for i in range(n_layers):
-        p = f"model.layers.{i}."
-        shapes.update({
-            p + "self_attn.q_proj.weight": (q, D_MODEL),
-            p + "self_attn.q_proj.bias": (q,),
-            p + "self_attn.k_proj.weight": (kv, D_MODEL),
-            p + "self_attn.k_proj.bias": (kv,),
-            p + "self_attn.v_proj.weight": (kv, D_MODEL),
-            p + "self_attn.v_proj.bias": (kv,),
-            p + "self_attn.o_proj.weight": (D_MODEL, q),
-            p + "mlp.gate_proj.weight": (D_FF, D_MODEL),
-            p + "mlp.up_proj.weight": (D_FF, D_MODEL),
-            p + "mlp.down_proj.weight": (D_MODEL, D_FF),
-            p + "input_layernorm.weight": (D_MODEL,),
-            p + "post_attention_layernorm.weight": (D_MODEL,),
-        })
-    if embed:
-        shapes["model.norm.weight"] = (D_MODEL,)
-    return shapes
+def qwen2_config(layers: int, compute_dtype: str = "bfloat16"):
+    """Qwen2-1.5B at published widths, ``layers`` deep, bf16 params."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("qwen2-1.5b"), n_layers=layers,
+                               param_dtype="bfloat16",
+                               compute_dtype=compute_dtype)
 
 
-def populate(mp, shapes, k, seed, device):
-    """Register base + k full experts, made on ``device`` in bf16."""
+def populate(mp, layers, k, seed, device, layer_only=False):
+    """Register base (``DecoderLM`` init, in the port's flat layout) and
+    k full experts, made on ``device`` in bf16.  ``layer_only`` keeps the
+    decoder layers and drops the embedding and the final norm."""
     import torch
 
+    from repro_torch.models import build_model
+    from repro_torch.store.checkpoint import flatten_tree
+
     g = torch.Generator(device=device).manual_seed(seed)
-    base = {}
-    for name, shape in shapes.items():
-        if name.endswith("norm.weight"):
-            t = torch.ones(shape, device=device)
-        else:
-            t = 0.02 * torch.randn(shape, generator=g, device=device)
-        base[name] = t.to(torch.bfloat16)
+    model = build_model(qwen2_config(layers), device=device, generator=g)
+    base = {n: t for n, t in flatten_tree(model).items()
+            if not (layer_only and n in ("embed/embedding", "ln_f"))}
     mp.register_model("base", base)
+    params = {n.replace(".", "/"): p.detach()
+              for n, p in model.state_dict(keep_vars=True).items()}
     ids = []
     for e in range(k):
         mp.register_model(f"expert-{e}", {
-            n: (t.float() + 0.02 * torch.randn(t.shape, generator=g, device=device)
+            n: (params[n].float() + 0.02 * torch.randn(
+                params[n].shape, generator=g, device=device)
                 ).to(torch.bfloat16)
-            for n, t in base.items()
+            for n in base
         })
         ids.append(f"expert-{e}")
-    n_params = sum(t.numel() for t in base.values())
-    return ids, n_params
+    shapes = {n: a.shape for n, a in base.items()}
+    return ids, sum(a.size for a in base.values()), shapes
 
 
 class Timer:
@@ -213,7 +233,86 @@ def phase_kernels(device, seed, nb=32, k=4, w=65536):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         })
         del src, dst
+    del x0, D, thresh, masks
+    rows += flash_rows(device, seed, timer)
     emit({"phase": "kernels", "tolerance": TOL, "kernels": rows})
+    return rows
+
+
+def attention_mask(sq, sk, causal, window, q_offset, device):
+    """(Sq, Sk) bool: which keys each query attends."""
+    import torch
+
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    valid = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        valid &= qpos >= kpos
+    if window > 0:
+        valid &= qpos - kpos < window
+    return valid
+
+
+def flash_rows(device, seed, timer):
+    """Flash-attention kernel vs its plain version at FA_CASES."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    rows = []
+    for label, (b, sq, sk, h, hkv, hd), dt, causal, window, qoff in FA_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn((b, sq, h, hd), generator=g, device=device).to(dtype)
+        k = torch.randn((b, sk, hkv, hd), generator=g, device=device).to(dtype)
+        v = torch.randn((b, sk, hkv, hd), generator=g, device=device).to(dtype)
+
+        def kern():
+            return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=qoff)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, causal, window, qoff,
+                                           skip_masked_chunks=True)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = FA_TOL[dt]
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"flash_attention {label}: kernel disagrees, "
+                                 f"max abs err {err}")
+        # yardstick only: one PyTorch call computing the same function
+        mask = attention_mask(sq, sk, causal, window, qoff, device)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        full_causal = causal and window == 0 and qoff == 0 and sq == sk
+        lib_mask = None if full_causal or bool(mask.all()) else mask
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=lib_mask, is_causal=full_causal,
+                enable_gqa=True)
+
+        # live work: 2 FLOP per (q, k) pair and head dim for q.k, 2 for p.v
+        flops = 4 * hd * int(mask.sum()) * b * h
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bytes_ms = nbytes / PEAK["bytes"] * 1e3
+        ops_ms = flops / PEAK["bf16" if dt == "bfloat16" else "f32"] * 1e3
+        rows.append({
+            "name": "flash_attention", "route": "cuda", "case": label,
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:102",
+            "shape": [b, sq, sk, h, hkv, hd], "dtype": dt, "causal": causal,
+            "window": window, "q_offset": qoff, "tolerance": tol,
+            "max_abs_err": err, "ms": timer(kern), "plain_ms": timer(plain),
+            "copy_ms": None, "library_ms": timer(library),
+            "flops": flops, "bytes": nbytes,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        })
+        del q, k, v, got, want, mask
     return rows
 
 
@@ -236,7 +335,7 @@ def phase_parity(root, device, seed, block_size):
 
     mp = MergePipe(os.path.join(root, "parity"), block_size=block_size,
                    device=device)
-    ids, n_params = populate(mp, qwen2_shapes(1, embed=False), 4, seed, device)
+    ids, n_params, _ = populate(mp, 1, 4, seed, device, layer_only=True)
     out = {"phase": "parity", "layers": 1, "params": n_params, "ops": {}}
     for op, theta in OPS:
         with measure(mp.stats) as io_k:
@@ -285,8 +384,7 @@ def phase_merge(root, device, seed, block_size, layers):
     mp = MergePipe(os.path.join(root, "merge"), block_size=block_size,
                    device=device)
     t0 = time.perf_counter()
-    shapes = qwen2_shapes(layers, embed=True)
-    ids, n_params = populate(mp, shapes, 4, seed, device)
+    ids, n_params, shapes = populate(mp, layers, 4, seed, device)
     t_reg = time.perf_counter() - t0
     t0 = time.perf_counter()
     mp.ensure_analyzed("base", ids)
@@ -347,12 +445,163 @@ def phase_merge(root, device, seed, block_size, layers):
             "device_top_ms": dict(sorted(device_ms.items(),
                                          key=lambda kv: -kv[1])[:6]),
         }
+        if op == "ties":
+            ties_sid, ties_flat = res.sid, merged
         del merged
     ops.merge_blocks = real_merge_blocks
     out["launches"] = dict(mb.LAUNCHES)
+    out["ties_sid"] = ties_sid
     mp.close()
     emit(out)
-    return out["launches"]
+    return out["launches"], ties_flat
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the model's flash attention to its plain version (on the
+    card too), for the kernel-against-plain serve parity."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+
+    kernel = attention.flash_attention
+    attention.flash_attention = ref.flash_attention_ref
+    try:
+        yield
+    finally:
+        attention.flash_attention = kernel
+
+
+def phase_serve(device, seed, layers, merged):
+    """Serve the merged TIES snapshot through the port's ServeEngine."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import from_jax_flat
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = qwen2_config(layers)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(SERVE["min_prompt"], SERVE["max_prompt"] + 1,
+                           size=SERVE["requests"])
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lengths]
+    new = SERVE["new_tokens"]
+
+    def engine_and_requests(model):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+        return ServeEngine(model, batch_slots=SERVE["batch_slots"],
+                           max_len=SERVE["max_len"]), reqs
+
+    def run(model):
+        engine, reqs = engine_and_requests(model)
+        engine.run(reqs)
+        if not all(r.done and len(r.out_tokens) == new for r in reqs):
+            raise AssertionError("serve: a request did not finish")
+        return engine, reqs
+
+    # parity: float32 compute on the merged bf16 weights, kernel vs plain
+    t0 = time.perf_counter()
+    m32 = from_jax_flat(dataclasses.replace(cfg, compute_dtype="float32"),
+                        merged, device=device)
+    load_s = time.perf_counter() - t0
+    worst = 0.0
+    for p in prompts:
+        toks = torch.as_tensor(p, dtype=torch.long, device=device)[None]
+        with torch.inference_mode():
+            lk = m32.prefill(toks)[0]
+            with plain_attention():
+                lp = m32.prefill(toks)[0]
+        worst = max(worst, float((lk - lp).abs().max()))
+        if not torch.isfinite(lk).all() or not torch.allclose(lk, lp,
+                                                              **LOGIT_TOL):
+            raise AssertionError(f"serve parity: prefill logits differ by "
+                                 f"{worst} at prompt length {len(p)}")
+    _, k_reqs = run(m32)
+    with plain_attention():
+        _, p_reqs = run(m32)
+    same = [a.out_tokens == b.out_tokens for a, b in zip(k_reqs, p_reqs)]
+    if not all(same):
+        raise AssertionError(f"serve parity: greedy tokens differ for "
+                             f"requests {[i for i, s in enumerate(same) if not s]}")
+    del m32
+
+    model = from_jax_flat(cfg, merged, device=device)
+    run(model)  # warm-up: bf16 GEMM and kernel first launches
+
+    # the main path: the launch count starts at 0 here and is read after
+    timing = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
+              "decode_steps": 0, "decode_tokens": 0}
+    engine, reqs = engine_and_requests(model)
+    prefill_slot, step = engine._prefill_slot, engine.step
+
+    def timed_prefill(slot, req):
+        t = time.perf_counter()
+        n = prefill_slot(slot, req)  # ends in a host sync (sampling)
+        timing["prefill_s"] += time.perf_counter() - t
+        timing["prefill_tokens"] += len(req.prompt)
+        return n
+
+    def timed_step():
+        active = sum(r is not None for r in engine._slot_req)
+        t = time.perf_counter()
+        step()  # ends in a host sync (sampling)
+        timing["decode_s"] += time.perf_counter() - t
+        timing["decode_steps"] += active > 0
+        timing["decode_tokens"] += active
+
+    engine._prefill_slot, engine.step = timed_prefill, timed_step
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.LAUNCHES["flash_attention"]
+    if launches == 0:
+        raise AssertionError("serve: flash_attention never launched")
+    if not all(r.done and len(r.out_tokens) == new for r in reqs):
+        raise AssertionError("serve: a request did not finish")
+    if any(not 0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens):
+        raise AssertionError("serve: token out of the vocabulary")
+
+    # the same requests again under the profiler (device activity only,
+    # as in ``merge``): device time by activity.  The idle share is taken
+    # against the timed run's wall, which the profiler does not stretch.
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(model)
+        torch.cuda.synchronize()
+    prof_wall = time.perf_counter() - t0
+    device_ms = device_time_ms(prof)
+    kernel_ms = sum(t for n, t in device_ms.items()
+                    if "flash_attention_kernel" in n)
+    busy = sum(device_ms.values())
+    emit({
+        "phase": "serve", "layers": layers, "requests": len(prompts),
+        "prompt_lengths": [int(n) for n in lengths], "new_tokens": new,
+        "batch_slots": SERVE["batch_slots"], "max_len": SERVE["max_len"],
+        "load_s": load_s,
+        "parity": {"compute_dtype": "float32", "max_logit_diff": worst,
+                   "logit_tol": LOGIT_TOL, "tokens_identical": True},
+        "wall_s": wall,
+        "prefill_tokens": timing["prefill_tokens"],
+        "prefill_s": timing["prefill_s"],
+        "prefill_tokens_per_s": timing["prefill_tokens"] / timing["prefill_s"],
+        "decode_steps": timing["decode_steps"],
+        "decode_tokens": timing["decode_tokens"],
+        "decode_s": timing["decode_s"],
+        "decode_tokens_per_s": timing["decode_tokens"] / timing["decode_s"],
+        "ms_per_decode_step": timing["decode_s"] / timing["decode_steps"] * 1e3,
+        "launches": {"flash_attention": launches},
+        "profiled_wall_s": prof_wall, "flash_kernel_ms": kernel_ms,
+        "device_busy_ms": busy,
+        "device_idle_share": 1 - busy / 1e3 / wall,
+        "device_top_ms": dict(sorted(device_ms.items(),
+                                     key=lambda kv: -kv[1])[:8]),
+    })
+    return {"flash_attention": launches}
 
 
 def main() -> int:
@@ -369,6 +618,8 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import merge_block as mb
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -381,29 +632,41 @@ def main() -> int:
     print(smi, flush=True)
     emit({"config": "qwen2-1.5b", "dtype": "bfloat16", "experts": 4,
           "block_size": args.block_size, "seed": args.seed,
-          "reduced": f"depth {args.layers} of {N_LAYERS} decoder layers "
-                     f"(+ embedding, final norm); widths as published"})
+          "reduced": f"depth {args.layers} of "
+                     f"{get_config('qwen2-1.5b').n_layers} decoder layers "
+                     f"(+ embedding, final norm) for merge and serve; "
+                     f"widths as published"})
 
     t0 = time.perf_counter()
-    lib = mb.build()
-    with open(lib[: -len(".so")] + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln]
+    libraries = (mb.LIBRARY, fa.LIBRARY)
+    with ThreadPoolExecutor(len(libraries)) as ex:  # one nvcc per source
+        paths = list(ex.map(lambda lib: lib.build(), libraries))
+    ptxas = {}
+    for lib, path in zip(libraries, paths):
+        with open(lib.log_path()) as f:
+            ptxas[os.path.relpath(path, HERE)] = [
+                ln.strip() for ln in f if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(lib, HERE), "ptxas": ptxas})
+          "ptxas": ptxas})
 
     rows = phase_kernels(device, args.seed)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="smoke-ws-", dir=os.path.join(HERE, "build"))
     try:
         phase_parity(root, device, args.seed, args.block_size)
-        launches = phase_merge(root, device, args.seed, args.block_size,
-                               args.layers)
+        launches, merged = phase_merge(root, device, args.seed,
+                                       args.block_size, args.layers)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    launches.update(phase_serve(device, args.seed, args.layers, merged))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "copy_ms")
+    # one row per kernel: the flash-attention row at the prefill shape
+    firsts = {}
+    for r in rows:
+        firsts.setdefault(r["name"], r)
     emit({"kernels": [{k: ({**r, "launches": launches[r["name"]]})[k]
-                       for k in keys} for r in rows]})
+                       for k in keys} for r in firsts.values()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,9 +1,9 @@
 """Hopper merge kernels (``csrc/merge_block.cu``) and their wrappers.
 
 The CUDA source is compiled on first use with ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface, cached under
-``build/`` beside this package by the source's hash, and loaded with
-``ctypes``.  Importing this module builds nothing.
+into a shared library with a plain C interface (:mod:`.build`), cached
+under ``build/`` beside this package by the source's hash, and loaded
+with ``ctypes``.  Importing this module builds nothing.
 
 Every wrapper takes torch tensors in the executor's batched layout
 (see :mod:`repro_torch.kernels.ref`):
@@ -22,30 +22,14 @@ The kernels replace the Pallas kernels of the JAX package's
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from typing import Optional
 
 import torch
 
 from repro_torch.kernels import ref
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "merge_block.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-]
+from repro_torch.kernels.build import CudaLibrary
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"linear_merge": 0, "ties_merge": 0, "dare_merge": 0}
-
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -53,58 +37,17 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libmerge_block-{digest.hexdigest()[:16]}.so")
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f, d = ctypes.c_float, ctypes.c_double
+    lib.mb_linear.argtypes = [p, p, p, i, i, ll, f, f, p]
+    lib.mb_ties.argtypes = [p, p, p, p, i, i, ll, d, p]
+    lib.mb_dare.argtypes = [p, p, p, p, i, i, ll, f, f, p]
+    for fn in (lib.mb_linear, lib.mb_ties, lib.mb_dare):
+        fn.restype = ctypes.c_int
 
 
-def build() -> str:
-    """Compile the kernels unless a build of this exact source exists.
-    Returns the library path; the compiler's output is kept beside it
-    (``.log``, with ``-Xptxas -v`` register and spill counts)."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True,
-    )
-    with open(path[: -len(".so")] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            f, d = ctypes.c_float, ctypes.c_double
-            lib.mb_linear.argtypes = [p, p, p, i, i, ll, f, f, p]
-            lib.mb_ties.argtypes = [p, p, p, p, i, i, ll, d, p]
-            lib.mb_dare.argtypes = [p, p, p, p, i, i, ll, f, f, p]
-            for fn in (lib.mb_linear, lib.mb_ties, lib.mb_dare):
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+LIBRARY = CudaLibrary("merge_block.cu", _declare)
 
 
 def _check(name: str, x0: torch.Tensor, D: torch.Tensor, extras) -> None:
@@ -143,7 +86,7 @@ def linear_merge(
     if x0.device.type == "cpu":
         return ref.linear_ref(x0, D, mul, div)
     _check("linear_merge", x0, D, [])
-    lib = _load()
+    lib = LIBRARY.load()
     nb, k, w = D.shape
     out = torch.empty_like(x0)
     with torch.cuda.device(D.device):
@@ -160,7 +103,7 @@ def ties_merge(
         return ref.ties_apply_ref(x0, D, thresh, lam)
     nb, k, w = D.shape
     _check("ties_merge", x0, D, [(thresh, torch.float32, (nb, k))])
-    lib = _load()
+    lib = LIBRARY.load()
     out = torch.empty_like(x0)
     with torch.cuda.device(D.device):
         _launch("ties_merge", lib.mb_ties, x0.data_ptr(), D.data_ptr(),
@@ -181,7 +124,7 @@ def dare_merge(
     if masks.dtype == torch.bool:
         masks = masks.view(torch.uint8)  # one byte, 0 or 1: same storage
     _check("dare_merge", x0, D, [(masks, torch.uint8, tuple(D.shape))])
-    lib = _load()
+    lib = LIBRARY.load()
     nb, k, w = D.shape
     out = torch.empty_like(x0)
     with torch.cuda.device(D.device):

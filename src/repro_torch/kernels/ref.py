@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the merge kernels.
+"""Plain PyTorch versions of the Hopper kernels: merge and attention.
 
-Shapes (the executor's batched layout):
+Merge shapes (the executor's batched layout):
     x0     (NB, W)        base blocks, float32
     D      (NB, K, W)     stacked expert deltas, float32
     masks  (NB, K, W)     DARE keep masks (bool or uint8)
@@ -14,10 +14,18 @@ promotes its integer count there.  The Hopper kernels in
 bit for bit.  These are the CPU path of the kernel wrappers
 (:mod:`repro_torch.kernels.merge_block`) and the oracle the kernels are
 held against on the card.
+
+:func:`flash_attention_ref` is the plain version of the flash-attention
+kernel (``csrc/flash_attention.cu``), a port of the JAX package's chunked
+attention; its kernel agrees within a tolerance, not bit for bit (sums
+over head dim and keys run in another order).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 
 def ties_keep(trim_frac: float, w: int) -> int:
@@ -95,3 +103,87 @@ def dare_ref(
 ) -> torch.Tensor:
     rescaled = torch.where(masks.bool(), D, 0.0) / _f32(density, D.device)
     return x0 + _f32(lam, D.device) * _ksum(rescaled)
+
+
+# ------------------------------------------------------- flash attention
+_NEG = -1.0e30
+
+
+def _cdiv(a: int, b: int) -> int:
+    return (a + b - 1) // b
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, Hkv, hd)
+    v: torch.Tensor,  # (B, Sk, Hkv, hdv)
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    cq: int = 512,
+    ck: int = 1024,
+    skip_masked_chunks: bool = False,
+) -> torch.Tensor:
+    """Chunked online-softmax attention: the JAX package's
+    ``models/attention.py::flash_attention`` step for step (pad to whole
+    chunks, GQA by reshaping queries to (Hkv, g), float32 scores and
+    accumulator, ``-1e30`` for masked scores, ``acc / max(l, 1e-30)``).
+    ``skip_masked_chunks`` bounds the key loop to the causal / window
+    reach of each query chunk, as the reference does at prefill."""
+    b, sq, h, hd = q.shape
+    _, sk, hkv, _ = k.shape
+    hdv = v.shape[-1]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(hd)
+
+    cq = min(cq, sq)
+    ck = min(ck, sk)
+    pad_q = (-sq) % cq
+    pad_k = (-sk) % ck
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nq, nk = qp.shape[1] // cq, kp.shape[1] // ck
+    qc = qp.reshape(b, nq, cq, hkv, g, hd)
+    kc = kp.reshape(b, nk, ck, hkv, hd)
+    vc = vp.reshape(b, nk, ck, hkv, hdv)
+    dev = q.device
+    out = torch.empty((b, nq * cq, h, hdv), dtype=torch.float32, device=dev)
+
+    for qi in range(nq):
+        qblk = qc[:, qi].float()  # (B, cq, Hkv, g, hd)
+        qpos = q_offset + qi * cq + torch.arange(cq, device=dev)
+        m = torch.full((b, hkv, g, cq), _NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, hkv, g, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, g, cq, hdv), dtype=torch.float32,
+                          device=dev)
+        if skip_masked_chunks and (causal or window > 0):
+            q_hi = q_offset + qi * cq + cq
+            hi = min(nk, _cdiv(q_hi, ck)) if causal else nk
+            lo = max(0, (q_offset + qi * cq - window + 1) // ck) \
+                if window > 0 else 0
+            tiles = range(lo, hi)
+        else:
+            tiles = range(nk)
+        for kj in tiles:
+            kpos = kj * ck + torch.arange(ck, device=dev)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk,
+                             kc[:, kj].float()) * scale  # (B, Hkv, g, cq, ck)
+            valid = (kpos < sk)[None, :]
+            if causal:
+                valid = valid & (qpos[:, None] >= kpos[None, :])
+            if window > 0:
+                valid = valid & (qpos[:, None] - kpos[None, :] < window)
+            s = torch.where(valid, s, _NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None]) * valid.float()
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vc[:, kj].float())
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        # (B, Hkv, g, cq, hdv) -> (B, cq, H, hdv)
+        out[:, qi * cq:(qi + 1) * cq] = o.permute(0, 3, 1, 2, 4).reshape(
+            b, cq, h, hdv)
+    return out[:, :sq].to(q.dtype)

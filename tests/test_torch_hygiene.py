@@ -1,6 +1,6 @@
 """Boundaries of the port: it imports nothing of JAX or of the JAX
 package, it runs on the card unless asked for the CPU (and raises where
-there is no card), and its CPU path never builds or loads the CUDA
+there is no card), and its CPU path never builds or loads a CUDA
 library."""
 import ast
 import os
@@ -10,10 +10,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.api import MergePipe  # noqa: E402
 from repro_torch.core.executor import execute_merge  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import merge_block as mb  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import build_model, from_jax_flat, load_flat  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.store.checkpoint import flatten_tree  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "yaml", "repro")
@@ -80,11 +86,17 @@ def test_kernel_checks_refuse_cpu_operands():
         mb._check("linear_merge", x0, torch.zeros(2, 3, 9), [])
 
 
+def _forbid_library_loads(tmp_path, monkeypatch):
+    monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path / "build"))
+    for lib in (mb.LIBRARY, fa.LIBRARY):
+        monkeypatch.setattr(lib, "_lib", None)
+        monkeypatch.setattr(
+            lib, "load",
+            lambda: pytest.fail("the CPU path loaded a CUDA library"))
+
+
 def test_cpu_path_never_loads_the_library(tmp_path, monkeypatch):
-    monkeypatch.setattr(mb, "BUILD_DIR", str(tmp_path / "build"))
-    monkeypatch.setattr(mb, "_lib", None)
-    monkeypatch.setattr(
-        mb, "_load", lambda: pytest.fail("the CPU path loaded the CUDA library"))
+    _forbid_library_loads(tmp_path, monkeypatch)
     rng = np.random.default_rng(0)
     x0 = rng.normal(size=(2, 16)).astype(np.float32)
     D = rng.normal(size=(2, 3, 16)).astype(np.float32)
@@ -92,6 +104,37 @@ def test_cpu_path_never_loads_the_library(tmp_path, monkeypatch):
     mb.reset_launches()
     for op in ("avg", "ta", "ties", "dare"):
         ops.merge_blocks(op, x0, D, {}, masks=masks, device="cpu")
-    assert mb._lib is None
-    assert not os.path.exists(mb.BUILD_DIR)
+    assert mb.LIBRARY._lib is None
+    assert not os.path.exists(kbuild.BUILD_DIR)
     assert sum(mb.LAUNCHES.values()) == 0  # plain versions are not launches
+
+
+def test_cpu_serving_never_loads_the_library(tmp_path, monkeypatch):
+    """Prefill (flash attention), decode and the engine on the CPU run
+    the plain versions and count no launch."""
+    _forbid_library_loads(tmp_path, monkeypatch)
+    model = build_model(get_smoke_config("qwen2-1.5b"), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    fa.reset_launches()
+    reqs = [Request(rid=i, prompt=np.arange(3 + i, dtype=np.int32),
+                    max_new_tokens=3) for i in range(3)]
+    ServeEngine(model, batch_slots=2, max_len=16).run(reqs)
+    with torch.no_grad():
+        model(torch.zeros((1, 5), dtype=torch.long))
+    assert all(r.done for r in reqs)
+    assert fa.LIBRARY._lib is None
+    assert not os.path.exists(kbuild.BUILD_DIR)
+    assert fa.LAUNCHES["flash_attention"] == 0
+
+
+def test_model_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("granite-3-8b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    flat = flatten_tree(model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_jax_flat(cfg, flat)
+    assert load_flat(model, flat) is model
+    assert ServeEngine(model).device.type == "cpu"
