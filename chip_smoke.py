@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's merge path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's merge, service and serve paths once on
+one NVIDIA card.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 2 without
 
@@ -15,27 +16,45 @@ from ``--seed``; nothing is downloaded.  Default 128 KiB blocks.
 
 Phases, one JSON line each:
 
-  build    nvcc builds src/repro_torch/csrc/merge_block.cu and
-           flash_attention.cu (sm_90a), both at once; ptxas lines
+  build    nvcc builds src/repro_torch/csrc/merge_block.cu (merge and
+           sketch kernels) and flash_attention.cu (sm_90a), both at
+           once; ptxas lines
   kernels  each Hopper kernel against its plain PyTorch version: the
            merge kernels at the merge path's largest window group (NB =
-           32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), flash
-           attention at the prefill shape (B, Sq, Sk, H, Hkv, hd) = (1,
-           2048, 2048, 12, 2, 128) bf16 causal, the same in float32 with
-           window 512, and a decode-style (1, 1, 2048, ...) with q_offset
-           2047 (tolerance 2e-5 float32, 2e-2 bf16): max abs error,
-           median CUDA-event times of kernel, plain version, a device
-           copy of the same bytes (merge kernels) and one PyTorch library
-           call where one computes the same function, and the bound
-  parity   one full-width decoder layer, 50% budget: MergePipe.merge on
-           the card (pipelined engine, torch kernels) against the numpy
+           32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), the
+           ANALYZE sketch kernel at ANALYZE's largest launch (NB =
+           1,024, W = 65,536 float32) and a ragged (3, 1,001) (max|x|
+           bit-equal; Σx² rtol 2e-4, Σx rtol 1e-3 / atol 1e-6·W: the
+           l2 and mean bars of tests/test_kernels.py), flash attention
+           at the prefill shape (B, Sq, Sk, H, Hkv, hd) = (1, 2048, 2048,
+           12, 2, 128) bf16 causal, the same in float32 with window 512,
+           and a decode-style (1, 1, 2048, ...) with q_offset 2047
+           (tolerance 2e-5 float32, 2e-2 bf16): max abs error, median
+           CUDA-event times of kernel, plain version, a device copy of
+           the same bytes (merge and sketch kernels) and one PyTorch
+           library call where one computes the same function, and the
+           bound
+  parity   one full-width decoder layer: ANALYZE on the card against
+           ANALYZE on the CPU into a second catalog (bytes, hashes, sign
+           signatures and max|x| equal; l2, l2_delta, mean within rtol
+           1e-5 / atol 1e-6; the same plan selection and c_expert_hat for
+           every operator at a 50% budget); then MergePipe.merge on the
+           card (pipelined engine, torch kernels) against the numpy
            stream engine, for avg / ta / ties / dare: bf16 outputs within
            one ulp, equal per-category I/O bytes
-  merge    the whole configuration, 50% budget, all four operators
-           through MergePipe.merge on the card: wall time, I/O bytes,
-           budget soundness, windows, kernel launches, and from
+  merge    the whole configuration: ANALYZE on the card (sketch kernel),
+           then 50% budget, all four operators through MergePipe.merge
+           (the v2 Session shim) on the card: ANALYZE's wall, bytes,
+           sketch launches and device time; each merge's wall time, I/O
+           bytes, budget soundness, windows, kernel launches, and from
            torch.profiler the kernels' device time, the device's busy
            time by activity and its idle share
+  service  merge_cli --spec on the merge workspace, in process, on the
+           card: a JSON spec of TIES and DARE over the four experts and a
+           nested job (AVG of a TA child with expert-0), under a shared
+           budget: every job commits and verifies, c_expert_run <=
+           c_expert_hat <= budget, the level's union of expert bytes
+           below the per-job sum; wall, bytes by category, launches
   serve    the TIES snapshot of ``merge``, loaded into the port's
            DecoderLM (``load_flat``) and served by ServeEngine(batch_slots
            = 4, max_len = 4096): 8 requests, prompts of 256-2048 tokens
@@ -86,6 +105,23 @@ FA_CASES = [
 ]
 SERVE = {"requests": 8, "min_prompt": 256, "max_prompt": 2048,
          "new_tokens": 32, "batch_slots": 4, "max_len": 4096}
+# (NB, W) float32 sketch launches: ANALYZE's largest (core/sketch.py
+# LAUNCH_BYTES of full 128 KiB bf16 blocks) and a ragged one
+SKETCH_CASES = [("analyze", (1024, 65536)), ("ragged", (3, 1001))]
+# ANALYZE on the card against the CPU: sums in another order
+ANALYZE_TOL = {"rtol": 1e-5, "atol": 1e-6}
+# the service phase's spec file: two jobs over all four experts and a
+# nested job whose child snapshot the service ANALYZEs itself
+EXPERTS = [f"expert-{e}" for e in range(4)]
+SERVICE_SPEC = {"jobs": [
+    {"name": "svc-ties", "base": "base", "experts": EXPERTS, "op": "ties",
+     "theta": {"trim_frac": 0.3}, "budget": "50%"},
+    {"name": "svc-dare", "base": "base", "experts": EXPERTS, "op": "dare",
+     "theta": {"density": 0.5, "seed": 3}, "budget": "50%"},
+    {"name": "svc-nested", "base": "base", "op": "avg", "budget": "50%",
+     "experts": [{"base": "base", "experts": EXPERTS[1:3], "op": "ta",
+                  "theta": {"lam": 0.5}, "budget": "50%"}, "expert-0"]},
+]}
 # float32 serve parity, kernel against plain version: prefill logits of
 # std ~40 (vocab 151,936, d 1536) with attention sums in another order
 LOGIT_TOL = {"rtol": 1e-4, "atol": 2e-3}
@@ -234,8 +270,62 @@ def phase_kernels(device, seed, nb=32, k=4, w=65536):
         })
         del src, dst
     del x0, D, thresh, masks
+    rows += sketch_rows(device, seed, timer)
     rows += flash_rows(device, seed, timer)
     emit({"phase": "kernels", "tolerance": TOL, "kernels": rows})
+    return rows
+
+
+def sketch_close(got, want, w):
+    """The l2 and mean bars of tests/test_kernels.py on the raw sums,
+    max|x| bit for bit; returns the largest relative error of each."""
+    import torch
+
+    rel = ((got - want).abs() / want.abs().clamp(min=1e-30)).amax(dim=0)
+    ok = (torch.allclose(got[:, 0], want[:, 0], rtol=2e-4, atol=0)
+          and torch.equal(got[:, 1], want[:, 1])
+          and torch.allclose(got[:, 2], want[:, 2], rtol=1e-3, atol=1e-6 * w))
+    return ok, [float(r) for r in rel]
+
+
+def sketch_rows(device, seed, timer):
+    """ANALYZE sketch kernel vs its plain version at SKETCH_CASES."""
+    import torch
+
+    from repro_torch.kernels import merge_block as mb
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=device).manual_seed(seed + 3)
+    rows = []
+    for label, (nb, w) in SKETCH_CASES:
+        x = 0.03 * torch.randn((nb, w), generator=g, device=device)
+        got, want = mb.sketch_blocks(x), ref.sketch_ref(x)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ok, rel = sketch_close(got, want, w)
+        err = float((got - want).abs().max())
+        if not ok:
+            raise AssertionError(f"sketch_blocks {label}: kernel disagrees, "
+                                 f"relative errors {rel}")
+        nbytes = nb * w * 4 + nb * 3 * 4
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
+        dst = torch.empty_like(src)
+        bytes_ms = nbytes / PEAK["bytes"] * 1e3
+        ops_ms = 3 * nb * w / PEAK["f32"] * 1e3  # x*x+s, max|x|, s+x
+        rows.append({
+            "name": "sketch_blocks", "route": "cuda", "case": label,
+            "source": "src/repro_torch/csrc/merge_block.cu",
+            "replaces": "src/repro/kernels/merge_block.py:161",
+            "shape": [nb, w], "max_abs_err": err, "max_rel_err": rel,
+            "absmax_bit_equal": True,
+            "ms": timer(lambda: mb.sketch_blocks(x)),
+            "plain_ms": timer(lambda: ref.sketch_ref(x)),
+            "copy_ms": timer(lambda: dst.copy_(src)),
+            "library_ms": None,  # no one PyTorch call gives all three
+            "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        })
+        del x, got, want, src, dst
     return rows
 
 
@@ -327,16 +417,71 @@ def bf16_ulps(a, b):
     return np.abs(ordered(a) - ordered(b))
 
 
+def analyze_parity(mp, ids, cpu_catalog, block_size):
+    """ANALYZE on ``mp``'s device against the CPU into ``cpu_catalog``:
+    catalog rows, then plan selections for every operator."""
+    import math
+
+    from repro_torch.core.planner import plan_merge
+    from repro_torch.core.sketch import analyze_model
+
+    models = ["base", *ids]
+    for m in models:
+        analyze_model(cpu_catalog, mp.snapshots.models, m, block_size,
+                      base_id=None if m == "base" else "base", device="cpu")
+    rows = 0
+    worst = {"l2": 0.0, "mean": 0.0, "l2_delta": 0.0}
+    for m in models:
+        a = mp.catalog.block_metas(m, block_size)
+        b = cpu_catalog.block_metas(m, block_size)
+        if len(a) != len(b) or not a:
+            raise AssertionError(f"analyze parity {m}: {len(a)} vs {len(b)} rows")
+        for ra, rb in zip(a, b):
+            # tensor, block, bytes, hash; absmax; sign signature
+            if ra[:4] != rb[:4] or ra[5] != rb[5] or ra[7] != rb[7]:
+                raise AssertionError(f"analyze parity {m}: {ra} vs {rb}")
+            for i, key in ((4, "l2"), (6, "mean"), (8, "l2_delta")):
+                if (ra[i] is None) != (rb[i] is None):
+                    raise AssertionError(f"analyze parity {m} {key}: {ra} vs {rb}")
+                if ra[i] is None:
+                    continue
+                if not math.isclose(ra[i], rb[i], rel_tol=ANALYZE_TOL["rtol"],
+                                    abs_tol=ANALYZE_TOL["atol"]):
+                    raise AssertionError(f"analyze parity {m} {key}: "
+                                         f"{ra[i]} vs {rb[i]}")
+                worst[key] = max(worst[key], abs(ra[i] - rb[i]))
+        rows += len(a)
+    plans = {}
+    budget_b = mp.resolve_budget(ids, 0.5)
+    for op, theta in OPS:
+        pa, pb = (plan_merge(cat, "base", ids, op, theta=theta,
+                             budget_b=budget_b, block_size=block_size,
+                             reuse=False).plan
+                  for cat in (mp.catalog, cpu_catalog))
+        same = (pa.selection == pb.selection
+                and pa.c_expert_hat == pb.c_expert_hat)
+        if not same:
+            raise AssertionError(f"analyze parity: {op} plans differ")
+        plans[op] = {"c_expert_hat": pa.c_expert_hat, "identical": True}
+    return {"rows": rows, "tolerance": ANALYZE_TOL, "max_abs_err": worst,
+            "plans": plans}
+
+
 def phase_parity(root, device, seed, block_size):
     import numpy as np
 
     from repro_torch.core.api import MergePipe
+    from repro_torch.core.catalog import Catalog
     from repro_torch.store.iostats import measure
 
     mp = MergePipe(os.path.join(root, "parity"), block_size=block_size,
                    device=device)
     ids, n_params, _ = populate(mp, 1, 4, seed, device, layer_only=True)
     out = {"phase": "parity", "layers": 1, "params": n_params, "ops": {}}
+    mp.ensure_analyzed("base", ids)
+    cpu_catalog = Catalog(os.path.join(root, "parity-cpu.sqlite"))
+    out["analyze"] = analyze_parity(mp, ids, cpu_catalog, block_size)
+    cpu_catalog.close()
     for op, theta in OPS:
         with measure(mp.stats) as io_k:
             rk = mp.merge("base", ids, op, theta=theta, budget=0.5)
@@ -360,6 +505,14 @@ def phase_parity(root, device, seed, block_size):
     emit(out)
 
 
+def analyze_bytes(stats, before):
+    """Bytes read under the ``analyze`` I/O category since ``before``."""
+    def read(snap):
+        return snap["read"].get("analyze", {}).get("bytes", 0)
+
+    return read(stats.snapshot()) - read(before)
+
+
 def device_time_ms(prof):
     """Device time per activity (kernels, copies) of a profiled run."""
     out = {}
@@ -374,8 +527,10 @@ def device_time_ms(prof):
 
 def phase_merge(root, device, seed, block_size, layers):
     import numpy as np
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core import sketch
     from repro_torch.core.api import MergePipe
     from repro_torch.kernels import merge_block as mb
     from repro_torch.kernels import ops
@@ -386,12 +541,50 @@ def phase_merge(root, device, seed, block_size, layers):
     t0 = time.perf_counter()
     ids, n_params, shapes = populate(mp, layers, 4, seed, device)
     t_reg = time.perf_counter() - t0
+    activities = [ProfilerActivity.CUDA if device.type == "cuda"
+                  else ProfilerActivity.CPU]
+    # host time of ANALYZE's sketch stage (stack, staging, kernels, copy
+    # back); the rest of ANALYZE is reads, hashes and signatures
+    real_sketch_rows = sketch._sketch_rows
+    sketch_s = [0.0]
+
+    def timed_sketch_rows(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_sketch_rows(*a, **kw)
+        finally:
+            sketch_s[0] += time.perf_counter() - t
+
+    sketch._sketch_rows = timed_sketch_rows
+    # the main path: launch counts start at 0 here and are read at the end
+    mb.reset_launches()
+    before = mp.stats.snapshot()
     t0 = time.perf_counter()
-    mp.ensure_analyzed("base", ids)
+    try:
+        with profile(activities=activities) as prof:
+            mp.ensure_analyzed("base", ids)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+    finally:
+        sketch._sketch_rows = real_sketch_rows
     t_analyze = time.perf_counter() - t0
+    sketches = mb.LAUNCHES["sketch_blocks"]
+    if sketches == 0:
+        raise AssertionError("analyze: sketch_blocks never launched")
+    device_ms = device_time_ms(prof)
+    sketch_ms = sum(t for n, t in device_ms.items() if "sketch_kernel" in n)
+    busy = sum(device_ms.values())
     out = {"phase": "merge", "layers": layers, "params_per_model": n_params,
            "k": len(ids), "budget": 0.5, "register_s": t_reg,
-           "analyze_s": t_analyze, "ops": {}}
+           "analyze": {"wall_s": t_analyze, "sketch_stage_s": sketch_s[0],
+                       "analyze_bytes": analyze_bytes(mp.stats, before),
+                       "sketch_launches": sketches,
+                       "sketch_kernel_ms": sketch_ms,
+                       "device_busy_ms": busy,
+                       "device_idle_share": 1 - busy / 1e3 / t_analyze,
+                       "device_top_ms": dict(sorted(
+                           device_ms.items(), key=lambda kv: -kv[1])[:6])},
+           "ops": {}}
     # host time of the engine's compute stage (staging, kernels, copy back)
     real_merge_blocks = ops.merge_blocks
     stage_s = [0.0]
@@ -404,10 +597,6 @@ def phase_merge(root, device, seed, block_size, layers):
             stage_s[0] += time.perf_counter() - t
 
     ops.merge_blocks = timed_merge_blocks
-    activities = [ProfilerActivity.CUDA if device.type == "cuda"
-                  else ProfilerActivity.CPU]
-    # the main path: launch counts start at 0 here and are read at the end
-    mb.reset_launches()
     for op, theta in OPS:
         before = dict(mb.LAUNCHES)
         stage_s[0] = 0.0
@@ -454,6 +643,85 @@ def phase_merge(root, device, seed, block_size, layers):
     mp.close()
     emit(out)
     return out["launches"], ties_flat
+
+
+def phase_service(root, device, block_size):
+    """merge_cli --spec, in process, on the merge workspace."""
+    import torch
+
+    from repro_torch.api import Session
+    from repro_torch.core.api import MergePipe
+    from repro_torch.kernels import merge_block as mb
+    from repro_torch.launch import merge_cli
+    from repro_torch.store.iostats import measure
+
+    ws = os.path.join(root, "merge")
+    spec_path = os.path.join(root, "service-spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(SERVICE_SPEC, f)
+    seen = {}
+
+    class RecordingSession(Session):
+        """The CLI's Session, keeping run_all's results and I/O bytes."""
+
+        def run_all(self, **kw):
+            before = self.stats.snapshot()
+            with measure(self.stats) as io:
+                seen["results"] = super().run_all(**kw)
+            seen["io"] = dict(io, analyze=analyze_bytes(self.stats, before))
+            return seen["results"]
+
+    argv = ["--workspace", ws, "--spec", spec_path,
+            "--block-size", str(block_size), "--shared-budget", "60%",
+            "--cache-max-bytes", "4GiB", "--device", str(device)]
+    cli_session = merge_cli.Session
+    merge_cli.Session = RecordingSession
+    # the service path: launch counts start at 0 here and are read after
+    mb.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        merge_cli.main(argv)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        merge_cli.Session = cli_session
+    wall = time.perf_counter() - t0
+    launches = dict(mb.LAUNCHES)
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"service: {name} never launched")
+    results = seen["results"]
+    jobs = {}
+    mp = MergePipe(ws, block_size=block_size, device=device)
+    for res in results:
+        rec = mp.explain(res.sid)
+        run, hat, budget = (rec["c_expert_run"], rec["c_expert_hat"],
+                            rec["budget_b"])
+        if run > hat or (budget >= 0 and hat > budget):
+            raise AssertionError(f"service {res.sid}: run {run}, hat {hat}, "
+                                 f"budget {budget}")
+        if not mp.verify(res.sid):
+            raise AssertionError(f"service {res.sid}: snapshot does not verify")
+        jobs[res.sid] = {"op": rec["op"], "c_expert_run": run,
+                         "c_expert_hat": hat, "budget_b": budget}
+    mp.close()
+    if len(jobs) != len(SERVICE_SPEC["jobs"]):
+        raise AssertionError(f"service: {len(jobs)} jobs committed")
+    # the first level's shared window: its planned union below the
+    # per-job sum, and the expert bytes read in all below the jobs' hats
+    batch = results[0].stats["batch"]
+    per_job = sum(j["c_expert_hat"] for j in jobs.values())
+    if not (batch["c_expert_hat_union"] < batch["c_expert_hat_sum"]
+            and seen["io"]["expert_read"] < per_job):
+        raise AssertionError(f"service: no sharing: {batch}, "
+                             f"{seen['io']['expert_read']} of {per_job}")
+    emit({"phase": "service", "argv": argv[2:], "wall_s": wall, "jobs": jobs,
+          "window": {k: batch[k] for k in (
+              "jobs", "c_expert_hat_union", "c_expert_hat_sum",
+              "sharing_factor", "shared_budget_b", "pool_respected")},
+          "io": seen["io"], "per_job_expert_hat_sum": per_job,
+          "launches": launches})
+    return launches
 
 
 @contextlib.contextmanager
@@ -656,12 +924,16 @@ def main() -> int:
         phase_parity(root, device, args.seed, args.block_size)
         launches, merged = phase_merge(root, device, args.seed,
                                        args.block_size, args.layers)
+        service = phase_service(root, device, args.block_size)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    # each kernel's launches over the paths that run it
+    launches = {n: launches[n] + service[n] for n in launches}
     launches.update(phase_serve(device, args.seed, args.layers, merged))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "copy_ms")
-    # one row per kernel: the flash-attention row at the prefill shape
+    # one row per kernel: sketch at ANALYZE's launch, flash attention at
+    # the prefill shape
     firsts = {}
     for r in rows:
         firsts.setdefault(r["name"], r)

@@ -1,5 +1,6 @@
 """MergePipe core, ported: blocks, catalog, ANALYZE, planner, executor,
-transactions, lineage and the :class:`MergePipe` facade."""
+transactions, lineage, the naive full-read baseline and the
+:class:`MergePipe` facade."""
 from repro_torch.core.blocks import DEFAULT_BLOCK_SIZE, BlockId
 
 __all__ = [
@@ -10,6 +11,7 @@ __all__ = [
     "DEFAULT_BLOCK_SIZE",
     "plan_merge",
     "execute_merge",
+    "naive_merge",
 ]
 
 # Lazy exports: the storage layer imports repro_torch.core.blocks, and the
@@ -21,6 +23,7 @@ _LAZY = {
     "MergeResult": ("repro_torch.core.executor", "MergeResult"),
     "plan_merge": ("repro_torch.core.planner", "plan_merge"),
     "execute_merge": ("repro_torch.core.executor", "execute_merge"),
+    "naive_merge": ("repro_torch.core.naive", "naive_merge"),
 }
 
 

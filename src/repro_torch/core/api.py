@@ -8,9 +8,12 @@ runs the same path with the kernels' plain PyTorch versions; asking for
 pipeline with ``kernel="numpy"``) is the bit-exact numpy host reference.
 
 The workspace format — models, catalog, snapshots, journals — is the JAX
-package's: a workspace written by either opens in the other.  The
-JAX package's v2 layer (Session, MergeService, spec files) is not ported
-yet, so :meth:`MergePipe.merge` runs the three phases directly.
+package's: a workspace written by either opens in the other.  As in the
+JAX package, :meth:`MergePipe.merge` is a thin shim over the v2 layer:
+it builds a :class:`~repro_torch.api.MergeSpec` and runs it through a
+:class:`~repro_torch.api.Session` sharing this facade's workspace,
+stats and device (the reference also warns that the facade is
+deprecated; the port keeps it as its plain one-shot entry point).
 """
 from __future__ import annotations
 
@@ -26,7 +29,6 @@ from repro_torch.core.catalog import Catalog
 from repro_torch.core.executor import MergeResult, PipelineConfig, execute_merge
 from repro_torch.core.lineage import explain as _explain
 from repro_torch.core.lineage import lineage_chain, verify_snapshot
-from repro_torch.core.operators import validate_theta
 from repro_torch.core.plan import MergePlan
 from repro_torch.core.planner import PlannerResult, plan_merge
 from repro_torch.core.sketch import analyze_model
@@ -90,6 +92,7 @@ class MergePipe:
             self.block_size,
             base_id=base_id,
             force=force,
+            device=self.device,
         )
 
     def ensure_analyzed(self, base_id: str, expert_ids: Sequence[str]) -> None:
@@ -159,18 +162,33 @@ class MergePipe:
         conflict_aware: bool = True,
         reuse_plan: bool = True,
         pipeline: Optional[PipelineConfig] = None,
+        prefer_packed: Union[bool, str] = True,
     ) -> MergeResult:
-        """ANALYZE (cached) -> PLAN -> EXECUTE -> COMMIT."""
-        theta = validate_theta(op, theta, strict=False)
-        if analyze:
-            self.ensure_analyzed(base_id, expert_ids)
-        planned = self.plan(
-            base_id, expert_ids, op, theta=theta, budget=budget,
-            conflict_aware=conflict_aware, reuse=reuse_plan,
+        """ANALYZE (cached) -> PLAN -> EXECUTE -> COMMIT, through a v2
+        :class:`~repro_torch.api.Session` on this workspace."""
+        from repro_torch.api.spec import MergeSpec, OperatorSpec
+
+        spec = MergeSpec(
+            base=base_id,
+            experts=list(expert_ids),
+            operator=OperatorSpec(op, dict(theta or {}), strict=False),
+            budget=BudgetSpec.from_legacy(budget),
+            conflict_aware=conflict_aware,
+            reuse_plan=reuse_plan,
         )
-        return self.execute(
-            planned.plan, sid=sid, compute=compute, coalesce=coalesce,
-            pipeline=pipeline,
+        return self.session().run(
+            spec, sid=sid, compute=compute, coalesce=coalesce,
+            analyze=analyze, pipeline=pipeline, prefer_packed=prefer_packed,
+        )
+
+    def session(self):
+        """A v2 :class:`~repro_torch.api.Session` sharing this facade's
+        catalog, snapshot store, transaction manager, stats and device."""
+        from repro_torch.api.session import Session
+
+        return Session._from_parts(
+            self.snapshots, self.catalog, self.txn, self.block_size,
+            self.stats, device=self.device,
         )
 
     def execute(

@@ -336,3 +336,291 @@ def plan_merge(
         "tier_discount_bytes": tier_discount,
     }
     return PlannerResult(plan, stats)
+
+
+# ===================================================================== batch
+@dataclasses.dataclass
+class BatchJob:
+    """One merge job in a multi-job planning request (API v2 session)."""
+
+    base_id: str
+    expert_ids: List[str]
+    op: str
+    theta: Optional[Dict[str, Any]] = None
+    budget_b: Optional[int] = None
+    conflict_aware: bool = True
+    reuse: bool = True
+    spec_id: Optional[str] = None
+    parent_sids: List[str] = dataclasses.field(default_factory=list)
+    #: packed layout to cost (and execute) this job against, if any
+    layout_id: Optional[str] = None
+    #: arbitration group (e.g. MergeService tenant) — jobs sharing a
+    #: group are jointly capped by that group's entry in
+    #: ``plan_batch(group_budgets=...)``
+    group: Optional[str] = None
+
+
+class BatchPlannerResult:
+    def __init__(self, results: List[PlannerResult], stats: Dict[str, Any]):
+        self.results = results
+        self.stats = stats
+
+
+def _selection_bytes(
+    catalog: Catalog,
+    plan: MergePlan,
+    block_bytes_cache: Dict[str, Dict[Tuple[str, int], Tuple[int, Optional[str]]]],
+) -> Dict[Tuple[str, str, int], Tuple[int, Optional[str]]]:
+    """Expand a plan's selection into
+    ``{(expert, tensor, block): (nbytes, extent_key)}``.
+
+    Sizes come from the same BlockMeta rows the planner enumerated (this
+    also covers adapter experts, whose selection indexes base-shaped
+    delta blocks rather than their own factor tensors); experts planned
+    via the §4.5 tensor-level fallback derive sizes from TensorMeta.
+    Plans costed against a packed layout report *physical* bytes (elided
+    blocks 0, extents their compressed size) plus the content-addressed
+    extent key, so the batch pool can charge each shared extent once —
+    the same marginal model the planner budgets and the executor
+    realizes.  Flat plans carry ``extent_key=None``.
+    """
+    out: Dict[Tuple[str, str, int], Tuple[int, Optional[str]]] = {}
+    layout = plan.layout_id
+    for e, per_t in plan.selection.items():
+        cache_key = e if layout is None else f"{layout}\x00{e}"
+        sizes = block_bytes_cache.get(cache_key)
+        if sizes is None:
+            sizes = {
+                (r[0], r[1]): (r[2], None)
+                for r in catalog.block_metas(e, plan.block_size)
+            }
+            if layout is not None:
+                for key, (phys, ehash, kind) in catalog.packed_block_costs(
+                    layout, e
+                ).items():
+                    if key in sizes:
+                        # layout-qualified: identical content in two
+                        # different layouts is still two physical extents
+                        sizes[key] = (
+                            phys,
+                            f"{layout}\x00{ehash}" if kind == "extent" else None,
+                        )
+            block_bytes_cache[cache_key] = sizes
+        tensor_sizes: Optional[Dict[str, int]] = None
+        for t, bs in per_t.items():
+            for b in bs:
+                entry = sizes.get((t, b))
+                if entry is None:
+                    # tensor-level fallback expert (no BlockMeta rows)
+                    if tensor_sizes is None:
+                        tensor_sizes = {
+                            r[0]: r[3] for r in catalog.tensor_metas(e)
+                        }
+                    total = tensor_sizes.get(t)
+                    if total is None or b >= blk.num_blocks(total, plan.block_size):
+                        continue
+                    entry = (
+                        blk.block_range(total, b, plan.block_size).nbytes,
+                        None,
+                    )
+                out[(e, t, b)] = entry
+    return out
+
+
+def _union_physical_bytes(
+    union: Dict[Tuple[str, str, int], Tuple[int, Optional[str]]],
+) -> int:
+    """Physical bytes of a shared read schedule: each content-addressed
+    extent charged once however many (expert, block) consumers share it
+    (extent keys arrive layout-qualified, so identical content living in
+    two layouts is still two physical extents)."""
+    total = 0
+    seen: set = set()
+    for nbytes, ehash in union.values():
+        if ehash is not None:
+            if ehash in seen:
+                continue
+            seen.add(ehash)
+        total += nbytes
+    return total
+
+
+def plan_batch(
+    catalog: Catalog,
+    jobs: Sequence[BatchJob],
+    block_size: int = blk.DEFAULT_BLOCK_SIZE,
+    shared_budget_b: Optional[int] = None,
+    max_pool_iters: int = 4,
+    group_budgets: Optional[Dict[str, Optional[int]]] = None,
+    tier_probe=None,
+) -> BatchPlannerResult:
+    """Plan a *set* of merge jobs together (API v2 batch entry point).
+
+    Each job is planned with :func:`plan_merge` under its own budget; the
+    batch layer then computes the **shared read schedule**: the union of
+    selected ``(expert, tensor, block)`` keys across jobs, which is the
+    expert I/O a shared-cache execution actually pays (one scan of each
+    selected block feeds every job that selected it).
+
+    ``shared_budget_b`` is a pool constraint on that *union*: if the
+    union overflows the pool, every job's budget is scaled down
+    proportionally and the batch is re-planned (bounded fixed-point
+    iteration; decisions recorded in the stats).
+
+    ``group_budgets`` adds per-group caps on the same model: the union of
+    the selections of all jobs whose :attr:`BatchJob.group` is ``g`` must
+    fit ``group_budgets[g]``.  This is the MergeService's weighted-fair
+    tenant arbitration: each scheduling window plans with the tenants'
+    *remaining* pool shares as group caps, so realized physical expert
+    bytes per tenant track the configured weights while the global pool
+    bounds the whole window.  Both constraints converge through the same
+    fixed-point iteration, with the same guaranteed proportional-split
+    fallback (group caps applied first, then the global pool).
+
+    ``tier_probe`` is forwarded to every per-job :func:`plan_merge` for
+    tier-aware billing of remote-backed experts.  The *union pool* keeps
+    charging full block bytes (conservative: a warm block still counts
+    against the shared pool), so pool arbitration never over-admits when
+    the cache turns out colder than probed.
+    """
+    t0 = time.time()
+    jobs = list(jobs)
+    budgets: List[Optional[int]] = [j.budget_b for j in jobs]
+    decisions: List[Dict[str, Any]] = []
+    block_bytes_cache: Dict[str, Dict[Tuple[str, int], Tuple[int, Optional[str]]]] = {}
+    group_budgets = {
+        g: cap for g, cap in (group_budgets or {}).items() if cap is not None
+    }
+
+    results: List[PlannerResult] = []
+    union_bytes = 0
+    sum_bytes = 0
+    group_union: Dict[str, int] = {}
+
+    def _plan_round(first: bool) -> None:
+        nonlocal results, union_bytes, sum_bytes, group_union
+        results = [
+            plan_merge(
+                catalog,
+                j.base_id,
+                j.expert_ids,
+                j.op,
+                theta=j.theta,
+                budget_b=budgets[i],
+                block_size=block_size,
+                conflict_aware=j.conflict_aware,
+                reuse=j.reuse and first,
+                spec_id=j.spec_id,
+                parent_sids=j.parent_sids,
+                layout_id=j.layout_id,
+                tier_probe=tier_probe,
+            )
+            for i, j in enumerate(jobs)
+        ]
+        union: Dict[Tuple[str, str, int], Tuple[int, Optional[str]]] = {}
+        per_group: Dict[str, Dict] = {}
+        sum_bytes = 0
+        for j, pr in zip(jobs, results):
+            sel = _selection_bytes(catalog, pr.plan, block_bytes_cache)
+            union.update(sel)
+            if j.group is not None:
+                per_group.setdefault(j.group, {}).update(sel)
+            sum_bytes += pr.plan.c_expert_hat
+        union_bytes = _union_physical_bytes(union)
+        group_union = {
+            g: _union_physical_bytes(u) for g, u in per_group.items()
+        }
+
+    def _overflowed_groups() -> Dict[str, int]:
+        return {
+            g: cap
+            for g, cap in group_budgets.items()
+            if group_union.get(g, 0) > cap
+        }
+
+    for it in range(max(1, max_pool_iters)):
+        _plan_round(first=it == 0)
+        over_global = shared_budget_b is not None and union_bytes > shared_budget_b
+        over_groups = _overflowed_groups()
+        if not over_global and not over_groups:
+            break
+        if it == max(1, max_pool_iters) - 1:
+            break  # no further round would apply a scaling decision
+        # pool overflow: shrink each offending job's budget proportionally
+        # and replan; a job constrained both by its group and the global
+        # pool takes the tighter factor
+        gscale = (
+            shared_budget_b / max(union_bytes, 1) if over_global else 1.0
+        )
+        new_budgets: List[Optional[int]] = []
+        for i, (j, pr) in enumerate(zip(jobs, results)):
+            f = gscale
+            if j.group in over_groups:
+                f = min(
+                    f, over_groups[j.group] / max(group_union[j.group], 1)
+                )
+            if f >= 1.0:
+                new_budgets.append(budgets[i])
+                continue
+            cur = budgets[i] if budgets[i] is not None else pr.plan.c_expert_hat
+            new_budgets.append(max(0, int(cur * f)))
+        decisions.append(
+            {
+                "pool_iteration": it,
+                "union_bytes": union_bytes,
+                "shared_budget_b": shared_budget_b,
+                "group_union_bytes": dict(group_union),
+                "over_groups": sorted(over_groups),
+                "scale": gscale,
+                "budgets": list(new_budgets),
+            }
+        )
+        budgets = new_budgets
+
+    if (shared_budget_b is not None and union_bytes > shared_budget_b) or (
+        _overflowed_groups()
+    ):
+        # Fixed point not reached (jobs select disjoint-ish blocks, so the
+        # union shrinks sublinearly).  Guaranteed fallback: split each
+        # over-cap group's budget across its jobs proportionally to their
+        # current demand, then the global pool across all jobs — then
+        # per group union <= Σ_{i∈g} Ĉ_i <= cap_g and globally
+        # union <= Σ Ĉ_i <= Σ budget_i <= pool, by construction.
+        hats = [pr.plan.c_expert_hat for pr in results]
+        alloc = list(hats)
+        for g, cap in group_budgets.items():
+            idxs = [i for i, j in enumerate(jobs) if j.group == g]
+            g_total = max(sum(hats[i] for i in idxs), 1)
+            if sum(hats[i] for i in idxs) > cap:
+                for i in idxs:
+                    alloc[i] = cap * hats[i] // g_total
+        if shared_budget_b is not None and sum(alloc) > shared_budget_b:
+            total = max(sum(alloc), 1)
+            alloc = [shared_budget_b * a // total for a in alloc]
+        budgets = alloc
+        decisions.append(
+            {
+                "pool_final_split": True,
+                "union_bytes": union_bytes,
+                "shared_budget_b": shared_budget_b,
+                "group_union_bytes": dict(group_union),
+                "budgets": list(budgets),
+            }
+        )
+        _plan_round(first=False)
+
+    stats = {
+        "jobs": len(jobs),
+        "plan_seconds": time.time() - t0,
+        "c_expert_hat_sum": sum_bytes,
+        "c_expert_hat_union": union_bytes,
+        "sharing_factor": (sum_bytes / union_bytes) if union_bytes else 1.0,
+        "shared_budget_b": shared_budget_b,
+        "pool_decisions": decisions,
+        "pool_respected": shared_budget_b is None
+        or union_bytes <= shared_budget_b,
+        "group_union_bytes": dict(group_union),
+        "group_budgets": dict(group_budgets),
+        "groups_respected": not _overflowed_groups(),
+    }
+    return BatchPlannerResult(results, stats)

@@ -22,6 +22,8 @@ expert budget B, which governs execution-time expert reads.
 """
 from __future__ import annotations
 
+import functools
+import hashlib
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -42,11 +44,23 @@ def sign_signature(x: np.ndarray) -> int:
     Returned as a *signed* 64-bit reinterpretation so it fits SQLite's
     INTEGER; consumers view it back as uint64 for bit math.
     """
-    n = x.size
-    if n == 0:
+    if x.size == 0:
         return 0
+    return _pack_signs(x.ravel()[_sign_positions(x.size)])
+
+
+@functools.lru_cache(maxsize=256)
+def _sign_positions(n: int) -> np.ndarray:
+    """The signature's evenly spaced positions in ``n`` elements (shared,
+    read-only: a block size has one)."""
     idx = np.linspace(0, n - 1, num=_SIGN_BITS, dtype=np.int64)
-    bits = (x.ravel()[idx] < 0).astype(np.uint64)
+    idx.setflags(write=False)
+    return idx
+
+
+def _pack_signs(v: np.ndarray) -> int:
+    """The signature of the values at the sampled positions."""
+    bits = (v < 0).astype(np.uint64)
     packed = np.bitwise_or.reduce(bits << np.arange(_SIGN_BITS, dtype=np.uint64))
     return int(np.uint64(packed).astype(np.int64))
 
@@ -58,12 +72,61 @@ def sign_disagreement(sig_a: int, sig_b: int) -> float:
     return bin(ua ^ ub).count("1") / _SIGN_BITS
 
 
-def _block_stats(x: np.ndarray) -> Tuple[float, float, float, int]:
-    xf = to_float32(x)
-    l2 = float(np.linalg.norm(xf))
-    absmax = float(np.max(np.abs(xf))) if xf.size else 0.0
-    mean = float(np.mean(xf)) if xf.size else 0.0
-    return l2, absmax, mean, sign_signature(xf)
+#: float32 bytes of full-width blocks staged per sketch launch
+LAUNCH_BYTES = 256 << 20
+
+
+def _sampled(x: np.ndarray) -> np.ndarray:
+    """float32 values of a (non-empty) block at the signature's positions:
+    :func:`_pack_signs` of them is the block's :func:`sign_signature`."""
+    return to_float32(x.ravel()[_sign_positions(x.size)])
+
+
+def _launch_groups(ranges: List[blk.BlockRange], itemsize: int):
+    """Consecutive block ranges of one byte size, at most
+    :data:`LAUNCH_BYTES` of float32 per group: a tensor's full-width
+    blocks in one launch (or a few), its ragged tail block alone."""
+    group: List[blk.BlockRange] = []
+    for rng in ranges:
+        if group and (
+            rng.nbytes != group[0].nbytes
+            or (len(group) + 1) * (rng.nbytes // itemsize) * 4 > LAUNCH_BYTES
+        ):
+            yield group
+            group = []
+        group.append(rng)
+    if group:
+        yield group
+
+
+def _sketch_rows(
+    xs: List[np.ndarray], x0s: Optional[List[np.ndarray]], device
+) -> List[Tuple[float, float, float, Optional[float], Optional[float]]]:
+    """Per block ``(l2, absmax, mean, l2_delta, cos_base)`` of equal-width
+    blocks ``xs`` through the sketch kernel on ``device``: one launch for
+    ``xs`` and, with bases ``x0s``, one each for ``x0s`` and ``xs − x0s``
+    (float32 subtraction on the device, exact as numpy's).  ``cos_base``
+    comes from the three norms by the polarization identity,
+    ``x·x0 = (‖x‖² + ‖x0‖² − ‖x − x0‖²) / 2``, in float64: its error is
+    about 1e-7·(‖x‖/‖x0‖ + ‖x0‖/‖x‖).  Without bases the last two are
+    None."""
+    from repro_torch.kernels import ops
+
+    X = ops.to_device(np.stack(xs), device)
+    stats = ops.sketch_blocks(X, device)
+    if x0s is None:
+        return [(float(l2), float(mx), float(mean), None, None)
+                for l2, mx, mean in stats]
+    X0 = ops.to_device(np.stack(x0s), device)
+    l2_base = ops.sketch_blocks(X0, device)[:, 0]
+    l2_diff = ops.sketch_blocks(X - X0, device)[:, 0]
+    rows = []
+    for (l2, mx, mean), l2b, l2d in zip(stats, l2_base, l2_diff):
+        l2, l2b, l2d = float(l2), float(l2b), float(l2d)
+        denom = l2 * l2b
+        cos = (l2 * l2 + l2b * l2b - l2d * l2d) / 2 / denom if denom > 0 else 0.0
+        rows.append((l2, float(mx), float(mean), l2d, cos))
+    return rows
 
 
 def _analyze_adapter(
@@ -72,6 +135,7 @@ def _analyze_adapter(
     base_reader: Optional[ModelReader],
     model_id: str,
     block_size: int,
+    device,
 ) -> Dict[str, float]:
     """ANALYZE for LoRA-adapter experts.
 
@@ -83,8 +147,6 @@ def _analyze_adapter(
     then reflect true physical read cost, keeping both the cost model and
     budget soundness exact for adapters.
     """
-    import hashlib
-
     scale = float(reader.meta.get("scale", 1.0))
     targets = sorted(
         n[: -len("::lora_A")] for n in reader.tensor_names()
@@ -110,19 +172,25 @@ def _analyze_adapter(
         ranges = blk.partition(base_spec.nbytes, block_size)
         per_block = factor_bytes // max(len(ranges), 1)
         itemsize = base_spec.dtype.itemsize
-        for i, rng in enumerate(ranges):
-            x = to_float32(delta[rng.offset // itemsize : rng.end // itemsize])
-            l2, absmax, mean, sig = _block_stats(x)
-            cost_bytes = (
-                factor_bytes - per_block * (len(ranges) - 1)
-                if i == len(ranges) - 1 else per_block
-            )
-            h = hashlib.blake2b(x.tobytes(), digest_size=8)
-            block_rows.append(
-                (model_id, t, block_size, rng.block_idx, cost_bytes,
-                 h.hexdigest(), l2, absmax, mean, sig, l2, None)
-            )
-            n_blocks += 1
+        for group in _launch_groups(ranges, itemsize):
+            xs = [delta[rng.offset // itemsize : rng.end // itemsize]
+                  for rng in group]
+            for rng, x, (l2, absmax, mean, _, _) in zip(
+                group, xs, _sketch_rows(xs, None, device)
+            ):
+                i = rng.block_idx
+                cost_bytes = (
+                    factor_bytes - per_block * (len(ranges) - 1)
+                    if i == len(ranges) - 1 else per_block
+                )
+                xf = to_float32(x)
+                h = hashlib.blake2b(xf.tobytes(), digest_size=8)
+                block_rows.append(
+                    (model_id, t, block_size, i, cost_bytes,
+                     h.hexdigest(), l2, absmax, mean, sign_signature(xf), l2,
+                     None)
+                )
+                n_blocks += 1
     catalog.upsert_tensor_meta(model_id, tensor_rows)
     if block_rows:
         catalog.upsert_block_meta(block_rows)
@@ -136,12 +204,23 @@ def analyze_model(
     block_size: int,
     base_id: Optional[str] = None,
     force: bool = False,
+    device="cuda",
 ) -> Dict[str, float]:
     """Run (or reuse) ANALYZE for ``model_id``. Returns summary stats.
 
     Catalog hit => metadata-only, zero parameter I/O (the paper's reuse
     path).  Miss => one full scan of the checkpoint, tagged ``analyze``.
+
+    The block statistics (l2, absmax, mean, l2_delta, cos_base) come from
+    the sketch kernel on ``device``, a tensor's blocks batched per launch
+    (:func:`_launch_groups`): a CUDA device (the default) launches it and
+    raises when there is none; ``"cpu"`` runs its plain version.  The
+    reads, the blake2b block hashes and the sign signatures stay on the
+    host, as in the reference.
     """
+    from repro_torch.kernels.ops import resolve_device  # lazy: torch
+
+    device = resolve_device(device)
     t0 = time.time()
     if catalog.has_analysis(model_id, block_size) and not force:
         return {"model_id": model_id, "cached": True, "seconds": 0.0, "blocks": 0}
@@ -155,7 +234,7 @@ def analyze_model(
 
         if kind == "adapter":
             out = _analyze_adapter(
-                catalog, reader, base_reader, model_id, block_size
+                catalog, reader, base_reader, model_id, block_size, device
             )
             if base_reader is not None:
                 base_reader.close()
@@ -176,43 +255,46 @@ def analyze_model(
                 bs = base_reader.spec(tensor_id)
                 if bs.shape == spec.shape and bs["dtype"] == spec["dtype"]:
                     base_spec = bs
-            for rng in blk.partition(spec.nbytes, block_size):
-                x = reader.read_block(tensor_id, rng.block_idx, block_size, "analyze")
-                xf = to_float32(x)
-                l2, absmax, mean, sig = _block_stats(xf)
-                l2_delta: Optional[float] = None
-                cos_base: Optional[float] = None
-                if is_delta:
-                    l2_delta = l2
-                elif base_spec is not None:
-                    x0 = base_reader.read_block(
-                        tensor_id, rng.block_idx, block_size, "analyze"
+            with_base = base_spec is not None and not is_delta
+            ranges = blk.partition(spec.nbytes, block_size)
+            for group in _launch_groups(ranges, spec.dtype.itemsize):
+                # the reads are the reference's, block by block (x, then
+                # its base block); only the arithmetic is batched
+                xs, x0s = [], []
+                for rng in group:
+                    xs.append(reader.read_block(
+                        tensor_id, rng.block_idx, block_size, "analyze"))
+                    if with_base:
+                        x0s.append(base_reader.read_block(
+                            tensor_id, rng.block_idx, block_size, "analyze"))
+                stats = _sketch_rows(xs, x0s if with_base else None, device)
+                for i, (rng, x, (l2, absmax, mean, l2_delta, cos_base)) in \
+                        enumerate(zip(group, xs, stats)):
+                    if is_delta:
+                        l2_delta = l2
+                    sampled = _sampled(x)
+                    if with_base:  # signature of the task vector
+                        sampled = sampled - _sampled(x0s[i])
+                    # the raw block bytes, hashed in place (no copy)
+                    h = hashlib.blake2b(np.ascontiguousarray(x),
+                                        digest_size=8)
+                    block_rows.append(
+                        (
+                            model_id,
+                            tensor_id,
+                            block_size,
+                            rng.block_idx,
+                            rng.nbytes,
+                            h.hexdigest(),
+                            l2,
+                            absmax,
+                            mean,
+                            _pack_signs(sampled),
+                            l2_delta,
+                            cos_base,
+                        )
                     )
-                    x0f = to_float32(x0)
-                    l2_delta = float(np.linalg.norm(xf - x0f))
-                    denom = l2 * float(np.linalg.norm(x0f))
-                    cos_base = float(np.dot(xf, x0f) / denom) if denom > 0 else 0.0
-                    sig = sign_signature(xf - x0f)  # signature of the task vector
-                import hashlib
-
-                h = hashlib.blake2b(np.ascontiguousarray(x).tobytes(), digest_size=8)
-                block_rows.append(
-                    (
-                        model_id,
-                        tensor_id,
-                        block_size,
-                        rng.block_idx,
-                        rng.nbytes,
-                        h.hexdigest(),
-                        l2,
-                        absmax,
-                        mean,
-                        sig,
-                        l2_delta,
-                        cos_base,
-                    )
-                )
-                n_blocks += 1
+                    n_blocks += 1
         if base_reader is not None:
             base_reader.close()
 

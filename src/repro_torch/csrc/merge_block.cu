@@ -1,5 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for MergePipe's blockwise merge
-// operators: AVG / TA (linear), TIES and DARE.
+// operators: AVG / TA (linear), TIES and DARE; and the ANALYZE sketch
+// (per-block Σx², max|x|, Σx), whose design note is above sketch_kernel.
 //
 // Shapes (the executor's batched layout, all row-major and contiguous):
 //   x0     (NB, W)     float32   base blocks
@@ -204,6 +205,93 @@ dare_kernel(const float* __restrict__ x0, const float* __restrict__ D,
   store_f<V>(out + b * W + w, t);
 }
 
+// ---------------------------------------------------------------- SKETCH
+// Replaces repro/kernels/merge_block.py::_sketch_kernel
+// (sketch_blocks_pallas).  x (NB, W) float32 -> out (NB, 3) float32, per
+// row [sum x^2, max |x|, sum x]: ANALYZE's block statistics (l2, absmax
+// and mean follow on the host: sqrt, copy, divide by the true width).
+//
+// What bounds it: HBM bytes.  Three operations per 4-byte element, so
+// the least time is (NB * W * 4 + NB * 12) bytes / 3.35 TB/s; at
+// ANALYZE's largest launch (NB = 1,024 rows of W = 65,536, 256 MiB) that
+// is about 80 us.
+//
+// Design: the Pallas kernel carries its partial sums across a sequential
+// grid axis of width tiles; here one 256-thread CTA owns a whole row and
+// loops over it, so nothing is carried between CTAs and no second pass
+// is needed.  Each thread keeps float32 partials of the three sums in
+// registers, reading 16-byte float4 words (a scalar head up to the first
+// 16-byte boundary of the row and a scalar tail, so any W and any row
+// offset work); then warp shuffles and an 8-entry shared-memory step
+// reduce the CTA.  Max propagates NaN, as np.max and torch.amax do.
+// What it gives up: one row per CTA (a row of a few hundred elements
+// leaves most of the CTA idle), no bf16 input, no persistent grid.
+__device__ __forceinline__ float nanmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+struct Sketch {
+  float sq = 0.0f, mx = 0.0f, sm = 0.0f;
+  __device__ __forceinline__ void add(float v) {
+    sq = fmaf(v, v, sq);
+    mx = nanmax(mx, fabsf(v));
+    sm += v;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+sketch_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t W) {
+  __shared__ float s_part[3][kThreads / 32];
+  const float* row = x + static_cast<int64_t>(blockIdx.x) * W;
+  const int tid = threadIdx.x;
+  // elements before the row's first 16-byte boundary (rows are 4-byte
+  // aligned, so this is 0..3)
+  int64_t head = ((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) / 4;
+  if (head > W) head = W;
+  const int64_t n4 = (W - head) / 4;
+  Sketch s;
+  if (tid < head) s.add(row[tid]);
+  const float4* body = reinterpret_cast<const float4*>(row + head);
+#pragma unroll 4
+  for (int64_t i = tid; i < n4; i += kThreads) {
+    const float4 v = body[i];
+    s.add(v.x); s.add(v.y); s.add(v.z); s.add(v.w);
+  }
+  for (int64_t i = head + 4 * n4 + tid; i < W; i += kThreads) s.add(row[i]);
+
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s.sq += __shfl_xor_sync(0xffffffffu, s.sq, off);
+    s.mx = nanmax(s.mx, __shfl_xor_sync(0xffffffffu, s.mx, off));
+    s.sm += __shfl_xor_sync(0xffffffffu, s.sm, off);
+  }
+  const int warp = tid / 32, lane = tid % 32;
+  if (lane == 0) {
+    s_part[0][warp] = s.sq;
+    s_part[1][warp] = s.mx;
+    s_part[2][warp] = s.sm;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    constexpr int kWarps = kThreads / 32;
+    float sq = lane < kWarps ? s_part[0][lane] : 0.0f;
+    float mx = lane < kWarps ? s_part[1][lane] : 0.0f;
+    float sm = lane < kWarps ? s_part[2][lane] : 0.0f;
+#pragma unroll
+    for (int off = kWarps / 2; off > 0; off >>= 1) {
+      sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      mx = nanmax(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      sm += __shfl_xor_sync(0xffffffffu, sm, off);
+    }
+    if (lane == 0) {
+      float* o = out + static_cast<int64_t>(blockIdx.x) * 3;
+      o[0] = sq;
+      o[1] = mx;
+      o[2] = sm;
+    }
+  }
+}
+
 bool aligned(const void* p, uintptr_t a) {
   return (reinterpret_cast<uintptr_t>(p) % a) == 0;
 }
@@ -261,6 +349,13 @@ int mb_dare(const void* x0, const void* D, const void* masks, void* out,
   } else {
     dare_kernel<1><<<grid_for(nb, w, 1), kThreads, 0, s>>>(x, d, m, o, k, w, density, lam);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mb_sketch(const void* x, void* out, int nb, long long w, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  sketch_kernel<<<static_cast<unsigned>(nb), kThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), w);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,5 @@
-"""Hopper merge kernels (``csrc/merge_block.cu``) and their wrappers.
+"""Hopper merge and ANALYZE sketch kernels (``csrc/merge_block.cu``) and
+their wrappers.
 
 The CUDA source is compiled on first use with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface (:mod:`.build`), cached
@@ -17,7 +18,7 @@ Every wrapper takes torch tensors in the executor's batched layout
 
 The kernels replace the Pallas kernels of the JAX package's
 ``kernels/merge_block.py`` (``_linear_kernel``, ``_ties_kernel``,
-``_dare_kernel``); the source's header says what bounds them.
+``_dare_kernel``, ``_sketch_kernel``); the source says what bounds them.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import CudaLibrary
 
 #: launches per kernel since the last :func:`reset_launches`
-LAUNCHES = {"linear_merge": 0, "ties_merge": 0, "dare_merge": 0}
+LAUNCHES = {"linear_merge": 0, "ties_merge": 0, "dare_merge": 0,
+            "sketch_blocks": 0}
 
 
 def reset_launches() -> None:
@@ -43,7 +45,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mb_linear.argtypes = [p, p, p, i, i, ll, f, f, p]
     lib.mb_ties.argtypes = [p, p, p, p, i, i, ll, d, p]
     lib.mb_dare.argtypes = [p, p, p, p, i, i, ll, f, f, p]
-    for fn in (lib.mb_linear, lib.mb_ties, lib.mb_dare):
+    lib.mb_sketch.argtypes = [p, p, i, ll, p]
+    for fn in (lib.mb_linear, lib.mb_ties, lib.mb_dare, lib.mb_sketch):
         fn.restype = ctypes.c_int
 
 
@@ -130,4 +133,27 @@ def dare_merge(
     with torch.cuda.device(D.device):
         _launch("dare_merge", lib.mb_dare, x0.data_ptr(), D.data_ptr(),
                 masks.data_ptr(), out.data_ptr(), nb, k, w, density, lam)
+    return out
+
+
+def sketch_blocks(x: torch.Tensor) -> torch.Tensor:
+    """(NB, W) float32 -> (NB, 3) float32 per-row [Σx², max|x|, Σx]."""
+    if x.device.type == "cpu":
+        return ref.sketch_ref(x)
+    if x.dim() != 2:
+        raise ValueError("sketch_blocks: want x (NB, W)")
+    nb, w = x.shape
+    if nb == 0 or w == 0 or nb > 2**31 - 1:
+        raise ValueError(f"sketch_blocks: unsupported shape {tuple(x.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError("sketch_blocks: x must lie on a CUDA device")
+    if x.dtype != torch.float32:
+        raise ValueError(f"sketch_blocks: want torch.float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("sketch_blocks: x must be contiguous")
+    lib = LIBRARY.load()
+    out = torch.empty((nb, 3), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch("sketch_blocks", lib.mb_sketch, x.data_ptr(), out.data_ptr(),
+                nb, w)
     return out

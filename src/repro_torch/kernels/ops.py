@@ -1,4 +1,5 @@
-"""``merge_blocks`` — the executor's entry to the merge kernels.
+"""``merge_blocks`` and ``sketch_blocks`` — the executor's entry to the
+merge kernels and ANALYZE's entry to the sketch kernel.
 
 ``merge_blocks(op, x0s, Ds, theta, masks=None, device=...)`` has the JAX
 package's signature and result (a float32 ``(NB, W)`` ndarray) plus the
@@ -15,6 +16,13 @@ the device before the copy back, so a bf16 merge returns half the bytes.
 The TIES trim threshold (the keep-th largest |Δ| per row) is
 ``torch.kthvalue`` on the same device, as the JAX package leaves it to an
 XLA sort outside its kernel.
+
+``sketch_blocks(x, device=..., widths=None)`` is the counterpart of the
+JAX package's ``kernels/ops.sketch_blocks``: (NB, W) blocks ->
+(NB, 3) float32 ``[l2, absmax, mean]``, through the sketch kernel on a
+CUDA device.  The mean divides by each row's true element count
+(``widths``, default W), as ``np.mean`` of the unpadded block does;
+zero padding leaves Σx², Σx and max|x| exact.
 """
 from __future__ import annotations
 
@@ -100,3 +108,25 @@ def merge_blocks(
     else:
         raise KeyError(f"unknown operator {op!r}")
     return from_device(out, out_dtype)
+
+
+def sketch_blocks(x, device: Union[str, torch.device] = "cuda",
+                  widths=None) -> np.ndarray:
+    """(NB, W) -> (NB, 3) float32 ``[l2, absmax, mean]``.
+
+    ``x`` is a host block stack in any checkpoint float dtype (staged as
+    :func:`to_device` does: bf16 as raw words, upcast on the device) or a
+    tensor, moved to ``device`` as float32 if it is not there already.
+    ``widths`` (NB,) are the rows' true element counts when rows carry
+    zero padding."""
+    dev = resolve_device(device)
+    if isinstance(x, torch.Tensor):
+        xt = x.to(device=dev, dtype=torch.float32).contiguous()
+    else:
+        xt = to_device(x, dev)
+    nb, w = xt.shape
+    stats = mb.sketch_blocks(xt).cpu().numpy()
+    n = (np.full(nb, w, dtype=np.float32) if widths is None
+         else np.asarray(widths, dtype=np.float32))
+    return np.stack([np.sqrt(stats[:, 0]), stats[:, 1], stats[:, 2] / n],
+                    axis=1)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the Hopper kernels: merge and attention.
+"""Plain PyTorch versions of the Hopper kernels: merge, ANALYZE sketch
+and attention.
 
 Merge shapes (the executor's batched layout):
     x0     (NB, W)        base blocks, float32
@@ -14,6 +15,11 @@ promotes its integer count there.  The Hopper kernels in
 bit for bit.  These are the CPU path of the kernel wrappers
 (:mod:`repro_torch.kernels.merge_block`) and the oracle the kernels are
 held against on the card.
+
+:func:`sketch_ref` is the plain version of the ANALYZE sketch kernel
+(``sketch_kernel`` in ``csrc/merge_block.cu``): per row Σx², max|x|
+and Σx in float32.  Its kernel agrees within a tolerance on the sums
+(another summation order) and bit for bit on max|x|.
 
 :func:`flash_attention_ref` is the plain version of the flash-attention
 kernel (``csrc/flash_attention.cu``), a port of the JAX package's chunked
@@ -103,6 +109,13 @@ def dare_ref(
 ) -> torch.Tensor:
     rescaled = torch.where(masks.bool(), D, 0.0) / _f32(density, D.device)
     return x0 + _f32(lam, D.device) * _ksum(rescaled)
+
+
+def sketch_ref(x: torch.Tensor) -> torch.Tensor:
+    """(NB, W) float32 -> (NB, 3) float32 per-row [Σx², max|x|, Σx].
+    A NaN in a row makes its max|x| NaN, as ``np.max`` does."""
+    return torch.stack([(x * x).sum(dim=1), x.abs().amax(dim=1),
+                        x.sum(dim=1)], dim=1)
 
 
 # ------------------------------------------------------- flash attention

@@ -1,7 +1,8 @@
 """Card-only tests of the port: the Hopper kernels against their plain
 versions, merge_blocks on the card against the CPU, MergePipe on the
-card against the numpy stream engine, and the model's prefill on the
-card against the CPU.  Imports nothing of JAX, so it
+card against the numpy stream engine, ANALYZE and a Session merge graph
+on the card against the CPU, and the model's prefill on the card
+against the CPU.  Imports nothing of JAX, so it
 runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -p no:cacheprovider tests/test_torch_cuda.py
@@ -12,8 +13,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.api import MergeSpec, Session  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.api import MergePipe  # noqa: E402
+from repro_torch.core.catalog import Catalog  # noqa: E402
+from repro_torch.core.sketch import analyze_model  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import merge_block as tmb  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -113,6 +117,126 @@ def test_mergepipe_on_card_matches_stream(cuda, tmp_path, op, theta):
     for k in a:
         np.testing.assert_array_equal(a[k], b[k])
     mp.close()
+
+
+def _sketch_close(got, want, w):
+    """tests/test_kernels.py's bars (l2 rtol 1e-4, mean rtol 1e-3 / atol
+    1e-6) on the raw sums; max|x| bit for bit."""
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=2e-4, atol=0)
+    torch.testing.assert_close(got[:, 1], want[:, 1], rtol=0, atol=0,
+                               equal_nan=True)
+    torch.testing.assert_close(got[:, 2], want[:, 2], rtol=1e-3,
+                               atol=1e-6 * w)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 3), (3, 1001), (7, 257),
+                                   (64, 65536), (1, 1 << 22)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_sketch_kernel_matches_plain(cuda, shape, offset):
+    """Ragged widths, NB = 1, a wide row; ``offset`` starts the rows off
+    the 16-byte grid (a contiguous view at a 4-byte storage offset)."""
+    nb, w = shape
+    rng = np.random.default_rng(w)
+    buf = torch.from_numpy(
+        rng.normal(size=nb * w + offset).astype(np.float32)).to(cuda)
+    x = buf[offset:].view(nb, w)
+    tmb.reset_launches()
+    got = tmb.sketch_blocks(x)
+    assert tmb.LAUNCHES["sketch_blocks"] == 1
+    want = tref.sketch_ref(x)
+    torch.cuda.synchronize()
+    assert got.shape == (nb, 3) and got.dtype == torch.float32
+    _sketch_close(got, want, w)
+
+
+def test_sketch_kernel_nan_and_refusals(cuda):
+    x = torch.randn(4, 300, device=cuda)
+    x[2, 17] = float("nan")
+    got, want = tmb.sketch_blocks(x), tref.sketch_ref(x)
+    assert torch.isnan(got[2, 1]) and torch.isnan(want[2, 1])
+    _sketch_close(got[[0, 1, 3]], want[[0, 1, 3]], 300)
+    with pytest.raises(ValueError):
+        tmb.sketch_blocks(x.double())                     # dtype
+    with pytest.raises(ValueError):
+        tmb.sketch_blocks(x[:, ::2])                      # not contiguous
+    with pytest.raises(ValueError):
+        tmb.sketch_blocks(x[0])                           # not (NB, W)
+
+
+def _experts(g, n=3):
+    shapes = {"l0/w": (64, 96), "l0/b": (96,), "emb": (300, 130),
+              "l1/w": (40, 70)}
+    base = {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+    arrays = {"base": base}
+    for e in range(n):
+        arrays[f"e{e}"] = {k: v + 0.02 * torch.randn(v.shape, generator=g)
+                           for k, v in base.items()}
+    return arrays
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_analyze_on_card_matches_cpu(cuda, tmp_path, dtype):
+    """Catalog rows of ANALYZE on the card against ANALYZE on the CPU:
+    bytes, hashes and signatures equal; stats within tolerance."""
+    arrays = _experts(torch.Generator().manual_seed(1))
+    mp = MergePipe(str(tmp_path / "ws"), block_size=4096)
+    for name, a in arrays.items():
+        mp.register_model(name, {k: v.to(dtype) for k, v in a.items()})
+    cpu_cat = Catalog(str(tmp_path / "cpu.sqlite"))
+    tmb.reset_launches()
+    for name in arrays:
+        base = None if name == "base" else "base"
+        analyze_model(mp.catalog, mp.snapshots.models, name, 4096,
+                      base_id=base)
+        analyze_model(cpu_cat, mp.snapshots.models, name, 4096,
+                      base_id=base, device="cpu")
+    assert tmb.LAUNCHES["sketch_blocks"] > 0
+    for name in arrays:
+        a = mp.catalog.block_metas(name, 4096)
+        b = cpu_cat.block_metas(name, 4096)
+        assert len(a) == len(b) > 0
+        for ra, rb in zip(a, b):
+            # tensor, block, bytes, hash; absmax; sign signature
+            assert ra[:4] == rb[:4] and ra[5] == rb[5] and ra[7] == rb[7]
+            for i, rel, tol in ((4, 1e-5, 1e-6), (6, 1e-5, 1e-6),
+                                (8, 1e-5, 1e-6), (9, 0, 1e-5)):
+                if ra[i] is None:  # l2, mean, l2_delta, cos_base
+                    assert rb[i] is None
+                else:
+                    assert ra[i] == pytest.approx(rb[i], rel=rel, abs=tol)
+    cpu_cat.close()
+    mp.close()
+
+
+def test_session_graph_on_card_matches_cpu(cuda, tmp_path):
+    """A nested merge graph through Session.run on the card (the child
+    snapshot ANALYZEd by the sketch kernel) equals the CPU run bit for
+    bit."""
+    arrays = _experts(torch.Generator().manual_seed(2))
+    child = MergeSpec.build("base", ["e1", "e2"], op="ties",
+                            theta={"trim_frac": 0.3}, budget="60%")
+    spec = MergeSpec.build(child, ["e0"], op="avg", budget="50%",
+                           name="graph")
+    out = []
+    for device in ("cuda", "cpu"):
+        with Session(str(tmp_path / device), block_size=4096,
+                     device=device) as sess:
+            for name, a in arrays.items():
+                sess.register_model(name, {k: v.to(torch.bfloat16)
+                                           for k, v in a.items()})
+            tmb.reset_launches()
+            res = sess.run(spec)
+            if device == "cuda":
+                assert tmb.LAUNCHES["sketch_blocks"] > 0
+                assert tmb.LAUNCHES["linear_merge"] > 0
+                assert tmb.LAUNCHES["ties_merge"] > 0
+            else:
+                assert sum(tmb.LAUNCHES.values()) == 0
+            assert sess.verify(res.sid)
+            out.append(sess.load(res.sid))
+    for k in out[0]:
+        np.testing.assert_array_equal(out[0][k], out[1][k])
 
 
 # (B, Sq, Sk, H, Hkv, hd, causal, window, q_offset): the JAX package's

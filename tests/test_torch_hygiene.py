@@ -10,13 +10,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.api import MergeService, MergeSpec, Session  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.api import MergePipe  # noqa: E402
 from repro_torch.core.executor import execute_merge  # noqa: E402
+from repro_torch.core.sketch import analyze_model  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import merge_block as mb  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import merge_cli  # noqa: E402
 from repro_torch.models import build_model, from_jax_flat, load_flat  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.store.checkpoint import flatten_tree  # noqa: E402
@@ -138,3 +141,52 @@ def test_model_entry_points_default_to_the_card(monkeypatch):
         from_jax_flat(cfg, flat)
     assert load_flat(model, flat) is model
     assert ServeEngine(model).device.type == "cpu"
+
+
+def test_v2_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """Session, MergeService, merge_cli and ANALYZE run on the card unless
+    asked for the CPU, and raise where there is none — before the
+    workspace is touched."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ws = str(tmp_path / "ws")
+    spec = tmp_path / "spec.json"
+    spec.write_text('{"base": "base", "experts": ["e0"], "op": "avg"}')
+    for make in (lambda: Session(ws), lambda: Session(ws, device="cuda"),
+                 lambda: MergeService(ws, start=False),
+                 lambda: MergeService(ws)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert not os.path.exists(ws)
+    for argv in (["--workspace", ws, "--base", "base", "--experts", "e0"],
+                 ["--workspace", ws, "--spec", str(spec)],
+                 ["serve", "--workspace", ws, "--once"],
+                 ["resume", "--workspace", ws]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            merge_cli.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.sketch_blocks(np.zeros((1, 4), np.float32))
+    with Session(ws, block_size=4096, device="cpu") as sess:
+        sess.register_model("base", {"w": np.ones((8, 8), np.float32)})
+        with pytest.raises(RuntimeError, match="CUDA"):
+            analyze_model(sess.catalog, sess.snapshots.models, "base", 4096)
+        assert sess.device.type == "cpu"
+
+
+def test_cpu_v2_path_never_loads_the_library(tmp_path, monkeypatch):
+    """ANALYZE and a merge graph through Session on the CPU run the plain
+    versions: no build, no library, no launch."""
+    _forbid_library_loads(tmp_path, monkeypatch)
+    rng = np.random.default_rng(0)
+    base = {"w": rng.normal(size=(40, 70)).astype(np.float32)}
+    mb.reset_launches()
+    with Session(str(tmp_path / "ws"), block_size=4096, device="cpu") as sess:
+        sess.register_model("base", base)
+        for e in range(3):
+            sess.register_model(f"e{e}", {"w": base["w"] + 0.01 * e})
+        child = MergeSpec.build("base", ["e1", "e2"], op="ties",
+                                budget="50%")
+        res = sess.run(MergeSpec.build(child, ["e0"], op="avg"))
+        assert sess.verify(res.sid)
+    assert mb.LIBRARY._lib is None
+    assert not os.path.exists(kbuild.BUILD_DIR)
+    assert sum(mb.LAUNCHES.values()) == 0
