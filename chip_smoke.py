@@ -16,24 +16,29 @@ from ``--seed``; nothing is downloaded.  Default 128 KiB blocks.
 
 Phases, one JSON line each:
 
-  build    nvcc builds src/repro_torch/csrc/merge_block.cu (merge and
-           sketch kernels) and flash_attention.cu (sm_90a), both at
-           once; ptxas lines
+  build    nvcc builds src/repro_torch/csrc/merge_block.cu (merge,
+           TIES threshold and sketch kernels) and flash_attention.cu
+           (sm_90a), both at once; then each kernel's registers, spills
+           and static shared memory from ptxas -v
   kernels  each Hopper kernel against its plain PyTorch version: the
            merge kernels at the merge path's largest window group (NB =
-           32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), the
-           ANALYZE sketch kernel at ANALYZE's largest launch (NB =
+           32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), the TIES
+           threshold (radix select) there and at the merge's median
+           launch (5, 3, 65,536) against torch.kthvalue (bit for bit),
+           the ANALYZE sketch kernel at ANALYZE's largest launch (NB =
            1,024, W = 65,536 float32) and a ragged (3, 1,001) (max|x|
            bit-equal; Σx² rtol 2e-4, Σx rtol 1e-3 / atol 1e-6·W: the
            l2 and mean bars of tests/test_kernels.py), flash attention
            at the prefill shape (B, Sq, Sk, H, Hkv, hd) = (1, 2048, 2048,
-           12, 2, 128) bf16 causal, the same in float32 with window 512,
-           and a decode-style (1, 1, 2048, ...) with q_offset 2047
-           (tolerance 2e-5 float32, 2e-2 bf16): max abs error, median
-           CUDA-event times of kernel, plain version, a device copy of
-           the same bytes (merge and sketch kernels) and one PyTorch
-           library call where one computes the same function, and the
-           bound
+           12, 2, 128) bf16 causal through both kernels (the tensor-core
+           route, "tc", and the float32-FMA route, "fma"), the tensor-core
+           route with window 512 and at Sq = Sk = 256 and 1,000, the FMA
+           route in float32 with window 512, and a decode-style (1, 1,
+           2048, ...) with q_offset 2047 (tolerance 2e-5 float32, 2e-2
+           bf16): max abs error, median CUDA-event times of kernel, plain
+           version, a device copy of the same bytes (merge, threshold
+           and sketch kernels) and one PyTorch library call where one
+           computes the same function, and the bound
   parity   one full-width decoder layer: ANALYZE on the card against
            ANALYZE on the CPU into a second catalog (bytes, hashes, sign
            signatures and max|x| equal; l2, l2_delta, mean within rtol
@@ -47,7 +52,8 @@ Phases, one JSON line each:
            (the v2 Session shim) on the card: ANALYZE's wall, bytes,
            sketch launches and device time; each merge's wall time, I/O
            bytes, budget soundness, windows, kernel launches, and from
-           torch.profiler the kernels' device time, the device's busy
+           torch.profiler the kernels' device time (the TIES threshold
+           kernel's apart; no kthvalue kernel may run), the device's busy
            time by activity and its idle share
   service  merge_cli --spec on the merge workspace, in process, on the
            card: a JSON spec of TIES and DARE over the four experts and a
@@ -61,8 +67,9 @@ Phases, one JSON line each:
            drawn from ``--seed``, 32 greedy tokens each.  First a parity
            check in float32 compute, flash-attention kernel against its
            plain version on the card (prefill logits within tolerance,
-           identical tokens); then the bf16 run: prefill and decode
-           rates, flash-attention launches, and from torch.profiler the
+           identical tokens; float32 runs the FMA kernel); then the bf16
+           run: prefill and decode rates, flash-attention launches (every
+           one on the tensor-core route), and from torch.profiler the
            kernel's device time, busy time by activity and idle share
 
 Then the kernels' contract line, and last {"ok": true, "device": ...}.
@@ -72,6 +79,7 @@ build/ (gitignored) and is removed at the end.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -96,13 +104,26 @@ TOL = 1e-5
 # tests/test_kernels.py:133,149: float32 sums in another order; bf16
 # outputs one rounding apart
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# (label, (B, Sq, Sk, H, Hkv, hd), dtype, causal, window, q_offset); the
-# first is the serving path's prefill shape and the contract line's row
+# (label, (B, Sq, Sk, H, Hkv, hd), dtype, causal, window, q_offset, route);
+# the first is the serving path's prefill shape and the contract line's
+# row; "tc" is the tensor-core kernel, "fma" the float32-FMA kernel
 FA_CASES = [
-    ("prefill", (1, 2048, 2048, 12, 2, 128), "bfloat16", True, 0, 0),
-    ("prefill_window", (1, 2048, 2048, 12, 2, 128), "float32", True, 512, 0),
-    ("decode", (1, 1, 2048, 12, 2, 128), "bfloat16", True, 0, 2047),
+    ("prefill", (1, 2048, 2048, 12, 2, 128), "bfloat16", True, 0, 0, "tc"),
+    ("prefill", (1, 2048, 2048, 12, 2, 128), "bfloat16", True, 0, 0, "fma"),
+    ("prefill_window", (1, 2048, 2048, 12, 2, 128), "bfloat16", True, 512,
+     0, "tc"),
+    ("prefill_256", (1, 256, 256, 12, 2, 128), "bfloat16", True, 0, 0, "tc"),
+    ("prefill_1000", (1, 1000, 1000, 12, 2, 128), "bfloat16", True, 0, 0,
+     "tc"),
+    ("prefill_window_f32", (1, 2048, 2048, 12, 2, 128), "float32", True, 512,
+     0, "fma"),
+    ("decode", (1, 1, 2048, 12, 2, 128), "bfloat16", True, 0, 2047, "tc"),
 ]
+# (label, (NB, K, W)) float32 TIES threshold launches: the merge path's
+# largest window group and its median launch by rows (the merge phase
+# reports the launches' shapes: 15 rows of 128 KiB blocks, 1 to 46)
+THRESH_CASES = [("group", (32, 4, 65536)), ("median", (5, 3, 65536))]
+TRIM = 0.3
 SERVE = {"requests": 8, "min_prompt": 256, "max_prompt": 2048,
          "new_tokens": 32, "batch_slots": 4, "max_len": 4096}
 # (NB, W) float32 sketch launches: ANALYZE's largest (core/sketch.py
@@ -245,6 +266,7 @@ def phase_kernels(device, seed, nb=32, k=4, w=65536):
     ]
     rows = []
     for name, replaces, kern, plain, library, nbytes, ops in cases:
+        kernel_name = name.replace("_merge", "") + "_kernel"
         got, want = kern(), plain()
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -258,7 +280,7 @@ def phase_kernels(device, seed, nb=32, k=4, w=65536):
         bytes_ms = nbytes / PEAK["bytes"] * 1e3
         ops_ms = sum(n / PEAK[t] for t, n in ops.items()) * 1e3
         rows.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "kernel": kernel_name,
             "source": "src/repro_torch/csrc/merge_block.cu",
             "replaces": replaces,
             "shape": [nb, k, w], "max_abs_err": err, "bits_differ": n_diff,
@@ -270,9 +292,55 @@ def phase_kernels(device, seed, nb=32, k=4, w=65536):
         })
         del src, dst
     del x0, D, thresh, masks
+    rows += threshold_rows(device, seed, timer)
     rows += sketch_rows(device, seed, timer)
     rows += flash_rows(device, seed, timer)
     emit({"phase": "kernels", "tolerance": TOL, "kernels": rows})
+    return rows
+
+
+def threshold_rows(device, seed, timer):
+    """TIES threshold kernel vs torch.kthvalue (its plain version) at
+    THRESH_CASES, bit for bit."""
+    import torch
+
+    from repro_torch.kernels import merge_block as mb
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=device).manual_seed(seed + 4)
+    rows = []
+    for label, (nb, k, w) in THRESH_CASES:
+        D = 0.02 * torch.randn((nb, k, w), generator=g, device=device)
+        got, want = mb.ties_thresholds(D, TRIM), ref.ties_thresholds(D, TRIM)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"ties_threshold {label}: kernel disagrees "
+                                 f"with kthvalue")
+        absd = D.abs()
+        kth = w - ref.ties_keep(TRIM, w) + 1
+        nbytes = nb * k * w * 4 + nb * k * 4
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
+        dst = torch.empty_like(src)
+        bytes_ms = nbytes / PEAK["bytes"] * 1e3
+        # one |x| and one compare per element and radix pass
+        ops_ms = 2 * 4 * nb * k * w / PEAK["f32"] * 1e3
+        rows.append({
+            "name": "ties_threshold", "route": "cuda", "case": label,
+            "kernel": "ties_threshold_kernel",
+            "source": "src/repro_torch/csrc/merge_block.cu",
+            "replaces": "src/repro/kernels/ref.py:19",
+            "shape": [nb, k, w], "trim_frac": TRIM, "max_abs_err": 0.0,
+            "bits_differ": 0,
+            "ms": timer(lambda: mb.ties_thresholds(D, TRIM)),
+            "plain_ms": timer(lambda: ref.ties_thresholds(D, TRIM)),
+            "copy_ms": timer(lambda: dst.copy_(src)),
+            # one library call given |D|: torch.kthvalue
+            "library_ms": timer(lambda: torch.kthvalue(absd, kth, dim=-1)),
+            "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        })
+        del D, absd, got, want, src, dst
     return rows
 
 
@@ -314,6 +382,7 @@ def sketch_rows(device, seed, timer):
         ops_ms = 3 * nb * w / PEAK["f32"] * 1e3  # x*x+s, max|x|, s+x
         rows.append({
             "name": "sketch_blocks", "route": "cuda", "case": label,
+            "kernel": "sketch_kernel",
             "source": "src/repro_torch/csrc/merge_block.cu",
             "replaces": "src/repro/kernels/merge_block.py:161",
             "shape": [nb, w], "max_abs_err": err, "max_rel_err": rel,
@@ -353,15 +422,15 @@ def flash_rows(device, seed, timer):
 
     g = torch.Generator(device=device).manual_seed(seed + 2)
     rows = []
-    for label, (b, sq, sk, h, hkv, hd), dt, causal, window, qoff in FA_CASES:
+    for (label, (b, sq, sk, h, hkv, hd), dt, causal, window, qoff,
+         route) in FA_CASES:
         dtype = getattr(torch, dt)
         q = torch.randn((b, sq, h, hd), generator=g, device=device).to(dtype)
         k = torch.randn((b, sk, hkv, hd), generator=g, device=device).to(dtype)
         v = torch.randn((b, sk, hkv, hd), generator=g, device=device).to(dtype)
 
         def kern():
-            return fa.flash_attention(q, k, v, causal=causal, window=window,
-                                      q_offset=qoff)
+            return fa.launch(q, k, v, causal, window, qoff, route)
 
         def plain():
             return ref.flash_attention_ref(q, k, v, causal, window, qoff,
@@ -392,6 +461,10 @@ def flash_rows(device, seed, timer):
         ops_ms = flops / PEAK["bf16" if dt == "bfloat16" else "f32"] * 1e3
         rows.append({
             "name": "flash_attention", "route": "cuda", "case": label,
+            "fa_route": route,
+            "kernel": ("flash_attention_tc_kernel" if route == "tc"
+                       else "flash_attention_kernel"),
+            "routed_by_rule": route == fa._route(dtype, hd),
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:102",
             "shape": [b, sq, sk, h, hkv, hd], "dtype": dt, "causal": causal,
@@ -597,6 +670,15 @@ def phase_merge(root, device, seed, block_size, layers):
             stage_s[0] += time.perf_counter() - t
 
     ops.merge_blocks = timed_merge_blocks
+    # the shape of each TIES threshold launch
+    real_thresholds = mb.ties_thresholds
+    thresh_shapes = []
+
+    def recorded_thresholds(D, trim_frac):
+        thresh_shapes.append(tuple(D.shape))
+        return real_thresholds(D, trim_frac)
+
+    mb.ties_thresholds = recorded_thresholds
     for op, theta in OPS:
         before = dict(mb.LAUNCHES)
         stage_s[0] = 0.0
@@ -607,11 +689,18 @@ def phase_merge(root, device, seed, block_size, layers):
         device_ms = device_time_ms(prof)
         kernel_ms = sum(t for n, t in device_ms.items()
                         if re.search(r"\b(linear|ties|dare)_kernel\b", n))
+        threshold_ms = sum(t for n, t in device_ms.items()
+                           if re.search(r"\bties_threshold_kernel\b", n))
+        kth = [n for n in device_ms if re.search("kth", n, re.I)]
+        if kth:
+            raise AssertionError(f"merge {op}: a kthvalue kernel ran: {kth}")
         launches = {n: mb.LAUNCHES[n] - before[n] for n in mb.LAUNCHES}
-        want = "dare_merge" if op == "dare" else (
-            "ties_merge" if op == "ties" else "linear_merge")
-        if launches[want] == 0:
-            raise AssertionError(f"merge {op}: {want} never launched")
+        wants = (["dare_merge"] if op == "dare" else
+                 ["ties_threshold", "ties_merge"] if op == "ties" else
+                 ["linear_merge"])
+        for want in wants:
+            if launches[want] == 0:
+                raise AssertionError(f"merge {op}: {want} never launched")
         run, hat = res.stats["c_expert_run"], res.stats["c_expert_hat"]
         if run > hat:
             raise AssertionError(f"merge {op}: c_expert_run {run} > hat {hat}")
@@ -628,6 +717,7 @@ def phase_merge(root, device, seed, block_size, layers):
             "out_written": io["out_written"], "c_expert_run": run,
             "c_expert_hat": hat, "windows": res.stats["pipeline"]["windows"],
             "launches": launches, "kernel_ms": kernel_ms,
+            "threshold_kernel_ms": threshold_ms,
             "compute_stage_s": stage_s[0],
             "device_busy_ms": sum(device_ms.values()),
             "device_idle_share": 1 - sum(device_ms.values()) / 1e3 / wall,
@@ -638,6 +728,14 @@ def phase_merge(root, device, seed, block_size, layers):
             ties_sid, ties_flat = res.sid, merged
         del merged
     ops.merge_blocks = real_merge_blocks
+    mb.ties_thresholds = real_thresholds
+    by_rows = sorted(thresh_shapes, key=lambda sh: (sh[0] * sh[1], sh))
+    out["ops"]["ties"]["threshold_launches"] = {
+        "rows_min": by_rows[0][0] * by_rows[0][1],
+        "rows_max": by_rows[-1][0] * by_rows[-1][1],
+        "median_shape": list(by_rows[len(by_rows) // 2]),
+        "most_common": [[list(sh), n] for sh, n in
+                        collections.Counter(thresh_shapes).most_common(4)]}
     out["launches"] = dict(mb.LAUNCHES)
     out["ties_sid"] = ties_sid
     mp.close()
@@ -829,6 +927,10 @@ def phase_serve(device, seed, layers, merged):
     launches = fa.LAUNCHES["flash_attention"]
     if launches == 0:
         raise AssertionError("serve: flash_attention never launched")
+    tc_launches = fa.LAUNCHES["flash_attention_tc"]
+    if tc_launches != launches:
+        raise AssertionError(f"serve: {fa.LAUNCHES} — a bf16 prefill launch "
+                             f"missed the tensor-core route")
     if not all(r.done and len(r.out_tokens) == new for r in reqs):
         raise AssertionError("serve: a request did not finish")
     if any(not 0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens):
@@ -844,7 +946,12 @@ def phase_serve(device, seed, layers, merged):
     prof_wall = time.perf_counter() - t0
     device_ms = device_time_ms(prof)
     kernel_ms = sum(t for n, t in device_ms.items()
-                    if "flash_attention_kernel" in n)
+                    if re.search(r"\bflash_attention_tc_kernel\b", n))
+    fma_ms = sum(t for n, t in device_ms.items()
+                 if re.search(r"\bflash_attention_kernel\b", n))
+    if kernel_ms == 0 or fma_ms != 0:
+        raise AssertionError(f"serve: profile shows {kernel_ms} ms of the "
+                             f"tensor-core kernel, {fma_ms} ms of the FMA one")
     busy = sum(device_ms.values())
     emit({
         "phase": "serve", "layers": layers, "requests": len(prompts),
@@ -862,7 +969,8 @@ def phase_serve(device, seed, layers, merged):
         "decode_s": timing["decode_s"],
         "decode_tokens_per_s": timing["decode_tokens"] / timing["decode_s"],
         "ms_per_decode_step": timing["decode_s"] / timing["decode_steps"] * 1e3,
-        "launches": {"flash_attention": launches},
+        "launches": {"flash_attention": launches,
+                     "flash_attention_tc": tc_launches},
         "profiled_wall_s": prof_wall, "flash_kernel_ms": kernel_ms,
         "device_busy_ms": busy,
         "device_idle_share": 1 - busy / 1e3 / wall,
@@ -870,6 +978,41 @@ def phase_serve(device, seed, layers, merged):
                                      key=lambda kv: -kv[1])[:8]),
     })
     return {"flash_attention": launches}
+
+
+def ptxas_report(log_path):
+    """Per kernel of one build: registers, spills, stack and static shared
+    memory, from nvcc's ``-Xptxas -v`` output."""
+    from repro_torch.kernels.build import nvcc
+
+    cufilt = os.path.join(os.path.dirname(nvcc()), "cu++filt")  # demangler
+    out, cur = {}, None
+    with open(log_path) as f:
+        for ln in f:
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                cur = m.group(1)
+                out[cur] = {}
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", ln)
+            if m:
+                out[cur].update(stack=int(m.group(1)),
+                                spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[cur]["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", ln)
+                out[cur]["smem_static"] = int(sm.group(1)) if sm else 0
+    if os.path.exists(cufilt) and out:
+        names = subprocess.run([cufilt], input="\n".join(out), text=True,
+                               capture_output=True).stdout.split("\n")
+        if len(names) >= len(out):
+            out = {n: v for n, v in zip(names, out.values())}
+    return out
 
 
 def main() -> int:
@@ -909,13 +1052,11 @@ def main() -> int:
     libraries = (mb.LIBRARY, fa.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as ex:  # one nvcc per source
         paths = list(ex.map(lambda lib: lib.build(), libraries))
-    ptxas = {}
-    for lib, path in zip(libraries, paths):
-        with open(lib.log_path()) as f:
-            ptxas[os.path.relpath(path, HERE)] = [
-                ln.strip() for ln in f if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+          "libraries": [os.path.relpath(p, HERE) for p in paths]})
+    # each kernel's registers, spills and static shared memory (ptxas -v)
+    emit({"ptxas": {os.path.basename(lib.source): ptxas_report(lib.log_path())
+                    for lib in libraries}})
 
     rows = phase_kernels(device, args.seed)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
@@ -930,13 +1071,17 @@ def main() -> int:
     # each kernel's launches over the paths that run it
     launches = {n: launches[n] + service[n] for n in launches}
     launches.update(phase_serve(device, args.seed, args.layers, merged))
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "copy_ms")
-    # one row per kernel: sketch at ANALYZE's launch, flash attention at
-    # the prefill shape
+    keys = ("name", "kernel", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "copy_ms")
+    # one row per kernel of the main path: the threshold at the largest
+    # group, the sketch at ANALYZE's launch, flash attention at the
+    # prefill shape through the tensor-core kernel (the serve phase checked
+    # that every bf16 prefill launch took that route)
     firsts = {}
     for r in rows:
-        firsts.setdefault(r["name"], r)
+        if r.get("fa_route", "tc") == "tc":
+            firsts.setdefault(r["name"], r)
     emit({"kernels": [{k: ({**r, "launches": launches[r["name"]]})[k]
                        for k in keys} for r in firsts.values()]})
     emit({"ok": True, "device": {"platform": "gpu",

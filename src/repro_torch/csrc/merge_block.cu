@@ -1,6 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for MergePipe's blockwise merge
-// operators: AVG / TA (linear), TIES and DARE; and the ANALYZE sketch
-// (per-block Σx², max|x|, Σx), whose design note is above sketch_kernel.
+// operators: AVG / TA (linear), TIES and DARE; the TIES trim threshold
+// (a radix select, design note above ties_threshold_kernel); and the
+// ANALYZE sketch (per-block Σx², max|x|, Σx), whose design note is above
+// sketch_kernel.
 //
 // Shapes (the executor's batched layout, all row-major and contiguous):
 //   x0     (NB, W)     float32   base blocks
@@ -292,6 +294,149 @@ sketch_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t W) {
   }
 }
 
+// --------------------------------------------------------- TIES THRESHOLD
+// Replaces the TIES trim threshold that the JAX package computes outside
+// its Pallas kernel with an XLA sort (repro/kernels/ref.py:19-29,
+// `ties_thresholds`) and the numpy operator with np.partition
+// (core/operators.py:172-181): per (block, expert) row of D (NB, K, W)
+// float32, the keep-th largest |x|, exactly — it is an element of the row.
+//
+// Radix select on the bits of |x| (the sign bit cleared as an integer, so
+// a NaN keeps its payload, as np.abs does; the card's abs.f32 would
+// canonicalise it): these uint32 patterns order like the values (-0.0
+// becomes +0.0, +inf sits above every finite value, NaN above +inf, as
+// np.partition puts NaN last), so the keep-th largest |x| is the keep-th
+// largest key.  Four passes settle its bits 8 at a time from the top byte
+// down.  Each pass histograms, into 256 bins in shared memory, the next
+// byte of every element whose higher bytes equal the prefix settled so far
+// (a warp whose elements are all out of the prefix skips the histogram);
+// then one warp scans the bins from the top and picks the one holding
+// rank `keep` from the top.  After the fourth pass the prefix is the
+// threshold's bit pattern.
+//
+// What bounds it: HBM bytes (W * 4 per row read, 4 written), about one
+// operation per byte.  Design: one CTA of kSelThreads threads per row; each
+// thread issues kSelUnroll float4 loads before it histograms them, so
+// enough bytes are in flight to cover the memory latency (a scalar head up
+// to the row's first 16-byte boundary and a scalar tail, so any W and any
+// row offset work).  The first pass reads the row from HBM; the later three
+// re-read it and find it in L2 (a launch of the merge path holds at most
+// 32 x 4 rows of 256 KiB, 32 MiB, under the 50 MB L2).  A register-resident
+// row does not fit one SM: 65,536 floats are its whole register file.
+// Histogram updates are plain shared-memory atomics, one a lane, except
+// when a whole warp holds one byte (runs of equal values, such as an
+// all-zero delta row), which adds 32 with one atomic.  Two designs tried
+// on the H100 at (NB, K, W) = (9, 4, 65,536) ran slower: warp-aggregated
+// atomics (one __match_any_sync per element), and a row split over a
+// thread block cluster (histograms summed through distributed shared
+// memory, two cluster barriers per pass).  What it gives up: a launch of
+// few rows leaves most SMs idle.
+constexpr int kSelThreads = 1024;
+constexpr int kSelUnroll = 4;
+
+// Add one to hist[byte of u] for every lane with `cand`; every lane of the
+// warp calls it together.
+__device__ __forceinline__ void hist_add(unsigned* hist, uint32_t u,
+                                         bool cand, int shift) {
+  const unsigned key = cand ? (u >> shift) & 0xFFu : 256u;
+  const unsigned key0 = __shfl_sync(0xffffffffu, key, 0);
+  if (__all_sync(0xffffffffu, key == key0)) {  // one bin for the warp
+    if (key0 < 256u && threadIdx.x % 32 == 0) atomicAdd(&hist[key0], 32u);
+  } else if (cand) {
+    atomicAdd(&hist[key], 1u);
+  }
+}
+
+__device__ __forceinline__ uint32_t abs_bits(float x) {
+  return __float_as_uint(x) & 0x7FFFFFFFu;
+}
+
+__global__ void __launch_bounds__(kSelThreads)
+ties_threshold_kernel(const float* __restrict__ D, float* __restrict__ out,
+                      int64_t W, unsigned keep) {
+  __shared__ unsigned hist[256];
+  __shared__ unsigned s_bucket, s_above;
+  const float* row = D + static_cast<int64_t>(blockIdx.x) * W;
+  const int tid = threadIdx.x, lane = tid % 32;
+  int64_t head = ((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) / 4;
+  if (head > W) head = W;
+  const int64_t n4 = (W - head) / 4;
+  const int64_t tail0 = head + 4 * n4;       // tail: [tail0, W), < 4 elements
+  const int extra = static_cast<int>(head + (W - tail0));  // <= 6
+  const float4* body = reinterpret_cast<const float4*>(row + head);
+
+  uint32_t prefix = 0, pmask = 0;
+  unsigned krem = keep;  // rank from the top among the prefix's elements
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    if (tid < 256) hist[tid] = 0;
+    __syncthreads();
+    // a CTA-uniform trip count: every lane reaches each warp vote
+    for (int64_t base = 0; base < n4; base += kSelThreads * kSelUnroll) {
+      float4 x[kSelUnroll];
+#pragma unroll
+      for (int j = 0; j < kSelUnroll; ++j) {
+        const int64_t i = base + j * kSelThreads + tid;
+        x[j] = i < n4 ? body[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < kSelUnroll; ++j) {
+        const bool in = base + j * kSelThreads + tid < n4;
+        const uint32_t u[4] = {abs_bits(x[j].x), abs_bits(x[j].y),
+                               abs_bits(x[j].z), abs_bits(x[j].w)};
+        bool c[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[e] = in && (u[e] & pmask) == prefix;
+        if (__any_sync(0xffffffffu, c[0] || c[1] || c[2] || c[3])) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hist_add(hist, u[e], c[e], shift);
+        }
+      }
+    }
+    if (tid < 32) {  // the scalar head and tail, one a lane
+      const bool in = tid < extra;
+      const int64_t j = tid < head ? tid : tail0 + (tid - head);
+      const uint32_t u = in ? abs_bits(row[j]) : 0u;
+      hist_add(hist, u, in && (u & pmask) == prefix, shift);
+    }
+    __syncthreads();
+    if (tid < 32) {
+      // lane l owns bins 255 - 8l down to 248 - 8l; an inclusive scan of
+      // the lanes' sums counts the candidates above each lane's bins
+      unsigned cnt[8], local = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        cnt[j] = hist[255 - 8 * lane - j];
+        local += cnt[j];
+      }
+      unsigned incl = local;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned n = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += n;
+      }
+      const unsigned excl = incl - local;
+      if (excl < krem && krem <= incl) {  // exactly one lane
+        unsigned run = excl;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (run + cnt[j] >= krem) {
+            s_bucket = 255u - 8u * lane - j;
+            s_above = run;
+            break;
+          }
+          run += cnt[j];
+        }
+      }
+    }
+    __syncthreads();
+    krem -= s_above;
+    prefix |= s_bucket << shift;
+    pmask |= 0xFFu << shift;
+    __syncthreads();  // s_bucket, s_above and hist are rewritten next pass
+  }
+  if (tid == 0) out[blockIdx.x] = __uint_as_float(prefix);
+}
+
 bool aligned(const void* p, uintptr_t a) {
   return (reinterpret_cast<uintptr_t>(p) % a) == 0;
 }
@@ -349,6 +494,18 @@ int mb_dare(const void* x0, const void* D, const void* masks, void* out,
   } else {
     dare_kernel<1><<<grid_for(nb, w, 1), kThreads, 0, s>>>(x, d, m, o, k, w, density, lam);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows: NB * K rows of w floats; keep in [1, w).  One CTA per row.
+int mb_ties_threshold(const void* D, void* out, int rows, long long w,
+                      int keep, void* stream) {
+  if (rows <= 0 || w <= 1 || keep < 1 || keep >= w)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ties_threshold_kernel<<<static_cast<unsigned>(rows), kSelThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(D), static_cast<float*>(out), w,
+      static_cast<unsigned>(keep));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,7 +18,10 @@ Every wrapper takes torch tensors in the executor's batched layout
 
 The kernels replace the Pallas kernels of the JAX package's
 ``kernels/merge_block.py`` (``_linear_kernel``, ``_ties_kernel``,
-``_dare_kernel``, ``_sketch_kernel``); the source says what bounds them.
+``_dare_kernel``, ``_sketch_kernel``) and, in
+:func:`ties_thresholds`, the XLA sort that computes the TIES trim
+threshold outside the Pallas kernel (``kernels/ref.py``
+``ties_thresholds``); the source says what bounds them.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from repro_torch.kernels.build import CudaLibrary
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"linear_merge": 0, "ties_merge": 0, "dare_merge": 0,
-            "sketch_blocks": 0}
+            "sketch_blocks": 0, "ties_threshold": 0}
 
 
 def reset_launches() -> None:
@@ -46,7 +49,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mb_ties.argtypes = [p, p, p, p, i, i, ll, d, p]
     lib.mb_dare.argtypes = [p, p, p, p, i, i, ll, f, f, p]
     lib.mb_sketch.argtypes = [p, p, i, ll, p]
-    for fn in (lib.mb_linear, lib.mb_ties, lib.mb_dare, lib.mb_sketch):
+    lib.mb_ties_threshold.argtypes = [p, p, i, ll, i, p]
+    for fn in (lib.mb_linear, lib.mb_ties, lib.mb_dare, lib.mb_sketch,
+               lib.mb_ties_threshold):
         fn.restype = ctypes.c_int
 
 
@@ -95,6 +100,38 @@ def linear_merge(
     with torch.cuda.device(D.device):
         _launch("linear_merge", lib.mb_linear, x0.data_ptr(), D.data_ptr(),
                 out.data_ptr(), nb, k, w, mul, div)
+    return out
+
+
+def ties_thresholds(D: torch.Tensor, trim_frac: float) -> torch.Tensor:
+    """(NB, K, W) float32 -> (NB, K) float32: the keep-th largest |Δ| of
+    each row, ``keep = ref.ties_keep(trim_frac, W)``; ``-inf`` without a
+    launch when every entry is kept.  Bit for bit ``np.partition``'s
+    threshold (NaN sorts above +inf and keeps its payload) and
+    ``torch.kthvalue``'s, except that on the card ``kthvalue`` returns any
+    NaN as 0x7FFFFFFF."""
+    if D.device.type == "cpu":
+        return ref.ties_thresholds(D, trim_frac)
+    if D.dim() != 3:
+        raise ValueError("ties_thresholds: want D (NB, K, W)")
+    nb, k, w = D.shape
+    if nb * k == 0 or w == 0 or nb * k > 2**31 - 1 or w > 2**31 - 1:
+        raise ValueError(f"ties_thresholds: unsupported shape {tuple(D.shape)}")
+    if D.device.type != "cuda":
+        raise ValueError("ties_thresholds: D must lie on a CUDA device")
+    if D.dtype != torch.float32:
+        raise ValueError(f"ties_thresholds: want torch.float32, got {D.dtype}")
+    if not D.is_contiguous():
+        raise ValueError("ties_thresholds: D must be contiguous")
+    keep = ref.ties_keep(trim_frac, w)
+    if keep >= w:
+        return torch.full((nb, k), float("-inf"), dtype=torch.float32,
+                          device=D.device)
+    lib = LIBRARY.load()
+    out = torch.empty((nb, k), dtype=torch.float32, device=D.device)
+    with torch.cuda.device(D.device):
+        _launch("ties_threshold", lib.mb_ties_threshold, D.data_ptr(),
+                out.data_ptr(), nb * k, w, keep)
     return out
 
 

@@ -13,9 +13,10 @@ Inputs are staged to the device as they come: base blocks in their
 storage dtype (bf16 as its raw 16-bit words, half the bytes of float32)
 and upcast there; deltas as float32.  ``out_dtype`` casts the result on
 the device before the copy back, so a bf16 merge returns half the bytes.
-The TIES trim threshold (the keep-th largest |Δ| per row) is
-``torch.kthvalue`` on the same device, as the JAX package leaves it to an
-XLA sort outside its kernel.
+The TIES trim threshold (the keep-th largest |Δ| per row) comes from its
+own kernel on a CUDA device (:func:`.merge_block.ties_thresholds`, a
+radix select), where the JAX package leaves it to an XLA sort outside
+its Pallas kernel; on the CPU from ``torch.kthvalue``.
 
 ``sketch_blocks(x, device=..., widths=None)`` is the counterpart of the
 JAX package's ``kernels/ops.sketch_blocks``: (NB, W) blocks ->
@@ -32,7 +33,6 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import merge_block as mb
-from repro_torch.kernels import ref
 from repro_torch.store import dtypes
 
 _TORCH_DTYPES = {
@@ -98,8 +98,8 @@ def merge_blocks(
     elif op == "ta":
         out = mb.linear_merge(x0, D, lam, 1.0)
     elif op == "ties":
-        thresh = ref.ties_thresholds(D, float(theta.get("trim_frac", 0.2)))
-        out = mb.ties_merge(x0, D, thresh.contiguous(), lam)
+        thresh = mb.ties_thresholds(D, float(theta.get("trim_frac", 0.2)))
+        out = mb.ties_merge(x0, D, thresh, lam)
     elif op == "dare":
         if masks is None:
             raise ValueError("dare requires masks")

@@ -173,3 +173,39 @@ def test_kernel_checks_refuse_cpu_operands():
     q, k, v = _torch(_qkv((1, 8, 8, 4, 2, 16)), "float32")
     with pytest.raises(ValueError, match="CUDA"):
         tfa._check(q, k, v, 0, 0)
+
+
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_route_rule(dtype, hd):
+    """bf16 with hd >= 16 goes to the tensor-core kernel; float32 and bf16
+    with hd = 8 to the FMA kernel."""
+    route = tfa._route(getattr(torch, dtype), hd)
+    assert route == ("tc" if dtype == "bfloat16" and hd >= 16 else "fma")
+    assert route in tfa.ROUTES
+
+
+def test_tc_alignment_check():
+    """The tensor-core route's operand rule: 16-byte storage starts and
+    b / s / h strides in multiples of 8 elements (a dimension of length 1
+    has no stride to check)."""
+    qkv = torch.zeros((2, 40, 8, 64), dtype=torch.bfloat16)
+    tfa._check_tc(qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:])
+    tfa._check_tc(torch.zeros((1, 1, 4, 16), dtype=torch.bfloat16)
+                  .as_strided((1, 1, 4, 16), (3, 5, 16, 1)))
+    buf = torch.zeros(4 * 8 * 16 + 8, dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa._check_tc(buf[1:513].view(1, 8, 4, 16))       # 2-byte offset
+    tfa._check_tc(buf[8:520].view(1, 8, 4, 16))           # 16-byte offset
+    wide = torch.zeros((1, 8, 2, 20), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfa._check_tc(wide[..., :16])                     # h stride 20
+
+
+def test_launch_refuses_unknown_route():
+    q, k, v = _torch(_qkv((1, 8, 8, 4, 2, 16)), "bfloat16")
+    with pytest.raises(ValueError, match="route"):
+        tfa.launch(q, k, v, True, 0, 0, route="wgmma")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.launch(q, k, v, True, 0, 0, route="tc")       # CPU operands

@@ -90,7 +90,84 @@ def test_merge_blocks_card_equals_cpu(cuda, op, theta):
     a = ops.merge_blocks(op, x0, D, theta, device="cuda", **kw)
     b = ops.merge_blocks(op, x0, D, theta, device="cpu", **kw)
     np.testing.assert_array_equal(a, b)
-    assert sum(tmb.LAUNCHES.values()) == 1
+    # TIES: the threshold kernel, then the apply kernel
+    assert sum(tmb.LAUNCHES.values()) == (2 if op == "ties" else 1)
+    assert tmb.LAUNCHES["ties_threshold"] == (op == "ties")
+
+
+def _threshold_rows(w, seed):
+    """(2, 6, w) float32 deltas with the edge rows of the TIES trim."""
+    rng = np.random.default_rng(seed)
+    D = (0.02 * rng.normal(size=(2, 6, w))).astype(np.float32)
+    D[0, 0] = 0.0                                          # all zeros
+    D[0, 1] = 0.25 * rng.integers(-3, 4, size=w)           # many duplicates
+    D[0, 2] = np.where(rng.random(w) < 0.5, -0.0, 0.0)     # +-0.0 ...
+    D[0, 2, : w // 3] = D[1, 0, : w // 3]                  # ... and values
+    D[0, 3, ::7] = np.inf                                  # +-inf
+    D[0, 3, 3::11] = -np.inf
+    D[0, 4, w // 2] = np.nan                               # a NaN
+    D[0, 5, ::3] = -D[0, 5, ::3]
+    return D
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 1001, 4096, 65536, 65537,
+                               1 << 20])
+@pytest.mark.parametrize("trim", [0.0, 0.3, 0.999, 1.0])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ties_threshold_kernel_equals_kthvalue(cuda, w, trim, offset):
+    """Bit for bit: np.partition, as the numpy operator takes it, and
+    torch.kthvalue on the card, whose abs and radix select return every
+    NaN as the canonical 0x7FFFFFFF (the kernel keeps the payload, as
+    np.abs does; a NaN threshold keeps nothing in either); -inf without
+    a launch when keep >= W."""
+    D = _threshold_rows(w, w)
+    buf = torch.zeros(D.size + offset, device=cuda)
+    Dc = buf[offset:].view(D.shape)                        # rows off 16 B
+    Dc.copy_(torch.from_numpy(D))
+    keep = tref.ties_keep(trim, w)
+    tmb.reset_launches()
+    got = tmb.ties_thresholds(Dc, trim)
+    assert tmb.LAUNCHES["ties_threshold"] == (keep < w)
+    want = tref.ties_thresholds(Dc, trim)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 6) and got.dtype == torch.float32
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(torch.int32)[~nan],
+                       want.view(torch.int32)[~nan])
+    if keep < w:
+        part = np.partition(np.abs(D), w - keep, axis=-1)[..., w - keep]
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                      part.view(np.uint32))
+    else:
+        assert torch.isneginf(got).all()
+
+
+def test_ties_threshold_wrapper_refuses(cuda):
+    D = torch.randn(2, 3, 100, device=cuda)
+    with pytest.raises(ValueError):
+        tmb.ties_thresholds(D.double(), 0.3)              # dtype
+    with pytest.raises(ValueError):
+        tmb.ties_thresholds(D[:, :, ::2], 0.3)            # not contiguous
+    with pytest.raises(ValueError):
+        tmb.ties_thresholds(D[0], 0.3)                    # not (NB, K, W)
+
+
+def test_ties_merge_blocks_on_card_equal_numpy_operator(cuda):
+    """merge_blocks("ties") on the card, threshold kernel and all, against
+    the numpy operator at the smoke's widths (128 KiB bf16 blocks)."""
+    from repro_torch.core.operators import ties_merge
+
+    x0, D, _ = _mk(3, 4, 65536, seed=9)
+    theta = {"trim_frac": 0.3, "lam": 1.0}
+    tmb.reset_launches()
+    got = ops.merge_blocks("ties", x0, D, theta, device="cuda")
+    assert tmb.LAUNCHES["ties_threshold"] == 1
+    assert tmb.LAUNCHES["ties_merge"] == 1
+    for b in range(3):
+        want = np.asarray(ties_merge(x0[b], D[b], theta), dtype=np.float32)
+        np.testing.assert_array_equal(got[b].view(np.uint32),
+                                      want.view(np.uint32))
 
 
 @pytest.mark.parametrize("op,theta", OPS)
@@ -240,7 +317,8 @@ def test_session_graph_on_card_matches_cpu(cuda, tmp_path):
 
 
 # (B, Sq, Sk, H, Hkv, hd, causal, window, q_offset): the JAX package's
-# FA_CASES (tests/test_kernels.py) and the smoke's three shapes
+# FA_CASES (tests/test_kernels.py), the smoke's shapes and the serve
+# path's prefill lengths
 FA_CASES = [
     (2, 64, 64, 4, 2, 16, True, 0, 0),
     (1, 50, 50, 4, 1, 8, True, 13, 0),
@@ -250,6 +328,10 @@ FA_CASES = [
     (1, 2048, 2048, 12, 2, 128, True, 512, 0),
     (1, 1, 2048, 12, 2, 128, True, 0, 2047),
     (2, 100, 300, 4, 4, 64, False, 70, 200),
+    (1, 256, 256, 12, 2, 128, True, 0, 0),
+    (1, 1000, 1000, 12, 2, 128, True, 0, 0),
+    (1, 1000, 1000, 12, 2, 128, True, 512, 0),
+    (3, 77, 77, 4, 2, 32, True, 0, 0),
 ]
 # tests/test_kernels.py:133,149: float32 sums in another order; bf16
 # outputs one rounding apart
@@ -274,6 +356,9 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     got = tfa.flash_attention(q, k, v, causal=causal, window=window,
                               q_offset=q_offset)
     assert tfa.LAUNCHES["flash_attention"] == 1
+    # bf16 with hd >= 16 runs on the tensor cores; the rest on FMAs
+    tc = dtype == torch.bfloat16 and case[5] >= 16
+    assert tfa.LAUNCHES["flash_attention_tc"] == int(tc)
     want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
                                     skip_masked_chunks=True)
     torch.cuda.synchronize()
@@ -291,6 +376,54 @@ def test_flash_attention_kernel_reads_strided_views(cuda):
     got = tfa.flash_attention(q, k, v, causal=True)
     want = tref.flash_attention_ref(q, k, v, True)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", [FA_CASES[0], FA_CASES[4], FA_CASES[6]])
+def test_flash_attention_fma_route_bf16(cuda, case):
+    """The float32-FMA kernel named for bf16 operands the rule sends to
+    the tensor cores (the smoke times both routes)."""
+    causal, window, q_offset = case[6:]
+    q, k, v = _qkv(case, torch.bfloat16, cuda, seed=4)
+    tfa.reset_launches()
+    got = tfa.launch(q, k, v, causal, window, q_offset, route="fma")
+    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_tc": 0}
+    want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
+                                    skip_masked_chunks=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_attention_tc_reads_strided_views(cuda):
+    """bf16 q/k/v sliced out of a fused projection (B, S, H + 2 Hkv, hd)
+    go through the tensor-core kernel in place."""
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(rng.normal(size=(2, 90, 8, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    tfa.reset_launches()
+    got = tfa.flash_attention(q, k, v, causal=True)
+    assert tfa.LAUNCHES["flash_attention_tc"] == 1
+    want = tref.flash_attention_ref(q, k, v, True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_attention_tc_refuses_misaligned(cuda):
+    """The tensor-core route raises on operands its 16-byte copies cannot
+    read; it never falls back to the FMA kernel."""
+    q, k, v = _qkv((1, 8, 8, 4, 2, 16), torch.bfloat16, cuda)
+    buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    q_off = buf[1:].view(q.shape)                           # 2-byte offset
+    q_off.copy_(q)
+    tfa.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(q_off, k, v)
+    wide = torch.zeros((1, 8, 2, 20), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfa.flash_attention(q, wide[..., :16], v)           # h stride 20
+    with pytest.raises(ValueError, match="tensor-core route takes"):
+        tfa.launch(q.float(), k.float(), v.float(), True, 0, 0, route="tc")
+    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0}
 
 
 def test_flash_attention_wrapper_refuses(cuda):

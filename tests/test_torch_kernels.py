@@ -102,6 +102,44 @@ def test_ties_threshold_edges(trim, w):
         np.testing.assert_array_equal(got[b], want.astype(np.float32))
 
 
+def _edge_rows(w, seed):
+    """(2, 6, w) float32 deltas with the TIES trim's edge rows."""
+    rng = np.random.default_rng(seed)
+    D = (0.02 * rng.normal(size=(2, 6, w))).astype(np.float32)
+    D[0, 0] = 0.0                                          # all zeros
+    D[0, 1] = 0.25 * rng.integers(-3, 4, size=w)           # many duplicates
+    D[0, 2] = np.where(rng.random(w) < 0.5, -0.0, 0.0)     # +-0.0 ...
+    D[0, 2, : w // 3] = D[1, 0, : w // 3]                  # ... and values
+    D[0, 3, ::7] = np.inf                                  # +-inf
+    D[0, 3, 3::11] = -np.inf
+    D[0, 4, w // 2] = np.nan                               # a NaN
+    D[0, 5, ::3] = -D[0, 5, ::3]
+    return D
+
+
+@pytest.mark.parametrize("w", [1, 2, 5, 257, 1001])
+@pytest.mark.parametrize("trim", [0.0, 0.3, 0.999, 1.0])
+def test_ties_threshold_edge_rows(w, trim):
+    """The threshold (torch.kthvalue, the kernel's plain version) equals
+    the JAX package's sort and the numpy operator's np.partition bit for
+    bit on rows of zeros, +-0.0, duplicates, +-inf and a NaN (NaN sorts
+    above +inf)."""
+    D = _edge_rows(w, w)
+    keep = tref.ties_keep(trim, w)
+    got = tref.ties_thresholds(_t(D), trim)
+    bits = got.numpy().view(np.uint32)
+    jax_bits = np.asarray(jops._ties_thresh_jit(jnp.asarray(D), trim))
+    np.testing.assert_array_equal(bits, jax_bits.view(np.uint32))
+    if keep < w:
+        part = np.partition(np.abs(D), w - keep, axis=-1)[..., w - keep]
+        np.testing.assert_array_equal(bits, part.view(np.uint32))
+    else:
+        assert torch.isneginf(got).all()
+    # the wrapper's CPU path is the plain version
+    np.testing.assert_array_equal(
+        tmb.ties_thresholds(_t(D), trim).numpy().view(np.uint32), bits)
+
+
 def test_ties_zero_deltas_return_base():
     x0, _ = _mk(3, 4, 300, "float32", seed=5)
     D = np.zeros((3, 4, 300), np.float32)
