@@ -17,14 +17,20 @@ from ``--seed``; nothing is downloaded.  Default 128 KiB blocks.
 Phases, one JSON line each:
 
   build    nvcc builds src/repro_torch/csrc/merge_block.cu (merge,
-           TIES threshold and sketch kernels) and flash_attention.cu
-           (sm_90a), both at once; then each kernel's registers, spills
-           and static shared memory from ptxas -v
+           fused TIES, TIES threshold and sketch kernels) and
+           flash_attention.cu (sm_90a), both at once; then each kernel's
+           registers, spills and static shared memory from ptxas -v
   kernels  each Hopper kernel against its plain PyTorch version: the
            merge kernels at the merge path's largest window group (NB =
            32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), the TIES
            threshold (radix select) there and at the merge's median
            launch (5, 3, 65,536) against torch.kthvalue (bit for bit),
+           the fused TIES kernel (one cluster launch: threshold and
+           apply) at both shapes against its plain version and its
+           thresholds against torch.kthvalue (bit for bit), with the
+           pair's time (threshold kernel + apply kernel) and its cluster
+           launch plan; both routes timed at (NB, K) on each side of
+           ties_route's rows limit (ROUTE_CASES),
            the ANALYZE sketch kernel at ANALYZE's largest launch (NB =
            1,024, W = 65,536 float32) and a ragged (3, 1,001) (max|x|
            bit-equal; Σx² rtol 2e-4, Σx rtol 1e-3 / atol 1e-6·W: the
@@ -46,15 +52,20 @@ Phases, one JSON line each:
            every operator at a 50% budget); then MergePipe.merge on the
            card (pipelined engine, torch kernels) against the numpy
            stream engine, for avg / ta / ties / dare: bf16 outputs within
-           one ulp, equal per-category I/O bytes
+           one ulp, equal per-category I/O bytes; then TIES again at 2 MiB
+           blocks, where ties_route sends the large blocks to the pair
+           (threshold kernel, then apply kernel) and the small ones to
+           the fused kernel: every launch on the route ties_route names,
+           outputs and bytes against the stream engine as above
   merge    the whole configuration: ANALYZE on the card (sketch kernel),
            then 50% budget, all four operators through MergePipe.merge
            (the v2 Session shim) on the card: ANALYZE's wall, bytes,
            sketch launches and device time; each merge's wall time, I/O
-           bytes, budget soundness, windows, kernel launches, and from
-           torch.profiler the kernels' device time (the TIES threshold
-           kernel's apart; no kthvalue kernel may run), the device's busy
-           time by activity and its idle share
+           bytes, budget soundness, windows, kernel launches, the route
+           and shape of every TIES launch (each the one ties_route names),
+           and from torch.profiler the kernels' device time (TIES's by
+           kernel: fused, threshold, apply; no kthvalue kernel may run),
+           the device's busy time by activity and its idle share
   service  merge_cli --spec on the merge workspace, in process, on the
            card: a JSON spec of TIES and DARE over the four experts and a
            nested job (AVG of a TA child with expert-0), under a shared
@@ -123,7 +134,16 @@ FA_CASES = [
 # largest window group and its median launch by rows (the merge phase
 # reports the launches' shapes: 15 rows of 128 KiB blocks, 1 to 46)
 THRESH_CASES = [("group", (32, 4, 65536)), ("median", (5, 3, 65536))]
+# the fused TIES kernel's cases: the same two shapes
+FUSED_CASES = THRESH_CASES
+# (NB, K) at W = 65,536 on each side of ties_route's rows limit, where the
+# fused kernel and the pair are timed against each other
+ROUTE_CASES = [(12, 4), (15, 4), (16, 4), (20, 3), (24, 3), (23, 2), (30, 2),
+               (46, 1), (61, 1)]
 TRIM = 0.3
+# the parity phase's second TIES merge: 2 MiB blocks (1,048,576 bf16
+# elements) do not fit the fused kernel's shared memory
+PAIR_BLOCK_SIZE = 2 << 20
 SERVE = {"requests": 8, "min_prompt": 256, "max_prompt": 2048,
          "new_tokens": 32, "batch_slots": 4, "max_len": 4096}
 # (NB, W) float32 sketch launches: ANALYZE's largest (core/sketch.py
@@ -292,10 +312,101 @@ def phase_kernels(device, seed, nb=32, k=4, w=65536):
         })
         del src, dst
     del x0, D, thresh, masks
+    rows += fused_rows(device, seed, timer)
     rows += threshold_rows(device, seed, timer)
+    route_sweep = route_rows(device, seed, timer)
     rows += sketch_rows(device, seed, timer)
     rows += flash_rows(device, seed, timer)
-    emit({"phase": "kernels", "tolerance": TOL, "kernels": rows})
+    emit({"phase": "kernels", "tolerance": TOL, "kernels": rows,
+          "ties_route_sweep": route_sweep})
+    return rows
+
+
+def route_rows(device, seed, timer, w=65536):
+    """The fused kernel and the pair timed on the same inputs at
+    ROUTE_CASES, beside the route ties_route names (bit-equal outputs)."""
+    import torch
+
+    from repro_torch.kernels import merge_block as mb
+
+    g = torch.Generator(device=device).manual_seed(seed + 6)
+    out = []
+    for nb, k in ROUTE_CASES:
+        x0 = torch.randn((nb, w), generator=g, device=device)
+        D = 0.02 * torch.randn((nb, k, w), generator=g, device=device)
+
+        def fused():
+            return mb.ties_fused(x0, D, TRIM, 1.0)
+
+        def pair():
+            return mb.ties_merge(x0, D, mb.ties_thresholds(D, TRIM), 1.0)
+
+        if not torch.equal(fused().view(torch.int32), pair().view(torch.int32)):
+            raise AssertionError(f"ties route sweep {(nb, k, w)}: the routes "
+                                 f"disagree")
+        out.append({"shape": [nb, k, w], "rows": nb * k,
+                    "ties_route": mb.ties_route(nb, k, w),
+                    "fused_ms": timer(fused), "pair_ms": timer(pair)})
+        del x0, D
+    return out
+
+
+def fused_rows(device, seed, timer):
+    """Fused TIES kernel vs its plain version (torch.kthvalue thresholds,
+    then the plain apply) at FUSED_CASES, bit for bit, beside the pair
+    (threshold kernel, then apply kernel) on the same inputs."""
+    import torch
+
+    from repro_torch.kernels import merge_block as mb
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=device).manual_seed(seed + 5)
+    rows = []
+    for label, (nb, k, w) in FUSED_CASES:
+        x0 = torch.randn((nb, w), generator=g, device=device)
+        D = 0.02 * torch.randn((nb, k, w), generator=g, device=device)
+        got, thresh = mb.ties_fused(x0, D, TRIM, 1.0, thresholds=True)
+        want_t = ref.ties_thresholds(D, TRIM)
+        want = ref.ties_apply_ref(x0, D, want_t, 1.0)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        if n_diff or not torch.equal(thresh.view(torch.int32),
+                                     want_t.view(torch.int32)):
+            raise AssertionError(f"ties_fused {label}: kernel disagrees in "
+                                 f"{n_diff} elements or in its thresholds")
+        plan = (mb.ties_fused_occupancy(k, w) if device.type == "cuda"
+                else mb.ties_fused_plan(k, w))
+        nbytes = (2 * nb * w + nb * k * w) * 4
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
+        dst = torch.empty_like(src)
+        bytes_ms = nbytes / PEAK["bytes"] * 1e3
+        # the threshold's |x| and compare per element and radix pass, the
+        # apply's float32 trim / elect / sum and its float64 epilogue
+        ops_ms = (2 * 4 * nb * k * w / PEAK["f32"]
+                  + nb * w * k * 6 / PEAK["f32"] + nb * w * 3 / PEAK["f64"]) * 1e3
+        rows.append({
+            "name": "ties_fused", "route": "cuda", "case": label,
+            "kernel": "ties_fused_kernel", "ties_route": mb.ties_route(nb, k, w),
+            "source": "src/repro_torch/csrc/merge_block.cu",
+            "replaces": "src/repro/kernels/merge_block.py:84",
+            "also_replaces": "src/repro/kernels/ref.py:19",
+            "shape": [nb, k, w], "trim_frac": TRIM,
+            "max_abs_err": float((got - want).abs().max()),
+            "bits_differ": n_diff, "thresholds_bit_equal": True,
+            "cluster": plan["cluster"], "ctas": nb * plan["cluster"],
+            "smem_per_cta": plan["smem"],
+            "clusters_resident": plan.get("clusters"),
+            "ms": timer(lambda: mb.ties_fused(x0, D, TRIM, 1.0)),
+            "plain_ms": timer(lambda: ref.ties_ref(x0, D, TRIM, 1.0)),
+            "pair_ms": timer(lambda: mb.ties_merge(
+                x0, D, mb.ties_thresholds(D, TRIM), 1.0)),
+            "copy_ms": timer(lambda: dst.copy_(src)),
+            "library_ms": None,  # no one PyTorch call computes TIES
+            "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        })
+        del x0, D, got, thresh, want, want_t, src, dst
     return rows
 
 
@@ -541,9 +652,10 @@ def analyze_parity(mp, ids, cpu_catalog, block_size):
 
 
 def phase_parity(root, device, seed, block_size):
-    import numpy as np
+    import torch
 
     from repro_torch.core.api import MergePipe
+    from repro_torch.kernels import merge_block as mb
     from repro_torch.core.catalog import Catalog
     from repro_torch.store.iostats import measure
 
@@ -561,21 +673,110 @@ def phase_parity(root, device, seed, block_size):
         with measure(mp.stats) as io_s:
             rs = mp.merge("base", ids, op, theta=theta, budget=0.5,
                           compute="stream")
-        a, b = mp.load(rk.sid), mp.load(rs.sid)
-        n_diff = max_ulp = n = 0
-        for t in a:
-            ulps = bf16_ulps(a[t], b[t])
-            n_diff += int(np.count_nonzero(ulps))
-            max_ulp = max(max_ulp, int(ulps.max()))
-            n += ulps.size
-        io_same = all(io_k[c] == io_s[c]
-                      for c in ("base_read", "expert_read", "out_written"))
-        out["ops"][op] = {"elements": n, "elements_differ": n_diff,
-                          "max_ulp": max_ulp, "iostats_equal": io_same}
-        if max_ulp > 1 or not io_same:
+        out["ops"][op] = snapshot_parity(mp, rk.sid, rs.sid, io_k, io_s)
+        if out["ops"][op]["max_ulp"] > 1 or not out["ops"][op]["iostats_equal"]:
             raise AssertionError(f"parity {op}: {out['ops'][op]}")
     mp.close()
+
+    # the pair route through the merge path: TIES at 2 MiB blocks, where
+    # ties_route sends what the fused kernel cannot stage to the pair; the
+    # launch counts start at 0 here and are read after
+    theta = dict(OPS)["ties"]
+    mp = MergePipe(os.path.join(root, "parity"), block_size=PAIR_BLOCK_SIZE,
+                   device=device)
+    mp.ensure_analyzed("base", ids)
+    mb.reset_launches()
+    with measure(mp.stats) as io_k, ties_routes() as seen:
+        rk = mp.merge("base", ids, "ties", theta=theta, budget=0.5)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    launches = dict(mb.LAUNCHES)
+    routes = check_ties_routes(seen, launches, "parity ties (2 MiB blocks)")
+    if routes["pair"] == 0:
+        raise AssertionError(f"parity ties (2 MiB blocks): no launch on the "
+                             f"pair route: {routes}")
+    with measure(mp.stats) as io_s:
+        rs = mp.merge("base", ids, "ties", theta=theta, budget=0.5,
+                      compute="stream")
+    pair = snapshot_parity(mp, rk.sid, rs.sid, io_k, io_s)
+    if pair["max_ulp"] > 1 or not pair["iostats_equal"]:
+        raise AssertionError(f"parity ties (2 MiB blocks): {pair}")
+    out["ties_2mib_blocks"] = {"block_size": PAIR_BLOCK_SIZE, **pair,
+                               "routes": routes, "launches": launches,
+                               "pair_shapes": launch_shapes(
+                                   [sh for r, sh in seen if r == "pair"])}
+    mp.close()
     emit(out)
+    return launches
+
+
+def snapshot_parity(mp, sid_kernel, sid_stream, io_k, io_s):
+    """bf16 ulps between two snapshots of ``mp`` and whether their
+    per-category I/O bytes are equal."""
+    import numpy as np
+
+    a, b = mp.load(sid_kernel), mp.load(sid_stream)
+    n_diff = max_ulp = n = 0
+    for t in a:
+        ulps = bf16_ulps(a[t], b[t])
+        n_diff += int(np.count_nonzero(ulps))
+        max_ulp = max(max_ulp, int(ulps.max()))
+        n += ulps.size
+    io_same = all(io_k[c] == io_s[c]
+                  for c in ("base_read", "expert_read", "out_written"))
+    return {"elements": n, "elements_differ": n_diff, "max_ulp": max_ulp,
+            "iostats_equal": io_same}
+
+
+@contextlib.contextmanager
+def ties_routes():
+    """Record the route and shape of every TIES merge that reaches the
+    kernels' wrappers: a list of ("fused" | "pair", (NB, K, W))."""
+    from repro_torch.kernels import merge_block as mb
+
+    seen = []
+    fused, thresholds = mb.ties_fused, mb.ties_thresholds
+
+    def rec_fused(x0, D, *a, **kw):
+        seen.append(("fused", tuple(D.shape)))
+        return fused(x0, D, *a, **kw)
+
+    def rec_thresholds(D, *a, **kw):
+        seen.append(("pair", tuple(D.shape)))
+        return thresholds(D, *a, **kw)
+
+    mb.ties_fused, mb.ties_thresholds = rec_fused, rec_thresholds
+    try:
+        yield seen
+    finally:
+        mb.ties_fused, mb.ties_thresholds = fused, thresholds
+
+
+def check_ties_routes(seen, launches, where):
+    """Every TIES merge took the route ties_route names for its shape, and
+    the kernels' launch counts agree; returns the launches per route."""
+    from repro_torch.kernels import merge_block as mb
+
+    wrong = [(r, sh) for r, sh in seen if r != mb.ties_route(*sh)]
+    if wrong:
+        raise AssertionError(f"{where}: TIES launches off their route: "
+                             f"{wrong[:4]}")
+    n = collections.Counter(r for r, _ in seen)
+    if (launches["ties_fused"] != n["fused"]
+            or launches["ties_merge"] != n["pair"]):
+        raise AssertionError(f"{where}: routes {dict(n)} but launches "
+                             f"{launches}")
+    return {"fused": n["fused"], "pair": n["pair"]}
+
+
+def launch_shapes(shapes):
+    """Rows, median and most common (NB, K, W) of a list of launches."""
+    by_rows = sorted(shapes, key=lambda sh: (sh[0] * sh[1], sh))
+    return {"rows_min": by_rows[0][0] * by_rows[0][1],
+            "rows_max": by_rows[-1][0] * by_rows[-1][1],
+            "median_shape": list(by_rows[len(by_rows) // 2]),
+            "most_common": [[list(sh), n] for sh, n in
+                            collections.Counter(shapes).most_common(4)]}
 
 
 def analyze_bytes(stats, before):
@@ -670,37 +871,41 @@ def phase_merge(root, device, seed, block_size, layers):
             stage_s[0] += time.perf_counter() - t
 
     ops.merge_blocks = timed_merge_blocks
-    # the shape of each TIES threshold launch
-    real_thresholds = mb.ties_thresholds
-    thresh_shapes = []
-
-    def recorded_thresholds(D, trim_frac):
-        thresh_shapes.append(tuple(D.shape))
-        return real_thresholds(D, trim_frac)
-
-    mb.ties_thresholds = recorded_thresholds
     for op, theta in OPS:
         before = dict(mb.LAUNCHES)
         stage_s[0] = 0.0
         t0 = time.perf_counter()
-        with measure(mp.stats) as io, profile(activities=activities) as prof:
+        with (measure(mp.stats) as io, profile(activities=activities) as prof,
+              ties_routes() as seen):
             res = mp.merge("base", ids, op, theta=theta, budget=0.5)
         wall = time.perf_counter() - t0
         device_ms = device_time_ms(prof)
-        kernel_ms = sum(t for n, t in device_ms.items()
-                        if re.search(r"\b(linear|ties|dare)_kernel\b", n))
-        threshold_ms = sum(t for n, t in device_ms.items()
-                           if re.search(r"\bties_threshold_kernel\b", n))
+
+        def kernel_time(pattern):
+            return sum(t for n, t in device_ms.items() if re.search(pattern, n))
+
+        kernel_ms = kernel_time(r"\b(linear|ties|dare)_kernel\b")
+        threshold_ms = kernel_time(r"\bties_threshold_kernel\b")
+        fused_ms = kernel_time(r"\bties_fused_kernel\b")
         kth = [n for n in device_ms if re.search("kth", n, re.I)]
         if kth:
             raise AssertionError(f"merge {op}: a kthvalue kernel ran: {kth}")
         launches = {n: mb.LAUNCHES[n] - before[n] for n in mb.LAUNCHES}
         wants = (["dare_merge"] if op == "dare" else
-                 ["ties_threshold", "ties_merge"] if op == "ties" else
-                 ["linear_merge"])
+                 [] if op == "ties" else ["linear_merge"])
         for want in wants:
             if launches[want] == 0:
                 raise AssertionError(f"merge {op}: {want} never launched")
+        routes = check_ties_routes(seen, launches, f"merge {op}")
+        if op == "ties":
+            if not seen:
+                raise AssertionError("merge ties: no TIES kernel launched")
+            # the profile holds the pair's kernels only where it ran
+            pair_ms = kernel_time(r"\bties_(threshold_)?kernel\b")
+            if (routes["pair"] == 0) != (pair_ms == 0) or (
+                    (routes["fused"] == 0) != (fused_ms == 0)):
+                raise AssertionError(f"merge ties: routes {routes}, profile "
+                                     f"{fused_ms} ms fused, {pair_ms} ms pair")
         run, hat = res.stats["c_expert_run"], res.stats["c_expert_hat"]
         if run > hat:
             raise AssertionError(f"merge {op}: c_expert_run {run} > hat {hat}")
@@ -717,7 +922,7 @@ def phase_merge(root, device, seed, block_size, layers):
             "out_written": io["out_written"], "c_expert_run": run,
             "c_expert_hat": hat, "windows": res.stats["pipeline"]["windows"],
             "launches": launches, "kernel_ms": kernel_ms,
-            "threshold_kernel_ms": threshold_ms,
+            "threshold_kernel_ms": threshold_ms, "fused_kernel_ms": fused_ms,
             "compute_stage_s": stage_s[0],
             "device_busy_ms": sum(device_ms.values()),
             "device_idle_share": 1 - sum(device_ms.values()) / 1e3 / wall,
@@ -726,16 +931,16 @@ def phase_merge(root, device, seed, block_size, layers):
         }
         if op == "ties":
             ties_sid, ties_flat = res.sid, merged
+            # TIES device time: the fused kernel, or the threshold kernel
+            # and the apply kernel, by route
+            out["ops"][op]["ties_device_ms"] = fused_ms + kernel_ms + threshold_ms
+            out["ops"][op]["ties_launches"] = {
+                "routes": routes, **launch_shapes([sh for _, sh in seen]),
+                "pair_shapes": launch_shapes([sh for r, sh in seen
+                                              if r == "pair"])
+                if routes["pair"] else None}
         del merged
     ops.merge_blocks = real_merge_blocks
-    mb.ties_thresholds = real_thresholds
-    by_rows = sorted(thresh_shapes, key=lambda sh: (sh[0] * sh[1], sh))
-    out["ops"]["ties"]["threshold_launches"] = {
-        "rows_min": by_rows[0][0] * by_rows[0][1],
-        "rows_max": by_rows[-1][0] * by_rows[-1][1],
-        "median_shape": list(by_rows[len(by_rows) // 2]),
-        "most_common": [[list(sh), n] for sh, n in
-                        collections.Counter(thresh_shapes).most_common(4)]}
     out["launches"] = dict(mb.LAUNCHES)
     out["ties_sid"] = ties_sid
     mp.close()
@@ -778,16 +983,22 @@ def phase_service(root, device, block_size):
     mb.reset_launches()
     t0 = time.perf_counter()
     try:
-        merge_cli.main(argv)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+        with ties_routes() as ties_seen:
+            merge_cli.main(argv)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
     finally:
         merge_cli.Session = cli_session
     wall = time.perf_counter() - t0
     launches = dict(mb.LAUNCHES)
-    for name, n in launches.items():
-        if n == 0:
+    # AVG and TA (the nested job), DARE, ANALYZE of the child snapshot;
+    # TIES by the routes ties_route names
+    for name in ("linear_merge", "dare_merge", "sketch_blocks"):
+        if launches[name] == 0:
             raise AssertionError(f"service: {name} never launched")
+    routes = check_ties_routes(ties_seen, launches, "service")
+    if not ties_seen:
+        raise AssertionError("service: no TIES kernel launched")
     results = seen["results"]
     jobs = {}
     mp = MergePipe(ws, block_size=block_size, device=device)
@@ -818,7 +1029,7 @@ def phase_service(root, device, block_size):
               "jobs", "c_expert_hat_union", "c_expert_hat_sum",
               "sharing_factor", "shared_budget_b", "pool_respected")},
           "io": seen["io"], "per_job_expert_hat_sum": per_job,
-          "launches": launches})
+          "launches": launches, "ties_routes": routes})
     return launches
 
 
@@ -1062,22 +1273,25 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="smoke-ws-", dir=os.path.join(HERE, "build"))
     try:
-        phase_parity(root, device, args.seed, args.block_size)
+        pair = phase_parity(root, device, args.seed, args.block_size)
         launches, merged = phase_merge(root, device, args.seed,
                                        args.block_size, args.layers)
         service = phase_service(root, device, args.block_size)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    # each kernel's launches over the paths that run it
-    launches = {n: launches[n] + service[n] for n in launches}
+    # each kernel's launches over the paths that run it: the merge, the
+    # service, and the parity phase's TIES merge at 2 MiB blocks (the
+    # pair route)
+    launches = {n: launches[n] + service[n] + pair[n] for n in launches}
     launches.update(phase_serve(device, args.seed, args.layers, merged))
     keys = ("name", "kernel", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "copy_ms")
-    # one row per kernel of the main path: the threshold at the largest
-    # group, the sketch at ANALYZE's launch, flash attention at the
-    # prefill shape through the tensor-core kernel (the serve phase checked
-    # that every bf16 prefill launch took that route)
+    # one row per kernel of the main path: the fused TIES kernel and the
+    # threshold at the largest group, the sketch at ANALYZE's launch,
+    # flash attention at the prefill shape through the tensor-core kernel
+    # (the serve phase checked that every bf16 prefill launch took that
+    # route)
     firsts = {}
     for r in rows:
         if r.get("fa_route", "tc") == "tc":

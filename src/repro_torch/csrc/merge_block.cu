@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels for MergePipe's blockwise merge
 // operators: AVG / TA (linear), TIES and DARE; the TIES trim threshold
-// (a radix select, design note above ties_threshold_kernel); and the
-// ANALYZE sketch (per-block Σx², max|x|, Σx), whose design note is above
-// sketch_kernel.
+// (a radix select, design note above ties_threshold_kernel); the whole
+// TIES merge in one thread-block-cluster launch (design note above
+// ties_fused_kernel); and the ANALYZE sketch (per-block Σx², max|x|, Σx),
+// whose design note is above sketch_kernel.
 //
 // Shapes (the executor's batched layout, all row-major and contiguous):
 //   x0     (NB, W)     float32   base blocks
@@ -48,8 +49,14 @@
 // Pallas kernels compute the same functions with other rounding, within
 // 1e-5.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
 
 namespace {
 
@@ -437,6 +444,465 @@ ties_threshold_kernel(const float* __restrict__ D, float* __restrict__ out,
   if (tid == 0) out[blockIdx.x] = __uint_as_float(prefix);
 }
 
+// ------------------------------------------------------------ FUSED TIES
+// Replaces repro/kernels/merge_block.py::_ties_kernel (ties_merge_pallas)
+// together with the threshold the JAX package leaves to an XLA sort
+// (repro/kernels/ref.py:19, `ties_thresholds`): the whole TIES merge of
+// x0 (NB, W) and D (NB, K, W) in one launch, bit for bit what
+// ties_threshold_kernel followed by ties_kernel computes (and so the numpy
+// operator, core/operators.py:174-199).
+//
+// What bounds it: HBM bytes, (2 NB W + NB K W) * 4: at the merge's median
+// launch (5, 3, 65,536) 6.6 MB, 2.0 us at 3.35 TB/s.  The pair it
+// replaces reads D from HBM once and three more times from L2 for the
+// threshold, twice more for the apply, and launches twice; at that launch
+// the threshold runs 15 CTAs on 132 SMs.
+//
+// Design: one thread block cluster per block b, C CTAs along W (C =
+// ceil(W / kMinSlice) clamped to [1, 16]; 16 at W = 65,536, a non-portable
+// cluster size).  CTA c owns the slice [c S, c S + S) of every row, S =
+// ceil(W / C) rounded up to 4 elements, and stages the slices of the K
+// rows into dynamic shared memory with one read of HBM: 1-D bulk copies
+// (cp.async.bulk, one mbarrier per row, so the first radix pass
+// histograms row 0 while the later rows land) when W % 4 == 0 and x0, D
+// and out are 16-byte aligned; plain loads otherwise (a ragged W, a
+// storage offset).  At K = 4, W = 65,536: 64 KiB of rows and 5 KiB of
+// histograms, three 384-thread CTAs an SM.
+//
+// The trim threshold is the radix select of ties_threshold_kernel on the
+// bits of |x| (sign cleared as an integer: NaN keeps its payload and sorts
+// above +inf), run for the K rows at once from shared memory, with digits
+// aligned to the float's fields: the exponent (bits 30..23, where the
+// sign bit of |x| is always 0), then bits 22..15, 14..7 and 7..0 (bit 7
+// twice: the prefix already fixes it, so it lands in one bin).  The
+// exponent digit spreads a delta row's magnitudes over more bins than the
+// top byte does, which eases same-bin atomics in the first pass.  Each
+// pass: every CTA histograms its slices into K local 256-bin histograms
+// (one atomic a candidate, or one for a warp whose 128 keys share a bin:
+// all-zero rows, runs of equal values), adds the non-zero bins through
+// distributed shared memory into the cluster's histograms of that pass,
+// whose 8-bin groups are spread over the CTAs (group_owner), and meets the
+// cluster barrier; then every CTA scans the K cluster histograms itself
+// (one warp a row, each lane reading its 8 bins from their owner as two
+// 16-byte words) and narrows its K prefixes.  One set of cluster
+// histograms per pass, so no set is reset while another CTA may read it.
+// A last cluster arrive after the fourth scan, waited for at the very end,
+// keeps every CTA's shared memory alive until the others have read it.
+// Summing at one leader CTA instead was several times slower on the H100:
+// sixteen CTAs' scans all read one SM's shared memory.
+//
+// The apply then runs from the staged slices as ties_kernel does, with x0
+// read from HBM: the election and the sign-matched sum in registers, the
+// mean and x0 + lam mean in float64 rounded once to float32, one HBM write
+// of out.  A count that is a power of two divides by multiplying with its
+// reciprocal (exact); other counts keep __ddiv_rn.  keep >= W skips the
+// select: the threshold is -inf.
+//
+// What it gives up: each pass pays a cluster barrier and a round of
+// distributed shared memory, about as much as its histogram; the load
+// and the passes of one CTA do not overlap (the SM's other CTAs cover
+// that); a launch of more clusters than the card holds at once runs in
+// waves (chip_smoke.py prints how many it holds), and the pair is then
+// faster: ties_route in kernels/merge_block.py sends it launches of up to
+// 60 rows whose slices fit in 227 KB (it mirrors fused_plan below;
+// chip_smoke.py times both routes on each side of that line).
+namespace cg = cooperative_groups;
+
+constexpr int kFusedThreads = 384;  // three CTAs an SM (<= 56 registers)
+constexpr int kFusedWarps = kFusedThreads / 32;
+constexpr int kMaxCluster = 16;
+constexpr long long kMinSlice = 2048;
+constexpr size_t kSmemLimit = 232448;  // dynamic shared memory a CTA may use
+
+// Byte offsets of the fused kernel's dynamic shared memory, for K rows of
+// S staged elements in a cluster of C CTAs: K delta slices, K local
+// 256-bin histograms, this CTA's share of the cluster histograms (4 passes
+// x K rows x at most ceil(32 / C) groups of 8 bins, group_owner), K
+// prefixes, K remaining ranks, K thresholds, K mbarriers.
+struct FusedLayout {
+  size_t hist, ghist, prefix, krem, thr, bars, total;
+  __host__ __device__ FusedLayout(int k, long long s, int c) {
+    hist = static_cast<size_t>(k) * s * 4;
+    ghist = hist + static_cast<size_t>(k) * 256 * 4;
+    prefix = ghist + static_cast<size_t>(4 * k) * groups_per_cta(c) * 8 * 4;
+    krem = prefix + static_cast<size_t>(k) * 4;
+    thr = krem + static_cast<size_t>(k) * 4;
+    bars = (thr + static_cast<size_t>(k) * 4 + 7) / 8 * 8;
+    total = bars + static_cast<size_t>(k) * 8;
+  }
+  // the most 8-bin groups of a row one CTA owns
+  __host__ __device__ static int groups_per_cta(int c) { return (32 + c - 1) / c; }
+};
+
+// The cluster-wide count of 8-bin group g (0..31) of every row lives at
+// CTA group_owner(g, C), as its group g - group_first(owner, C): the
+// groups are spread evenly over the cluster, so the histogram sums and
+// the scans' reads reach every CTA's shared memory rather than one.
+__device__ __forceinline__ int group_owner(int g, int C) { return (g * C) >> 5; }
+__device__ __forceinline__ int group_first(int c, int C) { return (32 * c + C - 1) / C; }
+
+struct FusedPlan {
+  int cluster;
+  long long slice;
+  size_t smem;
+};
+
+FusedPlan fused_plan(int k, long long w) {
+  long long c = (w + kMinSlice - 1) / kMinSlice;
+  c = c < 1 ? 1 : (c > kMaxCluster ? kMaxCluster : c);
+  long long s = (w + c - 1) / c;
+  s = (s + 3) / 4 * 4;
+  return {static_cast<int>(c), s, FusedLayout(k, s, static_cast<int>(c)).total};
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// 1-D bulk copy global -> this CTA's shared memory; completes `bytes` of
+// the mbarrier's transaction count.  16-byte aligned, size % 16 == 0.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar)) : "memory");
+}
+
+// Histogram 4 keys a lane (256: not a candidate) into h; every lane of the
+// warp calls it together.  A warp whose 128 keys are one bin (an all-zero
+// row, runs of equal values) adds 128 with one atomic; otherwise one
+// atomic a candidate.
+__device__ __forceinline__ void hist_add4(unsigned* h, const unsigned (&key)[4]) {
+  const unsigned k0 = __shfl_sync(0xffffffffu, key[0], 0);
+  const bool same = key[0] == k0 && key[1] == k0 && key[2] == k0 && key[3] == k0;
+  if (__all_sync(0xffffffffu, same)) {
+    if (k0 < 256u && threadIdx.x % 32 == 0) atomicAdd(&h[k0], 128u);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (key[e] < 256u) atomicAdd(&h[key[e]], 1u);
+  }
+}
+
+// TIES apply for V consecutive staged elements at column i, given their
+// base values xv.
+template <int V>
+__device__ __forceinline__ void ties_apply_staged(const float* sD, long long S,
+                                                  int K, const float* thr,
+                                                  int i, double lam,
+                                                  const float (&xv)[V],
+                                                  float (&o)[V]) {
+  float el[V], t[V];
+  for (int k = 0; k < K; ++k) {
+    load_f<V>(sD + k * S + i, t);
+    const float th = thr[k];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float dt = fabsf(t[e]) >= th ? t[e] : 0.0f;
+      el[e] = k == 0 ? dt : __fadd_rn(el[e], dt);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) el[e] = sgn(el[e]);
+  float num[V];
+  int cnt[V];
+  for (int k = 0; k < K; ++k) {
+    load_f<V>(sD + k * S + i, t);
+    const float th = thr[k];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const bool keep = fabsf(t[e]) >= th;
+      const float dt = keep ? t[e] : 0.0f;
+      const bool agree = keep && el[e] != 0.0f && sgn(dt) == el[e];
+      const float a = agree ? dt : 0.0f;
+      num[e] = k == 0 ? a : __fadd_rn(num[e], a);
+      cnt[e] = (k == 0 ? 0 : cnt[e]) + (agree ? 1 : 0);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const double nd = static_cast<double>(num[e]);
+    const int c = cnt[e] > 1 ? cnt[e] : 1;
+    // 1 / 2^j is the double with exponent field 1023 - j: exact
+    const double mean =
+        (c & (c - 1)) == 0
+            ? __dmul_rn(nd, __longlong_as_double(
+                                static_cast<long long>(1023 - (__ffs(c) - 1)) << 52))
+            : __ddiv_rn(nd, static_cast<double>(c));
+    o[e] = __double2float_rn(
+        __dadd_rn(static_cast<double>(xv[e]), __dmul_rn(lam, mean)));
+  }
+}
+
+template <bool kBulk>
+__global__ void __launch_bounds__(kFusedThreads, 3)
+ties_fused_kernel(const float* __restrict__ x0, const float* __restrict__ D,
+                  float* __restrict__ out, float* __restrict__ thresh,
+                  int K, int64_t W, long long S, unsigned keep, double lam) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(gridDim.x);  // the cluster spans grid.x
+  const FusedLayout L(K, S, C);
+  float* sD = reinterpret_cast<float*>(smem);  // K row slices
+  unsigned* hist = reinterpret_cast<unsigned*>(smem + L.hist);
+  unsigned* ghist = reinterpret_cast<unsigned*>(smem + L.ghist);
+  unsigned* s_prefix = reinterpret_cast<unsigned*>(smem + L.prefix);
+  unsigned* s_krem = reinterpret_cast<unsigned*>(smem + L.krem);
+  float* s_thr = reinterpret_cast<float*>(smem + L.thr);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  const int G8 = FusedLayout::groups_per_cta(C) * 8;  // owned bins a row
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int64_t b = blockIdx.y;
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * S;
+  const int64_t left = W - w0;
+  const int n = static_cast<int>(left < 0 ? 0 : (left < S ? left : S));
+  const bool select = keep < W;
+
+  for (int i = tid; i < K * 256; i += kFusedThreads) hist[i] = 0;
+  if (select)
+    for (int i = tid; i < 4 * K * G8; i += kFusedThreads) ghist[i] = 0;
+  for (int k = tid; k < K; k += kFusedThreads) {
+    s_prefix[k] = 0;
+    s_krem[k] = keep;
+  }
+  const float* drow = D + b * K * W + w0;
+  if constexpr (kBulk) {
+    if (tid == 0) {
+      for (int k = 0; k < K; ++k) mbar_init(bars + k, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+      const uint32_t bytes = static_cast<uint32_t>(n) * 4;
+      for (int k = 0; k < K; ++k) {
+        mbar_expect_tx(bars + k, bytes);
+        if (bytes) bulk_g2s(sD + k * S, drow + k * W, bytes, bars + k);
+      }
+    }
+  } else {
+    for (int k = 0; k < K; ++k)
+      for (int i = tid; i < n; i += kFusedThreads) sD[k * S + i] = drow[k * W + i];
+  }
+
+  if (select) {
+    cluster.sync();  // every CTA runs; every share of the histograms is zero
+    const int n4 = n / 4, tail = n % 4;
+    uint32_t pmask = 0;
+    for (int pass = 0; pass < 4; ++pass) {
+      const int shift = pass == 0 ? 23 : pass == 1 ? 15 : pass == 2 ? 7 : 0;
+      for (int k = 0; k < K; ++k) {
+        if constexpr (kBulk) {
+          if (pass == 0) mbar_wait(bars + k, 0);
+        }
+        const uint32_t pre = s_prefix[k];
+        unsigned* h = hist + k * 256;
+        const float4* row = reinterpret_cast<const float4*>(sD + k * S);
+        // a CTA-uniform trip count: every lane reaches each warp vote
+        for (int base = 0; base < n4; base += kFusedThreads) {
+          const int i = base + tid;
+          const bool in = i < n4;
+          const float4 x = in ? row[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+          const uint32_t u[4] = {abs_bits(x.x), abs_bits(x.y), abs_bits(x.z),
+                                 abs_bits(x.w)};
+          unsigned key[4];
+          bool any = false;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool c = in && (u[e] & pmask) == pre;
+            key[e] = c ? (u[e] >> shift) & 0xFFu : 256u;
+            any |= c;
+          }
+          if (__any_sync(0xffffffffu, any)) hist_add4(h, key);
+        }
+        if (tail != 0 && warp == 0) {  // the slice's last n % 4, one a lane
+          const bool in = lane < tail;
+          const uint32_t u = in ? abs_bits(sD[k * S + 4 * n4 + lane]) : 0u;
+          hist_add(h, u, in && (u & pmask) == pre, shift);
+        }
+      }
+      __syncthreads();
+      // this pass's histograms summed at their owners through distributed
+      // shared memory; the local bins are zeroed for the next pass
+      unsigned* gpass = ghist + pass * K * G8;
+      for (int i = tid; i < K * 256; i += kFusedThreads) {
+        const unsigned v = hist[i];
+        if (v) {
+          const int k = i / 256, g = i % 256 / 8, c = group_owner(g, C);
+          atomicAdd(cluster.map_shared_rank(gpass, c) + k * G8 +
+                        (g - group_first(c, C)) * 8 + i % 8,
+                    v);
+          hist[i] = 0;
+        }
+      }
+      cluster.sync();
+      for (int k = warp; k < K; k += kFusedWarps) {
+        // lane l owns bins 255 - 8l down to 248 - 8l (group 31 - l, read
+        // from its owner as two 16-byte words); an inclusive scan of the
+        // lanes' sums counts the candidates above each lane's bins
+        const int grp = 31 - lane, c = group_owner(grp, C);
+        const uint4* g = reinterpret_cast<const uint4*>(
+            cluster.map_shared_rank(gpass, c) + k * G8 + (grp - group_first(c, C)) * 8);
+        const uint4 lo = g[0], hi = g[1];
+        const unsigned cnt[8] = {hi.w, hi.z, hi.y, hi.x, lo.w, lo.z, lo.y, lo.x};
+        const unsigned krem = s_krem[k];
+        unsigned local = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) local += cnt[j];
+        unsigned incl = local;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const unsigned v = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += v;
+        }
+        const unsigned excl = incl - local;
+        if (excl < krem && krem <= incl) {  // exactly one lane
+          unsigned run = excl;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (run + cnt[j] >= krem) {
+              s_prefix[k] |= (255u - 8u * lane - j) << shift;
+              s_krem[k] = krem - run;
+              break;
+            }
+            run += cnt[j];
+          }
+        }
+      }
+      pmask |= 0xFFu << shift;
+      __syncthreads();
+    }
+    // every remote read of this cluster's histograms is done
+    asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+  }
+
+  for (int k = tid; k < K; k += kFusedThreads)
+    s_thr[k] = __uint_as_float(select ? s_prefix[k] : 0xFF800000u);  // -inf
+  if constexpr (kBulk) {
+    for (int k = 0; k < K; ++k) mbar_wait(bars + k, 0);
+  }
+  __syncthreads();
+  if (thresh != nullptr && blockIdx.x == 0)
+    for (int k = tid; k < K; k += kFusedThreads) thresh[b * K + k] = s_thr[k];
+
+  const float* xrow = x0 + b * W + w0;
+  float* orow = out + b * W + w0;
+  const int n4 = n / 4;
+  for (int i = tid; i < n4; i += kFusedThreads) {
+    float xv[4], o[4];
+    if constexpr (kBulk) {
+      load_f<4>(xrow + 4 * i, xv);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xv[e] = xrow[4 * i + e];
+    }
+    ties_apply_staged<4>(sD, S, K, s_thr, 4 * i, lam, xv, o);
+    if constexpr (kBulk) {
+      store_f<4>(orow + 4 * i, o);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) orow[4 * i + e] = o[e];
+    }
+  }
+  for (int i = 4 * n4 + tid; i < n; i += kFusedThreads) {
+    float xv[1] = {xrow[i]}, o[1];
+    ties_apply_staged<1>(sD, S, K, s_thr, i, lam, xv, o);
+    orow[i] = o[0];
+  }
+  if (select) asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// The launch configuration of a plan: grid (C, NB), clusters of C CTAs.
+cudaLaunchConfig_t fused_launch_config(const FusedPlan& p, int nb,
+                                       cudaStream_t s,
+                                       cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(static_cast<unsigned>(p.cluster), static_cast<unsigned>(nb));
+  cfg.blockDim = dim3(kFusedThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(p.cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of plan p the current device holds at once (0: it
+// cannot place one, and a launch would be refused).  The kernel's
+// attributes are set and the answer is kept per (device, cluster size,
+// shared memory): the query costs far more host time than a launch.
+template <bool kBulk>
+cudaError_t fused_clusters(const FusedPlan& p, int* clusters) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, size_t>, std::pair<cudaError_t, int>> seen;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const auto key = std::make_tuple(dev, p.cluster, p.smem);
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = seen.find(key);
+  if (it == seen.end()) {
+    e = cudaFuncSetAttribute(ties_fused_kernel<kBulk>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemLimit));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ties_fused_kernel<kBulk>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    int n = 0;
+    if (e == cudaSuccess) {
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg = fused_launch_config(p, 1, nullptr, &attr);
+      e = cudaOccupancyMaxActiveClusters(&n, ties_fused_kernel<kBulk>, &cfg);
+    }
+    it = seen.emplace(key, std::make_pair(e, n)).first;
+  }
+  *clusters = it->second.second;
+  return it->second.first;
+}
+
+template <bool kBulk>
+int launch_fused(const float* x, const float* d, float* o, float* t, int nb,
+                 int k, long long w, unsigned keep, double lam,
+                 cudaStream_t s) {
+  const FusedPlan p = fused_plan(k, w);
+  if (p.smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  int clusters = 0;
+  cudaError_t e = fused_clusters<kBulk>(p, &clusters);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = fused_launch_config(p, nb, s, &attr);
+  e = cudaLaunchKernelEx(&cfg, ties_fused_kernel<kBulk>, x, d, o, t, k,
+                         static_cast<int64_t>(w), p.slice, keep, lam);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned(const void* p, uintptr_t a) {
   return (reinterpret_cast<uintptr_t>(p) % a) == 0;
 }
@@ -507,6 +973,45 @@ int mb_ties_threshold(const void* D, void* out, int rows, long long w,
       static_cast<const float*>(D), static_cast<float*>(out), w,
       static_cast<unsigned>(keep));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The whole TIES merge in one cluster launch (design note above
+// ties_fused_kernel).  thresh may be null; otherwise it receives the
+// (NB, K) trim thresholds.  keep in [1, W] (keep == W: every entry kept).
+// Returns cudaErrorInvalidValue where the slices do not fit shared memory
+// (ties_route's "pair" shapes) and cudaErrorLaunchOutOfResources where the
+// card cannot place one cluster.
+int mb_ties_fused(const void* x0, const void* D, void* out, void* thresh,
+                  int nb, int k, long long w, int keep, double lam,
+                  void* stream) {
+  if (nb <= 0 || k <= 0 || w <= 0 || keep < 1 || keep > w)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const float*>(x0);
+  const auto* d = static_cast<const float*>(D);
+  auto* o = static_cast<float*>(out);
+  auto* t = static_cast<float*>(thresh);
+  const auto kp = static_cast<unsigned>(keep);
+  if (w % 4 == 0 && aligned(x0, 16) && aligned(D, 16) && aligned(out, 16))
+    return launch_fused<true>(x, d, o, t, nb, k, w, kp, lam, s);
+  return launch_fused<false>(x, d, o, t, nb, k, w, kp, lam, s);
+}
+
+// The fused kernel's launch plan for K rows of width W: out[0] cluster
+// size, out[1] elements per CTA slice, out[2] dynamic shared memory bytes,
+// out[3] clusters the card holds at once (bulk-copy variant).
+int mb_ties_fused_plan(int k, long long w, long long* out) {
+  if (k <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const FusedPlan p = fused_plan(k, w);
+  out[0] = p.cluster;
+  out[1] = p.slice;
+  out[2] = static_cast<long long>(p.smem);
+  out[3] = 0;
+  if (p.smem > kSmemLimit) return 0;
+  int clusters = 0;
+  const cudaError_t e = fused_clusters<true>(p, &clusters);
+  out[3] = clusters;
+  return static_cast<int>(e);
 }
 
 int mb_sketch(const void* x, void* out, int nb, long long w, void* stream) {

@@ -22,6 +22,15 @@ The kernels replace the Pallas kernels of the JAX package's
 :func:`ties_thresholds`, the XLA sort that computes the TIES trim
 threshold outside the Pallas kernel (``kernels/ref.py``
 ``ties_thresholds``); the source says what bounds them.
+
+TIES has two routes on the card, chosen by :func:`ties_route` from the
+shape alone: ``"fused"`` (:func:`ties_fused`, one thread-block-cluster
+kernel that trims, elects and applies from slices staged in shared
+memory) where those slices fit a CTA's shared memory and the launch has
+at most :data:`FUSED_MAX_ROWS` rows, and ``"pair"``
+(:func:`ties_thresholds`, then :func:`ties_merge`) otherwise: K or W too
+large to stage, or enough rows that the pair is faster.  Both give the
+same bits.
 """
 from __future__ import annotations
 
@@ -34,7 +43,17 @@ from repro_torch.kernels.build import CudaLibrary
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"linear_merge": 0, "ties_merge": 0, "dare_merge": 0,
-            "sketch_blocks": 0, "ties_threshold": 0}
+            "sketch_blocks": 0, "ties_threshold": 0, "ties_fused": 0}
+#: the fused TIES kernel's launch plan, as ``fused_plan`` in
+#: ``csrc/merge_block.cu``: clusters of up to 16 CTAs along W, at least
+#: 2,048 elements per CTA, within a CTA's 232,448 bytes of shared memory
+FUSED_MAX_CLUSTER = 16
+FUSED_MIN_SLICE = 2048
+SMEM_LIMIT = 232448
+#: the most (block, expert) rows ties_route sends to the fused kernel:
+#: past them the pair was faster on the H100 (chip_smoke.py times both
+#: routes on each side of this limit)
+FUSED_MAX_ROWS = 60
 
 
 def reset_launches() -> None:
@@ -50,8 +69,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mb_dare.argtypes = [p, p, p, p, i, i, ll, f, f, p]
     lib.mb_sketch.argtypes = [p, p, i, ll, p]
     lib.mb_ties_threshold.argtypes = [p, p, i, ll, i, p]
+    lib.mb_ties_fused.argtypes = [p, p, p, p, i, i, ll, i, d, p]
+    lib.mb_ties_fused_plan.argtypes = [i, ll, ctypes.POINTER(ll)]
     for fn in (lib.mb_linear, lib.mb_ties, lib.mb_dare, lib.mb_sketch,
-               lib.mb_ties_threshold):
+               lib.mb_ties_threshold, lib.mb_ties_fused,
+               lib.mb_ties_fused_plan):
         fn.restype = ctypes.c_int
 
 
@@ -149,6 +171,85 @@ def ties_merge(
         _launch("ties_merge", lib.mb_ties, x0.data_ptr(), D.data_ptr(),
                 thresh.data_ptr(), out.data_ptr(), nb, k, w, lam)
     return out
+
+
+def ties_fused_plan(k: int, w: int) -> dict:
+    """The fused kernel's launch for K rows of width W: ``cluster`` CTAs
+    per block, ``slice`` elements of each row per CTA (a multiple of 4)
+    and ``smem`` bytes of dynamic shared memory per CTA (K delta slices,
+    K local 256-bin histograms, the CTA's share of 4 passes' cluster
+    histograms, per-row prefixes, ranks and thresholds, K mbarriers)."""
+    cluster = max(1, min(FUSED_MAX_CLUSTER, -(-w // FUSED_MIN_SLICE)))
+    sl = -(-w // cluster)
+    sl = -(-sl // 4) * 4
+    groups = -(-32 // cluster)  # 8-bin groups of a row one CTA owns
+    smem = 4 * k * sl + 1024 * k + 4 * k * groups * 8 * 4
+    smem += -(-12 * k // 8) * 8 + 8 * k
+    return {"cluster": cluster, "slice": sl, "smem": smem}
+
+
+def ties_fused_fits(k: int, w: int) -> bool:
+    """Whether the fused kernel can stage K rows of width W (K <= 13 at
+    the merge path's W = 65,536)."""
+    return ties_fused_plan(k, w)["smem"] <= SMEM_LIMIT
+
+
+def ties_route(nb: int, k: int, w: int) -> str:
+    """``"fused"`` where the fused kernel fits (:func:`ties_fused_fits`)
+    and the launch has at most :data:`FUSED_MAX_ROWS` (block, expert)
+    rows, else ``"pair"`` (threshold kernel, then apply kernel).  The
+    shape alone decides: a failure of either route raises, and neither
+    stands in for the other."""
+    if nb < 1 or k < 1 or w < 1:
+        raise ValueError(f"ties_route: unsupported shape {(nb, k, w)}")
+    fused = ties_fused_fits(k, w) and nb * k <= FUSED_MAX_ROWS
+    return "fused" if fused else "pair"
+
+
+def ties_fused_occupancy(k: int, w: int) -> dict:
+    """:func:`ties_fused_plan` on the current card, with ``clusters``:
+    how many of its clusters the card holds at once (0: none fits, and a
+    launch raises).  Builds the library; needs a card."""
+    lib = LIBRARY.load()
+    out = (ctypes.c_longlong * 4)()
+    rc = lib.mb_ties_fused_plan(k, w, out)
+    if rc != 0:
+        raise RuntimeError(f"ties_fused_occupancy: CUDA status {rc}")
+    return {"cluster": out[0], "slice": out[1], "smem": out[2],
+            "clusters": out[3]}
+
+
+def ties_fused(
+    x0: torch.Tensor, D: torch.Tensor, trim_frac: float = 0.2,
+    lam: float = 1.0, thresholds: bool = False,
+):
+    """The whole TIES merge in one kernel: trim each (block, expert) row
+    to its ``keep = ref.ties_keep(trim_frac, W)`` largest |Δ|, elect
+    signs, take the sign-matched mean, out = x0 + λ·mean.  Bit for bit
+    :func:`ties_thresholds` followed by :func:`ties_merge`.  With
+    ``thresholds`` it returns ``(out, thresh)``, thresh the (NB, K) trim
+    thresholds (``-inf`` where every entry is kept).  On the card it
+    takes every shape it can stage (:func:`ties_fused_fits`) and raises
+    on others; :func:`ties_route` says which shapes the merge sends it."""
+    if x0.device.type == "cpu":
+        thresh = ref.ties_thresholds(D, trim_frac)
+        out = ref.ties_apply_ref(x0, D, thresh, lam)
+        return (out, thresh) if thresholds else out
+    _check("ties_fused", x0, D, [])
+    nb, k, w = D.shape
+    if not ties_fused_fits(k, w):
+        raise ValueError(f"ties_fused: {tuple(D.shape)} does not fit the "
+                         f"fused kernel's shared memory")
+    keep = min(ref.ties_keep(trim_frac, w), w)
+    lib = LIBRARY.load()
+    out = torch.empty_like(x0)
+    thresh = (torch.empty((nb, k), dtype=torch.float32, device=D.device)
+              if thresholds else None)
+    with torch.cuda.device(D.device):
+        _launch("ties_fused", lib.mb_ties_fused, x0.data_ptr(), D.data_ptr(),
+                out.data_ptr(), None if thresh is None else thresh.data_ptr(),
+                nb, k, w, keep, lam)
+    return (out, thresh) if thresholds else out
 
 
 def dare_merge(

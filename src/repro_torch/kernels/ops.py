@@ -13,10 +13,15 @@ Inputs are staged to the device as they come: base blocks in their
 storage dtype (bf16 as its raw 16-bit words, half the bytes of float32)
 and upcast there; deltas as float32.  ``out_dtype`` casts the result on
 the device before the copy back, so a bf16 merge returns half the bytes.
-The TIES trim threshold (the keep-th largest |Δ| per row) comes from its
-own kernel on a CUDA device (:func:`.merge_block.ties_thresholds`, a
-radix select), where the JAX package leaves it to an XLA sort outside
-its Pallas kernel; on the CPU from ``torch.kthvalue``.
+TIES takes the route :func:`.merge_block.ties_route` names for the
+group's shape: ``"fused"``, one kernel that finds the trim threshold
+(the keep-th largest |Δ| per row, where the JAX package leaves it to an
+XLA sort outside its Pallas kernel) and applies it
+(:func:`.merge_block.ties_fused`), or ``"pair"`` where the group is too
+large to stage or has more rows than the fused kernel wins at, the
+threshold kernel (:func:`.merge_block.ties_thresholds`, a radix select)
+and then the apply kernel.  On the CPU both routes run the plain
+versions (``torch.kthvalue``).
 
 ``sketch_blocks(x, device=..., widths=None)`` is the counterpart of the
 JAX package's ``kernels/ops.sketch_blocks``: (NB, W) blocks ->
@@ -98,8 +103,11 @@ def merge_blocks(
     elif op == "ta":
         out = mb.linear_merge(x0, D, lam, 1.0)
     elif op == "ties":
-        thresh = mb.ties_thresholds(D, float(theta.get("trim_frac", 0.2)))
-        out = mb.ties_merge(x0, D, thresh, lam)
+        trim = float(theta.get("trim_frac", 0.2))
+        if mb.ties_route(*D.shape) == "fused":
+            out = mb.ties_fused(x0, D, trim, lam)
+        else:
+            out = mb.ties_merge(x0, D, mb.ties_thresholds(D, trim), lam)
     elif op == "dare":
         if masks is None:
             raise ValueError("dare requires masks")

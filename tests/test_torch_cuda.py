@@ -90,9 +90,12 @@ def test_merge_blocks_card_equals_cpu(cuda, op, theta):
     a = ops.merge_blocks(op, x0, D, theta, device="cuda", **kw)
     b = ops.merge_blocks(op, x0, D, theta, device="cpu", **kw)
     np.testing.assert_array_equal(a, b)
-    # TIES: the threshold kernel, then the apply kernel
-    assert sum(tmb.LAUNCHES.values()) == (2 if op == "ties" else 1)
-    assert tmb.LAUNCHES["ties_threshold"] == (op == "ties")
+    # TIES: the fused kernel, or the threshold kernel and then the apply
+    # kernel, as ties_route names
+    fused = tmb.ties_route(6, 3, 1000) == "fused"
+    assert sum(tmb.LAUNCHES.values()) == (1 if op != "ties" or fused else 2)
+    assert tmb.LAUNCHES["ties_threshold"] == (op == "ties" and not fused)
+    assert tmb.LAUNCHES["ties_fused"] == (op == "ties" and fused)
 
 
 def _threshold_rows(w, seed):
@@ -162,12 +165,150 @@ def test_ties_merge_blocks_on_card_equal_numpy_operator(cuda):
     theta = {"trim_frac": 0.3, "lam": 1.0}
     tmb.reset_launches()
     got = ops.merge_blocks("ties", x0, D, theta, device="cuda")
-    assert tmb.LAUNCHES["ties_threshold"] == 1
-    assert tmb.LAUNCHES["ties_merge"] == 1
+    _assert_ties_route(tmb.ties_route(3, 4, 65536))
     for b in range(3):
         want = np.asarray(ties_merge(x0[b], D[b], theta), dtype=np.float32)
         np.testing.assert_array_equal(got[b].view(np.uint32),
                                       want.view(np.uint32))
+
+
+def _assert_ties_route(route):
+    """The launches since reset_launches are one TIES merge by ``route``."""
+    want = ({"ties_fused": 1} if route == "fused"
+            else {"ties_threshold": 1, "ties_merge": 1})
+    assert {k: v for k, v in tmb.LAUNCHES.items() if v} == want
+
+
+@pytest.mark.parametrize("route", ["fused", "pair"])
+def test_ties_merge_blocks_on_card_forced_route(cuda, monkeypatch, route):
+    """Either route forced (by replacing ``ties_route``), the same bits as
+    the numpy operator at the smoke's widths."""
+    from repro_torch.core.operators import ties_merge
+
+    x0, D, _ = _mk(5, 3, 65536, seed=10)
+    theta = {"trim_frac": 0.3, "lam": 0.7}
+    monkeypatch.setattr(tmb, "ties_route", lambda *shape: route)
+    tmb.reset_launches()
+    got = ops.merge_blocks("ties", x0, D, theta, device="cuda")
+    _assert_ties_route(route)
+    for b in range(5):
+        want = np.asarray(ties_merge(x0[b], D[b], theta), dtype=np.float32)
+        np.testing.assert_array_equal(got[b].view(np.uint32),
+                                      want.view(np.uint32))
+
+
+FUSED_SHAPES = [(1, 4, 65536), (5, 3, 65536), (13, 2, 65536), (32, 4, 65536),
+                (3, 1, 1001), (7, 5, 257)]
+
+
+def _on_card(a, cuda, offset):
+    """``a`` on the card, ``offset`` float32 elements into its storage (a
+    contiguous view off the 16-byte grid when offset is 1)."""
+    buf = torch.zeros(a.size + offset, device=cuda)
+    t = buf[offset:].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    return t
+
+
+def _fused_inputs(nb, k, w, seed):
+    """x0 and D with an all-zero row and a row of one repeated value."""
+    x0, D, _ = _mk(nb, k, w, seed=seed)
+    D[0, 0] = 0.0
+    if k > 1:
+        D[-1, 1] = 0.25
+    return x0, D
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("trim", [0.0, 0.3, 0.999, 1.0])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ties_fused_kernel_matches_plain_and_numpy(cuda, shape, trim, offset):
+    """The fused kernel bit for bit against its plain version
+    (ref.ties_ref: torch.kthvalue thresholds, then the apply) and the
+    numpy operator, its thresholds bit for bit against torch.kthvalue;
+    ``offset`` 1 puts every operand off the 16-byte grid (the kernel's
+    plain-load staging)."""
+    from repro_torch.core.operators import ties_merge
+
+    nb, k, w = shape
+    x0, D = _fused_inputs(nb, k, w, seed=w + k)
+    x0c, Dc = _on_card(x0, cuda, offset), _on_card(D, cuda, offset)
+    tmb.reset_launches()
+    got, thresh = tmb.ties_fused(x0c, Dc, trim, 0.9, thresholds=True)
+    assert tmb.LAUNCHES["ties_fused"] == 1
+    want_t = tref.ties_thresholds(Dc, trim)
+    want = tref.ties_apply_ref(x0c, Dc, want_t, 0.9)
+    torch.cuda.synchronize()
+    assert thresh.shape == (nb, k) and got.shape == (nb, w)
+    assert torch.equal(thresh.view(torch.int32), want_t.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    theta = {"trim_frac": trim, "lam": 0.9}
+    out = got.cpu().numpy()
+    for b in range(nb):
+        np_b = np.asarray(ties_merge(x0[b], D[b], theta), dtype=np.float32)
+        np.testing.assert_array_equal(out[b].view(np.uint32),
+                                      np_b.view(np.uint32))
+
+
+@pytest.mark.parametrize("trim", [0.0, 0.3, 1.0])
+def test_ties_fused_kernel_nan_row(cuda, trim):
+    """A NaN delta (ROADMAP, known differences): never kept by the
+    kernel or its plain version; a NaN threshold (keep = 1, NaN sorts
+    above +inf) keeps nothing of its row; the kernel keeps the NaN's
+    payload in the threshold where torch.kthvalue returns 0x7FFFFFFF.
+    The numpy operator agrees except at keep >= W, where it keeps the
+    NaN: the elected sign of its column is NaN, nothing agrees, and the
+    element stays x0."""
+    from repro_torch.core.operators import ties_merge
+
+    nb, k, w = 2, 3, 65536
+    x0, D = _fused_inputs(nb, k, w, seed=5)
+    D[1, 2, w // 3] = np.nan
+    x0c, Dc = torch.from_numpy(x0).to(cuda), torch.from_numpy(D).to(cuda)
+    got, thresh = tmb.ties_fused(x0c, Dc, trim, 1.0, thresholds=True)
+    want_t = tref.ties_thresholds(Dc, trim)
+    want = tref.ties_apply_ref(x0c, Dc, want_t, 1.0)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want_t)
+    assert torch.equal(torch.isnan(thresh), nan)
+    assert torch.equal(thresh.view(torch.int32)[~nan],
+                       want_t.view(torch.int32)[~nan])
+    assert bool(nan[1, 2]) == (tref.ties_keep(trim, w) == 1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not torch.isnan(got).any()
+    np_b = np.asarray(ties_merge(x0[1], D[1], {"trim_frac": trim}),
+                      dtype=np.float32)
+    same = np.ones(w, dtype=bool)
+    if tref.ties_keep(trim, w) >= w:
+        assert np_b[w // 3] == x0[1, w // 3]
+        same[w // 3] = False
+    np.testing.assert_array_equal(got[1].cpu().numpy()[same].view(np.uint32),
+                                  np_b[same].view(np.uint32))
+
+
+def test_ties_fused_wrapper_refuses(cuda):
+    x0, D, _ = _mk(2, 3, 100)
+    x0c, Dc = torch.from_numpy(x0).to(cuda), torch.from_numpy(D).to(cuda)
+    with pytest.raises(ValueError):
+        tmb.ties_fused(x0c, Dc.cpu(), 0.3)                # D on the CPU
+    with pytest.raises(ValueError):
+        tmb.ties_fused(x0c.double(), Dc, 0.3)             # dtype
+    with pytest.raises(ValueError):
+        tmb.ties_fused(x0c[:, ::2], Dc[:, :, ::2], 0.3)   # not contiguous
+    with pytest.raises(ValueError):
+        tmb.ties_fused(x0c, Dc[0], 0.3)                   # not (NB, K, W)
+    big = torch.zeros((1, 14, 65536), device=cuda)        # does not fit
+    with pytest.raises(ValueError):
+        tmb.ties_fused(torch.zeros((1, 65536), device=cuda), big, 0.3)
+
+
+def test_ties_fused_occupancy_places_a_cluster(cuda):
+    """Every shape of the fused route gets a cluster the card can place."""
+    for nb, k, w in FUSED_SHAPES:
+        plan = tmb.ties_fused_occupancy(k, w)
+        assert plan["clusters"] >= 1
+        assert plan == {**tmb.ties_fused_plan(k, w),
+                        "clusters": plan["clusters"]}
 
 
 @pytest.mark.parametrize("op,theta", OPS)
@@ -307,7 +448,8 @@ def test_session_graph_on_card_matches_cpu(cuda, tmp_path):
             if device == "cuda":
                 assert tmb.LAUNCHES["sketch_blocks"] > 0
                 assert tmb.LAUNCHES["linear_merge"] > 0
-                assert tmb.LAUNCHES["ties_merge"] > 0
+                # TIES by either route (merge_block.ties_route)
+                assert tmb.LAUNCHES["ties_fused"] + tmb.LAUNCHES["ties_merge"] > 0
             else:
                 assert sum(tmb.LAUNCHES.values()) == 0
             assert sess.verify(res.sid)

@@ -35,6 +35,10 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    tools = os.path.join(ROOT, "tools")
+    for f in sorted(os.listdir(tools)):
+        if f.endswith(".py"):
+            yield os.path.join(tools, f)
 
 
 def _imported_roots(path):

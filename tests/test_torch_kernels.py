@@ -77,6 +77,80 @@ def test_ties_plain_matches_jax(shape, k, trim, dtype):
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("shape", SHAPES[:3])
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("trim", [0.1, 0.5, 1.0])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ties_fused_plain_matches_jax(shape, k, trim, dtype):
+    """The fused TIES wrapper's CPU path (the plain threshold and apply)
+    against the JAX package's jitted threshold + apply and, in float32,
+    its Pallas kernel in interpret mode; its thresholds bit for bit."""
+    nb, w = shape
+    x0, D = _mk(nb, k, w, dtype, seed=k + 7)
+    got, thresh = tmb.ties_fused(_t(x0), _t(D), trim, 0.9, thresholds=True)
+    jthresh = jops._ties_thresh_jit(jnp.asarray(D), trim)
+    np.testing.assert_array_equal(thresh.numpy().view(np.uint32),
+                                  np.asarray(jthresh).view(np.uint32))
+    want = jops._ties_apply_jit(jnp.asarray(x0), jnp.asarray(D), jthresh, 0.9)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if dtype == "float32":
+        pallas = _pallas_padded(jmb.ties_merge_pallas, jnp.asarray(x0),
+                                jnp.asarray(D), jthresh, lam=0.9)
+        np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+    # without thresholds: the merged blocks alone, the same bits
+    np.testing.assert_array_equal(
+        tmb.ties_fused(_t(x0), _t(D), trim, 0.9).numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("nb,k,w,route", [
+    (5, 3, 65536, "fused"),     # the smoke's median launch (128 KiB blocks)
+    (1, 4, 65536, "fused"),     # its most common launch
+    (13, 2, 65536, "fused"),
+    (46, 1, 65536, "fused"),    # its most rows in one launch
+    (4, 5, 65536, "fused"),     # K = 5
+    (15, 4, 65536, "fused"),    # FUSED_MAX_ROWS rows
+    (16, 4, 65536, "pair"),     # more rows: the pair is faster
+    (32, 4, 65536, "pair"),
+    (1, 13, 65536, "fused"),    # the most rows a CTA stages at W = 65,536
+    (1, 14, 65536, "pair"),     # K too large to stage
+    (3, 1, 1001, "fused"),      # a ragged tail block
+    (7, 5, 257, "fused"),
+    (2, 2, 524288, "pair"),     # 2 MiB float32 blocks: W too large
+])
+def test_ties_route(nb, k, w, route):
+    assert tmb.ties_route(nb, k, w) == route
+    plan = tmb.ties_fused_plan(k, w)
+    fits = plan["smem"] <= tmb.SMEM_LIMIT
+    assert tmb.ties_fused_fits(k, w) == fits
+    assert (route == "fused") == (fits and nb * k <= tmb.FUSED_MAX_ROWS)
+    assert 1 <= plan["cluster"] <= tmb.FUSED_MAX_CLUSTER
+    assert plan["slice"] % 4 == 0 and plan["slice"] * plan["cluster"] >= w
+
+
+def test_ties_route_refuses_empty_shapes():
+    with pytest.raises(ValueError):
+        tmb.ties_route(0, 4, 65536)
+
+
+@pytest.mark.parametrize("route", ["fused", "pair"])
+@pytest.mark.parametrize("nb,k,w", [(3, 4, 1000), (2, 1, 257), (4, 5, 64)])
+def test_merge_blocks_ties_routes_equal_numpy_operator(monkeypatch, route,
+                                                       nb, k, w):
+    """merge_blocks("ties", device="cpu") through either route (the route
+    forced by replacing ``ties_route``) equals the numpy operator bit for
+    bit, block by block."""
+    from repro_torch.kernels import ops as tops
+
+    x0, D = _mk(nb, k, w, "float32", seed=w)
+    theta = {"trim_frac": 0.3, "lam": 0.8}
+    monkeypatch.setattr(tmb, "ties_route", lambda *shape: route)
+    got = tops.merge_blocks("ties", x0, D, theta, device="cpu")
+    for b in range(nb):
+        want = ties_merge(x0[b], D[b], theta).astype(np.float32)
+        np.testing.assert_array_equal(got[b].view(np.uint32),
+                                      want.view(np.uint32))
+
+
 @pytest.mark.parametrize("trim,w", [
     (1.0, 64),     # keep >= W: -inf, every entry kept
     (0.0, 64),     # keep floors at 1
