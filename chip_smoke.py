@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's merge, service and serve paths once on
-one NVIDIA card.
+"""Drive the PyTorch/CUDA port's merge, service, serve and training paths
+once on one NVIDIA card.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 2 without
 
@@ -41,10 +41,15 @@ Phases, one JSON line each:
            route with window 512 and at Sq = Sk = 256 and 1,000, the FMA
            route in float32 with window 512, and a decode-style (1, 1,
            2048, ...) with q_offset 2047 (tolerance 2e-5 float32, 2e-2
-           bf16): max abs error, median CUDA-event times of kernel, plain
-           version, a device copy of the same bytes (merge, threshold
-           and sketch kernels) and one PyTorch library call where one
-           computes the same function, and the bound
+           bf16); the flash backward kernels (dq, dk, dv) against
+           autograd through the plain version at (B, S, H, Hkv, hd) =
+           (2, 1024, 12, 2, 128) bf16 causal, the same with window 256,
+           and float32 hd 8 and 16 (BWD_TOL), two runs bit-equal, SDPA's
+           backward as the library call, and the forward timed with and
+           without its lse output: max abs error, median CUDA-event times
+           of kernel, plain version, a device copy of the same bytes
+           (merge, threshold and sketch kernels) and one PyTorch library
+           call where one computes the same function, and the bound
   parity   one full-width decoder layer: ANALYZE on the card against
            ANALYZE on the CPU into a second catalog (bytes, hashes, sign
            signatures and max|x| equal; l2, l2_delta, mean within rtol
@@ -56,7 +61,9 @@ Phases, one JSON line each:
            blocks, where ties_route sends the large blocks to the pair
            (threshold kernel, then apply kernel) and the small ones to
            the fused kernel: every launch on the route ties_route names,
-           outputs and bytes against the stream engine as above
+           outputs and bytes against the stream engine as above; then a
+           bf16 merge_blocks of every operator with NaN inputs (both
+           signs, payloads) against the numpy operator, bit for bit
   merge    the whole configuration: ANALYZE on the card (sketch kernel),
            then 50% budget, all four operators through MergePipe.merge
            (the v2 Session shim) on the card: ANALYZE's wall, bytes,
@@ -82,6 +89,23 @@ Phases, one JSON line each:
            run: prefill and decode rates, flash-attention launches (every
            one on the tensor-core route), and from torch.profiler the
            kernel's device time, busy time by activity and idle share
+  train    Qwen2-1.5B as published (28 layers, float32 params, bf16
+           compute, remat), batch 4 x
+           1,024 tokens from DataPipeline: the first step's loss and a
+           sample of gradients through the kernels against the same step
+           through the plain attention (TRAIN_TOL), then 1 + 5
+           make_train_step steps: median step ms, tokens/s, MFU and HFU
+           (with remat) at the bf16 peak, peak memory, flash forward and
+           backward launches (two and one a layer a step), and one
+           profiled step's device time by kernel and idle share
+  loop     at the merge depth: two experts (skills 0 and 1) from one
+           seeded base with TrainLoop, checkpoints in a SnapshotStore;
+           expert 0 crashed before step 3 and resumed from its step-2
+           checkpoint, its final TrainState bit-identical to an
+           uninterrupted run (torch.use_deterministic_algorithms); then
+           base and experts in the port's Session on the card: ANALYZE,
+           TIES at a 50% budget; every model's loss on each skill; the
+           merge served by ServeEngine (4 requests)
 
 Then the kernels' contract line, and last {"ok": true, "device": ...}.
 Any failure raises and exits non-zero.  The workspace lives under
@@ -166,6 +190,34 @@ SERVICE_SPEC = {"jobs": [
 # float32 serve parity, kernel against plain version: prefill logits of
 # std ~40 (vocab 151,936, d 1536) with attention sums in another order
 LOGIT_TOL = {"rtol": 1e-4, "atol": 2e-3}
+# (label, (B, S, H, Hkv, hd), dtype, causal, window): the flash backward
+# (q_offset 0) at the training phase's heads, bf16 (the tensor-core
+# forward's lse) and float32 (the FMA forward's lse); the first is the
+# contract line's row
+BWD_CASES = [
+    ("train", (2, 1024, 12, 2, 128), "bfloat16", True, 0),
+    ("train_window", (2, 1024, 12, 2, 128), "bfloat16", True, 256),
+    ("f32_hd8", (1, 512, 4, 2, 8), "float32", True, 0),
+    ("f32_hd16", (1, 512, 4, 2, 16), "float32", True, 0),
+]
+# the backward against autograd through flash_attention_ref: float32 sums
+# in another order; bf16 gradients one bf16 rounding apart (the
+# tensor-core forward rounds P to bf16)
+BWD_TOL = {"bfloat16": {"rtol": 2e-2, "atol": 2e-2},
+           "float32": {"rtol": 1e-4, "atol": 1e-5}}
+# the train phase: Qwen2-1.5B as published (float32 params, bf16
+# compute, remat), batch x seq tokens a step, warm-up steps then timed
+TRAIN = {"batch": 4, "seq": 1024, "warmup": 1, "steps": 5, "lr": 3e-4}
+# the first step through the kernels against the same step through the
+# plain attention: bf16 compute over 28 layers, sums in another order
+TRAIN_TOL = {"loss_rtol": 1e-2, "grad_rel_l2": 5e-2}
+GRAD_SAMPLE = ("embed/embedding", "attn/wq", "attn/bk", "attn/wo", "ln1",
+               "ffn/w_down")
+# the loop phase: two experts from one base, a crash of expert 0 before
+# step CRASH_AT, then ANALYZE, TIES at 50%, and serving the merge
+LOOP = {"batch": 2, "seq": 512, "steps": 4, "ckpt_every": 2, "crash_at": 3,
+        "lr": 1e-3, "eval_batches": 2, "requests": 4, "min_prompt": 64,
+        "max_prompt": 256, "new_tokens": 16}
 
 
 def emit(obj) -> None:
@@ -213,13 +265,17 @@ def populate(mp, layers, k, seed, device, layer_only=False):
 class Timer:
     """Median per-call time: CUDA events on a card (L2 flushed before
     every call, as the merge path meets fresh inputs), else the host
-    clock (rehearsal only — not a device time)."""
+    clock (rehearsal only — not a device time).  The flush writes 1 GiB
+    (~0.3 ms of card time), longer than a wrapper's Python before its
+    launch, so the card reaches the start event after the launch is
+    queued and the events time the kernel, not the host (with 256 MiB,
+    kernels under ~0.1 ms read 30-90 us of host delay)."""
 
     def __init__(self, device):
         import torch
 
         self.cuda = device.type == "cuda"
-        self.flush = (torch.empty(256 << 20, dtype=torch.uint8, device=device)
+        self.flush = (torch.empty(1 << 30, dtype=torch.uint8, device=device)
                       if self.cuda else None)
 
     def __call__(self, fn, reps=25, warm=3):
@@ -317,6 +373,7 @@ def phase_kernels(device, seed, nb=32, k=4, w=65536):
     route_sweep = route_rows(device, seed, timer)
     rows += sketch_rows(device, seed, timer)
     rows += flash_rows(device, seed, timer)
+    rows += flash_bwd_rows(device, seed, timer)
     emit({"phase": "kernels", "tolerance": TOL, "kernels": rows,
           "ties_route_sweep": route_sweep})
     return rows
@@ -590,6 +647,127 @@ def flash_rows(device, seed, timer):
     return rows
 
 
+def kernel_device_ms(fn, pattern, timer, reps=20):
+    """Mean device time (torch.profiler) of the kernels matching
+    ``pattern`` per call of ``fn``, L2 flushed before each call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if timer.flush is not None:
+                timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(t for n, t in device_time_ms(prof).items()
+               if re.search(pattern, n)) / reps
+
+
+def flash_bwd_rows(device, seed, timer):
+    """Flash backward kernels against autograd through the plain version
+    at BWD_CASES: errors of dq, dk, dv, determinism (two runs, equal
+    bits), times of kernel, plain backward and SDPA's backward, the bound,
+    and the forward timed with and without its lse output."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=device).manual_seed(seed + 7)
+    rows = []
+    for label, (b, s, h, hkv, hd), dt, causal, window in BWD_CASES:
+        dtype = getattr(torch, dt)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device=device).to(dtype)
+
+        q, k, v = rand(b, s, h, hd), rand(b, s, hkv, hd), rand(b, s, hkv, hd)
+        do = rand(b, s, h, hd)
+        route = fa._route(dtype, hd)
+        o, lse = fa._forward(q, k, v, causal, window, 0, route, with_lse=True)
+
+        def kern():
+            return fa.backward(do, q, k, v, o, lse, causal, window)
+
+        got, again = kern(), kern()
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref_out = ref.flash_attention_ref(*qkv, causal, window, 0)
+
+        def plain():
+            return torch.autograd.grad(ref_out, qkv, do, retain_graph=True)
+
+        want = plain()
+        torch.cuda.synchronize()
+        tol = BWD_TOL[dt]
+        errs = {}
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            d = (a.float() - w.float()).abs()
+            errs[name] = {
+                "max_abs_err": float(d.max()),
+                "max_rel_err": float((d / w.float().abs().clamp(
+                    min=tol["atol"])).max())}
+            if not torch.allclose(a.float(), w.float(), **tol):
+                raise AssertionError(f"flash backward {label}: {name} "
+                                     f"disagrees: {errs[name]}")
+        view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        if not all(torch.equal(a.view(view), c.view(view))
+                   for a, c in zip(got, again)):
+            raise AssertionError(f"flash backward {label}: two runs differ")
+        # yardstick only: SDPA's backward on the same inputs
+        mask = attention_mask(s, s, causal, window, 0, device)
+        lib_q, lib_k, lib_v = (t.transpose(1, 2).detach().clone()
+                               .requires_grad_() for t in (q, k, v))
+        full_causal = causal and window == 0
+        lib_out = F.scaled_dot_product_attention(
+            lib_q, lib_k, lib_v, attn_mask=None if full_causal else mask,
+            is_causal=full_causal, enable_gqa=True)
+        lib_do = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(lib_out, (lib_q, lib_k, lib_v), lib_do,
+                                       retain_graph=True)
+
+        pairs = int(mask.sum())
+        flops = 10 * hd * pairs * b * h  # the five products
+        el = q.element_size()
+        nbytes = (4 * q.numel() + 4 * k.numel()) * el + lse.numel() * 4
+        bytes_ms = nbytes / PEAK["bytes"] * 1e3
+        ops_ms = flops / PEAK["bf16" if dt == "bfloat16" else "f32"] * 1e3
+        # the forward with and without lse, in turns (null, lse, lse,
+        # null), by the flash kernel's device time
+        fwd = {"lse_null": [], "lse": []}
+        for with_lse in (False, True, True, False):
+            fwd["lse" if with_lse else "lse_null"].append(kernel_device_ms(
+                lambda: fa._forward(q, k, v, causal, window, 0, route,
+                                    with_lse=with_lse),
+                r"flash_attention(_tc)?_kernel", timer))
+        rows.append({
+            "name": "flash_attention_bwd", "route": "cuda", "case": label,
+            "kernel": "fa_bwd_preprocess_kernel + fa_bwd_dkdv_kernel + "
+                      "fa_bwd_dq_kernel",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/models/attention.py:92",
+            "replaces_note": "XLA autodiff of the jnp chunked attention; the "
+                             "JAX package has no backward kernel",
+            "shape": [b, s, s, h, hkv, hd], "dtype": dt, "causal": causal,
+            "window": window, "forward_route": route, "tolerance": tol,
+            "errors": errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "deterministic": True,
+            "ms": timer(kern), "plain_ms": timer(plain),
+            "library_ms": timer(library), "copy_ms": None,
+            "forward_ms": fwd, "flops": flops, "bytes": nbytes,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        })
+        del q, k, v, do, o, lse, got, again, qkv, ref_out, want, lib_out
+        del lib_q, lib_k, lib_v, mask
+    return rows
+
+
 def bf16_ulps(a, b):
     """Elementwise distance in bf16 ulps between two uint16 word arrays."""
     import numpy as np
@@ -706,8 +884,51 @@ def phase_parity(root, device, seed, block_size):
                                "pair_shapes": launch_shapes(
                                    [sh for r, sh in seen if r == "pair"])}
     mp.close()
+    out["nan_bits"] = nan_parity(device, seed)
     emit(out)
     return launches
+
+
+def nan_parity(device, seed, w=65536):
+    """A bf16 merge on the card with NaN inputs (base words -NaN, +NaN,
+    payload NaNs of each sign, ±inf; NaN deltas of each sign) against the
+    numpy operator, bit for bit, every operator: NaN outputs carry
+    from_float32's bits (sign | 0x7FC0)."""
+    import numpy as np
+
+    from repro_torch.core.operators import apply_operator
+    from repro_torch.kernels import ops
+    from repro_torch.store import dtypes
+
+    rng = np.random.default_rng(seed + 11)
+    nb, k = 4, 3
+    x0 = rng.normal(size=(nb, w)).astype(np.float32)
+    D = (0.02 * rng.normal(size=(nb, k, w))).astype(np.float32)
+    masks = rng.random((nb, k, w)) < 0.5
+    words = dtypes.from_float32(x0, dtypes.BFLOAT16)
+    words[:, 3:10] = [0xFFC0, 0x7FC0, 0x7FC1, 0xFFA5, 0x7F81, 0xFF80, 0x7F80]
+    out = {}
+    for op, theta in OPS:
+        d, m = D.copy(), masks.copy()
+        if op != "ties":  # TIES with a NaN delta: a documented divergence
+            d[:, 1, 50:54] = np.array([0x7FC00000, 0xFFC00000, 0x7FA00001,
+                                       0xFF812345], np.uint32).view(np.float32)
+            m[:, 1, 50:54] = True
+        kw = {"masks": m} if op == "dare" else {}
+        got = ops.merge_blocks(op, words, d, theta, device=device,
+                               out_dtype=dtypes.BFLOAT16, **kw)
+        n_diff = n_nan = 0
+        for b in range(nb):
+            th = dict(theta, _masks=m[b]) if op == "dare" else theta
+            want = apply_operator(words[b], d[b], op, th)
+            n_diff += int(np.count_nonzero(got[b] != want))
+            n_nan += int(np.count_nonzero((want & 0x7FFF) > 0x7F80))
+        if n_diff or n_nan < 5 * nb:
+            raise AssertionError(f"parity nan {op}: {n_diff} words differ "
+                                 f"({n_nan} NaN outputs)")
+        out[op] = {"elements": nb * w, "nan_outputs": n_nan,
+                   "elements_differ": 0}
+    return out
 
 
 def snapshot_parity(mp, sid_kernel, sid_stream, io_k, io_s):
@@ -1036,7 +1257,8 @@ def phase_service(root, device, block_size):
 @contextlib.contextmanager
 def plain_attention():
     """Route the model's flash attention to its plain version (on the
-    card too), for the kernel-against-plain serve parity."""
+    card too), for the kernel-against-plain serve and train parity: the
+    forward and, by autograd through it, the backward."""
     from repro_torch.kernels import ref
     from repro_torch.models import attention
 
@@ -1191,6 +1413,322 @@ def phase_serve(device, seed, layers, merged):
     return {"flash_attention": launches}
 
 
+def train_flops(cfg, n_params, n_layer_params, batch, seq):
+    """FLOPs of one training step: the model's (6·N·tokens, plus
+    attention's 4·hd FLOP per live pair forward and 10·hd backward) and
+    remat's recomputed layer forward (2·N_layers·tokens + attention)."""
+    tokens = batch * seq
+    pairs = seq * (seq + 1) // 2 if cfg.local_window == 0 else sum(
+        min(i + 1, cfg.local_window) for i in range(seq))
+    per_hd = cfg.resolved_head_dim * pairs * batch * cfg.n_heads * cfg.n_layers
+    model = 6 * n_params * tokens + 14 * per_hd
+    remat = (2 * n_layer_params * tokens + 4 * per_hd) if cfg.remat else 0
+    return model, remat
+
+
+def grad_sample(model):
+    import torch
+
+    from repro_torch.train.train_state import model_params
+
+    params = model_params(model)
+    out = {n: params[n].grad.detach().clone() for n in GRAD_SAMPLE}
+    for p in params.values():
+        p.grad = None
+    return out
+
+
+def phase_train(device, seed):
+    """Train Qwen2-1.5B (its published config, all 28 layers) for a few
+    steps through make_train_step: the flash forward and backward kernels
+    on every layer, remat on."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import merge_block as mb
+    from repro_torch.models import build_model
+    from repro_torch.train.data import DataPipeline
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import init_train_state, make_train_step
+
+    cfg = get_config("qwen2-1.5b")
+    layers = cfg.n_layers
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    state = init_train_state(model, torch.Generator(device=device)
+                             .manual_seed(seed))
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    n_layer = n_params - model.embed["embedding"].numel() - model.ln_f.numel()
+    steps = TRAIN["warmup"] + TRAIN["steps"]
+    pipe = DataPipeline(cfg.vocab_size, batch=TRAIN["batch"],
+                        seq=TRAIN["seq"], seed=seed, device=device)
+    try:
+        # the first step's loss and gradients: kernels, then plain
+        batch0 = next(pipe)
+        loss_k = model.loss_fn(batch0)
+        loss_k.backward()
+        loss_k, grads_k = float(loss_k.detach()), grad_sample(model)
+        with plain_attention():
+            loss_p = model.loss_fn(batch0)
+            loss_p.backward()
+        loss_p, grads_p = float(loss_p.detach()), grad_sample(model)
+        rel = {n: float((grads_k[n] - grads_p[n]).norm()
+                        / grads_p[n].norm().clamp(min=1e-30))
+               for n in GRAD_SAMPLE}
+        del grads_k, grads_p
+        if (not np.isfinite(loss_k) or abs(loss_k - loss_p) >
+                TRAIN_TOL["loss_rtol"] * abs(loss_p)
+                or max(rel.values()) > TRAIN_TOL["grad_rel_l2"]):
+            raise AssertionError(f"train parity: loss {loss_k} vs plain "
+                                 f"{loss_p}, gradient errors {rel}")
+
+        opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=1, total_steps=steps)
+        step_fn = make_train_step(model, opt)
+        # the main path: the launch counts start at 0 here, read after
+        fa.reset_launches()
+        mb.reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        walls, losses = [], []
+        for _ in range(steps):
+            batch = next(pipe)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            losses.append(float(metrics["loss"]))
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(device)
+        # one more step under the profiler: device time by kernel
+        batch = next(pipe)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t
+    finally:
+        pipe.close()
+    per = {"flash_attention": 2 * layers, "flash_attention_bwd": layers}
+    for name, n in per.items():  # remat: forward and its recompute
+        if launches[name] != n * steps:
+            raise AssertionError(f"train: {launches} over {steps} steps, "
+                                 f"want {n} {name} launches a step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    device_ms = device_time_ms(prof)
+
+    def kernel_time(pattern):
+        return sum(t for n, t in device_ms.items() if re.search(pattern, n))
+
+    busy = sum(device_ms.values())
+    step_s = statistics.median(walls[TRAIN["warmup"]:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    model_flops, remat_flops = train_flops(cfg, n_params, n_layer,
+                                           TRAIN["batch"], TRAIN["seq"])
+    emit({
+        "phase": "train", "config": cfg.name, "layers": layers,
+        "params": n_params, "param_dtype": cfg.param_dtype,
+        "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+        "batch": TRAIN["batch"], "seq": TRAIN["seq"], "init_s": init_s,
+        "parity": {"loss": loss_k, "loss_plain": loss_p,
+                   "grad_rel_l2": rel, "tolerance": TRAIN_TOL},
+        "step_walls_s": walls, "losses": losses,
+        "median_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "model_flops": model_flops, "remat_flops": remat_flops,
+        "mfu": model_flops / step_s / PEAK["bf16"],
+        "hfu": (model_flops + remat_flops) / step_s / PEAK["bf16"],
+        "peak_memory_gb": peak / 1e9, "launches": launches,
+        "profiled_step_s": prof_wall, "device_busy_ms": busy,
+        "device_idle_share": 1 - busy / 1e3 / prof_wall,
+        "flash_forward_ms": kernel_time(r"flash_attention(_tc)?_kernel"),
+        "flash_backward_ms": kernel_time(r"fa_bwd_\w+_kernel"),
+        "gemm_ms": kernel_time(r"gemm|xmma|cutlass|nvjet"),
+        "device_top_ms": dict(sorted(device_ms.items(),
+                                     key=lambda kv: -kv[1])[:12]),
+    })
+    del model, state, step_fn, batch, batch0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def eval_loss(model, vocab, skill):
+    """Mean loss over LOOP["eval_batches"] held-out batches of a skill."""
+    import torch
+
+    from repro_torch.train.data import synth_batch, to_device
+
+    tot = 0.0
+    with torch.no_grad():
+        for s in range(LOOP["eval_batches"]):
+            b = synth_batch(1234, s, LOOP["batch"], LOOP["seq"], vocab, skill)
+            tot += float(model.loss_fn(to_device(b, model.device)))
+    return tot / LOOP["eval_batches"]
+
+
+def phase_loop(root, device, seed, layers, block_size):
+    """Train two experts from one base with TrainLoop (checkpoints through
+    a SnapshotStore), crash expert 0 and resume it bit for bit, then
+    ANALYZE and TIES at 50% in the port's Session on the card, and serve
+    the merge through ServeEngine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import merge_block as mb
+    from repro_torch.models import build_model, load_flat
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.store.checkpoint import flatten_tree, tree_leaves
+    from repro_torch.store.snapshot import SnapshotStore
+    from repro_torch.train.data import DataPipeline
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import TrainLoop
+    from repro_torch.train.train_state import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=layers)
+    steps = LOOP["steps"]
+    opt = AdamWConfig(lr=LOOP["lr"], warmup_steps=1, total_steps=steps)
+    log = []
+    out = {"phase": "loop", "config": cfg.name, "layers": layers,
+           "batch": LOOP["batch"], "seq": LOOP["seq"], "steps": steps}
+    # the loop's path: the launch counts start at 0 here, read at its end
+    fa.reset_launches()
+    mb.reset_launches()
+    model = build_model(cfg, device=device)
+
+    def fresh():
+        """The base: every run starts from the same seeded draw."""
+        return init_train_state(model, torch.Generator(device=device)
+                                .manual_seed(seed))
+
+    def pipe(skill, start=0):
+        return DataPipeline(cfg.vocab_size, batch=LOOP["batch"],
+                            seq=LOOP["seq"], seed=seed, skill=skill,
+                            start_step=start, device=device)
+
+    walls = {}
+
+    def run(loop, state, skill, start=0, crash_at=None):
+        p = pipe(skill, start)
+        t = time.perf_counter()
+        try:
+            return loop.run(state, p, steps, start_step=start,
+                            crash_at_step=crash_at)
+        finally:
+            p.close()
+            torch.cuda.synchronize()
+            walls.setdefault(loop.run_id, []).append(time.perf_counter() - t)
+
+    def new_loop(run_id, ckpt_every):
+        snaps = SnapshotStore(os.path.join(root, "loop-" + run_id))
+        return TrainLoop(model, make_train_step(model, opt), snaps,
+                         run_id=run_id, ckpt_every=ckpt_every,
+                         log_fn=log.append)
+
+    base = flatten_tree(fresh().params)
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        # expert 0, crashed at a mid step and resumed from its checkpoint
+        loop = new_loop("expert-0-crash", LOOP["ckpt_every"])
+        try:
+            run(loop, fresh(), 0, crash_at=LOOP["crash_at"])
+            raise AssertionError("loop: the injected crash did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        state, start = loop.restore_or_init(fresh())
+        state = run(loop, state, 0, start=start)
+        resumed = {n: t.clone() for n, t in tree_leaves(state).items()}
+        shutil.rmtree(loop.snapshots.workspace, ignore_errors=True)
+        # expert 0 uninterrupted: the same state, bit for bit
+        loop = new_loop("expert-0", steps)
+        state = run(loop, fresh(), 0)
+        final = tree_leaves(state)
+        differ = [n for n in final if not torch.equal(final[n], resumed[n])]
+        if differ or final.keys() != resumed.keys():
+            raise AssertionError(f"loop: resumed expert 0 differs from the "
+                                 f"uninterrupted run in {differ[:4]}")
+        experts = [flatten_tree(state.params)]
+        del resumed, final
+        shutil.rmtree(loop.snapshots.workspace, ignore_errors=True)
+        loop = new_loop("expert-1", steps)
+        experts.append(flatten_tree(run(loop, fresh(), 1).params))
+        shutil.rmtree(loop.snapshots.workspace, ignore_errors=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["train_s"] = time.perf_counter() - t0
+    # each TrainLoop.run: its steps and checkpoints (params, m and v)
+    out["run_walls_s"] = walls
+    out["crash"] = {"crash_at_step": LOOP["crash_at"], "resumed_from": start,
+                    "bit_identical": True, "tensors": len(tree_leaves(state))}
+    out["log"] = log
+
+    t0 = time.perf_counter()
+    with Session(os.path.join(root, "loop-ws"), block_size=block_size,
+                 device=device) as sess:
+        sess.register_model("base", base)
+        ids = []
+        for e, flat in enumerate(experts):
+            ids.append(sess.register_model(f"skill-{e}", flat))
+        sess.ensure_analyzed("base", ids)
+        res = sess.run({"base": "base", "experts": ids, "op": "ties",
+                        "theta": {"trim_frac": 0.3}, "budget": "50%"})
+        if not sess.verify(res.sid):
+            raise AssertionError("loop: the merged snapshot does not verify")
+        merged = sess.load(res.sid)
+    out["merge"] = {"sid": res.sid, "wall_s": time.perf_counter() - t0,
+                    "c_expert_run": res.stats["c_expert_run"],
+                    "c_expert_hat": res.stats["c_expert_hat"]}
+
+    # each model on each skill, as examples/train_and_merge.py prints
+    losses = {}
+    for name, flat in [("base", base), *zip(ids, experts), ("merged", merged)]:
+        load_flat(model, flat)
+        losses[name] = [eval_loss(model, cfg.vocab_size, k) for k in (0, 1)]
+    if not np.all(np.isfinite(list(losses.values()))):
+        raise AssertionError(f"loop: losses {losses}")
+    out["losses"] = losses
+    for name, row in losses.items():
+        print(f"[loop] {name:10s} " + " ".join(
+            f"skill{k} {x:.4f}" for k, x in enumerate(row)), flush=True)
+
+    # serve the merge (loaded in ``model`` last)
+    rng = np.random.default_rng(seed + 3)
+    lengths = rng.integers(LOOP["min_prompt"], LOOP["max_prompt"] + 1,
+                           size=LOOP["requests"])
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new_tokens=LOOP["new_tokens"])
+            for i, n in enumerate(lengths)]
+    t0 = time.perf_counter()
+    ServeEngine(model, batch_slots=2, max_len=512).run(reqs)
+    torch.cuda.synchronize()
+    if not all(r.done and len(r.out_tokens) == LOOP["new_tokens"]
+               and all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+               for r in reqs):
+        raise AssertionError("loop: a served request did not finish")
+    out["serve"] = {"requests": len(reqs),
+                    "prompt_lengths": [int(n) for n in lengths],
+                    "wall_s": time.perf_counter() - t0}
+    launches = {**fa.LAUNCHES, **mb.LAUNCHES}
+    for name in ("flash_attention", "flash_attention_bwd", "sketch_blocks"):
+        if launches[name] == 0:
+            raise AssertionError(f"loop: {name} never launched")
+    if launches["ties_fused"] + launches["ties_merge"] == 0:
+        raise AssertionError("loop: no TIES kernel launched")
+    out["launches"] = launches
+    emit(out)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def ptxas_report(log_path):
     """Per kernel of one build: registers, spills, stack and static shared
     memory, from nvcc's ``-Xptxas -v`` output."""
@@ -1233,6 +1771,8 @@ def main() -> int:
     ap.add_argument("--block-size", type=int, default=128 * 1024)
     args = ap.parse_args()
 
+    # the loop phase's deterministic cuBLAS needs this before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1256,8 +1796,9 @@ def main() -> int:
           "block_size": args.block_size, "seed": args.seed,
           "reduced": f"depth {args.layers} of "
                      f"{get_config('qwen2-1.5b').n_layers} decoder layers "
-                     f"(+ embedding, final norm) for merge and serve; "
-                     f"widths as published"})
+                     f"(+ embedding, final norm) for merge, serve and the "
+                     f"train-merge-serve loop; train: all layers; widths "
+                     f"as published"})
 
     t0 = time.perf_counter()
     libraries = (mb.LIBRARY, fa.LIBRARY)
@@ -1277,13 +1818,21 @@ def main() -> int:
         launches, merged = phase_merge(root, device, args.seed,
                                        args.block_size, args.layers)
         service = phase_service(root, device, args.block_size)
+        served = phase_serve(device, args.seed, args.layers, merged)
+        del merged
+        trained = phase_train(device, args.seed)
+        loop = phase_loop(root, device, args.seed, args.layers,
+                          args.block_size)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # each kernel's launches over the paths that run it: the merge, the
-    # service, and the parity phase's TIES merge at 2 MiB blocks (the
-    # pair route)
-    launches = {n: launches[n] + service[n] + pair[n] for n in launches}
-    launches.update(phase_serve(device, args.seed, args.layers, merged))
+    # service, the parity phase's TIES merge at 2 MiB blocks (the pair
+    # route) and the loop's merge; flash attention: serving, training and
+    # the loop
+    launches = {n: launches[n] + service[n] + pair[n] + loop[n]
+                for n in launches}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] = served.get(name, 0) + trained[name] + loop[name]
     keys = ("name", "kernel", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "copy_ms")
@@ -1291,7 +1840,7 @@ def main() -> int:
     # threshold at the largest group, the sketch at ANALYZE's launch,
     # flash attention at the prefill shape through the tensor-core kernel
     # (the serve phase checked that every bf16 prefill launch took that
-    # route)
+    # route), the flash backward at the training shape
     firsts = {}
     for r in rows:
         if r.get("fa_route", "tc") == "tc":

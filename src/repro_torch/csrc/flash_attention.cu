@@ -1,5 +1,6 @@
-// Forward flash attention for NVIDIA Hopper (sm_90a), plain C interface.
-// Two kernels compute the same function; the wrapper
+// Flash attention for NVIDIA Hopper (sm_90a), plain C interface: two
+// forward kernels and, at the end of this file, the backward's three.
+// The two forward kernels compute the same function; the wrapper
 // (kernels/flash_attention.py, `_route`) picks one by dtype and head dim:
 //
 //   flash_attention_tc_kernel  bfloat16, hd in {16, 32, 64, 128}: products
@@ -59,6 +60,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                   // (B, H, Sq) row log-sum-exp, or null
   long long q_sb, q_ss, q_sh;   // element strides over (b, s, h)
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -243,6 +245,12 @@ flash_attention_kernel(const Params p) {
   }
   __syncthreads();  // row_l is final
 
+  // the backward's softmax statistic: m + log(l) per row (natural units)
+  if (p.lse != nullptr)
+    for (int r = tid; r < rows; r += THREADS)
+      p.lse[static_cast<long long>(blockIdx.y) * p.sq + q0 + r] =
+          row_m[r] + logf(fmaxf(row_l[r], 1e-30f));
+
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = py * RPT + i;
@@ -330,6 +338,7 @@ constexpr int BQ = 64;              // q rows per CTA: one warpgroup
 constexpr int BK = 64;              // keys per tile
 constexpr int THREADS = 128;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -681,6 +690,10 @@ flash_attention_tc_kernel(const Params p) {
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int row = wrow + g + 8 * r;
+    // m_r is in log2 units: lse = m_r ln 2 + log(l), natural units
+    if (p.lse != nullptr && t4 == 0 && row < rows)
+      p.lse[static_cast<long long>(blockIdx.x) * p.sq + q0 + row] =
+          m_r[r] * LN2 + logf(fmaxf(l, 1e-30f));
     if (row < rows) {
       __nv_bfloat16* orow = o + row * p.o_ss + 2 * t4;
 #pragma unroll
@@ -717,11 +730,430 @@ cudaError_t dispatch(const Params& p, int hd, int batch_heads,
 
 }  // namespace tc
 
+// ------------------------------------------------------------- backward
+// The gradient of both forward kernels, for the model's training step
+// (kernels/flash_attention.py `FlashAttentionFn`).  The JAX package has no
+// kernel here: it differentiates its jnp chunked attention
+// (src/repro/models/attention.py:92) by XLA autodiff, and its Pallas
+// kernel is forward only.  Given dO, q, k, v, the forward's o and its
+// per-row lse = m + log(l) (natural units, float32), with
+// P = exp(scale q.k - lse) on the attended pairs and 0 elsewhere:
+//
+//   D  = rowsum(dO o)                      fa_bwd_preprocess_kernel
+//   dP = dO v^T,  dS = P (dP - D)
+//   dV = P^T dO,  dK = scale dS^T q        fa_bwd_dkdv_kernel
+//   dQ = scale dS k                        fa_bwd_dq_kernel
+//
+// Deterministic by construction: every output element is written by one
+// CTA, which sums in a fixed order; no float atomics.  So two backward
+// runs give the same bits, and a resumed training run the same state.
+//
+// fa_bwd_dkdv_kernel: one CTA of 256 threads per (b, kv head, 64-key
+// tile).  It loops over the g query heads of its kv head and, for each,
+// over the 64-row query tiles the causal / window mask lets reach its
+// keys (skipping a fully masked tile is exact), recomputing S and P from
+// q, k and lse; dK and dV stay in registers for the whole loop.
+// fa_bwd_dq_kernel: one CTA per (b, head, 64-row query tile), looping over
+// the key tiles of the forward's reach; dQ stays in registers.  Tiles are
+// staged in shared memory as float32 (rows padded to hd + 1 against bank
+// conflicts); the products are float32 FMAs, as in the forward's FMA
+// kernel, for both dtypes.
+//
+// What bounds it.  The backward's five products are 10 B H Sq Sk hd FLOP
+// (half under causal); at the training shape (4, 1024, 1024, 12, 2, 128)
+// that is ~26 GFLOP per layer against ~31 MB of operands: far above the
+// card's ~295 bf16 FLOP per byte, so the tensor cores bound it.  This
+// kernel does seven products (S and dP twice) on the 67 TFLOP/s CUDA
+// cores, with one CTA per SM (~160 KiB of shared memory each), and the
+// causal dK/dV CTAs are unbalanced (the first key tile sees every query
+// tile).  It is right and deterministic first; tensor cores (wgmma), TMA
+// and one pass with a deterministic dQ are later work.
+
+namespace bwd {
+
+constexpr int BQ = 64;        // query rows per tile
+constexpr int BK = 64;        // keys per tile
+constexpr int THREADS = 256;
+constexpr int PP = BK + 1;    // padded row of a P / dS tile
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;    // (B, H, Sq)
+  float* delta;        // (B, H, Sq): rowsum(dO o)
+  void* dq;
+  void* dk;
+  void* dv;
+  long long q_sb, q_ss, q_sh;     // element strides over (b, s, h)
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
+  long long do_sb, do_ss, do_sh;
+  long long dq_sb, dq_ss, dq_sh;
+  long long dk_sb, dk_ss, dk_sh;
+  long long dv_sb, dv_ss, dv_sh;
+  int sq, sk, h, g, causal, window;
+  float scale;
+};
+
+__device__ __forceinline__ bool attends(const Params& p, int qpos, int kpos) {
+  bool valid = kpos < p.sk;
+  if (p.causal) valid = valid && qpos >= kpos;
+  if (p.window > 0) valid = valid && (qpos - kpos < p.window);
+  return valid;
+}
+
+// D = rowsum(dO o): one warp per row, 8 rows per CTA pass
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fa_bwd_preprocess_kernel(const Params p, int hd) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.y, b = bh / p.h, head = bh % p.h;
+  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + head * p.o_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + head * p.do_sh;
+  const int r_end = min(p.sq, (blockIdx.x + 1) * BQ);
+  for (int r = blockIdx.x * BQ + warp; r < r_end; r += THREADS / 32) {
+    float s = 0.f;
+    for (int d = lane; d < hd; d += 32)
+      s = fmaf(load_f32(o + r * p.o_ss + d), load_f32(dout + r * p.do_ss + d),
+               s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) p.delta[static_cast<long long>(bh) * p.sq + r] = s;
+  }
+}
+
+// Stage rows [0, n) of a tile of 64 rows (row stride ss elements) into
+// shared memory as float32 with row pitch HD + 1; rows past n are zeros.
+template <typename T, int HD>
+__device__ __forceinline__ void stage(float* dst, const T* src, long long ss,
+                                      int n, int tid) {
+  for (int i = tid; i < 64 * HD; i += THREADS) {
+    const int r = i / HD, d = i % HD;
+    dst[r * (HD + 1) + d] = r < n ? load_f32(src + r * ss + d) : 0.f;
+  }
+}
+
+// S = A.B^T and dP = C.E^T over hd for one (64 x 64) tile pair: thread
+// (sy, sx) owns rows sy*4 + i and columns sx + 16 j, as the forward's
+// score loop does
+template <int HD>
+__device__ __forceinline__ void two_products(const float* A, const float* B,
+                                             const float* C, const float* E,
+                                             float (&s)[4][4],
+                                             float (&dp)[4][4], int sy,
+                                             int sx) {
+  constexpr int HP = HD + 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float a[4], bb[4], c[4], e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = A[(sy * 4 + i) * HP + d];
+      c[i] = C[(sy * 4 + i) * HP + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bb[j] = B[(sx + 16 * j) * HP + d];
+      e[j] = E[(sx + 16 * j) * HP + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(a[i], bb[j], s[i][j]);
+        dp[i][j] = fmaf(c[i], e[j], dp[i][j]);
+      }
+  }
+}
+
+template <int HD>
+constexpr int dkdv_smem_floats() {
+  return 4 * 64 * (HD + 1) + 2 * BQ * PP + 2 * BQ;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS)
+fa_bwd_dkdv_kernel(const Params p) {
+  extern __shared__ float smem[];
+  constexpr int HP = HD + 1;
+  float* Ks = smem;                 // [BK][HP]
+  float* Vs = Ks + BK * HP;         // [BK][HP]
+  float* Qs = Vs + BK * HP;         // [BQ][HP]
+  float* dOs = Qs + BQ * HP;        // [BQ][HP]
+  float* Ps = dOs + BQ * HP;        // [BQ][PP]
+  float* dSs = Ps + BQ * PP;        // [BQ][PP]
+  float* lse_s = dSs + BQ * PP;     // [BQ]
+  float* D_s = lse_s + BQ;          // [BQ]
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * BK;
+  const int hkv = p.h / p.g;
+  const int b = blockIdx.y / hkv, kvh = blockIdx.y % hkv;
+  const int keys = min(BK, p.sk - k0);
+
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  stage<T, HD>(Ks, k + k0 * p.k_ss, p.k_ss, keys, tid);
+  stage<T, HD>(Vs, v + k0 * p.v_ss, p.v_ss, keys, tid);
+
+  // the query tiles whose mask reaches keys [k0, k0 + keys)
+  const int nq = (p.sq + BQ - 1) / BQ;
+  const int qt_lo = p.causal ? min(nq, k0 / BQ) : 0;
+  int qt_hi = nq;
+  if (p.window > 0) qt_hi = min(nq, (k0 + keys - 1 + p.window - 1) / BQ + 1);
+
+  const int sy = tid / 16, sx = tid % 16;
+  // dK and dV: thread (py, px) owns key rows py*RPT + i, columns px + TX*j
+  constexpr int TX = HD < 16 ? HD : 16;
+  constexpr int TY = THREADS / TX;
+  constexpr int RPT = BK / TY;
+  constexpr int CPT = HD / TX;
+  const int py = tid / TX, px = tid % TX;
+  float dk[RPT][CPT], dv[RPT][CPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  for (int hq = 0; hq < p.g; ++hq) {
+    const int head = kvh * p.g + hq;
+    const long long bh = static_cast<long long>(b) * p.h + head;
+    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + head * p.q_sh;
+    const T* dout =
+        static_cast<const T*>(p.dout) + b * p.do_sb + head * p.do_sh;
+    for (int qt = qt_lo; qt < qt_hi; ++qt) {
+      const int q0 = qt * BQ;
+      const int rows = min(BQ, p.sq - q0);
+      __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
+      stage<T, HD>(Qs, q + q0 * p.q_ss, p.q_ss, rows, tid);
+      stage<T, HD>(dOs, dout + q0 * p.do_ss, p.do_ss, rows, tid);
+      for (int r = tid; r < BQ; r += THREADS) {
+        lse_s[r] = r < rows ? p.lse[bh * p.sq + q0 + r] : 0.f;
+        D_s[r] = r < rows ? p.delta[bh * p.sq + q0 + r] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4], dp[4][4];
+      two_products<HD>(Qs, Ks, dOs, Vs, s, dp, sy, sx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = sy * 4 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = sx + 16 * j;
+          // a select, not a product: lse of a masked row may be -1e30
+          const float pe = r < rows && attends(p, q0 + r, k0 + c)
+                               ? expf(s[i][j] * p.scale - lse_s[r])
+                               : 0.f;
+          Ps[r * PP + c] = pe;
+          dSs[r * PP + c] = pe * (dp[i][j] - D_s[r]);
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO, dK += dS^T Q over the tile's rows
+#pragma unroll 4
+      for (int r = 0; r < BQ; ++r) {
+        float pv[RPT], ds[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          pv[i] = Ps[r * PP + py * RPT + i];
+          ds[i] = dSs[r * PP + py * RPT + i];
+        }
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const float dov = dOs[r * HP + px + TX * j];
+          const float qv = Qs[r * HP + px + TX * j];
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            dv[i][j] = fmaf(pv[i], dov, dv[i][j]);
+            dk[i][j] = fmaf(ds[i], qv, dk[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+  T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+  T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int c = py * RPT + i;
+    if (c < keys) {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        store_f32(dkp + (k0 + c) * p.dk_ss + px + TX * j, dk[i][j] * p.scale);
+        store_f32(dvp + (k0 + c) * p.dv_ss + px + TX * j, dv[i][j]);
+      }
+    }
+  }
+}
+
+template <int HD>
+constexpr int dq_smem_floats() {
+  return 4 * 64 * (HD + 1) + BQ * PP + 2 * BQ;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS)
+fa_bwd_dq_kernel(const Params p) {
+  extern __shared__ float smem[];
+  constexpr int HP = HD + 1;
+  float* Qs = smem;                 // [BQ][HP]
+  float* dOs = Qs + BQ * HP;        // [BQ][HP]
+  float* Ks = dOs + BQ * HP;        // [BK][HP]
+  float* Vs = Ks + BK * HP;         // [BK][HP]
+  float* dSs = Vs + BK * HP;        // [BQ][PP]
+  float* lse_s = dSs + BQ * PP;     // [BQ]
+  float* D_s = lse_s + BQ;          // [BQ]
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQ;
+  const long long bh = blockIdx.y;
+  const int b = blockIdx.y / p.h, head = blockIdx.y % p.h;
+  const int kvh = head / p.g;
+  const int rows = min(BQ, p.sq - q0);
+
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + head * p.q_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + head * p.do_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  stage<T, HD>(Qs, q + q0 * p.q_ss, p.q_ss, rows, tid);
+  stage<T, HD>(dOs, dout + q0 * p.do_ss, p.do_ss, rows, tid);
+  for (int r = tid; r < BQ; r += THREADS) {
+    lse_s[r] = r < rows ? p.lse[bh * p.sq + q0 + r] : 0.f;
+    D_s[r] = r < rows ? p.delta[bh * p.sq + q0 + r] : 0.f;
+  }
+
+  // the key tiles this query tile reaches (the forward's loop bounds)
+  const int nk = (p.sk + BK - 1) / BK;
+  int hi = nk;
+  if (p.causal) hi = min(nk, (q0 + rows + BK - 1) / BK);
+  int lo = 0;
+  if (p.window > 0) {
+    const int first = q0 - p.window + 1;
+    lo = first > 0 ? first / BK : 0;
+  }
+
+  const int sy = tid / 16, sx = tid % 16;
+  constexpr int TX = HD < 16 ? HD : 16;
+  constexpr int TY = THREADS / TX;
+  constexpr int RPT = BQ / TY;
+  constexpr int CPT = HD / TX;
+  const int py = tid / TX, px = tid % TX;
+  float dq[RPT][CPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) dq[i][j] = 0.f;
+
+  for (int kt = lo; kt < hi; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's K, V and dS are consumed
+    stage<T, HD>(Ks, k + k0 * p.k_ss, p.k_ss, p.sk - k0, tid);
+    stage<T, HD>(Vs, v + k0 * p.v_ss, p.v_ss, p.sk - k0, tid);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    two_products<HD>(Qs, Ks, dOs, Vs, s, dp, sy, sx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = sy * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = sx + 16 * j;
+        const float pe = r < rows && attends(p, q0 + r, k0 + c)
+                             ? expf(s[i][j] * p.scale - lse_s[r])
+                             : 0.f;
+        dSs[r * PP + c] = pe * (dp[i][j] - D_s[r]);
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K over the tile's keys
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float ds[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) ds[i] = dSs[(py * RPT + i) * PP + c];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const float kv = Ks[c * HP + px + TX * j];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) dq[i][j] = fmaf(ds[i], kv, dq[i][j]);
+      }
+    }
+  }
+
+  T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + head * p.dq_sh;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = py * RPT + i;
+    if (r < rows) {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        store_f32(dqp + (q0 + r) * p.dq_ss + px + TX * j, dq[i][j] * p.scale);
+    }
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  const int hkv = p.h / p.g;
+  fa_bwd_preprocess_kernel<T><<<dim3((p.sq + BQ - 1) / BQ, batch * p.h),
+                                THREADS, 0, stream>>>(p, HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int dkdv_bytes = dkdv_smem_floats<HD>() * sizeof(float);
+  auto dkdv = fa_bwd_dkdv_kernel<T, HD>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dkdv_bytes);
+  if (err != cudaSuccess) return err;
+  dkdv<<<dim3((p.sk + BK - 1) / BK, batch * hkv), THREADS, dkdv_bytes,
+         stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int dq_bytes = dq_smem_floats<HD>() * sizeof(float);
+  auto dqk = fa_bwd_dq_kernel<T, HD>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dq_bytes);
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3((p.sq + BQ - 1) / BQ, batch * p.h), THREADS, dq_bytes,
+        stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const Params& p, int hd, int batch, cudaStream_t stream) {
+  switch (hd) {
+    case 8: return launch<T, 8>(p, batch, stream);
+    case 16: return launch<T, 16>(p, batch, stream);
+    case 32: return launch<T, 32>(p, batch, stream);
+    case 64: return launch<T, 64>(p, batch, stream);
+    case 128: return launch<T, 128>(p, batch, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // strides: 12 element strides, (b, s, h) of q, k, v, o in that order.
 static cudaError_t make_params(Params& p, const void* q, const void* k,
-                        const void* v, void* o, const long long* strides,
+                        const void* v, void* o, float* lse,
+                        const long long* strides,
                         int batch, int sq, int sk, int h, int hkv,
                         int causal, int window, int q_offset, float scale) {
   if (batch <= 0 || sq <= 0 || sk <= 0 || hkv <= 0 || h % hkv != 0)
@@ -730,6 +1162,7 @@ static cudaError_t make_params(Params& p, const void* q, const void* k,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
@@ -747,15 +1180,16 @@ static cudaError_t make_params(Params& p, const void* q, const void* k,
 
 extern "C" {
 
-// The float32 route.  dtype: 0 float32, 1 bfloat16.  Returns the CUDA
-// status of the launch.
+// The float32 route.  dtype: 0 float32, 1 bfloat16.  lse: null, or a
+// float32 (B, H, Sq) output for each row's log-sum-exp (the backward's
+// statistic).  Returns the CUDA status of the launch.
 int fa_forward(const void* q, const void* k, const void* v, void* o,
                const long long* strides, int batch, int sq, int sk, int h,
                int hkv, int hd, int causal, int window, int q_offset,
-               float scale, int dtype, void* stream) {
+               float scale, float* lse, int dtype, void* stream) {
   Params p;
-  cudaError_t err = make_params(p, q, k, v, o, strides, batch, sq, sk, h,
-                                hkv, causal, window, q_offset, scale);
+  cudaError_t err = make_params(p, q, k, v, o, lse, strides, batch, sq, sk,
+                                h, hkv, causal, window, q_offset, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto s = static_cast<cudaStream_t>(stream);
   err = dtype == 0 ? dispatch<float>(p, hd, batch * h, s)
@@ -769,7 +1203,7 @@ int fa_forward(const void* q, const void* k, const void* v, void* o,
 int fa_forward_tc(const void* q, const void* k, const void* v, void* o,
                   const long long* strides, int batch, int sq, int sk, int h,
                   int hkv, int hd, int causal, int window, int q_offset,
-                  float scale, void* stream) {
+                  float scale, float* lse, void* stream) {
   const void* ptrs[4] = {q, k, v, o};
   for (const void* ptr : ptrs)
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
@@ -778,10 +1212,47 @@ int fa_forward_tc(const void* q, const void* k, const void* v, void* o,
     if (strides[i] % 8 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
   Params p;
-  cudaError_t err = make_params(p, q, k, v, o, strides, batch, sq, sk, h,
-                                hkv, causal, window, q_offset, scale);
+  cudaError_t err = make_params(p, q, k, v, o, lse, strides, batch, sq, sk,
+                                h, hkv, causal, window, q_offset, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = tc::dispatch(p, hd, batch * h, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// The backward of both routes: dq, dk, dv (in the operands' dtype, written
+// whole) from dO, q, k, v, the forward's o and lse, through three kernels
+// on `stream`; delta is a float32 (B, H, Sq) scratch.  strides: 24 element
+// strides, (b, s, h) of q, k, v, o, dO, dq, dk, dv in that order.  dtype:
+// 0 float32, 1 bfloat16.  Returns the CUDA status of the launches.
+int fa_backward(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const float* lse, float* delta, void* dq,
+                void* dk, void* dv, const long long* strides, int batch,
+                int sq, int sk, int h, int hkv, int hd, int causal,
+                int window, float scale, int dtype, void* stream) {
+  if (batch <= 0 || sq <= 0 || sk <= 0 || hkv <= 0 || h % hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bwd::Params p;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
+  p.lse = lse; p.delta = delta;
+  p.dq = dq; p.dk = dk; p.dv = dv;
+  long long* fields[24] = {
+      &p.q_sb, &p.q_ss, &p.q_sh, &p.k_sb, &p.k_ss, &p.k_sh,
+      &p.v_sb, &p.v_ss, &p.v_sh, &p.o_sb, &p.o_ss, &p.o_sh,
+      &p.do_sb, &p.do_ss, &p.do_sh, &p.dq_sb, &p.dq_ss, &p.dq_sh,
+      &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.dv_sb, &p.dv_ss, &p.dv_sh};
+  for (int i = 0; i < 24; ++i) *fields[i] = strides[i];
+  p.sq = sq;
+  p.sk = sk;
+  p.h = h;
+  p.g = h / hkv;
+  p.causal = causal;
+  p.window = window;
+  p.scale = scale;
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == 0 ? bwd::dispatch<float>(p, hd, batch, s)
+    : dtype == 1 ? bwd::dispatch<__nv_bfloat16>(p, hd, batch, s)
+                 : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 

@@ -99,6 +99,29 @@ __device__ __forceinline__ float sgn(float x) {
   return static_cast<float>((x > 0.0f) - (x < 0.0f));
 }
 
+// NaN propagation of the host's float32 arithmetic (x86 SSE: what numpy's
+// operators, the stream engine and the CPU path run): an operation with a
+// NaN operand returns its first NaN operand, quieted; an invalid one
+// (inf - inf, 0 * inf) returns the default NaN 0xFFC00000.  The card's
+// float32 arithmetic returns 0x7FFFFFFF for both, so without this a NaN
+// output's sign (all the bf16 downcast keeps of a NaN) could differ from
+// the stream engine's.  Every non-NaN result is the card's own, bit for
+// bit.  (The TIES kernels' float64 epilogue keeps the operand's NaN.)
+__device__ __forceinline__ float host_nan(float a, float b, float r) {
+  if (a != a) return __int_as_float(__float_as_int(a) | 0x00400000);
+  if (b != b) return __int_as_float(__float_as_int(b) | 0x00400000);
+  return r != r ? __int_as_float(static_cast<int>(0xFFC00000u)) : r;
+}
+__device__ __forceinline__ float hadd(float a, float b) {
+  return host_nan(a, b, __fadd_rn(a, b));
+}
+__device__ __forceinline__ float hmul(float a, float b) {
+  return host_nan(a, b, __fmul_rn(a, b));
+}
+__device__ __forceinline__ float hdiv(float a, float b) {
+  return host_nan(a, b, __fdiv_rn(a, b));
+}
+
 // ---------------------------------------------------------------- AVG / TA
 // Replaces repro/kernels/merge_block.py::_linear_kernel
 // (linear_merge_pallas).  out = x0 + (mul * sum_k D_k) / div:
@@ -116,12 +139,12 @@ linear_kernel(const float* __restrict__ x0, const float* __restrict__ D,
   for (int k = 1; k < K; ++k) {
     load_f<V>(d + k * W, t);
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = __fadd_rn(acc[i], t[i]);
+    for (int i = 0; i < V; ++i) acc[i] = hadd(acc[i], t[i]);
   }
   load_f<V>(x0 + b * W + w, t);
 #pragma unroll
   for (int i = 0; i < V; ++i)
-    t[i] = __fadd_rn(t[i], __fdiv_rn(__fmul_rn(mul, acc[i]), div));
+    t[i] = hadd(t[i], hdiv(hmul(mul, acc[i]), div));
   store_f<V>(out + b * W + w, t);
 }
 
@@ -204,13 +227,13 @@ dare_kernel(const float* __restrict__ x0, const float* __restrict__ D,
     load_m<V>(m + k * W, keep);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      const float r = keep[i] ? __fdiv_rn(t[i], density) : 0.0f;
-      acc[i] = k == 0 ? r : __fadd_rn(acc[i], r);
+      const float r = keep[i] ? hdiv(t[i], density) : 0.0f;
+      acc[i] = k == 0 ? r : hadd(acc[i], r);
     }
   }
   load_f<V>(x0 + b * W + w, t);
 #pragma unroll
-  for (int i = 0; i < V; ++i) t[i] = __fadd_rn(t[i], __fmul_rn(lam, acc[i]));
+  for (int i = 0; i < V; ++i) t[i] = hadd(t[i], hmul(lam, acc[i]));
   store_f<V>(out + b * W + w, t);
 }
 

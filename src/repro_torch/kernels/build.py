@@ -5,6 +5,12 @@ shared library with a plain C interface, cached under ``build/`` beside
 this package by a hash of the source and the flags, and loaded with
 ``ctypes``.  Importing this module builds nothing; nothing here runs on
 the CPU path of the wrappers.
+
+A build is published as the snapshot store publishes a file: the
+compiler writes a temp file, which is fsynced, then renamed into place,
+then the directory is fsynced.  So a library at the cached path is
+whole, and a crash (the ``build:publish`` crash point, between the
+fsync and the rename) leaves only a temp file that no load reads.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ import shutil
 import subprocess
 import threading
 from typing import Callable, Optional
+
+from repro_torch.testing.chaos import chaos_point
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -34,6 +42,14 @@ def nvcc() -> str:
     if CUDA_HOME is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _fsync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 
 class CudaLibrary:
@@ -74,7 +90,11 @@ class CudaLibrary:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.source} "
                                f"({proc.returncode}):\n{proc.stderr}")
+        with open(tmp, "rb") as f:
+            os.fsync(f.fileno())
+        chaos_point("build:publish")
         os.replace(tmp, path)
+        _fsync_dir(BUILD_DIR)
         return path
 
     def load(self) -> ctypes.CDLL:

@@ -24,10 +24,21 @@ strides in multiples of 8 elements, else the wrapper raises); float32,
 and bfloat16 with hd = 8, run ``flash_attention_kernel`` (float32 FMAs).
 Nothing falls back from one route to the other.
 
-Forward only: an operand that requires grad raises (the backward comes
-with training).  The kernel replaces the Pallas kernel
-``flash_attention_pallas`` of the JAX package's
-``kernels/flash_attention.py``.
+The gradient: where grad mode is on and an operand requires grad,
+:func:`flash_attention` on CUDA tensors goes through
+:class:`FlashAttentionFn`, whose forward launches the routed kernel with
+its per-row log-sum-exp (``lse``, float32 (B, H, Sq)) and whose backward
+launches the backward kernels (:func:`backward`: ``D = rowsum(dO o)``,
+then dK / dV per key tile, then dQ per query tile; deterministic, no
+float atomics; ``LAUNCHES["flash_attention_bwd"]``).  :func:`launch`
+itself stays forward only and raises on an operand that requires grad.
+On CPU tensors autograd runs through the plain version.  The backward
+covers what the forward covers, with ``q_offset = 0`` (training); any
+other ``q_offset`` raises.
+
+The forward kernels replace the Pallas kernel ``flash_attention_pallas``
+of the JAX package's ``kernels/flash_attention.py``; the JAX package has
+no backward kernel (XLA differentiates its jnp attention).
 """
 from __future__ import annotations
 
@@ -39,9 +50,11 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import CudaLibrary
 
-#: launches since the last :func:`reset_launches`: every launch, and
-#: those of the tensor-core route
-LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0}
+#: launches since the last :func:`reset_launches`: every forward launch,
+#: those of the tensor-core route, and backward launches (each one call
+#: of ``fa_backward``: its three kernels)
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
+            "flash_attention_bwd": 0}
 #: head dims the kernels are built for (hdv == hd)
 HEAD_DIMS = (8, 16, 32, 64, 128)
 #: head dims of the tensor-core route (bfloat16 only)
@@ -57,12 +70,19 @@ def reset_launches() -> None:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fa_forward.argtypes = [p, p, p, p, ctypes.POINTER(ctypes.c_longlong),
-                               i, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    # q, k, v, o, strides, b, sq, sk, h, hkv, hd, causal, window, q_offset,
+    # scale, lse, [dtype,] stream
+    lib.fa_forward.argtypes = [p, p, p, p, strides,
+                               i, i, i, i, i, i, i, i, i, f, p, i, p]
     lib.fa_forward.restype = ctypes.c_int
     lib.fa_forward_tc.argtypes = lib.fa_forward.argtypes[:-2] + [p]
     lib.fa_forward_tc.restype = ctypes.c_int
+    # q, k, v, o, dO, lse, delta, dq, dk, dv, strides, b, sq, sk, h, hkv,
+    # hd, causal, window, scale, dtype, stream
+    lib.fa_backward.argtypes = [p] * 10 + [strides] + [i] * 8 + [f, i, p]
+    lib.fa_backward.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("flash_attention.cu", _declare)
@@ -101,9 +121,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1:
             raise ValueError("flash_attention: the head dim must have "
                              "stride 1")
-        if t.requires_grad:
-            raise ValueError("flash_attention: forward only; an operand "
-                             "requires grad")
 
 
 def _route(dtype: torch.dtype, hd: int) -> str:
@@ -128,12 +145,32 @@ def _check_tc(*tensors: torch.Tensor) -> None:
                              f"bytes), got {t.stride()}")
 
 
+def _strides(*tensors: torch.Tensor) -> ctypes.Array:
+    """The (b, s, h) element strides of each tensor, in order; a dimension
+    of length 1 is never stepped over, so its stride is 0 here."""
+    vals = [st if n > 1 else 0 for t in tensors
+            for n, st in zip(t.shape[:3], t.stride()[:3])]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
            window: int, q_offset: int, route: str) -> torch.Tensor:
     """Check the operands and launch the ``route`` kernel ("tc" or
     "fma") on CUDA tensors.  :func:`flash_attention` passes
     :func:`_route`'s choice; a caller may name the other route only to
-    time or test it."""
+    time or test it.  Forward only: an operand that requires grad raises
+    (:class:`FlashAttentionFn` is the differentiable entry)."""
+    if any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention: launch is forward only; an "
+                         "operand requires grad")
+    return _forward(q, k, v, causal, window, q_offset, route)[0]
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: int, q_offset: int, route: str,
+             with_lse: bool = False):
+    """Launch the ``route`` forward kernel; returns (out, lse), lse a
+    float32 (B, H, Sq) tensor when ``with_lse``, else None."""
     if route not in ROUTES:
         raise ValueError(f"flash_attention: route {route!r} not in {ROUTES}")
     window, q_offset = int(window), int(q_offset)
@@ -148,13 +185,12 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         _check_tc(q, k, v)
     lib = LIBRARY.load()
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    # a dimension of length 1 is never stepped over: its stride is 0 here
-    strides = (ctypes.c_longlong * 12)(
-        *[st if n > 1 else 0 for t in (q, k, v, out)
-          for n, st in zip(t.shape[:3], t.stride()[:3])])
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            b, sq, sk, h, hkv, hd, int(bool(causal)), window, q_offset,
-            1.0 / math.sqrt(hd))
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _strides(q, k, v, out), b, sq, sk, h, hkv, hd, int(bool(causal)),
+            window, q_offset, 1.0 / math.sqrt(hd),
+            lse.data_ptr() if with_lse else None)
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         rc = (lib.fa_forward_tc(*args, stream) if route == "tc" else
@@ -165,7 +201,70 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     LAUNCHES["flash_attention"] += 1
     if route == "tc":
         LAUNCHES["flash_attention_tc"] += 1
-    return out
+    return out, lse
+
+
+def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+             causal: bool, window: int):
+    """Launch the backward kernels on CUDA tensors: (dq, dk, dv) in q's
+    dtype and shapes, from the upstream gradient ``do`` (shaped as
+    ``o``), the forward's operands, its output ``o`` and its ``lse``
+    (float32 (B, H, Sq)).  ``q_offset`` is 0 (the training forward)."""
+    window = int(window)
+    _check(q, k, v, window, 0)
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    for t in (o, do):
+        if (t.shape != q.shape or t.dtype != q.dtype
+                or t.device != q.device or t.stride(3) != 1):
+            raise ValueError(f"flash_attention backward: o / dO "
+                             f"{tuple(t.shape)} {t.dtype} do not match q "
+                             f"{tuple(q.shape)} {q.dtype}")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError("flash_attention backward: want a contiguous "
+                         "float32 lse of shape (B, H, Sq) on q's device")
+    lib = LIBRARY.load()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    delta = torch.empty_like(lse)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv),
+            b, sq, sk, h, hkv, hd, int(bool(causal)), window,
+            1.0 / math.sqrt(hd), _DTYPES[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = lib.fa_backward(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward: CUDA launch failed "
+                           f"with status {rc}")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention on CUDA tensors with a kernel for its gradient:
+    the forward saves q, k, v, the output and the per-row ``lse``; the
+    backward is :func:`backward`.  ``q_offset`` is 0."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = _forward(q, k, v, causal, window, 0,
+                            _route(q.dtype, q.shape[-1]), with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = bool(causal), int(window)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = backward(do, q, k, v, out, lse, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -179,9 +278,16 @@ def flash_attention(
     ck: int = 1024,
     skip_masked_chunks: bool = False,
 ) -> torch.Tensor:
-    """Attention of q over k / v; (B, Sq, H, hd) in q's dtype."""
+    """Attention of q over k / v; (B, Sq, H, hd) in q's dtype.  On CUDA
+    tensors with grad mode on and an operand that requires grad, the
+    differentiable :class:`FlashAttentionFn` (``q_offset`` must be 0)."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.flash_attention_ref(q, k, v, causal, window, q_offset,
                                        cq, ck, skip_masked_chunks)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if int(q_offset) != 0:
+            raise ValueError(f"flash_attention: the backward kernels take "
+                             f"q_offset 0, got {q_offset}")
+        return FlashAttentionFn.apply(q, k, v, causal, window)
     return launch(q, k, v, causal, window, q_offset,
                   _route(q.dtype, q.shape[-1]))

@@ -69,12 +69,27 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device).float()
 
 
+def bf16_words(out: torch.Tensor) -> torch.Tensor:
+    """float32 -> bf16 words (int16) on ``out``'s device, by
+    :func:`repro_torch.store.dtypes.from_float32`'s rule: round to
+    nearest even on the float32 bits, every NaN to ``sign|0x7FC0``.
+    torch's own cast agrees on every other value and not on NaN (on the
+    CPU it gives 0xFFFF for any NaN)."""
+    u = out.float().contiguous().view(torch.int32)
+    nan = (u & 0x7FFFFFFF) > 0x7F800000
+    # no NaN left, so the add cannot overflow; the shift is arithmetic,
+    # and the mask keeps the 16 bits a logical shift would give
+    v = torch.where(nan, 0, u)
+    rounded = ((v + (0x7FFF + ((v >> 16) & 1))) >> 16) & 0xFFFF
+    words = torch.where(nan, ((u >> 16) & 0x8000) | 0x7FC0, rounded)
+    return torch.where(words > 0x7FFF, words - 0x10000, words).to(torch.int16)
+
+
 def from_device(out: torch.Tensor, out_dtype) -> np.ndarray:
     """Cast on the device, then copy to the host in storage form."""
     dt = np.dtype(out_dtype)
     if dtypes.is_bfloat16(dt):
-        words = out.to(torch.bfloat16).view(torch.int16).cpu().numpy()
-        return words.view(dtypes.BFLOAT16)
+        return bf16_words(out).cpu().numpy().view(dtypes.BFLOAT16)
     return out.to(_TORCH_DTYPES[dt]).cpu().numpy()
 
 

@@ -7,8 +7,12 @@ shape (L, d, H, hd) and the other layer-stacked tensors, ``ffn.w_*``,
 ``ln1``, ``ln2``, ``ln_f``, so the flat names (``/``-joined) equal the
 JAX ``flatten_tree`` names and weights carry across both ways.  The
 reference's ``scan`` over layers is a Python loop over layer ``i``; its
-sharding hints have no meaning on one card and are dropped.  MoE and MLA
-raise "not ported yet".
+sharding hints have no meaning on one card and are dropped.  Under
+``cfg.remat`` and grad mode, each layer of ``forward`` runs under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+reference's ``jax.checkpoint`` with nothing saveable: a layer's
+activations are recomputed in the backward.  MoE and MLA raise "not
+ported yet".
 
 Entry points:
     init(generator)                          redraw every parameter
@@ -27,6 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
@@ -80,22 +85,35 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         return self.ln_f.device
 
-    def _layer_params(self, i: int):
-        return ({k: v[i] for k, v in self.attn.items()},
-                {k: v[i] for k, v in self.ffn.items()})
+    def _layers(self):
+        """Each layer's (attn, ffn, ln1, ln2) parameters, as views from one
+        ``unbind`` per layer-stacked tensor: autograd stacks the layers'
+        gradients once, where indexing ``v[i]`` per layer would add a
+        full-size, zero-filled gradient per layer (L² traffic)."""
+        attn_l = {k: v.unbind(0) for k, v in self.attn.items()}
+        ffn_l = {k: v.unbind(0) for k, v in self.ffn.items()}
+        ln1, ln2 = self.ln1.unbind(0), self.ln2.unbind(0)
+        return [({k: t[i] for k, t in attn_l.items()},
+                 {k: t[i] for k, t in ffn_l.items()}, ln1[i], ln2[i])
+                for i in range(self.cfg.n_layers)]
 
     # ------------------------------------------------------------ forward
-    def _block(self, i: int, x, positions, skip_masked_chunks: bool):
-        """Layer ``i`` over a whole sequence; returns (x, (k, v))."""
+    def _block(self, layer, x, positions, skip_masked_chunks: bool):
+        """One layer (its ``_layers()`` entry) over a whole sequence;
+        returns (x, (k, v))."""
         cfg = self.cfg
-        pa, pf = self._layer_params(i)
-        h = L.rmsnorm(x, self.ln1[i], cfg.norm_eps)
+        pa, pf, ln1, ln2 = layer
+        h = L.rmsnorm(x, ln1, cfg.norm_eps)
         q, k, v = attn.qkv_project(pa, h, cfg, positions)
         o = attn.flash_attention(q, k, v, causal=True, window=cfg.local_window,
                                  skip_masked_chunks=skip_masked_chunks)
         x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
-        h = L.rmsnorm(x, self.ln2[i], cfg.norm_eps)
+        h = L.rmsnorm(x, ln2, cfg.norm_eps)
         return x + L.swiglu_mlp(pf, h), (k, v)
+
+    def _layer(self, x, positions, layer):
+        """One layer of the training forward (no masked-chunk skip)."""
+        return self._block(layer, x, positions, skip_masked_chunks=False)[0]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return L.embed_tokens(self.embed, tokens,
@@ -106,8 +124,13 @@ class DecoderLM(nn.Module):
         b, s = tokens.shape
         x = self._embed(tokens)
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-        for i in range(self.cfg.n_layers):
-            x, _ = self._block(i, x, positions, skip_masked_chunks=False)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for layer in self._layers():
+            if remat:
+                x = checkpoint(self._layer, x, positions, layer,
+                               use_reentrant=False)
+            else:
+                x = self._layer(x, positions, layer)
         x = L.rmsnorm(x, self.ln_f, self.cfg.norm_eps)
         return L.unembed(self.embed, x)
 
@@ -140,9 +163,9 @@ class DecoderLM(nn.Module):
         x = self._embed(tokens)
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         ks, vs = [], []
-        for i in range(self.cfg.n_layers):
+        for layer in self._layers():
             # inference: no grad, so the key loop skips masked chunks
-            x, (k, v) = self._block(i, x, positions, skip_masked_chunks=True)
+            x, (k, v) = self._block(layer, x, positions, skip_masked_chunks=True)
             ks.append(k)
             vs.append(v)
         x = L.rmsnorm(x, self.ln_f, self.cfg.norm_eps)
@@ -158,9 +181,8 @@ class DecoderLM(nn.Module):
         pos = int(cache["len"])
         x = self._embed(tokens)
         positions = torch.full((b, 1), pos, device=tokens.device)
-        for i in range(cfg.n_layers):
-            pa, pf = self._layer_params(i)
-            h = L.rmsnorm(x, self.ln1[i], cfg.norm_eps)
+        for i, (pa, pf, ln1, ln2) in enumerate(self._layers()):
+            h = L.rmsnorm(x, ln1, cfg.norm_eps)
             q, k, v = attn.qkv_project(pa, h, cfg, positions)
             k_c, v_c = cache["k"][i], cache["v"][i]
             k_c[:, pos] = k[:, 0].to(k_c.dtype)
@@ -168,7 +190,7 @@ class DecoderLM(nn.Module):
             o = attn.decode_attention(q, k_c, v_c, pos + 1,
                                       window=cfg.local_window)
             x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
-            h = L.rmsnorm(x, self.ln2[i], cfg.norm_eps)
+            h = L.rmsnorm(x, ln2, cfg.norm_eps)
             x = x + L.swiglu_mlp(pf, h)
         x = L.rmsnorm(x, self.ln_f, cfg.norm_eps)
         cache["len"] = pos + 1

@@ -76,13 +76,15 @@ def from_float32(arr: np.ndarray, dt) -> np.ndarray:
 
 def as_storage(arr) -> np.ndarray:
     """A host array in storage form: numpy arrays pass through; torch
-    tensors (any device) are copied to the host, bf16 as raw words."""
+    tensors (any device) are copied to the host, bf16 as raw words.  A
+    CPU tensor is copied too, so the array is a snapshot that a later
+    in-place update (an optimizer step) does not reach."""
     if isinstance(arr, np.ndarray):
         return arr
     import torch
 
     if isinstance(arr, torch.Tensor):
-        t = arr.detach().contiguous().cpu()
+        t = arr.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(BFLOAT16)
         return t.numpy()

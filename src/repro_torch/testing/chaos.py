@@ -52,6 +52,8 @@ CRASH_POINTS = (
     "worker:lease",        # shard worker: after accepting a lease, before I/O
     "worker:block",        # shard worker: before each staged block write
     "worker:commit",       # shard worker: before writing the result doc
+    "build:publish",       # kernels/build.py: a built library, fsynced,
+                           # before the rename that publishes it
 )
 
 

@@ -528,7 +528,8 @@ def test_flash_attention_fma_route_bf16(cuda, case):
     q, k, v = _qkv(case, torch.bfloat16, cuda, seed=4)
     tfa.reset_launches()
     got = tfa.launch(q, k, v, causal, window, q_offset, route="fma")
-    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_tc": 0}
+    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_tc": 0,
+                            "flash_attention_bwd": 0}
     want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
                                     skip_masked_chunks=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
@@ -565,7 +566,8 @@ def test_flash_attention_tc_refuses_misaligned(cuda):
         tfa.flash_attention(q, wide[..., :16], v)           # h stride 20
     with pytest.raises(ValueError, match="tensor-core route takes"):
         tfa.launch(q.float(), k.float(), v.float(), True, 0, 0, route="tc")
-    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0}
+    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0,
+                            "flash_attention_bwd": 0}
 
 
 def test_flash_attention_wrapper_refuses(cuda):
@@ -574,8 +576,10 @@ def test_flash_attention_wrapper_refuses(cuda):
         tfa._check(q.cpu(), k.cpu(), v.cpu(), 0, 0)        # CPU operands
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention(q, k.cpu(), v)                  # mixed devices
-    with pytest.raises(ValueError, match="grad"):
-        tfa.flash_attention(q.clone().requires_grad_(), k, v)
+    with pytest.raises(ValueError, match="grad"):   # launch: forward only
+        tfa.launch(q.clone().requires_grad_(), k, v, True, 0, 0, "fma")
+    with pytest.raises(ValueError, match="q_offset"):  # backward: offset 0
+        tfa.flash_attention(q.clone().requires_grad_(), k, v, q_offset=1)
     q96, k96, v96 = _qkv((1, 8, 8, 4, 2, 96), torch.float32, cuda)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(q96, k96, v96)                  # head dim 96
@@ -617,3 +621,153 @@ def test_prefill_and_serve_on_card_match_cpu(cuda, arch):
         ServeEngine(model, batch_slots=2, max_len=96).run(reqs)
         out.append([r.out_tokens for r in reqs])
     assert out[0] == out[1]
+
+
+# (B, Sq, Sk, H, Hkv, hd, causal, window): the backward takes q_offset 0
+BWD_CASES = [
+    (2, 130, 130, 4, 2, 16, True, 0),      # GQA causal, ragged tiles
+    (1, 200, 200, 6, 2, 8, True, 70),      # window, hd 8
+    (1, 100, 150, 4, 4, 32, False, 0),     # cross, MHA, ragged
+    (1, 150, 150, 2, 1, 64, False, 40),    # window without causal
+    (1, 256, 256, 12, 2, 128, True, 0),    # the model's heads
+    (1, 64, 64, 2, 1, 128, True, 1),       # each row attends itself
+]
+# the backward against autograd through the plain version: float32 sums
+# in another order; bf16 gradients one bf16 rounding apart (the forward's
+# P is rounded to bf16 on the tensor-core route)
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _bwd_inputs(case, dtype, device, seed=0):
+    b, sq, sk, h, hkv, hd = case[:6]
+    q, k, v = _qkv(case, dtype, device, seed)
+    do = torch.from_numpy(np.random.default_rng(seed + 9).normal(
+        size=(b, sq, h, hd)).astype(np.float32)).to(device=device, dtype=dtype)
+    return [t.requires_grad_() for t in (q, k, v)], do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_fn_grads_match_plain_autograd(cuda, case, dtype):
+    """FlashAttentionFn (forward kernel with lse, backward kernels)
+    against autograd through ``flash_attention_ref`` on the card; two
+    backward runs give the same bits."""
+    causal, window = case[6:]
+    qkv, do = _bwd_inputs(case, dtype, cuda)
+    tfa.reset_launches()
+    out = tfa.flash_attention(*qkv, causal=causal, window=window)
+    got = torch.autograd.grad(out, qkv, do, retain_graph=True)
+    again = torch.autograd.grad(out, qkv, do)
+    assert tfa.LAUNCHES["flash_attention"] == 1
+    assert tfa.LAUNCHES["flash_attention_bwd"] == 2
+    ref_out = tref.flash_attention_ref(*qkv, causal, window, 0, 64, 64)
+    want = torch.autograd.grad(ref_out, qkv, do)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=FA_TOL[dtype],
+                               atol=FA_TOL[dtype])
+    for g, g2, w, t in zip(got, again, want, qkv):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert torch.equal(g.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32),
+                           g2.view(torch.int16 if dtype == torch.bfloat16
+                                   else torch.int32))
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype])
+
+
+def test_flash_attention_fn_forward_equals_launch(cuda):
+    """The lse-writing forward gives the serving kernel's bits; lse is
+    the row log-sum-exp of the scaled scores."""
+    case = (2, 100, 100, 4, 2, 16, True, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(case, dtype, cuda)
+        route = tfa._route(dtype, 16)
+        out, lse = tfa._forward(q, k, v, True, 0, 0, route, with_lse=True)
+        plain = tfa.launch(q, k, v, True, 0, 0, route)
+        torch.cuda.synchronize()
+        assert torch.equal(out, plain)
+        kk = k.float().repeat_interleave(2, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / 4.0
+        s = s.masked_fill(~torch.ones(100, 100, dtype=torch.bool,
+                                      device=cuda).tril(), float("-inf"))
+        torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_flash_attention_backward_refuses(cuda):
+    qkv, do = _bwd_inputs((1, 8, 8, 4, 2, 16), torch.float32, cuda)
+    q, k, v = (t.detach() for t in qkv)
+    out, lse = tfa._forward(q, k, v, True, 0, 0, "fma", with_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        tfa.backward(do, q, k, v, out, lse[:, :, :4], True, 0)
+    with pytest.raises(ValueError, match="o / dO"):
+        tfa.backward(do.bfloat16(), q, k, v, out, lse, True, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.backward(do.cpu(), q.cpu(), k.cpu(), v.cpu(), out.cpu(),
+                     lse.cpu(), True, 0)
+
+
+@pytest.mark.parametrize("op,theta", OPS)
+def test_merge_blocks_bf16_nan_bits_on_card(cuda, op, theta):
+    """C1 on the card: NaN outputs downcast by from_float32's rule (sign
+    | 0x7FC0), every other element equal to the numpy operator."""
+    from repro_torch.core.operators import apply_operator
+    from repro_torch.store import dtypes
+
+    x0, D, masks = _mk(4, 3, 300, seed=2)
+    words = dtypes.from_float32(x0, dtypes.BFLOAT16)
+    words[:, 3:10] = [0xFFC0, 0x7FC0, 0x7FC1, 0xFFA5, 0x7F81, 0xFF80, 0x7F80]
+    if op != "ties":
+        D[:, 1, 50:54] = np.array([0x7FC00000, 0xFFC00000, 0x7FA00001,
+                                   0xFF812345], np.uint32).view(np.float32)
+        masks[:, 1, 50:54] = True
+    kw = {"masks": masks} if op == "dare" else {}
+    got = ops.merge_blocks(op, words, D, theta, device=cuda,
+                           out_dtype=dtypes.BFLOAT16, **kw)
+    for b in range(4):
+        th = dict(theta, _masks=masks[b]) if op == "dare" else theta
+        np.testing.assert_array_equal(got[b], apply_operator(words[b], D[b],
+                                                             op, th))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """float32 smoke model, remat on: a train step on the card (flash
+    forward and backward kernels) against the same step on the CPU
+    (plain attention) from the same weights: loss, gradient norm, and
+    the gradients through AdamW's first moment m = (1 - b1) g (float32
+    sums in another order; entries that cancel near zero get a slack of
+    1e-5 of the tensor's largest magnitude)."""
+    import dataclasses
+
+    from repro_torch.models.model import train_state_from_flat
+    from repro_torch.train.data import synth_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("qwen2-1.5b"), remat=True)
+    card = build_model(cfg, device=cuda)
+    states = [init_train_state(card, torch.Generator(device=cuda)
+                               .manual_seed(0))]
+    cpu = build_model(cfg, device="cpu")
+    states.append(train_state_from_flat(cpu, flatten_tree(states[0])))
+    tokens = synth_batch(0, 0, 2, 100, cfg.vocab_size)
+    out = []
+    for model, state in zip((card, cpu), states):
+        batch = {k: torch.from_numpy(v).long().to(model.device)
+                 for k, v in tokens.items()}
+        tfa.reset_launches()
+        state, m = make_train_step(model, AdamWConfig(lr=1e-3))(state, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    flatten_tree(state.opt.m)))
+        if model is card:
+            # forward + remat recompute per layer, one backward per layer
+            assert tfa.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+            assert tfa.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+    (lc, nc, mc), (lh, nh, mh) = out
+    assert lc == pytest.approx(lh, rel=1e-5)
+    assert nc == pytest.approx(nh, rel=1e-4)
+    for n in mc:
+        np.testing.assert_allclose(mc[n], mh[n], rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(mh[n]).max()))

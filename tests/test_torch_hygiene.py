@@ -3,6 +3,7 @@ package, it runs on the card unless asked for the CPU (and raises where
 there is no card), and its CPU path never builds or loads a CUDA
 library."""
 import ast
+import dataclasses
 import os
 
 import numpy as np
@@ -194,3 +195,40 @@ def test_cpu_v2_path_never_loads_the_library(tmp_path, monkeypatch):
     assert mb.LIBRARY._lib is None
     assert not os.path.exists(kbuild.BUILD_DIR)
     assert sum(mb.LAUNCHES.values()) == 0
+
+
+def test_scan_covers_training():
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in ("optimizer", "grad_compress", "train_state", "data",
+                 "train_loop"):
+        assert f"src/repro_torch/train/{name}.py" in rel
+    assert "src/repro_torch/launch/train.py" in rel
+
+
+def test_cpu_training_never_loads_the_library(tmp_path, monkeypatch):
+    """A train step on the CPU (remat on) differentiates through the
+    plain attention and counts no launch, forward or backward."""
+    from repro_torch.train.data import synth_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import init_train_state, make_train_step
+
+    _forbid_library_loads(tmp_path, monkeypatch)
+    cfg = dataclasses.replace(get_smoke_config("qwen2-1.5b"), remat=True)
+    model = build_model(cfg, device="cpu")
+    state = init_train_state(model, torch.Generator().manual_seed(0))
+    fa.reset_launches()
+    batch = {k: torch.from_numpy(v).long()
+             for k, v in synth_batch(0, 0, 2, 8, cfg.vocab_size).items()}
+    state, metrics = make_train_step(model, AdamWConfig())(state, batch)
+    assert np.isfinite(float(metrics["loss"])) and int(state.opt.step) == 1
+    assert fa.LIBRARY._lib is None
+    assert not os.path.exists(kbuild.BUILD_DIR)
+    assert set(fa.LAUNCHES.values()) == {0}
+
+
+def test_train_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.train.data import DataPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DataPipeline(101, 2, 8)

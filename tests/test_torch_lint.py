@@ -1,0 +1,154 @@
+"""The repository's lint (mergelint, ``repro.analysis``: the guarded-by,
+accounting, except-discipline and durability passes) over the port, and
+the kernel build's publish order: the library is fsynced before the
+rename that makes it visible, with a crash point between them.
+
+The lint's registry-drift check reads the chaos registry of the package
+it lints; for the port that is ``repro_torch.testing.chaos``, whose
+points (``build:publish`` among them) are the ones the port's injectors
+can arm.  The findings are pinned: the ones the port's copies waive in
+their own comments, and the registered points whose call sites live in
+modules not ported yet (each with the ROADMAP item whose port removes
+it).  Any other finding fails."""
+import glob
+import os
+import subprocess
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.analysis import durability, runner  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.testing import chaos  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = "src/repro_torch/"
+
+#: (path, symbol, message prefix) of the findings the copies waive
+WAIVED = sorted([
+    (PORT + "api/service.py", "_loop", "except Exception"),
+    (PORT + "api/service.py", "_run_level", "except Exception"),
+    (PORT + "api/service.py", "_run_window", "except Exception"),
+    (PORT + "api/service.py", "_maybe_scrub", "except Exception"),
+    (PORT + "core/executor.py", "_produce", "except BaseException"),
+    (PORT + "launch/merge_cli.py", "_cmd_submit", "durability edge os.rename"),
+    (PORT + "store/blockcache.py", "CachingModelReader._admit", "read of self._blocks"),
+    (PORT + "store/blockcache.py", "CachingModelReader._admit", "read of self._blocks"),
+    (PORT + "store/blockcache.py", "CachingModelReader._admit", "write of self.cached_bytes"),
+    (PORT + "store/snapshot.py", "_drain", "except BaseException"),
+    (PORT + "store/snapshot.py", "atomic_publish", "durability edge os.replace"),
+    (PORT + "store/snapshot.py", "atomic_publish", "durability edge os.replace"),
+    (PORT + "store/tensorstore.py", "write_model", "durability edge os.replace"),
+])
+#: registered points with no live call site yet -> the ROADMAP item
+#: (queue A) whose port brings the call site
+NOT_PORTED = {
+    ("CRASH_POINTS", "cache:fill"): "A4 tiered / remote store",
+    ("CRASH_POINTS", "worker:lease"): "A6 shard worker",
+    ("CRASH_POINTS", "worker:block"): "A6 shard worker",
+    ("CRASH_POINTS", "worker:commit"): "A6 shard worker",
+    ("CORRUPTION_POINTS", "remote:get"): "A4 tiered / remote store",
+    ("CORRUPTION_POINTS", "cache:extent"): "A4 tiered / remote store",
+    ("CORRUPTION_POINTS", "packed:extent"): "A3 packed store",
+}
+
+
+def _port_lint(monkeypatch):
+    monkeypatch.setattr(durability, "_REGISTRIES", (
+        ("chaos_point", chaos.CRASH_POINTS, "CRASH_POINTS", "armed"),
+        ("chaos_corrupt", chaos.CORRUPTION_POINTS, "CORRUPTION_POINTS",
+         "injected"),
+    ))
+    paths = sorted(glob.glob(os.path.join(ROOT, PORT, "**", "*.py"),
+                             recursive=True))
+    assert any(p.endswith("train/train_loop.py") for p in paths)
+    return runner.run_paths(paths, root=ROOT)
+
+
+def test_port_lint_gives_exactly_the_pinned_findings(monkeypatch):
+    findings = _port_lint(monkeypatch)
+
+    def key(f):
+        prefix = next((w[2] for w in WAIVED if f.message.startswith(w[2])),
+                      f.message)
+        return f.path, f.symbol, prefix
+
+    assert sorted(key(f) for f in findings if f.waived) == WAIVED
+    assert all(f.waive_reason for f in findings if f.waived)
+    drift = {}
+    for f in findings:
+        if f.waived:
+            continue
+        assert f.pass_id == "durability" and f.path == PORT + "testing/chaos.py", (
+            f"unexpected finding: {f.render()}")
+        point = f.message.split("'")[1]
+        drift[(f.symbol, point)] = f.message
+    assert set(drift) == set(NOT_PORTED), sorted(drift)
+
+
+def test_port_registry_matches_reference_plus_build():
+    from repro.testing import chaos as jchaos
+
+    assert chaos.CRASH_POINTS == jchaos.CRASH_POINTS + ("build:publish",)
+    assert chaos.CORRUPTION_POINTS == jchaos.CORRUPTION_POINTS
+
+
+def _fake_build(tmp_path, monkeypatch, calls):
+    """A CudaLibrary whose nvcc writes a file, with fsync / replace
+    recorded in ``calls``."""
+    src = tmp_path / "k.cu"
+    src.write_text("// kernel\n")
+    monkeypatch.setattr(kbuild, "CSRC_DIR", str(tmp_path))
+    monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(kbuild, "nvcc", lambda: "nvcc")
+
+    def run(cmd, **kw):
+        out = cmd[cmd.index("-o") + 1]
+        with open(out, "wb") as f:
+            f.write(b"\x7fELF library")
+        calls.append(("compile", os.path.basename(out)))
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    real_fsync, real_replace = os.fsync, os.replace
+
+    def fsync(fd):
+        calls.append(("fsync", os.path.basename(os.readlink(
+            f"/proc/self/fd/{fd}"))))
+        real_fsync(fd)
+
+    def replace(a, b):
+        calls.append(("replace", os.path.basename(a), os.path.basename(b)))
+        real_replace(a, b)
+
+    monkeypatch.setattr(kbuild.subprocess, "run", run)
+    monkeypatch.setattr(kbuild.os, "fsync", fsync)
+    monkeypatch.setattr(kbuild.os, "replace", replace)
+    return kbuild.CudaLibrary("k.cu", lambda lib: None)
+
+
+def test_build_fsyncs_the_library_before_publishing_it(tmp_path, monkeypatch):
+    calls = []
+    lib = _fake_build(tmp_path, monkeypatch, calls)
+    path = lib.build()
+    name, tmp = os.path.basename(path), calls[0][1]
+    assert [c[0] for c in calls] == ["compile", "fsync", "replace", "fsync"]
+    assert calls[1] == ("fsync", tmp)                 # the temp library
+    assert calls[2] == ("replace", tmp, name)
+    assert calls[3] == ("fsync", "build")             # then its directory
+    with open(path, "rb") as f:
+        assert f.read() == b"\x7fELF library"
+    calls.clear()
+    assert lib.build() == path and calls == []        # a build exists
+
+
+def test_build_crash_before_rename_publishes_nothing(tmp_path, monkeypatch):
+    calls = []
+    lib = _fake_build(tmp_path, monkeypatch, calls)
+    with chaos.inject("build:publish") as inj:
+        with pytest.raises(chaos.SimulatedCrash):
+            lib.build()
+    assert inj.fired
+    assert not os.path.exists(lib.path())             # no torn library
+    assert [c[0] for c in calls] == ["compile", "fsync"]
+    assert lib.build() == lib.path()                  # the next build runs

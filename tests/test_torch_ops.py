@@ -64,3 +64,57 @@ def test_merge_blocks_rejects_unknown_and_missing_masks():
         tops.merge_blocks("nope", x0, D, {}, device="cpu")
     with pytest.raises(ValueError):
         tops.merge_blocks("dare", x0, D, {}, device="cpu")
+
+
+# base words: -NaN and +NaN (quiet), payload NaNs of each sign (a
+# signalling-style payload too), and ±inf beside them
+NAN_WORDS = np.array([0xFFC0, 0x7FC0, 0x7FC1, 0xFFA5, 0x7F81, 0xFF80, 0x7F80],
+                     dtype=np.uint16)
+# float32 delta NaNs: ±quiet, payloads of each sign
+NAN_DELTAS = np.array([0x7FC00000, 0xFFC00000, 0x7FA00001, 0xFF812345],
+                      dtype=np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("op,theta", CASES)
+def test_merge_blocks_bf16_nan_bits_match_numpy_operator(op, theta):
+    """A bf16 merge gives ``dtypes.from_float32``'s bits for NaN outputs
+    (round to nearest even; every NaN to sign|0x7FC0), as the numpy
+    operator does: NaN base words of both signs and with payloads, and
+    (for the linear operators and DARE) NaN deltas."""
+    x0, D, masks = _inputs(seed=2)
+    words = dtypes.from_float32(x0, dtypes.BFLOAT16)
+    n = len(NAN_WORDS)
+    words[:, 3:3 + n] = NAN_WORDS
+    if op != "ties":  # TIES with NaN deltas is a documented divergence
+        D[:, 1, 50:50 + len(NAN_DELTAS)] = NAN_DELTAS
+        masks[:, 1, 50:50 + len(NAN_DELTAS)] = True
+    kw = {"masks": masks} if op == "dare" else {}
+    got = tops.merge_blocks(op, words, D, theta, device="cpu",
+                            out_dtype=dtypes.BFLOAT16, **kw)
+    for b in range(x0.shape[0]):
+        th = dict(theta)
+        if op == "dare":
+            th["_masks"] = masks[b]
+        want = apply_operator(words[b], D[b], op, th)
+        np.testing.assert_array_equal(got[b], want)
+    nan = (got & 0x7FFF) > 0x7F80
+    assert nan.sum() >= 5 * x0.shape[0]
+    assert set(np.unique(got[nan]).tolist()) <= {0x7FC0, 0xFFC0}
+
+
+def test_bf16_words_follow_from_float32():
+    """The device rule on every class of float32 bits: normals, the
+    rounding ties, subnormals, overflow to inf, ±inf and NaNs."""
+    rng = np.random.default_rng(0)
+    bits = np.concatenate([
+        rng.integers(0, 2 ** 32, size=20000, dtype=np.uint64),
+        [0x00008000, 0x00018000, 0x3F808000, 0x3F818000, 0x7F7FFFFF,
+         0xFF7FFFFF, 0x7F800000, 0xFF800000, 0x7F800001, 0xFFFFFFFF,
+         0x7FFF8000, 0x80000000, 0, 0x00000001],
+    ]).astype(np.uint32)
+    x = bits.view(np.float32)
+    got = tops.bf16_words(torch.from_numpy(x)).numpy().view(dtypes.BFLOAT16)
+    np.testing.assert_array_equal(got, dtypes.from_float32(x, dtypes.BFLOAT16))
+    ok = ~np.isnan(x)  # torch's own cast agrees wherever there is no NaN
+    cast = torch.from_numpy(x).to(torch.bfloat16).view(torch.int16).numpy()
+    np.testing.assert_array_equal(got[ok], cast.view(dtypes.BFLOAT16)[ok])
