@@ -19,7 +19,8 @@ Phases, one JSON line each:
   build    nvcc builds src/repro_torch/csrc/merge_block.cu (merge,
            fused TIES, TIES threshold and sketch kernels) and
            flash_attention.cu (sm_90a), both at once; then each kernel's
-           registers, spills and static shared memory from ptxas -v
+           registers, spills and static shared memory from ptxas -v (the
+           tensor-core backward's kernels must not spill)
   kernels  each Hopper kernel against its plain PyTorch version: the
            merge kernels at the merge path's largest window group (NB =
            32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), the TIES
@@ -41,12 +42,18 @@ Phases, one JSON line each:
            route with window 512 and at Sq = Sk = 256 and 1,000, the FMA
            route in float32 with window 512, and a decode-style (1, 1,
            2048, ...) with q_offset 2047 (tolerance 2e-5 float32, 2e-2
-           bf16); the flash backward kernels (dq, dk, dv) against
-           autograd through the plain version at (B, S, H, Hkv, hd) =
-           (2, 1024, 12, 2, 128) bf16 causal, the same with window 256,
-           and float32 hd 8 and 16 (BWD_TOL), two runs bit-equal, SDPA's
-           backward as the library call, and the forward timed with and
-           without its lse output: max abs error, median CUDA-event times
+           bf16); the flash backward (dq, dk, dv) against autograd
+           through the plain version at (B, S, H, Hkv, hd) = (2, 1024,
+           12, 2, 128) bf16 causal, the same with window 256, at hd 64,
+           at the ragged length 1,000, and float32 hd 8 and 16 (BWD_TOL),
+           bf16 on both routes (tensor cores, then float32 FMAs; timed in
+           turns, and the tensor cores must win at the first case: the
+           route gate), two runs bit-equal, SDPA's backward as the
+           library call (by profiler device time, and by CUDA events)
+           with its errors against the same reference, the
+           tensor-core route's device time by kernel, and the forward
+           timed with and without its lse output: max abs error, median
+           CUDA-event times
            of kernel, plain version, a device copy of the same bytes
            (merge, threshold and sketch kernels) and one PyTorch library
            call where one computes the same function, and the bound
@@ -96,8 +103,9 @@ Phases, one JSON line each:
            through the plain attention (TRAIN_TOL), then 1 + 5
            make_train_step steps: median step ms, tokens/s, MFU and HFU
            (with remat) at the bf16 peak, peak memory, flash forward and
-           backward launches (two and one a layer a step), and one
-           profiled step's device time by kernel and idle share
+           backward launches (two and one a layer a step; the backward on
+           the tensor-core route for bf16), and one profiled step's
+           device time by kernel and idle share
   loop     at the merge depth: two experts (skills 0 and 1) from one
            seeded base with TrainLoop, checkpoints in a SnapshotStore;
            expert 0 crashed before step 3 and resumed from its step-2
@@ -192,11 +200,14 @@ SERVICE_SPEC = {"jobs": [
 LOGIT_TOL = {"rtol": 1e-4, "atol": 2e-3}
 # (label, (B, S, H, Hkv, hd), dtype, causal, window): the flash backward
 # (q_offset 0) at the training phase's heads, bf16 (the tensor-core
-# forward's lse) and float32 (the FMA forward's lse); the first is the
-# contract line's row
+# forward's lse; both backward routes) and float32 (the FMA forward's lse;
+# the FMA route), at hd 64, and at a ragged length; the first is the
+# contract line's row and the route gate's shape
 BWD_CASES = [
     ("train", (2, 1024, 12, 2, 128), "bfloat16", True, 0),
     ("train_window", (2, 1024, 12, 2, 128), "bfloat16", True, 256),
+    ("hd64", (2, 1024, 8, 2, 64), "bfloat16", True, 0),
+    ("ragged", (2, 1000, 12, 2, 128), "bfloat16", True, 0),
     ("f32_hd8", (1, 512, 4, 2, 8), "float32", True, 0),
     ("f32_hd16", (1, 512, 4, 2, 16), "float32", True, 0),
 ]
@@ -665,11 +676,33 @@ def kernel_device_ms(fn, pattern, timer, reps=20):
                if re.search(pattern, n)) / reps
 
 
+def grad_errors(got, want, tol):
+    """Max abs and max relative error of each of dq, dk, dv against
+    ``want``, and whether each meets ``tol`` (torch.allclose)."""
+    import torch
+
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        d = (a.float() - w.float()).abs()
+        errs[name] = {
+            "max_abs_err": float(d.max()),
+            "max_rel_err": float((d / w.float().abs().clamp(
+                min=tol["atol"])).max()),
+            "ok": bool(torch.allclose(a.float(), w.float(), **tol))}
+    return errs
+
+
 def flash_bwd_rows(device, seed, timer):
     """Flash backward kernels against autograd through the plain version
-    at BWD_CASES: errors of dq, dk, dv, determinism (two runs, equal
-    bits), times of kernel, plain backward and SDPA's backward, the bound,
-    and the forward timed with and without its lse output."""
+    at BWD_CASES, on every route the dtype takes (bf16: the tensor-core
+    route and the FMA route; float32: the FMA route): errors of dq, dk,
+    dv, determinism (two runs, equal bits), times of both routes in turns
+    (tc, fma, fma, tc), the plain backward and SDPA's backward with SDPA's
+    errors against the same reference, the tensor-core route's device
+    time by kernel (the GQA reduction's own), the bound and the share of
+    it, and the forward timed with and without its lse output.  The route
+    gate: where the rule routes the train case to the tensor cores, they
+    must beat the FMA route there."""
     import torch
     import torch.nn.functional as F
 
@@ -688,11 +721,6 @@ def flash_bwd_rows(device, seed, timer):
         do = rand(b, s, h, hd)
         route = fa._route(dtype, hd)
         o, lse = fa._forward(q, k, v, causal, window, 0, route, with_lse=True)
-
-        def kern():
-            return fa.backward(do, q, k, v, o, lse, causal, window)
-
-        got, again = kern(), kern()
         qkv = [t.clone().requires_grad_() for t in (q, k, v)]
         ref_out = ref.flash_attention_ref(*qkv, causal, window, 0)
 
@@ -700,22 +728,25 @@ def flash_bwd_rows(device, seed, timer):
             return torch.autograd.grad(ref_out, qkv, do, retain_graph=True)
 
         want = plain()
-        torch.cuda.synchronize()
         tol = BWD_TOL[dt]
-        errs = {}
-        for name, a, w in zip(("dq", "dk", "dv"), got, want):
-            d = (a.float() - w.float()).abs()
-            errs[name] = {
-                "max_abs_err": float(d.max()),
-                "max_rel_err": float((d / w.float().abs().clamp(
-                    min=tol["atol"])).max())}
-            if not torch.allclose(a.float(), w.float(), **tol):
-                raise AssertionError(f"flash backward {label}: {name} "
-                                     f"disagrees: {errs[name]}")
         view = torch.int16 if dtype == torch.bfloat16 else torch.int32
-        if not all(torch.equal(a.view(view), c.view(view))
-                   for a, c in zip(got, again)):
-            raise AssertionError(f"flash backward {label}: two runs differ")
+        routes = [route] + (["fma"] if route == "tc" else [])
+        kerns, errs = {}, {}
+        for r in routes:
+            kerns[r] = (lambda r=r: fa.backward(do, q, k, v, o, lse, causal,
+                                                window, route=r))
+            got, again = kerns[r](), kerns[r]()
+            torch.cuda.synchronize()
+            errs[r] = grad_errors(got, want, tol)
+            for name, e in errs[r].items():
+                if not e["ok"]:
+                    raise AssertionError(f"flash backward {label} ({r}): "
+                                         f"{name} disagrees: {e}")
+            if not all(torch.equal(x.view(view), y.view(view))
+                       for x, y in zip(got, again)):
+                raise AssertionError(f"flash backward {label} ({r}): two "
+                                     f"runs differ")
+            del got, again
         # yardstick only: SDPA's backward on the same inputs
         mask = attention_mask(s, s, causal, window, 0, device)
         lib_q, lib_k, lib_v = (t.transpose(1, 2).detach().clone()
@@ -730,12 +761,36 @@ def flash_bwd_rows(device, seed, timer):
             return torch.autograd.grad(lib_out, (lib_q, lib_k, lib_v), lib_do,
                                        retain_graph=True)
 
+        sdpa_errs = grad_errors([t.transpose(1, 2) for t in library()], want,
+                                tol)
+        # SDPA's backward by device time: its autograd call can stay on the
+        # host longer than the Timer's L2 flush runs, and then CUDA events
+        # read host delay; every kernel of the profile but the flush's fill
+        library_dev = kernel_device_ms(library, r"^(?!.*FillFunctor<unsign)",
+                                       timer)
+        # both routes in turns: route, fma, fma, route
+        turns = {r: [] for r in routes}
+        for r in routes + routes[::-1]:
+            turns[r].append(timer(kerns[r]))
+        ms = {r: statistics.median(t) for r, t in turns.items()}
+        if label == "train" and route == "tc" and ms["tc"] >= ms["fma"]:
+            raise AssertionError(f"route gate: the tensor-core backward "
+                                 f"({ms['tc']} ms) is not faster than the "
+                                 f"FMA backward ({ms['fma']} ms)")
+        kernels = [n for n, _ in fa.backward_plan(b, s, s, h, hkv, hd,
+                                                  dtype)["kernels"]]
+        by_kernel = None
+        if route == "tc":  # device time of each kernel of the route
+            by_kernel = {n: kernel_device_ms(kerns["tc"], n, timer)
+                         for n in kernels}
+
         pairs = int(mask.sum())
         flops = 10 * hd * pairs * b * h  # the five products
         el = q.element_size()
         nbytes = (4 * q.numel() + 4 * k.numel()) * el + lse.numel() * 4
         bytes_ms = nbytes / PEAK["bytes"] * 1e3
         ops_ms = flops / PEAK["bf16" if dt == "bfloat16" else "f32"] * 1e3
+        bound = max(bytes_ms, ops_ms)
         # the forward with and without lse, in turns (null, lse, lse,
         # null), by the flash kernel's device time
         fwd = {"lse_null": [], "lse": []}
@@ -746,25 +801,33 @@ def flash_bwd_rows(device, seed, timer):
                 r"flash_attention(_tc)?_kernel", timer))
         rows.append({
             "name": "flash_attention_bwd", "route": "cuda", "case": label,
-            "kernel": "fa_bwd_preprocess_kernel + fa_bwd_dkdv_kernel + "
-                      "fa_bwd_dq_kernel",
+            "fa_route": route,
+            "counter": ("flash_attention_bwd_tc" if route == "tc"
+                        else "flash_attention_bwd"),
+            "kernel": " + ".join(kernels),
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/models/attention.py:92",
             "replaces_note": "XLA autodiff of the jnp chunked attention; the "
                              "JAX package has no backward kernel",
             "shape": [b, s, s, h, hkv, hd], "dtype": dt, "causal": causal,
             "window": window, "forward_route": route, "tolerance": tol,
-            "errors": errs,
-            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "errors": errs[route], "fma_errors": errs.get("fma"),
+            "sdpa_errors": sdpa_errs,
+            "max_abs_err": max(e["max_abs_err"]
+                               for e in errs[route].values()),
             "deterministic": True,
-            "ms": timer(kern), "plain_ms": timer(plain),
-            "library_ms": timer(library), "copy_ms": None,
-            "forward_ms": fwd, "flops": flops, "bytes": nbytes,
-            "bound_ms": max(bytes_ms, ops_ms),
+            "ms": ms[route], "fma_ms": ms["fma"], "route_turns_ms": turns,
+            "device_ms_by_kernel": by_kernel,
+            "device_ms": sum(by_kernel.values()) if by_kernel else None,
+            "plain_ms": timer(plain), "library_ms": library_dev,
+            "library_event_ms": timer(library),
+            "copy_ms": None, "forward_ms": fwd, "flops": flops,
+            "bytes": nbytes, "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": bound / ms[route],
         })
-        del q, k, v, do, o, lse, got, again, qkv, ref_out, want, lib_out
-        del lib_q, lib_k, lib_v, mask
+        del q, k, v, do, o, lse, qkv, ref_out, want, lib_out
+        del lib_q, lib_k, lib_v, mask, kerns
     return rows
 
 
@@ -1513,7 +1576,15 @@ def phase_train(device, seed):
         prof_wall = time.perf_counter() - t
     finally:
         pipe.close()
-    per = {"flash_attention": 2 * layers, "flash_attention_bwd": layers}
+    # the backward's route for the model's compute dtype and head dim: the
+    # tensor cores for bf16 (where the kernels phase's route gate held)
+    bwd_plan = fa.backward_plan(
+        TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], cfg.n_heads,
+        cfg.n_kv_heads, cfg.resolved_head_dim,
+        getattr(torch, cfg.compute_dtype))
+    per = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+           "flash_attention_bwd_tc":
+               layers if bwd_plan["route"] == "tc" else 0}
     for name, n in per.items():  # remat: forward and its recompute
         if launches[name] != n * steps:
             raise AssertionError(f"train: {launches} over {steps} steps, "
@@ -1547,6 +1618,8 @@ def phase_train(device, seed):
         "device_idle_share": 1 - busy / 1e3 / prof_wall,
         "flash_forward_ms": kernel_time(r"flash_attention(_tc)?_kernel"),
         "flash_backward_ms": kernel_time(r"fa_bwd_\w+_kernel"),
+        "flash_backward_by_kernel_ms": {
+            n: kernel_time(n) for n, _ in bwd_plan["kernels"]},
         "gemm_ms": kernel_time(r"gemm|xmma|cutlass|nvjet"),
         "device_top_ms": dict(sorted(device_ms.items(),
                                      key=lambda kv: -kv[1])[:12]),
@@ -1720,6 +1793,9 @@ def phase_loop(root, device, seed, layers, block_size):
     for name in ("flash_attention", "flash_attention_bwd", "sketch_blocks"):
         if launches[name] == 0:
             raise AssertionError(f"loop: {name} never launched")
+    if (fa._route(getattr(torch, cfg.compute_dtype), cfg.resolved_head_dim)
+            == "tc" and launches["flash_attention_bwd_tc"] == 0):
+        raise AssertionError("loop: the tensor-core backward never launched")
     if launches["ties_fused"] + launches["ties_merge"] == 0:
         raise AssertionError("loop: no TIES kernel launched")
     out["launches"] = launches
@@ -1807,8 +1883,15 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [os.path.relpath(p, HERE) for p in paths]})
     # each kernel's registers, spills and static shared memory (ptxas -v)
-    emit({"ptxas": {os.path.basename(lib.source): ptxas_report(lib.log_path())
-                    for lib in libraries}})
+    ptxas = {os.path.basename(lib.source): ptxas_report(lib.log_path())
+             for lib in libraries}
+    emit({"ptxas": ptxas})
+    spills = [n for n, r in ptxas["flash_attention.cu"].items()
+              if re.search(r"fa_bwd_\w*(tc|reduce)_kernel", n)
+              and (r.get("spill_stores") or r.get("spill_loads"))]
+    if spills:
+        raise AssertionError(f"ptxas: the tensor-core backward spills in "
+                             f"{spills}")
 
     rows = phase_kernels(device, args.seed)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
@@ -1831,7 +1914,8 @@ def main() -> int:
     # the loop
     launches = {n: launches[n] + service[n] + pair[n] + loop[n]
                 for n in launches}
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd",
+                 "flash_attention_bwd_tc"):
         launches[name] = served.get(name, 0) + trained[name] + loop[name]
     keys = ("name", "kernel", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1840,12 +1924,14 @@ def main() -> int:
     # threshold at the largest group, the sketch at ANALYZE's launch,
     # flash attention at the prefill shape through the tensor-core kernel
     # (the serve phase checked that every bf16 prefill launch took that
-    # route), the flash backward at the training shape
+    # route), the flash backward at the training shape through the
+    # tensor-core route (its launches: that route's counter)
     firsts = {}
     for r in rows:
         if r.get("fa_route", "tc") == "tc":
             firsts.setdefault(r["name"], r)
-    emit({"kernels": [{k: ({**r, "launches": launches[r["name"]]})[k]
+    emit({"kernels": [{k: ({**r, "launches": launches[r.get("counter",
+                                                             r["name"])]})[k]
                        for k in keys} for r in firsts.values()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

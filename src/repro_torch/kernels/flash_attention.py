@@ -28,10 +28,24 @@ The gradient: where grad mode is on and an operand requires grad,
 :func:`flash_attention` on CUDA tensors goes through
 :class:`FlashAttentionFn`, whose forward launches the routed kernel with
 its per-row log-sum-exp (``lse``, float32 (B, H, Sq)) and whose backward
-launches the backward kernels (:func:`backward`: ``D = rowsum(dO o)``,
-then dK / dV per key tile, then dQ per query tile; deterministic, no
-float atomics; ``LAUNCHES["flash_attention_bwd"]``).  :func:`launch`
-itself stays forward only and raises on an operand that requires grad.
+launches the backward kernels (:func:`backward`), routed by the same
+rule:
+
+* ``"tc"`` (bfloat16, hd in :data:`TC_HEAD_DIMS`): ``fa_backward_tc``,
+  four kernels: ``D = rowsum(dO o)`` (16-byte loads), then on the
+  tensor cores dK / dV per (query head, key tile) into float32
+  partials, their sum over the g query heads of each kv head in head
+  order (only where H > Hkv), and dQ per query tile; operands aligned as
+  the forward's tensor-core route wants (a misaligned upstream gradient
+  is copied, q, k and v raise); ``LAUNCHES["flash_attention_bwd_tc"]``;
+* ``"fma"`` (float32, and bfloat16 with hd 8): ``fa_backward``, three
+  kernels of float32 FMAs (``D``, dK / dV per kv head and key tile, dQ).
+
+Both are deterministic (no float atomics); ``LAUNCHES
+["flash_attention_bwd"]`` counts every backward call.
+:func:`backward_plan` gives a route's launches and scratch from the
+shapes alone.  :func:`launch` itself stays forward only and raises on an
+operand that requires grad.
 On CPU tensors autograd runs through the plain version.  The backward
 covers what the forward covers, with ``q_offset = 0`` (training); any
 other ``q_offset`` raises.
@@ -51,16 +65,21 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import CudaLibrary
 
 #: launches since the last :func:`reset_launches`: every forward launch,
-#: those of the tensor-core route, and backward launches (each one call
-#: of ``fa_backward``: its three kernels)
+#: those of the tensor-core route, every backward call (each one call of
+#: ``fa_backward`` or ``fa_backward_tc``: all its kernels), and those of
+#: the tensor-core route
 LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0}
 #: head dims the kernels are built for (hdv == hd)
 HEAD_DIMS = (8, 16, 32, 64, 128)
 #: head dims of the tensor-core route (bfloat16 only)
 TC_HEAD_DIMS = (16, 32, 64, 128)
 ROUTES = ("tc", "fma")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: rows and keys per tile of the backward kernels; threads of a CTA of the
+#: preprocess kernel and of the GQA reduction (four elements a thread)
+_TILE = 64
+_BWD_THREADS = 256
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -83,6 +102,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     # hd, causal, window, scale, dtype, stream
     lib.fa_backward.argtypes = [p] * 10 + [strides] + [i] * 8 + [f, i, p]
     lib.fa_backward.restype = ctypes.c_int
+    # ... dv, dk_part, dv_part, strides, b, sq, sk, h, hkv, hd, causal,
+    # window, scale, stream
+    lib.fa_backward_tc.argtypes = [p] * 12 + [strides] + [i] * 8 + [f, p]
+    lib.fa_backward_tc.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("flash_attention.cu", _declare)
@@ -130,16 +153,21 @@ def _route(dtype: torch.dtype, hd: int) -> str:
     return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "fma"
 
 
+def _tc_aligned(t: torch.Tensor) -> bool:
+    """Does ``t`` start on a 16-byte boundary, with b, s and h strides (of
+    the dimensions longer than 1) in multiples of 8 elements?"""
+    return t.data_ptr() % 16 == 0 and all(
+        n <= 1 or st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
 def _check_tc(*tensors: torch.Tensor) -> None:
     """The tensor-core route's 16-byte copies: raise unless every operand
-    starts on a 16-byte boundary and its b, s and h strides (of the
-    dimensions longer than 1) are multiples of 8 elements."""
+    is :func:`_tc_aligned`."""
     for t in tensors:
         if t.data_ptr() % 16 != 0:
             raise ValueError("flash_attention: the tensor-core route needs "
                              "16-byte-aligned operands")
-        if any(n > 1 and st % 8 != 0
-               for n, st in zip(t.shape[:3], t.stride()[:3])):
+        if not _tc_aligned(t):
             raise ValueError(f"flash_attention: the tensor-core route needs "
                              f"strides in multiples of 8 elements (16 "
                              f"bytes), got {t.stride()}")
@@ -204,19 +232,66 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
+                  dtype: torch.dtype, route: str | None = None) -> dict:
+    """The backward's launches for these shapes, from the shapes alone:
+    ``route`` (None takes :func:`_route`), ``kernels`` as (name, grid) in
+    launch order, and ``scratch_floats``, the float32 elements of the
+    tensor-core route's dK / dV partials (0 where none).  Raises
+    ``ValueError`` for an unknown route or a tensor-core route that the
+    dtype or head dim does not take."""
+    if route is None:
+        route = _route(dtype, hd)
+    if route not in ROUTES:
+        raise ValueError(f"flash_attention backward: route {route!r} not in "
+                         f"{ROUTES}")
+    if route == "tc" and _route(dtype, hd) != "tc":
+        raise ValueError(f"flash_attention backward: the tensor-core route "
+                         f"takes bfloat16 with hd in {TC_HEAD_DIMS}, got "
+                         f"{dtype}, hd {hd}")
+    nq, nk = _cdiv(sq, _TILE), _cdiv(sk, _TILE)
+    scratch = 0
+    if route == "fma":
+        kernels = [("fa_bwd_preprocess_kernel", (nq, b * h)),
+                   ("fa_bwd_dkdv_kernel", (nk, b * hkv)),
+                   ("fa_bwd_dq_kernel", (nq, b * h))]
+    else:
+        kernels = [("fa_bwd_preprocess_tc_kernel", (nq, b * h)),
+                   ("fa_bwd_dkdv_tc_kernel", (b * h, nk))]
+        if h != hkv:  # per-query-head partials, summed per kv head
+            scratch = 2 * b * sk * h * hd
+            kernels.append(("fa_bwd_gqa_reduce_kernel",
+                            (_cdiv(b * sk * hkv * hd // 4, _BWD_THREADS),)))
+        kernels.append(("fa_bwd_dq_tc_kernel", (b * h, nq)))
+    return {"route": route, "kernels": kernels, "scratch_floats": scratch}
+
+
 def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
              v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-             causal: bool, window: int):
+             causal: bool, window: int, route: str | None = None):
     """Launch the backward kernels on CUDA tensors: (dq, dk, dv) in q's
     dtype and shapes, from the upstream gradient ``do`` (shaped as
     ``o``), the forward's operands, its output ``o`` and its ``lse``
-    (float32 (B, H, Sq)).  ``q_offset`` is 0 (the training forward)."""
+    (float32 (B, H, Sq)).  ``q_offset`` is 0 (the training forward).
+    ``route`` None takes :func:`_route`; a caller may name the other route
+    only to time or test it.  The route is checked first, before the
+    operands' device."""
+    if q.dim() == 4 and k.dim() == 4:  # else _check raises
+        plan = backward_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                             k.shape[2], q.shape[3], q.dtype, route)
     window = int(window)
     _check(q, k, v, window, 0)
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if do.stride(3) != 1:
-        do = do.contiguous()
+    route = plan["route"]
+    if do.stride(3) != 1 or (route == "tc" and not _tc_aligned(do)):
+        # a copy, not another route (a contiguous view may start off the
+        # 16-byte boundary, so not .contiguous())
+        do = do.clone(memory_format=torch.contiguous_format)
     for t in (o, do):
         if (t.shape != q.shape or t.dtype != q.dtype
                 or t.device != q.device or t.stride(3) != 1):
@@ -227,6 +302,8 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError("flash_attention backward: want a contiguous "
                          "float32 lse of shape (B, H, Sq) on q's device")
+    if route == "tc":
+        _check_tc(q, k, v, o, do)
     lib = LIBRARY.load()
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
@@ -234,23 +311,36 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     delta = torch.empty_like(lse)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv),
-            b, sq, sk, h, hkv, hd, int(bool(causal)), window,
-            1.0 / math.sqrt(hd), _DTYPES[q.dtype])
+            dk.data_ptr(), dv.data_ptr())
+    dims = (_strides(q, k, v, o, do, dq, dk, dv), b, sq, sk, h, hkv, hd,
+            int(bool(causal)), window, 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        rc = lib.fa_backward(*args, stream)
+        if route == "tc":
+            part = (torch.empty((2, plan["scratch_floats"] // 2),
+                                dtype=torch.float32, device=q.device)
+                    if plan["scratch_floats"] else None)
+            parts = ((part[0].data_ptr(), part[1].data_ptr())
+                     if part is not None else (None, None))
+            rc = lib.fa_backward_tc(*args, *parts, *dims, stream)
+        else:
+            rc = lib.fa_backward(*args, *dims, _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward: CUDA launch failed "
                            f"with status {rc}")
     LAUNCHES["flash_attention_bwd"] += 1
+    if route == "tc":
+        LAUNCHES["flash_attention_bwd_tc"] += 1
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention on CUDA tensors with a kernel for its gradient:
     the forward saves q, k, v, the output and the per-row ``lse``; the
-    backward is :func:`backward`.  ``q_offset`` is 0."""
+    backward is :func:`backward`.  Both take :func:`_route`'s route: the
+    tensor cores for bfloat16 with hd in :data:`TC_HEAD_DIMS` (forward
+    ``flash_attention_tc_kernel``, backward ``fa_backward_tc``), float32
+    FMAs otherwise.  ``q_offset`` is 0."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):

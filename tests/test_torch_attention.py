@@ -213,10 +213,112 @@ def test_kernel_checks_refuse_cpu_operands():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_route_rule(dtype, hd):
     """bf16 with hd >= 16 goes to the tensor-core kernel; float32 and bf16
-    with hd = 8 to the FMA kernel."""
+    with hd = 8 to the FMA kernel.  The backward follows the same rule."""
     route = tfa._route(getattr(torch, dtype), hd)
     assert route == ("tc" if dtype == "bfloat16" and hd >= 16 else "fma")
     assert route in tfa.ROUTES
+    plan = tfa.backward_plan(2, 64, 64, 4, 2, hd, getattr(torch, dtype))
+    assert plan["route"] == route
+    assert plan["kernels"][1][0] == ("fa_bwd_dkdv_tc_kernel" if route == "tc"
+                                     else "fa_bwd_dkdv_kernel")
+
+
+@pytest.mark.parametrize("dtype,hd", [("float32", 16), ("float32", 128),
+                                      ("bfloat16", 8)])
+def test_backward_tc_route_refuses_before_launch(dtype, hd):
+    """``backward(route="tc")`` refuses what the tensor-core route does
+    not take (float32, hd 8) from the shapes and dtype alone, before it
+    looks at the device; an unknown route too."""
+    q, k, v = _torch(_qkv((1, 8, 8, 4, 2, hd)), dtype)
+    lse = torch.zeros((1, 4, 8))
+    with pytest.raises(ValueError, match="tensor-core route takes"):
+        tfa.backward(q, q, k, v, q, lse, True, 0, route="tc")
+    with pytest.raises(ValueError, match="tensor-core route takes"):
+        tfa.backward_plan(1, 8, 8, 4, 2, hd, getattr(torch, dtype), "tc")
+    with pytest.raises(ValueError, match="route"):
+        tfa.backward(q, q, k, v, q, lse, True, 0, route="wgmma")
+    with pytest.raises(ValueError, match="CUDA"):            # the FMA route
+        tfa.backward(q, q, k, v, q, lse, True, 0, route="fma")
+
+
+def test_backward_plan_hand_counts():
+    """The backward's launches against counts by hand (64-row tiles; the
+    reduction's CTAs take 256 threads of four elements)."""
+    bf16 = torch.bfloat16
+    # the train step: B 4, S 1024, H 12, Hkv 2, hd 128
+    plan = tfa.backward_plan(4, 1024, 1024, 12, 2, 128, bf16)
+    assert plan == {"route": "tc", "kernels": [
+        ("fa_bwd_preprocess_tc_kernel", (16, 48)),
+        ("fa_bwd_dkdv_tc_kernel", (48, 16)),           # 768 CTAs
+        ("fa_bwd_gqa_reduce_kernel", (1024,)),         # 4*1024*2*128 / 4 / 256
+        ("fa_bwd_dq_tc_kernel", (48, 16))],
+        "scratch_floats": 2 * 4 * 1024 * 12 * 128}     # 2 x 25.2 MB
+    fma = tfa.backward_plan(4, 1024, 1024, 12, 2, 128, bf16, "fma")
+    assert fma["kernels"][1] == ("fa_bwd_dkdv_kernel", (16, 8))  # 128 CTAs
+    assert fma["scratch_floats"] == 0
+    # ragged, and MHA (g = 1: no partials, no reduction)
+    assert tfa.backward_plan(2, 1000, 1000, 12, 2, 128, bf16)["kernels"][2] \
+        == ("fa_bwd_gqa_reduce_kernel", (500,))         # 128,000 / 256
+    assert tfa.backward_plan(1, 100, 150, 4, 4, 32, bf16) == {
+        "route": "tc", "kernels": [("fa_bwd_preprocess_tc_kernel", (2, 4)),
+                                   ("fa_bwd_dkdv_tc_kernel", (4, 3)),
+                                   ("fa_bwd_dq_tc_kernel", (4, 2))],
+        "scratch_floats": 0}
+    assert tfa.backward_plan(1, 200, 200, 6, 2, 8, torch.float32) == {
+        "route": "fma", "kernels": [("fa_bwd_preprocess_kernel", (4, 6)),
+                                    ("fa_bwd_dkdv_kernel", (4, 2)),
+                                    ("fa_bwd_dq_kernel", (4, 6))],
+        "scratch_floats": 0}
+
+
+def test_backward_wrapper_marshals_each_route(monkeypatch):
+    """What the wrapper hands the C entry points, with a stand-in library
+    (no card): the tensor-core route gets a 16-byte-aligned copy of a
+    misaligned upstream gradient and two float32 partials where H > Hkv
+    (none where H == Hkv); the FMA route the gradient as it is and the
+    dtype; the launch counters count each call and the tensor-core
+    ones."""
+    import contextlib
+    import types
+
+    calls = []
+
+    class Lib:
+        def fa_backward_tc(self, *args):
+            calls.append(("tc", args))
+            return 0
+
+        def fa_backward(self, *args):
+            calls.append(("fma", args))
+            return 0
+
+    monkeypatch.setattr(tfa.LIBRARY, "load", lambda: Lib())
+    monkeypatch.setattr(tfa, "_check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    bf16 = torch.bfloat16
+    q = torch.zeros((2, 8, 4, 16), dtype=bf16)
+    kv = torch.zeros((2, 8, 2, 16), dtype=bf16)
+    lse = torch.zeros((2, 4, 8))
+    buf = torch.zeros(q.numel() + 8, dtype=bf16)
+    do = buf[1:1 + q.numel()].view(q.shape)              # 2 bytes off
+    assert not tfa._tc_aligned(do)
+    tfa.reset_launches()
+    tfa.backward(do, q, kv, kv, q, lse, True, 0)
+    tfa.backward(do, q, q, q, q, lse, True, 0)           # MHA
+    tfa.backward(do, q, kv, kv, q, lse, True, 0, route="fma")
+    (r0, a0), (r1, a1), (r2, a2) = calls
+    assert (r0, r1, r2) == ("tc", "tc", "fma")
+    assert a0[4] % 16 == 0 and a0[4] != do.data_ptr()    # the copy
+    assert a0[10] is not None and a0[11] is not None     # the partials
+    assert a0[11] - a0[10] == 2 * 8 * 4 * 16 * 4         # (B, Sk, H, hd) f32
+    assert a1[10] is None and a1[11] is None
+    assert a2[4] == do.data_ptr() and a2[-2] == 1        # as is; bf16
+    assert len(a0) == 23 and len(a2) == 22
+    assert tfa.LAUNCHES["flash_attention_bwd"] == 3
+    assert tfa.LAUNCHES["flash_attention_bwd_tc"] == 2
 
 
 def test_tc_alignment_check():

@@ -529,7 +529,8 @@ def test_flash_attention_fma_route_bf16(cuda, case):
     tfa.reset_launches()
     got = tfa.launch(q, k, v, causal, window, q_offset, route="fma")
     assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_tc": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0,
+                            "flash_attention_bwd_tc": 0}
     want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
                                     skip_masked_chunks=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
@@ -567,7 +568,8 @@ def test_flash_attention_tc_refuses_misaligned(cuda):
     with pytest.raises(ValueError, match="tensor-core route takes"):
         tfa.launch(q.float(), k.float(), v.float(), True, 0, 0, route="tc")
     assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0,
+                            "flash_attention_bwd_tc": 0}
 
 
 def test_flash_attention_wrapper_refuses(cuda):
@@ -631,6 +633,17 @@ BWD_CASES = [
     (1, 150, 150, 2, 1, 64, False, 40),    # window without causal
     (1, 256, 256, 12, 2, 128, True, 0),    # the model's heads
     (1, 64, 64, 2, 1, 128, True, 1),       # each row attends itself
+    (2, 1000, 1000, 12, 2, 128, True, 0),  # the model's heads, ragged
+]
+# (dtype, backward route): float32 takes the FMA route; bf16 both, the
+# tensor cores only with hd in TC_HEAD_DIMS
+BWD_PARAMS = [
+    pytest.param(case, dtype, route, id=f"{name}-{route}-{i}")
+    for i, case in enumerate(BWD_CASES)
+    for name, dtype, route in (("f32", torch.float32, "fma"),
+                               ("bf16", torch.bfloat16, "fma"),
+                               ("bf16", torch.bfloat16, "tc"))
+    if route == "fma" or case[5] in tfa.TC_HEAD_DIMS
 ]
 # the backward against autograd through the plain version: float32 sums
 # in another order; bf16 gradients one bf16 rounding apart (the forward's
@@ -647,21 +660,26 @@ def _bwd_inputs(case, dtype, device, seed=0):
     return [t.requires_grad_() for t in (q, k, v)], do
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", BWD_CASES)
-def test_flash_attention_fn_grads_match_plain_autograd(cuda, case, dtype):
-    """FlashAttentionFn (forward kernel with lse, backward kernels)
-    against autograd through ``flash_attention_ref`` on the card; two
-    backward runs give the same bits."""
+@pytest.mark.parametrize("case,dtype,route", BWD_PARAMS)
+def test_flash_attention_fn_grads_match_plain_autograd(cuda, case, dtype,
+                                                       route, monkeypatch):
+    """FlashAttentionFn (forward kernel with lse, backward kernels on the
+    given route) against autograd through ``flash_attention_ref`` on the
+    card; two backward runs give the same bits."""
+    import functools
+
     causal, window = case[6:]
     qkv, do = _bwd_inputs(case, dtype, cuda)
+    monkeypatch.setattr(tfa, "backward",
+                        functools.partial(tfa.backward, route=route))
     tfa.reset_launches()
     out = tfa.flash_attention(*qkv, causal=causal, window=window)
     got = torch.autograd.grad(out, qkv, do, retain_graph=True)
     again = torch.autograd.grad(out, qkv, do)
     assert tfa.LAUNCHES["flash_attention"] == 1
     assert tfa.LAUNCHES["flash_attention_bwd"] == 2
+    assert tfa.LAUNCHES["flash_attention_bwd_tc"] == (2 if route == "tc"
+                                                      else 0)
     ref_out = tref.flash_attention_ref(*qkv, causal, window, 0, 64, 64)
     want = torch.autograd.grad(ref_out, qkv, do)
     torch.cuda.synchronize()
@@ -693,6 +711,63 @@ def test_flash_attention_fn_forward_equals_launch(cuda):
                                       device=cuda).tril(), float("-inf"))
         torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5,
                                    atol=1e-5)
+
+
+def test_flash_attention_fn_takes_the_tc_backward_for_bf16(cuda):
+    """The route rule: bf16 with hd in TC_HEAD_DIMS trains through the
+    tensor-core backward, float32 through the FMA one."""
+    case = (1, 64, 64, 4, 2, 32, True, 0)
+    for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
+        qkv, do = _bwd_inputs(case, dtype, cuda)
+        tfa.reset_launches()
+        torch.autograd.grad(tfa.flash_attention(*qkv), qkv, do)
+        assert tfa.LAUNCHES["flash_attention_bwd"] == 1
+        assert tfa.LAUNCHES["flash_attention_bwd_tc"] == tc
+
+
+def _misaligned(t):
+    """The same values in a view that starts 2 bytes past a 16-byte
+    boundary (so not on the tensor-core route's boundary)."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_flash_attention_backward_tc_copies_misaligned_grad(cuda):
+    """An upstream gradient off the 16-byte rule (an offset view, or a
+    head stride that is no multiple of 8) is copied, not refused: the
+    same bits as from the aligned gradient."""
+    case = (2, 70, 70, 4, 2, 16, True, 0)
+    qkv, do = _bwd_inputs(case, torch.bfloat16, cuda)
+    q, k, v = (t.detach() for t in qkv)
+    out, lse = tfa._forward(q, k, v, True, 0, 0, "tc", with_lse=True)
+    wide = torch.zeros((2, 70, 4, 20), dtype=torch.bfloat16, device=cuda)
+    wide[..., :16] = do
+    views = [_misaligned(do), wide[..., :16]]
+    assert not any(tfa._tc_aligned(t) for t in views)
+    want = tfa.backward(do, q, k, v, out, lse, True, 0, route="tc")
+    for view in views:
+        got = tfa.backward(view, q, k, v, out, lse, True, 0, route="tc")
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+
+
+def test_flash_attention_backward_tc_refuses_misaligned_qkv(cuda):
+    """q, k or v off the 16-byte rule is refused on the tensor-core
+    route (no copy, no other route)."""
+    qkv, do = _bwd_inputs((1, 64, 64, 4, 2, 16, True, 0), torch.bfloat16,
+                          cuda)
+    q, k, v = (t.detach() for t in qkv)
+    out, lse = tfa._forward(q, k, v, True, 0, 0, "tc", with_lse=True)
+    tfa.reset_launches()
+    for i in range(3):
+        ops = [q, k, v]
+        ops[i] = _misaligned(ops[i])
+        with pytest.raises(ValueError, match="tensor-core route"):
+            tfa.backward(do, *ops, out, lse, True, 0, route="tc")
+    assert tfa.LAUNCHES["flash_attention_bwd"] == 0
 
 
 def test_flash_attention_backward_refuses(cuda):
