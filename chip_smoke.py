@@ -17,16 +17,22 @@ from ``--seed``; nothing is downloaded.  Default 128 KiB blocks.
 Phases, one JSON line each:
 
   build    nvcc builds src/repro_torch/csrc/merge_block.cu (merge,
-           fused TIES, TIES threshold and sketch kernels) and
+           fused TIES, the TIES pair's threshold and apply, and sketch
+           kernels) and
            flash_attention.cu (sm_90a), both at once; then each kernel's
            registers, spills and static shared memory from ptxas -v (the
            tensor-core backward's kernels must not spill)
   kernels  each Hopper kernel against its plain PyTorch version: the
            merge kernels at the merge path's largest window group (NB =
-           32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), the TIES
-           threshold (radix select) there and at the merge's median
-           launch (5, 3, 65,536) against torch.kthvalue (bit for bit),
-           the fused TIES kernel (one cluster launch: threshold and
+           32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), TIES's
+           pair route at PAIR_CASES (the merge's group and median
+           launch (5, 3, 65,536), the parity phase's 2 MiB-block median
+           (1, 4, 1,048,576), K = 16, the loop's most common pair
+           launch): the threshold (a radix select, one CTA a row from 16
+           rows, else sliced over the whole card) against torch.kthvalue
+           and the apply against its plain version, bit for bit, each
+           with its profiler device time; the fused TIES
+           kernel (one cluster launch: threshold and
            apply) at both shapes against its plain version and its
            thresholds against torch.kthvalue (bit for bit), with the
            pair's time (threshold kernel + apply kernel) and its cluster
@@ -68,7 +74,8 @@ Phases, one JSON line each:
            blocks, where ties_route sends the large blocks to the pair
            (threshold kernel, then apply kernel) and the small ones to
            the fused kernel: every launch on the route ties_route names,
-           outputs and bytes against the stream engine as above; then a
+           outputs and bytes against the stream engine as above, and the
+           pair's and the fused kernel's device time; then a
            bf16 merge_blocks of every operator with NaN inputs (both
            signs, payloads) against the numpy operator, bit for bit
   merge    the whole configuration: ANALYZE on the card (sketch kernel),
@@ -112,8 +119,10 @@ Phases, one JSON line each:
            checkpoint, its final TrainState bit-identical to an
            uninterrupted run (torch.use_deterministic_algorithms); then
            base and experts in the port's Session on the card: ANALYZE,
-           TIES at a 50% budget; every model's loss on each skill; the
-           merge served by ServeEngine (4 requests)
+           TIES at a 50% budget (the route and shape of every TIES
+           launch, the pair's and the fused kernel's device time); every
+           model's loss on each skill; the merge served by ServeEngine
+           (4 requests)
 
 Then the kernels' contract line, and last {"ok": true, "device": ...}.
 Any failure raises and exits non-zero.  The workspace lives under
@@ -162,16 +171,27 @@ FA_CASES = [
      0, "fma"),
     ("decode", (1, 1, 2048, 12, 2, 128), "bfloat16", True, 0, 2047, "tc"),
 ]
-# (label, (NB, K, W)) float32 TIES threshold launches: the merge path's
-# largest window group and its median launch by rows (the merge phase
-# reports the launches' shapes: 15 rows of 128 KiB blocks, 1 to 46)
-THRESH_CASES = [("group", (32, 4, 65536)), ("median", (5, 3, 65536))]
-# the fused TIES kernel's cases: the same two shapes
-FUSED_CASES = THRESH_CASES
-# (NB, K) at W = 65,536 on each side of ties_route's rows limit, where the
-# fused kernel and the pair are timed against each other
-ROUTE_CASES = [(12, 4), (15, 4), (16, 4), (20, 3), (24, 3), (23, 2), (30, 2),
-               (46, 1), (61, 1)]
+# (label, (NB, K, W)) float32 TIES launches: the merge path's largest
+# window group and its median launch by rows (the merge phase reports the
+# launches' shapes: 15 rows of 128 KiB blocks, 1 to 46)
+MERGE_CASES = [("group", (32, 4, 65536)), ("median", (5, 3, 65536))]
+# the pair route's shapes (threshold kernel, then apply kernel): the merge
+# path's, the parity phase's median 2 MiB-block launch (ties_2mib_blocks.
+# pair_shapes), K past the fused kernel, and the loop phase's most common
+# pair launch (float32 128 KiB blocks of two experts)
+PAIR_CASES = MERGE_CASES + [("parity_median", (1, 4, 1 << 20)),
+                            ("k16", (4, 16, 65536)),
+                            ("loop", (32, 2, 32768))]
+# the fused TIES kernel's cases: the merge path's two shapes
+FUSED_CASES = MERGE_CASES
+# (NB, K) at W = 65,536 on each side of ties_route's rows and experts
+# limits, where the fused kernel and the pair are timed against each
+# other (the merge phase's most common launches among them)
+ROUTE_CASES = [(1, 13), (1, 8), (2, 8), (2, 7), (2, 6), (8, 6), (4, 5),
+               (1, 4), (4, 4), (5, 4), (8, 4), (10, 4), (12, 4), (16, 4), (2, 3),
+               (5, 3), (8, 3), (10, 3), (16, 3), (20, 3), (24, 3), (2, 2),
+               (8, 2), (13, 2), (15, 2), (20, 2), (23, 2), (30, 2), (40, 2),
+               (2, 1), (6, 1), (16, 1), (22, 1), (30, 1), (46, 1), (60, 1)]
 TRIM = 0.3
 # the parity phase's second TIES merge: 2 MiB blocks (1,048,576 bf16
 # elements) do not fit the fused kernel's shared memory
@@ -311,6 +331,30 @@ class Timer:
                 times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
+    def wall(self, fn, reps=25, warm=3):
+        """Median host-clock ms of one call of ``fn`` from an idle card
+        (L2 flushed, then synchronized): ``wall`` to its end on the card
+        (the wrapper's host time, its launches and the kernels' time, as
+        the merge path pays them call by call) and ``host`` to its return
+        (the host's part)."""
+        import torch
+
+        for _ in range(warm):
+            fn()
+        walls, hosts = [], []
+        for _ in range(reps):
+            if self.cuda:
+                self.flush.zero_()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            hosts.append((time.perf_counter() - t0) * 1e3)
+            if self.cuda:
+                torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return {"wall": statistics.median(walls),
+                "host": statistics.median(hosts)}
+
 
 def phase_kernels(device, seed, nb=32, k=4, w=65536):
     """Kernel vs plain version at the merge path's largest group."""
@@ -381,6 +425,7 @@ def phase_kernels(device, seed, nb=32, k=4, w=65536):
     del x0, D, thresh, masks
     rows += fused_rows(device, seed, timer)
     rows += threshold_rows(device, seed, timer)
+    rows += apply_rows(device, seed, timer)
     route_sweep = route_rows(device, seed, timer)
     rows += sketch_rows(device, seed, timer)
     rows += flash_rows(device, seed, timer)
@@ -390,16 +435,19 @@ def phase_kernels(device, seed, nb=32, k=4, w=65536):
     return rows
 
 
-def route_rows(device, seed, timer, w=65536):
-    """The fused kernel and the pair timed on the same inputs at
-    ROUTE_CASES, beside the route ties_route names (bit-equal outputs)."""
+def route_rows(device, seed, timer, w=65536, cases=ROUTE_CASES, reps=25):
+    """The fused kernel and the pair timed in turns (fused, pair, pair,
+    fused) on the same inputs at ROUTE_CASES, beside the route ties_route
+    names (bit-equal outputs): CUDA-event ms (the card's time) and wall
+    ms (Timer.wall: the host's time too, which sets the route, since the
+    merge path waits on each call's host work), and host ms."""
     import torch
 
     from repro_torch.kernels import merge_block as mb
 
     g = torch.Generator(device=device).manual_seed(seed + 6)
     out = []
-    for nb, k in ROUTE_CASES:
+    for nb, k in cases:
         x0 = torch.randn((nb, w), generator=g, device=device)
         D = 0.02 * torch.randn((nb, k, w), generator=g, device=device)
 
@@ -412,9 +460,25 @@ def route_rows(device, seed, timer, w=65536):
         if not torch.equal(fused().view(torch.int32), pair().view(torch.int32)):
             raise AssertionError(f"ties route sweep {(nb, k, w)}: the routes "
                                  f"disagree")
+        turns = {f"{r}{m}": [] for r in ("fused", "pair")
+                 for m in ("", "_wall", "_host")}
+        for name, fn in (("fused", fused), ("pair", pair), ("pair", pair),
+                         ("fused", fused)):
+            turns[name].append(timer(fn, reps=reps))
+            wall = timer.wall(fn, reps=reps)
+            turns[name + "_wall"].append(wall["wall"])
+            turns[name + "_host"].append(wall["host"])
+        mean = {n: statistics.mean(v) for n, v in turns.items()}
         out.append({"shape": [nb, k, w], "rows": nb * k,
                     "ties_route": mb.ties_route(nb, k, w),
-                    "fused_ms": timer(fused), "pair_ms": timer(pair)})
+                    "fused_ms": mean["fused"], "pair_ms": mean["pair"],
+                    "fused_wall_ms": mean["fused_wall"],
+                    "pair_wall_ms": mean["pair_wall"],
+                    "fused_host_ms": mean["fused_host"],
+                    "pair_host_ms": mean["pair_host"],
+                    "faster_wall": ("fused" if mean["fused_wall"]
+                                    <= mean["pair_wall"] else "pair"),
+                    "turns": turns})
         del x0, D
     return out
 
@@ -478,9 +542,19 @@ def fused_rows(device, seed, timer):
     return rows
 
 
+#: the pair route's kernels in a profile: the threshold's (one CTA a row;
+#: or the clear kernel and three passes) and the apply
+PAIR_KERNELS = r"\bties_(threshold_\w*)?kernel\b"
+
+
+def pair_device_ms(fn, timer):
+    """Profiler device ms of the pair's kernels per call of ``fn``."""
+    return kernel_device_ms(fn, PAIR_KERNELS, timer)
+
+
 def threshold_rows(device, seed, timer):
     """TIES threshold kernel vs torch.kthvalue (its plain version) at
-    THRESH_CASES, bit for bit."""
+    PAIR_CASES, bit for bit."""
     import torch
 
     from repro_torch.kernels import merge_block as mb
@@ -488,7 +562,7 @@ def threshold_rows(device, seed, timer):
 
     g = torch.Generator(device=device).manual_seed(seed + 4)
     rows = []
-    for label, (nb, k, w) in THRESH_CASES:
+    for label, (nb, k, w) in PAIR_CASES:
         D = 0.02 * torch.randn((nb, k, w), generator=g, device=device)
         got, want = mb.ties_thresholds(D, TRIM), ref.ties_thresholds(D, TRIM)
         if device.type == "cuda":
@@ -502,16 +576,26 @@ def threshold_rows(device, seed, timer):
         src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
         dst = torch.empty_like(src)
         bytes_ms = nbytes / PEAK["bytes"] * 1e3
-        # one |x| and one compare per element and radix pass
-        ops_ms = 2 * 4 * nb * k * w / PEAK["f32"] * 1e3
+        # one |x|, a compare and a histogram add per element and full pass
+        # (two passes), counted as float32 operations
+        ops_ms = 2 * 3 * nb * k * w / PEAK["f32"] * 1e3
+        fn = lambda: mb.ties_thresholds(D, TRIM)  # noqa: E731
+        plan = mb.ties_threshold_plan(nb * k, w)
+        kernels = (["ties_threshold_row_kernel"] if plan["variant"] == "row"
+                   else ["ties_threshold_clear_kernel", "ties_threshold_kernel",
+                         "ties_threshold_compact_kernel",
+                         "ties_threshold_finish_kernel"])
         rows.append({
             "name": "ties_threshold", "route": "cuda", "case": label,
-            "kernel": "ties_threshold_kernel",
+            "kernel": kernels[-1 if plan["variant"] == "row" else 1],
+            "kernels": kernels,
             "source": "src/repro_torch/csrc/merge_block.cu",
             "replaces": "src/repro/kernels/ref.py:19",
             "shape": [nb, k, w], "trim_frac": TRIM, "max_abs_err": 0.0,
-            "bits_differ": 0,
-            "ms": timer(lambda: mb.ties_thresholds(D, TRIM)),
+            "bits_differ": 0, "plan": plan,
+            "ms": timer(fn),
+            "device_ms": (pair_device_ms(fn, timer)
+                          if device.type == "cuda" else None),
             "plain_ms": timer(lambda: ref.ties_thresholds(D, TRIM)),
             "copy_ms": timer(lambda: dst.copy_(src)),
             # one library call given |D|: torch.kthvalue
@@ -520,6 +604,55 @@ def threshold_rows(device, seed, timer):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         })
         del D, absd, got, want, src, dst
+    return rows
+
+
+def apply_rows(device, seed, timer):
+    """The pair's apply kernel vs its plain version at PAIR_CASES beyond
+    the first (phase_kernels times that one with the other merge
+    kernels), bit for bit, given torch.kthvalue thresholds."""
+    import torch
+
+    from repro_torch.kernels import merge_block as mb
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=device).manual_seed(seed + 7)
+    rows = []
+    for label, (nb, k, w) in PAIR_CASES[1:]:
+        x0 = torch.randn((nb, w), generator=g, device=device)
+        D = 0.02 * torch.randn((nb, k, w), generator=g, device=device)
+        thresh = ref.ties_thresholds(D, TRIM).contiguous()
+        got = mb.ties_merge(x0, D, thresh, 1.0)
+        want = ref.ties_apply_ref(x0, D, thresh, 1.0)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        if n_diff:
+            raise AssertionError(f"ties_merge {label}: kernel disagrees in "
+                                 f"{n_diff} elements")
+        nbytes = (2 * nb * w + nb * k * w + nb * k) * 4
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
+        dst = torch.empty_like(src)
+        bytes_ms = nbytes / PEAK["bytes"] * 1e3
+        ops_ms = (nb * w * k * 6 / PEAK["f32"] + nb * w * 3 / PEAK["f64"]) * 1e3
+        fn = lambda: mb.ties_merge(x0, D, thresh, 1.0)  # noqa: E731
+        rows.append({
+            "name": "ties_merge", "route": "cuda", "case": label,
+            "kernel": "ties_kernel",
+            "source": "src/repro_torch/csrc/merge_block.cu",
+            "replaces": "src/repro/kernels/merge_block.py:84",
+            "shape": [nb, k, w], "max_abs_err": float((got - want).abs().max()),
+            "bits_differ": 0, "plan": mb.ties_apply_plan(nb, k, w),
+            "ms": timer(fn),
+            "device_ms": (pair_device_ms(fn, timer)
+                          if device.type == "cuda" else None),
+            "plain_ms": timer(lambda: ref.ties_apply_ref(x0, D, thresh, 1.0)),
+            "copy_ms": timer(lambda: dst.copy_(src)),
+            "library_ms": None,  # no one PyTorch call computes the apply
+            "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        })
+        del x0, D, thresh, got, want, src, dst
     return rows
 
 
@@ -892,8 +1025,19 @@ def analyze_parity(mp, ids, cpu_catalog, block_size):
             "plans": plans}
 
 
+def ties_device_ms(prof):
+    """Device ms of a profiled run's TIES kernels by route: the pair's
+    (PAIR_KERNELS) and the fused one."""
+    ms = device_time_ms(prof)
+    return {"pair_device_ms": sum(t for n, t in ms.items()
+                                  if re.search(PAIR_KERNELS, n)),
+            "fused_device_ms": sum(t for n, t in ms.items()
+                                   if re.search(r"\bties_fused_kernel\b", n))}
+
+
 def phase_parity(root, device, seed, block_size):
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.api import MergePipe
     from repro_torch.kernels import merge_block as mb
@@ -927,7 +1071,9 @@ def phase_parity(root, device, seed, block_size):
                    device=device)
     mp.ensure_analyzed("base", ids)
     mb.reset_launches()
-    with measure(mp.stats) as io_k, ties_routes() as seen:
+    with (measure(mp.stats) as io_k, ties_routes() as seen,
+          profile(activities=[ProfilerActivity.CUDA if device.type == "cuda"
+                              else ProfilerActivity.CPU]) as prof):
         rk = mp.merge("base", ids, "ties", theta=theta, budget=0.5)
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -945,7 +1091,8 @@ def phase_parity(root, device, seed, block_size):
     out["ties_2mib_blocks"] = {"block_size": PAIR_BLOCK_SIZE, **pair,
                                "routes": routes, "launches": launches,
                                "pair_shapes": launch_shapes(
-                                   [sh for r, sh in seen if r == "pair"])}
+                                   [sh for r, sh in seen if r == "pair"]),
+                               **ties_device_ms(prof)}
     mp.close()
     out["nan_bits"] = nan_parity(device, seed)
     emit(out)
@@ -1169,7 +1316,7 @@ def phase_merge(root, device, seed, block_size, layers):
             return sum(t for n, t in device_ms.items() if re.search(pattern, n))
 
         kernel_ms = kernel_time(r"\b(linear|ties|dare)_kernel\b")
-        threshold_ms = kernel_time(r"\bties_threshold_kernel\b")
+        threshold_ms = kernel_time(r"\bties_threshold_\w*kernel\b")
         fused_ms = kernel_time(r"\bties_fused_kernel\b")
         kth = [n for n in device_ms if re.search("kth", n, re.I)]
         if kth:
@@ -1185,7 +1332,7 @@ def phase_merge(root, device, seed, block_size, layers):
             if not seen:
                 raise AssertionError("merge ties: no TIES kernel launched")
             # the profile holds the pair's kernels only where it ran
-            pair_ms = kernel_time(r"\bties_(threshold_)?kernel\b")
+            pair_ms = kernel_time(PAIR_KERNELS)
             if (routes["pair"] == 0) != (pair_ms == 0) or (
                     (routes["fused"] == 0) != (fused_ms == 0)):
                 raise AssertionError(f"merge ties: routes {routes}, profile "
@@ -1650,6 +1797,7 @@ def phase_loop(root, device, seed, layers, block_size):
     the merge through ServeEngine."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.api import Session
     from repro_torch.configs import get_config
@@ -1751,14 +1899,25 @@ def phase_loop(root, device, seed, layers, block_size):
         for e, flat in enumerate(experts):
             ids.append(sess.register_model(f"skill-{e}", flat))
         sess.ensure_analyzed("base", ids)
-        res = sess.run({"base": "base", "experts": ids, "op": "ties",
-                        "theta": {"trim_frac": 0.3}, "budget": "50%"})
+        before = dict(mb.LAUNCHES)
+        with (ties_routes() as seen,
+              profile(activities=[ProfilerActivity.CUDA]) as prof):
+            res = sess.run({"base": "base", "experts": ids, "op": "ties",
+                            "theta": {"trim_frac": 0.3}, "budget": "50%"})
+            torch.cuda.synchronize()
+        routes = check_ties_routes(
+            seen, {n: mb.LAUNCHES[n] - before[n] for n in mb.LAUNCHES}, "loop")
         if not sess.verify(res.sid):
             raise AssertionError("loop: the merged snapshot does not verify")
         merged = sess.load(res.sid)
     out["merge"] = {"sid": res.sid, "wall_s": time.perf_counter() - t0,
                     "c_expert_run": res.stats["c_expert_run"],
-                    "c_expert_hat": res.stats["c_expert_hat"]}
+                    "c_expert_hat": res.stats["c_expert_hat"],
+                    "ties_routes": routes, **ties_device_ms(prof),
+                    "ties_shapes": launch_shapes([sh for _, sh in seen]),
+                    "pair_shapes": launch_shapes([sh for r, sh in seen
+                                                  if r == "pair"])
+                    if routes["pair"] else None}
 
     # each model on each skill, as examples/train_and_merge.py prints
     losses = {}

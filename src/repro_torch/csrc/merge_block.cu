@@ -1,9 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels for MergePipe's blockwise merge
-// operators: AVG / TA (linear), TIES and DARE; the TIES trim threshold
-// (a radix select, design note above ties_threshold_kernel); the whole
-// TIES merge in one thread-block-cluster launch (design note above
-// ties_fused_kernel); and the ANALYZE sketch (per-block Σx², max|x|, Σx),
-// whose design note is above sketch_kernel.
+// operators: AVG / TA (linear) and DARE; the ANALYZE sketch (per-block
+// Σx², max|x|, Σx), whose design note is above sketch_kernel; and TIES on
+// two routes: the whole merge in one thread-block-cluster launch (design
+// note above ties_fused_kernel), or the pair of a grid-wide radix select
+// of the trim thresholds (design note above ties_threshold_kernel) and a
+// staged apply (design note above ties_kernel).
 //
 // Shapes (the executor's batched layout, all row-major and contiguous):
 //   x0     (NB, W)     float32   base blocks
@@ -18,19 +19,18 @@
 // nothing synchronises: the Python wrapper (kernels/merge_block.py) owns
 // the output tensor and checks the return code.
 //
-// Design, shared by the three kernels
-// -----------------------------------
+// Design of the linear and DARE kernels
+// -------------------------------------
 // What bounds them: HBM bytes.  Merging does under one operation per
 // byte, so the least time is (bytes read + bytes written) / bandwidth.
 // At the main path's largest window group (NB = 32, K = 4, W = 65,536,
 // float32 inputs) the linear kernel moves 8.4 MB of x0 + 33.6 MB of D +
 // 8.4 MB of output = 50.3 MB: about 15 us at the H100 SXM data sheet's
-// 3.35 TB/s.  TIES adds NB*K thresholds, DARE 8.4 MB of masks.
+// 3.35 TB/s.  DARE adds 8.4 MB of masks.
 //
-// What the design does about it: every input byte is read from HBM once
-// (TIES reads D twice, but the second pass hits L1/L2: a 256-thread
-// block's K rows are 16 KB at K = 4), every output byte is written once,
-// and the K reduction stays in registers.  One thread owns 4 consecutive
+// What the design does about it: every input byte is read from HBM once,
+// every output byte is written once, and the K reduction stays in
+// registers.  One thread owns 4 consecutive
 // elements and moves them with 16-byte float4 loads when W % 4 == 0 and
 // the pointers are 16-byte aligned (4-byte uchar4 loads for masks);
 // otherwise one element with scalar loads.  The grid is
@@ -145,64 +145,6 @@ linear_kernel(const float* __restrict__ x0, const float* __restrict__ D,
 #pragma unroll
   for (int i = 0; i < V; ++i)
     t[i] = hadd(t[i], hdiv(hmul(mul, acc[i]), div));
-  store_f<V>(out + b * W + w, t);
-}
-
-// -------------------------------------------------------------------- TIES
-// Replaces repro/kernels/merge_block.py::_ties_kernel (ties_merge_pallas).
-// keep |D| >= t[b,k]; elected = sign(sum of kept); mean of the kept
-// entries whose sign equals a nonzero elected sign (count floored at 1);
-// out = x0 + lam * mean.  The block's K thresholds are loaded once into
-// shared memory.
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-ties_kernel(const float* __restrict__ x0, const float* __restrict__ D,
-            const float* __restrict__ thresh, float* __restrict__ out,
-            int K, int64_t W, double lam) {
-  extern __shared__ float s_t[];
-  const int64_t b = blockIdx.y;
-  for (int k = threadIdx.x; k < K; k += kThreads) s_t[k] = thresh[b * K + k];
-  __syncthreads();
-  const int64_t w = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * V;
-  if (w >= W) return;
-  const float* d = D + b * K * W + w;
-
-  float el[V], t[V];
-  for (int k = 0; k < K; ++k) {
-    load_f<V>(d + k * W, t);
-    const float th = s_t[k];
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float dt = fabsf(t[i]) >= th ? t[i] : 0.0f;
-      el[i] = k == 0 ? dt : __fadd_rn(el[i], dt);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < V; ++i) el[i] = sgn(el[i]);
-
-  float num[V];
-  int cnt[V];
-  for (int k = 0; k < K; ++k) {
-    load_f<V>(d + k * W, t);
-    const float th = s_t[k];
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const bool keep = fabsf(t[i]) >= th;
-      const float dt = keep ? t[i] : 0.0f;
-      const bool agree = keep && el[i] != 0.0f && sgn(dt) == el[i];
-      const float a = agree ? dt : 0.0f;
-      num[i] = k == 0 ? a : __fadd_rn(num[i], a);
-      cnt[i] = (k == 0 ? 0 : cnt[i]) + (agree ? 1 : 0);
-    }
-  }
-  load_f<V>(x0 + b * W + w, t);
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const double mean = __ddiv_rn(static_cast<double>(num[i]),
-                                  static_cast<double>(cnt[i] > 1 ? cnt[i] : 1));
-    t[i] = __double2float_rn(
-        __dadd_rn(static_cast<double>(t[i]), __dmul_rn(lam, mean)));
-  }
   store_f<V>(out + b * W + w, t);
 }
 
@@ -333,39 +275,139 @@ sketch_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t W) {
 //
 // Radix select on the bits of |x| (the sign bit cleared as an integer, so
 // a NaN keeps its payload, as np.abs does; the card's abs.f32 would
-// canonicalise it): these uint32 patterns order like the values (-0.0
-// becomes +0.0, +inf sits above every finite value, NaN above +inf, as
+// canonicalise it): these uint32 keys order like the values (-0.0 becomes
+// +0.0, +inf sits above every finite value, NaN above +inf, as
 // np.partition puts NaN last), so the keep-th largest |x| is the keep-th
-// largest key.  Four passes settle its bits 8 at a time from the top byte
-// down.  Each pass histograms, into 256 bins in shared memory, the next
-// byte of every element whose higher bytes equal the prefix settled so far
-// (a warp whose elements are all out of the prefix skips the histogram);
-// then one warp scans the bins from the top and picks the one holding
-// rank `keep` from the top.  After the fourth pass the prefix is the
-// threshold's bit pattern.
+// largest key.  Three digits settle the key's 31 bits from the top: bits
+// 30..20 (the exponent and the top three mantissa bits, 2,048 bins), then
+// 19..10 and 9..0 (1,024 bins each).  After the radix top-k of Zhang et
+// al., "Parallel Top-K Algorithms on GPU: A Comprehensive Study and New
+// Methods" (SC '23): a grid-wide histogram per digit, and a compaction of
+// the keys that remain candidates.
 //
 // What bounds it: HBM bytes (W * 4 per row read, 4 written), about one
-// operation per byte.  Design: one CTA of kSelThreads threads per row; each
-// thread issues kSelUnroll float4 loads before it histograms them, so
-// enough bytes are in flight to cover the memory latency (a scalar head up
-// to the row's first 16-byte boundary and a scalar tail, so any W and any
-// row offset work).  The first pass reads the row from HBM; the later three
-// re-read it and find it in L2 (a launch of the merge path holds at most
-// 32 x 4 rows of 256 KiB, 32 MiB, under the 50 MB L2).  A register-resident
-// row does not fit one SM: 65,536 floats are its whole register file.
-// Histogram updates are plain shared-memory atomics, one a lane, except
-// when a whole warp holds one byte (runs of equal values, such as an
-// all-zero delta row), which adds 32 with one atomic.  Two designs tried
-// on the H100 at (NB, K, W) = (9, 4, 65,536) ran slower: warp-aggregated
-// atomics (one __match_any_sync per element), and a row split over a
-// thread block cluster (histograms summed through distributed shared
-// memory, two cluster barriers per pass).  What it gives up: a launch of
-// few rows leaves most SMs idle.
-constexpr int kSelThreads = 1024;
+// operation per byte.  At (NB, K, W) = (32, 4, 65,536) that is 33.6 MB,
+// 10.0 us at the H100 SXM data sheet's 3.35 TB/s.
+//
+// Design: two variants of one schedule, picked by sel_plan below
+// (mirrored by ties_threshold_plan in kernels/merge_block.py) from the
+// shape alone.  A launch of at least kSelRowMinRows = 16 rows of at most
+// kSelRowMaxW = 131,072 elements takes ties_threshold_row_kernel: one
+// 1,024-thread CTA a row, the histograms and the candidate stage in
+// shared memory, one launch, no scratch; its second read of a row follows
+// the first on the same SM while the row is in L2.  Every other launch
+// (few rows, or rows too wide to stage their candidates) is sliced, so
+// the grid does not depend on the number of rows: each row is cut into
+// `slices` slices of `len` elements (at most 16,384 elements, at least
+// 1,024, and enough slices for about 264 CTAs, two an SM), one
+// kSelThreads CTA a slice, rows x slices CTAs in a 1-D grid: 264 at (1,
+// 4, 1,048,576) and 270 at (5, 3, 65,536), where one CTA a row gave 4 and
+// 15.  Device time on an H100 80GB HBM3 at 700 W (tools/ablate_ties_pair.py's
+// "row" and "sliced" builds; PERF.md): the row variant 0.0214 ms against
+// the sliced one's 0.0325 at (4, 16, 65,536), 0.0305 against 0.0456 at
+// (32, 4, ·), and 0.0192 against 0.0204 at 15 rows (5, 3, ·), where the
+// limit keeps the sliced kernels (where below 16 rows the two cross is
+// not measured yet).
+// The sliced variant runs four launches: ties_threshold_clear_kernel
+// zeroes the rows' headers and first histograms, then three passes:
+//   1. ties_threshold_kernel reads its slice from HBM (16-byte loads,
+//      kSelUnroll in flight a thread, a scalar head to the first 16-byte
+//      boundary and a scalar tail, so any W and any storage offset work;
+//      an L2 evict_last hint keeps the lines for the second read),
+//      histograms the first digit in shared memory and adds the non-zero
+//      bins to the row's histogram in global memory.  The last CTA of the
+//      row to finish (an atomic ticket after __threadfence) scans the
+//      2,048 bins from the top, fixes the first digit and the rank left
+//      within its bucket, decides the row's path from the bucket's exact
+//      count, zeroes the row's second histogram and resets the ticket.
+//   2. ties_threshold_compact_kernel re-reads each slice (from L2 where the
+//      launch fits: evict_first now, it is the row's last full read), and
+//      on the compact path appends the keys in the bucket to a stage in
+//      shared memory (a warp-wide scan of the lanes' counts and one shared
+//      atomic a warp and step), histograms the second digit from the stage
+//      (every lane busy), and copies the stage to the row's candidate
+//      buffer with one global reservation a CTA.  Its last CTA scans the
+//      1,024 bins and fixes the second digit.
+//   3. ties_threshold_finish_kernel settles the last digit (bits 9..0),
+//      spread over the row's slice CTAs and a last-CTA scan: on a compact
+//      row each CTA takes a share of the candidates (a 1,048,576-wide
+//      Gaussian row has ~50,000, a 65,536-wide one ~3,300); on a dense
+//      row (its bucket holds more keys than the buffer: an all-zero row,
+//      long runs of one value, adversarial rows) each CTA its slice of
+//      the row again.
+// Full-row reads, in both variants: two on the compact path (one from
+// HBM), three on the dense path.  The candidate buffer holds cap =
+// max(1,024, ceil(W / 8)) keys a row (at most W, rounded up to 4): 8,192
+// at W = 65,536, 131,072 at W = 1,048,576 (a Gaussian row's bucket holds
+// ~5% of it at trim 0.3).
+// Scratch (32-bit words): rows x (8 header + 2,048 + 1,024 bins + cap),
+// from the wrapper's torch.empty; only the headers and the first
+// histograms are zeroed (the clear kernel: a named kernel rather than a
+// cudaMemsetAsync, so a profile counts it with the threshold); the
+// finish's global bins reuse the first histogram's words, which pass 2
+// zeroes.  Counts are exact, so a compact row never overflows its buffer
+// and the path is chosen without a race.  Why launches rather than one
+// persistent kernel: a grid-wide barrier would need every CTA resident,
+// and launch boundaries order the passes for free; the last-CTA scans
+// keep it at one launch a pass.  Histogram updates are plain shared-memory atomics, one
+// a key, except when a warp's 128 keys share a bin (an all-zero row),
+// which adds 128 with one atomic.  Measured on the H100 (PERF.md, tools/
+// ablate_ties_pair.py, sliced): the first read runs at about a device
+// copy's rate, the second costs ~60% of it (the L2 holds only part of a
+// 33.5 MB launch), and copies of the shared histogram, more loads in
+// flight or more CTAs did not help.  What it gives up: the sliced
+// variant's scans are serial per row and each pass pays a launch and a
+// last-CTA tail; the row variant leaves SMs idle below 132 rows (it is
+// faster all the same from 16 rows, measured).
+constexpr int kSelThreads = 256;
+// one CTA a row (ties_threshold_row_kernel) for launches of at least
+// kSelRowMinRows rows of at most kSelRowMaxW elements
+constexpr int kRowThreads = 1024;
+constexpr long long kSelRowMinRows = 16;
+constexpr long long kSelRowMaxW = 131072;
 constexpr int kSelUnroll = 4;
+constexpr int kSelKeys = 4 * kSelUnroll;  // keys a lane gets a step
+constexpr long long kSelSliceMax = 16384;
+constexpr long long kSelSliceMin = 1024;
+constexpr long long kSelTargetCtas = 264;
+constexpr long long kSelCandMin = 1024;
+constexpr int kSelHdr = 8;       // header words a row (below)
+constexpr int kBins1 = 2048;     // bits 30..20
+constexpr int kBins2 = 1024;     // bits 19..10, and 9..0
+// header words: the ticket, the prefix settled so far, the rank left from
+// the top among the prefix's keys, candidates appended, the dense flag
+enum { kTicket = 0, kPrefix = 1, kKrem = 2, kCount = 3, kDense = 4 };
+
+struct SelPlan {
+  long long slices, len, cap, ctas, scratch_bytes;
+  bool row;  // one CTA a row (ties_threshold_row_kernel)
+};
+
+SelPlan sel_plan(long long rows, long long w) {
+  long long cap = (w + 7) / 8;
+  cap = cap > kSelCandMin ? cap : kSelCandMin;
+  cap = cap < w ? cap : w;
+  cap = (cap + 3) / 4 * 4;
+  if (rows >= kSelRowMinRows && w <= kSelRowMaxW)
+    return {1, (w + 3) / 4 * 4, cap, rows, 0, true};
+  const long long want = (kSelTargetCtas + rows - 1) / rows;
+  const long long most = (w + kSelSliceMin - 1) / kSelSliceMin;
+  const long long least = (w + kSelSliceMax - 1) / kSelSliceMax;
+  long long s = want < most ? want : most;
+  s = s > least ? s : least;
+  long long len = (w + s - 1) / s;
+  len = (len + 3) / 4 * 4;
+  s = (w + len - 1) / len;
+  const long long words = rows * (kSelHdr + kBins1 + kBins2 + cap);
+  return {s, len, cap, rows * s, words * 4, false};
+}
+
+__device__ __forceinline__ uint32_t abs_bits(float x) {
+  return __float_as_uint(x) & 0x7FFFFFFFu;
+}
 
 // Add one to hist[byte of u] for every lane with `cand`; every lane of the
-// warp calls it together.
+// warp calls it together.  (The fused kernel's 8-bit digits.)
 __device__ __forceinline__ void hist_add(unsigned* hist, uint32_t u,
                                          bool cand, int shift) {
   const unsigned key = cand ? (u >> shift) & 0xFFu : 256u;
@@ -377,94 +419,458 @@ __device__ __forceinline__ void hist_add(unsigned* hist, uint32_t u,
   }
 }
 
-__device__ __forceinline__ uint32_t abs_bits(float x) {
-  return __float_as_uint(x) & 0x7FFFFFFFu;
+// Histogram 4 keys a lane (kNone: not a candidate) into h; every lane of
+// the warp calls it together.  A warp whose 128 keys are one bin (an
+// all-zero row, runs of equal values) adds 128 with one atomic; otherwise
+// one atomic a candidate.  (Copies of h, one per few lanes, ran no faster
+// on the H100.)
+template <unsigned kNone>
+__device__ __forceinline__ void hist_add4(unsigned* h, const unsigned (&key)[4]) {
+  const unsigned k0 = __shfl_sync(0xffffffffu, key[0], 0);
+  const bool same = key[0] == k0 && key[1] == k0 && key[2] == k0 && key[3] == k0;
+  if (__all_sync(0xffffffffu, same)) {
+    if (k0 < kNone && threadIdx.x % 32 == 0) atomicAdd(&h[k0], 128u);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (key[e] < kNone) atomicAdd(&h[key[e]], 1u);
+  }
+}
+
+// How for_keys loads: plain; keeping the lines in L2 for a second read
+// (evict_last: the first pass, so the second finds the row in L2 rather
+// than behind other lines); or letting them go (evict_first: the last
+// read of the row).
+enum LoadMode { kPlain, kKeep, kLast };
+
+template <LoadMode M>
+__device__ __forceinline__ float4 load4(const float4* p, uint64_t pol) {
+  float4 v;
+  if constexpr (M == kKeep || M == kLast) {
+    asm volatile("ld.global.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "l"(p), "l"(pol));
+  } else {
+    v = *p;
+  }
+  return v;
+}
+
+template <LoadMode M>
+__device__ __forceinline__ uint64_t load_policy() {
+  uint64_t pol = 0;
+  if constexpr (M == kKeep)
+    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
+  if constexpr (M == kLast)
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
+}
+
+// Call f(u, in) for the keys of p[0, n): kSelKeys a lane a call, the lanes
+// of a warp together (f may use warp votes; `in` is false for padding).
+// The body runs as 16-byte loads (load4<M>), kSelUnroll issued before the
+// first use; the scalar head (to p's first 16-byte boundary) and tail go
+// to warp 0.
+template <LoadMode M = kPlain, int kT = kSelThreads, class F>
+__device__ __forceinline__ void for_keys(const float* __restrict__ p,
+                                         int64_t n, F&& f) {
+  const uint64_t pol = load_policy<M>();
+  const int tid = threadIdx.x;
+  int64_t head = ((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) / 4;
+  if (head > n) head = n;
+  const int64_t n4 = (n - head) / 4;
+  const int64_t tail0 = head + 4 * n4;                     // < 4 elements
+  const int extra = static_cast<int>(head + (n - tail0));  // <= 6
+  const float4* body = reinterpret_cast<const float4*>(p + head);
+  uint32_t u[kSelKeys];
+  bool in[kSelKeys];
+  // a CTA-uniform trip count: every lane reaches each warp vote
+  for (int64_t base = 0; base < n4; base += kT * kSelUnroll) {
+    float4 x[kSelUnroll];
+#pragma unroll
+    for (int j = 0; j < kSelUnroll; ++j) {
+      const int64_t i = base + j * kT + tid;
+      x[j] = i < n4 ? load4<M>(body + i, pol) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < kSelUnroll; ++j) {
+      const bool ok = base + j * kT + tid < n4;
+      u[4 * j] = abs_bits(x[j].x);
+      u[4 * j + 1] = abs_bits(x[j].y);
+      u[4 * j + 2] = abs_bits(x[j].z);
+      u[4 * j + 3] = abs_bits(x[j].w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) in[4 * j + e] = ok;
+    }
+    f(u, in);
+  }
+  if (tid < 32) {  // the scalar head and tail, one a lane
+#pragma unroll
+    for (int e = 0; e < kSelKeys; ++e) {
+      u[e] = 0u;
+      in[e] = false;
+    }
+    in[0] = tid < extra;
+    const int64_t j = tid < head ? tid : tail0 + (tid - head);
+    if (in[0]) u[0] = abs_bits(p[j]);
+    f(u, in);
+  }
+}
+
+// hist_add4 over a step's kSelKeys keys of which digit(u) is the bin of
+// the keys with `in` (kNone for the others).
+template <unsigned kNone, class G>
+__device__ __forceinline__ void hist_keys(unsigned* h, const uint32_t (&u)[kSelKeys],
+                                          const bool (&in)[kSelKeys], G digit) {
+#pragma unroll
+  for (int q = 0; q < kSelUnroll; ++q) {
+    unsigned key[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      key[e] = in[4 * q + e] ? digit(u[4 * q + e]) : kNone;
+    hist_add4<kNone>(h, key);
+  }
+}
+
+// The bin of a kT * B-bin histogram (read by get(i)) that holds
+// rank krem from the top (1 <= krem <= the histogram's total); every
+// thread of the CTA calls it.  Returns {bin, keys in the bins above it}.
+// Thread t owns bins top - B t down to top - B t - B + 1; a CTA-wide
+// inclusive scan of the threads' sums counts the keys above each thread's
+// bins.
+template <int B, int kT = kSelThreads, class G>
+__device__ __forceinline__ uint2 select_bin(G get, unsigned krem) {
+  __shared__ unsigned s_warp[kT / 32];
+  __shared__ uint2 s_sel;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  constexpr int kTop = kT * B - 1;
+  unsigned cnt[B], local = 0;
+#pragma unroll
+  for (int j = 0; j < B; ++j) {
+    cnt[j] = get(kTop - B * tid - j);
+    local += cnt[j];
+  }
+  unsigned incl = local;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  for (int i = 0; i < warp; ++i) incl += s_warp[i];
+  const unsigned excl = incl - local;
+  if (excl < krem && krem <= incl) {  // exactly one thread
+    unsigned run = excl;
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      if (run + cnt[j] >= krem) {
+        s_sel = make_uint2(static_cast<unsigned>(kTop - B * tid - j), run);
+        break;
+      }
+      run += cnt[j];
+    }
+  }
+  __syncthreads();
+  const uint2 r = s_sel;
+  __syncthreads();  // s_warp and s_sel are rewritten by a later call
+  return r;
+}
+
+// Whether this CTA is the last of the row's n to take its ticket, after
+// its global atomics; the last one then sees every other CTA's (each
+// fenced before its ticket).
+__device__ __forceinline__ bool last_cta(unsigned* ticket, unsigned n) {
+  __shared__ bool s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1u) == n - 1;
+  __syncthreads();
+  const bool last = s_last;
+  if (last) __threadfence();
+  return last;
+}
+
+// Histogram the last digit (bits 9..0) of the keys that match the 21-bit
+// prefix.
+__device__ __forceinline__ void last_digit(unsigned* h, const uint32_t (&u)[kSelKeys],
+                                           const bool (&in)[kSelKeys],
+                                           unsigned prefix) {
+  bool c[kSelKeys];
+#pragma unroll
+  for (int e = 0; e < kSelKeys; ++e) c[e] = in[e] && (u[e] >> 10) == (prefix >> 10);
+  hist_keys<kBins2>(h, u, c, [](uint32_t v) { return v & 0x3FFu; });
+}
+
+// sel_plan's scratch: headers, first histograms (these two zeroed by
+// ties_threshold_clear_kernel), second histograms, candidate buffers.
+struct SelScratch {
+  unsigned *hdr, *hist1, *hist2, *cand;
+  __device__ SelScratch(unsigned* s, long long rows)
+      : hdr(s), hist1(s + rows * kSelHdr),
+        hist2(s + rows * (kSelHdr + kBins1)),
+        cand(s + rows * (kSelHdr + kBins1 + kBins2)) {}
+};
+
+// Add a shared histogram's non-zero bins to the row's global one.
+template <int N>
+__device__ __forceinline__ void flush_hist(unsigned* g, const unsigned* h) {
+  for (int i = threadIdx.x; i < N; i += kSelThreads)
+    if (h[i]) atomicAdd(g + i, h[i]);
+}
+
+// Zero n4 16-byte words of the scratch (the rows' headers and first
+// histograms: rows x (kSelHdr + kBins1) words, a multiple of 4).
+__global__ void __launch_bounds__(kSelThreads)
+ties_threshold_clear_kernel(uint4* scratch, long long n4) {
+  for (long long i = blockIdx.x * static_cast<long long>(kSelThreads) + threadIdx.x;
+       i < n4; i += static_cast<long long>(gridDim.x) * kSelThreads)
+    scratch[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+__device__ __forceinline__ int64_t slice_len(int64_t W, int64_t s0, long long len) {
+  return W - s0 < len ? W - s0 : len;
 }
 
 __global__ void __launch_bounds__(kSelThreads)
-ties_threshold_kernel(const float* __restrict__ D, float* __restrict__ out,
-                      int64_t W, unsigned keep) {
-  __shared__ unsigned hist[256];
-  __shared__ unsigned s_bucket, s_above;
-  const float* row = D + static_cast<int64_t>(blockIdx.x) * W;
-  const int tid = threadIdx.x, lane = tid % 32;
-  int64_t head = ((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) / 4;
-  if (head > W) head = W;
-  const int64_t n4 = (W - head) / 4;
-  const int64_t tail0 = head + 4 * n4;       // tail: [tail0, W), < 4 elements
-  const int extra = static_cast<int>(head + (W - tail0));  // <= 6
-  const float4* body = reinterpret_cast<const float4*>(row + head);
-
-  uint32_t prefix = 0, pmask = 0;
-  unsigned krem = keep;  // rank from the top among the prefix's elements
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    if (tid < 256) hist[tid] = 0;
-    __syncthreads();
-    // a CTA-uniform trip count: every lane reaches each warp vote
-    for (int64_t base = 0; base < n4; base += kSelThreads * kSelUnroll) {
-      float4 x[kSelUnroll];
-#pragma unroll
-      for (int j = 0; j < kSelUnroll; ++j) {
-        const int64_t i = base + j * kSelThreads + tid;
-        x[j] = i < n4 ? body[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int j = 0; j < kSelUnroll; ++j) {
-        const bool in = base + j * kSelThreads + tid < n4;
-        const uint32_t u[4] = {abs_bits(x[j].x), abs_bits(x[j].y),
-                               abs_bits(x[j].z), abs_bits(x[j].w)};
-        bool c[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[e] = in && (u[e] & pmask) == prefix;
-        if (__any_sync(0xffffffffu, c[0] || c[1] || c[2] || c[3])) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) hist_add(hist, u[e], c[e], shift);
-        }
-      }
-    }
-    if (tid < 32) {  // the scalar head and tail, one a lane
-      const bool in = tid < extra;
-      const int64_t j = tid < head ? tid : tail0 + (tid - head);
-      const uint32_t u = in ? abs_bits(row[j]) : 0u;
-      hist_add(hist, u, in && (u & pmask) == prefix, shift);
-    }
-    __syncthreads();
-    if (tid < 32) {
-      // lane l owns bins 255 - 8l down to 248 - 8l; an inclusive scan of
-      // the lanes' sums counts the candidates above each lane's bins
-      unsigned cnt[8], local = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        cnt[j] = hist[255 - 8 * lane - j];
-        local += cnt[j];
-      }
-      unsigned incl = local;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const unsigned n = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += n;
-      }
-      const unsigned excl = incl - local;
-      if (excl < krem && krem <= incl) {  // exactly one lane
-        unsigned run = excl;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (run + cnt[j] >= krem) {
-            s_bucket = 255u - 8u * lane - j;
-            s_above = run;
-            break;
-          }
-          run += cnt[j];
-        }
-      }
-    }
-    __syncthreads();
-    krem -= s_above;
-    prefix |= s_bucket << shift;
-    pmask |= 0xFFu << shift;
-    __syncthreads();  // s_bucket, s_above and hist are rewritten next pass
+ties_threshold_kernel(const float* __restrict__ D, unsigned* scratch,
+                      long long rows, int64_t W, long long slices,
+                      long long len, long long cap, unsigned keep) {
+  __shared__ unsigned h[kBins1];
+  const SelScratch S(scratch, rows);
+  const long long row = blockIdx.x / slices, sl = blockIdx.x % slices;
+  const int64_t s0 = sl * len;
+  for (int i = threadIdx.x; i < kBins1; i += kSelThreads) h[i] = 0;
+  __syncthreads();
+  for_keys<kKeep>(D + row * W + s0, slice_len(W, s0, len),
+           [&](const uint32_t (&u)[kSelKeys], const bool (&in)[kSelKeys]) {
+             hist_keys<kBins1>(h, u, in, [](uint32_t v) { return v >> 20; });
+           });
+  __syncthreads();
+  unsigned* hdr = S.hdr + row * kSelHdr;
+  unsigned* g1 = S.hist1 + row * kBins1;
+  flush_hist<kBins1>(g1, h);
+  if (!last_cta(hdr + kTicket, static_cast<unsigned>(slices))) return;
+  const uint2 sel = select_bin<kBins1 / kSelThreads>(
+      [&](int i) { return __ldcg(g1 + i); }, keep);
+  unsigned* g2 = S.hist2 + row * kBins2;
+  for (int i = threadIdx.x; i < kBins2; i += kSelThreads) g2[i] = 0;
+  if (threadIdx.x == 0) {
+    hdr[kPrefix] = sel.x << 20;
+    hdr[kKrem] = keep - sel.y;
+    hdr[kCount] = 0;
+    hdr[kDense] = __ldcg(g1 + sel.x) > static_cast<unsigned long long>(cap);
+    hdr[kTicket] = 0;
   }
-  if (tid == 0) out[blockIdx.x] = __uint_as_float(prefix);
+}
+
+// Dynamic shared memory: the second digit's bins, then a stage of
+// min(len, cap) candidates (a compact row's slice never holds more).  A
+// compact row's CTA appends its candidates to the stage in the loop (a
+// warp-wide scan of the lanes' counts and one shared atomic a warp and
+// step) and histograms them from the stage after it, one atomic a
+// candidate with every lane busy; a dense row's CTA histograms in the
+// loop.
+__global__ void __launch_bounds__(kSelThreads)
+ties_threshold_compact_kernel(const float* __restrict__ D, unsigned* scratch,
+                              long long rows, int64_t W,
+                              long long slices, long long len, long long cap) {
+  extern __shared__ __align__(16) unsigned smem_sel[];
+  __shared__ unsigned s_n, s_base;
+  unsigned* h = smem_sel;
+  unsigned* stage = smem_sel + kBins2;
+  const SelScratch S(scratch, rows);
+  const long long row = blockIdx.x / slices, sl = blockIdx.x % slices;
+  const int64_t s0 = sl * len;
+  unsigned* hdr = S.hdr + row * kSelHdr;
+  const unsigned b1 = hdr[kPrefix] >> 20;
+  const bool dense = hdr[kDense] != 0;
+  for (int i = threadIdx.x; i < kBins2; i += kSelThreads) h[i] = 0;
+  if (threadIdx.x == 0) s_n = 0;
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  auto digit2 = [](uint32_t v) { return (v >> 10) & 0x3FFu; };
+  for_keys<kLast>(D + row * W + s0, slice_len(W, s0, len),
+           [&](const uint32_t (&u)[kSelKeys], const bool (&in)[kSelKeys]) {
+    bool c[kSelKeys], any = false;
+    unsigned m = 0;
+#pragma unroll
+    for (int e = 0; e < kSelKeys; ++e) {
+      c[e] = in[e] && (u[e] >> 20) == b1;
+      any |= c[e];
+      m += c[e];
+    }
+    if (!__any_sync(0xffffffffu, any)) return;
+    if (dense) {
+      hist_keys<kBins2>(h, u, c, digit2);
+      return;
+    }
+    unsigned incl = m;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    unsigned base = 0;
+    if (lane == 31) base = atomicAdd(&s_n, incl);
+    unsigned pos = __shfl_sync(0xffffffffu, base, 31) + incl - m;
+#pragma unroll
+    for (int e = 0; e < kSelKeys; ++e)
+      if (c[e]) stage[pos++] = u[e];
+  });
+  __syncthreads();
+  if (!dense) {
+    for (unsigned i = threadIdx.x; i < s_n; i += kSelThreads)
+      atomicAdd(&h[digit2(stage[i])], 1u);
+    if (threadIdx.x == 0) s_base = s_n ? atomicAdd(hdr + kCount, s_n) : 0u;
+    __syncthreads();
+    unsigned* dst = S.cand + row * cap + s_base;
+    for (unsigned i = threadIdx.x; i < s_n; i += kSelThreads) dst[i] = stage[i];
+  }
+  flush_hist<kBins2>(S.hist2 + row * kBins2, h);
+  if (!last_cta(hdr + kTicket, static_cast<unsigned>(slices))) return;
+  const unsigned* g2 = S.hist2 + row * kBins2;
+  const unsigned krem = hdr[kKrem];
+  const uint2 sel = select_bin<kBins2 / kSelThreads>(
+      [&](int i) { return __ldcg(g2 + i); }, krem);
+  const unsigned prefix = hdr[kPrefix] | sel.x << 10, krem3 = krem - sel.y;
+  // the finish kernel's global bins: the first histogram's words
+  unsigned* g3 = S.hist1 + row * kBins1;
+  for (int i = threadIdx.x; i < kBins2; i += kSelThreads) g3[i] = 0;
+  if (threadIdx.x == 0) {
+    hdr[kPrefix] = prefix;
+    hdr[kKrem] = krem3;
+    hdr[kTicket] = 0;
+  }
+}
+
+// The last digit: a dense row's slice CTAs over its slices of the row, a
+// compact row's over shares of its candidates; then the row's last CTA
+// scans its global bins.
+__global__ void __launch_bounds__(kSelThreads)
+ties_threshold_finish_kernel(const float* __restrict__ D, float* __restrict__ out,
+                             unsigned* scratch, long long rows, int64_t W,
+                             long long slices, long long len, long long cap) {
+  __shared__ unsigned h[kBins2];
+  const SelScratch S(scratch, rows);
+  const long long row = blockIdx.x / slices, sl = blockIdx.x % slices;
+  unsigned* hdr = S.hdr + row * kSelHdr;
+  const bool dense = hdr[kDense] != 0;
+  const unsigned count = hdr[kCount], prefix = hdr[kPrefix], krem = hdr[kKrem];
+  for (int i = threadIdx.x; i < kBins2; i += kSelThreads) h[i] = 0;
+  __syncthreads();
+  auto add = [&](const uint32_t (&u)[kSelKeys], const bool (&in)[kSelKeys]) {
+    last_digit(h, u, in, prefix);
+  };
+  if (dense) {
+    const int64_t s0 = sl * len;
+    for_keys<kLast>(D + row * W + s0, slice_len(W, s0, len), add);
+  } else {  // a share of the candidates, a multiple of 4 (16-byte aligned)
+    const long long share = (count + 4 * slices - 1) / (4 * slices) * 4;
+    const long long c0 = sl * share < count ? sl * share : count;
+    const long long n = count - c0 < share ? count - c0 : share;
+    // the compacted keys have their sign bits clear, so for_keys's
+    // abs_bits leaves them as they are
+    for_keys(reinterpret_cast<const float*>(S.cand + row * cap + c0), n, add);
+  }
+  __syncthreads();
+  unsigned* g3 = S.hist1 + row * kBins1;
+  flush_hist<kBins2>(g3, h);
+  if (!last_cta(hdr + kTicket, static_cast<unsigned>(slices))) return;
+  const uint2 sel = select_bin<kBins2 / kSelThreads>(
+      [&](int i) { return __ldcg(g3 + i); }, krem);
+  if (threadIdx.x == 0) {
+    out[row] = __uint_as_float(prefix | sel.x);
+    hdr[kTicket] = 0;
+  }
+}
+
+// The whole select for one row in one CTA of kRowThreads threads, for
+// launches of many rows (design note above ties_threshold_kernel): the
+// same digits and compaction, with the histograms and the candidate stage
+// in shared memory, so no scratch, no clearing and no ticket; the second
+// read of the row follows the first on the same SM while the row is in L2.
+// Dynamic shared memory: the stage of cap candidates.
+__global__ void __launch_bounds__(kRowThreads)
+ties_threshold_row_kernel(const float* __restrict__ D, float* __restrict__ out,
+                          int64_t W, long long cap, unsigned keep) {
+  extern __shared__ __align__(16) unsigned stage[];
+  __shared__ unsigned h[kBins1];  // the first digit; then the second, third
+  __shared__ unsigned s_n;
+  const float* row = D + static_cast<int64_t>(blockIdx.x) * W;
+  const int lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < kBins1; i += kRowThreads) h[i] = 0;
+  if (threadIdx.x == 0) s_n = 0;
+  __syncthreads();
+  for_keys<kKeep, kRowThreads>(row, W, [&](const uint32_t (&u)[kSelKeys],
+                                           const bool (&in)[kSelKeys]) {
+    hist_keys<kBins1>(h, u, in, [](uint32_t v) { return v >> 20; });
+  });
+  __syncthreads();
+  uint2 sel = select_bin<kBins1 / kRowThreads, kRowThreads>(
+      [&](int i) { return h[i]; }, keep);
+  const unsigned b1 = sel.x;
+  unsigned krem = keep - sel.y;
+  const bool dense = h[b1] > static_cast<unsigned long long>(cap);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kBins2; i += kRowThreads) h[i] = 0;
+  __syncthreads();
+  auto digit2 = [](uint32_t v) { return (v >> 10) & 0x3FFu; };
+  for_keys<kLast, kRowThreads>(row, W, [&](const uint32_t (&u)[kSelKeys],
+                                           const bool (&in)[kSelKeys]) {
+    bool c[kSelKeys], any = false;
+    unsigned m = 0;
+#pragma unroll
+    for (int e = 0; e < kSelKeys; ++e) {
+      c[e] = in[e] && (u[e] >> 20) == b1;
+      any |= c[e];
+      m += c[e];
+    }
+    if (!__any_sync(0xffffffffu, any)) return;
+    if (dense) {
+      hist_keys<kBins2>(h, u, c, digit2);
+      return;
+    }
+    unsigned incl = m;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    unsigned base = 0;
+    if (lane == 31) base = atomicAdd(&s_n, incl);
+    unsigned pos = __shfl_sync(0xffffffffu, base, 31) + incl - m;
+#pragma unroll
+    for (int e = 0; e < kSelKeys; ++e)
+      if (c[e]) stage[pos++] = u[e];
+  });
+  __syncthreads();
+  const unsigned n = s_n;
+  if (!dense)
+    for (unsigned i = threadIdx.x; i < n; i += kRowThreads)
+      atomicAdd(&h[digit2(stage[i])], 1u);
+  __syncthreads();
+  sel = select_bin<kBins2 / kRowThreads, kRowThreads>(
+      [&](int i) { return h[i]; }, krem);
+  const unsigned prefix = b1 << 20 | sel.x << 10;
+  krem -= sel.y;
+  for (int i = threadIdx.x; i < kBins2; i += kRowThreads) h[i] = 0;
+  __syncthreads();
+  if (!dense) {
+    for (unsigned i = threadIdx.x; i < n; i += kRowThreads) {
+      const uint32_t u = stage[i];
+      if (u >> 10 == prefix >> 10) atomicAdd(&h[u & 0x3FFu], 1u);
+    }
+  } else {
+    for_keys<kLast, kRowThreads>(row, W, [&](const uint32_t (&u)[kSelKeys],
+                                             const bool (&in)[kSelKeys]) {
+      last_digit(h, u, in, prefix);
+    });
+  }
+  __syncthreads();
+  sel = select_bin<kBins2 / kRowThreads, kRowThreads>(
+      [&](int i) { return h[i]; }, krem);
+  if (threadIdx.x == 0) out[blockIdx.x] = __uint_as_float(prefix | sel.x);
 }
 
 // ------------------------------------------------------------ FUSED TIES
@@ -476,10 +882,9 @@ ties_threshold_kernel(const float* __restrict__ D, float* __restrict__ out,
 // operator, core/operators.py:174-199).
 //
 // What bounds it: HBM bytes, (2 NB W + NB K W) * 4: at the merge's median
-// launch (5, 3, 65,536) 6.6 MB, 2.0 us at 3.35 TB/s.  The pair it
-// replaces reads D from HBM once and three more times from L2 for the
-// threshold, twice more for the apply, and launches twice; at that launch
-// the threshold runs 15 CTAs on 132 SMs.
+// launch (5, 3, 65,536) 6.6 MB, 2.0 us at 3.35 TB/s.  The pair reads D
+// twice for the threshold (once from HBM) and once more for the apply,
+// in two launches (one CTA a row) or five (sliced).
 //
 // Design: one thread block cluster per block b, C CTAs along W (C =
 // ceil(W / kMinSlice) clamped to [1, 16]; 16 at W = 65,536, a non-portable
@@ -526,9 +931,11 @@ ties_threshold_kernel(const float* __restrict__ D, float* __restrict__ out,
 // and the passes of one CTA do not overlap (the SM's other CTAs cover
 // that); a launch of more clusters than the card holds at once runs in
 // waves (chip_smoke.py prints how many it holds), and the pair is then
-// faster: ties_route in kernels/merge_block.py sends it launches of up to
-// 60 rows whose slices fit in 227 KB (it mirrors fused_plan below;
-// chip_smoke.py times both routes on each side of that line).
+// faster: ties_route in kernels/merge_block.py sends it launches of at
+// most 6 experts and 48 rows whose slices fit in 227 KB (it mirrors
+// fused_plan below; chip_smoke.py times both routes on each side of those
+// lines, by the card's time and by wall time per call: past them the
+// pair, with its one-CTA-a-row threshold, won by wall).
 namespace cg = cooperative_groups;
 
 constexpr int kFusedThreads = 384;  // three CTAs an SM (<= 56 registers)
@@ -611,22 +1018,6 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
       "r"(smem_u32(bar)) : "memory");
-}
-
-// Histogram 4 keys a lane (256: not a candidate) into h; every lane of the
-// warp calls it together.  A warp whose 128 keys are one bin (an all-zero
-// row, runs of equal values) adds 128 with one atomic; otherwise one
-// atomic a candidate.
-__device__ __forceinline__ void hist_add4(unsigned* h, const unsigned (&key)[4]) {
-  const unsigned k0 = __shfl_sync(0xffffffffu, key[0], 0);
-  const bool same = key[0] == k0 && key[1] == k0 && key[2] == k0 && key[3] == k0;
-  if (__all_sync(0xffffffffu, same)) {
-    if (k0 < 256u && threadIdx.x % 32 == 0) atomicAdd(&h[k0], 128u);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (key[e] < 256u) atomicAdd(&h[key[e]], 1u);
-  }
 }
 
 // TIES apply for V consecutive staged elements at column i, given their
@@ -758,7 +1149,7 @@ ties_fused_kernel(const float* __restrict__ x0, const float* __restrict__ D,
             key[e] = c ? (u[e] >> shift) & 0xFFu : 256u;
             any |= c;
           }
-          if (__any_sync(0xffffffffu, any)) hist_add4(h, key);
+          if (__any_sync(0xffffffffu, any)) hist_add4<256u>(h, key);
         }
         if (tail != 0 && warp == 0) {  // the slice's last n % 4, one a lane
           const bool in = lane < tail;
@@ -926,6 +1317,165 @@ int launch_fused(const float* x, const float* d, float* o, float* t, int nb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ----------------------------------------------------------- TIES (pair)
+// Replaces repro/kernels/merge_block.py::_ties_kernel (ties_merge_pallas)
+// given the trim thresholds (ties_threshold_kernel above): keep |D| >=
+// t[b,k]; elected = sign(sum of kept); mean of the kept entries whose
+// sign equals a nonzero elected sign (count floored at 1); out = x0 + lam
+// * mean, the float64 epilogue rounded once — ties_apply_staged, the
+// fused kernel's apply, bit for bit.
+//
+// What bounds it: HBM bytes, (2 NB W + NB K W + NB K) * 4: at (32, 4,
+// 65,536) 50.3 MB, 15.0 us at 3.35 TB/s.
+//
+// Design: both passes (the election, then the sign-matched sum) read D
+// from shared memory, so each D element crosses HBM once at any K and no
+// pass relies on L1.  Work item = (block b, tile of T columns); T is the
+// largest power of two <= 4,096 with K T <= 6,144 floats (apply_tile:
+// 1,024 at K = 4, 256 at K = 13 to 20, 128 at K = 32), so two stages of
+// K x T floats (24 KiB each at most) fit four CTAs an SM; stages of 48
+// KiB were 3–17% slower at four of five shapes timed on the H100 (tools/
+// ablate_ties_pair.py): more, smaller items balance the grid.  A persistent
+// grid of (SMs x resident CTAs) CTAs walks the items; each CTA keeps a
+// two-stage ring: thread 0 issues the K rows' 1-D bulk copies
+// (cp.async.bulk, one mbarrier a stage) of the item after next while the
+// CTA computes this one, so the next tile's copies are in flight during
+// this tile's math.  A thread owns V consecutive columns: V = 4 (16-byte
+// shared loads, x0 and out as float4) where T >= 2 x kApplyThreads (some
+// threads idle when T < 4 x kApplyThreads, still faster than V = 1 on the
+// H100), else V = 1.  Where W % 4 != 0 or x0, D or out is off 16 bytes the CTA stages
+// each tile with plain loads instead (no ring; V = 1).  K <= kApplyMaxK =
+// 256 (the wrapper refuses more).  What it gives up: a register-resident
+// variant for small K; at K > 12 each thread reads 4-byte words, and at
+// K > 20 fewer columns a tile than threads leave threads idle.
+constexpr int kApplyThreads = 256;
+constexpr int kApplyMaxK = 256;
+constexpr long long kApplyStageFloats = 6144;
+constexpr long long kApplyTileMax = 4096;
+
+long long apply_tile(int k) {
+  long long t = kApplyTileMax;
+  while (t > 32 && t * k > kApplyStageFloats) t /= 2;
+  return t;
+}
+
+size_t apply_smem(int k, long long t) {
+  return static_cast<size_t>(2) * k * t * 4 + 2 * sizeof(uint64_t);
+}
+
+template <bool kBulk, int V>
+__global__ void __launch_bounds__(kApplyThreads)
+ties_kernel(const float* __restrict__ x0, const float* __restrict__ D,
+            const float* __restrict__ thresh, float* __restrict__ out,
+            int K, int64_t W, long long T, long long tiles, long long items,
+            double lam) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float s_thr[kApplyMaxK];
+  float* sD = reinterpret_cast<float*>(smem);  // [2][K][T]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * static_cast<size_t>(K) * T * 4);
+  const int tid = threadIdx.x;
+  const long long stride = gridDim.x;
+
+  // thread 0: the K row copies of `item` into stage s
+  auto issue = [&](long long item, int s) {
+    const int64_t b = item / tiles, t0 = item % tiles * T;
+    const int64_t n = W - t0 < T ? W - t0 : T;
+    const uint32_t bytes = static_cast<uint32_t>(n) * 4;
+    mbar_expect_tx(bars + s, bytes * K);
+    for (int k = 0; k < K; ++k)
+      bulk_g2s(sD + (static_cast<int64_t>(s) * K + k) * T,
+               D + (b * K + k) * W + t0, bytes, bars + s);
+  };
+  if constexpr (kBulk) {
+    if (tid == 0) {
+      mbar_init(bars, 1);
+      mbar_init(bars + 1, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+      issue(blockIdx.x, 0);
+      if (blockIdx.x + stride < items) issue(blockIdx.x + stride, 1);
+    }
+  }
+  int i = 0;
+  for (long long item = blockIdx.x; item < items; item += stride, ++i) {
+    const int s = i & 1;
+    const int64_t b = item / tiles, t0 = item % tiles * T;
+    const int n = static_cast<int>(W - t0 < T ? W - t0 : T);
+    const float* sd = sD + static_cast<int64_t>(s) * K * T;
+    for (int k = tid; k < K; k += kApplyThreads) s_thr[k] = thresh[b * K + k];
+    if constexpr (kBulk) {
+      mbar_wait(bars + s, (i >> 1) & 1);
+    } else {
+      float* st = sD + static_cast<int64_t>(s) * K * T;
+      for (int k = 0; k < K; ++k)
+        for (int j = tid; j < n; j += kApplyThreads)
+          st[k * T + j] = D[(b * K + k) * W + t0 + j];
+    }
+    __syncthreads();
+    const float* xrow = x0 + b * W + t0;
+    float* orow = out + b * W + t0;
+    for (int g = tid; g < n / V; g += kApplyThreads) {  // V = 4: n % 4 == 0
+      float xv[V], o[V];
+      load_f<V>(xrow + V * g, xv);
+      ties_apply_staged<V>(sd, T, K, s_thr, V * g, lam, xv, o);
+      store_f<V>(orow + V * g, o);
+    }
+    __syncthreads();  // stage s and s_thr are free
+    if constexpr (kBulk) {
+      if (tid == 0 && item + 2 * stride < items) issue(item + 2 * stride, s);
+    }
+  }
+}
+
+// How many CTAs of a ties_kernel variant with `smem` bytes of dynamic
+// shared memory the current device holds at once (its attribute set
+// once), kept per (device, variant, smem): the query costs more host time
+// than a launch.
+template <bool kBulk, int V>
+cudaError_t apply_ctas(size_t smem, int* ctas) {
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, std::pair<cudaError_t, int>> seen;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = seen.find(std::make_pair(dev, smem));
+  if (it == seen.end()) {
+    // the limit less the static thresholds
+    e = cudaFuncSetAttribute(ties_kernel<kBulk, V>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemLimit - 4 * kApplyMaxK));
+    int per_sm = 0, sms = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, ties_kernel<kBulk, V>, kApplyThreads, smem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    it = seen.emplace(std::make_pair(dev, smem),
+                      std::make_pair(e, per_sm * sms)).first;
+  }
+  *ctas = it->second.second;
+  return it->second.first;
+}
+
+template <bool kBulk, int V>
+int launch_apply(const float* x, const float* d, const float* t, float* o,
+                 int nb, int k, long long w, double lam, cudaStream_t s) {
+  const long long T = apply_tile(k);
+  const size_t smem = apply_smem(k, T);
+  int ctas = 0;
+  cudaError_t e = apply_ctas<kBulk, V>(smem, &ctas);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (ctas < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  const long long tiles = (w + T - 1) / T, items = nb * tiles;
+  const long long grid = items < ctas ? items : ctas;
+  ties_kernel<kBulk, V><<<static_cast<unsigned>(grid), kApplyThreads, smem, s>>>(
+      x, d, t, o, k, static_cast<int64_t>(w), T, tiles, items, lam);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned(const void* p, uintptr_t a) {
   return (reinterpret_cast<uintptr_t>(p) % a) == 0;
 }
@@ -954,20 +1504,22 @@ int mb_linear(const void* x0, const void* D, void* out, int nb, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The pair's apply (design note above ties_kernel): k <= kApplyMaxK.
 int mb_ties(const void* x0, const void* D, const void* thresh, void* out,
             int nb, int k, long long w, double lam, void* stream) {
+  if (nb <= 0 || k <= 0 || k > kApplyMaxK || w <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const float*>(x0);
   const auto* d = static_cast<const float*>(D);
   const auto* t = static_cast<const float*>(thresh);
   auto* o = static_cast<float*>(out);
-  const size_t smem = static_cast<size_t>(k) * sizeof(float);
   if (w % 4 == 0 && aligned(x0, 16) && aligned(D, 16) && aligned(out, 16)) {
-    ties_kernel<4><<<grid_for(nb, w, 4), kThreads, smem, s>>>(x, d, t, o, k, w, lam);
-  } else {
-    ties_kernel<1><<<grid_for(nb, w, 1), kThreads, smem, s>>>(x, d, t, o, k, w, lam);
+    if (apply_tile(k) >= 2 * kApplyThreads)
+      return launch_apply<true, 4>(x, d, t, o, nb, k, w, lam, s);
+    return launch_apply<true, 1>(x, d, t, o, nb, k, w, lam, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_apply<false, 1>(x, d, t, o, nb, k, w, lam, s);
 }
 
 int mb_dare(const void* x0, const void* D, const void* masks, void* out,
@@ -986,16 +1538,88 @@ int mb_dare(const void* x0, const void* D, const void* masks, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// rows: NB * K rows of w floats; keep in [1, w).  One CTA per row.
-int mb_ties_threshold(const void* D, void* out, int rows, long long w,
+// rows: NB * K rows of w floats; keep in [1, w).  scratch: at least
+// sel_plan's scratch_bytes (mb_ties_threshold_plan), 16-byte aligned;
+// null for one CTA a row.  One CTA a row, or the clear kernel and the
+// three passes (design note above ties_threshold_kernel).
+int mb_ties_threshold(const void* D, void* out, void* scratch,
+                      long long scratch_bytes, long long rows, long long w,
                       int keep, void* stream) {
-  if (rows <= 0 || w <= 1 || keep < 1 || keep >= w)
+  if (rows <= 0 || w <= 1 || keep < 1 || keep >= w || !aligned(scratch, 16))
     return static_cast<int>(cudaErrorInvalidValue);
-  ties_threshold_kernel<<<static_cast<unsigned>(rows), kSelThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(D), static_cast<float*>(out), w,
-      static_cast<unsigned>(keep));
+  const SelPlan p = sel_plan(rows, w);
+  if (scratch_bytes < p.scratch_bytes || p.ctas > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  // the kernels whose dynamic shared memory may pass 48 KB, once a device
+  static std::mutex mu;
+  static std::map<int, cudaError_t> attr;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    auto it = attr.find(dev);
+    if (it == attr.end()) {
+      cudaError_t a = cudaFuncSetAttribute(
+          ties_threshold_compact_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>((kBins2 + kSelSliceMax) * sizeof(unsigned)));
+      if (a == cudaSuccess)
+        a = cudaFuncSetAttribute(ties_threshold_row_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kSelRowMaxW / 8 * 4));
+      it = attr.emplace(dev, a).first;
+    }
+    if (it->second != cudaSuccess) return static_cast<int>(it->second);
+  }
+  if (p.row) {
+    ties_threshold_row_kernel<<<static_cast<unsigned>(rows), kRowThreads,
+                                static_cast<size_t>(p.cap) * 4, s>>>(
+        static_cast<const float*>(D), static_cast<float*>(out), w, p.cap,
+        static_cast<unsigned>(keep));
+    return static_cast<int>(cudaGetLastError());
+  }
+  const auto* d = static_cast<const float*>(D);
+  auto* sc = static_cast<unsigned*>(scratch);
+  const size_t stage = static_cast<size_t>(p.len < p.cap ? p.len : p.cap);
+  const size_t smem = (kBins2 + stage) * sizeof(unsigned);
+  const long long n4 = rows * (kSelHdr + kBins1) / 4;
+  const long long clear = (n4 + kSelThreads - 1) / kSelThreads;
+  ties_threshold_clear_kernel<<<static_cast<unsigned>(
+      clear < kSelTargetCtas ? clear : kSelTargetCtas), kSelThreads, 0, s>>>(
+      static_cast<uint4*>(scratch), n4);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto grid = static_cast<unsigned>(p.ctas);
+  ties_threshold_kernel<<<grid, kSelThreads, 0, s>>>(
+      d, sc, rows, w, p.slices, p.len, p.cap, static_cast<unsigned>(keep));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ties_threshold_compact_kernel<<<grid, kSelThreads, smem, s>>>(
+      d, sc, rows, w, p.slices, p.len, p.cap);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ties_threshold_finish_kernel<<<grid, kSelThreads, 0, s>>>(
+      d, static_cast<float*>(out), sc, rows, w, p.slices, p.len, p.cap);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The threshold's launch plan for `rows` rows of width w: out[0] slices
+// a row, out[1] elements a slice, out[2] CTAs a pass, out[3] threads a
+// CTA, out[4] scratch bytes, out[5] candidate capacity a row, out[6] 1 for
+// one CTA a row, else 0.
+int mb_ties_threshold_plan(long long rows, long long w, long long* out) {
+  if (rows <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const SelPlan p = sel_plan(rows, w);
+  out[0] = p.slices;
+  out[1] = p.len;
+  out[2] = p.ctas;
+  out[3] = p.row ? kRowThreads : kSelThreads;
+  out[4] = p.scratch_bytes;
+  out[5] = p.cap;
+  out[6] = p.row ? 1 : 0;
+  return 0;
 }
 
 // The whole TIES merge in one cluster launch (design note above

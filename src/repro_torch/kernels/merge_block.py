@@ -27,9 +27,10 @@ TIES has two routes on the card, chosen by :func:`ties_route` from the
 shape alone: ``"fused"`` (:func:`ties_fused`, one thread-block-cluster
 kernel that trims, elects and applies from slices staged in shared
 memory) where those slices fit a CTA's shared memory and the launch has
-at most :data:`FUSED_MAX_ROWS` rows, and ``"pair"``
+at most :data:`FUSED_MAX_K` experts and :data:`FUSED_MAX_ROWS` rows, and
+``"pair"``
 (:func:`ties_thresholds`, then :func:`ties_merge`) otherwise: K or W too
-large to stage, or enough rows that the pair is faster.  Both give the
+large to stage, or enough rows or experts that the pair is faster.  Both give the
 same bits.
 """
 from __future__ import annotations
@@ -50,10 +51,34 @@ LAUNCHES = {"linear_merge": 0, "ties_merge": 0, "dare_merge": 0,
 FUSED_MAX_CLUSTER = 16
 FUSED_MIN_SLICE = 2048
 SMEM_LIMIT = 232448
-#: the most (block, expert) rows ties_route sends to the fused kernel:
-#: past them the pair was faster on the H100 (chip_smoke.py times both
-#: routes on each side of this limit)
-FUSED_MAX_ROWS = 60
+#: the most (block, expert) rows, and the most experts K, ties_route
+#: sends to the fused kernel: where the two routes cross by wall time per
+#: call (host time included, as the host-bound merge pays it) on the H100
+#: (chip_smoke.py's ROUTE_CASES, tools/ties_route_sweep.py)
+FUSED_MAX_ROWS = 48
+FUSED_MAX_K = 6
+#: the threshold kernel's launch plan, as ``sel_plan`` in
+#: ``csrc/merge_block.cu``: CTAs of 256 threads over slices of 1,024 to
+#: 16,384 elements, enough for about 264 CTAs (two an H100 SM); per row 8
+#: header words, 2,048 + 1,024 histogram bins and a candidate buffer
+SELECT_THREADS = 256
+SELECT_SLICE_MIN = 1024
+SELECT_SLICE_MAX = 16384
+SELECT_TARGET_CTAS = 264
+SELECT_CAND_MIN = 1024
+SELECT_ROW_WORDS = 8 + 2048 + 1024
+#: launches of at least SELECT_ROW_MIN_ROWS rows of at most SELECT_ROW_MAX_W
+#: elements take one CTA of 1,024 threads a row instead (no scratch)
+SELECT_ROW_MIN_ROWS = 16
+SELECT_ROW_MAX_W = 131072
+SELECT_ROW_THREADS = 1024
+#: the pair's apply kernel (``apply_tile`` in ``csrc/merge_block.cu``):
+#: tiles of T columns, the largest power of two <= 4,096 with K·T <=
+#: 6,144 floats, staged twice (a two-stage ring) in shared memory; at
+#: most APPLY_MAX_K experts (T >= 32)
+APPLY_TILE_MAX = 4096
+APPLY_STAGE_FLOATS = 6144
+APPLY_MAX_K = 256
 
 
 def reset_launches() -> None:
@@ -68,12 +93,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mb_ties.argtypes = [p, p, p, p, i, i, ll, d, p]
     lib.mb_dare.argtypes = [p, p, p, p, i, i, ll, f, f, p]
     lib.mb_sketch.argtypes = [p, p, i, ll, p]
-    lib.mb_ties_threshold.argtypes = [p, p, i, ll, i, p]
+    lib.mb_ties_threshold.argtypes = [p, p, p, ll, ll, ll, i, p]
+    lib.mb_ties_threshold_plan.argtypes = [ll, ll, ctypes.POINTER(ll)]
     lib.mb_ties_fused.argtypes = [p, p, p, p, i, i, ll, i, d, p]
     lib.mb_ties_fused_plan.argtypes = [i, ll, ctypes.POINTER(ll)]
     for fn in (lib.mb_linear, lib.mb_ties, lib.mb_dare, lib.mb_sketch,
-               lib.mb_ties_threshold, lib.mb_ties_fused,
-               lib.mb_ties_fused_plan):
+               lib.mb_ties_threshold, lib.mb_ties_threshold_plan,
+               lib.mb_ties_fused, lib.mb_ties_fused_plan):
         fn.restype = ctypes.c_int
 
 
@@ -131,7 +157,8 @@ def ties_thresholds(D: torch.Tensor, trim_frac: float) -> torch.Tensor:
     launch when every entry is kept.  Bit for bit ``np.partition``'s
     threshold (NaN sorts above +inf and keeps its payload) and
     ``torch.kthvalue``'s, except that on the card ``kthvalue`` returns any
-    NaN as 0x7FFFFFFF."""
+    NaN as 0x7FFFFFFF.  :func:`ties_threshold_plan` names the kernels the
+    shape takes."""
     if D.device.type == "cpu":
         return ref.ties_thresholds(D, trim_frac)
     if D.dim() != 3:
@@ -146,31 +173,95 @@ def ties_thresholds(D: torch.Tensor, trim_frac: float) -> torch.Tensor:
     if not D.is_contiguous():
         raise ValueError("ties_thresholds: D must be contiguous")
     keep = ref.ties_keep(trim_frac, w)
+    plan = ties_threshold_plan(nb * k, w)
     if keep >= w:
         return torch.full((nb, k), float("-inf"), dtype=torch.float32,
                           device=D.device)
     lib = LIBRARY.load()
     out = torch.empty((nb, k), dtype=torch.float32, device=D.device)
+    scratch = (torch.empty(plan["scratch"] // 4, dtype=torch.int32,
+                           device=D.device) if plan["scratch"] else None)
     with torch.cuda.device(D.device):
         _launch("ties_threshold", lib.mb_ties_threshold, D.data_ptr(),
-                out.data_ptr(), nb * k, w, keep)
+                out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                plan["scratch"], nb * k, w, keep)
     return out
+
+
+def ties_threshold_plan(rows: int, w: int) -> dict:
+    """The threshold kernel's launch for ``rows`` rows of width W
+    (``csrc/merge_block.cu`` ``sel_plan``).  ``variant`` "row" for at
+    least SELECT_ROW_MIN_ROWS rows of at most SELECT_ROW_MAX_W elements:
+    one CTA a row, no scratch.  Otherwise "sliced": ``slices`` a row of
+    ``slice`` elements each (a multiple of 4), one CTA of ``threads`` a
+    slice, ``ctas`` in each of its three passes, ``scratch`` bytes of
+    per-row state (8 header words, 2,048 + 1,024 histogram bins and the
+    candidate buffer, 4 bytes each).  ``capacity``: candidate keys a row
+    (past them a row takes the dense path)."""
+    if rows < 1 or w < 1:
+        raise ValueError(f"ties_threshold_plan: unsupported {(rows, w)}")
+    cap = min(w, max(SELECT_CAND_MIN, -(-w // 8)))
+    cap = -(-cap // 4) * 4
+    if rows >= SELECT_ROW_MIN_ROWS and w <= SELECT_ROW_MAX_W:
+        return {"variant": "row", "slices": 1, "slice": -(-w // 4) * 4,
+                "ctas": rows, "threads": SELECT_ROW_THREADS, "capacity": cap,
+                "scratch": 0}
+    want = -(-SELECT_TARGET_CTAS // rows)
+    slices = max(-(-w // SELECT_SLICE_MAX), min(want, -(-w // SELECT_SLICE_MIN)))
+    sl = -(-w // slices)
+    sl = -(-sl // 4) * 4
+    slices = -(-w // sl)
+    return {"variant": "sliced", "slices": slices, "slice": sl,
+            "ctas": rows * slices,
+            "threads": SELECT_THREADS, "capacity": cap,
+            "scratch": 4 * rows * (SELECT_ROW_WORDS + cap)}
+
+
+def ties_threshold_launch_plan(rows: int, w: int) -> dict:
+    """:func:`ties_threshold_plan` as the C side computes it
+    (``mb_ties_threshold_plan``).  Builds the library; needs a card."""
+    lib = LIBRARY.load()
+    out = (ctypes.c_longlong * 7)()
+    rc = lib.mb_ties_threshold_plan(rows, w, out)
+    if rc != 0:
+        raise RuntimeError(f"ties_threshold_launch_plan: CUDA status {rc}")
+    return {"variant": "row" if out[6] else "sliced", "slices": out[0],
+            "slice": out[1], "ctas": out[2], "threads": out[3],
+            "capacity": out[5], "scratch": out[4]}
 
 
 def ties_merge(
     x0: torch.Tensor, D: torch.Tensor, thresh: torch.Tensor, lam: float = 1.0
 ) -> torch.Tensor:
-    """TIES given per-(block, expert) trim thresholds (NB, K)."""
+    """TIES given per-(block, expert) trim thresholds (NB, K).  On the
+    card K <= :data:`APPLY_MAX_K`."""
     if x0.device.type == "cpu":
         return ref.ties_apply_ref(x0, D, thresh, lam)
     nb, k, w = D.shape
     _check("ties_merge", x0, D, [(thresh, torch.float32, (nb, k))])
+    if k > APPLY_MAX_K:
+        raise ValueError(f"ties_merge: K = {k} experts, the apply kernel "
+                         f"takes at most {APPLY_MAX_K}")
     lib = LIBRARY.load()
     out = torch.empty_like(x0)
     with torch.cuda.device(D.device):
         _launch("ties_merge", lib.mb_ties, x0.data_ptr(), D.data_ptr(),
                 thresh.data_ptr(), out.data_ptr(), nb, k, w, lam)
     return out
+
+
+def ties_apply_plan(nb: int, k: int, w: int) -> dict:
+    """The pair's apply kernel for (NB, K, W): ``tile`` columns of the K
+    rows a work item, ``items`` = NB · ceil(W / tile) (block, tile) pairs
+    walked by a persistent grid, ``smem`` bytes of dynamic shared memory
+    per CTA (two stages of K x tile floats, two mbarriers)."""
+    if nb < 1 or not 1 <= k <= APPLY_MAX_K or w < 1:
+        raise ValueError(f"ties_apply_plan: unsupported shape {(nb, k, w)}")
+    tile = APPLY_TILE_MAX
+    while tile > 32 and tile * k > APPLY_STAGE_FLOATS:
+        tile //= 2
+    return {"tile": tile, "items": nb * -(-w // tile),
+            "smem": 2 * k * tile * 4 + 16}
 
 
 def ties_fused_plan(k: int, w: int) -> dict:
@@ -196,13 +287,14 @@ def ties_fused_fits(k: int, w: int) -> bool:
 
 def ties_route(nb: int, k: int, w: int) -> str:
     """``"fused"`` where the fused kernel fits (:func:`ties_fused_fits`)
-    and the launch has at most :data:`FUSED_MAX_ROWS` (block, expert)
-    rows, else ``"pair"`` (threshold kernel, then apply kernel).  The
-    shape alone decides: a failure of either route raises, and neither
-    stands in for the other."""
+    and the launch has at most :data:`FUSED_MAX_K` experts and
+    :data:`FUSED_MAX_ROWS` (block, expert) rows, else ``"pair"``
+    (threshold kernel, then apply kernel).  The shape alone decides: a failure of
+    either route raises, and neither stands in for the other."""
     if nb < 1 or k < 1 or w < 1:
         raise ValueError(f"ties_route: unsupported shape {(nb, k, w)}")
-    fused = ties_fused_fits(k, w) and nb * k <= FUSED_MAX_ROWS
+    fused = (ties_fused_fits(k, w) and k <= FUSED_MAX_K
+             and nb * k <= FUSED_MAX_ROWS)
     return "fused" if fused else "pair"
 
 

@@ -98,42 +98,82 @@ def test_merge_blocks_card_equals_cpu(cuda, op, theta):
     assert tmb.LAUNCHES["ties_fused"] == (op == "ties" and fused)
 
 
-def _threshold_rows(w, seed):
-    """(2, 6, w) float32 deltas with the edge rows of the TIES trim."""
+def _on_card(a, cuda, offset):
+    """``a`` on the card, ``offset`` float32 elements into its storage (a
+    contiguous view off the 16-byte grid when offset is 1)."""
+    buf = torch.zeros(a.size + offset, device=cuda)
+    t = buf[offset:].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    return t
+
+
+def _threshold_rows(shape, seed):
+    """(NB, K, W) float32 deltas with the edge rows of the TIES trim in
+    its first rows (as many as fit, the last row left Gaussian): all
+    zeros, many duplicates, +-0.0 and values, +-inf, a NaN, a negated
+    row, all equal, two values, NaNs of one payload.  The all-zero,
+    all-equal and two-valued rows take the threshold kernel's dense path
+    where W exceeds its candidate buffer."""
+    nb, k, w = shape
     rng = np.random.default_rng(seed)
-    D = (0.02 * rng.normal(size=(2, 6, w))).astype(np.float32)
-    D[0, 0] = 0.0                                          # all zeros
-    D[0, 1] = 0.25 * rng.integers(-3, 4, size=w)           # many duplicates
-    D[0, 2] = np.where(rng.random(w) < 0.5, -0.0, 0.0)     # +-0.0 ...
-    D[0, 2, : w // 3] = D[1, 0, : w // 3]                  # ... and values
-    D[0, 3, ::7] = np.inf                                  # +-inf
-    D[0, 3, 3::11] = -np.inf
-    D[0, 4, w // 2] = np.nan                               # a NaN
-    D[0, 5, ::3] = -D[0, 5, ::3]
+    D = (0.02 * rng.normal(size=shape)).astype(np.float32)
+    rows = D.reshape(nb * k, w)
+    gauss = rows[-1].copy()
+    payload = np.uint32(0x7FA00001).view(np.float32)
+    kinds = [
+        lambda r: r.fill(0.0),                                  # all zeros
+        lambda r: r.__setitem__(slice(None), 0.25 * rng.integers(-3, 4, size=w)),
+        lambda r: (r.__setitem__(slice(None), np.where(rng.random(w) < 0.5,
+                                                       -0.0, 0.0)),
+                   r.__setitem__(slice(None, w // 3), gauss[: w // 3])),
+        lambda r: (r.__setitem__(slice(None, None, 7), np.inf),
+                   r.__setitem__(slice(3, None, 11), -np.inf)),
+        lambda r: r.__setitem__(w // 2, np.nan),                # a NaN
+        lambda r: r.__setitem__(slice(None, None, 3), -r[::3]),
+        lambda r: r.fill(0.25),                                 # all equal
+        lambda r: r.__setitem__(slice(None), np.where(rng.random(w) < 0.5,
+                                                      0.5, -0.125)),
+        lambda r: (r.__setitem__(slice(1, None, 5), payload),   # NaN payloads
+                   r.__setitem__(slice(2, None, 5), -payload)),
+    ]
+    for i, kind in enumerate(kinds[: max(0, nb * k - 1)]):
+        kind(rows[i])
     return D
 
 
-@pytest.mark.parametrize("w", [1, 2, 3, 5, 1001, 4096, 65536, 65537,
-                               1 << 20])
+# edge rows at several W on the sliced kernels (12 rows) and on one CTA a
+# row (16 rows), the parity phase's 2 MiB blocks, K past the fused kernel,
+# 128 rows, and each side of SELECT_ROW_MAX_W
+THRESHOLD_SHAPES = ([(nb, k, w) for nb, k in ((2, 6), (4, 4))
+                     for w in (1, 2, 3, 5, 1001, 4096, 65536, 65537)]
+                    + [(2, 6, 1 << 20), (1, 4, 1 << 20), (1, 1, 1 << 20),
+                       (4, 16, 65536), (4, 20, 65536), (32, 4, 65536),
+                       (4, 4, 131072), (4, 4, 131073)])
+
+
+@pytest.mark.parametrize("shape", THRESHOLD_SHAPES)
 @pytest.mark.parametrize("trim", [0.0, 0.3, 0.999, 1.0])
 @pytest.mark.parametrize("offset", [0, 1])
-def test_ties_threshold_kernel_equals_kthvalue(cuda, w, trim, offset):
+def test_ties_threshold_kernel_equals_kthvalue(cuda, shape, trim, offset):
     """Bit for bit: np.partition, as the numpy operator takes it, and
     torch.kthvalue on the card, whose abs and radix select return every
     NaN as the canonical 0x7FFFFFFF (the kernel keeps the payload, as
     np.abs does; a NaN threshold keeps nothing in either); -inf without
-    a launch when keep >= W."""
-    D = _threshold_rows(w, w)
-    buf = torch.zeros(D.size + offset, device=cuda)
-    Dc = buf[offset:].view(D.shape)                        # rows off 16 B
-    Dc.copy_(torch.from_numpy(D))
+    a launch when keep >= W.  Shapes: edge rows at several W on both
+    kernels the shape picks from (sliced below 16 rows, one CTA a row from
+    16 rows of at most 131,072), the parity phase's 2 MiB blocks (1, 4 /
+    1, 1,048,576), K past the fused kernel (16, 20), 128 rows; ``offset``
+    1 puts every row off the 16-byte grid."""
+    nb, k, w = shape
+    D = _threshold_rows(shape, w + k)
+    Dc = _on_card(D, cuda, offset)
     keep = tref.ties_keep(trim, w)
     tmb.reset_launches()
     got = tmb.ties_thresholds(Dc, trim)
     assert tmb.LAUNCHES["ties_threshold"] == (keep < w)
     want = tref.ties_thresholds(Dc, trim)
     torch.cuda.synchronize()
-    assert got.shape == (2, 6) and got.dtype == torch.float32
+    assert got.shape == (nb, k) and got.dtype == torch.float32
     nan = torch.isnan(want)
     assert torch.equal(torch.isnan(got), nan)
     assert torch.equal(got.view(torch.int32)[~nan],
@@ -144,6 +184,50 @@ def test_ties_threshold_kernel_equals_kthvalue(cuda, w, trim, offset):
                                       part.view(np.uint32))
     else:
         assert torch.isneginf(got).all()
+
+
+def test_ties_threshold_plan_matches_library(cuda):
+    """ties_threshold_plan (Python) is the launch the C side makes."""
+    for rows in (1, 4, 15, 16, 64, 128, 1000):
+        for w in (2, 5, 1001, 65536, 131072, 131073, 1 << 20):
+            assert (tmb.ties_threshold_launch_plan(rows, w)
+                    == tmb.ties_threshold_plan(rows, w))
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 13, 16, 20, 32])
+@pytest.mark.parametrize("nb,w,offset", [(3, 65536, 0), (2, 65536, 1),
+                                         (2, 1001, 0)])
+def test_ties_merge_kernel_equals_numpy_operator(cuda, k, nb, w, offset):
+    """The pair's apply kernel, given the trim thresholds, bit for bit
+    against the numpy operator (which takes its thresholds by
+    np.partition) and its plain version, at K up to 32; ``offset`` 1 and
+    the ragged W take its plain-load staging."""
+    from repro_torch.core.operators import ties_merge
+
+    x0, D, _ = _mk(nb, k, w, seed=k + w)
+    D[0, 0] = 0.0
+    theta = {"trim_frac": 0.3, "lam": 0.9}
+    x0c, Dc = _on_card(x0, cuda, offset), _on_card(D, cuda, offset)
+    thresh = tref.ties_thresholds(Dc, 0.3).contiguous()
+    tmb.reset_launches()
+    got = tmb.ties_merge(x0c, Dc, thresh, 0.9)
+    assert tmb.LAUNCHES["ties_merge"] == 1
+    want = tref.ties_apply_ref(x0c, Dc, thresh, 0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    out = got.cpu().numpy()
+    for b in range(nb):
+        np_b = np.asarray(ties_merge(x0[b], D[b], theta), dtype=np.float32)
+        np.testing.assert_array_equal(out[b].view(np.uint32),
+                                      np_b.view(np.uint32))
+
+
+def test_ties_merge_refuses_too_many_experts(cuda):
+    k = tmb.APPLY_MAX_K + 1
+    x0 = torch.zeros((1, 64), device=cuda)
+    D = torch.zeros((1, k, 64), device=cuda)
+    with pytest.raises(ValueError):
+        tmb.ties_merge(x0, D, torch.zeros((1, k), device=cuda))
 
 
 def test_ties_threshold_wrapper_refuses(cuda):
@@ -199,15 +283,6 @@ def test_ties_merge_blocks_on_card_forced_route(cuda, monkeypatch, route):
 
 FUSED_SHAPES = [(1, 4, 65536), (5, 3, 65536), (13, 2, 65536), (32, 4, 65536),
                 (3, 1, 1001), (7, 5, 257)]
-
-
-def _on_card(a, cuda, offset):
-    """``a`` on the card, ``offset`` float32 elements into its storage (a
-    contiguous view off the 16-byte grid when offset is 1)."""
-    buf = torch.zeros(a.size + offset, device=cuda)
-    t = buf[offset:].view(a.shape)
-    t.copy_(torch.from_numpy(a))
-    return t
 
 
 def _fused_inputs(nb, k, w, seed):

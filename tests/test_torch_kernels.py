@@ -108,10 +108,14 @@ def test_ties_fused_plain_matches_jax(shape, k, trim, dtype):
     (13, 2, 65536, "fused"),
     (46, 1, 65536, "fused"),    # its most rows in one launch
     (4, 5, 65536, "fused"),     # K = 5
-    (15, 4, 65536, "fused"),    # FUSED_MAX_ROWS rows
-    (16, 4, 65536, "pair"),     # more rows: the pair is faster
+    (12, 4, 65536, "fused"),    # FUSED_MAX_ROWS rows
+    (49, 1, 65536, "pair"),     # more rows: the pair is faster
+    (15, 4, 65536, "pair"),
+    (16, 4, 65536, "pair"),
     (32, 4, 65536, "pair"),
-    (1, 13, 65536, "fused"),    # the most rows a CTA stages at W = 65,536
+    (2, 6, 65536, "fused"),     # FUSED_MAX_K experts
+    (1, 8, 65536, "pair"),      # more experts: the pair is faster
+    (1, 13, 65536, "pair"),     # the most rows a CTA stages at W = 65,536
     (1, 14, 65536, "pair"),     # K too large to stage
     (3, 1, 1001, "fused"),      # a ragged tail block
     (7, 5, 257, "fused"),
@@ -122,7 +126,8 @@ def test_ties_route(nb, k, w, route):
     plan = tmb.ties_fused_plan(k, w)
     fits = plan["smem"] <= tmb.SMEM_LIMIT
     assert tmb.ties_fused_fits(k, w) == fits
-    assert (route == "fused") == (fits and nb * k <= tmb.FUSED_MAX_ROWS)
+    assert (route == "fused") == (fits and k <= tmb.FUSED_MAX_K
+                                  and nb * k <= tmb.FUSED_MAX_ROWS)
     assert 1 <= plan["cluster"] <= tmb.FUSED_MAX_CLUSTER
     assert plan["slice"] % 4 == 0 and plan["slice"] * plan["cluster"] >= w
 
