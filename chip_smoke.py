@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's merge, service, serve and training paths
-once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's merge, service, serve, training and
+store paths once on one NVIDIA card.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 2 without
 
@@ -123,6 +123,35 @@ Phases, one JSON line each:
            launch, the pair's and the fused kernel's device time); every
            model's loss on each skill; the merge served by ServeEngine
            (4 requests)
+  store    the store layer at the merge path's widths, STORE["layers"]
+           decoder layers: K = 4 experts shaped like partial fine-tunes
+           (the embedding and the final norm byte-equal to the base,
+           the decoder layers base + 0.02 * N(0, 1), experts 0 and 1
+           sharing the attention tensors byte for byte);
+           Session.repack into a lossless zlib layout (extents,
+           elided and deduped blocks, logical and physical bytes); the
+           four operators at full budget from the layout and from the
+           flat checkpoints (one Session batch each), bit-equal; each at
+           50% and at STORE["tight"] (below the layout's physical bytes,
+           so selection binds) from the layout (costed at physical
+           bytes), bit-equal to the numpy stream engine on the same plan
+           with equal bytes by category, c_expert_run <= c_expert_hat <=
+           B, and the blocks the packed and the flat plan select; the
+           experts pushed to a bucket (merge_cli remote push; STORE's
+           latency and MB/s); a cold TIES merge at the tight budget, then
+           a tier-billed one over that partly warm tier, which the
+           executor must refuse (budget soundness, ROADMAP C); a cold
+           TIES merge (remote + content-shared disk bytes equal to the
+           flat merge's expert bytes, bit-equal), a warm one (no remote
+           bytes), a tier-billed one at 50% and, for each operator, one
+           at the tight budget (bit-equal to the stream engine with equal
+           bytes); merge_cli fsck
+           clean, then a disk-cache extent corrupted at fill
+           (cache:extent) and a packed extent read corrupted
+           (packed:extent) found by --check, repaired by --repair, and a
+           packed TIES merge bit-equal again.  Every merge: its kernels
+           in its profile, each TIES launch on ties_route's route, wall,
+           bytes, device busy time and idle share
 
 Then the kernels' contract line, and last {"ok": true, "device": ...}.
 Any failure raises and exits non-zero.  The workspace lives under
@@ -249,6 +278,24 @@ GRAD_SAMPLE = ("embed/embedding", "attn/wq", "attn/bk", "attn/wo", "ln1",
 LOOP = {"batch": 2, "seq": 512, "steps": 4, "ckpt_every": 2, "crash_at": 3,
         "lr": 1e-3, "eval_batches": 2, "requests": 4, "min_prompt": 64,
         "max_prompt": 256, "new_tokens": 16}
+# the store phase: the merge path's widths at STORE["layers"] decoder
+# layers (the zlib repack runs on the host at ~9 MB/s: at depth 4 the
+# phase alone took 892 s), K experts shaped like partial fine-tunes (the
+# frozen tensors byte-equal to the base, experts 0 and 1 sharing the
+# attention tensors), a lossless zlib layout, a shared-read cache that
+# holds a batch's expert blocks, and a bucket behind an emulated endpoint
+# (per-request latency, MB/s); fsck's check pass reads one packed extent
+# corrupted (the skip-th read); "tight" is a budget below the layout's
+# physical bytes and the warm tier's billed bytes, so selection binds
+STORE = {"layers": 1, "k": 4, "frozen": ("embed/embedding", "ln_f"),
+         "shared": ("attn/", "ln1"), "layout": "store-zlib",
+         "latency_s": 0.002, "mbps": 4000.0, "corrupt_skip": 3,
+         "cache_bytes": 16 << 30, "tight": "2%"}
+# the bytes a store-phase merge moves by category: packed extents,
+# remote GETs and disk-cache hits are expert bytes of their own
+STORE_IO = ("base_read", "expert_read", "expert_packed_read",
+            "expert_remote_read", "expert_disk_read", "expert_repair_read",
+            "out_written")
 
 
 def emit(obj) -> None:
@@ -1964,6 +2011,472 @@ def phase_loop(root, device, seed, layers, block_size):
     return launches
 
 
+# ------------------------------------------------------------------ store
+def populate_store(sess, layers, k, seed, device):
+    """Register base (``DecoderLM`` init) and k experts shaped like a
+    fleet of partial fine-tunes: the embedding and the final norm
+    byte-equal to the base, the decoder layers base + 0.02 * N(0, 1), and
+    experts 0 and 1 sharing the tensors STORE["shared"] names byte for
+    byte (branched from one checkpoint, fine-tuned apart elsewhere)."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.store.checkpoint import flatten_tree
+
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    model = build_model(qwen2_config(layers), device=device, generator=g)
+    base = flatten_tree(model)
+    sess.register_model("base", base)
+    params = {n.replace(".", "/"): p.detach()
+              for n, p in model.state_dict(keep_vars=True).items()}
+    ids, first = [], {}
+    for e in range(k):
+        ex = {}
+        for n in base:
+            if n in STORE["frozen"]:
+                ex[n] = base[n]
+            elif e == 1 and n.startswith(STORE["shared"]):
+                ex[n] = first[n]
+            else:
+                ex[n] = (params[n].float() + 0.02 * torch.randn(
+                    params[n].shape, generator=g, device=device)
+                         ).to(torch.bfloat16)
+        sess.register_model(f"expert-{e}", ex)
+        if e == 0:
+            first = ex
+        ids.append(f"expert-{e}")
+    del model, params, first
+    return ids, {n: a.shape for n, a in base.items()}
+
+
+def snapshot_hashes(sess, sid):
+    """Each tensor's (content hash, shape, dtype) of a snapshot: equal
+    hashes are equal bytes (blake2b over the whole tensor, re-validated
+    at commit)."""
+    with sess.snapshots.models.open_model(sid) as r:
+        return {t: (r.spec(t)["hash"], tuple(r.spec(t)["shape"]),
+                    r.spec(t)["dtype"]) for t in r.tensor_names()}
+
+
+def drop_snapshots(sess, *sids):
+    """Delete compared snapshots (their tensors and published manifests),
+    so the workspace that fsck scrubs holds what the phase still reads."""
+    for sid in sids:
+        sess.snapshots.models.delete_model(sid, force=True)
+        os.remove(os.path.join(sess.snapshots.manifest_root, f"{sid}.json"))
+
+
+def store_repack(ws, block_size, ids):
+    """Session.repack of the store phase's experts into its zlib layout,
+    in a process of its own (it runs on the host while the flat merges
+    run on the card); returns the repack report and its wall."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.api import Session
+    from repro_torch.store.packed import RepackOptions
+
+    with Session(ws, block_size=block_size, device="cpu",
+                 recover=False) as sess:
+        t = time.perf_counter()
+        rep = sess.repack(ids, "base", layout_id=STORE["layout"],
+                          options=RepackOptions(compress="zlib"))
+        return rep, time.perf_counter() - t
+
+
+def store_stream_reference(ws, block_size, plan_id, sid):
+    """The numpy stream engine on one plan of the store phase's
+    workspace, in a process of its own: its bytes by category and wall
+    (the store phase runs the four operators' references at once)."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.api import Session
+    from repro_torch.core.executor import execute_merge
+    from repro_torch.core.plan import MergePlan
+    from repro_torch.store.iostats import measure
+
+    # no recovery pass: the other references' journals are in flight
+    with Session(ws, block_size=block_size, device="cpu",
+                 recover=False) as sess:
+        plan = MergePlan.from_payload(
+            sess.catalog.get_plan(plan_id)["payload"])
+        t = time.perf_counter()
+        with measure(sess.stats) as io:
+            execute_merge(plan, sess.snapshots, sess.catalog, sid=sid,
+                          txn=sess.txn, compute="stream", device="cpu")
+        return {c: io[c] for c in STORE_IO}, time.perf_counter() - t
+
+
+def phase_store(root, device, seed, block_size):
+    """Packed layouts, the tiered / remote store and mergefsck on the
+    merge path's widths at STORE["layers"] layers: repack, merges from
+    the layout at full budget against flat reads and at half and a tight
+    budget against the numpy stream engine, a tier-billed merge over a
+    partly warm tier that must be refused, a cold, warm and tier-billed
+    merge from a remote bucket (the tight ones against the stream
+    engine), then fsck finding and repairing a corrupt packed extent and
+    a corrupt cache extent."""
+    import io as _io
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import MergeSpec, Session
+    from repro_torch.core.plan import MergePlan
+    from repro_torch.core.planner import plan_merge
+    from repro_torch.kernels import merge_block as mb
+    from repro_torch.launch import merge_cli
+    from repro_torch.store.iostats import measure
+    from repro_torch.testing.chaos import inject_corruption
+
+    layers, layout = STORE["layers"], STORE["layout"]
+    spawn = multiprocessing.get_context("spawn")
+    ws = os.path.join(root, "store")
+    bucket = os.path.join(root, "store-bucket")
+    activities = [ProfilerActivity.CUDA if device.type == "cuda"
+                  else ProfilerActivity.CPU]
+    out = {"phase": "store", "layers": layers, "k": STORE["k"],
+           "block_size": block_size, "frozen": list(STORE["frozen"]),
+           "shared": list(STORE["shared"]), "merges": {}}
+    # the store path: the launch counts start at 0 here, read at its end
+    mb.reset_launches()
+    t_phase = time.perf_counter()
+    sess = Session(ws, block_size=block_size, device=device)
+    t0 = time.perf_counter()
+    ids, shapes = populate_store(sess, layers, STORE["k"], seed, device)
+    out["register_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sess.ensure_analyzed("base", ids)
+    out["analyze_s"] = time.perf_counter() - t0
+    with sess.snapshots.models.open_model("base") as r:
+        out["model_bytes"] = sum(r.spec(t)["nbytes"] for t in shapes)
+
+    def spec(op, budget):
+        return MergeSpec.build("base", ids, op=op, theta=dict(OPS)[op],
+                               budget=budget, reuse_plan=False)
+
+    def run(label, jobs, want_layout, **run_kw):
+        """Run ``jobs`` ({sid: (op, budget)}) as one Session batch on the
+        card under the profiler: wall, bytes, launches (every merge
+        kernel of the batch's operators in the profile, each TIES launch
+        on the route ties_route names), budget soundness of each job,
+        device busy time and idle share."""
+        handles = {sid: sess.submit(spec(op, b), sid=sid)
+                   for sid, (op, b) in jobs.items()}
+        before = dict(mb.LAUNCHES)
+        t = time.perf_counter()
+        with (measure(sess.stats) as io, profile(activities=activities) as prof,
+              ties_routes() as seen):
+            sess.run_all(**run_kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {n: mb.LAUNCHES[n] - before[n] for n in mb.LAUNCHES}
+        device_ms = device_time_ms(prof)
+        ops = {op for op, _b in jobs.values()}
+        wants = {"avg": r"\blinear_kernel\b", "ta": r"\blinear_kernel\b",
+                 "dare": r"\bdare_kernel\b",
+                 "ties": r"\bties_(fused_|threshold_\w*)?kernel\b"}
+        missing = [op for op in ops
+                   if not any(re.search(wants[op], n) for n in device_ms)]
+        if missing:
+            raise AssertionError(f"store {label}: no merge kernel of "
+                                 f"{missing} in the profile ({launches})")
+        routes = check_ties_routes(seen, launches, f"store {label}")
+        if "ties" in ops and not seen:
+            raise AssertionError(f"store {label}: no TIES kernel launched")
+        results = {}
+        for sid, h in handles.items():
+            res = h.result
+            rec = sess.explain(res.sid)
+            if rec["layout_id"] != want_layout:
+                raise AssertionError(f"store {label} {sid}: read layout "
+                                     f"{rec['layout_id']}, not {want_layout}")
+            r_, hat, b = (res.stats["c_expert_run"],
+                          res.stats["c_expert_hat"], rec["budget_b"])
+            # read-repair (a quarantined extent read from its flat
+            # source) is the one traffic a plan cannot price: the
+            # executor's slack
+            repair = res.stats.get("verify", {}).get("repair_bytes", 0)
+            if r_ > hat + repair or (b >= 0 and hat > b):
+                raise AssertionError(f"store {label} {sid}: run {r_}, hat "
+                                     f"{hat}, budget {b}")
+            results[sid] = res
+            out["merges"].setdefault(label, {"jobs": {}})["jobs"][sid] = {
+                "c_expert_run": r_, "c_expert_hat": hat, "budget_b": b,
+                "repair_bytes": repair}
+        busy = sum(device_ms.values())
+        out["merges"][label].update({
+            "wall_s": wall, "io": {c: io[c] for c in STORE_IO},
+            "launches": {n: v for n, v in launches.items() if v},
+            "ties_routes": routes, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / 1e3 / wall})
+        return results, io
+
+    def same(sid_a, sid_b, what):
+        a = snapshot_hashes(sess, sid_a)
+        b = sid_b if isinstance(sid_b, dict) else snapshot_hashes(sess, sid_b)
+        if a != b or set(a) != set(shapes):
+            differ = sorted(t for t in a if a[t] != b.get(t))
+            raise AssertionError(f"store {what}: {sid_a} differs from its "
+                                 f"reference in {differ[:4]}")
+
+    def plan_of(res):
+        return MergePlan.from_payload(sess.catalog.get_plan(
+            res.manifest["plan_id"])["payload"])
+
+    def hold_to_stream(sid, io, ref, what):
+        """A merge against the numpy stream engine on its plan: the same
+        bytes, and the same bytes moved by category."""
+        io_s, _wall = ref
+        same(sid, f"{sid}-stream", what)
+        if any(io[c] != io_s[c] for c in STORE_IO):
+            raise AssertionError(f"store {what}: bytes differ from the "
+                                 f"stream engine: {dict(io)} / {io_s}")
+        drop_snapshots(sess, f"{sid}-stream")
+
+    opnames = [op for op, _ in OPS]
+    tight = STORE["tight"]
+    # the repack, then eight stream references (half and tight), each
+    # started as soon as its merge has run
+    with ProcessPoolExecutor(2 * len(opnames), mp_context=spawn) as pool:
+        # 1. repack: a lossless zlib layout of the experts, on the host,
+        # while the flat full-budget merges of step 2 run on the card
+        repacking = pool.submit(store_repack, ws, block_size, ids)
+        # 2. full budget: every operator from the flat checkpoints (one
+        # batch; its shared-read cache holds every expert block, so each
+        # is read once for the four jobs)
+        run("full-flat", {f"full-{op}-flat": (op, "100%") for op in opnames},
+            None, prefer_packed=False, cache_max_bytes=STORE["cache_bytes"])
+        rep, repack_s = repacking.result()
+        out["repack"] = {k: rep[k] for k in (
+            "layout_id", "lossless", "extents", "elided_blocks",
+            "dedup_blocks", "logical_bytes", "physical_bytes")}
+        out["repack"]["wall_s"] = repack_s
+        if not (rep["lossless"] and rep["elided_blocks"]
+                and rep["dedup_blocks"]
+                and rep["physical_bytes"] < rep["logical_bytes"]):
+            raise AssertionError(f"store: repack elided or deduped "
+                                 f"nothing: {rep}")
+        # 3. half budget and a tight one (below the layout's physical
+        # bytes, so selection binds), costed at physical bytes (the
+        # auto-preferred layout): each merge on the card, then the numpy
+        # stream engine on the same plan in a worker process while the
+        # card runs the next merges
+        plans, ios, refs = {}, {}, {}
+        t = time.perf_counter()
+        for tag, budget in (("half", "50%"), ("tight", tight)):
+            for op in opnames:
+                sid = f"{tag}-{op}"
+                res, ios[sid] = run(sid, {sid: (op, budget)}, layout)
+                plans[sid] = plan_of(res[sid])
+                refs[sid] = pool.submit(store_stream_reference, ws,
+                                        block_size, plans[sid].plan_id,
+                                        f"{sid}-stream")
+        # 2. full budget from the layout (one batch), each bit-equal to
+        # the flat merge
+        res = run("full-packed", {f"full-{op}-packed": (op, "100%")
+                                  for op in opnames},
+                  layout, prefer_packed=layout,
+                  cache_max_bytes=STORE["cache_bytes"])[0]
+        refs = {sid: f.result() for sid, f in refs.items()}
+        out["stream_refs_wall_s"] = time.perf_counter() - t
+    # every block of the model, the count a plan selects at full budget
+    all_blocks = plan_of(res["full-ties-packed"]).total_selected_blocks()
+    out["all_blocks"] = all_blocks
+    for op in opnames:
+        same(f"full-{op}-packed", f"full-{op}-flat", f"full {op}")
+        drop_snapshots(sess, f"full-{op}-packed")
+        if op != "ties":
+            drop_snapshots(sess, f"full-{op}-flat")
+    out["half"], out["tight"] = {}, {}
+    for sid, plan in plans.items():
+        tag, op = sid.split("-")
+        hold_to_stream(sid, ios[sid], refs[sid], f"{tag} {op}")
+        flat = plan_merge(sess.catalog, "base", ids, op, theta=dict(OPS)[op],
+                          budget_b=plan.budget_b, block_size=block_size,
+                          reuse=False)
+        out[tag][op] = {
+            "budget_b": plan.budget_b, "stream_wall_s": refs[sid][1],
+            "selected_blocks_packed": plan.total_selected_blocks(),
+            "selected_blocks_flat": flat.plan.total_selected_blocks(),
+            "c_expert_hat_packed": plan.c_expert_hat,
+            "c_expert_logical_hat_packed": plan.c_expert_logical_hat,
+            "c_expert_hat_flat": flat.plan.c_expert_hat}
+        # under a budget below the layout's physical bytes the packed
+        # plan must leave blocks out
+        if tag == "tight" and not (
+                plan.budget_b < rep["physical_bytes"]
+                and plan.total_selected_blocks() < all_blocks):
+            raise AssertionError(f"store tight {op}: B {plan.budget_b} of "
+                                 f"{rep['physical_bytes']} physical B "
+                                 f"selected {plan.total_selected_blocks()} "
+                                 f"of {all_blocks} blocks")
+        if sid != "half-ties":
+            drop_snapshots(sess, sid)
+    # the TIES merge's bytes, for the one after fsck
+    half_ties = snapshot_hashes(sess, "half-ties")
+    drop_snapshots(sess, "half-ties")
+    sess.close()
+
+    # 4. the tiered store: the experts pushed to a bucket behind an
+    # emulated endpoint (merge_cli remote push)
+    t0 = time.perf_counter()
+    for e in ids:
+        merge_cli.main(["remote", "push", e, "--workspace", ws,
+                        "--remote-root", bucket, "--device", str(device),
+                        "--latency-s", str(STORE["latency_s"]),
+                        "--mbps", str(STORE["mbps"])])
+    out["push_s"] = time.perf_counter() - t0
+    # a known fault of both packages (ROADMAP C): a cold merge at the
+    # tight budget warms the blocks it selects; tier billing under the
+    # same budget then bills those at the disk tier's weight and adds
+    # cold ones beside them, a coalesced run that mixes the two tiers is
+    # fetched whole from remote, and the executor refuses the merge
+    sess = Session(ws, block_size=block_size, device=device)
+    sess.evict_disk_cache(0)
+    run("ties-cold-tight", {"ties-cold-tight": ("ties", tight)}, None,
+        prefer_packed=False)
+    t0 = time.perf_counter()
+    try:
+        run("ties-mixed", {"ties-mixed": ("ties", tight)}, None,
+            prefer_packed=False, tier_billing=True)
+    except RuntimeError as e:
+        if "budget soundness violated" not in str(e):
+            raise
+        out["mixed_refused"] = {"error": str(e),
+                                "wall_s": time.perf_counter() - t0}
+    else:
+        raise AssertionError("store: the tier-billed merge over a partly "
+                             "warm tier ran; the fault of ROADMAP C no "
+                             "longer shows")
+    sess.close()
+    # a cold TIES merge (the disk tier empty), a warm one from a new
+    # session (the RAM tier empty), a tier-billed one at half budget and
+    # one per operator at the tight budget, each held to the stream
+    # engine on its plan
+    sess = Session(ws, block_size=block_size, device=device)
+    drop_snapshots(sess, "ties-cold-tight")
+    sess.evict_disk_cache(0)
+    _, io = run("ties-cold", {"ties-cold": ("ties", "100%")}, None,
+                prefer_packed=False)
+    # the disk tier is keyed by content: a range whose bytes another
+    # expert already fetched (the frozen tensors) is a disk hit
+    cold = io["expert_remote_read"] + io["expert_disk_read"]
+    flat = out["merges"]["full-flat"]["jobs"]["full-ties-flat"]["c_expert_hat"]
+    if not (cold == flat and io["expert_remote_read"] > 0
+            and io["expert_repair_read"] == 0):
+        raise AssertionError(f"store cold: {dict(io)}, flat {flat}")
+    same("ties-cold", "full-ties-flat", "cold")
+    sess.close()
+    sess = Session(ws, block_size=block_size, device=device)
+    _, io = run("ties-warm", {"ties-warm": ("ties", "100%")}, None,
+                prefer_packed=False)
+    if not (io["expert_remote_read"] == 0 and io["expert_disk_read"] == cold):
+        raise AssertionError(f"store warm: {dict(io)}, cold {cold}")
+    same("ties-warm", "full-ties-flat", "warm")
+    res, io = run("ties-billed", {"ties-billed": ("ties", "50%")}, None,
+                  prefer_packed=False, tier_billing=True)
+    plan = plan_of(res["ties-billed"])
+    out["billed"] = {"selected_blocks": plan.total_selected_blocks(),
+                     "c_expert_hat": plan.c_expert_hat,
+                     "budget_b": plan.budget_b,
+                     "c_expert_run": res["ties-billed"].stats["c_expert_run"]}
+    out["billed_tight"] = {}
+    with ProcessPoolExecutor(len(opnames), mp_context=spawn) as pool:
+        for op in opnames:
+            sid = f"billed-tight-{op}"
+            res, ios[sid] = run(sid, {sid: (op, tight)}, None,
+                                prefer_packed=False, tier_billing=True)
+            plan = plan_of(res[sid])
+            refs[sid] = pool.submit(store_stream_reference, ws, block_size,
+                                    plan.plan_id, f"{sid}-stream")
+            out["billed_tight"][op] = {
+                "budget_b": plan.budget_b,
+                "selected_blocks": plan.total_selected_blocks(),
+                "c_expert_hat": plan.c_expert_hat,
+                "c_expert_run": res[sid].stats["c_expert_run"]}
+            if plan.total_selected_blocks() >= all_blocks:
+                raise AssertionError(f"store billed tight {op}: selected "
+                                     f"every block under B {plan.budget_b}")
+        for op in opnames:
+            sid = f"billed-tight-{op}"
+            refs[sid] = refs[sid].result()
+            out["billed_tight"][op]["stream_wall_s"] = refs[sid][1]
+    for op in opnames:
+        sid = f"billed-tight-{op}"
+        hold_to_stream(sid, ios[sid], refs[sid], f"billed tight {op}")
+        drop_snapshots(sess, sid)
+    out["cache"] = sess.disk_cache_stats()
+    drop_snapshots(sess, "ties-cold", "ties-warm", "ties-billed",
+                   "full-ties-flat")
+
+    # 5. mergefsck: clean; then a corrupt disk-cache extent (written at
+    # fill) and a corrupt packed extent (read at rest by the check) are
+    # found, repaired, and a packed merge is still bit-equal
+    sess.evict_disk_cache(0)
+    sess.close()
+    fsck = {}
+
+    def run_fsck(label, *flags, point=None):
+        buf = _io.StringIO()
+        ctx = (inject_corruption(point, skip=STORE["corrupt_skip"]) if point
+               else contextlib.nullcontext())
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf), ctx:
+            try:
+                merge_cli.main(["fsck", "--workspace", ws, "--json",
+                                "--device", str(device), *flags])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        doc = json.loads(buf.getvalue())
+        fsck[label] = {"exit_code": code, "wall_s": time.perf_counter() - t,
+                       "scrubbed_bytes": doc["scrubbed_bytes"],
+                       "stores": doc["stores"],
+                       "problems": sorted((p["store"], p["kind"],
+                                           p["repaired"])
+                                          for p in doc["problems"])}
+        return doc
+
+    run_fsck("clean", "--check")
+    if fsck["clean"]["exit_code"] != 0 or fsck["clean"]["problems"]:
+        raise AssertionError(f"store fsck: the clean workspace: {fsck}")
+    sess = Session(ws, block_size=block_size, device=device)
+    reader = sess.snapshots.models.open_model(ids[-1])
+    with inject_corruption("cache:extent") as inj:
+        reader.read_range("attn/wq", 0, block_size, "other")
+    reader.close()
+    sess.close()
+    if not inj.fired:
+        raise AssertionError("store fsck: no cache extent was corrupted")
+    run_fsck("check", "--check", point="packed:extent")
+    found = {(s, k) for s, k, _r in fsck["check"]["problems"]}
+    if (fsck["check"]["exit_code"] != 1
+            or found != {("packed", "corrupt-extent"),
+                         ("cache", "corrupt-extent")}):
+        raise AssertionError(f"store fsck --check: {fsck['check']}")
+    doc = run_fsck("repair", "--repair")
+    packed = doc["stores"]["packed"]
+    if (fsck["repair"]["exit_code"] != 0
+            or doc["stores"]["cache"]["repaired"] != 1
+            or packed["repaired"] + packed["quarantined"] < 1):
+        raise AssertionError(f"store fsck --repair: {fsck['repair']}")
+    sess = Session(ws, block_size=block_size, device=device)
+    _, io = run("ties-after-fsck", {"ties-after-fsck": ("ties", "50%")},
+                layout)
+    same("ties-after-fsck", half_ties, "after fsck")
+    out["after_fsck"] = {"expert_repair_read": io["expert_repair_read"],
+                         "expert_remote_read": io["expert_remote_read"]}
+    out["fsck"] = fsck
+    out["launches"] = dict(mb.LAUNCHES)
+    sess.close()
+    out["wall_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(ws, ignore_errors=True)
+    shutil.rmtree(bucket, ignore_errors=True)
+    emit(out)
+    return out["launches"]
+
+
 def ptxas_report(log_path):
     """Per kernel of one build: registers, spills, stack and static shared
     memory, from nvcc's ``-Xptxas -v`` output."""
@@ -2032,7 +2545,9 @@ def main() -> int:
           "reduced": f"depth {args.layers} of "
                      f"{get_config('qwen2-1.5b').n_layers} decoder layers "
                      f"(+ embedding, final norm) for merge, serve and the "
-                     f"train-merge-serve loop; train: all layers; widths "
+                     f"train-merge-serve loop; store: depth "
+                     f"{STORE['layers']} (its zlib repack runs on the "
+                     f"host at ~9 MB/s); train: all layers; widths "
                      f"as published"})
 
     t0 = time.perf_counter()
@@ -2065,13 +2580,15 @@ def main() -> int:
         trained = phase_train(device, args.seed)
         loop = phase_loop(root, device, args.seed, args.layers,
                           args.block_size)
+        shutil.rmtree(os.path.join(root, "merge"), ignore_errors=True)
+        store = phase_store(root, device, args.seed, args.block_size)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # each kernel's launches over the paths that run it: the merge, the
     # service, the parity phase's TIES merge at 2 MiB blocks (the pair
-    # route) and the loop's merge; flash attention: serving, training and
-    # the loop
-    launches = {n: launches[n] + service[n] + pair[n] + loop[n]
+    # route), the loop's merge and the store phase's merges and ANALYZE;
+    # flash attention: serving, training and the loop
+    launches = {n: launches[n] + service[n] + pair[n] + loop[n] + store[n]
                 for n in launches}
     for name in ("flash_attention", "flash_attention_bwd",
                  "flash_attention_bwd_tc"):

@@ -32,15 +32,16 @@ identical per-category IOStats.  See docs/SERVICE.md.
 
 Port notes: a service runs ANALYZE and its merges on ``device`` — the
 CUDA card by default (the sketch and merge kernels), ``"cpu"`` for their
-plain versions; asking for the card where there is none raises.  Packed
-layouts, tier billing, sharded execution and the idle scrubber belong to
-parts not ported yet and raise :class:`NotImplementedError`.
+plain versions; asking for the card where there is none raises.  Sharded
+execution belongs to the shard workers, not ported yet, and raises
+:class:`NotImplementedError`.
 """
 from __future__ import annotations
 
 import os
 import threading
 import time
+import warnings
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 from repro_torch.api.budget import BudgetLike, BudgetSpec
@@ -151,9 +152,6 @@ class WindowOptions:
         # keeps selections identical to the flat local path, which is
         # what bit-identity guarantees rely on.
         self.tier_billing = tier_billing
-        if tier_billing:
-            raise NotImplementedError(
-                "tier billing (the tiered store) is not ported yet")
         #: "local" runs execute_merge in-process; "sharded" (shard workers,
         #: the JAX package's repro.dist) is not ported yet
         if execution not in ("local", "sharded"):
@@ -396,6 +394,7 @@ class MergeService(WorkspaceOps):
         max_open_readers: int = 64,
         poll_s: float = 0.05,
         start: bool = True,
+        disk_cache_max_bytes: Optional[int] = None,
         max_job_attempts: int = DEFAULT_MAX_JOB_ATTEMPTS,
         verify=True,
         scrub_idle_s: Optional[float] = None,
@@ -410,7 +409,9 @@ class MergeService(WorkspaceOps):
         # the caller opts into a shared (e.g. GLOBAL_STATS) instance
         stats = stats if stats is not None else IOStats()
         os.makedirs(workspace, exist_ok=True)
-        snapshots = SnapshotStore(workspace, stats)
+        snapshots = SnapshotStore(
+            workspace, stats, disk_cache_max_bytes=disk_cache_max_bytes
+        )
         catalog = Catalog(os.path.join(workspace, "catalog.sqlite"), stats)
         snapshots.models.add_delete_guard(catalog.model_references)
         txn = TransactionManager(snapshots, catalog)
@@ -490,9 +491,6 @@ class MergeService(WorkspaceOps):
 
         #: where ANALYZE's sketch and the merge kernels run
         self.device = resolve_device(device)
-        if scrub_idle_s is not None:
-            raise NotImplementedError(
-                "the idle scrubber (mergefsck) is not ported yet")
         self.snapshots = snapshots
         self.catalog = catalog
         self.txn = txn
@@ -555,6 +553,7 @@ class MergeService(WorkspaceOps):
         # overlapping *in-flight* work shares one physical scan
         self._cache_budget = CacheBudget(self.defaults.cache_max_bytes)
         self._readers: Dict[Tuple[Optional[str], str], CachingModelReader] = {}
+        self._layouts: Dict[str, Any] = {}
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "MergeService":
@@ -615,6 +614,9 @@ class MergeService(WorkspaceOps):
         for r in self._readers.values():
             r.close()
         self._readers.clear()
+        for layout in self._layouts.values():
+            layout.close()
+        self._layouts.clear()
         if self._owns_substrate:
             self.catalog.close()
 
@@ -1576,12 +1578,34 @@ class MergeService(WorkspaceOps):
                     len(tenants) * min(grants)
                 )
 
+        # tier-aware billing: when any expert of this level is served from
+        # a remote object store, bill candidates by the tier that would
+        # serve them now (RAM free / disk cheap / remote full) so a fixed
+        # budget admits more blocks as the shared warm tiers fill up
+        tier_probe = None
+        if opts.tier_billing and any(
+            self.snapshots.models.is_remote(e) for e in level_experts
+        ):
+            from repro_torch.store.tiered import make_tier_probe
+
+            ram_readers = {
+                m: r
+                for (lid, m), r in self._readers.items()
+                if lid is None and m in level_experts
+            }
+            tier_probe = make_tier_probe(
+                self.snapshots.models,
+                self.block_size,
+                ram_readers=ram_readers,
+            )
+
         bp = plan_batch(
             self.catalog,
             batch_jobs,
             block_size=self.block_size,
             shared_budget_b=pool_b,
             group_budgets=group_budgets,
+            tier_probe=tier_probe,
         )
         # weighted-fair accounting: each tenant group is charged the
         # physical union of its own nodes' selections (what a shared-read
@@ -1603,6 +1627,7 @@ class MergeService(WorkspaceOps):
         cache_readers: Dict[str, CachingModelReader] = {}
         owned_readers: Dict[str, CachingModelReader] = {}
         cache_before = (0, 0, 0)
+        owned_layout = None
         if self.persistent_cache and opts.shared_reads:
             cache_readers = self._shared_readers(layout_id, level_experts)
             expert_readers = cache_readers
@@ -1611,10 +1636,17 @@ class MergeService(WorkspaceOps):
             # one byte budget for the whole level: the cap bounds the
             # combined footprint across all expert readers
             cache_budget = CacheBudget(opts.cache_max_bytes)
+            if layout_id is not None:
+                # cross-job sharing composes with the packed layout: one
+                # opened layout dedups extents across jobs, and the block
+                # cache fans decoded blocks out to later jobs
+                owned_layout = self.snapshots.packed.open_layout(layout_id)
+                open_one = owned_layout.open_member
+            else:
+                open_one = self.snapshots.models.open_model
             cache_readers = owned_readers = {
                 e: CachingModelReader(
-                    self.snapshots.models.open_model(e), budget=cache_budget,
-                    stats=self.stats,
+                    open_one(e), budget=cache_budget, stats=self.stats
                 )
                 for e in level_experts
             }
@@ -1728,6 +1760,8 @@ class MergeService(WorkspaceOps):
         finally:
             for r in owned_readers.values():
                 r.close()
+            if owned_layout is not None:
+                owned_layout.close()
 
         stats = dict(bp.stats)
         stats["layout_id"] = layout_id
@@ -1785,9 +1819,17 @@ class MergeService(WorkspaceOps):
             key = (layout_id, model_id)
             reader = self._readers.pop(key, None)
             if reader is None:
+                if layout_id is not None:
+                    layout = self._layouts.get(layout_id)
+                    if layout is None:
+                        layout = self._layouts[layout_id] = (
+                            self.snapshots.packed.open_layout(layout_id)
+                        )
+                    inner = layout.open_member(model_id)
+                else:
+                    inner = self.snapshots.models.open_model(model_id)
                 reader = CachingModelReader(
-                    self.snapshots.models.open_model(model_id),
-                    budget=self._cache_budget, stats=self.stats,
+                    inner, budget=self._cache_budget, stats=self.stats
                 )
             self._readers[key] = reader  # re-insert = most recently used
             out[model_id] = reader
@@ -1809,30 +1851,62 @@ class MergeService(WorkspaceOps):
     ) -> Optional[str]:
         """Resolve the packed layout one execution level reads from.
 
-        Packed layouts are not ported yet: a forced layout raises, and so
-        does auto-prefer when a lossless layout packed against this exact
-        base covers the level (a workspace the JAX package repacked) —
-        pass ``prefer_packed=False`` to read flat checkpoints there.  On a
-        workspace without such a layout auto-prefer returns ``None``.
+        A layout is only *applicable* when every expert of the level is a
+        member AND the level's (single) base is the layout's own base —
+        elision means "delta vs the layout's base is zero", so any other
+        base would make synthesized zero deltas wrong.  Inapplicable
+        levels fall back to flat reads: in a merge graph, upper levels
+        whose inputs are freshly-committed snapshots are never members of
+        a pre-built layout, and a forced layout must not abort the graph
+        mid-way (unknown ids and block-size mismatches still raise — they
+        are configuration errors, not graph structure).
         """
         if not prefer_packed or not expert_ids:
             return None
-        if isinstance(prefer_packed, str):
-            raise NotImplementedError(
-                f"packed layout {prefer_packed!r}: packed reads are not "
-                f"ported yet")
         bases = set(base_ids)
+        if isinstance(prefer_packed, str):
+            layout = self.catalog.get_packed_layout(prefer_packed)
+            if layout is None:
+                raise KeyError(f"packed layout {prefer_packed!r} not found")
+            if layout["block_size"] != self.block_size:
+                raise ValueError(
+                    f"layout {prefer_packed!r} is packed at block_size="
+                    f"{layout['block_size']}, session uses {self.block_size}"
+                )
+            members = set(self.catalog.packed_layout_members(prefer_packed))
+            applicable = (
+                bases == {layout["base_id"]}
+                and all(e in members for e in expert_ids)
+            )
+            if not applicable:
+                # fall back, but never silently: on a plain single-level
+                # merge this usually means a misconfigured --layout
+                causes = []
+                if bases != {layout["base_id"]}:
+                    causes.append(
+                        f"layout base {layout['base_id']!r} vs merge "
+                        f"base(s) {sorted(bases)}"
+                    )
+                non_members = [e for e in expert_ids if e not in members]
+                if non_members:
+                    causes.append(f"non-members: {non_members}")
+                warnings.warn(
+                    f"forced packed layout {prefer_packed!r} does not apply "
+                    f"to this level ({'; '.join(causes)}) — reading flat "
+                    f"checkpoints instead",
+                    stacklevel=3,
+                )
+                return None
+            return prefer_packed
+        # auto-prefer: only lossless layouts packed against this exact
+        # base qualify (outputs must stay bit-identical to the flat
+        # store; lossy layouts are an explicit opt-in by id)
         if len(bases) != 1:
             return None
-        found = self.catalog.find_packed_layout(
+        return self.catalog.find_packed_layout(
             expert_ids, self.block_size, lossless_only=True,
             base_id=bases.pop(),
         )
-        if found is not None:
-            raise NotImplementedError(
-                f"packed layout {found!r} covers this merge, but packed "
-                f"reads are not ported yet; pass prefer_packed=False")
-        return None
 
     # ------------------------------------------------------- substrate ops
     def jobs(self, state: Optional[str] = None,
@@ -1861,9 +1935,11 @@ class MergeService(WorkspaceOps):
                 self._scrub_report = {"error": str(e)}
 
     def scrub(self, repair: bool = True) -> Dict[str, Any]:
-        """Run mergefsck over the workspace now (the JAX package's
-        ``repro.store.fsck``; not ported yet, so this raises
-        :class:`NotImplementedError`)."""
+        """Run mergefsck over the workspace now (also available as
+        ``merge_cli fsck``): re-hashes snapshots, packed extents, and
+        disk-cache extents against their cataloged contracts, repairing
+        or quarantining what it can (see :mod:`repro_torch.store.fsck`).  The
+        latest report is kept and surfaced in :meth:`status`."""
         report = self.fsck(repair=repair, rate_mbps=self.scrub_rate_mbps)
         doc = report.to_dict()
         with self._cond:

@@ -37,9 +37,8 @@ concurrent sessions never cross-pollute counters.  Pass
 
 Port notes: a Session runs ANALYZE and its merges on ``device`` — the
 CUDA card by default, ``"cpu"`` for the kernels' plain versions; asking
-for the card where there is none raises.  Repacking, sharded execution
-(``n_workers``/``dist``) and the tiered store's disk cache are not
-ported yet.
+for the card where there is none raises.  Sharded execution
+(``n_workers``/``dist``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -72,6 +71,7 @@ class Session(WorkspaceOps):
         block_size: int = blk.DEFAULT_BLOCK_SIZE,
         stats: Optional[IOStats] = None,
         recover: bool = True,
+        disk_cache_max_bytes: Optional[int] = None,
         device="cuda",
     ):
         from repro_torch.kernels.ops import resolve_device  # lazy: torch
@@ -83,7 +83,9 @@ class Session(WorkspaceOps):
         # session-scoped accounting by default; GLOBAL_STATS is opt-in
         self.stats = stats if stats is not None else IOStats()
         os.makedirs(workspace, exist_ok=True)
-        self.snapshots = SnapshotStore(workspace, self.stats)
+        self.snapshots = SnapshotStore(
+            workspace, self.stats, disk_cache_max_bytes=disk_cache_max_bytes
+        )
         self.catalog = Catalog(os.path.join(workspace, "catalog.sqlite"), self.stats)
         # referential integrity: deleting a model that snapshots' lineage
         # or a packed layout still references needs an explicit force=True
@@ -272,10 +274,17 @@ class Session(WorkspaceOps):
     ) -> Dict:
         """Rewrite checkpoints into a content-addressed packed layout
         (store/packed): cross-model dedup, zero-delta elision, optional
-        downcast/compression.  The packed store is not ported yet: this
-        raises.
+        downcast/compression.  Returns the repack report; subsequent
+        ``run``/``run_all`` calls auto-prefer the layout when lossless.
         """
-        raise NotImplementedError("repack (the packed store) is not ported yet")
+        return self.snapshots.packed.repack(
+            base_id,
+            list(model_ids),
+            self.block_size,
+            layout_id=layout_id,
+            options=options,
+            catalog=self.catalog,
+        )
 
     def list_layouts(self) -> List[str]:
         return self.catalog.list_packed_layouts()

@@ -6,9 +6,7 @@ Both own the same substrate (``self.snapshots`` / ``self.catalog`` /
 accessors one implementation instead of two drifting copies.
 
 Port notes: ANALYZE runs on the owner's ``device`` (the sketch kernel on
-a CUDA card, its plain version on the CPU).  Remote-backed models, the
-disk cache and mergefsck belong to stores not ported yet and raise
-:class:`NotImplementedError`.
+a CUDA card, its plain version on the CPU).
 """
 from __future__ import annotations
 
@@ -75,8 +73,13 @@ class WorkspaceOps:
         (``<remote_root>/<model_id>/...``).  Reads are served through the
         tier hierarchy RAM -> local disk cache -> remote; ``profile``
         sets the emulated endpoint's latency/bandwidth/fault shape (see
-        :class:`repro.store.remote.RemoteProfile`).  Not ported yet."""
-        raise NotImplementedError("remote-backed models are not ported yet")
+        :class:`repro_torch.store.remote.RemoteProfile`)."""
+        self.snapshots.models.register_remote(
+            model_id, remote_root, profile=profile, disk_cache=disk_cache
+        )
+        if analyze:
+            self.analyze(model_id, base_id=base_id)
+        return model_id
 
     def publish_model_remote(
         self,
@@ -88,18 +91,23 @@ class WorkspaceOps:
     ) -> str:
         """Upload a locally registered model to a remote object store and
         (unless ``keep_local``) replace the local bytes with a remote
-        stub, so later reads exercise the tiered path.  Not ported yet."""
-        raise NotImplementedError("remote-backed models are not ported yet")
+        stub, so later reads exercise the tiered path."""
+        return self.snapshots.models.publish_remote(
+            model_id,
+            remote_root,
+            profile=profile,
+            keep_local=keep_local,
+            disk_cache=disk_cache,
+        )
 
     def disk_cache_stats(self) -> Dict[str, int]:
-        """Usage/hit counters of the shared local-disk extent cache (the
-        tiered store, not ported yet)."""
-        raise NotImplementedError("the disk extent cache is not ported yet")
+        """Usage/hit counters of the shared local-disk extent cache."""
+        return self.snapshots.disk_cache.cache_stats()
 
     def evict_disk_cache(self, target_bytes: int = 0) -> int:
-        """Shrink the shared disk cache (the tiered store, not ported
-        yet)."""
-        raise NotImplementedError("the disk extent cache is not ported yet")
+        """Shrink the shared disk cache to ``target_bytes`` (0 = clear).
+        Returns bytes freed."""
+        return self.snapshots.disk_cache.evict(target_bytes)
 
     # ---------------------------------------------------------------- audit
     def explain(self, sid: str) -> Dict:
@@ -117,9 +125,12 @@ class WorkspaceOps:
     def fsck(self, repair: bool = False, rate_mbps: float = 0.0):
         """mergefsck: scrub every store of this workspace (models,
         remote stubs, snapshots, packed layouts, disk cache, journals)
-        against the block-integrity contract (the JAX package's
-        ``repro.store.fsck``).  Not ported yet."""
-        raise NotImplementedError("mergefsck is not ported yet")
+        against the block-integrity contract.  Returns a
+        :class:`repro_torch.store.fsck.FsckReport`; see that module for what
+        each pass checks and what ``repair`` may mutate."""
+        from repro_torch.store.fsck import fsck as _fsck
+
+        return _fsck(self.snapshots, repair=repair, rate_mbps=rate_mbps)
 
     # ----------------------------------------------------------------- data
     def load(self, model_id: str) -> Dict[str, np.ndarray]:

@@ -181,6 +181,21 @@ class MergePipe:
             analyze=analyze, pipeline=pipeline, prefer_packed=prefer_packed,
         )
 
+    # ---------------------------------------------------------------- packed
+    def repack(
+        self,
+        model_ids: Sequence[str],
+        base_id: str,
+        layout_id: Optional[str] = None,
+        options: Optional[Any] = None,
+    ) -> Dict:
+        """Rewrite checkpoints into a content-addressed packed layout
+        (see :mod:`repro_torch.store.packed` and docs/STORAGE.md)."""
+        return self.snapshots.packed.repack(
+            base_id, list(model_ids), self.block_size,
+            layout_id=layout_id, options=options, catalog=self.catalog,
+        )
+
     def session(self):
         """A v2 :class:`~repro_torch.api.Session` sharing this facade's
         catalog, snapshot store, transaction manager, stats and device."""

@@ -322,8 +322,6 @@ def execute_merge(
                     )
                     stats.record_skip("out", tr.validated_nbytes)
 
-    if getattr(plan, "layout_id", None):
-        raise NotImplementedError("packed-layout execution is not ported yet")
     kernel_ops = None
     if compute == "batched":
         kernel_ops = _torch_kernel_ops(device)
@@ -353,13 +351,27 @@ def execute_merge(
     coverage_rows: List[Tuple[str, int, str]] = []
 
     base_reader = snapshots.models.open_model(plan.base_id)
+    packed_layout = None
     if expert_readers is None:
-        expert_readers = {
-            e: snapshots.models.open_model(e) for e in plan.expert_ids
-        }
+        if getattr(plan, "layout_id", None):
+            # packed physical layout: one opened layout serves every
+            # expert — each unique extent is read once and fanned out to
+            # all (expert, block) consumers, elided blocks cost nothing,
+            # and physical reads are tagged ``expert_packed``.
+            packed_layout = snapshots.packed.open_layout(plan.layout_id)
+            expert_readers = {
+                e: packed_layout.open_member(e) for e in plan.expert_ids
+            }
+        else:
+            expert_readers = {
+                e: snapshots.models.open_model(e) for e in plan.expert_ids
+            }
     # layouts serving this merge (owned or injected): extent re-reads they
     # record under memory-cap pressure widen the budget slack below
-    merge_layouts = _packed_layouts_behind(expert_readers)
+    merge_layouts = (
+        [packed_layout] if packed_layout is not None
+        else _packed_layouts_behind(expert_readers)
+    )
     reread_before = sum(l.reread_bytes for l in merge_layouts)
     # tiered (remote-backed) readers serving this merge: a disk-cache
     # extent evicted between plan and read is honestly re-fetched from
@@ -568,6 +580,8 @@ def execute_merge(
         if owns_expert_readers:
             for r in expert_readers.values():
                 r.close()
+            if packed_layout is not None:
+                packed_layout.close()
 
     run_stats = {
         "seconds": time.time() - t0,

@@ -75,18 +75,61 @@ def plan_merge(
     plan; a reused plan with different provenance is re-recorded under a
     fresh plan_id so lineage never aliases across specs.
 
-    ``layout_id`` (packed-layout costing) and ``tier_probe`` (tier-aware
-    billing) belong to the packed and tiered stores, which are not ported
-    yet: passing either raises :class:`NotImplementedError`.
+    ``layout_id`` costs the selection against a packed physical layout
+    (store/packed): candidates are charged their **physical** bytes —
+    zero for elided blocks, the (possibly compressed) extent size for
+    the *first* selected consumer of each content-addressed extent and
+    zero for every further one (the executor reads each unique extent
+    once and fans it out).  The same byte budget therefore buys strictly
+    more selected blocks on a packed store; ``plan.c_expert_hat`` becomes
+    the physical planned cost and ``plan.c_expert_logical_hat`` keeps the
+    flat-store equivalent.
+
+    ``tier_probe`` (see ``repro_torch.store.tiered.make_tier_probe``) bills
+    candidates by storage tier: ``probe(expert, tensor, block, nbytes)``
+    returns a weight in [0, 1] and the candidate is charged
+    ``nbytes * weight`` — free for RAM-resident blocks, a token fraction
+    for local-disk cache hits, full price for cold remote fetches.  The
+    budget then governs *cold moved bytes*, so warm tiers let the same B
+    admit more blocks.  Applied only to flat-costed candidates (packed
+    layouts carry their own physical costing); note that plan *reuse*
+    short-circuits re-billing — pass ``reuse=False`` to re-plan against
+    the current cache state.
     """
-    if layout_id is not None or tier_probe is not None:
-        raise NotImplementedError(
-            "packed-layout and tier-billed planning are not ported yet"
-        )
     t0 = time.time()
     theta = dict(theta or {})
     expert_ids = list(expert_ids)
     parent_sids = list(parent_sids or [])
+
+    packed_costs: Dict[str, Dict] = {}
+    if layout_id is not None:
+        layout_row = catalog.get_packed_layout(layout_id)
+        if layout_row is None:
+            raise KeyError(f"packed layout {layout_id!r} not in catalog")
+        if layout_row["block_size"] != block_size:
+            raise ValueError(
+                f"layout {layout_id!r} is packed at block_size="
+                f"{layout_row['block_size']}, planner wants {block_size}"
+            )
+        if layout_row["base_id"] != base_id:
+            # elision is defined relative to the layout's base: an elided
+            # block's delta is zero vs *that* base only — planning this
+            # merge against it would silently corrupt the output
+            raise ValueError(
+                f"layout {layout_id!r} was packed against base "
+                f"{layout_row['base_id']!r}; cannot plan a merge with "
+                f"base {base_id!r} from it"
+            )
+        members = set(catalog.packed_layout_members(layout_id))
+        missing_members = [e for e in expert_ids if e not in members]
+        if missing_members:
+            raise KeyError(
+                f"experts {missing_members} are not members of packed "
+                f"layout {layout_id!r}"
+            )
+        packed_costs = {
+            e: catalog.packed_block_costs(layout_id, e) for e in expert_ids
+        }
 
     base_rows = catalog.tensor_metas(base_id)
     if not base_rows:
@@ -156,6 +199,7 @@ def plan_merge(
 
     for ei, e in enumerate(expert_ids):
         rows = catalog.block_metas(e, block_size)
+        pcosts = packed_costs.get(e)
         if rows:
             for (tensor_id, block_idx, nbytes, _h, l2, _amax, _mean, sig,
                  l2_delta, _cos) in rows:
@@ -165,8 +209,21 @@ def plan_merge(
                 cand_tensor.append(tensor_id)
                 cand_block.append(block_idx)
                 cand_bytes.append(nbytes)
-                cand_phys.append(nbytes)
-                cand_hash.append(None)
+                if pcosts is not None:
+                    phys, ehash, kind = pcosts.get(
+                        (tensor_id, block_idx), (nbytes, None, "flat")
+                    )
+                    cand_phys.append(int(phys))
+                    cand_hash.append(ehash if kind == "extent" else None)
+                elif tier_probe is not None:
+                    w = float(tier_probe(e, tensor_id, block_idx, nbytes))
+                    billed = int(round(nbytes * w))
+                    tier_discount += nbytes - billed
+                    cand_phys.append(billed)
+                    cand_hash.append(None)
+                else:
+                    cand_phys.append(nbytes)
+                    cand_hash.append(None)
                 cand_salience.append(float(sal))
                 cand_sig.append(int(sig))
         else:

@@ -20,6 +20,18 @@ nested specs), ``op``, ``theta``, ``budget`` ("30%", "2GiB", bytes), and
 optional ``name`` (used as the snapshot id).  YAML spec files are
 refused (no PyYAML dependency).
 
+Packed physical layouts (store/packed; docs/STORAGE.md) get three
+subcommands::
+
+    merge_cli repack  --workspace WS --base base --models e0 e1 ...
+                      [--layout-id ID] [--elide-threshold X]
+                      [--compress zlib] [--downcast float16]
+    merge_cli layouts --workspace WS            # list layouts + savings
+    merge_cli delete  --workspace WS MODEL [--force]
+
+Merges auto-prefer a covering lossless layout; ``--no-packed`` forces
+flat reads and ``--layout ID`` forces a specific (possibly lossy) one.
+
 ANALYZE and the merges run on ``--device``: ``cuda`` (the default) uses
 the Hopper sketch and merge kernels and fails where there is no card;
 ``cpu`` runs their plain versions.  ``--pipeline-kernel numpy`` keeps
@@ -41,6 +53,20 @@ built on a file spool under ``<workspace>/service/``::
 scheduling windows), honors ``cancel`` markers, and records every job
 in the catalog job table that ``status`` reads — from any process.
 
+Remote-backed models (store/remote + store/tiered; docs/STORAGE.md) get
+two subcommands::
+
+    merge_cli remote push     --workspace WS MODEL --remote-root DIR
+                              [--latency-s X] [--mbps X] [--fail-every N]
+                              [--keep-local] [--no-disk-cache]
+    merge_cli remote register --workspace WS MODEL --remote-root DIR [...]
+    merge_cli cache stats     --workspace WS
+    merge_cli cache evict     --workspace WS [--target-bytes N]
+
+``remote push`` uploads a local model and replaces its bytes with a
+stub so later reads flow RAM -> local-disk extent cache -> remote;
+``cache`` inspects or LRU-shrinks the shared warm tier.
+
 Crash recovery (docs/RECOVERY.md) and model deletion::
 
     merge_cli resume --workspace WS              # list resumable journals
@@ -55,13 +81,28 @@ and re-reads only the residual blocks.  The ``--chaos-crash POINT`` /
 merge — the embedded service requeues and resumes it in-process, so the
 run reports the recovery instead of dying.
 
+Integrity scrubbing (docs/STORAGE.md, mergefsck)::
+
+    merge_cli fsck --workspace WS                # detect + repair
+    merge_cli fsck --workspace WS --check        # detect only; exit 1
+                                                 # on any damage found
+    merge_cli fsck --workspace WS --rate-mbps 50 [--json]
+
+``fsck`` re-hashes every store against the catalog/manifest integrity
+contract — flat checkpoints and snapshots vs their MODEL.json hashes,
+packed extents vs their content-hash keys (corrupt ones are
+quarantined so reads fall back to the flat source), disk-cache extents
+vs their filename digests (corrupt ones are dropped and refill from
+remote), plus orphaned-journal and remote-stub reachability checks.
+Exit status is non-zero while unrepaired damage remains.
+
 Also supports ANALYZE reuse, plan inspection (``--explain SID``) and the
 naive full-read baseline (``--naive``).
 
-Not ported yet (each exits non-zero saying so): ``repack``, ``layouts``,
-``remote``, ``cache``, ``shards``, ``worker`` and ``fsck``; a forced
-``--layout`` fails the merge.  A one-shot or ``--spec`` run in which a
-job fails exits non-zero.
+Every subcommand that opens a session takes ``--device``.  Not ported
+yet (each exits non-zero saying so): ``shards`` and ``worker`` (the
+shard workers).  A one-shot or ``--spec`` run in which a job fails
+exits non-zero.
 """
 from __future__ import annotations
 
@@ -81,10 +122,9 @@ from repro_torch.store.iostats import measure
 SUBCOMMANDS = ("repack", "layouts", "delete", "serve", "submit", "status",
                "cancel", "remote", "cache", "resume", "fsck", "shards",
                "worker")
-#: subcommands of the JAX package's CLI whose stores or workers are not
+#: subcommands of the JAX package's CLI whose shard workers are not
 #: ported yet
-NOT_PORTED = ("repack", "layouts", "remote", "cache", "shards", "worker",
-              "fsck")
+NOT_PORTED = ("shards", "worker")
 
 
 def _add_device(ap) -> None:
@@ -376,6 +416,69 @@ def _parse_theta(pairs):
     return theta
 
 
+def _cmd_repack(argv) -> None:
+    ap = argparse.ArgumentParser(prog="merge_cli repack")
+    ap.add_argument("--workspace", required=True)
+    ap.add_argument("--base", required=True,
+                    help="base checkpoint the layout elides against")
+    ap.add_argument("--models", nargs="+", required=True,
+                    help="expert checkpoints to pack into the layout")
+    ap.add_argument("--layout-id", default=None)
+    ap.add_argument("--block-size", type=int, default=128 * 1024)
+    ap.add_argument("--elide-threshold", type=float, default=0.0,
+                    help="L2 bound on a block's delta below which it is "
+                         "elided; 0 = byte-exact only (lossless)")
+    ap.add_argument("--compress", default="none", choices=["none", "zlib"])
+    ap.add_argument("--downcast", default=None,
+                    choices=["float16", "bfloat16"],
+                    help="store float32 extents downcast (LOSSY)")
+    _add_device(ap)
+    args = ap.parse_args(argv)
+    from repro_torch.store.packed import RepackOptions
+
+    sess = Session(args.workspace, block_size=args.block_size,
+                   device=args.device)
+    opts = RepackOptions(
+        elide_threshold=args.elide_threshold,
+        compress=args.compress,
+        downcast=args.downcast,
+    )
+    rep = sess.repack(args.models, args.base, layout_id=args.layout_id,
+                      options=opts)
+    saved = rep["logical_bytes"] - rep["physical_bytes"]
+    print(f"[repack] layout {rep['layout_id']}  "
+          f"({'lossless' if rep['lossless'] else 'LOSSY'})")
+    print(f"  members={len(rep['members'])}  extents={rep['extents']}  "
+          f"elided={rep['elided_blocks']}  dedup={rep['dedup_blocks']}")
+    print(f"  logical={rep['logical_bytes']/1e6:.1f}MB  "
+          f"physical={rep['physical_bytes']/1e6:.1f}MB  "
+          f"saved={saved/1e6:.1f}MB "
+          f"({saved/max(rep['logical_bytes'],1)*100:.1f}%)")
+    sess.close()
+
+
+def _cmd_layouts(argv) -> None:
+    ap = argparse.ArgumentParser(prog="merge_cli layouts")
+    ap.add_argument("--workspace", required=True)
+    _add_device(ap)
+    args = ap.parse_args(argv)
+    sess = Session(args.workspace, device=args.device)
+    ids = sess.list_layouts()
+    if not ids:
+        print("no packed layouts")
+    for lid in ids:
+        row = sess.catalog.get_packed_layout(lid)
+        st = row["stats"]
+        print(f"{lid}  base={row['base_id']}  block={row['block_size']}  "
+              f"members={len(row['members'])}  "
+              f"{'lossless' if row['lossless'] else 'LOSSY'}  "
+              f"logical={st.get('logical_bytes', 0)/1e6:.1f}MB  "
+              f"physical={st.get('physical_bytes', 0)/1e6:.1f}MB  "
+              f"elided={st.get('elided_blocks', 0)}  "
+              f"dedup={st.get('dedup_blocks', 0)}")
+    sess.close()
+
+
 def _cmd_delete(argv) -> None:
     ap = argparse.ArgumentParser(prog="merge_cli delete")
     ap.add_argument("--workspace", required=True)
@@ -395,6 +498,102 @@ def _cmd_delete(argv) -> None:
         print(f"[delete] removed {args.model_id}")
     except ValueError as e:
         raise SystemExit(str(e))
+    finally:
+        sess.close()
+
+
+def _remote_profile(args):
+    if not (args.latency_s or args.mbps or args.fail_every):
+        return None
+    return {
+        "latency_s": args.latency_s,
+        "mbps": args.mbps,
+        "fail_every": args.fail_every,
+    }
+
+
+def _cmd_remote(argv) -> None:
+    ap = argparse.ArgumentParser(
+        prog="merge_cli remote",
+        description="Move models to / register models from a remote "
+                    "object store (docs/STORAGE.md, tier hierarchy).",
+    )
+    ap.add_argument("action", choices=["push", "register"],
+                    help="push: upload a local model and replace it with "
+                         "a remote stub; register: point at a model "
+                         "already published under --remote-root")
+    ap.add_argument("model_id")
+    ap.add_argument("--workspace", required=True)
+    ap.add_argument("--remote-root", required=True,
+                    help="object-store root directory (the emulated "
+                         "endpoint); models live at <root>/<model_id>/")
+    ap.add_argument("--latency-s", type=float, default=0.0,
+                    help="emulated per-request latency (seconds)")
+    ap.add_argument("--mbps", type=float, default=0.0,
+                    help="emulated bandwidth (MB/s; 0 = unthrottled)")
+    ap.add_argument("--fail-every", type=int, default=0,
+                    help="inject a transient fault every Nth request "
+                         "(exercises the retry path; 0 = never)")
+    ap.add_argument("--keep-local", action="store_true",
+                    help="push only: keep the local tensor files instead "
+                         "of replacing them with the remote stub")
+    ap.add_argument("--no-disk-cache", action="store_true",
+                    help="serve reads straight from remote, bypassing "
+                         "the local-disk extent cache")
+    _add_device(ap)
+    args = ap.parse_args(argv)
+    sess = Session(args.workspace, device=args.device)
+    try:
+        profile = _remote_profile(args)
+        if args.action == "push":
+            sess.publish_model_remote(
+                args.model_id, args.remote_root, profile=profile,
+                keep_local=args.keep_local,
+                disk_cache=not args.no_disk_cache,
+            )
+            print(f"[remote] pushed {args.model_id} -> {args.remote_root}"
+                  f"{'  (local copy kept)' if args.keep_local else ''}")
+        else:
+            sess.register_remote_model(
+                args.model_id, args.remote_root, profile=profile,
+                disk_cache=not args.no_disk_cache,
+            )
+            print(f"[remote] registered {args.model_id} "
+                  f"<- {args.remote_root}")
+    except (ValueError, FileNotFoundError, IOError) as e:
+        raise SystemExit(str(e))
+    finally:
+        sess.close()
+
+
+def _cmd_cache(argv) -> None:
+    ap = argparse.ArgumentParser(
+        prog="merge_cli cache",
+        description="Inspect / shrink the workspace's shared local-disk "
+                    "extent cache (the warm tier between RAM and remote).",
+    )
+    ap.add_argument("action", choices=["stats", "evict"])
+    ap.add_argument("--workspace", required=True)
+    ap.add_argument("--target-bytes", type=int, default=0,
+                    help="evict: LRU-shrink usage to this size (0 = clear)")
+    _add_device(ap)
+    args = ap.parse_args(argv)
+    sess = Session(args.workspace, device=args.device)
+    try:
+        if args.action == "stats":
+            st = sess.disk_cache_stats()
+            cap = st["max_bytes"]
+            print(f"extents={st['extents']}  "
+                  f"usage={st['usage_bytes']/1e6:.2f}MB  "
+                  f"cap={'unbounded' if not cap else f'{cap/1e6:.2f}MB'}")
+            print(f"hits={st['hits']}  misses={st['misses']}  "
+                  f"fills={st['fills']}  evictions={st['evictions']}")
+        else:
+            freed = sess.evict_disk_cache(args.target_bytes)
+            st = sess.disk_cache_stats()
+            print(f"[cache] freed {freed/1e6:.1f}MB  "
+                  f"(now {st['extents']} extents, "
+                  f"{st['usage_bytes']/1e6:.1f}MB)")
     finally:
         sess.close()
 
@@ -474,6 +673,43 @@ def _cmd_resume(argv) -> None:
         mp.close()
 
 
+def _cmd_fsck(argv) -> None:
+    ap = argparse.ArgumentParser(
+        prog="merge_cli fsck",
+        description="mergefsck: scrub every store of a workspace against "
+                    "the block-integrity contract (docs/STORAGE.md) — "
+                    "models, snapshots, packed layouts, disk cache, "
+                    "journals, remote stubs.",
+    )
+    ap.add_argument("--workspace", required=True)
+    ap.add_argument("--check", action="store_true",
+                    help="detect only (no cache drops / journal removal); "
+                         "exit 1 when any damage is found")
+    ap.add_argument("--repair", action="store_true",
+                    help="explicit repair mode (the default when --check "
+                         "is not given; kept for scripting clarity)")
+    ap.add_argument("--rate-mbps", type=float, default=0.0,
+                    help="throttle scrub I/O to this many MB/s (0 = "
+                         "unthrottled)")
+    ap.add_argument("--json", action="store_true",
+                    help="emit the full report as JSON instead of text")
+    _add_device(ap)
+    args = ap.parse_args(argv)
+    if args.check and args.repair:
+        raise SystemExit("--check and --repair are mutually exclusive")
+    sess = Session(args.workspace, device=args.device)
+    try:
+        report = sess.fsck(repair=not args.check, rate_mbps=args.rate_mbps)
+    finally:
+        sess.close()
+    if args.json:
+        print(json.dumps(report.to_dict(), indent=2))
+    else:
+        print(report.summary())
+    if report.exit_code():
+        raise SystemExit(report.exit_code())
+
+
 def _run_specs(args) -> None:
     specs = load_spec_file(args.spec)
     sess = Session(args.workspace, block_size=args.block_size,
@@ -534,8 +770,18 @@ def main(argv=None) -> None:
             return _cmd_status(argv)
         if cmd == "cancel":
             return _cmd_cancel(argv)
+        if cmd == "repack":
+            return _cmd_repack(argv)
+        if cmd == "layouts":
+            return _cmd_layouts(argv)
+        if cmd == "remote":
+            return _cmd_remote(argv)
+        if cmd == "cache":
+            return _cmd_cache(argv)
         if cmd == "resume":
             return _cmd_resume(argv)
+        if cmd == "fsck":
+            return _cmd_fsck(argv)
         return _cmd_delete(argv)
     ap = argparse.ArgumentParser()
     ap.add_argument("--workspace", required=True)
@@ -592,7 +838,7 @@ def main(argv=None) -> None:
                          "covering packed layout exists")
     ap.add_argument("--layout", default=None, metavar="LAYOUT_ID",
                     help="force merging from a specific packed layout "
-                         "(packed reads are not ported yet: fails)")
+                         "(explicit opt-in required for lossy layouts)")
     ap.add_argument("--chaos-crash", default=None, metavar="POINT",
                     help="fault injection: simulate a worker death at "
                          "this point (e.g. 'executor:block'); the service "

@@ -30,6 +30,7 @@ import numpy as np
 from repro_torch.store import dtypes
 from repro_torch.store.iostats import GLOBAL_STATS, IOStats
 from repro_torch.store.journal import ProgressJournal, ResumeState, journal_path
+from repro_torch.store.packed import PackedStore
 from repro_torch.store.tensorstore import MODEL_MANIFEST, TENSOR_DIR, CheckpointStore
 from repro_torch.testing.chaos import chaos_point
 
@@ -313,10 +314,28 @@ class WriteBehindWriter:
 class SnapshotStore:
     """Workspace-level snapshot management with atomic publish."""
 
-    def __init__(self, workspace: str, stats: Optional[IOStats] = None):
+    def __init__(
+        self,
+        workspace: str,
+        stats: Optional[IOStats] = None,
+        disk_cache_max_bytes: Optional[int] = None,
+    ):
         self.workspace = workspace
         self.stats = stats or GLOBAL_STATS
         self.models = CheckpointStore(os.path.join(workspace, "models"), self.stats)
+        # one local-disk extent cache per workspace, shared by every
+        # tenant / session on the box: the warm tier for remote-backed
+        # models (repro_torch.store.tiered); attached so open_model can build
+        # tiered readers over it
+        from repro_torch.store.tiered import DiskExtentCache
+
+        self.disk_cache = DiskExtentCache(
+            os.path.join(workspace, "diskcache"), max_bytes=disk_cache_max_bytes
+        )
+        self.models.disk_cache = self.disk_cache
+        self.packed = PackedStore(
+            os.path.join(workspace, "packed"), self.stats, models=self.models
+        )
         self.staging_root = os.path.join(workspace, "staging")
         self.manifest_root = os.path.join(workspace, "manifests")
         self.journal_root = os.path.join(workspace, "journals")

@@ -285,15 +285,16 @@ def test_cli_spool_and_one_shot_on_cpu(tmp_path, capsys):
 def test_service_fails_kernel_errors_and_refuses_unported(tmp_path,
                                                           monkeypatch):
     """A kernel's RuntimeError fails its job once (never requeued as
-    transient); auto-prefer finds no packed layout; the options of
-    unported parts raise."""
+    transient); auto-prefer finds no packed layout and a forced unknown
+    one is refused; the options of unported parts (sharded execution)
+    raise."""
     from repro_torch.kernels import ops
 
     with MergeService(str(tmp_path / "ws"), block_size=BLOCK, start=False,
                       device="cpu") as svc:
         _register(svc, _arrays(4), port=True)
         assert svc._select_layout(True, ["e0", "e1"], ["base"]) is None
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(KeyError, match="not found"):
             svc._select_layout("layout-x", ["e0"], ["base"])
 
         def broken(*a, **k):
@@ -313,13 +314,9 @@ def test_service_fails_kernel_errors_and_refuses_unported(tmp_path,
                                         budget="50%", name="bad"))
         svc.drain()
         assert h2.status == JobState.DONE
-    for kw in ({"tier_billing": True}, {"scrub_idle_s": 1.0}):
-        with pytest.raises(NotImplementedError):
-            MergeService(str(tmp_path / "ws2"), start=False, device="cpu",
-                         **kw)
     with Session(str(tmp_path / "ws3"), device="cpu") as sess:
         sess.submit(MergeSpec.build("base", ["e0"], op="avg"))
         with pytest.raises(NotImplementedError):
             sess.run_all(n_workers=2)
-        with pytest.raises(NotImplementedError):
-            sess.repack(["e0"], "base")
+        with pytest.raises(NotImplementedError, match="not ported"):
+            sess.run_all(execution="sharded")
