@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's merge, service, serve, training and
-store paths once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's merge, service, shard-worker, serve,
+training and store paths once on one NVIDIA card.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 2 without
 
@@ -24,7 +24,9 @@ Phases, one JSON line each:
            tensor-core backward's kernels must not spill)
   kernels  each Hopper kernel against its plain PyTorch version: the
            merge kernels at the merge path's largest window group (NB =
-           32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), TIES's
+           32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), the
+           linear kernel also at the whole-shard AVG's shape with its
+           per-row divisor (WHOLE_SHARD, bit for bit), TIES's
            pair route at PAIR_CASES (the merge's group and median
            launch (5, 3, 65,536), the parity phase's 2 MiB-block median
            (1, 4, 1,048,576), K = 16, the loop's most common pair
@@ -93,6 +95,24 @@ Phases, one JSON line each:
            budget: every job commits and verifies, c_expert_run <=
            c_expert_hat <= budget, the level's union of expert bytes
            below the per-job sum; wall, bytes by category, launches
+  shards   shard workers on the merge workspace: the four operators at
+           50% through Session.run_all(n_workers=2) (one python -m
+           repro_torch.launch.worker process a shard, kernel "torch" on
+           the card), each snapshot bit-equal (tensor hashes) to the
+           merge phase's local one with equal base, expert and output
+           bytes, each worker's expert bytes within ceil(C_hat / 2) +
+           K blocks, each worker's result doc naming the card and
+           counting launches of the operator's kernel; shard walls, the
+           splice's wall and each worker's start (launch to first
+           block); TIES with shard 1 killed halfway through its blocks
+           (exit 3), re-issued and resumed from its journal, bit-equal,
+           the survivors' reads plus the dead attempt's journaled reads
+           in [C_hat, 2 C_hat); whole-shard merges (kernel "mesh") of
+           SHARDS["whole_shard"]: within one bf16 ulp of the local merge
+           outside TIES's tail blocks, TIES's differing elements within
+           the tail-block bound, equal base and expert bytes; one inline
+           TIES window in this process under the profiler (device time
+           by kernel, idle share)
   serve    the TIES snapshot of ``merge``, loaded into the port's
            DecoderLM (``load_flat``) and served by ServeEngine(batch_slots
            = 4, max_len = 4096): 8 requests, prompts of 256-2048 tokens
@@ -113,7 +133,7 @@ Phases, one JSON line each:
            backward launches (two and one a layer a step; the backward on
            the tensor-core route for bf16), and one profiled step's
            device time by kernel and idle share
-  loop     at the merge depth: two experts (skills 0 and 1) from one
+  loop     at LOOP["layers"] layers: two experts (skills 0 and 1) from one
            seeded base with TrainLoop, checkpoints in a SnapshotStore;
            expert 0 crashed before step 3 and resumed from its step-2
            checkpoint, its final TrainState bit-identical to an
@@ -142,7 +162,9 @@ Phases, one JSON line each:
            a tier-billed one over that partly warm tier, which the
            executor must refuse (budget soundness, ROADMAP C); a cold
            TIES merge (remote + content-shared disk bytes equal to the
-           flat merge's expert bytes, bit-equal), a warm one (no remote
+           flat merge's expert bytes, bit-equal), the same cold merge
+           through two shard workers over an emptied disk cache
+           (bit-equal; wall, remote and disk bytes), a warm one (no remote
            bytes), a tier-billed one at 50% and, for each operator, one
            at the tight budget (bit-equal to the stream engine with equal
            bytes); merge_cli fsck
@@ -153,7 +175,8 @@ Phases, one JSON line each:
            in its profile, each TIES launch on ties_route's route, wall,
            bytes, device busy time and idle share
 
-Then the kernels' contract line, and last {"ok": true, "device": ...}.
+Then the total seconds, the kernels' contract line, and last {"ok": true,
+"device": ...}.
 Any failure raises and exits non-zero.  The workspace lives under
 build/ (gitignored) and is removed at the end.
 """
@@ -274,8 +297,12 @@ TRAIN_TOL = {"loss_rtol": 1e-2, "grad_rel_l2": 5e-2}
 GRAD_SAMPLE = ("embed/embedding", "attn/wq", "attn/bk", "attn/wo", "ln1",
                "ffn/w_down")
 # the loop phase: two experts from one base, a crash of expert 0 before
-# step CRASH_AT, then ANALYZE, TIES at 50%, and serving the merge
-LOOP = {"batch": 2, "seq": 512, "steps": 4, "ckpt_every": 2, "crash_at": 3,
+# step CRASH_AT, then ANALYZE, TIES at 50%, and serving the merge, at
+# LOOP["layers"] decoder layers (cut from the merge depth of 4 when the
+# shards phase came: its float32 checkpoints, ~5 GB at depth 4, are
+# most of the phase's time)
+LOOP = {"layers": 1, "batch": 2, "seq": 512, "steps": 4, "ckpt_every": 2,
+        "crash_at": 3,
         "lr": 1e-3, "eval_batches": 2, "requests": 4, "min_prompt": 64,
         "max_prompt": 256, "new_tokens": 16}
 # the store phase: the merge path's widths at STORE["layers"] decoder
@@ -296,6 +323,17 @@ STORE = {"layers": 1, "k": 4, "frozen": ("embed/embedding", "ln_f"),
 STORE_IO = ("base_read", "expert_read", "expert_packed_read",
             "expert_remote_read", "expert_disk_read", "expert_repair_read",
             "out_written")
+# the shards phase: shard workers on the merge workspace (process
+# transport, one python -m repro_torch.launch.worker per shard); the
+# crash kills shard 1 after "crash_at" of its blocks; the whole-shard
+# ("mesh") merges run these operators (TIES alone since the whole smoke
+# passed 1,000 s with AVG beside it; the card tests and the kernels
+# phase's whole-shard row hold AVG's per-row divisor)
+SHARDS = {"workers": 2, "crash_at": 0.5, "whole_shard": ("ties",)}
+# the linear kernel's whole-shard launch with a per-row divisor: about
+# the rows a shard stacks at the merge depth (6,418 blocks of the 4-layer
+# model over 2 workers), K = 4, 128 KiB bf16 blocks as float32
+WHOLE_SHARD = (3200, 4, 65536)
 
 
 def emit(obj) -> None:
@@ -470,6 +508,7 @@ def phase_kernels(device, seed, nb=32, k=4, w=65536):
         })
         del src, dst
     del x0, D, thresh, masks
+    rows.append(whole_shard_linear_row(device, seed, timer))
     rows += fused_rows(device, seed, timer)
     rows += threshold_rows(device, seed, timer)
     rows += apply_rows(device, seed, timer)
@@ -480,6 +519,57 @@ def phase_kernels(device, seed, nb=32, k=4, w=65536):
     emit({"phase": "kernels", "tolerance": TOL, "kernels": rows,
           "ties_route_sweep": route_sweep})
     return rows
+
+
+def whole_shard_linear_row(device, seed, timer, shape=WHOLE_SHARD):
+    """The linear kernel at the whole-shard AVG's shape with its per-row
+    divisor (k_sel + 1 for rows of 0..K selected experts) against its
+    plain version, bit for bit; the library call is one baddbmm by the
+    rows' reciprocal divisors."""
+    import torch
+
+    from repro_torch.kernels import merge_block as mb
+    from repro_torch.kernels import ref
+
+    nb, k, w = shape
+    g = torch.Generator(device=device).manual_seed(seed + 5)
+    x0 = torch.randn((nb, w), generator=g, device=device)
+    D = 0.02 * torch.randn((nb, k, w), generator=g, device=device)
+    div_rows = (torch.arange(nb, device=device) % (k + 1) + 1).float()
+    got = mb.linear_merge(x0, D, 1.0, 1.0, div_rows=div_rows)
+    want = ref.linear_ref(x0, D, 1.0, 1.0, div_rows)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if n_diff:
+        raise AssertionError(f"linear_merge (per-row divisor): {n_diff} "
+                             f"elements differ from the plain version")
+    err = float((got - want).abs().max())
+    del got, want
+    nbytes = (nb * w + nb * k * w + nb * w) * 4 + nb * 4
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    recip = (1.0 / div_rows)[:, None, None].expand(nb, 1, k).contiguous()
+    bytes_ms = nbytes / PEAK["bytes"] * 1e3
+    ops_ms = nb * w * (k + 1) / PEAK["f32"] * 1e3
+    row = {
+        "name": "linear_merge", "route": "cuda", "kernel": "linear_kernel",
+        "case": "whole_shard_div_rows",
+        "source": "src/repro_torch/csrc/merge_block.cu",
+        "replaces": "src/repro/kernels/merge_block.py:48",
+        "shape": list(shape), "max_abs_err": err, "bits_differ": n_diff,
+        "ms": timer(lambda: mb.linear_merge(x0, D, 1.0, 1.0,
+                                            div_rows=div_rows), reps=10),
+        "plain_ms": timer(lambda: ref.linear_ref(x0, D, 1.0, 1.0, div_rows),
+                          reps=5),
+        "copy_ms": timer(lambda: dst.copy_(src), reps=10),
+        "library_ms": timer(lambda: torch.baddbmm(x0.unsqueeze(1), recip, D),
+                            reps=10),
+        "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    del x0, D, src, dst, recip
+    return row
 
 
 def route_rows(device, seed, timer, w=65536, cases=ROUTE_CASES, reps=25):
@@ -1349,6 +1439,7 @@ def phase_merge(root, device, seed, block_size, layers):
             stage_s[0] += time.perf_counter() - t
 
     ops.merge_blocks = timed_merge_blocks
+    local = {}
     for op, theta in OPS:
         before = dict(mb.LAUNCHES)
         stage_s[0] = 0.0
@@ -1407,6 +1498,8 @@ def phase_merge(root, device, seed, block_size, layers):
             "device_top_ms": dict(sorted(device_ms.items(),
                                          key=lambda kv: -kv[1])[:6]),
         }
+        local[op] = {"sid": res.sid, "io": {
+            c: io[c] for c in ("base_read", "expert_read", "out_written")}}
         if op == "ties":
             ties_sid, ties_flat = res.sid, merged
             # TIES device time: the fused kernel, or the threshold kernel
@@ -1423,7 +1516,7 @@ def phase_merge(root, device, seed, block_size, layers):
     out["ties_sid"] = ties_sid
     mp.close()
     emit(out)
-    return out["launches"], ties_flat
+    return out["launches"], ties_flat, local
 
 
 def phase_service(root, device, block_size):
@@ -1509,6 +1602,259 @@ def phase_service(root, device, block_size):
           "io": seen["io"], "per_job_expert_hat_sum": per_job,
           "launches": launches, "ties_routes": routes})
     return launches
+
+
+def tail_ulps(sess, sid, ref_sid, w):
+    """bf16 ulps between two snapshots of ``sess``, with the tail block
+    of each tensor that a W-element block grid leaves ragged apart: the
+    most ulps anywhere and outside those tail blocks, the elements that
+    differ in all and in the ragged tensors, and the TIES tail-block
+    bound sum(min(W, size)) over the ragged tensors
+    (tests/test_distributed.py).  Tensors with equal content hashes are
+    equal bytes and are not read."""
+    import numpy as np
+
+    out = {"max_ulp": 0, "max_ulp_outside_tails": 0, "elements_differ": 0,
+           "ragged_elements_differ": 0, "ragged_bound": 0,
+           "tensors_differ": 0}
+    hashes = snapshot_hashes(sess, sid)
+    ref_hashes = snapshot_hashes(sess, ref_sid)
+    if set(hashes) != set(ref_hashes):
+        raise AssertionError(f"{sid}: tensors differ from {ref_sid}'s")
+    models = sess.snapshots.models
+    with models.open_model(sid) as got, models.open_model(ref_sid) as want:
+        for t, (_h, shape, _dt) in sorted(ref_hashes.items()):
+            size = int(np.prod(shape))
+            if size % w:
+                out["ragged_bound"] += min(w, size)
+            if hashes[t] == ref_hashes[t]:
+                continue
+            out["tensors_differ"] += 1
+            ulps = bf16_ulps(got.read_tensor(t, "other").reshape(-1),
+                             want.read_tensor(t, "other").reshape(-1))
+            head = size - size % w
+            out["max_ulp"] = max(out["max_ulp"], int(ulps.max()))
+            if head:
+                out["max_ulp_outside_tails"] = max(
+                    out["max_ulp_outside_tails"], int(ulps[:head].max()))
+            out["elements_differ"] += int(np.count_nonzero(ulps))
+            if size % w:
+                out["ragged_elements_differ"] += int(np.count_nonzero(ulps))
+    return out
+
+
+def phase_shards(root, device, block_size, merged):
+    """Shard workers on the merge workspace: the four operators through
+    Session.run_all(n_workers=2) (process transport, kernel "torch" on
+    the card) against the merge phase's local snapshots; a TIES window
+    whose shard 1 is killed mid-region and re-issued; whole-shard
+    ("mesh") merges; one inline TIES window under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import MergeSpec, Session
+    from repro_torch.core.plan import MergePlan
+    from repro_torch.dist import DistOptions, partition_plan, transport
+    from repro_torch.kernels import merge_block as mb
+    from repro_torch.store.iostats import measure
+
+    n, k = SHARDS["workers"], len(EXPERTS)
+    wants = {"avg": ("linear_merge",), "ta": ("linear_merge",),
+             "dare": ("dare_merge",), "ties": ("ties_fused", "ties_merge")}
+    io_keys = ("base_read", "expert_read", "out_written")
+    out = {"phase": "shards", "workers": n, "pipelined": {},
+           "whole_shard": {}}
+    worker_launches = collections.Counter()
+    # each worker process's launch time and exit, as the coordinator sees
+    # them (the result docs carry the workers' own clocks)
+    launched_at, exits = {}, []
+    real_launch = transport.LocalProcessTransport.launch
+    real_poll = transport._ProcessHandle.poll
+
+    def launch(self, workspace, lease, ctl_dir):
+        launched_at[lease.shard, lease.attempt] = time.time()
+        return real_launch(self, workspace, lease, ctl_dir)
+
+    def poll(self):
+        ex = real_poll(self)
+        if ex is not None:
+            exits.append({"shard": ex.shard, "attempt": ex.attempt,
+                          "ok": ex.ok, "crashed": ex.crashed,
+                          "exit_code": self.proc.returncode})
+        return ex
+
+    def shard_run(sid, op, dist):
+        """One sharded window of ``op`` at 50%: result, bytes, walls."""
+        h = sess.submit(MergeSpec.build("base", EXPERTS, op=op,
+                                        theta=dict(OPS)[op], budget="50%"),
+                        sid=sid)
+        t0 = time.time()
+        with measure(sess.stats) as io:
+            sess.run_all(dist=dist)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        t_end = time.time()
+        res = h.result
+        shards = res.stats["shards"]
+        for sh in shards:
+            if not sh["device"].startswith(device.type):
+                raise AssertionError(f"shards {sid}: worker {sh['shard']} "
+                                     f"ran on {sh['device']}")
+            if not any(sh["launches"].get(name, 0) for name in wants[op]):
+                raise AssertionError(f"shards {sid}: worker {sh['shard']} "
+                                     f"launched none of {wants[op]}: "
+                                     f"{sh['launches']}")
+            if dist.transport == "process":
+                worker_launches.update(sh["launches"])
+        last_end = max(sh["started_at"] + sh["seconds"] for sh in shards)
+        walls = {"wall_s": t_end - t0,
+                 "shard_walls_s": [sh["seconds"] for sh in shards],
+                 # after the last worker's end: splice, commit, lineage
+                 "splice_s": t_end - last_end}
+        if dist.transport == "process":
+            # the coordinator's launch to the worker's first staged block
+            walls["worker_start_s"] = [
+                sh["first_block_at"] - launched_at[sh["shard"], sh["attempts"]]
+                for sh in shards]
+        return res, {c: io[c] for c in io_keys}, walls
+
+    transport.LocalProcessTransport.launch = launch
+    transport._ProcessHandle.poll = poll
+    # the shards path: launch counts start at 0 here and are read at its
+    # end (in this process: the inline window; the workers' own counts
+    # come back in their result docs)
+    mb.reset_launches()
+    t_phase = time.perf_counter()
+    sess = Session(os.path.join(root, "merge"), block_size=block_size,
+                   device=device)
+    try:
+        # 1. pipelined workers, every operator, against the local merge
+        for op, _theta in OPS:
+            sid = f"shards-{op}"
+            res, io, walls = shard_run(sid, op, DistOptions(n_workers=n))
+            local = merged[op]
+            if snapshot_hashes(sess, sid) != snapshot_hashes(sess,
+                                                             local["sid"]):
+                raise AssertionError(f"shards {op}: differs from the local "
+                                     f"merge {local['sid']}")
+            if io != local["io"]:
+                raise AssertionError(f"shards {op}: bytes {io}, local "
+                                     f"{local['io']}")
+            total = res.stats["partition"]["total_expert_bytes"]
+            cap = -(-total // n) + k * block_size
+            realized = [sh["realized_expert_bytes"]
+                        for sh in res.stats["shards"]]
+            if max(realized) > cap or sum(realized) != res.stats[
+                    "c_expert_run"]:
+                raise AssertionError(f"shards {op}: worker bytes {realized}, "
+                                     f"cap {cap}")
+            out["pipelined"][op] = {
+                **walls, "io": io, "worker_expert_bytes": realized,
+                "cap": cap, "c_expert_hat": res.stats["c_expert_hat"],
+                "partition": res.stats["partition"]["shards"],
+                "worker_launches": [sh["launches"]
+                                    for sh in res.stats["shards"]]}
+            if op == "ties":
+                plan = MergePlan.from_payload(sess.catalog.get_plan(
+                    res.manifest["plan_id"])["payload"])
+            drop_snapshots(sess, sid)
+
+        # 2. shard 1 killed mid-region (exit 3), re-issued, resumed
+        part = partition_plan(plan, sess.catalog, n)
+        skip = int(part.shards[1].n_blocks * SHARDS["crash_at"])
+        mark, before = len(exits), sess.stats.snapshot()
+        res, io, walls = shard_run("shards-ties-crash", "ties", DistOptions(
+            n_workers=n, chaos={"point": "worker:block", "skip": skip,
+                                "shard": 1}))
+        dead = [e for e in exits[mark:] if not e["ok"]]
+        sh1 = next(sh for sh in res.stats["shards"] if sh["shard"] == 1)
+        if not (len(dead) == 1 and dead[0]["shard"] == 1
+                and dead[0]["attempt"] == 1 and dead[0]["exit_code"] == 3
+                and res.stats["reissued"] == 1 and sh1["attempts"] == 2
+                and sh1["resumed_blocks"] > 0):
+            raise AssertionError(f"shards crash: exits {exits[mark:]}, "
+                                 f"shard 1 {sh1}")
+        if snapshot_hashes(sess, "shards-ties-crash") != snapshot_hashes(
+                sess, merged["ties"]["sid"]):
+            raise AssertionError("shards crash: differs from the local merge")
+        # the dead process's counters die with it: its journaled prefix,
+        # which the successor skips, is the least it read
+        skipped = (sess.stats.snapshot()["skipped"].get("expert", {}).get(
+            "bytes", 0) - before["skipped"].get("expert", {}).get("bytes", 0))
+        hat = res.stats["c_expert_hat"]
+        spend = res.stats["c_expert_run"] + skipped
+        if not hat <= spend < 2 * hat:
+            raise AssertionError(f"shards crash: spend {spend} outside "
+                                 f"[{hat}, {2 * hat})")
+        out["crash"] = {**walls, "skip_blocks": skip,
+                        "shard_blocks": part.shards[1].n_blocks,
+                        "exits": exits[mark:],
+                        "resumed_blocks": sh1["resumed_blocks"],
+                        "c_expert_run": res.stats["c_expert_run"],
+                        "skipped_expert_bytes": skipped, "spend": spend,
+                        "c_expert_hat": hat}
+        drop_snapshots(sess, "shards-ties-crash")
+
+        # 3. whole-shard merges (kernel "mesh"), within one bf16 ulp of
+        # the local merge but for TIES's tail blocks
+        w = block_size // 2
+        for op in SHARDS["whole_shard"]:
+            sid = f"shards-{op}-mesh"
+            res, io, walls = shard_run(sid, op, DistOptions(n_workers=n,
+                                                            kernel="mesh"))
+            diff = tail_ulps(sess, sid, merged[op]["sid"], w)
+            if (diff["max_ulp_outside_tails"] > 1
+                    or (op == "ties" and diff["ragged_elements_differ"]
+                        > diff["ragged_bound"])
+                    or (op != "ties" and diff["max_ulp"] > 1)):
+                raise AssertionError(f"shards mesh {op}: {diff}")
+            if any(io[c] != merged[op]["io"][c]
+                   for c in ("base_read", "expert_read")):
+                raise AssertionError(f"shards mesh {op}: bytes {io}, local "
+                                     f"{merged[op]['io']}")
+            out["whole_shard"][op] = {
+                **walls, "io": io, **diff,
+                "worker_launches": [sh["launches"]
+                                    for sh in res.stats["shards"]]}
+            drop_snapshots(sess, sid)
+
+        # 4. one inline TIES window in this process, under the profiler
+        activities = [ProfilerActivity.CUDA if device.type == "cuda"
+                      else ProfilerActivity.CPU]
+        before = dict(mb.LAUNCHES)
+        with profile(activities=activities) as prof:
+            res, io, walls = shard_run(
+                "shards-ties-inline", "ties",
+                DistOptions(n_workers=n, transport="inline"))
+        device_ms = device_time_ms(prof)
+        launches = {name: mb.LAUNCHES[name] - before[name]
+                    for name in mb.LAUNCHES}
+        ties_ms = {name: t for name, t in device_ms.items()
+                   if re.search(r"\bties_(fused_|threshold_\w*)?kernel\b",
+                                name)}
+        if not ties_ms or not (launches["ties_fused"]
+                               + launches["ties_merge"]):
+            raise AssertionError(f"shards inline: no TIES kernel in the "
+                                 f"profile ({launches})")
+        if snapshot_hashes(sess, "shards-ties-inline") != snapshot_hashes(
+                sess, merged["ties"]["sid"]):
+            raise AssertionError("shards inline: differs from the local merge")
+        busy = sum(device_ms.values())
+        out["inline"] = {**walls, "io": io, "launches": launches,
+                         "kernel_ms": ties_ms, "device_busy_ms": busy,
+                         "device_idle_share": 1 - busy / 1e3 / walls["wall_s"],
+                         "device_top_ms": dict(sorted(
+                             device_ms.items(), key=lambda kv: -kv[1])[:6])}
+        drop_snapshots(sess, "shards-ties-inline")
+    finally:
+        transport.LocalProcessTransport.launch = real_launch
+        transport._ProcessHandle.poll = real_poll
+        sess.close()
+    out["launches"] = dict(mb.LAUNCHES)
+    out["worker_launches"] = dict(worker_launches)
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out["launches"], out["worker_launches"]
 
 
 @contextlib.contextmanager
@@ -2367,6 +2713,30 @@ def phase_store(root, device, seed, block_size):
             and io["expert_repair_read"] == 0):
         raise AssertionError(f"store cold: {dict(io)}, flat {flat}")
     same("ties-cold", "full-ties-flat", "cold")
+    # the same cold merge through SHARDS["workers"] shard workers (one
+    # process each, the card) over an emptied disk cache: the shared
+    # storage regime sharding is for (docs/DISTRIBUTED.md)
+    sess.evict_disk_cache(0)
+    h = sess.submit(spec("ties", "100%"), sid="ties-cold-sharded")
+    t0 = time.perf_counter()
+    with measure(sess.stats) as io_sh:
+        sess.run_all(prefer_packed=False, n_workers=SHARDS["workers"])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    shards = h.result.stats["shards"]
+    for sh in shards:
+        if not (sh["device"].startswith(device.type) and
+                sh["launches"]["ties_fused"] + sh["launches"]["ties_merge"]):
+            raise AssertionError(f"store cold sharded: worker {sh}")
+    same("ties-cold-sharded", "full-ties-flat", "cold sharded")
+    out["cold_sharded"] = {
+        "wall_s": time.perf_counter() - t0,
+        "local_cold_wall_s": out["merges"]["ties-cold"]["wall_s"],
+        "io": {c: io_sh[c] for c in STORE_IO},
+        "local_cold_io": out["merges"]["ties-cold"]["io"],
+        "shard_walls_s": [sh["seconds"] for sh in shards],
+        "worker_launches": [sh["launches"] for sh in shards]}
+    drop_snapshots(sess, "ties-cold-sharded")
     sess.close()
     sess = Session(ws, block_size=block_size, device=device)
     _, io = run("ties-warm", {"ties-warm": ("ties", "100%")}, None,
@@ -2469,12 +2839,15 @@ def phase_store(root, device, seed, block_size):
                          "expert_remote_read": io["expert_remote_read"]}
     out["fsck"] = fsck
     out["launches"] = dict(mb.LAUNCHES)
+    out["worker_launches"] = dict(sum(
+        (collections.Counter(sh) for sh in
+         out["cold_sharded"]["worker_launches"]), collections.Counter()))
     sess.close()
     out["wall_s"] = time.perf_counter() - t_phase
     shutil.rmtree(ws, ignore_errors=True)
     shutil.rmtree(bucket, ignore_errors=True)
     emit(out)
-    return out["launches"]
+    return out["launches"], out["worker_launches"]
 
 
 def ptxas_report(log_path):
@@ -2518,6 +2891,7 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--block-size", type=int, default=128 * 1024)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # the loop phase's deterministic cuBLAS needs this before CUDA starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2544,11 +2918,13 @@ def main() -> int:
           "block_size": args.block_size, "seed": args.seed,
           "reduced": f"depth {args.layers} of "
                      f"{get_config('qwen2-1.5b').n_layers} decoder layers "
-                     f"(+ embedding, final norm) for merge, serve and the "
-                     f"train-merge-serve loop; store: depth "
+                     f"(+ embedding, final norm) for merge, service, shards "
+                     f"and serve; the train-merge-serve loop: depth "
+                     f"{LOOP['layers']}; store: depth "
                      f"{STORE['layers']} (its zlib repack runs on the "
-                     f"host at ~9 MB/s); train: all layers; widths "
-                     f"as published"})
+                     f"host at ~9 MB/s); shards: whole-shard merges of "
+                     f"{', '.join(SHARDS['whole_shard'])} only; train: all "
+                     f"layers; widths as published"})
 
     t0 = time.perf_counter()
     libraries = (mb.LIBRARY, fa.LIBRARY)
@@ -2567,47 +2943,68 @@ def main() -> int:
         raise AssertionError(f"ptxas: the tensor-core backward spills in "
                              f"{spills}")
 
-    rows = phase_kernels(device, args.seed)
+    walls = {}
+
+    def timed(name, phase, *a):
+        t = time.perf_counter()
+        try:
+            return phase(*a)
+        finally:
+            walls[name] = time.perf_counter() - t
+
+    rows = timed("kernels", phase_kernels, device, args.seed)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="smoke-ws-", dir=os.path.join(HERE, "build"))
+    seed, bs, layers = args.seed, args.block_size, args.layers
     try:
-        pair = phase_parity(root, device, args.seed, args.block_size)
-        launches, merged = phase_merge(root, device, args.seed,
-                                       args.block_size, args.layers)
-        service = phase_service(root, device, args.block_size)
-        served = phase_serve(device, args.seed, args.layers, merged)
+        pair = timed("parity", phase_parity, root, device, seed, bs)
+        launches, merged, local = timed("merge", phase_merge, root, device,
+                                        seed, bs, layers)
+        service = timed("service", phase_service, root, device, bs)
+        shards, worker = timed("shards", phase_shards, root, device, bs,
+                               local)
+        served = timed("serve", phase_serve, device, seed, layers, merged)
         del merged
-        trained = phase_train(device, args.seed)
-        loop = phase_loop(root, device, args.seed, args.layers,
-                          args.block_size)
+        trained = timed("train", phase_train, device, seed)
+        loop = timed("loop", phase_loop, root, device, seed, LOOP["layers"],
+                     bs)
         shutil.rmtree(os.path.join(root, "merge"), ignore_errors=True)
-        store = phase_store(root, device, args.seed, args.block_size)
+        store, store_worker = timed("store", phase_store, root, device, seed,
+                                    bs)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # each kernel's launches over the paths that run it: the merge, the
     # service, the parity phase's TIES merge at 2 MiB blocks (the pair
-    # route), the loop's merge and the store phase's merges and ANALYZE;
-    # flash attention: serving, training and the loop
-    launches = {n: launches[n] + service[n] + pair[n] + loop[n] + store[n]
-                for n in launches}
+    # route), the shards phase's inline window, the loop's merge and the
+    # store phase's merges and ANALYZE; flash attention: serving,
+    # training and the loop.  The shard worker processes' launches (their
+    # result docs: the shards phase and the store phase's sharded merge)
+    # are a column of their own
+    launches = {n: launches[n] + service[n] + pair[n] + shards[n] + loop[n]
+                + store[n] for n in launches}
+    worker = collections.Counter(worker) + collections.Counter(store_worker)
     for name in ("flash_attention", "flash_attention_bwd",
                  "flash_attention_bwd_tc"):
         launches[name] = served.get(name, 0) + trained[name] + loop[name]
     keys = ("name", "kernel", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "copy_ms")
+            "worker_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "copy_ms")
     # one row per kernel of the main path: the fused TIES kernel and the
     # threshold at the largest group, the sketch at ANALYZE's launch,
     # flash attention at the prefill shape through the tensor-core kernel
     # (the serve phase checked that every bf16 prefill launch took that
     # route), the flash backward at the training shape through the
     # tensor-core route (its launches: that route's counter)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "phase_walls_s": walls})
     firsts = {}
     for r in rows:
         if r.get("fa_route", "tc") == "tc":
             firsts.setdefault(r["name"], r)
     emit({"kernels": [{k: ({**r, "launches": launches[r.get("counter",
-                                                             r["name"])]})[k]
+                                                             r["name"])],
+                            "worker_launches": worker.get(r.get(
+                                "counter", r["name"]), 0)})[k]
                        for k in keys} for r in firsts.values()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -33,8 +33,9 @@ identical per-category IOStats.  See docs/SERVICE.md.
 Port notes: a service runs ANALYZE and its merges on ``device`` — the
 CUDA card by default (the sketch and merge kernels), ``"cpu"`` for their
 plain versions; asking for the card where there is none raises.  Sharded
-execution belongs to the shard workers, not ported yet, and raises
-:class:`NotImplementedError`.
+execution (``execution="sharded"``, :mod:`repro_torch.dist`) leases each
+merge to shard workers on the service's device unless
+``DistOptions.device`` names another.
 """
 from __future__ import annotations
 
@@ -152,15 +153,13 @@ class WindowOptions:
         # keeps selections identical to the flat local path, which is
         # what bit-identity guarantees rely on.
         self.tier_billing = tier_billing
-        #: "local" runs execute_merge in-process; "sharded" (shard workers,
-        #: the JAX package's repro.dist) is not ported yet
+        #: "local" runs execute_merge in-process; "sharded" scatters each
+        #: node across shard workers via repro_torch.dist (docs/DISTRIBUTED.md)
         if execution not in ("local", "sharded"):
             raise ValueError(
                 "execution must be 'local' or 'sharded', got %r" % execution)
-        if execution == "sharded" or dist is not None:
-            raise NotImplementedError(
-                "sharded execution (shard workers) is not ported yet")
         self.execution = execution
+        #: repro_torch.dist.DistOptions for execution="sharded" (None = defaults)
         self.dist = dist
 
 
@@ -1628,7 +1627,12 @@ class MergeService(WorkspaceOps):
         owned_readers: Dict[str, CachingModelReader] = {}
         cache_before = (0, 0, 0)
         owned_layout = None
-        if self.persistent_cache and opts.shared_reads:
+        sharded = getattr(opts, "execution", "local") == "sharded"
+        if sharded:
+            # workers open their own readers in their own processes —
+            # coordinator-side shared readers would never see a byte
+            pass
+        elif self.persistent_cache and opts.shared_reads:
             cache_readers = self._shared_readers(layout_id, level_experts)
             expert_readers = cache_readers
             cache_before = self._cache_counters(cache_readers)
@@ -1681,22 +1685,46 @@ class MergeService(WorkspaceOps):
                         resume.discard()
                         resume = None
                 try:
-                    result = execute_merge(
-                        plan,
-                        self.snapshots,
-                        self.catalog,
-                        sid=exec_sid,
-                        txn=self.txn,
-                        compute=opts.compute,
-                        coalesce=opts.coalesce,
-                        verify=getattr(opts, "verify", True),
-                        expert_readers=expert_readers,
-                        pipeline=opts.pipeline,
-                        cancel=cancel,
-                        progress=self._node_progress(handles),
-                        resume=resume,
-                        device=self.device,
-                    )
+                    if sharded:
+                        # scatter this node across shard workers; the
+                        # coordinator mirrors execute_merge's txn
+                        # semantics so every handler below works as-is
+                        from repro_torch.dist.coordinator import run_sharded_merge
+                        from repro_torch.dist.lease import DistOptions
+
+                        result = run_sharded_merge(
+                            plan,
+                            self.snapshots,
+                            self.catalog,
+                            sid=exec_sid,
+                            txn=self.txn,
+                            options=getattr(opts, "dist", None)
+                            or DistOptions(),
+                            coalesce=opts.coalesce,
+                            verify=getattr(opts, "verify", True),
+                            pipeline=opts.pipeline,
+                            cancel=cancel,
+                            progress=self._node_progress(handles),
+                            resume=resume,
+                            device=self.device,
+                        )
+                    else:
+                        result = execute_merge(
+                            plan,
+                            self.snapshots,
+                            self.catalog,
+                            sid=exec_sid,
+                            txn=self.txn,
+                            compute=opts.compute,
+                            coalesce=opts.coalesce,
+                            verify=getattr(opts, "verify", True),
+                            expert_readers=expert_readers,
+                            pipeline=opts.pipeline,
+                            cancel=cancel,
+                            progress=self._node_progress(handles),
+                            resume=resume,
+                            device=self.device,
+                        )
                 except MergeCancelled as e:
                     dead[id(node)] = e
                     for h in handles:

@@ -38,7 +38,8 @@ concurrent sessions never cross-pollute counters.  Pass
 Port notes: a Session runs ANALYZE and its merges on ``device`` — the
 CUDA card by default, ``"cpu"`` for the kernels' plain versions; asking
 for the card where there is none raises.  Sharded execution
-(``n_workers``/``dist``) is not ported yet.
+(``n_workers``/``dist``) leases each merge to shard workers on the
+Session's device unless ``DistOptions.device`` names another.
 """
 from __future__ import annotations
 
@@ -211,9 +212,17 @@ class Session(WorkspaceOps):
         (e.g. ``VerifyPolicy(flat=True)`` to also check local flat
         reads).
 
-        ``execution="sharded"``, ``n_workers`` and ``dist`` select the
-        JAX package's shard workers (docs/DISTRIBUTED.md), which are not
-        ported yet: they raise :class:`NotImplementedError`.
+        ``execution="sharded"`` scatters each merge across shard worker
+        processes (see docs/DISTRIBUTED.md): the plan's realized read
+        set is partitioned on physical bytes, each worker runs the
+        pipelined engine over its slice under a per-shard budget, and
+        the coordinator splices the staged regions into one atomic
+        commit — bit-identical to local execution.  ``n_workers`` is a
+        convenience for the common case; pass a
+        :class:`repro_torch.dist.DistOptions` as ``dist`` for full control
+        (transport, worker kernel, device, lease re-issue limits).  The
+        workers compute on the Session's device unless ``dist.device``
+        names another.
         Returns results in submission order; handles cancelled while
         still queued are dropped from the batch (and from the results).
         """
@@ -225,9 +234,12 @@ class Session(WorkspaceOps):
             self._queue = self._queue[len(queued):]
             return []
         svc = self._service()
-        if n_workers is not None or dist is not None:
-            raise NotImplementedError(
-                "sharded execution (shard workers) is not ported yet")
+        if n_workers is not None and dist is None:
+            from repro_torch.dist.lease import DistOptions
+
+            dist = DistOptions(n_workers=n_workers)
+        if dist is not None:
+            execution = "sharded"
         opts = WindowOptions(
             shared_reads=shared_reads,
             shared_budget=shared_budget,

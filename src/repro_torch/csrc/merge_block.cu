@@ -125,14 +125,20 @@ __device__ __forceinline__ float hdiv(float a, float b) {
 // ---------------------------------------------------------------- AVG / TA
 // Replaces repro/kernels/merge_block.py::_linear_kernel
 // (linear_merge_pallas).  out = x0 + (mul * sum_k D_k) / div:
-// AVG passes mul = 1, div = K + 1; TA passes mul = lam, div = 1.
-template <int V>
+// AVG passes mul = 1, div = K + 1; TA passes mul = lam, div = 1.  With
+// kRows, row b divides by div_rows[b] instead of div: the whole-shard
+// AVG, whose rows hold k_sel selected experts and zero rows for the rest
+// (divisor k_sel + 1).  The pipelined path launches kRows = false, the
+// code it always ran.
+template <int V, bool kRows>
 __global__ void __launch_bounds__(kThreads)
 linear_kernel(const float* __restrict__ x0, const float* __restrict__ D,
-              float* __restrict__ out, int K, int64_t W, float mul, float div) {
+              float* __restrict__ out, int K, int64_t W, float mul, float div,
+              const float* __restrict__ div_rows) {
   const int64_t b = blockIdx.y;
   const int64_t w = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * V;
   if (w >= W) return;
+  if (kRows) div = div_rows[b];
   const float* d = D + b * K * W + w;
   float acc[V], t[V];
   load_f<V>(d, acc);
@@ -1490,16 +1496,26 @@ dim3 grid_for(int nb, int64_t w, int v) {
 
 extern "C" {
 
+// div_rows: null, or nb floats (row b divides by div_rows[b], not div).
 int mb_linear(const void* x0, const void* D, void* out, int nb, int k,
-              long long w, float mul, float div, void* stream) {
+              long long w, float mul, float div, const void* div_rows,
+              void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const float*>(x0);
   const auto* d = static_cast<const float*>(D);
+  const auto* r = static_cast<const float*>(div_rows);
   auto* o = static_cast<float*>(out);
-  if (w % 4 == 0 && aligned(x0, 16) && aligned(D, 16) && aligned(out, 16)) {
-    linear_kernel<4><<<grid_for(nb, w, 4), kThreads, 0, s>>>(x, d, o, k, w, mul, div);
+  const bool v4 = w % 4 == 0 && aligned(x0, 16) && aligned(D, 16) && aligned(out, 16);
+  if (r == nullptr) {
+    if (v4)
+      linear_kernel<4, false><<<grid_for(nb, w, 4), kThreads, 0, s>>>(x, d, o, k, w, mul, div, r);
+    else
+      linear_kernel<1, false><<<grid_for(nb, w, 1), kThreads, 0, s>>>(x, d, o, k, w, mul, div, r);
   } else {
-    linear_kernel<1><<<grid_for(nb, w, 1), kThreads, 0, s>>>(x, d, o, k, w, mul, div);
+    if (v4)
+      linear_kernel<4, true><<<grid_for(nb, w, 4), kThreads, 0, s>>>(x, d, o, k, w, mul, div, r);
+    else
+      linear_kernel<1, true><<<grid_for(nb, w, 1), kThreads, 0, s>>>(x, d, o, k, w, mul, div, r);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,10 +11,18 @@ compiler writes a temp file, which is fsynced, then renamed into place,
 then the directory is fsynced.  So a library at the cached path is
 whole, and a crash (the ``build:publish`` crash point, between the
 fsync and the rename) leaves only a temp file that no load reads.
+
+Processes that build at once (shard workers started on a fresh tree)
+take an ``fcntl`` lock on a lock file beside the library around the
+check and the compile, so one of them runs the compiler and the others
+find its library.  The compiler's log is published the same way as the
+library, by temp file and rename, before the library: a library at the
+cached path has its whole log beside it.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -75,18 +83,34 @@ class CudaLibrary:
 
     def build(self) -> str:
         """Compile unless a build of this exact source exists; returns the
-        library path."""
+        library path.  One process (or thread) at a time checks and
+        compiles a source, under an exclusive lock on its lock file."""
         path = self.path()
         if os.path.exists(path):
             return path
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        with open(path[: -len(".so")] + ".lock", "a") as lock:
+            fcntl.flock(lock.fileno(), fcntl.LOCK_EX)
+            try:
+                if not os.path.exists(path):  # a holder before us built it
+                    self._compile(path)
+            finally:
+                fcntl.flock(lock.fileno(), fcntl.LOCK_UN)
+        return path
+
+    def _compile(self, path: str) -> None:
+        tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
+        tmp = f"{path}.{tag}"
         proc = subprocess.run(
             [nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
             capture_output=True, text=True,
         )
-        with open(self.log_path(), "w") as f:
+        log = self.log_path()
+        with open(f"{log}.{tag}", "w") as f:
             f.write(proc.stdout + proc.stderr)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(f"{log}.{tag}", log)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.source} "
                                f"({proc.returncode}):\n{proc.stderr}")
@@ -95,7 +119,6 @@ class CudaLibrary:
         chaos_point("build:publish")
         os.replace(tmp, path)
         _fsync_dir(BUILD_DIR)
-        return path
 
     def load(self) -> ctypes.CDLL:
         with self._lock:

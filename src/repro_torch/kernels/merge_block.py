@@ -89,7 +89,7 @@ def reset_launches() -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f, d = ctypes.c_float, ctypes.c_double
-    lib.mb_linear.argtypes = [p, p, p, i, i, ll, f, f, p]
+    lib.mb_linear.argtypes = [p, p, p, i, i, ll, f, f, p, p]
     lib.mb_ties.argtypes = [p, p, p, p, i, i, ll, d, p]
     lib.mb_dare.argtypes = [p, p, p, p, i, i, ll, f, f, p]
     lib.mb_sketch.argtypes = [p, p, i, ll, p]
@@ -136,18 +136,23 @@ def _launch(name: str, fn, *args) -> None:
 
 
 def linear_merge(
-    x0: torch.Tensor, D: torch.Tensor, mul: float = 1.0, div: float = 1.0
+    x0: torch.Tensor, D: torch.Tensor, mul: float = 1.0, div: float = 1.0,
+    div_rows: torch.Tensor = None,
 ) -> torch.Tensor:
-    """out = x0 + (mul · Σ_k Δ_k) / div.  AVG: mul=1, div=K+1; TA: mul=λ."""
+    """out = x0 + (mul · Σ_k Δ_k) / div.  AVG: mul=1, div=K+1; TA: mul=λ.
+    ``div_rows`` (NB,) float32, when given, is each row's divisor in
+    place of ``div`` (the whole-shard AVG's k_sel + 1)."""
     if x0.device.type == "cpu":
-        return ref.linear_ref(x0, D, mul, div)
-    _check("linear_merge", x0, D, [])
-    lib = LIBRARY.load()
+        return ref.linear_ref(x0, D, mul, div, div_rows)
     nb, k, w = D.shape
+    _check("linear_merge", x0, D, [] if div_rows is None
+           else [(div_rows, torch.float32, (nb,))])
+    lib = LIBRARY.load()
     out = torch.empty_like(x0)
     with torch.cuda.device(D.device):
         _launch("linear_merge", lib.mb_linear, x0.data_ptr(), D.data_ptr(),
-                out.data_ptr(), nb, k, w, mul, div)
+                out.data_ptr(), nb, k, w, mul, div,
+                None if div_rows is None else div_rows.data_ptr())
     return out
 
 

@@ -66,10 +66,13 @@ def _f32(x: float, device) -> torch.Tensor:
 
 
 def linear_ref(
-    x0: torch.Tensor, D: torch.Tensor, mul: float = 1.0, div: float = 1.0
+    x0: torch.Tensor, D: torch.Tensor, mul: float = 1.0, div: float = 1.0,
+    div_rows: torch.Tensor = None,
 ) -> torch.Tensor:
-    """out = x0 + (mul · Σ_k Δ_k) / div (AVG: mul=1, div=K+1; TA: mul=λ)."""
-    return x0 + (_f32(mul, D.device) * _ksum(D)) / _f32(div, D.device)
+    """out = x0 + (mul · Σ_k Δ_k) / div (AVG: mul=1, div=K+1; TA: mul=λ);
+    ``div_rows`` (NB,), when given, divides row b by ``div_rows[b]``."""
+    d = _f32(div, D.device) if div_rows is None else div_rows[:, None]
+    return x0 + (_f32(mul, D.device) * _ksum(D)) / d
 
 
 def avg_ref(x0: torch.Tensor, D: torch.Tensor) -> torch.Tensor:

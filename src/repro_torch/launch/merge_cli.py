@@ -67,6 +67,22 @@ two subcommands::
 stub so later reads flow RAM -> local-disk extent cache -> remote;
 ``cache`` inspects or LRU-shrinks the shared warm tier.
 
+Shard-parallel distributed execution (repro_torch.dist; docs/DISTRIBUTED.md)
+gets two subcommands::
+
+    merge_cli shards --workspace WS --base base --experts e0 e1 ...
+                     [--op ties] [--budget 30%] [--n-workers 4]
+                     [--kernel mesh] [--json] [--device cpu]
+    merge_cli worker --workspace WS --lease L.json --result R.json
+                     [--device cpu]
+
+``shards`` plans a merge and prints its byte-balanced shard partition
+(the exact spans/budgets a sharded run would lease out) without
+executing anything; ``worker`` executes one :class:`ShardLease` — the
+same entrypoint ``LocalProcessTransport`` launches, exposed for manual
+runs and debugging (exit 3 = simulated crash, region + journal kept),
+on the lease's device unless ``--device`` names another.
+
 Crash recovery (docs/RECOVERY.md) and model deletion::
 
     merge_cli resume --workspace WS              # list resumable journals
@@ -99,10 +115,8 @@ Exit status is non-zero while unrepaired damage remains.
 Also supports ANALYZE reuse, plan inspection (``--explain SID``) and the
 naive full-read baseline (``--naive``).
 
-Every subcommand that opens a session takes ``--device``.  Not ported
-yet (each exits non-zero saying so): ``shards`` and ``worker`` (the
-shard workers).  A one-shot or ``--spec`` run in which a job fails
-exits non-zero.
+Every subcommand that opens a session takes ``--device``.  A one-shot
+or ``--spec`` run in which a job fails exits non-zero.
 """
 from __future__ import annotations
 
@@ -122,11 +136,6 @@ from repro_torch.store.iostats import measure
 SUBCOMMANDS = ("repack", "layouts", "delete", "serve", "submit", "status",
                "cancel", "remote", "cache", "resume", "fsck", "shards",
                "worker")
-#: subcommands of the JAX package's CLI whose shard workers are not
-#: ported yet
-NOT_PORTED = ("shards", "worker")
-
-
 def _add_device(ap) -> None:
     ap.add_argument("--device", default="cuda",
                     help="where ANALYZE and the merge kernels run: 'cuda' "
@@ -673,6 +682,85 @@ def _cmd_resume(argv) -> None:
         mp.close()
 
 
+def _cmd_shards(argv) -> None:
+    ap = argparse.ArgumentParser(
+        prog="merge_cli shards",
+        description="Plan a merge and print its byte-balanced shard "
+                    "partition (docs/DISTRIBUTED.md) without executing.",
+    )
+    ap.add_argument("--workspace", required=True)
+    ap.add_argument("--base", required=True)
+    ap.add_argument("--experts", nargs="+", required=True)
+    ap.add_argument("--op", default="ties",
+                    choices=["avg", "ta", "ties", "dare"])
+    ap.add_argument("--budget", default=None,
+                    help="'30%%', '2GiB', bytes, or a (0,1] fraction")
+    ap.add_argument("--theta", nargs="*", help="k=v operator params")
+    ap.add_argument("--block-size", type=int, default=128 * 1024)
+    ap.add_argument("--n-workers", type=int, default=2)
+    ap.add_argument("--kernel", default="torch",
+                    choices=["numpy", "torch", "mesh"],
+                    help="'mesh' snaps shard cuts to tensor boundaries")
+    ap.add_argument("--json", action="store_true")
+    _add_device(ap)
+    args = ap.parse_args(argv)
+    from repro_torch.dist.partition import partition_plan
+
+    budget = None
+    if args.budget is not None:
+        try:
+            budget = float(args.budget)
+            if budget > 1:
+                budget = int(budget)
+        except ValueError:
+            budget = args.budget
+    mp = MergePipe(args.workspace, block_size=args.block_size,
+                   device=args.device)
+    try:
+        mp.ensure_analyzed(args.base, args.experts)
+        pr = mp.plan(args.base, args.experts, args.op,
+                     theta=_parse_theta(args.theta), budget=budget,
+                     reuse=False)
+        align = "tensor" if args.kernel == "mesh" else "block"
+        part = partition_plan(pr.plan, mp.catalog, args.n_workers,
+                              align=align)
+        if args.json:
+            print(json.dumps({
+                "plan_id": pr.plan.plan_id,
+                "align": align,
+                "total_expert_bytes": part.total_expert_bytes,
+                "duplicate_extent_bytes": part.duplicate_extent_bytes,
+                "shards": [
+                    {"shard": s.shard, "n_blocks": s.n_blocks,
+                     "expert_bytes": s.expert_bytes, "budget": s.budget,
+                     "spans": {t: list(span)
+                               for t, span in sorted(s.spans.items())}}
+                    for s in part.shards
+                ],
+            }, indent=2))
+            return
+        print(f"plan {pr.plan.plan_id}  align={align}  "
+              f"total_expert={part.total_expert_bytes/1e6:.1f}MB  "
+              f"cross-shard extent re-reads="
+              f"{part.duplicate_extent_bytes/1e6:.2f}MB")
+        for s in part.shards:
+            spans = ", ".join(f"{t}[{lo}:{hi})"
+                              for t, (lo, hi) in sorted(s.spans.items()))
+            print(f"  shard {s.shard}: blocks={s.n_blocks}  "
+                  f"expert={s.expert_bytes/1e6:.2f}MB  "
+                  f"budget={s.budget/1e6:.2f}MB  {spans or '(empty)'}")
+    finally:
+        mp.close()
+
+
+def _cmd_worker(argv) -> None:
+    # same entrypoint LocalProcessTransport launches as a subprocess;
+    # exposed here for manual lease runs and post-mortem debugging
+    from repro_torch.launch.worker import main as worker_main
+
+    raise SystemExit(worker_main(argv))
+
+
 def _cmd_fsck(argv) -> None:
     ap = argparse.ArgumentParser(
         prog="merge_cli fsck",
@@ -760,8 +848,6 @@ def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in SUBCOMMANDS:
         cmd, argv = argv[0], argv[1:]
-        if cmd in NOT_PORTED:
-            raise SystemExit(f"merge_cli {cmd}: not ported yet")
         if cmd == "serve":
             return _cmd_serve(argv)
         if cmd == "submit":
@@ -770,6 +856,10 @@ def main(argv=None) -> None:
             return _cmd_status(argv)
         if cmd == "cancel":
             return _cmd_cancel(argv)
+        if cmd == "shards":
+            return _cmd_shards(argv)
+        if cmd == "worker":
+            return _cmd_worker(argv)
         if cmd == "repack":
             return _cmd_repack(argv)
         if cmd == "layouts":

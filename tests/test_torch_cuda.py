@@ -151,6 +151,73 @@ THRESHOLD_SHAPES = ([(nb, k, w) for nb, k in ((2, 6), (4, 4))
                        (4, 4, 131072), (4, 4, 131073)])
 
 
+@pytest.mark.parametrize("shape", [(5, 3, 256), (7, 4, 65536), (3, 2, 701)])
+def test_linear_kernel_per_row_divisor_bitwise(cuda, shape):
+    """``linear_merge(div_rows=)`` (the whole-shard AVG's k_sel + 1 a
+    row) bit for bit, NaNs of both signs and a payload among the deltas
+    and the base: against numpy's float32 arithmetic in the kernel's
+    order (x86's NaN rule, which the kernel keeps), and against
+    ``linear_ref`` on the card (whose float32 add gives the canonical
+    NaN: NaN-ness equal there, every other bit equal); the refusals of a
+    bad divisor operand."""
+    nb, k, w = shape
+    x0, D, _ = _mk(nb, k, w, seed=5)
+    D[1, 0, 3] = np.nan
+    D[2, k - 1, 7] = -np.nan
+    x0[0, 5] = np.float32(np.nan)
+    x0.view(np.int32)[3 % nb, 9] = 0x7FA00001  # a payload NaN
+    rows = (np.arange(nb) % (k + 1) + 1).astype(np.float32)
+    x0c, Dc = torch.from_numpy(x0).to(cuda), torch.from_numpy(D).to(cuda)
+    rc = torch.from_numpy(rows).to(cuda)
+    got = tmb.linear_merge(x0c, Dc, 1.0, 1.0, div_rows=rc)
+    acc = D[:, 0]
+    for j in range(1, k):
+        acc = acc + D[:, j]
+    with np.errstate(invalid="ignore"):
+        host = x0 + (np.float32(1.0) * acc) / rows[:, None]
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                  host.view(np.int32))
+    want = tref.linear_ref(x0c, Dc, 1.0, 1.0, rc)
+    nan = torch.isnan(want)
+    assert int(nan.sum()) >= 3 and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan])
+    with pytest.raises(ValueError):
+        tmb.linear_merge(x0c, Dc, 1.0, 1.0, div_rows=rc[:-1])
+    with pytest.raises(ValueError):
+        tmb.linear_merge(x0c, Dc, 1.0, 1.0, div_rows=rc.double())
+
+
+@pytest.mark.parametrize("kind", ["delta", "full"])
+@pytest.mark.parametrize("op,theta", OPS)
+def test_merge_blocks_masked_on_card_matches_plain(cuda, op, theta, kind):
+    """The whole-shard step on the card against its plain version on the
+    same inputs, rows of 0..K selected experts: bit for bit, and the
+    card's launches on the operator's kernels."""
+    from repro_torch.core import distributed as dist
+
+    rng = np.random.default_rng(17)
+    k, nb, w = 4, 13, 65536
+    base = rng.normal(size=(nb, w)).astype(np.float32)
+    experts = (0.02 * rng.normal(size=(k, nb, w))).astype(np.float32)
+    if kind == "full":
+        experts = experts + base[None]
+    select = np.zeros((k, nb), bool)
+    for b in range(nb):
+        select[rng.permutation(k)[: b % (k + 1)], b] = True
+    masks = rng.random((k, nb, w)) < 0.5
+    args = [base, experts, select] + ([masks] if op == "dare" else [])
+    before = dict(tmb.LAUNCHES)
+    got = dist.build_merge_step(op, theta, kind=kind, device=cuda)(*args)
+    torch.cuda.synchronize()
+    launched = {n for n in tmb.LAUNCHES if tmb.LAUNCHES[n] > before[n]}
+    want = dist.build_merge_step(op, theta, kind=kind, device="cpu")(*args)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert launched & {"avg": {"linear_merge"}, "ta": {"linear_merge"},
+                       "dare": {"dare_merge"},
+                       "ties": {"ties_fused", "ties_merge"}}[op]
+
+
 @pytest.mark.parametrize("shape", THRESHOLD_SHAPES)
 @pytest.mark.parametrize("trim", [0.0, 0.3, 0.999, 1.0])
 @pytest.mark.parametrize("offset", [0, 1])

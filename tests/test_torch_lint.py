@@ -1,7 +1,8 @@
 """The repository's lint (mergelint, ``repro.analysis``: the guarded-by,
 accounting, except-discipline and durability passes) over the port, and
 the kernel build's publish order: the library is fsynced before the
-rename that makes it visible, with a crash point between them.
+rename that makes it visible, with a crash point between them, and
+processes building at once compile a source once.
 
 The lint's registry-drift check reads the chaos registry of the package
 it lints; for the port that is ``repro_torch.testing.chaos``, whose
@@ -13,6 +14,7 @@ it).  Any other finding fails."""
 import glob
 import os
 import subprocess
+import sys
 
 import pytest
 
@@ -32,6 +34,8 @@ WAIVED = sorted([
     (PORT + "api/service.py", "_run_window", "except Exception"),
     (PORT + "api/service.py", "_maybe_scrub", "except Exception"),
     (PORT + "core/executor.py", "_produce", "except BaseException"),
+    (PORT + "dist/lease.py", "write", "durability edge os.replace"),
+    (PORT + "dist/worker.py", "_write_json", "durability edge os.replace"),
     (PORT + "launch/merge_cli.py", "_cmd_submit", "durability edge os.rename"),
     (PORT + "store/blockcache.py", "CachingModelReader._admit", "read of self._blocks"),
     (PORT + "store/blockcache.py", "CachingModelReader._admit", "read of self._blocks"),
@@ -51,12 +55,9 @@ WAIVED = sorted([
     (PORT + "store/tiered.py", "_load_manifest", "os.replace without a preceding os.fsync"),
 ])
 #: registered points with no live call site yet -> the ROADMAP item
-#: (queue A) whose port brings the call site
-NOT_PORTED = {
-    ("CRASH_POINTS", "worker:lease"): "A6 shard worker",
-    ("CRASH_POINTS", "worker:block"): "A6 shard worker",
-    ("CRASH_POINTS", "worker:commit"): "A6 shard worker",
-}
+#: (queue A) whose port brings the call site (none since the shard
+#: workers brought worker:lease, worker:block and worker:commit)
+NOT_PORTED = {}
 
 
 def _port_lint(monkeypatch):
@@ -137,10 +138,14 @@ def test_build_fsyncs_the_library_before_publishing_it(tmp_path, monkeypatch):
     lib = _fake_build(tmp_path, monkeypatch, calls)
     path = lib.build()
     name, tmp = os.path.basename(path), calls[0][1]
-    assert [c[0] for c in calls] == ["compile", "fsync", "replace", "fsync"]
-    assert calls[1] == ("fsync", tmp)                 # the temp library
-    assert calls[2] == ("replace", tmp, name)
-    assert calls[3] == ("fsync", "build")             # then its directory
+    log, tag = os.path.basename(lib.log_path()), tmp[len(name) + 1:]
+    assert [c[0] for c in calls] == ["compile", "fsync", "replace", "fsync",
+                                     "replace", "fsync"]
+    assert calls[1] == ("fsync", f"{log}.{tag}")      # the compiler's log,
+    assert calls[2] == ("replace", f"{log}.{tag}", log)  # published first
+    assert calls[3] == ("fsync", tmp)                 # the temp library
+    assert calls[4] == ("replace", tmp, name)
+    assert calls[5] == ("fsync", "build")             # then its directory
     with open(path, "rb") as f:
         assert f.read() == b"\x7fELF library"
     calls.clear()
@@ -155,5 +160,45 @@ def test_build_crash_before_rename_publishes_nothing(tmp_path, monkeypatch):
             lib.build()
     assert inj.fired
     assert not os.path.exists(lib.path())             # no torn library
-    assert [c[0] for c in calls] == ["compile", "fsync"]
+    assert [c[0] for c in calls] == ["compile", "fsync", "replace", "fsync"]
     assert lib.build() == lib.path()                  # the next build runs
+
+
+_BUILDER = """
+import sys
+from repro_torch.kernels import build as kbuild
+kbuild.CSRC_DIR, kbuild.BUILD_DIR = sys.argv[1], sys.argv[2]
+kbuild.nvcc = lambda: sys.argv[3]
+print(kbuild.CudaLibrary("k.cu", lambda lib: None).build())
+"""
+
+
+def test_concurrent_builds_compile_once(tmp_path):
+    """Two processes building one source on a fresh tree (shard workers
+    starting together): the lock lets one run the compiler (a fake nvcc
+    that takes a second), the other finds its library, and the log is
+    one compile's output, whole."""
+    (tmp_path / "k.cu").write_text("// kernel\n")
+    count = tmp_path / "runs"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f"echo run >> {count}\n"
+        "sleep 1\n"
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
+        'printf "ELF library" > "$out"\n'
+        "echo 'ptxas info    : Used 32 registers'\n")
+    fake.chmod(0o755)
+    build = tmp_path / "build"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _BUILDER, str(tmp_path), str(build), str(fake)],
+        stdout=subprocess.PIPE, text=True, env=env) for _ in range(2)]
+    paths = [p.communicate(timeout=60)[0].strip() for p in procs]
+    assert [p.returncode for p in procs] == [0, 0]
+    assert paths[0] == paths[1] and os.path.exists(paths[0])
+    assert count.read_text() == "run\n"                  # one compile
+    log = paths[0][: -len(".so")] + ".log"
+    with open(log) as f:
+        assert f.read() == "ptxas info    : Used 32 registers\n"
+    assert not [n for n in os.listdir(build) if n.endswith(".tmp")]

@@ -271,9 +271,15 @@ def test_cli_spool_and_one_shot_on_cpu(tmp_path, capsys):
     assert json.loads(capsys.readouterr().out)["sid"] == "b1"
     with Session(ws, block_size=BLOCK, device="cpu") as sess:
         assert all(sess.verify(s) for s in ("one-shot", "b1", "b2"))
-    for cmd in merge_cli.NOT_PORTED:
-        with pytest.raises(SystemExit, match="not ported"):
-            merge_cli.main([cmd, "--workspace", ws])
+    # the shard workers' subcommands: the partition a sharded run leases
+    merge_cli.main(["shards", "--workspace", ws, "--base", "base",
+                    "--experts", "e0", "e1", "e2", "--op", "dare", "--budget",
+                    "40%", "--block-size", str(BLOCK), "--n-workers", "2",
+                    "--json", "--device", "cpu"])
+    part = json.loads(capsys.readouterr().out)
+    assert part["align"] == "block" and len(part["shards"]) == 2
+    with pytest.raises(SystemExit):
+        merge_cli.main(["worker", "--workspace", ws])  # --lease is required
     # a failed job fails the run: a different spec under a taken name
     bad = tmp_path / "bad.json"
     bad.write_text(json.dumps(dict(spec_doc, name="b1", budget="20%")))
@@ -286,8 +292,10 @@ def test_service_fails_kernel_errors_and_refuses_unported(tmp_path,
                                                           monkeypatch):
     """A kernel's RuntimeError fails its job once (never requeued as
     transient); auto-prefer finds no packed layout and a forced unknown
-    one is refused; the options of unported parts (sharded execution)
-    raise."""
+    one is refused; sharded execution (once refused as unported) runs on
+    the Session's device, and a kernel error in a shard worker fails its
+    job too."""
+    from repro_torch.dist import DistOptions
     from repro_torch.kernels import ops
 
     with MergeService(str(tmp_path / "ws"), block_size=BLOCK, start=False,
@@ -314,9 +322,17 @@ def test_service_fails_kernel_errors_and_refuses_unported(tmp_path,
                                         budget="50%", name="bad"))
         svc.drain()
         assert h2.status == JobState.DONE
-    with Session(str(tmp_path / "ws3"), device="cpu") as sess:
-        sess.submit(MergeSpec.build("base", ["e0"], op="avg"))
-        with pytest.raises(NotImplementedError):
-            sess.run_all(n_workers=2)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            sess.run_all(execution="sharded")
+    inline = DistOptions(n_workers=2, transport="inline")
+    with Session(str(tmp_path / "ws"), block_size=BLOCK, device="cpu") as sess:
+        sess.submit(MergeSpec.build("base", ["e0", "e1"], op="avg",
+                                    budget="50%"), sid="sharded")
+        res = sess.run_all(dist=inline)[0]
+        assert res.stats["execution"] == "sharded"
+        assert [s["device"] for s in res.stats["shards"]] == ["cpu", "cpu"]
+        assert sess.verify("sharded")
+        monkeypatch.setattr(ops, "merge_blocks", broken)
+        sess.submit(MergeSpec.build("base", ["e0", "e1"], op="ta",
+                                    budget="50%"), sid="sharded-bad")
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            sess.run_all(dist=inline)
+        assert "sharded-bad" not in sess.list_snapshots()
