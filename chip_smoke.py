@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's merge, service, shard-worker, serve,
-training and store paths once on one NVIDIA card.
+MoE / MLA serve, training and store paths once on one NVIDIA card.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 2 without
 
 Configuration: Qwen2-1.5B at its published widths (d_model 1536, 12 heads
 / 2 KV heads, head_dim 128, d_ff 8960, vocab 151936, QKV bias, tied
-embedding, rope_theta 1e6), stored in bfloat16, depth cut to 4 of 28
-decoder layers plus the embedding and the final norm, in the model's own
+embedding, rope_theta 1e6), stored in bfloat16, depth cut to 2 of 28
+decoder layers (``--layers``; 4 until the smoke passed 1,100 s with
+serve_mla beside it) plus the embedding and the final norm, in the model's own
 layout: the port's ``flatten_tree`` of ``DecoderLM`` (layer-stacked
 tensors named as the JAX package names them, e.g. ``attn/wq`` of shape
 (L, 1536, 12, 128)).  A base model (``DecoderLM`` init) and K = 4 "full"
 experts (expert = base + 0.02 * N(0, 1) per tensor) are made on the card
-from ``--seed``; nothing is downloaded.  Default 128 KiB blocks.
+from ``--seed``; nothing is downloaded.  Default 128 KiB blocks.  The
+serve_mla phase serves DeepSeek-V2-Lite at its published widths (d_model
+2048, 16 heads, MLA with kv_lora 512 and qk 192 / v 128 head dims, 64
+routed experts top-6 + 2 shared of d_ff 1408, vocab 102400), depth cut
+to MLA["layers"] of 27, its bf16 weights drawn on the card from
+``--seed``.
 
 Phases, one JSON line each:
 
@@ -48,9 +54,12 @@ Phases, one JSON line each:
            12, 2, 128) bf16 causal through both kernels (the tensor-core
            route, "tc", and the float32-FMA route, "fma"), the tensor-core
            route with window 512 and at Sq = Sk = 256 and 1,000, the FMA
-           route in float32 with window 512, and a decode-style (1, 1,
-           2048, ...) with q_offset 2047 (tolerance 2e-5 float32, 2e-2
-           bf16); the flash backward (dq, dk, dv) against autograd
+           route in float32 with window 512, a decode-style (1, 1,
+           2048, ...) with q_offset 2047, and DeepSeek-V2-Lite's prefill
+           (1, 2048, 2048, 16, 16) at qk 192 / v 128, bf16 on the tensor
+           cores and float32 on the FMA route, each with its profiler
+           device time (tolerance 2e-5 float32, 2e-2 bf16; the elements
+           that differ from the plain version counted); the flash backward (dq, dk, dv) against autograd
            through the plain version at (B, S, H, Hkv, hd) = (2, 1024,
            12, 2, 128) bf16 causal, the same with window 256, at hd 64,
            at the ragged length 1,000, and float32 hd 8 and 16 (BWD_TOL),
@@ -123,6 +132,17 @@ Phases, one JSON line each:
            run: prefill and decode rates, flash-attention launches (every
            one on the tensor-core route), and from torch.profiler the
            kernel's device time, busy time by activity and idle share
+  serve_mla  DeepSeek-V2-Lite (MLA + MoE) drawn on the card, served by
+           ServeEngine(batch_slots = 4, max_len = 2,560): 4 requests of
+           512-2,048 prompt tokens from ``--seed``, 32 greedy tokens
+           each.  First float32 compute on the bf16 weights, the kernels
+           (the FMA route at (192, 128)) against the plain attention:
+           prefill logits within LOGIT_TOL and identical greedy tokens;
+           then bf16: one tensor-core launch a layer a request, the
+           profile showing flash_attention_tc_kernel and no FMA kernel;
+           load, prefill and decode rates, the MoE's dropped-pair share
+           at prefill, device busy time, idle share, top device ops,
+           peak memory
   train    Qwen2-1.5B as published (28 layers, float32 params, bf16
            compute, remat), batch 4 x
            1,024 tokens from DataPipeline: the first step's loss and a
@@ -155,12 +175,15 @@ Phases, one JSON line each:
            50% and at STORE["tight"] (below the layout's physical bytes,
            so selection binds) from the layout (costed at physical
            bytes), bit-equal to the numpy stream engine on the same plan
-           with equal bytes by category, c_expert_run <= c_expert_hat <=
-           B, and the blocks the packed and the flat plan select; the
-           experts pushed to a bucket (merge_cli remote push; STORE's
-           latency and MB/s); a cold TIES merge at the tight budget, then
-           a tier-billed one over that partly warm tier, which the
-           executor must refuse (budget soundness, ROADMAP C); a cold
+           with equal bytes by category (a half-budget plan that selects
+           the full-budget flat plan's blocks: bit-equal to that merge
+           instead), c_expert_run <= c_expert_hat <= B, and the blocks
+           the packed and the flat plan select; the experts pushed to a
+           bucket (merge_cli remote push; STORE's latency and MB/s); a
+           cold TIES merge at the tight budget, then a tier-billed one
+           over that partly warm tier (its coalesced runs mix the tiers):
+           remote bytes within the plan, disk bytes beside them,
+           bit-equal to the stream engine on its plan; a cold
            TIES merge (remote + content-shared disk bytes equal to the
            flat merge's expert bytes, bit-equal), the same cold merge
            through two shard workers over an emptied disk cache
@@ -208,21 +231,38 @@ TOL = 1e-5
 # tests/test_kernels.py:133,149: float32 sums in another order; bf16
 # outputs one rounding apart
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# (label, (B, Sq, Sk, H, Hkv, hd), dtype, causal, window, q_offset, route);
-# the first is the serving path's prefill shape and the contract line's
-# row; "tc" is the tensor-core kernel, "fma" the float32-FMA kernel
+# (label, (B, Sq, Sk, H, Hkv, hd, hdv), dtype, causal, window, q_offset,
+# route); the first is the serving path's prefill shape and the contract
+# line's row; "tc" is the tensor-core kernel, "fma" the float32-FMA
+# kernel.  The "mla" rows are DeepSeek-V2-Lite's prefill (qk 192 / v 128,
+# 16 heads): the serve_mla phase's tensor-core launches, and the FMA
+# route in float32 that its float32 parity run takes; both go into the
+# contract line (MLA_FA_ROWS) with their profiler device time
 FA_CASES = [
-    ("prefill", (1, 2048, 2048, 12, 2, 128), "bfloat16", True, 0, 0, "tc"),
-    ("prefill", (1, 2048, 2048, 12, 2, 128), "bfloat16", True, 0, 0, "fma"),
-    ("prefill_window", (1, 2048, 2048, 12, 2, 128), "bfloat16", True, 512,
-     0, "tc"),
-    ("prefill_256", (1, 256, 256, 12, 2, 128), "bfloat16", True, 0, 0, "tc"),
-    ("prefill_1000", (1, 1000, 1000, 12, 2, 128), "bfloat16", True, 0, 0,
+    ("prefill", (1, 2048, 2048, 12, 2, 128, 128), "bfloat16", True, 0, 0,
      "tc"),
-    ("prefill_window_f32", (1, 2048, 2048, 12, 2, 128), "float32", True, 512,
-     0, "fma"),
-    ("decode", (1, 1, 2048, 12, 2, 128), "bfloat16", True, 0, 2047, "tc"),
+    ("prefill", (1, 2048, 2048, 12, 2, 128, 128), "bfloat16", True, 0, 0,
+     "fma"),
+    ("prefill_window", (1, 2048, 2048, 12, 2, 128, 128), "bfloat16", True,
+     512, 0, "tc"),
+    ("prefill_256", (1, 256, 256, 12, 2, 128, 128), "bfloat16", True, 0, 0,
+     "tc"),
+    ("prefill_1000", (1, 1000, 1000, 12, 2, 128, 128), "bfloat16", True, 0,
+     0, "tc"),
+    ("prefill_window_f32", (1, 2048, 2048, 12, 2, 128, 128), "float32", True,
+     512, 0, "fma"),
+    ("decode", (1, 1, 2048, 12, 2, 128, 128), "bfloat16", True, 0, 2047,
+     "tc"),
+    ("mla_prefill", (1, 2048, 2048, 16, 16, 192, 128), "bfloat16", True, 0,
+     0, "tc"),
+    ("mla_prefill_f32", (1, 2048, 2048, 16, 16, 192, 128), "float32", True,
+     0, 0, "fma"),
 ]
+# the MLA rows of the contract line: case label -> launch counter (the
+# serve_mla phase's counts: bf16 prefill on the tensor cores, the float32
+# run on the FMA kernel)
+MLA_FA_ROWS = {"mla_prefill": "flash_attention_mla",
+               "mla_prefill_f32": "flash_attention_mla_fma"}
 # (label, (NB, K, W)) float32 TIES launches: the merge path's largest
 # window group and its median launch by rows (the merge phase reports the
 # launches' shapes: 15 rows of 128 KiB blocks, 1 to 46)
@@ -288,6 +328,14 @@ BWD_CASES = [
 # tensor-core forward rounds P to bf16)
 BWD_TOL = {"bfloat16": {"rtol": 2e-2, "atol": 2e-2},
            "float32": {"rtol": 1e-4, "atol": 1e-5}}
+# the serve_mla phase: DeepSeek-V2-Lite at its published widths, depth
+# cut to "layers" of 27 (at all 27, 16.0 B bf16 parameters, the phase took
+# 53.7 s and the whole smoke 1,144.7 s on an H100 80GB HBM3 at 700 W,
+# past its 1,100 s aim), requests of
+# min-max prompt tokens and new greedy tokens on batch_slots slots of
+# max_len positions
+MLA = {"layers": 6, "requests": 4, "min_prompt": 512, "max_prompt": 2048,
+       "new_tokens": 32, "batch_slots": 4, "max_len": 2560}
 # the train phase: Qwen2-1.5B as published (float32 params, bf16
 # compute, remat), batch x seq tokens a step, warm-up steps then timed
 TRAIN = {"batch": 4, "seq": 1024, "warmup": 1, "steps": 5, "lr": 3e-4}
@@ -331,8 +379,8 @@ STORE_IO = ("base_read", "expert_read", "expert_packed_read",
 # phase's whole-shard row hold AVG's per-row divisor)
 SHARDS = {"workers": 2, "crash_at": 0.5, "whole_shard": ("ties",)}
 # the linear kernel's whole-shard launch with a per-row divisor: about
-# the rows a shard stacks at the merge depth (6,418 blocks of the 4-layer
-# model over 2 workers), K = 4, 128 KiB bf16 blocks as float32
+# the rows a shard stacks at a merge depth of 4 (6,418 blocks of the
+# 4-layer model over 2 workers), K = 4, 128 KiB bf16 blocks as float32
 WHOLE_SHARD = (3200, 4, 65536)
 
 
@@ -871,12 +919,12 @@ def flash_rows(device, seed, timer):
 
     g = torch.Generator(device=device).manual_seed(seed + 2)
     rows = []
-    for (label, (b, sq, sk, h, hkv, hd), dt, causal, window, qoff,
+    for (label, (b, sq, sk, h, hkv, hd, hdv), dt, causal, window, qoff,
          route) in FA_CASES:
         dtype = getattr(torch, dt)
         q = torch.randn((b, sq, h, hd), generator=g, device=device).to(dtype)
         k = torch.randn((b, sk, hkv, hd), generator=g, device=device).to(dtype)
-        v = torch.randn((b, sk, hkv, hd), generator=g, device=device).to(dtype)
+        v = torch.randn((b, sk, hkv, hdv), generator=g, device=device).to(dtype)
 
         def kern():
             return fa.launch(q, k, v, causal, window, qoff, route)
@@ -887,11 +935,15 @@ def flash_rows(device, seed, timer):
 
         got, want = kern(), plain()
         torch.cuda.synchronize()
+        if got.shape != (b, sq, h, hdv):
+            raise AssertionError(f"flash_attention {label}: output "
+                                 f"{tuple(got.shape)}")
         err = float((got.float() - want.float()).abs().max())
         tol = FA_TOL[dt]
         if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
             raise AssertionError(f"flash_attention {label}: kernel disagrees, "
                                  f"max abs err {err}")
+        n_diff = int((got != want).sum())
         # yardstick only: one PyTorch call computing the same function
         mask = attention_mask(sq, sk, causal, window, qoff, device)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -903,27 +955,34 @@ def flash_rows(device, seed, timer):
                 qt, kt, vt, attn_mask=lib_mask, is_causal=full_causal,
                 enable_gqa=True)
 
-        # live work: 2 FLOP per (q, k) pair and head dim for q.k, 2 for p.v
-        flops = 4 * hd * int(mask.sum()) * b * h
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        # live work: 2 FLOP per (q, k) pair and q.k head dim, 2 per pair
+        # and v head dim for p.v
+        flops = 2 * (hd + hdv) * int(mask.sum()) * b * h
+        nbytes = (q.numel() + k.numel() + v.numel()
+                  + got.numel()) * q.element_size()
         bytes_ms = nbytes / PEAK["bytes"] * 1e3
         ops_ms = flops / PEAK["bf16" if dt == "bfloat16" else "f32"] * 1e3
-        rows.append({
+        kernel = ("flash_attention_tc_kernel" if route == "tc"
+                  else "flash_attention_kernel")
+        row = {
             "name": "flash_attention", "route": "cuda", "case": label,
-            "fa_route": route,
-            "kernel": ("flash_attention_tc_kernel" if route == "tc"
-                       else "flash_attention_kernel"),
-            "routed_by_rule": route == fa._route(dtype, hd),
+            "fa_route": route, "kernel": kernel,
+            "routed_by_rule": route == fa._route(dtype, hd, hdv),
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:102",
-            "shape": [b, sq, sk, h, hkv, hd], "dtype": dt, "causal": causal,
-            "window": window, "q_offset": qoff, "tolerance": tol,
-            "max_abs_err": err, "ms": timer(kern), "plain_ms": timer(plain),
+            "shape": [b, sq, sk, h, hkv, hd, hdv], "dtype": dt,
+            "causal": causal, "window": window, "q_offset": qoff,
+            "tolerance": tol, "max_abs_err": err, "elements_differ": n_diff,
+            "ms": timer(kern), "plain_ms": timer(plain),
             "copy_ms": None, "library_ms": timer(library),
             "flops": flops, "bytes": nbytes,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        })
+        }
+        if label in MLA_FA_ROWS:
+            row.update(counter=MLA_FA_ROWS[label], device_ms=kernel_device_ms(
+                kern, rf"\b{kernel}\b", timer))
+        rows.append(row)
         del q, k, v, got, want, mask
     return rows
 
@@ -989,7 +1048,7 @@ def flash_bwd_rows(device, seed, timer):
 
         q, k, v = rand(b, s, h, hd), rand(b, s, hkv, hd), rand(b, s, hkv, hd)
         do = rand(b, s, h, hd)
-        route = fa._route(dtype, hd)
+        route = fa._route(dtype, hd, hd)
         o, lse = fa._forward(q, k, v, causal, window, 0, route, with_lse=True)
         qkv = [t.clone().requires_grad_() for t in (q, k, v)]
         ref_out = ref.flash_attention_ref(*qkv, causal, window, 0)
@@ -1877,7 +1936,6 @@ def phase_serve(device, seed, layers, merged):
     """Serve the merged TIES snapshot through the port's ServeEngine."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import from_jax_flat
@@ -1934,32 +1992,10 @@ def phase_serve(device, seed, layers, merged):
     run(model)  # warm-up: bf16 GEMM and kernel first launches
 
     # the main path: the launch count starts at 0 here and is read after
-    timing = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
-              "decode_steps": 0, "decode_tokens": 0}
     engine, reqs = engine_and_requests(model)
-    prefill_slot, step = engine._prefill_slot, engine.step
-
-    def timed_prefill(slot, req):
-        t = time.perf_counter()
-        n = prefill_slot(slot, req)  # ends in a host sync (sampling)
-        timing["prefill_s"] += time.perf_counter() - t
-        timing["prefill_tokens"] += len(req.prompt)
-        return n
-
-    def timed_step():
-        active = sum(r is not None for r in engine._slot_req)
-        t = time.perf_counter()
-        step()  # ends in a host sync (sampling)
-        timing["decode_s"] += time.perf_counter() - t
-        timing["decode_steps"] += active > 0
-        timing["decode_tokens"] += active
-
-    engine._prefill_slot, engine.step = timed_prefill, timed_step
     fa.reset_launches()
-    t0 = time.perf_counter()
-    engine.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    rates = timed_serve(engine, reqs)
+    wall = rates["wall_s"]
     launches = fa.LAUNCHES["flash_attention"]
     if launches == 0:
         raise AssertionError("serve: flash_attention never launched")
@@ -1972,12 +2008,70 @@ def phase_serve(device, seed, layers, merged):
     if any(not 0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens):
         raise AssertionError("serve: token out of the vocabulary")
 
-    # the same requests again under the profiler (device activity only,
-    # as in ``merge``): device time by activity.  The idle share is taken
-    # against the timed run's wall, which the profiler does not stretch.
+    emit({
+        "phase": "serve", "layers": layers, "requests": len(prompts),
+        "prompt_lengths": [int(n) for n in lengths], "new_tokens": new,
+        "batch_slots": SERVE["batch_slots"], "max_len": SERVE["max_len"],
+        "load_s": load_s,
+        "parity": {"compute_dtype": "float32", "max_logit_diff": worst,
+                   "logit_tol": LOGIT_TOL, "tokens_identical": True},
+        **rates,
+        "launches": {"flash_attention": launches,
+                     "flash_attention_tc": tc_launches},
+        **profiled_serve(lambda: run(model), wall, "serve"),
+    })
+    return {"flash_attention": launches}
+
+
+def timed_serve(engine, reqs):
+    """Run ``reqs`` through ``engine`` with each prefill and decode step
+    timed on the host clock (each ends in a host sync: sampling): the
+    wall, prefill tokens/s and ms per decode step."""
+    import torch
+
+    timing = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
+              "decode_steps": 0, "decode_tokens": 0}
+    prefill_slot, step = engine._prefill_slot, engine.step
+
+    def timed_prefill(slot, req):
+        t = time.perf_counter()
+        n = prefill_slot(slot, req)
+        timing["prefill_s"] += time.perf_counter() - t
+        timing["prefill_tokens"] += len(req.prompt)
+        return n
+
+    def timed_step():
+        active = sum(r is not None for r in engine._slot_req)
+        t = time.perf_counter()
+        step()
+        timing["decode_s"] += time.perf_counter() - t
+        timing["decode_steps"] += active > 0
+        timing["decode_tokens"] += active
+
+    engine._prefill_slot, engine.step = timed_prefill, timed_step
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    return {
+        "wall_s": time.perf_counter() - t0, **timing,
+        "prefill_tokens_per_s": timing["prefill_tokens"] / timing["prefill_s"],
+        "decode_tokens_per_s": timing["decode_tokens"] / timing["decode_s"],
+        "ms_per_decode_step": timing["decode_s"] / timing["decode_steps"] * 1e3,
+    }
+
+
+def profiled_serve(run, wall, what):
+    """``run()`` again under the profiler (device activity only, as in
+    ``merge``): device time by activity, the flash kernel's, and the idle
+    share against the timed run's ``wall``, which the profiler does not
+    stretch.  The prefill must show the tensor-core kernel and no FMA
+    one (bf16)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run(model)
+        run()
         torch.cuda.synchronize()
     prof_wall = time.perf_counter() - t0
     device_ms = device_time_ms(prof)
@@ -1986,34 +2080,246 @@ def phase_serve(device, seed, layers, merged):
     fma_ms = sum(t for n, t in device_ms.items()
                  if re.search(r"\bflash_attention_kernel\b", n))
     if kernel_ms == 0 or fma_ms != 0:
-        raise AssertionError(f"serve: profile shows {kernel_ms} ms of the "
+        raise AssertionError(f"{what}: profile shows {kernel_ms} ms of the "
                              f"tensor-core kernel, {fma_ms} ms of the FMA one")
     busy = sum(device_ms.values())
-    emit({
-        "phase": "serve", "layers": layers, "requests": len(prompts),
-        "prompt_lengths": [int(n) for n in lengths], "new_tokens": new,
-        "batch_slots": SERVE["batch_slots"], "max_len": SERVE["max_len"],
-        "load_s": load_s,
+    return {"profiled_wall_s": prof_wall, "flash_kernel_ms": kernel_ms,
+            "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / 1e3 / wall,
+            "device_top_ms": dict(sorted(device_ms.items(),
+                                         key=lambda kv: -kv[1])[:8])}
+
+
+@contextlib.contextmanager
+def compute_in(model, dtype: str):
+    """The model computing in ``dtype`` on its own weights (an engine made
+    inside reads the config too): the serve_mla phase's float32 parity
+    on the bf16 weights, without a second copy of them."""
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    try:
+        yield model
+    finally:
+        model.cfg = cfg
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Count the MoE's token-expert pairs and the dropped ones (past an
+    expert's capacity) of every prefill dispatch, as device sums."""
+    from repro_torch.models import moe
+
+    dispatch = moe.dispatch
+    seen = {"pairs": 0, "dropped": None}
+
+    def counting(x, idx, n_experts, cap):
+        buf, state = dispatch(x, idx, n_experts, cap)
+        if x.shape[1] > 1:                   # prefill: a whole prompt
+            keep = state[2]
+            seen["pairs"] += keep.numel()
+            dropped = (~keep).sum()
+            seen["dropped"] = (dropped if seen["dropped"] is None
+                               else seen["dropped"] + dropped)
+        return buf, state
+
+    moe.dispatch = counting
+    try:
+        yield seen
+    finally:
+        moe.dispatch = dispatch
+
+
+@contextlib.contextmanager
+def moe_routing(replay=None):
+    """Record every MoE routing's expert choices (``replay`` None), or
+    replay the choices a recording holds, call by call: the replaying
+    pass computes its own router softmax and top-k, counts the tokens
+    whose experts it would have chosen otherwise (flips: near-ties of the
+    k-th and (k+1)-th probability that float32 rounding tips), and takes
+    the recorded experts with its own weights for them.  The MoE's top-k
+    is discontinuous: one flip moves a token's output by a whole expert,
+    so a kernel-against-plain comparison replays the kernel pass's
+    choices to compare what attention computes."""
+    import torch
+
+    from repro_torch.models import moe
+
+    route = moe.route
+    state = {"calls": [], "flips": 0}
+    calls = iter(replay["calls"]) if replay is not None else None
+
+    def recording(x, router, k):
+        w, idx = route(x, router, k)
+        state["calls"].append(idx)
+        return w, idx
+
+    def replaying(x, router, k):
+        want = next(calls)
+        probs = torch.softmax(torch.einsum("...td,de->...te", x.float(),
+                                           router.float()), dim=-1)
+        own = torch.topk(probs, k, dim=-1)[1]
+        state["flips"] += int((torch.sort(own, -1)[0]
+                               != torch.sort(want, -1)[0]).any(-1).sum())
+        w = torch.gather(probs, -1, want)
+        return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), want
+
+    moe.route = recording if replay is None else replaying
+    try:
+        yield state
+    finally:
+        moe.route = route
+
+
+def phase_serve_mla(device, seed):
+    """Serve DeepSeek-V2-Lite (MLA attention, qk 192 / v 128; MoE, 64
+    experts top-6 + 2 shared) at its published widths, its bf16 weights
+    drawn on the card from ``seed``, through build_model and ServeEngine:
+    float32 compute against the plain attention (prefill logits, greedy
+    tokens), then the bf16 run timed (its prefills on the tensor-core
+    kernel at (192, 128): one launch a layer a request) and profiled."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              n_layers=MLA["layers"], param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    rng = np.random.default_rng(seed + 21)
+    lengths = rng.integers(MLA["min_prompt"], MLA["max_prompt"] + 1,
+                           size=MLA["requests"])
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lengths]
+    new = MLA["new_tokens"]
+
+    def run(model):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+        engine = ServeEngine(model, batch_slots=MLA["batch_slots"],
+                             max_len=MLA["max_len"])
+        return engine, reqs
+
+    def finished(reqs):
+        if not all(r.done and len(r.out_tokens) == new for r in reqs):
+            raise AssertionError("serve_mla: a request did not finish")
+        if any(not 0 <= t < cfg.vocab_size for r in reqs
+               for t in r.out_tokens):
+            raise AssertionError("serve_mla: token out of the vocabulary")
+        return reqs
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(seed + 21)
+    model = build_model(cfg, device=device, generator=g)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # parity: float32 compute on the bf16 weights, the kernels (the FMA
+    # route) against the plain attention, the plain pass replaying the
+    # kernel pass's expert choices (moe_routing: the flips it would have
+    # made, and its logits without the replay, are reported); the engine
+    # run through the kernels is this phase's float32 serving, counted
+    # for the FMA row
+    worst, unpinned, flips = 0.0, 0.0, 0
+    t0 = time.perf_counter()
+    with compute_in(model, "float32"), torch.inference_mode():
+        for p in prompts:
+            toks = torch.as_tensor(p, dtype=torch.long, device=device)[None]
+            with moe_routing() as rec:
+                lk = model.prefill(toks)[0]
+            with plain_attention():
+                with moe_routing(rec) as rep:
+                    lp = model.prefill(toks)[0]
+                unpinned = max(unpinned, float(
+                    (model.prefill(toks)[0] - lk).abs().max()))
+            flips += rep["flips"]
+            worst = max(worst, float((lk - lp).abs().max()))
+            if not torch.isfinite(lk).all() or not torch.allclose(
+                    lk, lp, **LOGIT_TOL):
+                raise AssertionError(f"serve_mla parity: prefill logits "
+                                     f"differ by {worst} at prompt length "
+                                     f"{len(p)}")
+        engine, k_reqs = run(model)
+        fa.reset_launches()
+        with moe_routing() as rec:
+            engine.run(k_reqs)
+        fma_launches = (fa.LAUNCHES["flash_attention"]
+                        - fa.LAUNCHES["flash_attention_tc"])
+        if fma_launches != len(prompts) * cfg.n_layers:
+            raise AssertionError(f"serve_mla float32: {fa.LAUNCHES}")
+        with plain_attention(), moe_routing(rec) as rep:
+            engine, p_reqs = run(model)
+            engine.run(p_reqs)
+        engine_flips = rep["flips"]
+    parity_s = time.perf_counter() - t0
+    same = [a.out_tokens == b.out_tokens
+            for a, b in zip(finished(k_reqs), finished(p_reqs))]
+    if not all(same):
+        raise AssertionError(f"serve_mla parity: greedy tokens differ for "
+                             f"requests {[i for i, s in enumerate(same) if not s]}")
+
+    # warm-up (bf16 GEMMs, the kernel's first launch), counting the MoE's
+    # dropped pairs at prefill
+    t0 = time.perf_counter()
+    with moe_drops() as drops:
+        engine, reqs = run(model)
+        engine.run(reqs)
+        dropped = int(drops["dropped"])
+    finished(reqs)
+    warmup_s = time.perf_counter() - t0
+
+    # the main path: the launch count starts at 0 here and is read after
+    engine, reqs = run(model)
+    fa.reset_launches()
+    rates = timed_serve(engine, reqs)
+    launches = dict(fa.LAUNCHES)
+    finished(reqs)
+    if not (launches["flash_attention_tc"] == launches["flash_attention"]
+            == len(prompts) * cfg.n_layers):
+        raise AssertionError(f"serve_mla: {launches}, want one tensor-core "
+                             f"launch a layer a request")
+
+    def again():
+        engine, reqs = run(model)
+        engine.run(reqs)
+        finished(reqs)
+
+    out = {
+        "phase": "serve_mla", "config": cfg.name, "layers": cfg.n_layers,
+        "params": n_params, "param_bytes": 2 * n_params,
+        "head_dims": {"qk": cfg.nope_head_dim + cfg.rope_head_dim,
+                      "v": cfg.v_head_dim, "kv_lora_rank": cfg.kv_lora_rank},
+        "experts": {"routed": cfg.n_experts, "top_k": cfg.experts_per_token,
+                    "shared": cfg.n_shared_experts, "d_ff": cfg.moe_d_ff},
+        "requests": len(prompts), "prompt_lengths": [int(n) for n in lengths],
+        "new_tokens": new, "batch_slots": MLA["batch_slots"],
+        "max_len": MLA["max_len"], "load_s": load_s, "parity_s": parity_s,
+        "warmup_s": warmup_s,
         "parity": {"compute_dtype": "float32", "max_logit_diff": worst,
-                   "logit_tol": LOGIT_TOL, "tokens_identical": True},
-        "wall_s": wall,
-        "prefill_tokens": timing["prefill_tokens"],
-        "prefill_s": timing["prefill_s"],
-        "prefill_tokens_per_s": timing["prefill_tokens"] / timing["prefill_s"],
-        "decode_steps": timing["decode_steps"],
-        "decode_tokens": timing["decode_tokens"],
-        "decode_s": timing["decode_s"],
-        "decode_tokens_per_s": timing["decode_tokens"] / timing["decode_s"],
-        "ms_per_decode_step": timing["decode_s"] / timing["decode_steps"] * 1e3,
-        "launches": {"flash_attention": launches,
-                     "flash_attention_tc": tc_launches},
-        "profiled_wall_s": prof_wall, "flash_kernel_ms": kernel_ms,
-        "device_busy_ms": busy,
-        "device_idle_share": 1 - busy / 1e3 / wall,
-        "device_top_ms": dict(sorted(device_ms.items(),
-                                     key=lambda kv: -kv[1])[:8]),
-    })
-    return {"flash_attention": launches}
+                   "logit_tol": LOGIT_TOL, "tokens_identical": True,
+                   "fma_launches": fma_launches,
+                   "routing": "the plain pass replays the kernel pass's "
+                              "expert choices",
+                   "prefill_routing_flips": flips,
+                   "engine_routing_flips": engine_flips,
+                   "max_logit_diff_without_replay": unpinned},
+        "moe_prefill_pairs": drops["pairs"], "moe_prefill_dropped": dropped,
+        "moe_prefill_dropped_share": dropped / drops["pairs"],
+        **rates,
+        "launches": {"flash_attention": launches["flash_attention"],
+                     "flash_attention_tc": launches["flash_attention_tc"]},
+        **profiled_serve(again, rates["wall_s"], "serve_mla"),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(out)
+    del model, engine
+    torch.cuda.empty_cache()
+    return {"flash_attention_mla": launches["flash_attention_tc"],
+            "flash_attention_mla_fma": fma_launches}
 
 
 def train_flops(cfg, n_params, n_layer_params, batch, seq):
@@ -2345,8 +2651,9 @@ def phase_loop(root, device, seed, layers, block_size):
     for name in ("flash_attention", "flash_attention_bwd", "sketch_blocks"):
         if launches[name] == 0:
             raise AssertionError(f"loop: {name} never launched")
-    if (fa._route(getattr(torch, cfg.compute_dtype), cfg.resolved_head_dim)
-            == "tc" and launches["flash_attention_bwd_tc"] == 0):
+    hd = cfg.resolved_head_dim
+    if (fa._route(getattr(torch, cfg.compute_dtype), hd, hd) == "tc"
+            and launches["flash_attention_bwd_tc"] == 0):
         raise AssertionError("loop: the tensor-core backward never launched")
     if launches["ties_fused"] + launches["ties_merge"] == 0:
         raise AssertionError("loop: no TIES kernel launched")
@@ -2455,7 +2762,7 @@ def phase_store(root, device, seed, block_size):
     merge path's widths at STORE["layers"] layers: repack, merges from
     the layout at full budget against flat reads and at half and a tight
     budget against the numpy stream engine, a tier-billed merge over a
-    partly warm tier that must be refused, a cold, warm and tier-billed
+    partly warm tier within its plan, a cold, warm and tier-billed
     merge from a remote bucket (the tight ones against the stream
     engine), then fsck finding and repairing a corrupt packed extent and
     a corrupt cache extent."""
@@ -2580,10 +2887,15 @@ def phase_store(root, device, seed, block_size):
                                  f"stream engine: {dict(io)} / {io_s}")
         drop_snapshots(sess, f"{sid}-stream")
 
+    def selected(plan):
+        return {(e, t, b) for e, per_t in plan.selection.items()
+                for t, bs in per_t.items() for b in bs}
+
     opnames = [op for op, _ in OPS]
     tight = STORE["tight"]
-    # the repack, then eight stream references (half and tight), each
-    # started as soon as its merge has run
+    # the repack, then the stream references of the tight plans (and of a
+    # half-budget plan that selects other blocks than the full-budget
+    # flat one), each started as soon as its merge has run
     with ProcessPoolExecutor(2 * len(opnames), mp_context=spawn) as pool:
         # 1. repack: a lossless zlib layout of the experts, on the host,
         # while the flat full-budget merges of step 2 run on the card
@@ -2591,8 +2903,10 @@ def phase_store(root, device, seed, block_size):
         # 2. full budget: every operator from the flat checkpoints (one
         # batch; its shared-read cache holds every expert block, so each
         # is read once for the four jobs)
-        run("full-flat", {f"full-{op}-flat": (op, "100%") for op in opnames},
-            None, prefer_packed=False, cache_max_bytes=STORE["cache_bytes"])
+        full_flat = run("full-flat", {f"full-{op}-flat": (op, "100%")
+                                      for op in opnames},
+                        None, prefer_packed=False,
+                        cache_max_bytes=STORE["cache_bytes"])[0]
         rep, repack_s = repacking.result()
         out["repack"] = {k: rep[k] for k in (
             "layout_id", "lossless", "extents", "elided_blocks",
@@ -2607,7 +2921,10 @@ def phase_store(root, device, seed, block_size):
         # bytes, so selection binds), costed at physical bytes (the
         # auto-preferred layout): each merge on the card, then the numpy
         # stream engine on the same plan in a worker process while the
-        # card runs the next merges
+        # card runs the next merges.  A half-budget plan that selects the
+        # full-budget flat plan's blocks (at this layout: every block) is
+        # held to that merge's snapshot instead, which step 2 already
+        # holds to the layout's merge
         plans, ios, refs = {}, {}, {}
         t = time.perf_counter()
         for tag, budget in (("half", "50%"), ("tight", tight)):
@@ -2615,6 +2932,10 @@ def phase_store(root, device, seed, block_size):
                 sid = f"{tag}-{op}"
                 res, ios[sid] = run(sid, {sid: (op, budget)}, layout)
                 plans[sid] = plan_of(res[sid])
+                if tag == "half" and selected(plans[sid]) == selected(
+                        plan_of(full_flat[f"full-{op}-flat"])):
+                    refs[sid] = None
+                    continue
                 refs[sid] = pool.submit(store_stream_reference, ws,
                                         block_size, plans[sid].plan_id,
                                         f"{sid}-stream")
@@ -2624,25 +2945,30 @@ def phase_store(root, device, seed, block_size):
                                   for op in opnames},
                   layout, prefer_packed=layout,
                   cache_max_bytes=STORE["cache_bytes"])[0]
-        refs = {sid: f.result() for sid, f in refs.items()}
+        refs = {sid: f.result() if f is not None else None
+                for sid, f in refs.items()}
         out["stream_refs_wall_s"] = time.perf_counter() - t
+        out["stream_refs"] = sorted(sid for sid, f in refs.items() if f)
     # every block of the model, the count a plan selects at full budget
     all_blocks = plan_of(res["full-ties-packed"]).total_selected_blocks()
     out["all_blocks"] = all_blocks
     for op in opnames:
         same(f"full-{op}-packed", f"full-{op}-flat", f"full {op}")
         drop_snapshots(sess, f"full-{op}-packed")
-        if op != "ties":
-            drop_snapshots(sess, f"full-{op}-flat")
     out["half"], out["tight"] = {}, {}
     for sid, plan in plans.items():
         tag, op = sid.split("-")
-        hold_to_stream(sid, ios[sid], refs[sid], f"{tag} {op}")
+        if refs[sid] is None:   # the full-budget flat plan's blocks
+            same(sid, f"full-{op}-flat", f"{tag} {op}")
+        else:
+            hold_to_stream(sid, ios[sid], refs[sid], f"{tag} {op}")
         flat = plan_merge(sess.catalog, "base", ids, op, theta=dict(OPS)[op],
                           budget_b=plan.budget_b, block_size=block_size,
                           reuse=False)
         out[tag][op] = {
-            "budget_b": plan.budget_b, "stream_wall_s": refs[sid][1],
+            "budget_b": plan.budget_b,
+            "held_to": "stream" if refs[sid] else f"full-{op}-flat",
+            "stream_wall_s": refs[sid][1] if refs[sid] else None,
             "selected_blocks_packed": plan.total_selected_blocks(),
             "selected_blocks_flat": flat.plan.total_selected_blocks(),
             "c_expert_hat_packed": plan.c_expert_hat,
@@ -2659,6 +2985,9 @@ def phase_store(root, device, seed, block_size):
                                  f"of {all_blocks} blocks")
         if sid != "half-ties":
             drop_snapshots(sess, sid)
+    for op in opnames:
+        if op != "ties":
+            drop_snapshots(sess, f"full-{op}-flat")
     # the TIES merge's bytes, for the one after fsck
     half_ties = snapshot_hashes(sess, "half-ties")
     drop_snapshots(sess, "half-ties")
@@ -2673,28 +3002,32 @@ def phase_store(root, device, seed, block_size):
                         "--latency-s", str(STORE["latency_s"]),
                         "--mbps", str(STORE["mbps"])])
     out["push_s"] = time.perf_counter() - t0
-    # a known fault of both packages (ROADMAP C): a cold merge at the
-    # tight budget warms the blocks it selects; tier billing under the
+    # tier billing over a partly warm tier (ROADMAP C3): a cold merge at
+    # the tight budget warms the blocks it selects; tier billing under the
     # same budget then bills those at the disk tier's weight and adds
-    # cold ones beside them, a coalesced run that mixes the two tiers is
-    # fetched whole from remote, and the executor refuses the merge
+    # cold ones beside them.  A coalesced run that mixes the two tiers is
+    # read piece by piece (the reference fetches it whole from remote and
+    # refuses the merge): the realized remote bytes stay within the plan,
+    # and the merge is bit-equal to the stream engine on its plan
     sess = Session(ws, block_size=block_size, device=device)
     sess.evict_disk_cache(0)
     run("ties-cold-tight", {"ties-cold-tight": ("ties", tight)}, None,
         prefer_packed=False)
-    t0 = time.perf_counter()
-    try:
-        run("ties-mixed", {"ties-mixed": ("ties", tight)}, None,
-            prefer_packed=False, tier_billing=True)
-    except RuntimeError as e:
-        if "budget soundness violated" not in str(e):
-            raise
-        out["mixed_refused"] = {"error": str(e),
-                                "wall_s": time.perf_counter() - t0}
-    else:
-        raise AssertionError("store: the tier-billed merge over a partly "
-                             "warm tier ran; the fault of ROADMAP C no "
-                             "longer shows")
+    res, io = run("ties-mixed", {"ties-mixed": ("ties", tight)}, None,
+                  prefer_packed=False, tier_billing=True)
+    plan = plan_of(res["ties-mixed"])
+    out["mixed"] = {"c_expert_hat": plan.c_expert_hat,
+                    "c_expert_run": res["ties-mixed"].stats["c_expert_run"],
+                    "expert_remote_read": io["expert_remote_read"],
+                    "expert_disk_read": io["expert_disk_read"],
+                    "selected_blocks": plan.total_selected_blocks()}
+    if not (0 < io["expert_remote_read"] <= plan.c_expert_hat
+            and io["expert_disk_read"] > 0):
+        raise AssertionError(f"store mixed tier: {out['mixed']}")
+    _io_s, out["mixed"]["stream_wall_s"] = store_stream_reference(
+        ws, block_size, plan.plan_id, "ties-mixed-stream")
+    same("ties-mixed", "ties-mixed-stream", "mixed tier")
+    drop_snapshots(sess, "ties-mixed", "ties-mixed-stream")
     sess.close()
     # a cold TIES merge (the disk tier empty), a warm one from a new
     # session (the RAM tier empty), a tier-billed one at half budget and
@@ -2888,7 +3221,9 @@ def ptxas_report(log_path):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--layers", type=int, default=4)
+    # the merge path's depth: 2, since at 4 the whole smoke took 1,177.9
+    # s on an H100 80GB HBM3 at 700 W (serve_mla already at depth 6)
+    ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--block-size", type=int, default=128 * 1024)
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -2924,7 +3259,10 @@ def main() -> int:
                      f"{STORE['layers']} (its zlib repack runs on the "
                      f"host at ~9 MB/s); shards: whole-shard merges of "
                      f"{', '.join(SHARDS['whole_shard'])} only; train: all "
-                     f"layers; widths as published"})
+                     f"layers; serve_mla (deepseek-v2-lite-16b): depth "
+                     f"{MLA['layers']} of "
+                     f"{get_config('deepseek-v2-lite-16b').n_layers}; "
+                     f"widths as published"})
 
     t0 = time.perf_counter()
     libraries = (mb.LIBRARY, fa.LIBRARY)
@@ -2937,11 +3275,13 @@ def main() -> int:
              for lib in libraries}
     emit({"ptxas": ptxas})
     spills = [n for n, r in ptxas["flash_attention.cu"].items()
-              if re.search(r"fa_bwd_\w*(tc|reduce)_kernel", n)
+              if re.search(r"fa_bwd_\w*(tc|reduce)_kernel|flash_attention_"
+                           r"(tc_)?kernel(<\w*,? ?(192, 128|24, 16)>|"
+                           r"I\w*Li(192ELi128|24ELi16)E)", n)
               and (r.get("spill_stores") or r.get("spill_loads"))]
     if spills:
-        raise AssertionError(f"ptxas: the tensor-core backward spills in "
-                             f"{spills}")
+        raise AssertionError(f"ptxas: the tensor-core backward or an MLA "
+                             f"forward spills in {spills}")
 
     walls = {}
 
@@ -2965,6 +3305,7 @@ def main() -> int:
                                local)
         served = timed("serve", phase_serve, device, seed, layers, merged)
         del merged
+        served_mla = timed("serve_mla", phase_serve_mla, device, seed)
         trained = timed("train", phase_train, device, seed)
         loop = timed("loop", phase_loop, root, device, seed, LOOP["layers"],
                      bs)
@@ -2986,6 +3327,9 @@ def main() -> int:
     for name in ("flash_attention", "flash_attention_bwd",
                  "flash_attention_bwd_tc"):
         launches[name] = served.get(name, 0) + trained[name] + loop[name]
+    # DeepSeek-V2-Lite's prefill at (192, 128): the serve_mla phase's bf16
+    # run (tensor cores) and its float32 run (FMA kernel)
+    launches.update(served_mla)
     keys = ("name", "kernel", "route", "source", "replaces", "launches",
             "worker_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "copy_ms")
@@ -2993,19 +3337,26 @@ def main() -> int:
     # threshold at the largest group, the sketch at ANALYZE's launch,
     # flash attention at the prefill shape through the tensor-core kernel
     # (the serve phase checked that every bf16 prefill launch took that
-    # route), the flash backward at the training shape through the
-    # tensor-core route (its launches: that route's counter)
+    # route), the forward at DeepSeek-V2-Lite's (192, 128) on both routes
+    # (MLA_FA_ROWS: the serve_mla phase's launches of each), the flash
+    # backward at the training shape through the tensor-core route (its
+    # launches: that route's counter)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_walls_s": walls})
     firsts = {}
     for r in rows:
-        if r.get("fa_route", "tc") == "tc":
+        if r.get("case") in MLA_FA_ROWS:
+            firsts[r["case"]] = r
+        elif r.get("fa_route", "tc") == "tc":
             firsts.setdefault(r["name"], r)
-    emit({"kernels": [{k: ({**r, "launches": launches[r.get("counter",
-                                                             r["name"])],
-                            "worker_launches": worker.get(r.get(
-                                "counter", r["name"]), 0)})[k]
-                       for k in keys} for r in firsts.values()]})
+    line = []
+    for r in firsts.values():
+        counter = r.get("counter", r["name"])
+        r = {**r, "launches": launches[counter],
+             "worker_launches": worker.get(counter, 0)}
+        line.append({k: r[k] for k in keys + ("case", "device_ms")
+                     if k in keys or k in r})
+    emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

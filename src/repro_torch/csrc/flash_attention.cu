@@ -4,10 +4,18 @@
 // The two forward kernels compute the same function; the wrapper
 // (kernels/flash_attention.py, `_route`) picks one by dtype and head dim:
 //
-//   flash_attention_tc_kernel  bfloat16, hd in {16, 32, 64, 128}: products
-//                              on the tensor cores, wgmma (`fa_forward_tc`)
-//   flash_attention_kernel     float32 (any hd of the five) and bfloat16
+//   flash_attention_tc_kernel  bfloat16, (hd, hdv) in {(16, 16), (24, 16),
+//                              (32, 32), (64, 64), (128, 128), (192, 128)}:
+//                              products on the tensor cores, wgmma
+//                              (`fa_forward_tc`)
+//   flash_attention_kernel     float32 (those pairs and (8, 8)) and bfloat16
 //                              with hd = 8: float32 FMAs (`fa_forward`)
+//
+// hd is the q.k head dim, hdv v's and the output's: they differ for
+// DeepSeek-V2's multi-head latent attention (qk = nope 128 + rope 64 = 192,
+// v 128; 24 / 16 in its smoke config).  Both kernels are templates over
+// <HD, HDV>: the Q and K tiles are HD wide; the V tile, the O accumulator,
+// the output store are HDV wide; m, l and lse are per query row.
 //
 // Both replace the Pallas TPU kernel `flash_attention_pallas` (`_fa_kernel`,
 // src/repro/kernels/flash_attention.py:102) and compute what
@@ -18,7 +26,8 @@
 // by 1/sqrt(hd), masked scores -1e30, p = exp(s - m_new) * valid, output
 // acc / max(l, 1e-30), so a fully masked row gives 0.
 //
-// Layout: q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd), o (B, Sq, H, hd), read
+// Layout: q (B, Sq, H, hd), k (B, Sk, Hkv, hd), v (B, Sk, Hkv, hdv), o
+// (B, Sq, H, hdv), read
 // and written through element strides (the last dimension has stride 1).
 // No pad or transpose copy: the ragged q and k edges are masked here.
 //
@@ -26,7 +35,10 @@
 // (1, 2048, 2048, 12, 2, 128) bf16 causal, the live causal half is about
 // 12.9 GFLOP against about 15 MB of q, k, v and o: ~860 FLOP per byte, far
 // above the card's ~295 bf16 FLOP per byte, so the bound is the tensor
-// cores (13 us at 989 TFLOP/s).
+// cores (13 us at 989 TFLOP/s).  At DeepSeek-V2-Lite's prefill, (1, 2048,
+// 2048, 16, 16) with qk 192 / v 128, it is 2 H (S (S + 1) / 2)(192 + 128)
+// = 21.5 GFLOP against about 42 MB (22 us against 12.5 us by bytes): the
+// tensor cores again.
 //
 // flash_attention_kernel (the float32 route).  One CTA of 256 threads owns
 // one (b, h, 64-row q tile) and loops over 64-key tiles itself (the TPU
@@ -86,12 +98,12 @@ __device__ __forceinline__ bool attends(const Params& p, int qpos, int kpos) {
   return valid;
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr int smem_floats() {
-  return BQ * HD + BK * (HD + 1) + BK * HD + BQ * (BK + 1) + 3 * BQ;
+  return BQ * HD + BK * (HD + 1) + BK * HDV + BQ * (BK + 1) + 3 * BQ;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -99,8 +111,8 @@ flash_attention_kernel(const Params p) {
   constexpr int PP = BK + 1;
   float* Qs = smem;                  // [BQ][HD]
   float* Ks = Qs + BQ * HD;          // [BK][KP]
-  float* Vs = Ks + BK * KP;          // [BK][HD]
-  float* Ps = Vs + BK * HD;          // [BQ][PP]  scores, then probabilities
+  float* Vs = Ks + BK * KP;          // [BK][HDV]
+  float* Ps = Vs + BK * HDV;         // [BQ][PP]  scores, then probabilities
   float* row_m = Ps + BQ * PP;       // [BQ]
   float* row_l = row_m + BQ;         // [BQ]
   float* row_alpha = row_l + BQ;     // [BQ]
@@ -139,11 +151,13 @@ flash_attention_kernel(const Params p) {
 
   // scores: thread (sy, sx) owns rows sy*4 + i and keys sx + 16*j
   const int sy = tid / 16, sx = tid % 16;
-  // P.V: thread (py, px) owns rows py*RPT + i and columns px + TX*j
-  constexpr int TX = HD < 16 ? HD : 16;
+  // P.V: thread (py, px) owns rows py*RPT + i and columns px + TX*j of
+  // the HDV output columns (the scores' loop above runs over HD)
+  constexpr int TX = HDV < 16 ? HDV : 16;
   constexpr int TY = THREADS / TX;
   constexpr int RPT = BQ / TY;
-  constexpr int CPT = HD / TX;
+  constexpr int CPT = HDV / TX;
+  static_assert(HDV % TX == 0 && BQ % TY == 0, "P.V thread layout");
   const int py = tid / TX, px = tid % TX;
   float acc[RPT][CPT];
 #pragma unroll
@@ -156,9 +170,12 @@ flash_attention_kernel(const Params p) {
     __syncthreads();  // the previous tile's K, V and P are consumed
     for (int i = tid; i < BK * HD; i += THREADS) {
       const int c = i / HD, d = i % HD;
-      const bool in = k0 + c < p.sk;
-      Ks[c * KP + d] = in ? load_f32(k + (k0 + c) * p.k_ss + d) : 0.f;
-      Vs[c * HD + d] = in ? load_f32(v + (k0 + c) * p.v_ss + d) : 0.f;
+      Ks[c * KP + d] =
+          k0 + c < p.sk ? load_f32(k + (k0 + c) * p.k_ss + d) : 0.f;
+    }
+    for (int i = tid; i < BK * HDV; i += THREADS) {
+      const int c = i / HDV, d = i % HDV;
+      Vs[i] = k0 + c < p.sk ? load_f32(v + (k0 + c) * p.v_ss + d) : 0.f;
     }
     __syncthreads();
 
@@ -238,7 +255,7 @@ flash_attention_kernel(const Params p) {
       for (int i = 0; i < RPT; ++i) pv[i] = Ps[(py * RPT + i) * PP + c];
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        const float vv = Vs[c * HD + px + TX * j];
+        const float vv = Vs[c * HDV + px + TX * j];
 #pragma unroll
         for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
       }
@@ -264,10 +281,11 @@ flash_attention_kernel(const Params p) {
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
-  auto kernel = flash_attention_kernel<T, HD>;
+  constexpr int bytes =
+      smem_floats<HD, HDV>() * static_cast<int>(sizeof(float));
+  auto kernel = flash_attention_kernel<T, HD, HDV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -276,15 +294,22 @@ cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the (hd, hdv) pairs of the repo's configs: hd == hdv for the GQA
+// families, (192, 128) for DeepSeek-V2-Lite's MLA and (24, 16) for its
+// smoke config
+constexpr int pair(int hd, int hdv) { return hd * 1024 + hdv; }
+
 template <typename T>
-cudaError_t dispatch(const Params& p, int hd, int batch_heads,
+cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
                      cudaStream_t stream) {
-  switch (hd) {
-    case 8: return launch<T, 8>(p, batch_heads, stream);
-    case 16: return launch<T, 16>(p, batch_heads, stream);
-    case 32: return launch<T, 32>(p, batch_heads, stream);
-    case 64: return launch<T, 64>(p, batch_heads, stream);
-    case 128: return launch<T, 128>(p, batch_heads, stream);
+  switch (pair(hd, hdv)) {
+    case pair(8, 8): return launch<T, 8, 8>(p, batch_heads, stream);
+    case pair(16, 16): return launch<T, 16, 16>(p, batch_heads, stream);
+    case pair(24, 16): return launch<T, 24, 16>(p, batch_heads, stream);
+    case pair(32, 32): return launch<T, 32, 32>(p, batch_heads, stream);
+    case pair(64, 64): return launch<T, 64, 64>(p, batch_heads, stream);
+    case pair(128, 128): return launch<T, 128, 128>(p, batch_heads, stream);
+    case pair(192, 128): return launch<T, 192, 128>(p, batch_heads, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -292,7 +317,8 @@ cudaError_t dispatch(const Params& p, int hd, int batch_heads,
 
 // ------------------------------------------------ tensor-core route (bf16)
 // flash_attention_tc_kernel: the same function for bfloat16 operands with
-// hd in {16, 32, 64, 128}, its products on the tensor cores.
+// (hd, hdv) in {(16, 16), (24, 16), (32, 32), (64, 64), (128, 128),
+// (192, 128)}, its products on the tensor cores.
 //
 // Design (a FlashAttention-3-style warpgroup kernel without the producer
 // warp).  One CTA is one warpgroup of 4 warps and owns one (b, h, 64-row q
@@ -300,16 +326,24 @@ cudaError_t dispatch(const Params& p, int hd, int batch_heads,
 // MMAs (`wgmma.mma_async`, bf16 inputs, float32 accumulators):
 //   S = Q.K^T  m64n64k16, A = Q and B = K read by the tensor cores straight
 //              from shared memory through matrix descriptors (both K-major);
-//   O += P.V   m64nNk16 (N = 64 or 128), A = P from registers — the S
+//              hd / 16 k-steps (12 at hd 192);
+//   O += P.V   m64nNk16 (N = hdv padded: 64 or 128), A = P from
+//              registers — the S
 //              accumulator fragment rounded to bf16 (as every tensor-core
 //              flash kernel does), B = V from shared memory as an MN-major
 //              operand (the transpose bit, which 16-bit types have).
 // Shared tiles use the 128-byte swizzle that the descriptors name: a tile is
-// [hd / 64][64 rows][128 B], the 16-byte chunk c of row r stored at chunk
+// [width / 64][64 rows][128 B], the 16-byte chunk c of row r stored at chunk
 // c ^ (r % 8), each 8-row group a 1,024-byte-aligned atom, so the tensor
-// cores read without bank conflicts.  A head dim below 64 is padded to 64
+// cores read without bank conflicts.  Q and K tiles are hd wide, V tiles
+// hdv wide.  A width below 64 (hd 16, 24, 32; hdv 16, 32) is padded to 64
 // columns of zeros in shared memory (the copy zero-fills them), which
-// leaves S and the kept columns of O unchanged.  K and V tiles are
+// leaves S and the kept columns of O unchanged.  At (192, 128) shared memory
+// holds Q (24 KiB), two K stages (48 KiB) and two V stages (32 KiB): 105
+// KiB, so two CTAs still share an SM.  Q and K stay in shared memory, so
+// the accumulators are those of hd 128 (S's 32 floats a thread, O's 64):
+// ptxas gives 236 registers at (192, 128), 196 at (128, 128), no spills.
+// K and V tiles are
 // double-buffered: 16-byte `cp.async.cg` copies of tile j + 1 run while
 // tile j is multiplied (then `fence.proxy.async` makes them visible to the
 // tensor cores); ragged q and k rows are zero-filled by the copy itself.
@@ -543,17 +577,22 @@ __host__ __device__ constexpr int hd_padded() {
   return HD < 64 ? 64 : HD;
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr int smem_bytes() {
   // Q, two K stages, two V stages, and slack to align to 1,024 bytes
-  return 5 * 64 * hd_padded<HD>() * 2 + 1024;
+  return 3 * 64 * hd_padded<HD>() * 2 + 2 * 64 * hd_padded<HDV>() * 2 + 1024;
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_tc_kernel(const Params p) {
   constexpr int HDP = hd_padded<HD>();
-  constexpr int TILE = 64 * HDP * 2;  // bytes of one Q, K or V tile
+  constexpr int HDVP = hd_padded<HDV>();
+  static_assert(HD % 8 == 0 && HDV % 8 == 0 && HDP % 64 == 0 &&
+                    (HDVP == 64 || HDVP == 128),
+                "16-byte chunks; whole swizzle atoms; wgmma N of 64 or 128");
+  constexpr int TILE = 64 * HDP * 2;    // bytes of one Q or K tile
+  constexpr int VTILE = 64 * HDVP * 2;  // bytes of one V tile
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   const uint32_t qs = (smem_u32(tc_smem) + 1023u) & ~1023u;
   const uint32_t ks = qs + TILE;
@@ -591,7 +630,7 @@ flash_attention_tc_kernel(const Params p) {
   if (lo < hi) {
     const int k0 = lo * BK;
     load_tile<HD, HDP>(ks, k + k0 * p.k_ss, p.k_ss, p.sk - k0, tid);
-    load_tile<HD, HDP>(vs, v + k0 * p.v_ss, p.v_ss, p.sk - k0, tid);
+    load_tile<HDV, HDVP>(vs, v + k0 * p.v_ss, p.v_ss, p.sk - k0, tid);
   }
   cp_async_commit();
 
@@ -600,9 +639,9 @@ flash_attention_tc_kernel(const Params p) {
   const int g = lane / 4, t4 = lane % 4;
   const int wrow = warp * 16;
   const float sl2 = p.scale * LOG2E;
-  float acc[HDP / 2];
+  float acc[HDVP / 2];
 #pragma unroll
-  for (int j = 0; j < HDP / 2; ++j) acc[j] = 0.f;
+  for (int j = 0; j < HDVP / 2; ++j) acc[j] = 0.f;
   float m_r[2] = {NEG, NEG};  // running max of rows g, g + 8 (log2 units)
   float l_r[2] = {0.f, 0.f};  // this thread's part of the running sums
 
@@ -612,8 +651,8 @@ flash_attention_tc_kernel(const Params p) {
       const int k1 = (kt + 1) * BK;
       load_tile<HD, HDP>(ks + (st ^ 1) * TILE, k + k1 * p.k_ss, p.k_ss,
                          p.sk - k1, tid);
-      load_tile<HD, HDP>(vs + (st ^ 1) * TILE, v + k1 * p.v_ss, p.v_ss,
-                         p.sk - k1, tid);
+      load_tile<HDV, HDVP>(vs + (st ^ 1) * VTILE, v + k1 * p.v_ss, p.v_ss,
+                           p.sk - k1, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -622,7 +661,7 @@ flash_attention_tc_kernel(const Params p) {
     fence_async_smem();
     __syncthreads();
     const uint32_t kst = ks + st * TILE;
-    const uint32_t vst = vs + st * TILE;
+    const uint32_t vst = vs + st * VTILE;
 
     // S = Q.K^T: k16 steps along hd, 32 bytes apart inside a 128-byte
     // swizzle row, 8 KiB apart across the 64-column halves
@@ -651,7 +690,7 @@ flash_attention_tc_kernel(const Params p) {
       softmax_tile<false>(s, m_r, l_r, alpha, p, qpos_lo + wrow + g,
                           k0 + 2 * t4, sl2);
 #pragma unroll
-    for (int j = 0; j < HDP / 8; ++j) {
+    for (int j = 0; j < HDVP / 8; ++j) {
       acc[4 * j + 0] *= alpha[0];
       acc[4 * j + 1] *= alpha[0];
       acc[4 * j + 2] *= alpha[1];
@@ -673,7 +712,7 @@ flash_attention_tc_kernel(const Params p) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dv = desc(vst + kk * 2048, 8192, 1024);
-      if constexpr (HDP == 128)
+      if constexpr (HDVP == 128)
         wgmma_rs_n128(acc, a[kk], dv);
       else
         wgmma_rs_n64(acc, a[kk], dv);
@@ -698,7 +737,7 @@ flash_attention_tc_kernel(const Params p) {
     if (row < rows) {
       __nv_bfloat16* orow = o + row * p.o_ss + 2 * t4;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < HDV / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
             __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
                                   acc[4 * j + 2 * r + 1] * inv);
@@ -706,10 +745,10 @@ flash_attention_tc_kernel(const Params p) {
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<HD>();
-  auto kernel = flash_attention_tc_kernel<HD>;
+  constexpr int bytes = smem_bytes<HD, HDV>();
+  auto kernel = flash_attention_tc_kernel<HD, HDV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -718,13 +757,15 @@ cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const Params& p, int hd, int batch_heads,
+cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
                      cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<16>(p, batch_heads, stream);
-    case 32: return launch<32>(p, batch_heads, stream);
-    case 64: return launch<64>(p, batch_heads, stream);
-    case 128: return launch<128>(p, batch_heads, stream);
+  switch (pair(hd, hdv)) {
+    case pair(16, 16): return launch<16, 16>(p, batch_heads, stream);
+    case pair(24, 16): return launch<24, 16>(p, batch_heads, stream);
+    case pair(32, 32): return launch<32, 32>(p, batch_heads, stream);
+    case pair(64, 64): return launch<64, 64>(p, batch_heads, stream);
+    case pair(128, 128): return launch<128, 128>(p, batch_heads, stream);
+    case pair(192, 128): return launch<192, 128>(p, batch_heads, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1766,30 +1807,33 @@ static cudaError_t make_params(Params& p, const void* q, const void* k,
 
 extern "C" {
 
-// The float32 route.  dtype: 0 float32, 1 bfloat16.  lse: null, or a
-// float32 (B, H, Sq) output for each row's log-sum-exp (the backward's
-// statistic).  Returns the CUDA status of the launch.
+// The float32 route.  hd: q and k's head dim; hdv: v and o's.  dtype: 0
+// float32, 1 bfloat16.  lse: null, or a float32 (B, H, Sq) output for each
+// row's log-sum-exp (the backward's statistic).  Returns the CUDA status
+// of the launch (cudaErrorInvalidValue for an (hd, hdv) pair not built).
 int fa_forward(const void* q, const void* k, const void* v, void* o,
                const long long* strides, int batch, int sq, int sk, int h,
-               int hkv, int hd, int causal, int window, int q_offset,
-               float scale, float* lse, int dtype, void* stream) {
+               int hkv, int hd, int hdv, int causal, int window,
+               int q_offset, float scale, float* lse, int dtype,
+               void* stream) {
   Params p;
   cudaError_t err = make_params(p, q, k, v, o, lse, strides, batch, sq, sk,
                                 h, hkv, causal, window, q_offset, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto s = static_cast<cudaStream_t>(stream);
-  err = dtype == 0 ? dispatch<float>(p, hd, batch * h, s)
-      : dtype == 1 ? dispatch<__nv_bfloat16>(p, hd, batch * h, s)
+  err = dtype == 0 ? dispatch<float>(p, hd, hdv, batch * h, s)
+      : dtype == 1 ? dispatch<__nv_bfloat16>(p, hd, hdv, batch * h, s)
                    : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
-// The tensor-core route: bfloat16, hd in {16, 32, 64, 128}; pointers on
-// 16-byte boundaries and strides in multiples of 8 elements (cp.async).
+// The tensor-core route: bfloat16, (hd, hdv) a pair of tc::dispatch;
+// pointers on 16-byte boundaries and strides in multiples of 8 elements
+// (cp.async).
 int fa_forward_tc(const void* q, const void* k, const void* v, void* o,
                   const long long* strides, int batch, int sq, int sk, int h,
-                  int hkv, int hd, int causal, int window, int q_offset,
-                  float scale, float* lse, void* stream) {
+                  int hkv, int hd, int hdv, int causal, int window,
+                  int q_offset, float scale, float* lse, void* stream) {
   const void* ptrs[4] = {q, k, v, o};
   for (const void* ptr : ptrs)
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
@@ -1801,7 +1845,8 @@ int fa_forward_tc(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = make_params(p, q, k, v, o, lse, strides, batch, sq, sk,
                                 h, hkv, causal, window, q_offset, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = tc::dispatch(p, hd, batch * h, static_cast<cudaStream_t>(stream));
+  err = tc::dispatch(p, hd, hdv, batch * h,
+                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

@@ -1,14 +1,14 @@
 """Hopper flash-attention kernels (``csrc/flash_attention.cu``) and their
 wrapper.
 
-:func:`flash_attention` takes the JAX package's layout, q (B, Sq, H, hd)
-and k / v (B, Sk, Hkv, hd):
+:func:`flash_attention` takes the JAX package's layout, q (B, Sq, H, hd),
+k (B, Sk, Hkv, hd) and v (B, Sk, Hkv, hdv), and returns (B, Sq, H, hdv):
 
 * on CPU tensors it runs the plain version,
   :func:`repro_torch.kernels.ref.flash_attention_ref`, with the given
   chunk sizes and ``skip_masked_chunks``;
 * otherwise it checks the operands (one CUDA device, float32 or bfloat16,
-  ``hdv == hd`` in :data:`HEAD_DIMS`, unit stride on the head dim, no
+  ``(hd, hdv)`` in :data:`HEAD_DIMS`, unit stride on the head dim, no
   gradient), picks a kernel by :func:`_route`, allocates the output in
   q's dtype, launches the kernel on the current stream, raises on a
   non-zero CUDA status and adds one to ``LAUNCHES["flash_attention"]``
@@ -17,12 +17,14 @@ and k / v (B, Sk, Hkv, hd):
   to the causal / window reach (skipping a fully masked tile is exact),
   so ``cq``, ``ck`` and ``skip_masked_chunks`` do not change the result.
 
-The route rule (:func:`_route`): bfloat16 with hd in
+The route rule (:func:`_route`): bfloat16 with (hd, hdv) in
 :data:`TC_HEAD_DIMS` runs ``flash_attention_tc_kernel`` (tensor cores,
 ``wgmma``; q, k, v need 16-byte-aligned storage and b / s / h
 strides in multiples of 8 elements, else the wrapper raises); float32,
 and bfloat16 with hd = 8, run ``flash_attention_kernel`` (float32 FMAs).
-Nothing falls back from one route to the other.
+Nothing falls back from one route to the other.  hd ≠ hdv is DeepSeek-V2's
+MLA: (192, 128) published, (24, 16) in its smoke config; any other pair
+raises "not ported yet" (recurrentgemma's (256, 256) among them).
 
 The gradient: where grad mode is on and an operand requires grad,
 :func:`flash_attention` on CUDA tensors goes through
@@ -31,7 +33,7 @@ its per-row log-sum-exp (``lse``, float32 (B, H, Sq)) and whose backward
 launches the backward kernels (:func:`backward`), routed by the same
 rule:
 
-* ``"tc"`` (bfloat16, hd in :data:`TC_HEAD_DIMS`): ``fa_backward_tc``,
+* ``"tc"`` (bfloat16, hd in :data:`BWD_TC_HEAD_DIMS`): ``fa_backward_tc``,
   four kernels: ``D = rowsum(dO o)`` (16-byte loads), then on the
   tensor cores dK / dV per (query head, key tile) into float32
   partials, their sum over the g query heads of each kv head in head
@@ -47,8 +49,10 @@ Both are deterministic (no float atomics); ``LAUNCHES
 shapes alone.  :func:`launch` itself stays forward only and raises on an
 operand that requires grad.
 On CPU tensors autograd runs through the plain version.  The backward
-covers what the forward covers, with ``q_offset = 0`` (training); any
-other ``q_offset`` raises.
+covers the forward's pairs with hd == hdv (:data:`BWD_HEAD_DIMS`), with
+``q_offset = 0`` (training); any other ``q_offset`` raises, and hd ≠ hdv
+(MLA) raises ``NotImplementedError`` ("not ported yet") before any
+launch: nothing falls back to the plain version on the card.
 
 The forward kernels replace the Pallas kernel ``flash_attention_pallas``
 of the JAX package's ``kernels/flash_attention.py``; the JAX package has
@@ -70,10 +74,17 @@ from repro_torch.kernels.build import CudaLibrary
 #: the tensor-core route
 LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0}
-#: head dims the kernels are built for (hdv == hd)
-HEAD_DIMS = (8, 16, 32, 64, 128)
-#: head dims of the tensor-core route (bfloat16 only)
-TC_HEAD_DIMS = (16, 32, 64, 128)
+#: (hd, hdv) pairs the forward kernels are built for: q.k's head dim and
+#: v's; (24, 16) and (192, 128) are DeepSeek-V2-Lite's MLA (smoke,
+#: published)
+HEAD_DIMS = ((8, 8), (16, 16), (24, 16), (32, 32), (64, 64), (128, 128),
+             (192, 128))
+#: the pairs of the tensor-core forward (bfloat16 only)
+TC_HEAD_DIMS = tuple(p for p in HEAD_DIMS if p[0] >= 16)
+#: head dims of the backward kernels (hdv == hd), and of its tensor-core
+#: route (bfloat16 only)
+BWD_HEAD_DIMS = (8, 16, 32, 64, 128)
+BWD_TC_HEAD_DIMS = (16, 32, 64, 128)
 ROUTES = ("tc", "fma")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: rows and keys per tile of the backward kernels; threads of a CTA of the
@@ -91,10 +102,10 @@ def reset_launches() -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
-    # q, k, v, o, strides, b, sq, sk, h, hkv, hd, causal, window, q_offset,
-    # scale, lse, [dtype,] stream
+    # q, k, v, o, strides, b, sq, sk, h, hkv, hd, hdv, causal, window,
+    # q_offset, scale, lse, [dtype,] stream
     lib.fa_forward.argtypes = [p, p, p, p, strides,
-                               i, i, i, i, i, i, i, i, i, f, p, i, p]
+                               i, i, i, i, i, i, i, i, i, i, f, p, i, p]
     lib.fa_forward.restype = ctypes.c_int
     lib.fa_forward_tc.argtypes = lib.fa_forward.argtypes[:-2] + [p]
     lib.fa_forward_tc.restype = ctypes.c_int
@@ -116,17 +127,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Validate the kernel's operands; raise on what it does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: want q (B, Sq, H, hd), "
-                         "k and v (B, Sk, Hkv, hd)")
+                         "k (B, Sk, Hkv, hd) and v (B, Sk, Hkv, hdv)")
     b, sq, h, hd = q.shape
     _, sk, hkv, _ = k.shape
+    hdv = v.shape[3]
     if (k.shape[0] != b or k.shape[3] != hd or v.shape[:3] != k.shape[:3]):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if v.shape[3] != hd:
-        raise ValueError(f"flash_attention: hdv {v.shape[3]} != hd {hd} "
-                         "is not ported yet")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    if (hd, hdv) not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention: head dims (hd {hd}, hdv {hdv}) are not "
+            f"ported yet; the kernels take (hd, hdv) in {HEAD_DIMS} "
+            f"(recurrentgemma's (256, 256) is not ported yet)")
     if min(b, sq, sk, h, hkv) == 0 or h % hkv != 0:
         raise ValueError(f"flash_attention: unsupported shape q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
@@ -146,11 +158,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "stride 1")
 
 
-def _route(dtype: torch.dtype, hd: int) -> str:
-    """The kernel for operands of ``dtype`` and head dim ``hd``: ``"tc"``
-    (tensor cores) for bfloat16 with hd in :data:`TC_HEAD_DIMS`, else
-    ``"fma"`` (float32 FMAs)."""
-    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "fma"
+def _route(dtype: torch.dtype, hd: int, hdv: int) -> str:
+    """The kernel for operands of ``dtype`` and head dims ``hd`` (q.k)
+    and ``hdv`` (v): ``"tc"`` (tensor cores) for bfloat16 with (hd, hdv)
+    in :data:`TC_HEAD_DIMS`, else ``"fma"`` (float32 FMAs)."""
+    return ("tc" if dtype == torch.bfloat16 and (hd, hdv) in TC_HEAD_DIMS
+            else "fma")
 
 
 def _tc_aligned(t: torch.Tensor) -> bool:
@@ -204,20 +217,20 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window, q_offset = int(window), int(q_offset)
     _check(q, k, v, window, q_offset)
     b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
     if route == "tc":
-        if _route(q.dtype, hd) != "tc":
+        if _route(q.dtype, hd, hdv) != "tc":
             raise ValueError(f"flash_attention: the tensor-core route takes "
-                             f"bfloat16 with hd in {TC_HEAD_DIMS}, got "
-                             f"{q.dtype}, hd {hd}")
+                             f"bfloat16 with (hd, hdv) in {TC_HEAD_DIMS}, "
+                             f"got {q.dtype}, ({hd}, {hdv})")
         _check_tc(q, k, v)
     lib = LIBRARY.load()
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    out = torch.empty((b, sq, h, hdv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _strides(q, k, v, out), b, sq, sk, h, hkv, hd, int(bool(causal)),
-            window, q_offset, 1.0 / math.sqrt(hd),
+            _strides(q, k, v, out), b, sq, sk, h, hkv, hd, hdv,
+            int(bool(causal)), window, q_offset, 1.0 / math.sqrt(hd),
             lse.data_ptr() if with_lse else None)
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -236,22 +249,38 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _backward_ported(hd: int, hdv: int) -> None:
+    """Raise ``NotImplementedError`` for head dims the backward kernels
+    are not built for: hd ≠ hdv (MLA) or hd outside
+    :data:`BWD_HEAD_DIMS`."""
+    if hd != hdv or hd not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention backward: head dims (hd {hd}, hdv {hdv}) are "
+            f"not ported yet; the backward kernels take hd == hdv in "
+            f"{BWD_HEAD_DIMS}")
+
+
 def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
-                  dtype: torch.dtype, route: str | None = None) -> dict:
+                  dtype: torch.dtype, route: str | None = None, *,
+                  hdv: int | None = None) -> dict:
     """The backward's launches for these shapes, from the shapes alone:
     ``route`` (None takes :func:`_route`), ``kernels`` as (name, grid) in
     launch order, and ``scratch_floats``, the float32 elements of the
-    tensor-core route's dK / dV partials (0 where none).  Raises
+    tensor-core route's dK / dV partials (0 where none).  ``hdv`` (v's
+    head dim) defaults to ``hd``.  Raises ``NotImplementedError`` for
+    head dims the backward is not ported to (:func:`_backward_ported`),
     ``ValueError`` for an unknown route or a tensor-core route that the
     dtype or head dim does not take."""
+    hdv = hd if hdv is None else hdv
+    _backward_ported(hd, hdv)
     if route is None:
-        route = _route(dtype, hd)
+        route = _route(dtype, hd, hdv)
     if route not in ROUTES:
         raise ValueError(f"flash_attention backward: route {route!r} not in "
                          f"{ROUTES}")
-    if route == "tc" and _route(dtype, hd) != "tc":
+    if route == "tc" and _route(dtype, hd, hdv) != "tc":
         raise ValueError(f"flash_attention backward: the tensor-core route "
-                         f"takes bfloat16 with hd in {TC_HEAD_DIMS}, got "
+                         f"takes bfloat16 with hd in {BWD_TC_HEAD_DIMS}, got "
                          f"{dtype}, hd {hd}")
     nq, nk = _cdiv(sq, _TILE), _cdiv(sk, _TILE)
     scratch = 0
@@ -278,11 +307,12 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     ``o``), the forward's operands, its output ``o`` and its ``lse``
     (float32 (B, H, Sq)).  ``q_offset`` is 0 (the training forward).
     ``route`` None takes :func:`_route`; a caller may name the other route
-    only to time or test it.  The route is checked first, before the
-    operands' device."""
-    if q.dim() == 4 and k.dim() == 4:  # else _check raises
+    only to time or test it.  The head dims and the route are checked
+    first, before the operands' device."""
+    if q.dim() == 4 and k.dim() == 4 and v.dim() == 4:  # else _check raises
         plan = backward_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                             k.shape[2], q.shape[3], q.dtype, route)
+                             k.shape[2], q.shape[3], q.dtype, route,
+                             hdv=v.shape[3])
     window = int(window)
     _check(q, k, v, window, 0)
     b, sq, h, hd = q.shape
@@ -338,14 +368,18 @@ class FlashAttentionFn(torch.autograd.Function):
     """Flash attention on CUDA tensors with a kernel for its gradient:
     the forward saves q, k, v, the output and the per-row ``lse``; the
     backward is :func:`backward`.  Both take :func:`_route`'s route: the
-    tensor cores for bfloat16 with hd in :data:`TC_HEAD_DIMS` (forward
-    ``flash_attention_tc_kernel``, backward ``fa_backward_tc``), float32
-    FMAs otherwise.  ``q_offset`` is 0."""
+    tensor cores for bfloat16 with hd in :data:`BWD_TC_HEAD_DIMS`
+    (forward ``flash_attention_tc_kernel``, backward ``fa_backward_tc``),
+    float32 FMAs otherwise.  ``q_offset`` is 0.  Head dims the backward
+    is not ported to (hd ≠ hdv) raise ``NotImplementedError`` before the
+    forward launches."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
+        _backward_ported(q.shape[-1], v.shape[-1])
         out, lse = _forward(q, k, v, causal, window, 0,
-                            _route(q.dtype, q.shape[-1]), with_lse=True)
+                            _route(q.dtype, q.shape[-1], v.shape[-1]),
+                            with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = bool(causal), int(window)
         return out
@@ -368,7 +402,7 @@ def flash_attention(
     ck: int = 1024,
     skip_masked_chunks: bool = False,
 ) -> torch.Tensor:
-    """Attention of q over k / v; (B, Sq, H, hd) in q's dtype.  On CUDA
+    """Attention of q over k / v; (B, Sq, H, hdv) in q's dtype.  On CUDA
     tensors with grad mode on and an operand that requires grad, the
     differentiable :class:`FlashAttentionFn` (``q_offset`` must be 0)."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
@@ -380,4 +414,4 @@ def flash_attention(
                              f"q_offset 0, got {q_offset}")
         return FlashAttentionFn.apply(q, k, v, causal, window)
     return launch(q, k, v, causal, window, q_offset,
-                  _route(q.dtype, q.shape[-1]))
+                  _route(q.dtype, q.shape[-1], v.shape[-1]))

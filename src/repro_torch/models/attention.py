@@ -1,13 +1,15 @@
-"""Attention: GQA projections, flash attention for prefill and forward,
-and single-token decode against a KV cache — the JAX package's
-``models/attention.py`` in torch.
+"""Attention: GQA projections, DeepSeek-V2's multi-head latent attention
+(MLA), flash attention for prefill and forward, and single-token decode
+against a KV cache — the JAX package's ``models/attention.py`` in torch.
 
 :func:`flash_attention` is the kernel wrapper: on CUDA tensors it
 launches the Hopper kernel (``csrc/flash_attention.cu``), on CPU tensors
 it runs the plain chunked version.  :func:`decode_attention` is plain
 torch, as the reference computes it outside any kernel.  GQA never
-repeats KV: queries are reshaped to (B, S, Hkv, g, hd).  MLA and
-cross-attention are not ported yet (the model refuses those configs).
+repeats KV: queries are reshaped to (B, S, Hkv, g, hd).  MLA caches the
+compressed latent and expands it to per-head k (qk head dim nope + rope)
+and v (v head dim) with :func:`mla_expand_kv`.  Cross-attention is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -18,7 +20,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
-from repro_torch.models.layers import apply_rope, dense_init, head_rmsnorm
+from repro_torch.models.layers import (
+    apply_rope,
+    dense_init,
+    head_rmsnorm,
+    rmsnorm,
+)
 
 _NEG = -1.0e30
 
@@ -89,3 +96,57 @@ def decode_attention(
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.float())
     return out.reshape(b, 1, h, hdv).to(q.dtype)
 
+
+
+# --------------------------------------------------------------------- MLA
+def init_mla(cfg: ModelConfig, n_layers: int, generator, device,
+             dtype) -> dict:
+    """DeepSeek-V2 Multi-head Latent Attention parameters (the
+    reference's names and shapes)."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    return {
+        "wq": dense_init((n_layers, d, h, dn + dr), generator, device, dtype,
+                         1),
+        "w_dkv": dense_init((n_layers, d, r + dr), generator, device, dtype,
+                            1),
+        "ckv_norm": torch.zeros((n_layers, r), dtype=dtype, device=device),
+        "w_uk": dense_init((n_layers, r, h, dn), generator, device, dtype, 1),
+        "w_uv": dense_init((n_layers, r, h, dv), generator, device, dtype, 1),
+        "wo": dense_init((n_layers, h, dv, d), generator, device, dtype, 2),
+    }
+
+
+def mla_project(
+    pl: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+    positions: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> q (B, S, H, dn + dr), the normed latent c_kv (B, S,
+    r) and the roped shared key k_rope (B, S, dr); the v side and the
+    per-head keys come from :func:`mla_expand_kv`, so decode can cache the
+    compressed latent."""
+    dn, r = cfg.nope_head_dim, cfg.kv_lora_rank
+    q = torch.einsum("bsd,dhk->bshk", x, pl["wq"].to(x.dtype))
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    ckv_full = torch.einsum("bsd,dr->bsr", x, pl["w_dkv"].to(x.dtype))
+    c_kv, k_rope = ckv_full[..., :r], ckv_full[..., r:]
+    c_kv = rmsnorm(c_kv, pl["ckv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return q, c_kv, k_rope
+
+
+def mla_expand_kv(
+    pl: Mapping[str, torch.Tensor], c_kv: torch.Tensor, k_rope: torch.Tensor,
+    x_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """c_kv (B, S, r), k_rope (B, S, dr) -> k (B, S, H, dn + dr), v (B, S,
+    H, dv): the shared roped key broadcast to every head."""
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, pl["w_uk"].to(x_dtype))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, pl["w_uv"].to(x_dtype))
+    h = k_nope.shape[2]
+    k_rope_b = k_rope[:, :, None, :].expand(*k_nope.shape[:2], h,
+                                            k_rope.shape[-1])
+    return torch.cat([k_nope, k_rope_b], dim=-1), v

@@ -30,7 +30,9 @@ def dense_init(shape: Sequence[int], generator: Optional[torch.Generator],
     """LeCun-normal on the reduction dim."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
     x = torch.randn(tuple(shape), generator=generator, device=device)
-    return (x / math.sqrt(fan_in)).to(dtype)
+    # in place: one float32 copy of the draw (DeepSeek-V2-Lite's expert
+    # stacks are 20 GB each in float32)
+    return x.div_(math.sqrt(fan_in)).to(dtype)
 
 
 def embed_init(shape: Sequence[int], generator: Optional[torch.Generator],

@@ -2,7 +2,8 @@
 
 ``build_model(cfg, device="cuda")`` returns the family implementation on
 ``device`` (a card that is not there raises; ``device="cpu"`` for the
-tests).  Only the dense family is ported; the others raise.
+tests).  The dense and MoE families (the MoE family's DeepSeek-V2-Lite
+with MLA attention) are ported; the others raise.
 ``load_flat`` / ``from_jax_flat`` fill a model from
 ``flatten_tree(params)`` of the JAX package, or from a merged snapshot
 of such a tree (the same names): numpy arrays, bf16 as the store's
@@ -26,12 +27,12 @@ from repro_torch.train.grad_compress import init_error_feedback
 from repro_torch.train.optimizer import init_opt_state
 from repro_torch.train.train_state import TrainState, model_params
 
-_NOT_PORTED = ("moe", "ssm", "hybrid", "vlm", "audio")
+_NOT_PORTED = ("ssm", "hybrid", "vlm", "audio")
 
 
 def build_model(cfg: ModelConfig, device="cuda",
                 generator: Optional[torch.Generator] = None) -> DecoderLM:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return DecoderLM(cfg, device=device, generator=generator)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(

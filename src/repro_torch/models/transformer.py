@@ -1,18 +1,23 @@
-"""Decoder-only transformer LM, dense GQA family — the JAX package's
-``models/transformer.py`` in torch.
+"""Decoder-only transformer LM (dense GQA / MoE / MLA families) — the JAX
+package's ``models/transformer.py`` in torch.
 
-Covers qwen2 (QKV bias), granite, starcoder2 and qwen3 (qk-norm).  The
-parameter tree is the reference's: ``embed.embedding``, ``attn.wq`` of
-shape (L, d, H, hd) and the other layer-stacked tensors, ``ffn.w_*``,
-``ln1``, ``ln2``, ``ln_f``, so the flat names (``/``-joined) equal the
-JAX ``flatten_tree`` names and weights carry across both ways.  The
+Covers qwen2 (QKV bias), granite, starcoder2, qwen3 (qk-norm), grok-1
+(MoE FFN) and deepseek-v2-lite (MLA attention + MoE FFN with shared
+experts).  The parameter tree is the reference's: ``embed.embedding``,
+``attn.wq`` of shape (L, d, H, hd) (MLA: ``attn.w_dkv``, ``ckv_norm``,
+``w_uk``, ``w_uv``) and the other layer-stacked tensors, ``ffn.w_*``
+(MoE: ``ffn.router`` and the (L, E, ...) expert stacks), ``ln1``,
+``ln2``, ``ln_f``, so the flat names (``/``-joined) equal the JAX
+``flatten_tree`` names and weights carry across both ways.  The
 reference's ``scan`` over layers is a Python loop over layer ``i``; its
 sharding hints have no meaning on one card and are dropped.  Under
 ``cfg.remat`` and grad mode, each layer of ``forward`` runs under
 ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
 reference's ``jax.checkpoint`` with nothing saveable: a layer's
-activations are recomputed in the backward.  MoE and MLA raise "not
-ported yet".
+activations are recomputed in the backward.  MLA's decode cache holds the
+compressed latent ``ckv`` (L, B, max_len, r) and the roped shared key
+``krope`` (L, B, max_len, dr); each decode step expands the whole cache,
+as the reference does.
 
 Entry points:
     init(generator)                          redraw every parameter
@@ -37,16 +42,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 
 class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.moe:
-            raise NotImplementedError(f"{cfg.name}: MoE is not ported yet")
-        if cfg.mla:
-            raise NotImplementedError(f"{cfg.name}: MLA is not ported yet")
         self.cfg = cfg
         tree = self._draw(resolve_device(device), generator)
         self.embed = nn.ParameterDict(tree["embed"])
@@ -61,10 +63,13 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         pd = L.torch_dtype(cfg.param_dtype)
         n, d = cfg.n_layers, cfg.d_model
+        init_attn = attn.init_mla if cfg.mla else attn.init_attention
         return {
             "embed": L.init_embed(cfg.vocab_size, d, generator, device, pd),
-            "attn": attn.init_attention(cfg, n, generator, device, pd),
-            "ffn": L.init_mlp(n, d, cfg.d_ff, generator, device, pd),
+            "attn": init_attn(cfg, n, generator, device, pd),
+            "ffn": (moe_mod.init_moe(cfg, n, generator, device, pd)
+                    if cfg.moe else
+                    L.init_mlp(n, d, cfg.d_ff, generator, device, pd)),
             "ln1": torch.zeros((n, d), dtype=pd, device=device),
             "ln2": torch.zeros((n, d), dtype=pd, device=device),
             "ln_f": torch.zeros((d,), dtype=pd, device=device),
@@ -98,18 +103,29 @@ class DecoderLM(nn.Module):
                 for i in range(self.cfg.n_layers)]
 
     # ------------------------------------------------------------ forward
+    def _ffn(self, pf, h):
+        if self.cfg.moe:
+            return moe_mod.moe_ffn(pf, h, self.cfg)
+        return L.swiglu_mlp(pf, h)
+
     def _block(self, layer, x, positions, skip_masked_chunks: bool):
         """One layer (its ``_layers()`` entry) over a whole sequence;
-        returns (x, (k, v))."""
+        returns (x, cache entries): (k, v), or MLA's (c_kv, k_rope)."""
         cfg = self.cfg
         pa, pf, ln1, ln2 = layer
         h = L.rmsnorm(x, ln1, cfg.norm_eps)
-        q, k, v = attn.qkv_project(pa, h, cfg, positions)
+        if cfg.mla:
+            q, c_kv, k_rope = attn.mla_project(pa, h, cfg, positions)
+            k, v = attn.mla_expand_kv(pa, c_kv, k_rope, h.dtype)
+            cached = (c_kv, k_rope)
+        else:
+            q, k, v = attn.qkv_project(pa, h, cfg, positions)
+            cached = (k, v)
         o = attn.flash_attention(q, k, v, causal=True, window=cfg.local_window,
                                  skip_masked_chunks=skip_masked_chunks)
         x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
         h = L.rmsnorm(x, ln2, cfg.norm_eps)
-        return x + L.swiglu_mlp(pf, h), (k, v)
+        return x + self._ffn(pf, h), cached
 
     def _layer(self, x, positions, layer):
         """One layer of the training forward (no masked-chunk skip)."""
@@ -140,10 +156,18 @@ class DecoderLM(nn.Module):
                                        batch.get("mask"))
 
     # ------------------------------------------------------------ serving
+    def _cache_names(self) -> Tuple[str, str]:
+        return ("ckv", "krope") if self.cfg.mla else ("k", "v")
+
     def cache_specs(self, batch: int, max_len: int) -> Dict:
         """name -> (shape, dtype) of the decode cache."""
         cfg = self.cfg
         cd = L.torch_dtype(cfg.compute_dtype)
+        if cfg.mla:
+            lead = (cfg.n_layers, batch, max_len)
+            return {"ckv": (lead + (cfg.kv_lora_rank,), cd),
+                    "krope": (lead + (cfg.rope_head_dim,), cd),
+                    "len": ((), torch.int32)}
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         return {"k": (shape, cd), "v": (shape, cd), "len": ((), torch.int32)}
@@ -158,19 +182,24 @@ class DecoderLM(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
         """Forward over the prompt; returns (last-token logits (B, 1, V),
-        cache with k / v of shape (L, B, S, Hkv, hd) and ``len`` S)."""
+        cache with k / v of shape (L, B, S, Hkv, hd) — MLA: ckv (L, B, S,
+        r) and krope (L, B, S, dr) — and ``len`` S)."""
         b, s = tokens.shape
         x = self._embed(tokens)
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-        ks, vs = [], []
+        entries = ([], [])
         for layer in self._layers():
             # inference: no grad, so the key loop skips masked chunks
-            x, (k, v) = self._block(layer, x, positions, skip_masked_chunks=True)
-            ks.append(k)
-            vs.append(v)
+            x, cached = self._block(layer, x, positions,
+                                    skip_masked_chunks=True)
+            for out, t in zip(entries, cached):
+                out.append(t)
         x = L.rmsnorm(x, self.ln_f, self.cfg.norm_eps)
         logits = L.unembed(self.embed, x[:, -1:])
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "len": s}
+        cache = {name: torch.stack(ts)
+                 for name, ts in zip(self._cache_names(), entries)}
+        cache["len"] = s
+        return logits, cache
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor,
@@ -181,17 +210,25 @@ class DecoderLM(nn.Module):
         pos = int(cache["len"])
         x = self._embed(tokens)
         positions = torch.full((b, 1), pos, device=tokens.device)
+        names = self._cache_names()
         for i, (pa, pf, ln1, ln2) in enumerate(self._layers()):
             h = L.rmsnorm(x, ln1, cfg.norm_eps)
-            q, k, v = attn.qkv_project(pa, h, cfg, positions)
-            k_c, v_c = cache["k"][i], cache["v"][i]
-            k_c[:, pos] = k[:, 0].to(k_c.dtype)
-            v_c[:, pos] = v[:, 0].to(v_c.dtype)
+            if cfg.mla:
+                q, *new = attn.mla_project(pa, h, cfg, positions)
+            else:
+                q, *new = attn.qkv_project(pa, h, cfg, positions)
+            layer_cache = [cache[name][i] for name in names]
+            for c, t in zip(layer_cache, new):
+                c[:, pos] = t[:, 0].to(c.dtype)
+            if cfg.mla:  # the whole compressed cache, expanded
+                k_c, v_c = attn.mla_expand_kv(pa, *layer_cache, h.dtype)
+            else:
+                k_c, v_c = layer_cache
             o = attn.decode_attention(q, k_c, v_c, pos + 1,
                                       window=cfg.local_window)
             x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
             h = L.rmsnorm(x, ln2, cfg.norm_eps)
-            x = x + L.swiglu_mlp(pf, h)
+            x = x + self._ffn(pf, h)
         x = L.rmsnorm(x, self.ln_f, cfg.norm_eps)
         cache["len"] = pos + 1
         return L.unembed(self.embed, x), cache

@@ -50,16 +50,20 @@ class ServeEngine:
 
     # -- single-request prefill, spliced into the shared cache ------------
     def _prefill_slot(self, slot: int, req: Request) -> int:
-        """Prefill one request and write its cache row into ``slot`` (the
-        rest of the row is zeroed, as the reference's padded splice)."""
+        """Prefill one request and write its row of every cache entry but
+        ``len`` (k / v, or MLA's ckv / krope: (L, B, S, ...)) into
+        ``slot``; the rest of the row is zeroed, as the reference's padded
+        splice."""
         toks = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                device=self.device)[None, :]
         logits, cache1 = self.model.prefill(toks)
         # first generated token comes from the prefill logits
         req.out_tokens.append(self._sample(req, logits[0, 0]))
         s = cache1["len"]
-        for name in ("k", "v"):
-            row = self.cache[name][:, slot]     # (L, max_len, Hkv, hd)
+        for name in self.cache:
+            if name == "len":
+                continue
+            row = self.cache[name][:, slot]     # (L, max_len, ...)
             row[:, s:].zero_()
             row[:, :s] = cache1[name][:, 0].to(row.dtype)
         self.cache["len"] = s

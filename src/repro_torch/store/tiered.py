@@ -26,6 +26,13 @@ never needs invalidation messages — republishing a changed model
 changes its tensor hashes, new reads key to new extents, and stale ones
 age out by LRU eviction.  The locally cached manifest itself is
 revalidated against the remote's etag on every reader open.
+
+A coalesced range that the disk tier covers only in part is read piece
+by piece (:meth:`TieredReader._read_pieces`): covered pieces from disk,
+only the gaps from remote.  The JAX package fetches such a range whole
+from remote, so a tier-billed plan (warm blocks at the disk weight)
+realized more cold bytes than it planned and ``execute_merge`` refused
+it; fully warm and fully cold ranges are read as there.
 """
 from __future__ import annotations
 
@@ -298,6 +305,38 @@ class DiskExtentCache:
             return True
         self._rescan(kh)
         return self._assemble(kh, offset, nbytes) is not None
+
+    def pieces(
+        self, content_key: str, offset: int, nbytes: int
+    ) -> List[Tuple[int, int, bool]]:
+        """``[offset, offset+nbytes)`` cut at the indexed extents' edges:
+        ``(offset, nbytes, covered)`` pieces in order, neighbours of one
+        kind merged.  Reads the index as it stands (a miss of
+        :meth:`read_verified` has just rescanned it)."""
+        with self._lock:
+            extents = sorted(self._index.get(_key_hash(content_key), {}))
+        end = offset + nbytes
+        cuts: List[Tuple[int, int, bool]] = []
+
+        def add(lo: int, hi: int, covered: bool) -> None:
+            if cuts and cuts[-1][2] == covered:
+                lo = cuts.pop()[0]
+            cuts.append((lo, hi, covered))
+
+        pos = offset
+        for o, n in extents:
+            if o >= end:
+                break
+            if o + n <= pos:
+                continue
+            if o > pos:
+                add(pos, o, False)
+                pos = o
+            add(pos, min(o + n, end), True)
+            pos = min(o + n, end)
+        if pos < end:
+            add(pos, end, False)
+        return [(lo, hi - lo, covered) for lo, hi, covered in cuts]
 
     def extents_for(self, content_key: str) -> List[Tuple[int, int]]:
         kh = _key_hash(content_key)
@@ -763,6 +802,74 @@ class TieredReader(BlockReaderMixin):
             self.stats.record_cache("disk", nbytes, hit=True)
             self._record(category, "disk", payload, waste_nbytes)
             return data
+        if not corrupt_dropped:
+            pieces = self.disk.pieces(ckey, offset, nbytes)
+            if len(pieces) > 1:
+                return self._read_pieces(
+                    tensor_id, ckey, pieces, category, waste_nbytes, snap
+                )
+        return self._miss(tensor_id, ckey, offset, nbytes, category,
+                          waste_nbytes, snap, corrupt_dropped)
+
+    def _read_pieces(
+        self,
+        tensor_id: str,
+        ckey: str,
+        pieces: List[Tuple[int, int, bool]],
+        category: str,
+        waste_nbytes: int,
+        snap: List[Tuple[int, int]],
+    ) -> bytes:
+        """A range the disk tier covers in part (a coalesced run of warm
+        and cold blocks): each covered piece is read from disk and billed
+        to it, only the uncovered pieces are fetched (and filled) from
+        remote.  This is the port's repair of tier billing over coalesced
+        runs: the planner bills a disk-cached block at the disk tier's
+        weight, and the reference fetches such a run whole from remote,
+        so its realized remote bytes can pass the plan.
+
+        The run's unrequested gap bytes (``waste_nbytes``) are charged to
+        its uncovered pieces first: a gap is unselected blocks, and a
+        tier-billed plan leaves cold blocks out before warm ones, so the
+        remote payload stays within the cold bytes the plan selected."""
+        left = waste_nbytes
+        waste = [0] * len(pieces)
+        for want_covered in (False, True):
+            for i, (_o, n, covered) in enumerate(pieces):
+                if covered == want_covered:
+                    waste[i] = min(left, n)
+                    left -= waste[i]
+        v = self.verifier
+        parts = []
+        for (o, n, covered), w in zip(pieces, waste):
+            data, corrupt = None, False
+            if covered:
+                data, corrupt = self.disk.read_verified(
+                    ckey, o, n, check_digest=v is None or not v.active(),
+                )
+            if data is not None:
+                self.stats.record_cache("disk", n, hit=True)
+                self._record(category, "disk", n - w, w)
+            else:
+                data = self._miss(tensor_id, ckey, o, n, category, w, snap,
+                                  corrupt)
+            parts.append(data)
+        return b"".join(parts)
+
+    def _miss(
+        self,
+        tensor_id: str,
+        ckey: str,
+        offset: int,
+        nbytes: int,
+        category: str,
+        waste_nbytes: int,
+        snap: List[Tuple[int, int]],
+        corrupt_dropped: bool,
+    ) -> bytes:
+        """Fetch a range the disk tier does not serve from remote (single-
+        flight through the disk tier's ``fill``) and bill it."""
+        payload = nbytes - waste_nbytes
         if corrupt_dropped:
             # read-repair, disk tier: the cache just evicted an extent
             # whose payload broke its filename contract; the refill is

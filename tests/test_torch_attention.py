@@ -209,18 +209,67 @@ def test_kernel_checks_refuse_cpu_operands():
         tfa._check(q, k, v, 0, 0)
 
 
-@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+@pytest.mark.parametrize("hd", [hd for hd, _hdv in tfa.HEAD_DIMS])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_route_rule(dtype, hd):
     """bf16 with hd >= 16 goes to the tensor-core kernel; float32 and bf16
-    with hd = 8 to the FMA kernel.  The backward follows the same rule."""
-    route = tfa._route(getattr(torch, dtype), hd)
+    with hd = 8 to the FMA kernel, at each (hd, hdv) pair.  The backward
+    follows the same rule where hd == hdv, and raises "not ported yet"
+    for MLA's hd != hdv, from the shapes alone."""
+    hdv = dict(tfa.HEAD_DIMS)[hd]
+    route = tfa._route(getattr(torch, dtype), hd, hdv)
     assert route == ("tc" if dtype == "bfloat16" and hd >= 16 else "fma")
     assert route in tfa.ROUTES
+    if hd != hdv:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tfa.backward_plan(2, 64, 64, 4, 2, hd, getattr(torch, dtype),
+                              hdv=hdv)
+        return
     plan = tfa.backward_plan(2, 64, 64, 4, 2, hd, getattr(torch, dtype))
     assert plan["route"] == route
     assert plan["kernels"][1][0] == ("fa_bwd_dkdv_tc_kernel" if route == "tc"
                                      else "fa_bwd_dkdv_kernel")
+
+
+@pytest.mark.parametrize("hd,hdv", [(256, 256), (192, 192), (128, 64),
+                                    (16, 8), (96, 96)])
+def test_unported_head_dims_are_refused_before_the_device(hd, hdv):
+    """Pairs outside HEAD_DIMS (recurrentgemma's (256, 256) among them)
+    raise "not ported yet" from the shapes, before the operands' device:
+    the forward's check, launch(), and the backward."""
+    q = torch.zeros((1, 8, 4, hd), dtype=torch.bfloat16)
+    v = torch.zeros((1, 8, 4, hdv), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"not ported yet.*\(256, 256\)"):
+        tfa._check(q, q, v, 0, 0)
+    with pytest.raises(ValueError, match="not ported yet"):
+        tfa.launch(q, q, v, True, 0, 0, route="fma")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tfa.backward(q, q, q, v, q, torch.zeros((1, 4, 8)), True, 0)
+    assert tfa._route(torch.bfloat16, hd, hdv) == "fma"
+
+
+@pytest.mark.parametrize("hd,hdv", [(192, 128), (24, 16)])
+def test_mla_backward_refused_before_launch(hd, hdv):
+    """MLA's head dims: the forward takes them on both routes, the
+    backward raises NotImplementedError from the shapes alone (backward,
+    backward_plan on either route, and the autograd Function before its
+    forward launches), so nothing falls back to the plain version."""
+    q = torch.zeros((1, 8, 4, hd), dtype=torch.bfloat16)
+    v = torch.zeros((1, 8, 4, hdv), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 4, 8))
+    assert (hd, hdv) in tfa.TC_HEAD_DIMS
+    for route in (None, "tc", "fma"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tfa.backward(v, q, q, v, v, lse, True, 0, route=route)
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tfa.backward_plan(1, 8, 8, 4, 4, hd, torch.bfloat16, route,
+                              hdv=hdv)
+    tfa.reset_launches()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tfa.FlashAttentionFn.apply(q, q, v, True, 0)
+    assert tfa.LAUNCHES["flash_attention"] == 0
+    with pytest.raises(ValueError, match="CUDA"):           # the forward
+        tfa.launch(q, q, v, True, 0, 0, route="tc")
 
 
 @pytest.mark.parametrize("dtype,hd", [("float32", 16), ("float32", 128),

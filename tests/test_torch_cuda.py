@@ -651,6 +651,88 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
                                atol=FA_TOL[dtype])
 
 
+# (B, Sq, Sk, H, Hkv, hd, hdv, causal, window, q_offset): DeepSeek-V2-Lite's
+# multi-head latent attention, qk 192 / v 128 published and 24 / 16 in its
+# smoke config: its prefill shape, ragged tiles, GQA cross attention with
+# a window and q_offset, a decode-style single query
+MLA_FA_CASES = [
+    (1, 2048, 2048, 16, 16, 192, 128, True, 0, 0),
+    (2, 130, 130, 4, 4, 192, 128, True, 0, 0),
+    (1, 100, 300, 4, 2, 192, 128, False, 70, 200),
+    (1, 1000, 1000, 16, 16, 192, 128, True, 512, 0),
+    (1, 1, 300, 16, 16, 192, 128, True, 0, 299),
+    (2, 77, 77, 4, 4, 24, 16, True, 0, 0),
+    (1, 50, 90, 4, 2, 24, 16, True, 13, 40),
+    (1, 70, 130, 4, 4, 24, 16, False, 0, 0),
+]
+MLA_PARAMS = [pytest.param(case, dtype, route, id=f"{name}-{route}-{i}")
+              for i, case in enumerate(MLA_FA_CASES)
+              for name, dtype, route in (("f32", torch.float32, "fma"),
+                                         ("bf16", torch.bfloat16, "fma"),
+                                         ("bf16", torch.bfloat16, "tc"))]
+
+
+@pytest.mark.parametrize("case,dtype,route", MLA_PARAMS)
+def test_flash_attention_mla_head_dims_match_plain(cuda, case, dtype, route):
+    """Both forward kernels at hd != hdv against the plain version: the
+    output (B, Sq, H, hdv), 16-byte aligned on the tensor-core route."""
+    b, sq, sk, h, hkv, hd, hdv = case[:7]
+    causal, window, q_offset = case[7:]
+    rng = np.random.default_rng(sum(case[:7]))
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(device=cuda, dtype=dtype)
+               for s in ((b, sq, h, hd), (b, sk, hkv, hd), (b, sk, hkv, hdv)))
+    assert tfa._route(torch.bfloat16, hd, hdv) == "tc"
+    tfa.reset_launches()
+    got = tfa.launch(q, k, v, causal, window, q_offset, route)
+    assert tfa.LAUNCHES["flash_attention"] == 1
+    assert tfa.LAUNCHES["flash_attention_tc"] == int(route == "tc")
+    want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
+                                    skip_masked_chunks=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, sq, h, hdv)
+    assert tfa._tc_aligned(got)
+    torch.testing.assert_close(got.float(), want.float(), rtol=FA_TOL[dtype],
+                               atol=FA_TOL[dtype])
+
+
+def test_flash_attention_mla_backward_is_not_ported(cuda):
+    """hd != hdv with grad: ``NotImplementedError`` before any launch,
+    never the plain version; the forward alone runs."""
+    q = torch.zeros((1, 64, 4, 192), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros_like(q)
+    v = torch.zeros((1, 64, 4, 128), dtype=torch.bfloat16, device=cuda)
+    tfa.reset_launches()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tfa.flash_attention(q.clone().requires_grad_(), k, v)
+    assert tfa.LAUNCHES["flash_attention"] == 0
+    with torch.no_grad():
+        assert tfa.flash_attention(q, k, v).shape == (1, 64, 4, 128)
+    assert tfa.LAUNCHES["flash_attention_tc"] == 1
+
+
+def test_flash_attention_mla_instantiations_do_not_spill(cuda):
+    """ptxas -v of the library: the forward kernels at (192, 128) and
+    (24, 16), both routes, spill no registers."""
+    import re
+
+    tfa.LIBRARY.build()
+    with open(tfa.LIBRARY.log_path()) as f:
+        log = f.read()
+    found = {}
+    for name, body in re.findall(
+            r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
+            log, re.S):
+        if re.search(r"flash_attention_(tc_)?kernelI\w*Li(192ELi128|24ELi16)E",
+                     name):
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          body)
+            found[name] = (int(m.group(1)), int(m.group(2)))
+    # float32 and bf16 FMA kernels and the tensor-core kernel, two pairs
+    assert len(found) == 6, found
+    assert all(v == (0, 0) for v in found.values()), found
+
+
 def test_flash_attention_kernel_reads_strided_views(cuda):
     """q/k/v sliced out of a fused projection: strides, no copies."""
     rng = np.random.default_rng(1)
@@ -778,14 +860,14 @@ BWD_CASES = [
     (2, 1000, 1000, 12, 2, 128, True, 0),  # the model's heads, ragged
 ]
 # (dtype, backward route): float32 takes the FMA route; bf16 both, the
-# tensor cores only with hd in TC_HEAD_DIMS
+# tensor cores only with hd in BWD_TC_HEAD_DIMS
 BWD_PARAMS = [
     pytest.param(case, dtype, route, id=f"{name}-{route}-{i}")
     for i, case in enumerate(BWD_CASES)
     for name, dtype, route in (("f32", torch.float32, "fma"),
                                ("bf16", torch.bfloat16, "fma"),
                                ("bf16", torch.bfloat16, "tc"))
-    if route == "fma" or case[5] in tfa.TC_HEAD_DIMS
+    if route == "fma" or case[5] in tfa.BWD_TC_HEAD_DIMS
 ]
 # the backward against autograd through the plain version: float32 sums
 # in another order; bf16 gradients one bf16 rounding apart (the forward's
@@ -842,7 +924,7 @@ def test_flash_attention_fn_forward_equals_launch(cuda):
     case = (2, 100, 100, 4, 2, 16, True, 0)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = _qkv(case, dtype, cuda)
-        route = tfa._route(dtype, 16)
+        route = tfa._route(dtype, 16, 16)
         out, lse = tfa._forward(q, k, v, True, 0, 0, route, with_lse=True)
         plain = tfa.launch(q, k, v, True, 0, 0, route)
         torch.cuda.synchronize()
@@ -856,7 +938,7 @@ def test_flash_attention_fn_forward_equals_launch(cuda):
 
 
 def test_flash_attention_fn_takes_the_tc_backward_for_bf16(cuda):
-    """The route rule: bf16 with hd in TC_HEAD_DIMS trains through the
+    """The route rule: bf16 with hd in BWD_TC_HEAD_DIMS trains through the
     tensor-core backward, float32 through the FMA one."""
     case = (1, 64, 64, 4, 2, 32, True, 0)
     for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):

@@ -1,7 +1,8 @@
 """The port's model stack against the JAX package on the CPU: configs,
 parameter names and shapes, forward / prefill / decode_step on weights
-carried across, the flat checkpoint helpers, and the families that are
-not ported yet."""
+carried across (the dense family, grok-1's MoE and DeepSeek-V2-Lite's
+MLA + MoE), the flat checkpoint helpers, and the families that are not
+ported yet."""
 import dataclasses
 
 import numpy as np
@@ -27,6 +28,7 @@ from repro_torch.store.checkpoint import (  # noqa: E402
 )
 
 DENSE = ["qwen2-1.5b", "granite-3-8b", "qwen3-14b", "starcoder2-7b"]
+MOE = ["grok-1-314b", "deepseek-v2-lite-16b"]
 # f32 on both sides; matmul sums run in another order: 1e-4
 TOL = 1e-4
 
@@ -50,7 +52,8 @@ def test_configs_are_the_jax_configs(arch):
         assert get(arch).param_count() == jget(arch).param_count()
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-3-8b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-3-8b", "qwen3-14b",
+                                  *MOE])
 def test_flat_names_and_shapes_equal_jax(arch):
     _, params = _jax_model(arch)
     want = {k: v.shape for k, v in jax_flatten_tree(params).items()}
@@ -60,7 +63,7 @@ def test_flat_names_and_shapes_equal_jax(arch):
     assert got == want
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_forward_prefill_decode_match_jax(arch):
     jmodel, params = _jax_model(arch)
     cfg = get_smoke_config(arch)
@@ -87,14 +90,16 @@ def test_forward_prefill_decode_match_jax(arch):
     tl, tc = model.prefill(t)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
     assert tc["len"] == int(jc["len"]) == 13
-    for name in ("k", "v"):
+    names = [n for n in tc if n != "len"]   # k, v; MLA: ckv, krope
+    assert set(names) == set(jc) - {"len"}
+    for name in names:
         np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
                                    rtol=TOL, atol=TOL)
 
     # three decode steps from a cache padded to 20 positions
     jcache = jmodel.init_cache(2, 20)
     tcache = model.init_cache(2, 20)
-    for name in ("k", "v"):
+    for name in names:
         jcache[name] = jcache[name].at[:, :, :13].set(jc[name])
         tcache[name][:, :, :13] = tc[name]
     jcache["len"] = jc["len"]
@@ -108,13 +113,16 @@ def test_forward_prefill_decode_match_jax(arch):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
                                    atol=TOL)
     assert tcache["len"] == int(jcache["len"]) == 16
-    np.testing.assert_allclose(tcache["k"].numpy(), np.asarray(jcache["k"]),
-                               rtol=TOL, atol=TOL)
+    for name in names:
+        np.testing.assert_allclose(tcache[name].numpy(),
+                                   np.asarray(jcache[name]), rtol=TOL,
+                                   atol=TOL)
 
 
-def test_cache_specs_match_jax():
-    jmodel, _ = _jax_model("qwen2-1.5b")
-    model = build_model(get_smoke_config("qwen2-1.5b"), device="cpu")
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", *MOE])
+def test_cache_specs_match_jax(arch):
+    jmodel, _ = _jax_model(arch)
+    model = build_model(get_smoke_config(arch), device="cpu")
     want = jmodel.cache_specs(3, 40)
     got = model.cache_specs(3, 40)
     assert set(got) == set(want)
@@ -181,8 +189,7 @@ def test_checkpoint_round_trip_and_errors():
         load_flat(model, dict(mflat, ln_f=np.zeros(3, np.float32)))
 
 
-@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v2-lite-16b",
-                                  "mamba2-2.7b", "recurrentgemma-9b",
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b",
                                   "llama-3.2-vision-90b", "whisper-tiny"])
 def test_other_families_are_not_ported_yet(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):

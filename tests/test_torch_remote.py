@@ -14,7 +14,10 @@ packages at every step, also with faults injected and retried.
 The port's ``DiskExtentCache.fill`` differs from the reference on
 purpose: a caller that becomes the filler first looks at the cache
 again, so one that arrives after an earlier fill finished is served
-warm instead of fetching a second time."""
+warm instead of fetching a second time.  So does ``TieredReader``: a
+coalesced run the disk tier covers in part is read piece by piece, so a
+tier-billed merge the reference refuses (budget soundness) runs within
+budget on the port."""
 import dataclasses
 import os
 import threading
@@ -194,12 +197,18 @@ def _pipe(pkg, **kw):
 @pytest.mark.parametrize("coalesce", [True, False])
 def test_tier_billing_over_coalesced_runs_matches_reference(tmp_path,
                                                             coalesce):
-    """A fault the port inherits on purpose: tier billing prices a warm
-    block at the disk tier's weight, but a coalesced run that mixes warm
-    and cold blocks is fetched whole from remote, so the realized cold
-    bytes can pass the plan and execute_merge refuses the merge.  Both
-    packages refuse the same merge; without coalescing both run it and
-    move the same bytes."""
+    """Tier billing prices a warm block at the disk tier's weight.  With
+    coalescing, a run that mixes warm and cold blocks is fetched whole
+    from remote by the reference, so its realized cold bytes pass the
+    plan and its execute_merge refuses the merge.  The port reads such a
+    run piece by piece (a deliberate difference): it runs the merge with
+    realized remote bytes within the plan, from both tiers, and its
+    snapshot equals the reference engine's merge of the same plan over
+    local reads.  Without coalescing both packages run it and move the
+    same bytes."""
+    from repro.core.executor import execute_merge as jax_execute
+    from repro.core.plan import MergePlan as JaxMergePlan
+
     out = {}
     for pkg in ("jax", "port"):
         sess, ids = _pair_session(tmp_path, pkg, "float32", remote=True,
@@ -210,19 +219,63 @@ def test_tier_billing_over_coalesced_runs_matches_reference(tmp_path,
         _pair_merge(sess, pkg, ids)                  # warm
         budget = "30%"
         try:
-            res, _, io = _pair_merge(sess, pkg, ids, budget=budget,
-                                     tier_billing=True, coalesce=coalesce)
+            res, got, io = _pair_merge(sess, pkg, ids, budget=budget,
+                                       tier_billing=True, coalesce=coalesce)
             out[pkg] = ("ran", io, res.stats["c_expert_run"],
                         res.stats["c_expert_hat"])
+            payload = sess.catalog.get_plan(res.manifest["plan_id"])["payload"]
         except RuntimeError as e:
             assert "budget soundness violated" in str(e)
             out[pkg] = ("refused",)
         sess.close()
-    assert out["jax"] == out["port"]
-    assert out["port"][0] == ("refused" if coalesce else "ran")
     if not coalesce:
+        assert out["jax"] == out["port"]
         _, _io, run, hat = out["port"]
         assert run <= hat
+        return
+    assert out["jax"] == ("refused",)
+    _, io, run, hat = out["port"]
+    assert run == io["expert_remote_read"] <= hat
+    assert io["expert_disk_read"] > 0 and io["expert_remote_read"] > 0
+    # the reference engine on the port's plan, over local (flat) reads:
+    # the expert bytes it reads are the plan's logical ones, past the
+    # tier-billed hat, so its budget check is off
+    flat, _ids = _pair_session(tmp_path, "jax", "float32", remote=False)
+    ref = jax_execute(JaxMergePlan.from_payload(payload), flat.snapshots,
+                      flat.catalog, sid="ref", txn=flat.txn,
+                      enforce_budget=False)
+    assert ref.stats["c_expert_run"] > hat
+    assert_same_arrays(flat.load("ref"), got)
+    flat.close()
+
+
+@pytest.mark.parametrize("tier", ["warm", "cold"])
+def test_tier_billing_whole_tiers_match_reference(tmp_path, tier):
+    """Over a fully warm or a fully cold disk tier the port's piecewise
+    read never splits a run: a tier-billed TIES at 30% selects the same
+    blocks as the reference, moves the same bytes by category and the
+    same remote requests, and gives the same output."""
+    out = {}
+    for pkg in ("jax", "port"):
+        sess, ids = _pair_session(tmp_path, pkg, "float32", remote=True,
+                                  profile={"latency_s": 0.0})
+        sess.evict_disk_cache(0)
+        if tier == "warm":
+            _pair_merge(sess, pkg, ids, budget=1.0)  # every block cached
+        sess = _reopen(sess, pkg)
+        res, got, io = _pair_merge(sess, pkg, ids, budget="30%",
+                                   tier_billing=True)
+        plan = sess.catalog.get_plan(res.manifest["plan_id"])["payload"]
+        out[pkg] = (plan["selection"], io, res.stats["c_expert_run"],
+                    res.stats["c_expert_hat"], got)
+        sess.close()
+    assert out["jax"][:4] == out["port"][:4]
+    io = out["port"][1]
+    if tier == "warm":
+        assert io["expert_remote_read"] == 0 < io["expert_disk_read"]
+    else:
+        assert io["expert_disk_read"] == 0 < io["expert_remote_read"]
+    assert_same_arrays(out["jax"][4], out["port"][4])
 
 
 def test_late_filler_reads_the_cache_instead_of_fetching(tmp_path):

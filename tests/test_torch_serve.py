@@ -43,7 +43,8 @@ def _serve_both(arch, params, prompts, slots=2, max_len=32, new=6):
     return [r.out_tokens for r in jreqs], [r.out_tokens for r in reqs]
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "qwen2-1.5b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "qwen2-1.5b", "qwen3-14b",
+                                  "grok-1-314b", "deepseek-v2-lite-16b"])
 def test_greedy_tokens_equal_jax_engine(arch):
     """Five requests of mixed lengths on two slots: slots are recycled and
     the active slots decode from the longest length."""
