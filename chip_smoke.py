@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's merge, service, shard-worker, serve,
-MoE / MLA serve, training and store paths once on one NVIDIA card.
+MoE / MLA serve, hybrid (RG-LRU) serve, training and store paths once on
+one NVIDIA card.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 2 without
 
 Configuration: Qwen2-1.5B at its published widths (d_model 1536, 12 heads
 / 2 KV heads, head_dim 128, d_ff 8960, vocab 151936, QKV bias, tied
-embedding, rope_theta 1e6), stored in bfloat16, depth cut to 2 of 28
+embedding, rope_theta 1e6), stored in bfloat16, depth cut to 1 of 28
 decoder layers (``--layers``; 4 until the smoke passed 1,100 s with
-serve_mla beside it) plus the embedding and the final norm, in the model's own
+serve_mla beside it, 2 until it passed 1,200 s with serve_griffin beside
+it) plus the embedding and the final norm, in the model's own
 layout: the port's ``flatten_tree`` of ``DecoderLM`` (layer-stacked
 tensors named as the JAX package names them, e.g. ``attn/wq`` of shape
 (L, 1536, 12, 128)).  A base model (``DecoderLM`` init) and K = 4 "full"
@@ -18,7 +20,11 @@ serve_mla phase serves DeepSeek-V2-Lite at its published widths (d_model
 2048, 16 heads, MLA with kv_lora 512 and qk 192 / v 128 head dims, 64
 routed experts top-6 + 2 shared of d_ff 1408, vocab 102400), depth cut
 to MLA["layers"] of 27, its bf16 weights drawn on the card from
-``--seed``.
+``--seed``.  The serve_griffin phase serves RecurrentGemma-9B at its
+published widths (38 layers in the pattern recurrent, recurrent, local
+attention; d_model 4096, RG-LRU width 4096, 16 query heads over one kv
+head at head dim 256, window 2,048, d_ff 12288, vocab 256000), depth
+GRIFFIN["layers"], its bf16 weights drawn on the card from ``--seed``.
 
 Phases, one JSON line each:
 
@@ -27,7 +33,8 @@ Phases, one JSON line each:
            kernels) and
            flash_attention.cu (sm_90a), both at once; then each kernel's
            registers, spills and static shared memory from ptxas -v (the
-           tensor-core backward's kernels must not spill)
+           tensor-core backward's kernels, the MLA forwards and the
+           (256, 256) tensor-core forward must not spill)
   kernels  each Hopper kernel against its plain PyTorch version: the
            merge kernels at the merge path's largest window group (NB =
            32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), the
@@ -55,10 +62,11 @@ Phases, one JSON line each:
            route, "tc", and the float32-FMA route, "fma"), the tensor-core
            route with window 512 and at Sq = Sk = 256 and 1,000, the FMA
            route in float32 with window 512, a decode-style (1, 1,
-           2048, ...) with q_offset 2047, and DeepSeek-V2-Lite's prefill
-           (1, 2048, 2048, 16, 16) at qk 192 / v 128, bf16 on the tensor
-           cores and float32 on the FMA route, each with its profiler
-           device time (tolerance 2e-5 float32, 2e-2 bf16; the elements
+           2048, ...) with q_offset 2047, DeepSeek-V2-Lite's prefill
+           (1, 2048, 2048, 16, 16) at qk 192 / v 128 and RecurrentGemma-
+           9B's (1, 3072, 3072, 16, 1) at (256, 256) with window 2,048,
+           each bf16 on the tensor cores and float32 on the FMA route,
+           each with its profiler device time (tolerance 2e-5 float32, 2e-2 bf16; the elements
            that differ from the plain version counted); the flash backward (dq, dk, dv) against autograd
            through the plain version at (B, S, H, Hkv, hd) = (2, 1024,
            12, 2, 128) bf16 causal, the same with window 256, at hd 64,
@@ -143,6 +151,19 @@ Phases, one JSON line each:
            load, prefill and decode rates, the MoE's dropped-pair share
            at prefill, device busy time, idle share, top device ops,
            peak memory
+  serve_griffin  RecurrentGemma-9B (RG-LRU + local attention, hd 256)
+           drawn on the card, served by ServeEngine(batch_slots = 4,
+           max_len = 3,200): one prompt of 3,072 tokens (past the 2,048
+           window) and 3 of 512-2,048 from ``--seed``, 32 greedy tokens
+           each.  First float32 compute on the bf16 weights, the kernels
+           (the FMA route at (256, 256), one launch an attention layer a
+           request) against the plain attention: prefill logits within
+           LOGIT_TOL and identical greedy tokens; then bf16: one
+           tensor-core launch an attention layer a request, the profile
+           showing flash_attention_tc_kernel and no FMA kernel; load,
+           prefill and decode rates, device busy time, idle share, top
+           device ops, the RG-LRU scan's device time (its calls replayed)
+           and share, peak memory
   train    Qwen2-1.5B as published (28 layers, float32 params, bf16
            compute, remat), batch 4 x
            1,024 tokens from DataPipeline: the first step's loss and a
@@ -236,8 +257,11 @@ FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # line's row; "tc" is the tensor-core kernel, "fma" the float32-FMA
 # kernel.  The "mla" rows are DeepSeek-V2-Lite's prefill (qk 192 / v 128,
 # 16 heads): the serve_mla phase's tensor-core launches, and the FMA
-# route in float32 that its float32 parity run takes; both go into the
-# contract line (MLA_FA_ROWS) with their profiler device time
+# route in float32 that its float32 parity run takes; the "rg" rows the
+# same for RecurrentGemma-9B's local attention (qk / v 256, 16 heads over
+# one kv head, window 2,048) at the serve_griffin phase's longest prompt;
+# all four go into the contract line (FA_ROWS) with their profiler device
+# time
 FA_CASES = [
     ("prefill", (1, 2048, 2048, 12, 2, 128, 128), "bfloat16", True, 0, 0,
      "tc"),
@@ -257,12 +281,18 @@ FA_CASES = [
      0, "tc"),
     ("mla_prefill_f32", (1, 2048, 2048, 16, 16, 192, 128), "float32", True,
      0, 0, "fma"),
+    ("rg_prefill", (1, 3072, 3072, 16, 1, 256, 256), "bfloat16", True, 2048,
+     0, "tc"),
+    ("rg_prefill_f32", (1, 3072, 3072, 16, 1, 256, 256), "float32", True,
+     2048, 0, "fma"),
 ]
-# the MLA rows of the contract line: case label -> launch counter (the
-# serve_mla phase's counts: bf16 prefill on the tensor cores, the float32
-# run on the FMA kernel)
-MLA_FA_ROWS = {"mla_prefill": "flash_attention_mla",
-               "mla_prefill_f32": "flash_attention_mla_fma"}
+# the served models' rows of the contract line: case label -> launch
+# counter (the serve_mla and serve_griffin phases' counts: bf16 prefill on
+# the tensor cores, the float32 run on the FMA kernel)
+FA_ROWS = {"mla_prefill": "flash_attention_mla",
+           "mla_prefill_f32": "flash_attention_mla_fma",
+           "rg_prefill": "flash_attention_rg",
+           "rg_prefill_f32": "flash_attention_rg_fma"}
 # (label, (NB, K, W)) float32 TIES launches: the merge path's largest
 # window group and its median launch by rows (the merge phase reports the
 # launches' shapes: 15 rows of 128 KiB blocks, 1 to 46)
@@ -336,6 +366,22 @@ BWD_TOL = {"bfloat16": {"rtol": 2e-2, "atol": 2e-2},
 # max_len positions
 MLA = {"layers": 6, "requests": 4, "min_prompt": 512, "max_prompt": 2048,
        "new_tokens": 32, "batch_slots": 4, "max_len": 2560}
+# the serve_griffin phase: RecurrentGemma-9B at its published widths, all
+# 38 layers unless the whole smoke passes 1,080 s (then a depth = 2 mod 3,
+# so the two trailing recurrent layers still run): at 38 the smoke took
+# 1,084.2 s on an H100 80GB HBM3 at 700 W (the phase 65.4 s), at 32
+# 1,243.5 s on a slower host (the phase 48.5 s; the store phase 516.7 s
+# against 394.0), so 11 layers, where the phase's runs take ~1.3 s a
+# layer less; one prompt of "long" tokens (past the 2,048 window: the
+# kernel masks keys and the prefill's ring roll is not trivial) and
+# requests - 1 of min-max, new greedy tokens each, on batch_slots slots
+# of max_len
+GRIFFIN = {"layers": 11,
+           "cut_by": "at 38 the whole smoke took 1,084.2 s, at 32 "
+                     "1,243.5 s on a slower host",
+           "requests": 4, "long_prompt": 3072,
+           "min_prompt": 512, "max_prompt": 2048, "new_tokens": 32,
+           "batch_slots": 4, "max_len": 3200}
 # the train phase: Qwen2-1.5B as published (float32 params, bf16
 # compute, remat), batch x seq tokens a step, warm-up steps then timed
 TRAIN = {"batch": 4, "seq": 1024, "warmup": 1, "steps": 5, "lr": 3e-4}
@@ -979,8 +1025,8 @@ def flash_rows(device, seed, timer):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         }
-        if label in MLA_FA_ROWS:
-            row.update(counter=MLA_FA_ROWS[label], device_ms=kernel_device_ms(
+        if label in FA_ROWS:
+            row.update(counter=FA_ROWS[label], device_ms=kernel_device_ms(
                 kern, rf"\b{kernel}\b", timer))
         rows.append(row)
         del q, k, v, got, want, mask
@@ -2322,6 +2368,203 @@ def phase_serve_mla(device, seed):
             "flash_attention_mla_fma": fma_launches}
 
 
+@contextlib.contextmanager
+def scan_calls():
+    """Record the shape of every RG-LRU scan (``rglru.rglru_scan``, which
+    the recurrent layers call through the module) that runs inside."""
+    from repro_torch.models import rglru
+
+    scan = rglru.rglru_scan
+    shapes = collections.Counter()
+
+    def recording(a, b, h0=None):
+        shapes[tuple(a.shape)] += 1
+        return scan(a, b, h0)
+
+    rglru.rglru_scan = recording
+    try:
+        yield shapes
+    finally:
+        rglru.rglru_scan = scan
+
+
+def scan_device_ms(shapes, device):
+    """Device time (torch.profiler, all of its kernels) of the RG-LRU scans
+    ``shapes`` counts, each replayed as often on float32 inputs of its
+    shape, in one profiled window: the scan's part of a served run, which
+    its plain tensor ops leave nameless in the run's own profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import rglru
+
+    inputs = [(torch.rand(shape, device=device) * 0.9 + 0.05,
+               torch.randn(shape, device=device), n)
+              for shape, n in shapes.items()]
+    for a, b, _ in inputs:
+        rglru.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a, b, n in inputs:
+            for _ in range(n):
+                rglru.rglru_scan(a, b)
+        torch.cuda.synchronize()
+    return sum(device_time_ms(prof).values())
+
+
+def phase_serve_griffin(device, seed):
+    """Serve RecurrentGemma-9B (RG-LRU and local attention at qk / v 256,
+    16 query heads over one kv head, window 2,048) at its published widths,
+    its bf16 weights drawn on the card from ``seed``, through build_model
+    and ServeEngine: float32 compute against the plain attention (prefill
+    logits, greedy tokens; the FMA kernel at (256, 256)), then the bf16
+    run timed (its prefills on the tensor-core kernel: one launch an
+    attention layer a request) and profiled, with the RG-LRU scan's share
+    of the device time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              n_layers=GRIFFIN["layers"],
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    n_super = cfg.n_layers // 3
+    rng = np.random.default_rng(seed + 22)
+    lengths = [GRIFFIN["long_prompt"], *rng.integers(
+        GRIFFIN["min_prompt"], GRIFFIN["max_prompt"] + 1,
+        size=GRIFFIN["requests"] - 1)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lengths]
+    new = GRIFFIN["new_tokens"]
+    want_launches = len(prompts) * n_super
+
+    def run(model):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+        engine = ServeEngine(model, batch_slots=GRIFFIN["batch_slots"],
+                             max_len=GRIFFIN["max_len"])
+        return engine, reqs
+
+    def finished(reqs):
+        if not all(r.done and len(r.out_tokens) == new for r in reqs):
+            raise AssertionError("serve_griffin: a request did not finish")
+        if any(not 0 <= t < cfg.vocab_size for r in reqs
+               for t in r.out_tokens):
+            raise AssertionError("serve_griffin: token out of the "
+                                 "vocabulary")
+        return reqs
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(seed + 22)
+    model = build_model(cfg, device=device, generator=g)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # parity: float32 compute on the bf16 weights, the kernels (the FMA
+    # route at (256, 256)) against the plain attention; the engine run
+    # through the kernels is this phase's float32 serving, counted for
+    # the FMA row
+    worst = 0.0
+    t0 = time.perf_counter()
+    with compute_in(model, "float32"), torch.inference_mode():
+        for p in prompts:
+            toks = torch.as_tensor(p, dtype=torch.long, device=device)[None]
+            lk = model.prefill(toks)[0]
+            with plain_attention():
+                lp = model.prefill(toks)[0]
+            worst = max(worst, float((lk - lp).abs().max()))
+            if not torch.isfinite(lk).all() or not torch.allclose(
+                    lk, lp, **LOGIT_TOL):
+                raise AssertionError(f"serve_griffin parity: prefill logits "
+                                     f"differ by {worst} at prompt length "
+                                     f"{len(p)}")
+        engine, k_reqs = run(model)
+        fa.reset_launches()
+        engine.run(k_reqs)
+        fma_launches = (fa.LAUNCHES["flash_attention"]
+                        - fa.LAUNCHES["flash_attention_tc"])
+        if fma_launches != want_launches or fa.LAUNCHES["flash_attention_tc"]:
+            raise AssertionError(f"serve_griffin float32: {fa.LAUNCHES}, want "
+                                 f"{want_launches} FMA launches")
+        with plain_attention():
+            engine, p_reqs = run(model)
+            engine.run(p_reqs)
+    parity_s = time.perf_counter() - t0
+    same = [a.out_tokens == b.out_tokens
+            for a, b in zip(finished(k_reqs), finished(p_reqs))]
+    if not all(same):
+        raise AssertionError(f"serve_griffin parity: greedy tokens differ for "
+                             f"requests {[i for i, s in enumerate(same) if not s]}")
+
+    # warm-up (bf16 GEMMs, the kernel's first launch)
+    t0 = time.perf_counter()
+    engine, reqs = run(model)
+    engine.run(reqs)
+    finished(reqs)
+    warmup_s = time.perf_counter() - t0
+
+    # the main path: the launch count starts at 0 here and is read after
+    engine, reqs = run(model)
+    fa.reset_launches()
+    rates = timed_serve(engine, reqs)
+    launches = dict(fa.LAUNCHES)
+    finished(reqs)
+    if not (launches["flash_attention_tc"] == launches["flash_attention"]
+            == want_launches):
+        raise AssertionError(f"serve_griffin: {launches}, want one "
+                             f"tensor-core launch an attention layer a "
+                             f"request ({want_launches})")
+
+    def again():
+        engine, reqs = run(model)
+        engine.run(reqs)
+        finished(reqs)
+
+    with scan_calls() as scans:
+        profiled = profiled_serve(again, rates["wall_s"], "serve_griffin")
+    scan_ms = scan_device_ms(scans, device)
+    out = {
+        "phase": "serve_griffin", "config": cfg.name,
+        "layers": cfg.n_layers,
+        "layer_pattern": {"super_blocks": n_super, "rest_recurrent":
+                          cfg.n_layers % 3},
+        "params": n_params, "param_bytes": 2 * n_params,
+        "head_dims": {"qk": cfg.resolved_head_dim,
+                      "v": cfg.resolved_head_dim},
+        "heads": {"q": cfg.n_heads, "kv": cfg.n_kv_heads},
+        "local_window": cfg.local_window, "rglru_width": cfg.rglru_width,
+        "requests": len(prompts), "prompt_lengths": [int(n) for n in lengths],
+        "new_tokens": new, "batch_slots": GRIFFIN["batch_slots"],
+        "max_len": GRIFFIN["max_len"], "load_s": load_s,
+        "parity_s": parity_s, "warmup_s": warmup_s,
+        "parity": {"compute_dtype": "float32", "max_logit_diff": worst,
+                   "logit_tol": LOGIT_TOL, "tokens_identical": True,
+                   "fma_launches": fma_launches},
+        **rates,
+        "launches": {"flash_attention": launches["flash_attention"],
+                     "flash_attention_tc": launches["flash_attention_tc"]},
+        **profiled,
+        "rglru_scan": {"calls": sum(scans.values()),
+                       "shapes": {"x".join(map(str, k)): n
+                                  for k, n in scans.items()},
+                       "device_ms": scan_ms,
+                       "device_share": scan_ms / profiled["device_busy_ms"]},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(out)
+    del model, engine
+    torch.cuda.empty_cache()
+    return {"flash_attention_rg": launches["flash_attention_tc"],
+            "flash_attention_rg_fma": fma_launches}
+
+
 def train_flops(cfg, n_params, n_layer_params, batch, seq):
     """FLOPs of one training step: the model's (6·N·tokens, plus
     attention's 4·hd FLOP per live pair forward and 10·hd backward) and
@@ -3221,9 +3464,11 @@ def ptxas_report(log_path):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    # the merge path's depth: 2, since at 4 the whole smoke took 1,177.9
-    # s on an H100 80GB HBM3 at 700 W (serve_mla already at depth 6)
-    ap.add_argument("--layers", type=int, default=2)
+    # the merge path's depth: 1, since at 4 the whole smoke took 1,177.9
+    # s on an H100 80GB HBM3 at 700 W (serve_mla already at depth 6), and
+    # at 2 (serve_griffin at 32 beside it) 1,243.5 s on a slower host,
+    # past the 1,200 s the smoke is given
+    ap.add_argument("--layers", type=int, default=1)
     ap.add_argument("--block-size", type=int, default=128 * 1024)
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -3262,6 +3507,10 @@ def main() -> int:
                      f"layers; serve_mla (deepseek-v2-lite-16b): depth "
                      f"{MLA['layers']} of "
                      f"{get_config('deepseek-v2-lite-16b').n_layers}; "
+                     f"serve_griffin (recurrentgemma-9b): depth "
+                     f"{GRIFFIN['layers']} of "
+                     f"{get_config('recurrentgemma-9b').n_layers} "
+                     f"({GRIFFIN['cut_by']}); "
                      f"widths as published"})
 
     t0 = time.perf_counter()
@@ -3274,14 +3523,24 @@ def main() -> int:
     ptxas = {os.path.basename(lib.source): ptxas_report(lib.log_path())
              for lib in libraries}
     emit({"ptxas": ptxas})
-    spills = [n for n, r in ptxas["flash_attention.cu"].items()
-              if re.search(r"fa_bwd_\w*(tc|reduce)_kernel|flash_attention_"
-                           r"(tc_)?kernel(<\w*,? ?(192, 128|24, 16)>|"
-                           r"I\w*Li(192ELi128|24ELi16)E)", n)
-              and (r.get("spill_stores") or r.get("spill_loads"))]
+    # demangled names spell template arguments "(int)192"
+    watched = [n for n in ptxas["flash_attention.cu"]
+               if re.search(r"fa_bwd_\w*(tc|reduce)_kernel|flash_attention_"
+                            r"(tc_)?kernel(<\w*,? ?(192, 128|24, 16)>|"
+                            r"I\w*Li(192ELi128|24ELi16)E)|flash_attention_"
+                            r"tc_kernel(<256, 256>|ILi256ELi256E)",
+                            n.replace("(int)", ""))]
+    spills = [n for n in watched
+              if ptxas["flash_attention.cu"][n].get("spill_stores")
+              or ptxas["flash_attention.cu"][n].get("spill_loads")]
     if spills:
-        raise AssertionError(f"ptxas: the tensor-core backward or an MLA "
-                             f"forward spills in {spills}")
+        raise AssertionError(f"ptxas: the tensor-core backward, an MLA "
+                             f"forward or the (256, 256) tensor-core forward "
+                             f"spills in {spills}")
+    # 13 backward kernels, 6 MLA forwards, the tensor-core (256, 256)
+    if len(watched) != 20:
+        raise AssertionError(f"ptxas: want the 20 spill-checked kernels, "
+                             f"found {watched}")
 
     walls = {}
 
@@ -3306,6 +3565,8 @@ def main() -> int:
         served = timed("serve", phase_serve, device, seed, layers, merged)
         del merged
         served_mla = timed("serve_mla", phase_serve_mla, device, seed)
+        served_griffin = timed("serve_griffin", phase_serve_griffin, device,
+                               seed)
         trained = timed("train", phase_train, device, seed)
         loop = timed("loop", phase_loop, root, device, seed, LOOP["layers"],
                      bs)
@@ -3330,6 +3591,9 @@ def main() -> int:
     # DeepSeek-V2-Lite's prefill at (192, 128): the serve_mla phase's bf16
     # run (tensor cores) and its float32 run (FMA kernel)
     launches.update(served_mla)
+    # RecurrentGemma-9B's prefill at (256, 256): the serve_griffin phase's
+    # bf16 run (tensor cores) and its float32 run (FMA kernel)
+    launches.update(served_griffin)
     keys = ("name", "kernel", "route", "source", "replaces", "launches",
             "worker_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "copy_ms")
@@ -3338,14 +3602,16 @@ def main() -> int:
     # flash attention at the prefill shape through the tensor-core kernel
     # (the serve phase checked that every bf16 prefill launch took that
     # route), the forward at DeepSeek-V2-Lite's (192, 128) on both routes
-    # (MLA_FA_ROWS: the serve_mla phase's launches of each), the flash
+    # (FA_ROWS: the serve_mla phase's launches of each), RecurrentGemma's
+    # (256, 256) with window 2,048 on both routes (the serve_griffin
+    # phase's launches), the flash
     # backward at the training shape through the tensor-core route (its
     # launches: that route's counter)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_walls_s": walls})
     firsts = {}
     for r in rows:
-        if r.get("case") in MLA_FA_ROWS:
+        if r.get("case") in FA_ROWS:
             firsts[r["case"]] = r
         elif r.get("fa_route", "tc") == "tc":
             firsts.setdefault(r["name"], r)

@@ -12,7 +12,8 @@ kernel on a ported path is a CUDA kernel written for ``sm_90a``
     kernels/   Hopper merge and flash-attention kernels, their plain
                versions, merge_blocks, the nvcc builder
     configs/   model configurations (copies)
-    models/    dense GQA DecoderLM, attention, layers, build_model
+    models/    dense GQA / MoE DecoderLM, Griffin GriffinLM (RG-LRU),
+               attention, layers, build_model
     serve/     ServeEngine
     testing/   chaos crash points
     api/       typed budgets

@@ -5,15 +5,17 @@
 // (kernels/flash_attention.py, `_route`) picks one by dtype and head dim:
 //
 //   flash_attention_tc_kernel  bfloat16, (hd, hdv) in {(16, 16), (24, 16),
-//                              (32, 32), (64, 64), (128, 128), (192, 128)}:
-//                              products on the tensor cores, wgmma
-//                              (`fa_forward_tc`)
+//                              (32, 32), (64, 64), (128, 128), (192, 128),
+//                              (256, 256)}: products on the tensor cores,
+//                              wgmma (`fa_forward_tc`)
 //   flash_attention_kernel     float32 (those pairs and (8, 8)) and bfloat16
 //                              with hd = 8: float32 FMAs (`fa_forward`)
 //
 // hd is the q.k head dim, hdv v's and the output's: they differ for
 // DeepSeek-V2's multi-head latent attention (qk = nope 128 + rope 64 = 192,
-// v 128; 24 / 16 in its smoke config).  Both kernels are templates over
+// v 128; 24 / 16 in its smoke config); RecurrentGemma's local attention
+// takes (256, 256), 16 query heads over one kv head.  Both kernels are
+// templates over
 // <HD, HDV>: the Q and K tiles are HD wide; the V tile, the O accumulator,
 // the output store are HDV wide; m, l and lse are per query row.
 //
@@ -38,7 +40,10 @@
 // cores (13 us at 989 TFLOP/s).  At DeepSeek-V2-Lite's prefill, (1, 2048,
 // 2048, 16, 16) with qk 192 / v 128, it is 2 H (S (S + 1) / 2)(192 + 128)
 // = 21.5 GFLOP against about 42 MB (22 us against 12.5 us by bytes): the
-// tensor cores again.
+// tensor cores again.  At RecurrentGemma-9B's 3,072-token prefill, (1,
+// 3072, 3072, 16, 1) at (256, 256) with window 2,048, the ~4.2 M live
+// pairs a head are 2 H pairs (256 + 256) = 69 GFLOP against about 53 MB
+// of bf16 (70 us against 16 us by bytes): the tensor cores.
 //
 // flash_attention_kernel (the float32 route).  One CTA of 256 threads owns
 // one (b, h, 64-row q tile) and loops over 64-key tiles itself (the TPU
@@ -52,7 +57,9 @@
 // accumulator in registers, all float32; `expf` is the accurate one.
 // Scores and P.V are float32 FMAs, each beside a shared-memory load, on
 // the 67 TFLOP/s CUDA cores: exact enough for the float32 tolerance
-// (2e-5), far from the bound.
+// (2e-5), far from the bound.  At (256, 256) the tiles take 214,272 bytes
+// of shared memory (one CTA an SM, under the 232,448-byte opt-in) and the
+// accumulator 4 x 16 floats a thread.
 //
 // flash_attention_tc_kernel (the bfloat16 route) is described above its
 // definition below.
@@ -295,8 +302,8 @@ cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
 }
 
 // the (hd, hdv) pairs of the repo's configs: hd == hdv for the GQA
-// families, (192, 128) for DeepSeek-V2-Lite's MLA and (24, 16) for its
-// smoke config
+// families and RecurrentGemma's (256, 256), (192, 128) for
+// DeepSeek-V2-Lite's MLA and (24, 16) for its smoke config
 constexpr int pair(int hd, int hdv) { return hd * 1024 + hdv; }
 
 template <typename T>
@@ -310,6 +317,7 @@ cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
     case pair(64, 64): return launch<T, 64, 64>(p, batch_heads, stream);
     case pair(128, 128): return launch<T, 128, 128>(p, batch_heads, stream);
     case pair(192, 128): return launch<T, 192, 128>(p, batch_heads, stream);
+    case pair(256, 256): return launch<T, 256, 256>(p, batch_heads, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -318,7 +326,7 @@ cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
 // ------------------------------------------------ tensor-core route (bf16)
 // flash_attention_tc_kernel: the same function for bfloat16 operands with
 // (hd, hdv) in {(16, 16), (24, 16), (32, 32), (64, 64), (128, 128),
-// (192, 128)}, its products on the tensor cores.
+// (192, 128), (256, 256)}, its products on the tensor cores.
 //
 // Design (a FlashAttention-3-style warpgroup kernel without the producer
 // warp).  One CTA is one warpgroup of 4 warps and owns one (b, h, 64-row q
@@ -357,6 +365,21 @@ cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
 // reach as in the float32 kernel.  The grid runs (B * H, q tiles) with the q
 // tiles in reverse order, so the longest causal tiles of every head start
 // first and the short ones fill the tail.
+//
+// hdv 256 (RecurrentGemma).  One warpgroup cannot hold O at 256 columns:
+// 128 floats a thread beside S's 32 and P's 16 pass the 255-register limit
+// once addresses count ((192, 128) already takes 236).  So a CTA there is
+// two warpgroups (256 threads) over the same 64 q rows: both run S = Q.K^T
+// (16 k-steps) and the same register softmax on the same tile, so their m
+// and l agree bit for bit; warpgroup w keeps O's columns [128 w, 128 w +
+// 128) and runs P.V (m64n128k16) on V's descriptor advanced by two
+// 64-column atoms (16 KiB) a warpgroup.  The 256 threads share the
+// cp.async copies, warpgroup 0 writes lse and each warpgroup stores its
+// half of O.  Each thread's accumulators stay those of (192, 128) (ptxas:
+// 199 registers, no spill); shared memory holds Q (32 KiB), two K stages
+// (64 KiB) and two V stages (64 KiB): 161 KiB, one CTA an SM.  The cost is S computed twice: 1.5 times the tensor work of one S
+// and P.V, chosen over P through shared memory (a barrier between the
+// warpgroups each tile) for a first kernel that is simple and right.
 //
 // What it gives up: the products and the softmax of one CTA run one after
 // the other (two CTAs per SM overlap each other; no producer warp, no
@@ -504,17 +527,19 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 
 // Copy rows [0, n_valid) of a 64 x HD tile (row stride `ss` elements) into
-// the swizzled shared tile at `dst`, [HDP / 64][64][128 B]; rows past
-// n_valid and columns past HD become zeros.
-template <int HD, int HDP>
+// the swizzled shared tile at `dst`, [HDP / 64][64][128 B], with the NT
+// threads of the CTA (one warpgroup unless named); rows past n_valid and
+// columns past HD become zeros.
+template <int HD, int HDP, int NT = THREADS>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
                                           long long ss, int n_valid,
                                           int tid) {
   constexpr int C = HDP / 8;  // 16-byte chunks per row
+  static_assert(64 * C % NT == 0, "whole chunks a thread");
 #pragma unroll
-  for (int j = 0; j < 64 * C / THREADS; ++j) {
-    const int i = tid + j * THREADS;
+  for (int j = 0; j < 64 * C / NT; ++j) {
+    const int i = tid + j * NT;
     const int r = i / C, c = i % C;
     const bool ok = r < n_valid && c * 8 < HD;
     const __nv_bfloat16* g = ok ? src + r * ss + c * 8 : src;
@@ -577,6 +602,13 @@ __host__ __device__ constexpr int hd_padded() {
   return HD < 64 ? 64 : HD;
 }
 
+// warpgroups of a CTA: one, or one per 128 of O's columns past 128 (two at
+// hdv 256)
+template <int HDV>
+__host__ __device__ constexpr int warpgroups() {
+  return hd_padded<HDV>() > 128 ? hd_padded<HDV>() / 128 : 1;
+}
+
 template <int HD, int HDV>
 constexpr int smem_bytes() {
   // Q, two K stages, two V stages, and slack to align to 1,024 bytes
@@ -584,12 +616,16 @@ constexpr int smem_bytes() {
 }
 
 template <int HD, int HDV>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS * warpgroups<HDV>())
 flash_attention_tc_kernel(const Params p) {
   constexpr int HDP = hd_padded<HD>();
   constexpr int HDVP = hd_padded<HDV>();
+  constexpr int NWG = warpgroups<HDV>();
+  constexpr int NT = THREADS * NWG;     // threads of the CTA
+  constexpr int WN = HDVP / NWG;        // O columns of one warpgroup
+  constexpr int OCOLS = NWG == 1 ? HDV : WN;  // of them, stored
   static_assert(HD % 8 == 0 && HDV % 8 == 0 && HDP % 64 == 0 &&
-                    (HDVP == 64 || HDVP == 128),
+                    (WN == 64 || WN == 128) && (NWG == 1 || HDV == HDVP),
                 "16-byte chunks; whole swizzle atoms; wgmma N of 64 or 128");
   constexpr int TILE = 64 * HDP * 2;    // bytes of one Q or K tile
   constexpr int VTILE = 64 * HDVP * 2;  // bytes of one V tile
@@ -598,7 +634,8 @@ flash_attention_tc_kernel(const Params p) {
   const uint32_t ks = qs + TILE;
   const uint32_t vs = ks + 2 * TILE;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / THREADS, warp = (tid % THREADS) / 32;
   const int nqt = (p.sq + BQ - 1) / BQ;
   const int q0 = (nqt - 1 - static_cast<int>(blockIdx.y)) * BQ;
   const int b = blockIdx.x / p.h;
@@ -626,22 +663,23 @@ flash_attention_tc_kernel(const Params p) {
     lo = first > 0 ? first / BK : 0;
   }
 
-  load_tile<HD, HDP>(qs, q, p.q_ss, rows, tid);
+  load_tile<HD, HDP, NT>(qs, q, p.q_ss, rows, tid);
   if (lo < hi) {
     const int k0 = lo * BK;
-    load_tile<HD, HDP>(ks, k + k0 * p.k_ss, p.k_ss, p.sk - k0, tid);
-    load_tile<HDV, HDVP>(vs, v + k0 * p.v_ss, p.v_ss, p.sk - k0, tid);
+    load_tile<HD, HDP, NT>(ks, k + k0 * p.k_ss, p.k_ss, p.sk - k0, tid);
+    load_tile<HDV, HDVP, NT>(vs, v + k0 * p.v_ss, p.v_ss, p.sk - k0, tid);
   }
   cp_async_commit();
 
-  // accumulator fragments: warp w holds rows 16 w + g and 16 w + g + 8,
-  // columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-wide block j
+  // accumulator fragments: warp w of a warpgroup holds rows 16 w + g and
+  // 16 w + g + 8, columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-wide
+  // block j of its warpgroup's WN columns
   const int g = lane / 4, t4 = lane % 4;
   const int wrow = warp * 16;
   const float sl2 = p.scale * LOG2E;
-  float acc[HDVP / 2];
+  float acc[WN / 2];
 #pragma unroll
-  for (int j = 0; j < HDVP / 2; ++j) acc[j] = 0.f;
+  for (int j = 0; j < WN / 2; ++j) acc[j] = 0.f;
   float m_r[2] = {NEG, NEG};  // running max of rows g, g + 8 (log2 units)
   float l_r[2] = {0.f, 0.f};  // this thread's part of the running sums
 
@@ -649,10 +687,10 @@ flash_attention_tc_kernel(const Params p) {
     const int st = (kt - lo) & 1;
     if (kt + 1 < hi) {  // the next tile streams in while this one runs
       const int k1 = (kt + 1) * BK;
-      load_tile<HD, HDP>(ks + (st ^ 1) * TILE, k + k1 * p.k_ss, p.k_ss,
-                         p.sk - k1, tid);
-      load_tile<HDV, HDVP>(vs + (st ^ 1) * VTILE, v + k1 * p.v_ss, p.v_ss,
-                           p.sk - k1, tid);
+      load_tile<HD, HDP, NT>(ks + (st ^ 1) * TILE, k + k1 * p.k_ss, p.k_ss,
+                             p.sk - k1, tid);
+      load_tile<HDV, HDVP, NT>(vs + (st ^ 1) * VTILE, v + k1 * p.v_ss,
+                               p.v_ss, p.sk - k1, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -661,7 +699,8 @@ flash_attention_tc_kernel(const Params p) {
     fence_async_smem();
     __syncthreads();
     const uint32_t kst = ks + st * TILE;
-    const uint32_t vst = vs + st * VTILE;
+    // this warpgroup's columns of V: WN / 64 atoms of 8 KiB a warpgroup
+    const uint32_t vst = vs + st * VTILE + wg * (WN / 64) * 8192;
 
     // S = Q.K^T: k16 steps along hd, 32 bytes apart inside a 128-byte
     // swizzle row, 8 KiB apart across the 64-column halves
@@ -690,7 +729,7 @@ flash_attention_tc_kernel(const Params p) {
       softmax_tile<false>(s, m_r, l_r, alpha, p, qpos_lo + wrow + g,
                           k0 + 2 * t4, sl2);
 #pragma unroll
-    for (int j = 0; j < HDVP / 8; ++j) {
+    for (int j = 0; j < WN / 8; ++j) {
       acc[4 * j + 0] *= alpha[0];
       acc[4 * j + 1] *= alpha[0];
       acc[4 * j + 2] *= alpha[1];
@@ -712,7 +751,7 @@ flash_attention_tc_kernel(const Params p) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dv = desc(vst + kk * 2048, 8192, 1024);
-      if constexpr (HDVP == 128)
+      if constexpr (WN == 128)
         wgmma_rs_n128(acc, a[kk], dv);
       else
         wgmma_rs_n64(acc, a[kk], dv);
@@ -730,14 +769,15 @@ flash_attention_tc_kernel(const Params p) {
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int row = wrow + g + 8 * r;
-    // m_r is in log2 units: lse = m_r ln 2 + log(l), natural units
-    if (p.lse != nullptr && t4 == 0 && row < rows)
+    // m_r is in log2 units: lse = m_r ln 2 + log(l), natural units; the
+    // warpgroups' m and l are equal, warpgroup 0 writes it
+    if (p.lse != nullptr && wg == 0 && t4 == 0 && row < rows)
       p.lse[static_cast<long long>(blockIdx.x) * p.sq + q0 + row] =
           m_r[r] * LN2 + logf(fmaxf(l, 1e-30f));
     if (row < rows) {
-      __nv_bfloat16* orow = o + row * p.o_ss + 2 * t4;
+      __nv_bfloat16* orow = o + row * p.o_ss + wg * WN + 2 * t4;
 #pragma unroll
-      for (int j = 0; j < HDV / 8; ++j)
+      for (int j = 0; j < OCOLS / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
             __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
                                   acc[4 * j + 2 * r + 1] * inv);
@@ -753,7 +793,7 @@ cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch_heads, (p.sq + BQ - 1) / BQ);
-  kernel<<<grid, THREADS, bytes, stream>>>(p);
+  kernel<<<grid, THREADS * warpgroups<HDV>(), bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -766,6 +806,7 @@ cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
     case pair(64, 64): return launch<64, 64>(p, batch_heads, stream);
     case pair(128, 128): return launch<128, 128>(p, batch_heads, stream);
     case pair(192, 128): return launch<192, 128>(p, batch_heads, stream);
+    case pair(256, 256): return launch<256, 256>(p, batch_heads, stream);
     default: return cudaErrorInvalidValue;
   }
 }

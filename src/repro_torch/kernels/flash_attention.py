@@ -23,8 +23,10 @@ The route rule (:func:`_route`): bfloat16 with (hd, hdv) in
 strides in multiples of 8 elements, else the wrapper raises); float32,
 and bfloat16 with hd = 8, run ``flash_attention_kernel`` (float32 FMAs).
 Nothing falls back from one route to the other.  hd ≠ hdv is DeepSeek-V2's
-MLA: (192, 128) published, (24, 16) in its smoke config; any other pair
-raises "not ported yet" (recurrentgemma's (256, 256) among them).
+MLA: (192, 128) published, (24, 16) in its smoke config; (256, 256) is
+RecurrentGemma's local attention (the tensor-core kernel runs two
+warpgroups a CTA there, each holding half of O's columns); any other pair
+raises "not ported yet".
 
 The gradient: where grad mode is on and an operand requires grad,
 :func:`flash_attention` on CUDA tensors goes through
@@ -49,10 +51,11 @@ Both are deterministic (no float atomics); ``LAUNCHES
 shapes alone.  :func:`launch` itself stays forward only and raises on an
 operand that requires grad.
 On CPU tensors autograd runs through the plain version.  The backward
-covers the forward's pairs with hd == hdv (:data:`BWD_HEAD_DIMS`), with
+covers the forward's pairs with hd == hdv in :data:`BWD_HEAD_DIMS`, with
 ``q_offset = 0`` (training); any other ``q_offset`` raises, and hd ≠ hdv
-(MLA) raises ``NotImplementedError`` ("not ported yet") before any
-launch: nothing falls back to the plain version on the card.
+(MLA) or hd 256 (RecurrentGemma) raises ``NotImplementedError`` ("not
+ported yet") before any launch: nothing falls back to the plain version
+on the card.
 
 The forward kernels replace the Pallas kernel ``flash_attention_pallas``
 of the JAX package's ``kernels/flash_attention.py``; the JAX package has
@@ -76,9 +79,9 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0}
 #: (hd, hdv) pairs the forward kernels are built for: q.k's head dim and
 #: v's; (24, 16) and (192, 128) are DeepSeek-V2-Lite's MLA (smoke,
-#: published)
+#: published), (256, 256) RecurrentGemma-9B's local attention
 HEAD_DIMS = ((8, 8), (16, 16), (24, 16), (32, 32), (64, 64), (128, 128),
-             (192, 128))
+             (192, 128), (256, 256))
 #: the pairs of the tensor-core forward (bfloat16 only)
 TC_HEAD_DIMS = tuple(p for p in HEAD_DIMS if p[0] >= 16)
 #: head dims of the backward kernels (hdv == hd), and of its tensor-core
@@ -137,8 +140,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (hd, hdv) not in HEAD_DIMS:
         raise ValueError(
             f"flash_attention: head dims (hd {hd}, hdv {hdv}) are not "
-            f"ported yet; the kernels take (hd, hdv) in {HEAD_DIMS} "
-            f"(recurrentgemma's (256, 256) is not ported yet)")
+            f"ported yet; the kernels take (hd, hdv) in {HEAD_DIMS}")
     if min(b, sq, sk, h, hkv) == 0 or h % hkv != 0:
         raise ValueError(f"flash_attention: unsupported shape q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
@@ -252,7 +254,7 @@ def _cdiv(a: int, b: int) -> int:
 def _backward_ported(hd: int, hdv: int) -> None:
     """Raise ``NotImplementedError`` for head dims the backward kernels
     are not built for: hd ≠ hdv (MLA) or hd outside
-    :data:`BWD_HEAD_DIMS`."""
+    :data:`BWD_HEAD_DIMS` (RecurrentGemma's 256)."""
     if hd != hdv or hd not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention backward: head dims (hd {hd}, hdv {hdv}) are "
@@ -371,8 +373,8 @@ class FlashAttentionFn(torch.autograd.Function):
     tensor cores for bfloat16 with hd in :data:`BWD_TC_HEAD_DIMS`
     (forward ``flash_attention_tc_kernel``, backward ``fa_backward_tc``),
     float32 FMAs otherwise.  ``q_offset`` is 0.  Head dims the backward
-    is not ported to (hd ≠ hdv) raise ``NotImplementedError`` before the
-    forward launches."""
+    is not ported to (hd ≠ hdv, hd 256) raise ``NotImplementedError``
+    before the forward launches."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):

@@ -3,7 +3,9 @@
 ``build_model(cfg, device="cuda")`` returns the family implementation on
 ``device`` (a card that is not there raises; ``device="cpu"`` for the
 tests).  The dense and MoE families (the MoE family's DeepSeek-V2-Lite
-with MLA attention) are ported; the others raise.
+with MLA attention) run ``DecoderLM``, the hybrid family (Griffin /
+RecurrentGemma: RG-LRU and local attention) ``GriffinLM``; the others
+raise.
 ``load_flat`` / ``from_jax_flat`` fill a model from
 ``flatten_tree(params)`` of the JAX package, or from a merged snapshot
 of such a tree (the same names): numpy arrays, bf16 as the store's
@@ -21,19 +23,22 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.griffin_model import GriffinLM
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.store.checkpoint import copy_into, pick, to_tensor
 from repro_torch.train.grad_compress import init_error_feedback
 from repro_torch.train.optimizer import init_opt_state
 from repro_torch.train.train_state import TrainState, model_params
 
-_NOT_PORTED = ("ssm", "hybrid", "vlm", "audio")
+_NOT_PORTED = ("ssm", "vlm", "audio")
 
 
 def build_model(cfg: ModelConfig, device="cuda",
-                generator: Optional[torch.Generator] = None) -> DecoderLM:
+                generator: Optional[torch.Generator] = None) -> torch.nn.Module:
     if cfg.family in ("dense", "moe"):
         return DecoderLM(cfg, device=device, generator=generator)
+    if cfg.family == "hybrid":
+        return GriffinLM(cfg, device=device, generator=generator)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet")

@@ -25,6 +25,7 @@ Entry points:
     prefill(tokens) -> (logits, cache)       last-token logits, full cache
     decode_step(tokens, cache)               one position, cache in place
     cache_specs(batch, max_len) / init_cache(batch, max_len)
+    cache_batch_axes()                       each entry's batch axis
 
 ``decode_step`` writes the new position into ``cache`` in place and
 returns it (the reference returns an updated copy): the cache is the
@@ -158,6 +159,10 @@ class DecoderLM(nn.Module):
     # ------------------------------------------------------------ serving
     def _cache_names(self) -> Tuple[str, str]:
         return ("ckv", "krope") if self.cfg.mla else ("k", "v")
+
+    def cache_batch_axes(self) -> Dict[str, int]:
+        """The batch axis of each cache entry but ``len``: (L, B, S, ...)."""
+        return {name: 1 for name in self._cache_names()}
 
     def cache_specs(self, batch: int, max_len: int) -> Dict:
         """name -> (shape, dtype) of the decode cache."""

@@ -51,21 +51,22 @@ class ServeEngine:
     # -- single-request prefill, spliced into the shared cache ------------
     def _prefill_slot(self, slot: int, req: Request) -> int:
         """Prefill one request and write its row of every cache entry but
-        ``len`` (k / v, or MLA's ckv / krope: (L, B, S, ...)) into
-        ``slot``; the rest of the row is zeroed, as the reference's padded
-        splice."""
+        ``len`` into ``slot``: the model's ``cache_batch_axes()`` names
+        each entry's batch axis (``DecoderLM``'s (L, B, S, ...) entries:
+        1; ``GriffinLM``'s LRU states (n_super, 2, B, ...): 2).  The row
+        is zeroed and the request's entry written at its start along every
+        other axis, as the reference's zero-padded splice."""
         toks = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                device=self.device)[None, :]
         logits, cache1 = self.model.prefill(toks)
         # first generated token comes from the prefill logits
         req.out_tokens.append(self._sample(req, logits[0, 0]))
+        for name, axis in self.model.cache_batch_axes().items():
+            row = self.cache[name].select(axis, slot)
+            small = cache1[name].select(axis, 0)
+            row.zero_()
+            row[tuple(slice(0, n) for n in small.shape)] = small.to(row.dtype)
         s = cache1["len"]
-        for name in self.cache:
-            if name == "len":
-                continue
-            row = self.cache[name][:, slot]     # (L, max_len, ...)
-            row[:, s:].zero_()
-            row[:, :s] = cache1[name][:, 0].to(row.dtype)
         self.cache["len"] = s
         return s
 

@@ -214,13 +214,13 @@ def test_kernel_checks_refuse_cpu_operands():
 def test_route_rule(dtype, hd):
     """bf16 with hd >= 16 goes to the tensor-core kernel; float32 and bf16
     with hd = 8 to the FMA kernel, at each (hd, hdv) pair.  The backward
-    follows the same rule where hd == hdv, and raises "not ported yet"
-    for MLA's hd != hdv, from the shapes alone."""
+    follows the same rule where it is built, and raises "not ported yet"
+    for MLA's hd != hdv and for hd 256, from the shapes alone."""
     hdv = dict(tfa.HEAD_DIMS)[hd]
     route = tfa._route(getattr(torch, dtype), hd, hdv)
     assert route == ("tc" if dtype == "bfloat16" and hd >= 16 else "fma")
     assert route in tfa.ROUTES
-    if hd != hdv:
+    if hd != hdv or hd not in tfa.BWD_HEAD_DIMS:   # MLA; RecurrentGemma's 256
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tfa.backward_plan(2, 64, 64, 4, 2, hd, getattr(torch, dtype),
                               hdv=hdv)
@@ -231,15 +231,16 @@ def test_route_rule(dtype, hd):
                                      else "fa_bwd_dkdv_kernel")
 
 
-@pytest.mark.parametrize("hd,hdv", [(256, 256), (192, 192), (128, 64),
+@pytest.mark.parametrize("hd,hdv", [(256, 128), (192, 192), (128, 64),
                                     (16, 8), (96, 96)])
 def test_unported_head_dims_are_refused_before_the_device(hd, hdv):
-    """Pairs outside HEAD_DIMS (recurrentgemma's (256, 256) among them)
-    raise "not ported yet" from the shapes, before the operands' device:
-    the forward's check, launch(), and the backward."""
+    """Pairs outside HEAD_DIMS raise "not ported yet" from the shapes,
+    naming the pairs that are built, before the operands' device: the
+    forward's check, launch(), and the backward."""
     q = torch.zeros((1, 8, 4, hd), dtype=torch.bfloat16)
     v = torch.zeros((1, 8, 4, hdv), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=r"not ported yet.*\(256, 256\)"):
+    with pytest.raises(ValueError, match=r"not ported yet; the kernels take "
+                                         r"\(hd, hdv\) in .*\(256, 256\)"):
         tfa._check(q, q, v, 0, 0)
     with pytest.raises(ValueError, match="not ported yet"):
         tfa.launch(q, q, v, True, 0, 0, route="fma")
@@ -270,6 +271,31 @@ def test_mla_backward_refused_before_launch(hd, hdv):
     assert tfa.LAUNCHES["flash_attention"] == 0
     with pytest.raises(ValueError, match="CUDA"):           # the forward
         tfa.launch(q, q, v, True, 0, 0, route="tc")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_recurrentgemma_backward_refused_before_launch(dtype):
+    """RecurrentGemma's (256, 256): the forward takes it on both routes,
+    the backward raises NotImplementedError from the shapes alone
+    (backward and backward_plan on every route, and the autograd Function
+    before its forward launches)."""
+    q = torch.zeros((1, 8, 4, 256), dtype=getattr(torch, dtype))
+    lse = torch.zeros((1, 4, 8))
+    assert (256, 256) in tfa.HEAD_DIMS and 256 not in tfa.BWD_HEAD_DIMS
+    assert tfa._route(getattr(torch, dtype), 256, 256) == (
+        "tc" if dtype == "bfloat16" else "fma")
+    for route in (None, "tc", "fma"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tfa.backward(q, q, q, q, q, lse, True, 0, route=route)
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tfa.backward_plan(1, 8, 8, 4, 4, 256, getattr(torch, dtype),
+                              route)
+    tfa.reset_launches()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tfa.FlashAttentionFn.apply(q, q, q, True, 2048)
+    assert tfa.LAUNCHES["flash_attention"] == 0
+    with pytest.raises(ValueError, match="CUDA"):           # the forward
+        tfa.launch(q, q, q, True, 2048, 0, route="fma")
 
 
 @pytest.mark.parametrize("dtype,hd", [("float32", 16), ("float32", 128),

@@ -1,8 +1,9 @@
 """Card-only tests of the port: the Hopper kernels against their plain
 versions, merge_blocks on the card against the CPU, MergePipe on the
 card against the numpy stream engine, ANALYZE and a Session merge graph
-on the card against the CPU, and the model's prefill on the card
-against the CPU.  Imports nothing of JAX, so it
+on the card against the CPU, and the models' prefill and serving on the
+card against the CPU (the dense family, and Griffin at head dims 16 and
+256).  Imports nothing of JAX, so it
 runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -p no:cacheprovider tests/test_torch_cuda.py
@@ -1070,3 +1071,138 @@ def test_train_step_on_card_matches_cpu(cuda):
     for n in mc:
         np.testing.assert_allclose(mc[n], mh[n], rtol=1e-4,
                                    atol=1e-5 * float(np.abs(mh[n]).max()))
+
+
+# (B, Sq, Sk, H, Hkv, causal, window, q_offset) at (hd, hdv) = (256, 256),
+# RecurrentGemma-9B's local attention: its prefill shape (16 query heads
+# over one kv head, window 2,048), causal, a window, ragged Sq / Sk with
+# GQA, MQA with a q_offset, decode-style single queries, no mask
+RG_FA_CASES = [
+    (1, 3072, 3072, 16, 1, True, 2048, 0),
+    (2, 130, 130, 4, 1, True, 0, 0),
+    (1, 300, 300, 16, 1, True, 100, 0),
+    (2, 77, 200, 4, 2, True, 50, 70),
+    (1, 40, 300, 16, 1, True, 0, 260),
+    (1, 1, 2048, 16, 1, True, 2048, 2047),
+    (1, 1, 300, 16, 1, True, 0, 299),
+    (1, 100, 300, 4, 4, False, 0, 0),
+]
+RG_PARAMS = [pytest.param(case, dtype, route, id=f"{name}-{route}-{i}")
+             for i, case in enumerate(RG_FA_CASES)
+             for name, dtype, route in (("f32", torch.float32, "fma"),
+                                        ("bf16", torch.bfloat16, "fma"),
+                                        ("bf16", torch.bfloat16, "tc"))]
+
+
+@pytest.mark.parametrize("case,dtype,route", RG_PARAMS)
+def test_flash_attention_256_matches_plain(cuda, case, dtype, route):
+    """Both forward kernels at (256, 256) against the plain version (the
+    tensor-core route: two warpgroups a CTA, each half of O's columns)."""
+    b, sq, sk, h, hkv, causal, window, q_offset = case
+    rng = np.random.default_rng(sum(case[:5]))
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(device=cuda, dtype=dtype)
+               for s in ((b, sq, h, 256), (b, sk, hkv, 256),
+                         (b, sk, hkv, 256)))
+    assert tfa._route(torch.bfloat16, 256, 256) == "tc"
+    tfa.reset_launches()
+    if route == tfa._route(dtype, 256, 256):
+        got = tfa.flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
+    else:
+        got = tfa.launch(q, k, v, causal, window, q_offset, route)
+    assert tfa.LAUNCHES["flash_attention"] == 1
+    assert tfa.LAUNCHES["flash_attention_tc"] == int(route == "tc")
+    want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
+                                    skip_masked_chunks=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, sq, h, 256)
+    torch.testing.assert_close(got.float(), want.float(), rtol=FA_TOL[dtype],
+                               atol=FA_TOL[dtype])
+
+
+def test_flash_attention_256_lse_matches_fma(cuda):
+    """The tensor-core forward's per-row lse at (256, 256) (warpgroup 0
+    writes it) against the FMA kernel's on the same inputs in float32."""
+    q, k, v = (torch.randn(s, device=cuda).to(torch.bfloat16)
+               for s in ((1, 200, 4, 256), (1, 200, 1, 256),
+                         (1, 200, 1, 256)))
+    _, lse_tc = tfa._forward(q, k, v, True, 64, 0, "tc", with_lse=True)
+    _, lse = tfa._forward(q.float(), k.float(), v.float(), True, 64, 0, "fma",
+                          with_lse=True)
+    torch.testing.assert_close(lse_tc, lse, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_256_tc_refuses_misaligned(cuda):
+    """At (256, 256) too the tensor-core route raises on operands its
+    16-byte copies cannot read, and the backward is not ported."""
+    q = torch.zeros((1, 8, 4, 256), dtype=torch.bfloat16, device=cuda)
+    buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    q_off = buf[1:].view(q.shape)                           # 2-byte offset
+    tfa.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(q_off, q, q)
+    wide = torch.zeros((1, 8, 2, 260), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfa.flash_attention(q, wide[..., :256], wide[..., :256])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tfa.flash_attention(q.clone().requires_grad_(), q, q)
+    assert tfa.LAUNCHES["flash_attention"] == 0
+
+
+def test_flash_attention_256_tc_does_not_spill(cuda):
+    """ptxas -v of the library: the (256, 256) forward kernels spill no
+    registers."""
+    import re
+
+    tfa.LIBRARY.build()
+    with open(tfa.LIBRARY.log_path()) as f:
+        log = f.read()
+    found = {}
+    for name, body in re.findall(
+            r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
+            log, re.S):
+        if re.search(r"flash_attention_(tc_)?kernelI\w*Li256ELi256E", name):
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          body)
+            found[name] = (int(m.group(1)), int(m.group(2)))
+    assert len(found) == 3, found          # float32, bf16 FMA; tensor cores
+    assert all(v == (0, 0) for v in found.values()), found
+
+
+@pytest.mark.parametrize("head_dim", [16, 256])
+def test_griffin_prefill_and_serve_on_card_match_cpu(cuda, head_dim):
+    """float32: GriffinLM.prefill through the kernel on the card (one
+    launch an attention layer) against the plain version on the CPU
+    (1e-4: sums in another order), its cache entries, and the same greedy
+    tokens from both engines, prompts past the window of 8; at the smoke
+    config's head dim and at the published 256."""
+    import dataclasses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-9b"),
+                              head_dim=head_dim)
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = load_flat(build_model(cfg, device=cuda), flatten_tree(cpu))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 70)))
+    tfa.reset_launches()
+    lc, cc = card.prefill(toks.to(cuda))
+    assert tfa.LAUNCHES["flash_attention"] == cfg.n_layers // 3
+    lh, ch = cpu.prefill(toks)
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-4)
+    assert set(cc) == set(ch)
+    for name in set(ch) - {"len"}:
+        torch.testing.assert_close(cc[name].cpu(), ch[name], rtol=1e-4,
+                                   atol=1e-4)
+
+    prompts = [np.arange(n, dtype=np.int32) * 7 % cfg.vocab_size
+               for n in (5, 40, 12, 70, 3)]
+    out = []
+    for model in (card, cpu):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=5)
+                for i, p in enumerate(prompts)]
+        ServeEngine(model, batch_slots=2, max_len=96).run(reqs)
+        out.append([r.out_tokens for r in reqs])
+    assert out[0] == out[1]

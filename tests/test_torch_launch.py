@@ -35,6 +35,17 @@ def test_serve_merged_runs_on_the_cpu(capsys):
     assert all(r.done and len(r.out_tokens) == 12 for r in reqs)
 
 
+def test_serve_merged_hybrid_runs_on_the_cpu(capsys):
+    """train -> merge -> serve of the hybrid family (RecurrentGemma's smoke
+    config: RG-LRU and local attention) through the launcher."""
+    reqs = serve_merged.main(["--arch", "recurrentgemma-9b", "--device",
+                              "cpu", "--steps", "2"])
+    out = capsys.readouterr().out
+    assert "committed serve-merged" in out
+    assert len(reqs) == 6
+    assert all(r.done and len(r.out_tokens) == 12 for r in reqs)
+
+
 @pytest.mark.parametrize("launcher", [train_and_merge, serve_merged])
 def test_launchers_default_to_the_card(launcher):
     if torch.cuda.is_available():
