@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's merge, service, shard-worker, serve,
-MoE / MLA serve, hybrid (RG-LRU) serve, training and store paths once on
-one NVIDIA card.
+MoE / MLA serve, hybrid (RG-LRU) serve, training (dense, MoE / MLA and
+hybrid) and store paths once on one NVIDIA card.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 2 without
 
@@ -25,16 +25,20 @@ published widths (38 layers in the pattern recurrent, recurrent, local
 attention; d_model 4096, RG-LRU width 4096, 16 query heads over one kv
 head at head dim 256, window 2,048, d_ff 12288, vocab 256000), depth
 GRIFFIN["layers"], its bf16 weights drawn on the card from ``--seed``.
+The train_mla and train_griffin phases train the same two models at
+their published widths (float32 params, bf16 compute, remat), depth cut
+to TRAIN_MLA["layers"] and TRAIN_GRIFFIN["layers"].
 
 Phases, one JSON line each:
 
   build    nvcc builds src/repro_torch/csrc/merge_block.cu (merge,
            fused TIES, the TIES pair's threshold and apply, and sketch
-           kernels) and
-           flash_attention.cu (sm_90a), both at once; then each kernel's
-           registers, spills and static shared memory from ptxas -v (the
-           tensor-core backward's kernels, the MLA forwards and the
-           (256, 256) tensor-core forward must not spill)
+           kernels), flash_attention.cu (the forward) and
+           flash_attention_bwd.cu (the backward) for sm_90a, all three at
+           once; then each kernel's registers, spills and static shared
+           memory from ptxas -v (the tensor-core backward's kernels at
+           every pair, the MLA forwards and the (256, 256) tensor-core
+           forward must not spill)
   kernels  each Hopper kernel against its plain PyTorch version: the
            merge kernels at the merge path's largest window group (NB =
            32, K = 4, W = 65,536 float32; rtol = atol = 1e-5), the
@@ -70,7 +74,11 @@ Phases, one JSON line each:
            that differ from the plain version counted); the flash backward (dq, dk, dv) against autograd
            through the plain version at (B, S, H, Hkv, hd) = (2, 1024,
            12, 2, 128) bf16 causal, the same with window 256, at hd 64,
-           at the ragged length 1,000, and float32 hd 8 and 16 (BWD_TOL),
+           at the ragged length 1,000, and float32 hd 8 and 16, the
+           training phases' attention (DeepSeek-V2-Lite's (2, 2048, 16,
+           16) at qk 192 / v 128; RecurrentGemma-9B's (1, 3072, 16, 1) at
+           (256, 256) with window 2,048), each bf16 and float32, and
+           (24, 16) at a small shape (BWD_TOL),
            bf16 on both routes (tensor cores, then float32 FMAs; timed in
            turns, and the tensor cores must win at the first case: the
            route gate), two runs bit-equal, SDPA's backward as the
@@ -112,8 +120,9 @@ Phases, one JSON line each:
            budget: every job commits and verifies, c_expert_run <=
            c_expert_hat <= budget, the level's union of expert bytes
            below the per-job sum; wall, bytes by category, launches
-  shards   shard workers on the merge workspace: the four operators at
-           50% through Session.run_all(n_workers=2) (one python -m
+  shards   shard workers on the merge workspace: TIES and DARE
+           (SHARDS["pipelined"]) at 50% through
+           Session.run_all(n_workers=2) (one python -m
            repro_torch.launch.worker process a shard, kernel "torch" on
            the card), each snapshot bit-equal (tensor hashes) to the
            merge phase's local one with equal base, expert and output
@@ -174,6 +183,16 @@ Phases, one JSON line each:
            backward launches (two and one a layer a step; the backward on
            the tensor-core route for bf16), and one profiled step's
            device time by kernel and idle share
+  train_mla  the same for DeepSeek-V2-Lite (MLA + MoE: the flash
+           kernels at qk 192 / v 128, 64 routed experts top-6 + 2 shared),
+           TRAIN_MLA["layers"] of 27 layers, 2 x 2,048 tokens, 1 + 3
+           steps; its first step's plain pass replays the kernel pass's
+           expert choices (forward and remat's recompute, call by call)
+           and reports the flips; MFU over the active parameters
+  train_griffin  the same for RecurrentGemma-9B (RG-LRU + local
+           attention at (256, 256), 16 query heads over one kv head),
+           TRAIN_GRIFFIN["layers"] of 38 layers (one attention layer), 1 x
+           3,072 tokens (the window of 2,048 masks keys), 1 + 3 steps
   loop     at LOOP["layers"] layers: two experts (skills 0 and 1) from one
            seeded base with TrainLoop, checkpoints in a SnapshotStore;
            expert 0 crashed before step 3 and resumed from its step-2
@@ -340,19 +359,35 @@ SERVICE_SPEC = {"jobs": [
 # float32 serve parity, kernel against plain version: prefill logits of
 # std ~40 (vocab 151,936, d 1536) with attention sums in another order
 LOGIT_TOL = {"rtol": 1e-4, "atol": 2e-3}
-# (label, (B, S, H, Hkv, hd), dtype, causal, window): the flash backward
-# (q_offset 0) at the training phase's heads, bf16 (the tensor-core
-# forward's lse; both backward routes) and float32 (the FMA forward's lse;
-# the FMA route), at hd 64, and at a ragged length; the first is the
-# contract line's row and the route gate's shape
+# (label, (B, S, H, Hkv, hd, hdv), dtype, causal, window): the flash
+# backward (q_offset 0) at the training phase's heads, bf16 (the
+# tensor-core forward's lse; both backward routes) and float32 (the FMA
+# forward's lse; the FMA route), at hd 64, and at a ragged length; the
+# first is the contract line's row and the route gate's shape.  The "mla"
+# rows are the train_mla phase's attention (DeepSeek-V2-Lite: 16 heads,
+# qk 192 / v 128, 2 x 2,048 tokens), the "rg" rows the train_griffin
+# phase's (RecurrentGemma-9B: 16 query heads over one kv head at 256,
+# window 2,048 over 3,072 tokens), each bf16 on both routes (BWD_ROWS: in
+# the contract line) and float32 on the FMA route; "mla_smoke" is
+# DeepSeek's smoke config's (24, 16)
 BWD_CASES = [
-    ("train", (2, 1024, 12, 2, 128), "bfloat16", True, 0),
-    ("train_window", (2, 1024, 12, 2, 128), "bfloat16", True, 256),
-    ("hd64", (2, 1024, 8, 2, 64), "bfloat16", True, 0),
-    ("ragged", (2, 1000, 12, 2, 128), "bfloat16", True, 0),
-    ("f32_hd8", (1, 512, 4, 2, 8), "float32", True, 0),
-    ("f32_hd16", (1, 512, 4, 2, 16), "float32", True, 0),
+    ("train", (2, 1024, 12, 2, 128, 128), "bfloat16", True, 0),
+    ("train_window", (2, 1024, 12, 2, 128, 128), "bfloat16", True, 256),
+    ("hd64", (2, 1024, 8, 2, 64, 64), "bfloat16", True, 0),
+    ("ragged", (2, 1000, 12, 2, 128, 128), "bfloat16", True, 0),
+    ("f32_hd8", (1, 512, 4, 2, 8, 8), "float32", True, 0),
+    ("f32_hd16", (1, 512, 4, 2, 16, 16), "float32", True, 0),
+    ("mla_train", (2, 2048, 16, 16, 192, 128), "bfloat16", True, 0),
+    ("mla_train_f32", (2, 2048, 16, 16, 192, 128), "float32", True, 0),
+    ("rg_train", (1, 3072, 16, 1, 256, 256), "bfloat16", True, 2048),
+    ("rg_train_f32", (1, 3072, 16, 1, 256, 256), "float32", True, 2048),
+    ("mla_smoke", (2, 256, 4, 4, 24, 16), "bfloat16", True, 0),
 ]
+# the training phases' backward rows of the contract line: case label ->
+# launch counter (the train_mla and train_griffin phases' tensor-core
+# backward launches)
+BWD_ROWS = {"mla_train": "flash_attention_bwd_mla",
+            "rg_train": "flash_attention_bwd_rg"}
 # the backward against autograd through flash_attention_ref: float32 sums
 # in another order; bf16 gradients one bf16 rounding apart (the
 # tensor-core forward rounds P to bf16)
@@ -361,10 +396,11 @@ BWD_TOL = {"bfloat16": {"rtol": 2e-2, "atol": 2e-2},
 # the serve_mla phase: DeepSeek-V2-Lite at its published widths, depth
 # cut to "layers" of 27 (at all 27, 16.0 B bf16 parameters, the phase took
 # 53.7 s and the whole smoke 1,144.7 s on an H100 80GB HBM3 at 700 W,
-# past its 1,100 s aim), requests of
+# past its 1,100 s aim; 6 until the training phases came beside it),
+# requests of
 # min-max prompt tokens and new greedy tokens on batch_slots slots of
 # max_len positions
-MLA = {"layers": 6, "requests": 4, "min_prompt": 512, "max_prompt": 2048,
+MLA = {"layers": 3, "requests": 4, "min_prompt": 512, "max_prompt": 2048,
        "new_tokens": 32, "batch_slots": 4, "max_len": 2560}
 # the serve_griffin phase: RecurrentGemma-9B at its published widths, all
 # 38 layers unless the whole smoke passes 1,080 s (then a depth = 2 mod 3,
@@ -372,24 +408,56 @@ MLA = {"layers": 6, "requests": 4, "min_prompt": 512, "max_prompt": 2048,
 # 1,084.2 s on an H100 80GB HBM3 at 700 W (the phase 65.4 s), at 32
 # 1,243.5 s on a slower host (the phase 48.5 s; the store phase 516.7 s
 # against 394.0), so 11 layers, where the phase's runs take ~1.3 s a
-# layer less; one prompt of "long" tokens (past the 2,048 window: the
+# layer less, and 5 (one super-block and the two trailing recurrent
+# layers) since the training phases came; one prompt of "long" tokens
+# (past the 2,048 window: the
 # kernel masks keys and the prefill's ring roll is not trivial) and
 # requests - 1 of min-max, new greedy tokens each, on batch_slots slots
 # of max_len
-GRIFFIN = {"layers": 11,
+GRIFFIN = {"layers": 5,
            "cut_by": "at 38 the whole smoke took 1,084.2 s, at 32 "
-                     "1,243.5 s on a slower host",
+                     "1,243.5 s on a slower host, at 11 976.5 s before "
+                     "the training phases of DeepSeek-V2-Lite and "
+                     "RecurrentGemma-9B came",
            "requests": 4, "long_prompt": 3072,
            "min_prompt": 512, "max_prompt": 2048, "new_tokens": 32,
            "batch_slots": 4, "max_len": 3200}
 # the train phase: Qwen2-1.5B as published (float32 params, bf16
-# compute, remat), batch x seq tokens a step, warm-up steps then timed
-TRAIN = {"batch": 4, "seq": 1024, "warmup": 1, "steps": 5, "lr": 3e-4}
+# compute, remat; all its layers), batch x seq tokens a step, warm-up
+# steps then timed; its gradient sample
+TRAIN = {"config": "qwen2-1.5b", "layers": None, "batch": 4, "seq": 1024,
+         "warmup": 1, "steps": 5, "lr": 3e-4,
+         "grad_sample": ("embed/embedding", "attn/wq", "attn/bk", "attn/wo",
+                         "ln1", "ffn/w_down")}
 # the first step through the kernels against the same step through the
 # plain attention: bf16 compute over 28 layers, sums in another order
 TRAIN_TOL = {"loss_rtol": 1e-2, "grad_rel_l2": 5e-2}
-GRAD_SAMPLE = ("embed/embedding", "attn/wq", "attn/bk", "attn/wo", "ln1",
-               "ffn/w_down")
+# the train_mla phase: DeepSeek-V2-Lite at its published widths (float32
+# params, bf16 compute, remat), depth cut to 2 of 27 (1.38 B parameters,
+# ~22 GB with AdamW's moments and the gradients; 27 layers would need ~256
+# GB), 2 x 2,048 tokens a step, 1 + 3 AdamW steps; its gradient sample:
+# the MLA projections, a router and a routed expert's weight
+TRAIN_MLA = {"config": "deepseek-v2-lite-16b", "layers": 2, "batch": 2,
+             "seq": 2048, "warmup": 1, "steps": 3, "lr": 3e-4,
+             "grad_sample": ("attn/wq", "attn/w_dkv", "attn/w_uk",
+                             "attn/w_uv", "attn/wo", "ffn/router",
+                             "ffn/w_down"),
+             "counter": "flash_attention_bwd_mla",
+             "cut_by": "27 layers need ~256 GB with AdamW"}
+# the train_griffin phase: RecurrentGemma-9B at its published widths,
+# depth 5 of 38 (one super-block of two recurrent layers and a local
+# attention layer, then the two trailing recurrent layers: 5 = 2 mod 3;
+# 2.17 B parameters, ~35 GB with AdamW, a step's peak ~65 GB of an 80 GB
+# H100 with the float32 logits over 256,000 tokens; 38 layers would need
+# ~150 GB), 1 x 3,072 tokens (the 2,048 window masks keys in the
+# backward), 1 + 3 steps; its gradient sample: the attention projections
+# and the RG-LRU's gates
+TRAIN_GRIFFIN = {"config": "recurrentgemma-9b", "layers": 5, "batch": 1,
+                 "seq": 3072, "warmup": 1, "steps": 3, "lr": 3e-4,
+                 "grad_sample": ("attn/wq", "attn/wk", "attn/wv", "attn/wo",
+                                 "rec/w_r", "rec/w_i", "rec/lam"),
+                 "counter": "flash_attention_bwd_rg",
+                 "cut_by": "38 layers need ~150 GB with AdamW"}
 # the loop phase: two experts from one base, a crash of expert 0 before
 # step CRASH_AT, then ANALYZE, TIES at 50%, and serving the merge, at
 # LOOP["layers"] decoder layers (cut from the merge depth of 4 when the
@@ -422,8 +490,12 @@ STORE_IO = ("base_read", "expert_read", "expert_packed_read",
 # crash kills shard 1 after "crash_at" of its blocks; the whole-shard
 # ("mesh") merges run these operators (TIES alone since the whole smoke
 # passed 1,000 s with AVG beside it; the card tests and the kernels
-# phase's whole-shard row hold AVG's per-row divisor)
-SHARDS = {"workers": 2, "crash_at": 0.5, "whole_shard": ("ties",)}
+# phase's whole-shard row hold AVG's per-row divisor); the pipelined
+# windows run these (TIES and DARE since the training phases came: each
+# window is ~15 s of worker start and splice; AVG and TA stay in the
+# merge, service and inline paths)
+SHARDS = {"workers": 2, "crash_at": 0.5, "whole_shard": ("ties",),
+          "pipelined": ("ties", "dare")}
 # the linear kernel's whole-shard launch with a per-row divisor: about
 # the rows a shard stacks at a merge depth of 4 (6,418 blocks of the
 # 4-layer model over 2 workers), K = 4, 128 KiB bf16 blocks as float32
@@ -1086,15 +1158,19 @@ def flash_bwd_rows(device, seed, timer):
 
     g = torch.Generator(device=device).manual_seed(seed + 7)
     rows = []
-    for label, (b, s, h, hkv, hd), dt, causal, window in BWD_CASES:
+    for label, (b, s, h, hkv, hd, hdv), dt, causal, window in BWD_CASES:
         dtype = getattr(torch, dt)
+        # the training phases' shapes: FMA-route and plain calls of tens of
+        # ms, so fewer timed calls
+        reps, warm = ((7, 1) if b * s * s * h > 2 * 1024 * 1024 * 12
+                      else (25, 3))
 
         def rand(*shape):
             return torch.randn(shape, generator=g, device=device).to(dtype)
 
-        q, k, v = rand(b, s, h, hd), rand(b, s, hkv, hd), rand(b, s, hkv, hd)
-        do = rand(b, s, h, hd)
-        route = fa._route(dtype, hd, hd)
+        q, k, v = rand(b, s, h, hd), rand(b, s, hkv, hd), rand(b, s, hkv, hdv)
+        do = rand(b, s, h, hdv)
+        route = fa._route(dtype, hd, hdv)
         o, lse = fa._forward(q, k, v, causal, window, 0, route, with_lse=True)
         qkv = [t.clone().requires_grad_() for t in (q, k, v)]
         ref_out = ref.flash_attention_ref(*qkv, causal, window, 0)
@@ -1142,27 +1218,30 @@ def flash_bwd_rows(device, seed, timer):
         # host longer than the Timer's L2 flush runs, and then CUDA events
         # read host delay; every kernel of the profile but the flush's fill
         library_dev = kernel_device_ms(library, r"^(?!.*FillFunctor<unsign)",
-                                       timer)
+                                       timer, reps=min(reps * 3, 20))
         # both routes in turns: route, fma, fma, route
         turns = {r: [] for r in routes}
         for r in routes + routes[::-1]:
-            turns[r].append(timer(kerns[r]))
+            turns[r].append(timer(kerns[r], reps=reps, warm=warm))
         ms = {r: statistics.median(t) for r, t in turns.items()}
         if label == "train" and route == "tc" and ms["tc"] >= ms["fma"]:
             raise AssertionError(f"route gate: the tensor-core backward "
                                  f"({ms['tc']} ms) is not faster than the "
                                  f"FMA backward ({ms['fma']} ms)")
         kernels = [n for n, _ in fa.backward_plan(b, s, s, h, hkv, hd,
-                                                  dtype)["kernels"]]
+                                                  dtype, hdv=hdv)["kernels"]]
         by_kernel = None
         if route == "tc":  # device time of each kernel of the route
             by_kernel = {n: kernel_device_ms(kerns["tc"], n, timer)
                          for n in kernels}
 
         pairs = int(mask.sum())
-        flops = 10 * hd * pairs * b * h  # the five products
+        # the five products: S, dK and dQ over hd, dP and dV over hdv
+        flops = 2 * (3 * hd + 2 * hdv) * pairs * b * h
         el = q.element_size()
-        nbytes = (4 * q.numel() + 4 * k.numel()) * el + lse.numel() * 4
+        # q, dq, k, dk at hd; o, dO, v, dv at hdv; lse
+        nbytes = (2 * (q.numel() + k.numel() + v.numel() + do.numel()) * el
+                  + lse.numel() * 4)
         bytes_ms = nbytes / PEAK["bytes"] * 1e3
         ops_ms = flops / PEAK["bf16" if dt == "bfloat16" else "f32"] * 1e3
         bound = max(bytes_ms, ops_ms)
@@ -1177,14 +1256,16 @@ def flash_bwd_rows(device, seed, timer):
         rows.append({
             "name": "flash_attention_bwd", "route": "cuda", "case": label,
             "fa_route": route,
-            "counter": ("flash_attention_bwd_tc" if route == "tc"
-                        else "flash_attention_bwd"),
+            "counter": BWD_ROWS.get(label, "flash_attention_bwd_tc"
+                                    if route == "tc"
+                                    else "flash_attention_bwd"),
             "kernel": " + ".join(kernels),
-            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/attention.py:92",
             "replaces_note": "XLA autodiff of the jnp chunked attention; the "
                              "JAX package has no backward kernel",
-            "shape": [b, s, s, h, hkv, hd], "dtype": dt, "causal": causal,
+            "shape": [b, s, s, h, hkv, hd, hdv], "dtype": dt,
+            "causal": causal,
             "window": window, "forward_route": route, "tolerance": tol,
             "errors": errs[route], "fma_errors": errs.get("fma"),
             "sdpa_errors": sdpa_errs,
@@ -1194,8 +1275,9 @@ def flash_bwd_rows(device, seed, timer):
             "ms": ms[route], "fma_ms": ms["fma"], "route_turns_ms": turns,
             "device_ms_by_kernel": by_kernel,
             "device_ms": sum(by_kernel.values()) if by_kernel else None,
-            "plain_ms": timer(plain), "library_ms": library_dev,
-            "library_event_ms": timer(library),
+            "plain_ms": timer(plain, reps=reps, warm=warm),
+            "library_ms": library_dev,
+            "library_event_ms": timer(library, reps=reps, warm=warm),
             "copy_ms": None, "forward_ms": fwd, "flops": flops,
             "bytes": nbytes, "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1749,7 +1831,7 @@ def tail_ulps(sess, sid, ref_sid, w):
 
 
 def phase_shards(root, device, block_size, merged):
-    """Shard workers on the merge workspace: the four operators through
+    """Shard workers on the merge workspace: SHARDS["pipelined"] through
     Session.run_all(n_workers=2) (process transport, kernel "torch" on
     the card) against the merge phase's local snapshots; a TIES window
     whose shard 1 is killed mid-region and re-issued; whole-shard
@@ -1833,8 +1915,8 @@ def phase_shards(root, device, block_size, merged):
     sess = Session(os.path.join(root, "merge"), block_size=block_size,
                    device=device)
     try:
-        # 1. pipelined workers, every operator, against the local merge
-        for op, _theta in OPS:
+        # 1. pipelined workers, SHARDS["pipelined"], against the local merge
+        for op in SHARDS["pipelined"]:
             sid = f"shards-{op}"
             res, io, walls = shard_run(sid, op, DistOptions(n_workers=n))
             local = merged[op]
@@ -2565,35 +2647,73 @@ def phase_serve_griffin(device, seed):
             "flash_attention_rg_fma": fma_launches}
 
 
+def attention_layers(cfg):
+    """The layers that run attention: every layer, but for a hybrid the
+    non-recurrent entries of its block pattern (Griffin: one in three)."""
+    if not cfg.block_pattern:
+        return cfg.n_layers
+    pat = cfg.block_pattern
+    return sum(pat[i % len(pat)] != "rec" for i in range(cfg.n_layers))
+
+
+def attention_head_dims(cfg):
+    """(hd, hdv): q.k's head dim and v's (MLA: nope + rope, and v)."""
+    if cfg.mla:
+        return cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim
+    return cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
+def active_params(cfg, params):
+    """The parameters a token multiplies by: all of them, but of an MoE's
+    routed experts only the top-k of n_experts (the shared ones always)."""
+    n = sum(p.numel() for p in params.values())
+    if cfg.moe:
+        routed = sum(params[name].numel() for name in
+                     ("ffn/w_gate", "ffn/w_up", "ffn/w_down"))
+        n -= routed * (cfg.n_experts - cfg.experts_per_token) // cfg.n_experts
+    return n
+
+
 def train_flops(cfg, n_params, n_layer_params, batch, seq):
-    """FLOPs of one training step: the model's (6·N·tokens, plus
-    attention's 4·hd FLOP per live pair forward and 10·hd backward) and
-    remat's recomputed layer forward (2·N_layers·tokens + attention)."""
+    """FLOPs of one training step: the model's (6·N·tokens over the active
+    parameters ``n_params``, plus attention's 2·(hd + hdv) FLOP per live
+    pair and head forward and 2·(3·hd + 2·hdv) backward, over the
+    attention layers) and remat's recomputed layer forward
+    (2·N_layers·tokens + attention's forward)."""
     tokens = batch * seq
     pairs = seq * (seq + 1) // 2 if cfg.local_window == 0 else sum(
         min(i + 1, cfg.local_window) for i in range(seq))
-    per_hd = cfg.resolved_head_dim * pairs * batch * cfg.n_heads * cfg.n_layers
-    model = 6 * n_params * tokens + 14 * per_hd
-    remat = (2 * n_layer_params * tokens + 4 * per_hd) if cfg.remat else 0
+    hd, hdv = attention_head_dims(cfg)
+    per_pair = pairs * batch * cfg.n_heads * attention_layers(cfg)
+    fwd = 2 * (hd + hdv) * per_pair
+    model = 6 * n_params * tokens + fwd + 2 * (3 * hd + 2 * hdv) * per_pair
+    remat = (2 * n_layer_params * tokens + fwd) if cfg.remat else 0
     return model, remat
 
 
-def grad_sample(model):
+def grad_sample(model, names):
     import torch
 
     from repro_torch.train.train_state import model_params
 
     params = model_params(model)
-    out = {n: params[n].grad.detach().clone() for n in GRAD_SAMPLE}
+    out = {n: params[n].grad.detach().clone() for n in names}
     for p in params.values():
         p.grad = None
     return out
 
 
-def phase_train(device, seed):
-    """Train Qwen2-1.5B (its published config, all 28 layers) for a few
-    steps through make_train_step: the flash forward and backward kernels
-    on every layer, remat on."""
+def phase_train(device, seed, spec=TRAIN, phase="train"):
+    """Train ``spec["config"]`` at its published widths (``spec["layers"]``
+    deep, or all its layers) for a few steps through make_train_step: the
+    flash forward and backward kernels on every attention layer, remat
+    on.  First the first step's loss and ``spec["grad_sample"]`` through
+    the kernels against the same step through the plain attention (an
+    MoE's plain pass replaying the kernel pass's expert choices, forward
+    and remat's recompute in the same order, its flips counted), then
+    warm-up and timed steps with their launch counts, then one step under
+    the profiler.  Returns the launch counts, with the tensor-core
+    backward's also under ``spec["counter"]`` where the spec names one."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2604,41 +2724,61 @@ def phase_train(device, seed):
     from repro_torch.models import build_model
     from repro_torch.train.data import DataPipeline
     from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.train_state import init_train_state, make_train_step
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step, model_params)
 
-    cfg = get_config("qwen2-1.5b")
-    layers = cfg.n_layers
+    cfg = get_config(spec["config"])
+    published = cfg.n_layers
+    if spec.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    attn = attention_layers(cfg)
+    batch_n, seq = spec["batch"], spec["seq"]
     t0 = time.perf_counter()
     model = build_model(cfg, device=device)
     state = init_train_state(model, torch.Generator(device=device)
                              .manual_seed(seed))
+    torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    n_layer = n_params - model.embed["embedding"].numel() - model.ln_f.numel()
-    steps = TRAIN["warmup"] + TRAIN["steps"]
-    pipe = DataPipeline(cfg.vocab_size, batch=TRAIN["batch"],
-                        seq=TRAIN["seq"], seed=seed, device=device)
+    params = model_params(model)
+    n_params = sum(p.numel() for p in params.values())
+    n_active = active_params(cfg, params)
+    n_layer = n_active - model.embed["embedding"].numel() - model.ln_f.numel()
+    steps = spec["warmup"] + spec["steps"]
+    pipe = DataPipeline(cfg.vocab_size, batch=batch_n, seq=seq, seed=seed,
+                        device=device)
+
+    def routing(replay=None):
+        return (moe_routing(replay) if cfg.moe
+                else contextlib.nullcontext())
+
     try:
-        # the first step's loss and gradients: kernels, then plain
+        # the first step's loss and gradients: kernels, then plain (an
+        # MoE's plain pass replays the kernel pass's expert choices, call
+        # by call: the forward's, then remat's recompute in the backward)
+        t0 = time.perf_counter()
         batch0 = next(pipe)
-        loss_k = model.loss_fn(batch0)
-        loss_k.backward()
-        loss_k, grads_k = float(loss_k.detach()), grad_sample(model)
-        with plain_attention():
+        with routing() as rec:
+            loss_k = model.loss_fn(batch0)
+            loss_k.backward()
+        loss_k = float(loss_k.detach())
+        grads_k = grad_sample(model, spec["grad_sample"])
+        with plain_attention(), routing(rec) as rep:
             loss_p = model.loss_fn(batch0)
             loss_p.backward()
-        loss_p, grads_p = float(loss_p.detach()), grad_sample(model)
+        loss_p = float(loss_p.detach())
+        grads_p = grad_sample(model, spec["grad_sample"])
         rel = {n: float((grads_k[n] - grads_p[n]).norm()
                         / grads_p[n].norm().clamp(min=1e-30))
-               for n in GRAD_SAMPLE}
-        del grads_k, grads_p
+               for n in spec["grad_sample"]}
+        del grads_k, grads_p, rec
+        parity_s = time.perf_counter() - t0
         if (not np.isfinite(loss_k) or abs(loss_k - loss_p) >
                 TRAIN_TOL["loss_rtol"] * abs(loss_p)
                 or max(rel.values()) > TRAIN_TOL["grad_rel_l2"]):
-            raise AssertionError(f"train parity: loss {loss_k} vs plain "
+            raise AssertionError(f"{phase} parity: loss {loss_k} vs plain "
                                  f"{loss_p}, gradient errors {rel}")
 
-        opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=1, total_steps=steps)
+        opt = AdamWConfig(lr=spec["lr"], warmup_steps=1, total_steps=steps)
         step_fn = make_train_step(model, opt)
         # the main path: the launch counts start at 0 here, read after
         fa.reset_launches()
@@ -2665,44 +2805,51 @@ def phase_train(device, seed):
         prof_wall = time.perf_counter() - t
     finally:
         pipe.close()
-    # the backward's route for the model's compute dtype and head dim: the
-    # tensor cores for bf16 (where the kernels phase's route gate held)
-    bwd_plan = fa.backward_plan(
-        TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], cfg.n_heads,
-        cfg.n_kv_heads, cfg.resolved_head_dim,
-        getattr(torch, cfg.compute_dtype))
-    per = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+    # the backward's route for the model's compute dtype and head dims:
+    # the tensor cores for bf16 (where the kernels phase's route gate held)
+    hd, hdv = attention_head_dims(cfg)
+    bwd_plan = fa.backward_plan(batch_n, seq, seq, cfg.n_heads,
+                                cfg.n_kv_heads, hd,
+                                getattr(torch, cfg.compute_dtype), hdv=hdv)
+    per = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
            "flash_attention_bwd_tc":
-               layers if bwd_plan["route"] == "tc" else 0}
+               attn if bwd_plan["route"] == "tc" else 0}
     for name, n in per.items():  # remat: forward and its recompute
         if launches[name] != n * steps:
-            raise AssertionError(f"train: {launches} over {steps} steps, "
+            raise AssertionError(f"{phase}: {launches} over {steps} steps, "
                                  f"want {n} {name} launches a step")
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train: losses {losses}")
+        raise AssertionError(f"{phase}: losses {losses}")
     device_ms = device_time_ms(prof)
 
     def kernel_time(pattern):
         return sum(t for n, t in device_ms.items() if re.search(pattern, n))
 
     busy = sum(device_ms.values())
-    step_s = statistics.median(walls[TRAIN["warmup"]:])
-    tokens = TRAIN["batch"] * TRAIN["seq"]
-    model_flops, remat_flops = train_flops(cfg, n_params, n_layer,
-                                           TRAIN["batch"], TRAIN["seq"])
+    step_s = statistics.median(walls[spec["warmup"]:])
+    tokens = batch_n * seq
+    model_flops, remat_flops = train_flops(cfg, n_active, n_layer, batch_n,
+                                           seq)
     emit({
-        "phase": "train", "config": cfg.name, "layers": layers,
-        "params": n_params, "param_dtype": cfg.param_dtype,
+        "phase": phase, "config": cfg.name, "layers": cfg.n_layers,
+        "published_layers": published, "attention_layers": attn,
+        "head_dims": [hd, hdv], "params": n_params,
+        "active_params": n_active, "param_dtype": cfg.param_dtype,
         "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
-        "batch": TRAIN["batch"], "seq": TRAIN["seq"], "init_s": init_s,
+        "batch": batch_n, "seq": seq, "window": cfg.local_window,
+        "init_s": init_s, "parity_s": parity_s,
         "parity": {"loss": loss_k, "loss_plain": loss_p,
-                   "grad_rel_l2": rel, "tolerance": TRAIN_TOL},
+                   "grad_rel_l2": rel, "tolerance": TRAIN_TOL,
+                   **({"routing": "the plain pass replays the kernel "
+                                  "pass's expert choices",
+                       "routing_flips": rep["flips"]} if cfg.moe else {})},
         "step_walls_s": walls, "losses": losses,
         "median_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
         "model_flops": model_flops, "remat_flops": remat_flops,
         "mfu": model_flops / step_s / PEAK["bf16"],
         "hfu": (model_flops + remat_flops) / step_s / PEAK["bf16"],
         "peak_memory_gb": peak / 1e9, "launches": launches,
+        "backward_route": bwd_plan["route"],
         "profiled_step_s": prof_wall, "device_busy_ms": busy,
         "device_idle_share": 1 - busy / 1e3 / prof_wall,
         "flash_forward_ms": kernel_time(r"flash_attention(_tc)?_kernel"),
@@ -2713,8 +2860,10 @@ def phase_train(device, seed):
         "device_top_ms": dict(sorted(device_ms.items(),
                                      key=lambda kv: -kv[1])[:12]),
     })
-    del model, state, step_fn, batch, batch0
+    del model, state, step_fn, batch, batch0, params
     torch.cuda.empty_cache()
+    if spec.get("counter"):
+        launches[spec["counter"]] = launches["flash_attention_bwd_tc"]
     return launches
 
 
@@ -3502,9 +3651,17 @@ def main() -> int:
                      f"and serve; the train-merge-serve loop: depth "
                      f"{LOOP['layers']}; store: depth "
                      f"{STORE['layers']} (its zlib repack runs on the "
-                     f"host at ~9 MB/s); shards: whole-shard merges of "
-                     f"{', '.join(SHARDS['whole_shard'])} only; train: all "
-                     f"layers; serve_mla (deepseek-v2-lite-16b): depth "
+                     f"host at ~9 MB/s); shards: pipelined windows of "
+                     f"{', '.join(SHARDS['pipelined'])} only, whole-shard "
+                     f"merges of {', '.join(SHARDS['whole_shard'])} only; "
+                     f"train: all layers; train_mla (deepseek-v2-lite-16b): "
+                     f"depth {TRAIN_MLA['layers']} of "
+                     f"{get_config('deepseek-v2-lite-16b').n_layers} "
+                     f"({TRAIN_MLA['cut_by']}); train_griffin "
+                     f"(recurrentgemma-9b): depth {TRAIN_GRIFFIN['layers']} "
+                     f"of {get_config('recurrentgemma-9b').n_layers} "
+                     f"({TRAIN_GRIFFIN['cut_by']}); "
+                     f"serve_mla (deepseek-v2-lite-16b): depth "
                      f"{MLA['layers']} of "
                      f"{get_config('deepseek-v2-lite-16b').n_layers}; "
                      f"serve_griffin (recurrentgemma-9b): depth "
@@ -3514,7 +3671,7 @@ def main() -> int:
                      f"widths as published"})
 
     t0 = time.perf_counter()
-    libraries = (mb.LIBRARY, fa.LIBRARY)
+    libraries = (mb.LIBRARY, fa.LIBRARY, fa.BWD_LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as ex:  # one nvcc per source
         paths = list(ex.map(lambda lib: lib.build(), libraries))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -3524,22 +3681,26 @@ def main() -> int:
              for lib in libraries}
     emit({"ptxas": ptxas})
     # demangled names spell template arguments "(int)192"
-    watched = [n for n in ptxas["flash_attention.cu"]
+    watched = [(src, n) for src in ("flash_attention.cu",
+                                    "flash_attention_bwd.cu")
+               for n in ptxas[src]
                if re.search(r"fa_bwd_\w*(tc|reduce)_kernel|flash_attention_"
                             r"(tc_)?kernel(<\w*,? ?(192, 128|24, 16)>|"
                             r"I\w*Li(192ELi128|24ELi16)E)|flash_attention_"
                             r"tc_kernel(<256, 256>|ILi256ELi256E)",
                             n.replace("(int)", ""))]
-    spills = [n for n in watched
-              if ptxas["flash_attention.cu"][n].get("spill_stores")
-              or ptxas["flash_attention.cu"][n].get("spill_loads")]
+    spills = [n for src, n in watched
+              if ptxas[src][n].get("spill_stores")
+              or ptxas[src][n].get("spill_loads")]
     if spills:
-        raise AssertionError(f"ptxas: the tensor-core backward, an MLA "
+        raise AssertionError(f"ptxas: a tensor-core backward, an MLA "
                              f"forward or the (256, 256) tensor-core forward "
                              f"spills in {spills}")
-    # 13 backward kernels, 6 MLA forwards, the tensor-core (256, 256)
-    if len(watched) != 20:
-        raise AssertionError(f"ptxas: want the 20 spill-checked kernels, "
+    # 21 backward kernels (the tensor cores' preprocess at 5 hdv, dK / dV
+    # and dQ at 7 pairs; the GQA reduction into bf16 and into float32), 6
+    # MLA forwards, the tensor-core (256, 256) forward
+    if len(watched) != 28:
+        raise AssertionError(f"ptxas: want the 28 spill-checked kernels, "
                              f"found {watched}")
 
     walls = {}
@@ -3568,6 +3729,10 @@ def main() -> int:
         served_griffin = timed("serve_griffin", phase_serve_griffin, device,
                                seed)
         trained = timed("train", phase_train, device, seed)
+        trained_mla = timed("train_mla", phase_train, device, seed,
+                            TRAIN_MLA, "train_mla")
+        trained_griffin = timed("train_griffin", phase_train, device, seed,
+                                TRAIN_GRIFFIN, "train_griffin")
         loop = timed("loop", phase_loop, root, device, seed, LOOP["layers"],
                      bs)
         shutil.rmtree(os.path.join(root, "merge"), ignore_errors=True)
@@ -3594,6 +3759,14 @@ def main() -> int:
     # RecurrentGemma-9B's prefill at (256, 256): the serve_griffin phase's
     # bf16 run (tensor cores) and its float32 run (FMA kernel)
     launches.update(served_griffin)
+    # the training phases of DeepSeek-V2-Lite and RecurrentGemma-9B: their
+    # tensor-core backward launches (BWD_ROWS) and their tensor-core
+    # forwards at (192, 128) and (256, 256) beside the served ones
+    launches["flash_attention_bwd_mla"] = trained_mla[TRAIN_MLA["counter"]]
+    launches["flash_attention_bwd_rg"] = trained_griffin[
+        TRAIN_GRIFFIN["counter"]]
+    launches["flash_attention_mla"] += trained_mla["flash_attention_tc"]
+    launches["flash_attention_rg"] += trained_griffin["flash_attention_tc"]
     keys = ("name", "kernel", "route", "source", "replaces", "launches",
             "worker_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "copy_ms")
@@ -3611,7 +3784,8 @@ def main() -> int:
           "phase_walls_s": walls})
     firsts = {}
     for r in rows:
-        if r.get("case") in FA_ROWS:
+        if r.get("case") in FA_ROWS or (r.get("case") in BWD_ROWS
+                                        and r.get("fa_route") == "tc"):
             firsts[r["case"]] = r
         elif r.get("fa_route", "tc") == "tc":
             firsts.setdefault(r["name"], r)

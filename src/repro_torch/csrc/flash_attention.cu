@@ -1,6 +1,6 @@
 // Flash attention for NVIDIA Hopper (sm_90a), plain C interface: two
-// forward kernels and, at the end of this file, the backward's two routes
-// (float32 FMAs: three kernels; tensor cores: four).
+// forward kernels (their backward is flash_attention_bwd.cu; the helpers
+// both use, flash_attention_common.cuh).
 // The two forward kernels compute the same function; the wrapper
 // (kernels/flash_attention.py, `_route`) picks one by dtype and head dim:
 //
@@ -64,9 +64,7 @@
 // flash_attention_tc_kernel (the bfloat16 route) is described above its
 // definition below.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
@@ -88,15 +86,6 @@ struct Params {
   int sq, sk, h, g, causal, window, q_offset;
   float scale;
 };
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ bool attends(const Params& p, int qpos, int kpos) {
   bool valid = kpos < p.sk;
@@ -301,10 +290,6 @@ cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the (hd, hdv) pairs of the repo's configs: hd == hdv for the GQA
-// families and RecurrentGemma's (256, 256), (192, 128) for
-// DeepSeek-V2-Lite's MLA and (24, 16) for its smoke config
-constexpr int pair(int hd, int hdv) { return hd * 1024 + hdv; }
 
 template <typename T>
 cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
@@ -394,159 +379,8 @@ namespace tc {
 
 constexpr int BQ = 64;              // q rows per CTA: one warpgroup
 constexpr int BK = 64;              // keys per tile
-constexpr int THREADS = 128;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// cp.async writes through the generic proxy; wgmma reads through the async
-// proxy
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// byte offset (between atoms along M/N of an MN-major operand; unused for
-// K-major) and stride byte offset (between 8-row groups), all >> 4.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// d (64 x 64 f32) = A (64 x 16) . B^T (B 64 x 16), both K-major in shared
-// memory (descriptors); scale_d = 0 overwrites d, 1 accumulates
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64 f32) += A (64 x 16 bf16, registers) . B (16 x 64, MN-major
-// in shared memory, descriptor)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128 f32) += A (64 x 16 bf16, registers) . B (16 x 128, MN-major
-// in shared memory, descriptor)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// Copy rows [0, n_valid) of a 64 x HD tile (row stride `ss` elements) into
-// the swizzled shared tile at `dst`, [HDP / 64][64][128 B], with the NT
-// threads of the CTA (one warpgroup unless named); rows past n_valid and
-// columns past HD become zeros.
-template <int HD, int HDP, int NT = THREADS>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          long long ss, int n_valid,
-                                          int tid) {
-  constexpr int C = HDP / 8;  // 16-byte chunks per row
-  static_assert(64 * C % NT == 0, "whole chunks a thread");
-#pragma unroll
-  for (int j = 0; j < 64 * C / NT; ++j) {
-    const int i = tid + j * NT;
-    const int r = i / C, c = i % C;
-    const bool ok = r < n_valid && c * 8 < HD;
-    const __nv_bfloat16* g = ok ? src + r * ss + c * 8 : src;
-    cp_async16(dst + (c / 8) * 8192 + r * 128 + ((c % 8) ^ (r % 8)) * 16, g,
-               ok);
-  }
-}
 
 // Online softmax of one key tile in registers.  s[4 nb + e] is this
 // thread's score of row q + 8 (e / 2) and key k + 8 nb + (e & 1); on return
@@ -595,11 +429,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m_r)[2],
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
-}
-
-template <int HD>
-__host__ __device__ constexpr int hd_padded() {
-  return HD < 64 ? 64 : HD;
 }
 
 // warpgroups of a CTA: one, or one per 128 of O's columns past 128 (two at
@@ -813,1009 +642,6 @@ cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
 
 }  // namespace tc
 
-// ------------------------------------------------------------- backward
-// The gradient of both forward kernels, for the model's training step
-// (kernels/flash_attention.py `FlashAttentionFn`).  The JAX package has no
-// kernel here: it differentiates its jnp chunked attention
-// (src/repro/models/attention.py:92) by XLA autodiff, and its Pallas
-// kernel is forward only.  Given dO, q, k, v, the forward's o and its
-// per-row lse = m + log(l) (natural units, float32), with
-// P = exp(scale q.k - lse) on the attended pairs and 0 elsewhere:
-//
-//   D  = rowsum(dO o)                      fa_bwd_preprocess_kernel
-//   dP = dO v^T,  dS = P (dP - D)
-//   dV = P^T dO,  dK = scale dS^T q        fa_bwd_dkdv_kernel
-//   dQ = scale dS k                        fa_bwd_dq_kernel
-//
-// Deterministic by construction: every output element is written by one
-// CTA, which sums in a fixed order; no float atomics.  So two backward
-// runs give the same bits, and a resumed training run the same state.
-//
-// fa_bwd_dkdv_kernel: one CTA of 256 threads per (b, kv head, 64-key
-// tile).  It loops over the g query heads of its kv head and, for each,
-// over the 64-row query tiles the causal / window mask lets reach its
-// keys (skipping a fully masked tile is exact), recomputing S and P from
-// q, k and lse; dK and dV stay in registers for the whole loop.
-// fa_bwd_dq_kernel: one CTA per (b, head, 64-row query tile), looping over
-// the key tiles of the forward's reach; dQ stays in registers.  Tiles are
-// staged in shared memory as float32 (rows padded to hd + 1 against bank
-// conflicts); the products are float32 FMAs, as in the forward's FMA
-// kernel, for both dtypes.
-//
-// What bounds it.  The backward's five products are 10 B H Sq Sk hd FLOP
-// (half under causal); at the training shape (4, 1024, 1024, 12, 2, 128)
-// that is ~26 GFLOP per layer against ~31 MB of operands: far above the
-// card's ~295 bf16 FLOP per byte, so the tensor cores bound it.  This
-// kernel does seven products (S and dP twice) on the 67 TFLOP/s CUDA
-// cores, with one CTA per SM (~160 KiB of shared memory each), and the
-// causal dK/dV CTAs are unbalanced (the first key tile sees every query
-// tile).  These kernels are the FMA route (`fa_backward`: float32, and
-// bfloat16 with hd 8); bfloat16 with hd >= 16 takes the tensor-core route
-// below (`fa_backward_tc`, namespace bwd_tc).
-
-namespace bwd {
-
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;
-constexpr int PP = BK + 1;    // padded row of a P / dS tile
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
-  const float* lse;    // (B, H, Sq)
-  float* delta;        // (B, H, Sq): rowsum(dO o)
-  void* dq;
-  void* dk;
-  void* dv;
-  long long q_sb, q_ss, q_sh;     // element strides over (b, s, h)
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  long long do_sb, do_ss, do_sh;
-  long long dq_sb, dq_ss, dq_sh;
-  long long dk_sb, dk_ss, dk_sh;
-  long long dv_sb, dv_ss, dv_sh;
-  int sq, sk, h, g, causal, window;
-  float scale;
-};
-
-__device__ __forceinline__ bool attends(const Params& p, int qpos, int kpos) {
-  bool valid = kpos < p.sk;
-  if (p.causal) valid = valid && qpos >= kpos;
-  if (p.window > 0) valid = valid && (qpos - kpos < p.window);
-  return valid;
-}
-
-// D = rowsum(dO o): one warp per row, 8 rows per CTA pass
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_preprocess_kernel(const Params p, int hd) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.y, b = bh / p.h, head = bh % p.h;
-  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + head * p.o_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + head * p.do_sh;
-  const int r_end = min(p.sq, (blockIdx.x + 1) * BQ);
-  for (int r = blockIdx.x * BQ + warp; r < r_end; r += THREADS / 32) {
-    float s = 0.f;
-    for (int d = lane; d < hd; d += 32)
-      s = fmaf(load_f32(o + r * p.o_ss + d), load_f32(dout + r * p.do_ss + d),
-               s);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) p.delta[static_cast<long long>(bh) * p.sq + r] = s;
-  }
-}
-
-// Stage rows [0, n) of a tile of 64 rows (row stride ss elements) into
-// shared memory as float32 with row pitch HD + 1; rows past n are zeros.
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long ss,
-                                      int n, int tid) {
-  for (int i = tid; i < 64 * HD; i += THREADS) {
-    const int r = i / HD, d = i % HD;
-    dst[r * (HD + 1) + d] = r < n ? load_f32(src + r * ss + d) : 0.f;
-  }
-}
-
-// S = A.B^T and dP = C.E^T over hd for one (64 x 64) tile pair: thread
-// (sy, sx) owns rows sy*4 + i and columns sx + 16 j, as the forward's
-// score loop does
-template <int HD>
-__device__ __forceinline__ void two_products(const float* A, const float* B,
-                                             const float* C, const float* E,
-                                             float (&s)[4][4],
-                                             float (&dp)[4][4], int sy,
-                                             int sx) {
-  constexpr int HP = HD + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float a[4], bb[4], c[4], e[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = A[(sy * 4 + i) * HP + d];
-      c[i] = C[(sy * 4 + i) * HP + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bb[j] = B[(sx + 16 * j) * HP + d];
-      e[j] = E[(sx + 16 * j) * HP + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i], bb[j], s[i][j]);
-        dp[i][j] = fmaf(c[i], e[j], dp[i][j]);
-      }
-  }
-}
-
-template <int HD>
-constexpr int dkdv_smem_floats() {
-  return 4 * 64 * (HD + 1) + 2 * BQ * PP + 2 * BQ;
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dkdv_kernel(const Params p) {
-  extern __shared__ float smem[];
-  constexpr int HP = HD + 1;
-  float* Ks = smem;                 // [BK][HP]
-  float* Vs = Ks + BK * HP;         // [BK][HP]
-  float* Qs = Vs + BK * HP;         // [BQ][HP]
-  float* dOs = Qs + BQ * HP;        // [BQ][HP]
-  float* Ps = dOs + BQ * HP;        // [BQ][PP]
-  float* dSs = Ps + BQ * PP;        // [BQ][PP]
-  float* lse_s = dSs + BQ * PP;     // [BQ]
-  float* D_s = lse_s + BQ;          // [BQ]
-
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BK;
-  const int hkv = p.h / p.g;
-  const int b = blockIdx.y / hkv, kvh = blockIdx.y % hkv;
-  const int keys = min(BK, p.sk - k0);
-
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  stage<T, HD>(Ks, k + k0 * p.k_ss, p.k_ss, keys, tid);
-  stage<T, HD>(Vs, v + k0 * p.v_ss, p.v_ss, keys, tid);
-
-  // the query tiles whose mask reaches keys [k0, k0 + keys)
-  const int nq = (p.sq + BQ - 1) / BQ;
-  const int qt_lo = p.causal ? min(nq, k0 / BQ) : 0;
-  int qt_hi = nq;
-  if (p.window > 0) qt_hi = min(nq, (k0 + keys - 1 + p.window - 1) / BQ + 1);
-
-  const int sy = tid / 16, sx = tid % 16;
-  // dK and dV: thread (py, px) owns key rows py*RPT + i, columns px + TX*j
-  constexpr int TX = HD < 16 ? HD : 16;
-  constexpr int TY = THREADS / TX;
-  constexpr int RPT = BK / TY;
-  constexpr int CPT = HD / TX;
-  const int py = tid / TX, px = tid % TX;
-  float dk[RPT][CPT], dv[RPT][CPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  for (int hq = 0; hq < p.g; ++hq) {
-    const int head = kvh * p.g + hq;
-    const long long bh = static_cast<long long>(b) * p.h + head;
-    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + head * p.q_sh;
-    const T* dout =
-        static_cast<const T*>(p.dout) + b * p.do_sb + head * p.do_sh;
-    for (int qt = qt_lo; qt < qt_hi; ++qt) {
-      const int q0 = qt * BQ;
-      const int rows = min(BQ, p.sq - q0);
-      __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
-      stage<T, HD>(Qs, q + q0 * p.q_ss, p.q_ss, rows, tid);
-      stage<T, HD>(dOs, dout + q0 * p.do_ss, p.do_ss, rows, tid);
-      for (int r = tid; r < BQ; r += THREADS) {
-        lse_s[r] = r < rows ? p.lse[bh * p.sq + q0 + r] : 0.f;
-        D_s[r] = r < rows ? p.delta[bh * p.sq + q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      float s[4][4], dp[4][4];
-      two_products<HD>(Qs, Ks, dOs, Vs, s, dp, sy, sx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = sy * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = sx + 16 * j;
-          // a select, not a product: lse of a masked row may be -1e30
-          const float pe = r < rows && attends(p, q0 + r, k0 + c)
-                               ? expf(s[i][j] * p.scale - lse_s[r])
-                               : 0.f;
-          Ps[r * PP + c] = pe;
-          dSs[r * PP + c] = pe * (dp[i][j] - D_s[r]);
-        }
-      }
-      __syncthreads();
-
-      // dV += P^T dO, dK += dS^T Q over the tile's rows
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float pv[RPT], ds[RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          pv[i] = Ps[r * PP + py * RPT + i];
-          ds[i] = dSs[r * PP + py * RPT + i];
-        }
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const float dov = dOs[r * HP + px + TX * j];
-          const float qv = Qs[r * HP + px + TX * j];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            dv[i][j] = fmaf(pv[i], dov, dv[i][j]);
-            dk[i][j] = fmaf(ds[i], qv, dk[i][j]);
-          }
-        }
-      }
-    }
-  }
-
-  T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
-  T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int c = py * RPT + i;
-    if (c < keys) {
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        store_f32(dkp + (k0 + c) * p.dk_ss + px + TX * j, dk[i][j] * p.scale);
-        store_f32(dvp + (k0 + c) * p.dv_ss + px + TX * j, dv[i][j]);
-      }
-    }
-  }
-}
-
-template <int HD>
-constexpr int dq_smem_floats() {
-  return 4 * 64 * (HD + 1) + BQ * PP + 2 * BQ;
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dq_kernel(const Params p) {
-  extern __shared__ float smem[];
-  constexpr int HP = HD + 1;
-  float* Qs = smem;                 // [BQ][HP]
-  float* dOs = Qs + BQ * HP;        // [BQ][HP]
-  float* Ks = dOs + BQ * HP;        // [BK][HP]
-  float* Vs = Ks + BK * HP;         // [BK][HP]
-  float* dSs = Vs + BK * HP;        // [BQ][PP]
-  float* lse_s = dSs + BQ * PP;     // [BQ]
-  float* D_s = lse_s + BQ;          // [BQ]
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const long long bh = blockIdx.y;
-  const int b = blockIdx.y / p.h, head = blockIdx.y % p.h;
-  const int kvh = head / p.g;
-  const int rows = min(BQ, p.sq - q0);
-
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + head * p.q_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + head * p.do_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  stage<T, HD>(Qs, q + q0 * p.q_ss, p.q_ss, rows, tid);
-  stage<T, HD>(dOs, dout + q0 * p.do_ss, p.do_ss, rows, tid);
-  for (int r = tid; r < BQ; r += THREADS) {
-    lse_s[r] = r < rows ? p.lse[bh * p.sq + q0 + r] : 0.f;
-    D_s[r] = r < rows ? p.delta[bh * p.sq + q0 + r] : 0.f;
-  }
-
-  // the key tiles this query tile reaches (the forward's loop bounds)
-  const int nk = (p.sk + BK - 1) / BK;
-  int hi = nk;
-  if (p.causal) hi = min(nk, (q0 + rows + BK - 1) / BK);
-  int lo = 0;
-  if (p.window > 0) {
-    const int first = q0 - p.window + 1;
-    lo = first > 0 ? first / BK : 0;
-  }
-
-  const int sy = tid / 16, sx = tid % 16;
-  constexpr int TX = HD < 16 ? HD : 16;
-  constexpr int TY = THREADS / TX;
-  constexpr int RPT = BQ / TY;
-  constexpr int CPT = HD / TX;
-  const int py = tid / TX, px = tid % TX;
-  float dq[RPT][CPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) dq[i][j] = 0.f;
-
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's K, V and dS are consumed
-    stage<T, HD>(Ks, k + k0 * p.k_ss, p.k_ss, p.sk - k0, tid);
-    stage<T, HD>(Vs, v + k0 * p.v_ss, p.v_ss, p.sk - k0, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    two_products<HD>(Qs, Ks, dOs, Vs, s, dp, sy, sx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = sy * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = sx + 16 * j;
-        const float pe = r < rows && attends(p, q0 + r, k0 + c)
-                             ? expf(s[i][j] * p.scale - lse_s[r])
-                             : 0.f;
-        dSs[r * PP + c] = pe * (dp[i][j] - D_s[r]);
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K over the tile's keys
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float ds[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) ds[i] = dSs[(py * RPT + i) * PP + c];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float kv = Ks[c * HP + px + TX * j];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) dq[i][j] = fmaf(ds[i], kv, dq[i][j]);
-      }
-    }
-  }
-
-  T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + head * p.dq_sh;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = py * RPT + i;
-    if (r < rows) {
-#pragma unroll
-      for (int j = 0; j < CPT; ++j)
-        store_f32(dqp + (q0 + r) * p.dq_ss + px + TX * j, dq[i][j] * p.scale);
-    }
-  }
-}
-
-template <typename T, int HD>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  const int hkv = p.h / p.g;
-  fa_bwd_preprocess_kernel<T><<<dim3((p.sq + BQ - 1) / BQ, batch * p.h),
-                                THREADS, 0, stream>>>(p, HD);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr int dkdv_bytes = dkdv_smem_floats<HD>() * sizeof(float);
-  auto dkdv = fa_bwd_dkdv_kernel<T, HD>;
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkdv_bytes);
-  if (err != cudaSuccess) return err;
-  dkdv<<<dim3((p.sk + BK - 1) / BK, batch * hkv), THREADS, dkdv_bytes,
-         stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr int dq_bytes = dq_smem_floats<HD>() * sizeof(float);
-  auto dqk = fa_bwd_dq_kernel<T, HD>;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dq_bytes);
-  if (err != cudaSuccess) return err;
-  dqk<<<dim3((p.sq + BQ - 1) / BQ, batch * p.h), THREADS, dq_bytes,
-        stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const Params& p, int hd, int batch, cudaStream_t stream) {
-  switch (hd) {
-    case 8: return launch<T, 8>(p, batch, stream);
-    case 16: return launch<T, 16>(p, batch, stream);
-    case 32: return launch<T, 32>(p, batch, stream);
-    case 64: return launch<T, 64>(p, batch, stream);
-    case 128: return launch<T, 128>(p, batch, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace bwd
-
-// ------------------------------------------- backward, tensor cores (bf16)
-// The same gradient for bfloat16 operands with hd in {16, 32, 64, 128}
-// (`fa_backward_tc`), its products on the tensor cores.  It replaces what
-// the JAX package leaves to XLA autodiff of its jnp chunked attention
-// (src/repro/models/attention.py:92); there is no Pallas backward.
-//
-// What bounds it.  The five products are 10 hd FLOP per live (q, k) pair
-// and head: at the training shapes, (2 or 4, 1024, 1024, 12, 2, 128)
-// causal, 13 or 26 GFLOP against 16 or 31 MB of operands (~800 FLOP per
-// byte), so the bf16 tensor cores bound it (0.0163 ms at B = 2, 989
-// TFLOP/s).
-//
-// What the design does about that.  Every product is a warpgroup MMA
-// (`wgmma.mma_async`, bf16 inputs, float32 accumulators) on the forward's
-// 128-byte-swizzled shared tiles (`tc::load_tile`, `tc::desc`):
-//
-//   fa_bwd_preprocess_tc_kernel  D = rowsum(dO o), bytes-bound: 16-byte
-//       loads, hd / 8 lanes a row reduced by shuffles
-//   fa_bwd_dkdv_tc_kernel  one CTA (one warpgroup) per (b, query head,
-//       64-key tile).  K and V are loaded once; Q, dO and the tile's lse
-//       and D stream in double-buffered (cp.async) over the query tiles of
-//       the causal / window reach.  Per query tile:
-//         S^T = K.Q^T, dP^T = V.dO^T     m64n64k16, both operands K-major
-//         P^T = exp(scale S^T - lse), dS^T = P^T (dP^T - D)   in registers
-//         dV += P^T.dO, dK += dS^T.Q     m64nNk16, A = the accumulator
-//             fragments in bf16 (as the forward's P.V), B = dO / Q read
-//             MN-major (the forward's V descriptor)
-//       dK and dV stay in float32 registers for the whole loop.  With
-//       g = H / Hkv > 1 each CTA writes float32 partials of its query head
-//       into a (B, Sk, H, hd) scratch and fa_bwd_gqa_reduce_kernel sums the
-//       g partials of each kv head in head order into bf16; with g = 1 the
-//       CTA writes bf16 itself.  A CTA per query head (not per kv head
-//       looping over its g heads) gives B H Sk / 64 CTAs: 768 at the
-//       4 x 1024 training step against 128, and the key tiles launch
-//       longest causal reach first (tile 0 sees every query tile).
-//   fa_bwd_dq_tc_kernel  one CTA per (b, head, 64-row query tile), in
-//       reverse q-tile order as the forward: Q, dO, lse, D loaded once, K
-//       and V double-buffered over the forward's reach; S = Q.K^T, dP =
-//       dO.V^T, dS in registers, dQ += dS.K (K read MN-major).
-//
-// Numerics.  P is rounded to bf16 before P^T.dO, as the forward's P.V and
-// SDPA's backward do; dS is formed from the float P.  dS enters dK and dQ
-// as two bf16 terms, hi = bf16(dS) and lo = bf16(dS - hi), so one more
-// product each: with dS as one bf16 term (SDPA's way) a random draw at the
-// model's heads missed the card tests' tolerance (rtol = atol = 2e-2
-// against float32 autograd), and SDPA's own backward misses it too; the
-// split keeps dK and dQ at the FMA route's error.  Masks are built,
-// branch-free, only on tiles that hold a masked pair (the diagonal, the
-// window's edge, a ragged tile); P is a select on the mask (a row that
-// attends nothing has lse ~ -1e30).  Deterministic: every output element
-// is written by one CTA or summed in a fixed order; no float atomics.
-// What it gives up: the products, the exponentials and the
-// copies of one CTA run one after the other (no producer warp, no TMA, no
-// ping-pong), S and dP are computed twice (nine products in all with the
-// split dS, against the five the bound counts), and every query head
-// re-reads its kv head's tiles.
-//
-// Alignment: as the forward, every operand starts on a 16-byte boundary and
-// its b, s and h strides are multiples of 8 elements; `fa_backward_tc`
-// refuses otherwise.
-
-namespace bwd_tc {
-
-constexpr int B64 = 64;          // query rows and keys per tile
-constexpr int THREADS = 128;     // one warpgroup
-constexpr int RED_THREADS = 256;
-constexpr float LOG2E = 1.4426950408889634f;
-
-using tc::smem_u32;
-
-// Two bf16 packed in a 32-bit word, as floats (.x the low half)
-__device__ __forceinline__ float2 bf16x2(uint32_t w) {
-  __nv_bfloat162 h;
-  memcpy(&h, &w, sizeof(h));
-  return __bfloat1622float2(h);
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
-                                          bool valid) {
-  const int n = valid ? 4 : 0;  // 0: fill the 4 bytes with zero
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
-template <int HD>
-constexpr int smem_bytes(int row_stages) {
-  // four or six 64-row tiles, lse and D rows, slack to align to 1,024 bytes
-  return 6 * 64 * tc::hd_padded<HD>() * 2 + row_stages * 2 * 64 * 4 + 1024;
-}
-
-// A tile holds a masked pair: a ragged edge, the causal diagonal, or the
-// window's edge (q_offset is 0 in the backward)
-__device__ __forceinline__ bool edge_tile(const bwd::Params& p, int q0,
-                                          int k0) {
-  return (q0 + B64 > p.sq) | (k0 + B64 > p.sk) |
-         (p.causal & (k0 + B64 - 1 > q0)) |
-         ((p.window > 0) & (q0 + B64 - 1 - k0 >= p.window));
-}
-
-// Bit i: is element i of this thread's 64 x 64 accumulator fragment an
-// attended pair?  Element i sits at row r0 + 8 ((i % 4) / 2) and column
-// c0 + 8 (i / 4) + (i & 1); KEY_ROWS: rows are keys and columns queries
-// (S^T), else rows are queries (S).
-template <bool KEY_ROWS>
-__device__ __forceinline__ uint32_t valid_bits(const bwd::Params& p, int r0,
-                                               int c0) {
-  uint32_t valid = 0;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int r = r0 + 8 * ((i % 4) / 2), c = c0 + 8 * (i / 4) + (i & 1);
-    const int qp = KEY_ROWS ? c : r, kp = KEY_ROWS ? r : c;
-    const bool ok = (qp < p.sq) & (kp < p.sk) & (!p.causal | (qp >= kp)) &
-                    ((p.window <= 0) | (qp - kp < p.window));
-    valid |= static_cast<uint32_t>(ok) << i;
-  }
-  return valid;
-}
-
-// d (64 x 64) = A (64 x hd) . B^T (64 x hd), both K-major swizzled tiles
-template <int HDP>
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint32_t a,
-                                       uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
-    const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
-    tc::wgmma_ss_n64(d, tc::desc(a + off, 16, 1024),
-                     tc::desc(b + off, 16, 1024), kk > 0);
-  }
-}
-
-// acc (64 x HDP) += A (64 x 64, bf16 fragments) . B (64 x HDP tile, read
-// MN-major: 16 rows per step are two 1,024-byte atoms)
-template <int HDP>
-__device__ __forceinline__ void mma_rs(float (&acc)[HDP / 2],
-                                       const uint32_t (&a)[4][4],
-                                       uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = tc::desc(b + kk * 2048, 8192, 1024);
-    if constexpr (HDP == 128)
-      tc::wgmma_rs_n128(acc, a[kk], db);
-    else
-      tc::wgmma_rs_n64(acc, a[kk], db);
-  }
-}
-
-// The accumulator fragment of a 64 x 64 product as the A fragments of a
-// 64 x 64 (K = 64) bf16 operand
-__device__ __forceinline__ void pack_a(const float (&s)[32],
-                                       uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      a[kk][j] = tc::pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
-}
-
-// The same as two bf16 fragments, hi = bf16(s) and lo = bf16(s - hi): a
-// product with both keeps s to about 16 significant bits
-__device__ __forceinline__ void pack_split(const float (&s)[32],
-                                           uint32_t (&hi)[4][4],
-                                           uint32_t (&lo)[4][4]) {
-  pack_a(s, hi);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 h = bf16x2(hi[kk][j]);
-      lo[kk][j] = tc::pack_bf16(s[8 * kk + 2 * j] - h.x,
-                                s[8 * kk + 2 * j + 1] - h.y);
-    }
-}
-
-// S -> P = exp(scale S - lse) in place, a select on the pairs `valid`
-// leaves out (a row that attends nothing has lse ~ -1e30); lse2(i) is the
-// lse of element i in log2 units
-template <typename Lse>
-__device__ __forceinline__ void probs(float (&s)[32], Lse lse2,
-                                      uint32_t valid, float sl2) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const float pe = exp2f(fmaf(s[i], sl2, -lse2(i)));
-    s[i] = ((valid >> i) & 1u) ? pe : 0.f;
-  }
-}
-
-// dP -> dS = P (dP - D) in place; d(i) is the D of element i
-template <typename Dd>
-__device__ __forceinline__ void dscores(const float (&pr)[32],
-                                        float (&dp)[32], Dd d) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dp[i] = pr[i] * (dp[i] - d(i));
-}
-
-// D = rowsum(dO o) for the route's aligned operands: 16-byte loads (8
-// bf16), HD / 8 neighbouring lanes a row, 64 rows a CTA
-template <int HD>
-__global__ void __launch_bounds__(RED_THREADS)
-fa_bwd_preprocess_tc_kernel(const bwd::Params p) {
-  constexpr int L = HD / 8;               // lanes per row
-  const int bh = blockIdx.y, b = bh / p.h, head = bh % p.h;
-  const int c = threadIdx.x % L;
-  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o) +
-                           b * p.o_sb + head * p.o_sh + 8 * c;
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) +
-                              b * p.do_sb + head * p.do_sh + 8 * c;
-  const int r_end = min(p.sq, (blockIdx.x + 1) * B64);
-  // every thread takes every pass, so whole rows meet in the shuffles
-  for (int r0 = blockIdx.x * B64; r0 < r_end; r0 += RED_THREADS / L) {
-    const int r = r0 + static_cast<int>(threadIdx.x) / L;
-    float s = 0.f;
-    if (r < r_end) {
-      const uint4 a = *reinterpret_cast<const uint4*>(o + r * p.o_ss);
-      const uint4 e = *reinterpret_cast<const uint4*>(dout + r * p.do_ss);
-      const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
-      const uint32_t ew[4] = {e.x, e.y, e.z, e.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 x = bf16x2(aw[i]), y = bf16x2(ew[i]);
-        s = fmaf(x.x, y.x, s);
-        s = fmaf(x.y, y.y, s);
-      }
-    }
-#pragma unroll
-    for (int off = L / 2; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (r < r_end && c == 0)
-      p.delta[static_cast<long long>(bh) * p.sq + r] = s;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dkdv_tc_kernel(const bwd::Params p, float* dk_part, float* dv_part) {
-  constexpr int HDP = tc::hd_padded<HD>();
-  constexpr int TILE = 64 * HDP * 2;
-  extern __shared__ __align__(1024) unsigned char smem[];
-  const uint32_t s0 = smem_u32(smem);
-  const uint32_t ks = (s0 + 1023u) & ~1023u;
-  const uint32_t vs = ks + TILE;
-  const uint32_t qs = vs + TILE;        // two stages
-  const uint32_t dos = qs + 2 * TILE;   // two stages
-  const uint32_t rs = dos + 2 * TILE;   // per stage: lse[64], then D[64]
-  const float* rows_p = reinterpret_cast<const float*>(smem + (rs - s0));
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g8 = lane / 4, t4 = lane % 4;
-  const int bh = blockIdx.x, b = bh / p.h, head = bh % p.h;
-  const int kvh = head / p.g;
-  const int k0 = blockIdx.y * B64;  // key tile 0 (the longest reach) first
-  const int keys = min(B64, p.sk - k0);
-
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) +
-                           b * p.k_sb + kvh * p.k_sh + k0 * p.k_ss;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) +
-                           b * p.v_sb + kvh * p.v_sh + k0 * p.v_ss;
-  const __nv_bfloat16* q =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + head * p.q_sh;
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) +
-                              b * p.do_sb + head * p.do_sh;
-  const float* lse = p.lse + static_cast<long long>(bh) * p.sq;
-  const float* delta = p.delta + static_cast<long long>(bh) * p.sq;
-
-  // the query tiles whose mask reaches keys [k0, k0 + keys)
-  const int nq = (p.sq + B64 - 1) / B64;
-  const int qt_lo = p.causal ? min(nq, k0 / B64) : 0;
-  int qt_hi = nq;
-  if (p.window > 0)
-    qt_hi = min(nq, (k0 + keys - 1 + p.window - 1) / B64 + 1);
-
-  auto load_q_tile = [&](int qt, int st) {
-    const int q0 = qt * B64, n = p.sq - q0;
-    tc::load_tile<HD, HDP>(qs + st * TILE, q + q0 * p.q_ss, p.q_ss, n, tid);
-    tc::load_tile<HD, HDP>(dos + st * TILE, dout + q0 * p.do_ss, p.do_ss, n,
-                           tid);
-    const int r = tid % B64;
-    const float* src = (tid < B64 ? lse : delta) + q0;
-    cp_async4(rs + st * 512 + tid * 4, r < n ? src + r : src, r < n);
-  };
-  tc::load_tile<HD, HDP>(ks, k, p.k_ss, keys, tid);
-  tc::load_tile<HD, HDP>(vs, v, p.v_ss, keys, tid);
-  if (qt_lo < qt_hi) load_q_tile(qt_lo, 0);
-  tc::cp_async_commit();
-
-  float dk[HDP / 2], dv[HDP / 2];
-#pragma unroll
-  for (int j = 0; j < HDP / 2; ++j) dk[j] = dv[j] = 0.f;
-  const float sl2 = p.scale * LOG2E;
-  const int krow = warp * 16 + g8;  // this thread's rows: krow, krow + 8
-
-  for (int qt = qt_lo; qt < qt_hi; ++qt) {
-    const int st = (qt - qt_lo) & 1;
-    if (qt + 1 < qt_hi) {  // the next query tile streams in meanwhile
-      load_q_tile(qt + 1, st ^ 1);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    tc::fence_async_smem();
-    __syncthreads();
-    const uint32_t qst = qs + st * TILE, dost = dos + st * TILE;
-
-    // S^T first, then P^T in float (kept for dS^T) and as bf16 fragments;
-    // dP^T's accumulator is born after them (no spills at hd 128)
-    float s[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    tc::wgmma_fence();
-    mma_ss<HDP>(s, ks, qst);     // S^T = K.Q^T
-    tc::wgmma_commit();
-    tc::wgmma_wait_all();
-    // lse, then D, of this thread's column (query) c of element i
-    const float* lse_t = rows_p + st * 128;
-    auto col = [&](int i) { return 2 * t4 + 8 * (i / 4) + (i & 1); };
-    const int q0 = qt * B64;
-    probs(s, [&](int i) { return lse_t[col(i)] * LOG2E; },
-          edge_tile(p, q0, k0) ? valid_bits<true>(p, k0 + krow, q0 + 2 * t4)
-                               : 0xFFFFFFFFu,
-          sl2);
-    uint32_t ap[4][4];
-    pack_a(s, ap);
-    float dp[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dp[i] = 0.f;
-    tc::wgmma_fence();
-    mma_ss<HDP>(dp, vs, dost);   // dP^T = V.dO^T
-    mma_rs<HDP>(dv, ap, dost);   // dV += P^T.dO, in the same group
-    tc::wgmma_commit();
-    tc::wgmma_wait_all();
-    dscores(s, dp, [&](int i) { return lse_t[64 + col(i)]; });
-    uint32_t as[4][4], al[4][4];
-    pack_split(dp, as, al);
-    tc::wgmma_fence();
-    mma_rs<HDP>(dk, as, qst);    // dK += dS^T.Q, dS^T as hi + lo
-    mma_rs<HDP>(dk, al, qst);
-    tc::wgmma_commit();
-    tc::wgmma_wait_all();
-    __syncthreads();  // this stage is consumed before it is refilled
-  }
-  tc::cp_async_wait<0>();  // no copy may outlive the CTA
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = krow + 8 * r;
-    if (row >= keys) continue;
-    if (dk_part == nullptr) {  // g = 1: this CTA owns the rows
-      __nv_bfloat16* dkr = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb +
-                           kvh * p.dk_sh + (k0 + row) * p.dk_ss + 2 * t4;
-      __nv_bfloat16* dvr = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb +
-                           kvh * p.dv_sh + (k0 + row) * p.dv_ss + 2 * t4;
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(dkr + 8 * j) =
-            __floats2bfloat162_rn(dk[4 * j + 2 * r] * p.scale,
-                                  dk[4 * j + 2 * r + 1] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dvr + 8 * j) =
-            __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
-      }
-    } else {  // float32 partials of this query head, (B, Sk, H, hd)
-      const long long off =
-          ((static_cast<long long>(b) * p.sk + k0 + row) * p.h + head) * HD +
-          2 * t4;
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        *reinterpret_cast<float2*>(dk_part + off + 8 * j) = make_float2(
-            dk[4 * j + 2 * r] * p.scale, dk[4 * j + 2 * r + 1] * p.scale);
-        *reinterpret_cast<float2*>(dv_part + off + 8 * j) =
-            make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
-      }
-    }
-  }
-}
-
-// dK, dV (bf16) = the sums of the g query heads' float32 partials of each
-// kv head, in head order: four elements a thread
-__global__ void __launch_bounds__(RED_THREADS)
-fa_bwd_gqa_reduce_kernel(const bwd::Params p, const float* dk_part,
-                         const float* dv_part, int batch, int hd) {
-  const int hkv = p.h / p.g, d4n = hd / 4;
-  const long long n4 = static_cast<long long>(batch) * p.sk * hkv * d4n;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * RED_THREADS + threadIdx.x;
-  if (i >= n4) return;
-  const int d = static_cast<int>(i % d4n) * 4;
-  long long rest = i / d4n;
-  const int kvh = static_cast<int>(rest % hkv);
-  rest /= hkv;
-  const int s = static_cast<int>(rest % p.sk);
-  const int b = static_cast<int>(rest / p.sk);
-  const long long base =
-      ((static_cast<long long>(b) * p.sk + s) * p.h + kvh * p.g) * hd + d;
-  float4 sk4 = make_float4(0.f, 0.f, 0.f, 0.f), sv4 = sk4;
-  for (int hq = 0; hq < p.g; ++hq) {
-    const float4 a = *reinterpret_cast<const float4*>(dk_part + base + hq * hd);
-    const float4 c = *reinterpret_cast<const float4*>(dv_part + base + hq * hd);
-    sk4.x += a.x; sk4.y += a.y; sk4.z += a.z; sk4.w += a.w;
-    sv4.x += c.x; sv4.y += c.y; sv4.z += c.z; sv4.w += c.w;
-  }
-  *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb +
-                            s * p.dk_ss + kvh * p.dk_sh + d) =
-      make_uint2(tc::pack_bf16(sk4.x, sk4.y), tc::pack_bf16(sk4.z, sk4.w));
-  *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb +
-                            s * p.dv_ss + kvh * p.dv_sh + d) =
-      make_uint2(tc::pack_bf16(sv4.x, sv4.y), tc::pack_bf16(sv4.z, sv4.w));
-}
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dq_tc_kernel(const bwd::Params p) {
-  constexpr int HDP = tc::hd_padded<HD>();
-  constexpr int TILE = 64 * HDP * 2;
-  extern __shared__ __align__(1024) unsigned char smem[];
-  const uint32_t s0 = smem_u32(smem);
-  const uint32_t qs = (s0 + 1023u) & ~1023u;
-  const uint32_t dos = qs + TILE;
-  const uint32_t ks = dos + TILE;       // two stages
-  const uint32_t vs = ks + 2 * TILE;    // two stages
-  const uint32_t rs = vs + 2 * TILE;    // lse[64], then D[64]
-  const float* rows_p = reinterpret_cast<const float*>(smem + (rs - s0));
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g8 = lane / 4, t4 = lane % 4;
-  const int bh = blockIdx.x, b = bh / p.h, head = bh % p.h;
-  const int kvh = head / p.g;
-  const int nq = (p.sq + B64 - 1) / B64;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * B64;
-  const int rows = min(B64, p.sq - q0);
-
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) +
-                           b * p.q_sb + head * p.q_sh + q0 * p.q_ss;
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) +
-                              b * p.do_sb + head * p.do_sh + q0 * p.do_ss;
-  const __nv_bfloat16* k =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* v =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  // the key tiles this query tile reaches (the forward's loop bounds)
-  const int nk = (p.sk + B64 - 1) / B64;
-  int hi = nk;
-  if (p.causal) hi = min(nk, (q0 + rows + B64 - 1) / B64);
-  int lo = 0;
-  if (p.window > 0) {
-    const int first = q0 - p.window + 1;
-    lo = first > 0 ? first / B64 : 0;
-  }
-
-  tc::load_tile<HD, HDP>(qs, q, p.q_ss, rows, tid);
-  tc::load_tile<HD, HDP>(dos, dout, p.do_ss, rows, tid);
-  {
-    const int r = tid % B64;
-    const float* src = (tid < B64 ? p.lse : p.delta) +
-                       static_cast<long long>(bh) * p.sq + q0;
-    cp_async4(rs + tid * 4, r < rows ? src + r : src, r < rows);
-  }
-  auto load_kv_tile = [&](int kt, int st) {
-    const int kk0 = kt * B64;
-    tc::load_tile<HD, HDP>(ks + st * TILE, k + kk0 * p.k_ss, p.k_ss,
-                           p.sk - kk0, tid);
-    tc::load_tile<HD, HDP>(vs + st * TILE, v + kk0 * p.v_ss, p.v_ss,
-                           p.sk - kk0, tid);
-  };
-  if (lo < hi) load_kv_tile(lo, 0);
-  tc::cp_async_commit();
-
-  float dq[HDP / 2];
-#pragma unroll
-  for (int j = 0; j < HDP / 2; ++j) dq[j] = 0.f;
-  const float sl2 = p.scale * LOG2E;
-  const int qrow = warp * 16 + g8;  // this thread's rows: qrow, qrow + 8
-  float lse2[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
-
-  for (int kt = lo; kt < hi; ++kt) {
-    const int st = (kt - lo) & 1;
-    if (kt + 1 < hi) {
-      load_kv_tile(kt + 1, st ^ 1);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    tc::fence_async_smem();
-    __syncthreads();
-    if (kt == lo) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        lse2[r] = rows_p[qrow + 8 * r] * LOG2E;
-        dd[r] = rows_p[64 + qrow + 8 * r];
-      }
-    }
-    const uint32_t kst = ks + st * TILE, vst = vs + st * TILE;
-
-    float s[32], dp[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-    tc::wgmma_fence();
-    mma_ss<HDP>(s, qs, kst);     // S = Q.K^T
-    mma_ss<HDP>(dp, dos, vst);   // dP = dO.V^T
-    tc::wgmma_commit();
-    tc::wgmma_wait_all();
-
-    const int k0 = kt * B64;
-    probs(s, [&](int i) { return lse2[(i % 4) / 2]; },
-          edge_tile(p, q0, k0) ? valid_bits<false>(p, q0 + qrow, k0 + 2 * t4)
-                               : 0xFFFFFFFFu,
-          sl2);
-    dscores(s, dp, [&](int i) { return dd[(i % 4) / 2]; });
-    uint32_t as[4][4], al[4][4];
-    pack_split(dp, as, al);
-    tc::wgmma_fence();
-    mma_rs<HDP>(dq, as, kst);    // dQ += dS.K, dS as hi + lo
-    mma_rs<HDP>(dq, al, kst);
-    tc::wgmma_commit();
-    tc::wgmma_wait_all();
-    __syncthreads();  // this stage is consumed before it is refilled
-  }
-  tc::cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = qrow + 8 * r;
-    if (row >= rows) continue;
-    __nv_bfloat16* dqr = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb +
-                         head * p.dq_sh + (q0 + row) * p.dq_ss + 2 * t4;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dqr + 8 * j) = __floats2bfloat162_rn(
-          dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
-  }
-}
-
-template <int HD>
-cudaError_t launch(const bwd::Params& p, int batch, float* dk_part,
-                   float* dv_part, cudaStream_t stream) {
-  const int nq = (p.sq + B64 - 1) / B64, nk = (p.sk + B64 - 1) / B64;
-  fa_bwd_preprocess_tc_kernel<HD>
-      <<<dim3(nq, batch * p.h), RED_THREADS, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr int dkdv_bytes = smem_bytes<HD>(2);
-  auto dkdv = fa_bwd_dkdv_tc_kernel<HD>;
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkdv_bytes);
-  if (err != cudaSuccess) return err;
-  dkdv<<<dim3(batch * p.h, nk), THREADS, dkdv_bytes, stream>>>(
-      p, p.g > 1 ? dk_part : nullptr, p.g > 1 ? dv_part : nullptr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  if (p.g > 1) {
-    const long long n4 =
-        static_cast<long long>(batch) * p.sk * (p.h / p.g) * (HD / 4);
-    fa_bwd_gqa_reduce_kernel<<<
-        static_cast<unsigned>((n4 + RED_THREADS - 1) / RED_THREADS),
-        RED_THREADS, 0, stream>>>(p, dk_part, dv_part, batch, HD);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-
-  constexpr int dq_bytes = smem_bytes<HD>(1);
-  auto dqk = fa_bwd_dq_tc_kernel<HD>;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dq_bytes);
-  if (err != cudaSuccess) return err;
-  dqk<<<dim3(batch * p.h, nq), THREADS, dq_bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch(const bwd::Params& p, int hd, int batch, float* dk_part,
-                     float* dv_part, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<16>(p, batch, dk_part, dv_part, stream);
-    case 32: return launch<32>(p, batch, dk_part, dv_part, stream);
-    case 64: return launch<64>(p, batch, dk_part, dv_part, stream);
-    case 128: return launch<128>(p, batch, dk_part, dv_part, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace bwd_tc
-
 }  // namespace
 
 // strides: 12 element strides, (b, s, h) of q, k, v, o in that order.
@@ -1888,87 +714,6 @@ int fa_forward_tc(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   err = tc::dispatch(p, hd, hdv, batch * h,
                      static_cast<cudaStream_t>(stream));
-  return static_cast<int>(err);
-}
-
-// The backward's parameters from the entry points' arguments (24 element
-// strides: (b, s, h) of q, k, v, o, dO, dq, dk, dv in that order).
-static cudaError_t make_bwd_params(
-    bwd::Params& p, const void* q, const void* k, const void* v,
-    const void* o, const void* dout, const float* lse, float* delta, void* dq,
-    void* dk, void* dv, const long long* strides, int batch, int sq, int sk,
-    int h, int hkv, int causal, int window, float scale) {
-  if (batch <= 0 || sq <= 0 || sk <= 0 || hkv <= 0 || h % hkv != 0)
-    return cudaErrorInvalidValue;
-  p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
-  p.lse = lse; p.delta = delta;
-  p.dq = dq; p.dk = dk; p.dv = dv;
-  long long* fields[24] = {
-      &p.q_sb, &p.q_ss, &p.q_sh, &p.k_sb, &p.k_ss, &p.k_sh,
-      &p.v_sb, &p.v_ss, &p.v_sh, &p.o_sb, &p.o_ss, &p.o_sh,
-      &p.do_sb, &p.do_ss, &p.do_sh, &p.dq_sb, &p.dq_ss, &p.dq_sh,
-      &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.dv_sb, &p.dv_ss, &p.dv_sh};
-  for (int i = 0; i < 24; ++i) *fields[i] = strides[i];
-  p.sq = sq;
-  p.sk = sk;
-  p.h = h;
-  p.g = h / hkv;
-  p.causal = causal;
-  p.window = window;
-  p.scale = scale;
-  return cudaSuccess;
-}
-
-// The FMA route's backward (float32, and bfloat16 with any hd): dq, dk, dv
-// (in the operands' dtype, written whole) from dO, q, k, v, the forward's
-// o and lse, through three kernels on `stream`; delta is a float32
-// (B, H, Sq) scratch.  strides: 24 element strides, (b, s, h) of q, k, v,
-// o, dO, dq, dk, dv in that order.  dtype: 0 float32, 1 bfloat16.  Returns
-// the CUDA status of the launches.
-int fa_backward(const void* q, const void* k, const void* v, const void* o,
-                const void* dout, const float* lse, float* delta, void* dq,
-                void* dk, void* dv, const long long* strides, int batch,
-                int sq, int sk, int h, int hkv, int hd, int causal,
-                int window, float scale, int dtype, void* stream) {
-  bwd::Params p;
-  cudaError_t err = make_bwd_params(p, q, k, v, o, dout, lse, delta, dq, dk,
-                                    dv, strides, batch, sq, sk, h, hkv,
-                                    causal, window, scale);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto s = static_cast<cudaStream_t>(stream);
-  err = dtype == 0 ? bwd::dispatch<float>(p, hd, batch, s)
-      : dtype == 1 ? bwd::dispatch<__nv_bfloat16>(p, hd, batch, s)
-                   : cudaErrorInvalidValue;
-  return static_cast<int>(err);
-}
-
-// The tensor-core route's backward: bfloat16, hd in {16, 32, 64, 128}; the
-// same arguments as `fa_backward` without dtype, plus dk_part and dv_part,
-// two float32 (B, Sk, H, hd) scratches (null where H == Hkv).  Every
-// pointer on a 16-byte boundary and every stride a multiple of 8 elements.
-// Four kernels: preprocess, dK/dV, the GQA reduction (H > Hkv), dQ.
-int fa_backward_tc(const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, float* dk_part,
-                   float* dv_part, const long long* strides, int batch,
-                   int sq, int sk, int h, int hkv, int hd, int causal,
-                   int window, float scale, void* stream) {
-  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
-  for (const void* ptr : ptrs)
-    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
-      return static_cast<int>(cudaErrorMisalignedAddress);
-  for (int i = 0; i < 24; ++i)
-    if (strides[i] % 8 != 0)
-      return static_cast<int>(cudaErrorMisalignedAddress);
-  if (hkv > 0 && h != hkv && (dk_part == nullptr || dv_part == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  bwd::Params p;
-  cudaError_t err = make_bwd_params(p, q, k, v, o, dout, lse, delta, dq, dk,
-                                    dv, strides, batch, sq, sk, h, hkv,
-                                    causal, window, scale);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = bwd_tc::dispatch(p, hd, batch, dk_part, dv_part,
-                         static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

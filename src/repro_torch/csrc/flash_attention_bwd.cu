@@ -1,0 +1,1437 @@
+// Flash-attention backward for NVIDIA Hopper (sm_90a), plain C interface:
+// the gradient of the forward kernels of flash_attention.cu, on two routes
+// (float32 FMAs: three kernels, `fa_backward`; tensor cores: four,
+// `fa_backward_tc`), templates over the forward's (hd, hdv) pairs.  Its own
+// source so that nvcc builds it beside the forward, in parallel.
+
+#include "flash_attention_common.cuh"
+
+namespace {
+
+// ------------------------------------------------------------- backward
+// The gradient of both forward kernels, for the model's training step
+// (kernels/flash_attention.py `FlashAttentionFn`).  The JAX package has no
+// kernel here: it differentiates its jnp chunked attention
+// (src/repro/models/attention.py:92) by XLA autodiff, and its Pallas
+// kernel is forward only.  Given dO, q, k, v, the forward's o and its
+// per-row lse = m + log(l) (natural units, float32), with
+// P = exp(scale q.k - lse) on the attended pairs and 0 elsewhere:
+//
+//   D  = rowsum(dO o)                      fa_bwd_preprocess_kernel
+//   dP = dO v^T,  dS = P (dP - D)
+//   dV = P^T dO,  dK = scale dS^T q        fa_bwd_dkdv_kernel
+//   dQ = scale dS k                        fa_bwd_dq_kernel
+//
+// Every kernel is a template over <HD, HDV> as the forward is: q, k, dq
+// and dk are HD wide, v, o, dO and dv HDV wide (DeepSeek-V2's MLA: (192,
+// 128), (24, 16) in its smoke config; RecurrentGemma: (256, 256)).  D sums
+// over HDV, S = q.k^T over HD, dP = dO.v^T over HDV.
+//
+// Deterministic by construction: every output element is written by one
+// CTA, which sums in a fixed order; no float atomics.  So two backward
+// runs give the same bits, and a resumed training run the same state.
+//
+// fa_bwd_dkdv_kernel: one CTA of 256 threads per (b, query head, 64-key
+// tile).  It loops over the query tiles the causal / window mask lets
+// reach its keys (skipping a fully masked tile is exact), recomputing S
+// and P from q, k and lse; dK and dV stay in registers for the whole loop.
+// With g = H / Hkv > 1 it writes float32 partials of its query head and
+// fa_bwd_gqa_reduce_kernel sums the g partials of each kv head in head
+// order (the tensor-core route's reduction).  A CTA looping over the g
+// heads instead summed 16 x 2,048 products into one float32 register at
+// RecurrentGemma's (1, 3072, 16, 1) with window 2,048, and its dK and dV
+// fell outside the float32 tolerance of the plain version (rtol 1e-4,
+// atol 1e-5); per head the sums are 2,048 long, and the grid is 16 times
+// wider (48 CTAs there otherwise).
+// fa_bwd_dq_kernel: one CTA per (b, head, 64-row query tile), looping over
+// the key tiles of the forward's reach; dQ stays in registers.  Tiles are
+// staged in shared memory as float32 (rows padded to width + 1 against
+// bank conflicts); the products are float32 FMAs, as in the forward's FMA
+// kernel, for both dtypes.  Query tiles (dK / dV) and key tiles (dQ) are
+// 64 rows up to hd 128; past it 32 (`fma_rows`), since four 64-row
+// float32 tiles 257 wide (263 KB at (256, 256)) pass the 227 KiB an SM
+// gives a CTA: with 32 the dK / dV kernel takes 214,272 bytes and the dQ
+// kernel 206,336 there.  At (192, 128) 64-row tiles fit (198,656 bytes).
+//
+// What bounds it.  The backward's five products are 2 (3 hd + 2 hdv) FLOP
+// per live (q, k) pair and head; at the training shape (4, 1024, 1024,
+// 12, 2, 128) that is ~26 GFLOP per layer against ~31 MB of operands: far
+// above the card's ~295 bf16 FLOP per byte, so the tensor cores bound it.
+// This route does seven products (S and dP twice) on the 67 TFLOP/s CUDA
+// cores, with one CTA per SM (~160-214 KiB of shared memory each), and
+// the causal dK/dV CTAs are unbalanced (the first key tile sees every
+// query tile).  These kernels are the FMA route (`fa_backward`: float32,
+// and bfloat16 with hd 8); bfloat16 with hd >= 16 takes the tensor-core
+// route below (`fa_backward_tc`, namespace bwd_tc).
+
+namespace bwd {
+
+constexpr int BQ = 64;        // query rows of a dQ CTA
+constexpr int BK = 64;        // keys of a dK / dV CTA
+constexpr int THREADS = 256;
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;    // (B, H, Sq)
+  float* delta;        // (B, H, Sq): rowsum(dO o)
+  void* dq;
+  void* dk;
+  void* dv;
+  long long q_sb, q_ss, q_sh;     // element strides over (b, s, h)
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
+  long long do_sb, do_ss, do_sh;
+  long long dq_sb, dq_ss, dq_sh;
+  long long dk_sb, dk_ss, dk_sh;
+  long long dv_sb, dv_ss, dv_sh;
+  int sq, sk, h, g, causal, window;
+  float scale;
+};
+
+__device__ __forceinline__ bool attends(const Params& p, int qpos, int kpos) {
+  bool valid = kpos < p.sk;
+  if (p.causal) valid = valid && qpos >= kpos;
+  if (p.window > 0) valid = valid && (qpos - kpos < p.window);
+  return valid;
+}
+
+// rows of the streamed tile of both kernels (query tiles of dK / dV, key
+// tiles of dQ): 64, or 32 past hd 128 so that the tiles fit shared memory
+template <int HD>
+__host__ __device__ constexpr int fma_rows() {
+  return HD > 128 ? 32 : 64;
+}
+
+// neighbouring lanes that split an accumulator's W columns: 16, W itself
+// below 16, or 8 where 16 does not divide W (hd 24)
+template <int W>
+__host__ __device__ constexpr int lanes_x() {
+  return W < 16 ? W : (W % 16 == 0 ? 16 : 8);
+}
+
+// D = rowsum(dO o) over o's hdv columns: one warp per row, 8 rows per CTA
+// pass
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fa_bwd_preprocess_kernel(const Params p, int hdv) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.y, b = bh / p.h, head = bh % p.h;
+  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + head * p.o_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + head * p.do_sh;
+  const int r_end = min(p.sq, (blockIdx.x + 1) * BQ);
+  for (int r = blockIdx.x * BQ + warp; r < r_end; r += THREADS / 32) {
+    float s = 0.f;
+    for (int d = lane; d < hdv; d += 32)
+      s = fmaf(load_f32(o + r * p.o_ss + d), load_f32(dout + r * p.do_ss + d),
+               s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) p.delta[static_cast<long long>(bh) * p.sq + r] = s;
+  }
+}
+
+// Stage rows [0, n) of a tile of R rows (row stride ss elements) into
+// shared memory as float32 with row pitch W + 1; rows past n are zeros.
+template <typename T, int W, int R>
+__device__ __forceinline__ void stage(float* dst, const T* src, long long ss,
+                                      int n, int tid) {
+  for (int i = tid; i < R * W; i += THREADS) {
+    const int r = i / W, d = i % W;
+    dst[r * (W + 1) + d] = r < n ? load_f32(src + r * ss + d) : 0.f;
+  }
+}
+
+// S = A.B^T over HD and dP = C.E^T over HDV for one (16 RI x 16 CJ) tile
+// pair: thread (sy, sx) owns rows sy*RI + i and columns sx + 16 j, as the
+// forward's score loop does.  A and B rows have pitch HD + 1, C and E
+// rows HDV + 1; the shared columns run in one loop, the wider operand's
+// rest after it.
+template <int HD, int HDV, int RI, int CJ>
+__device__ __forceinline__ void two_products(const float* A, const float* B,
+                                             const float* C, const float* E,
+                                             float (&s)[RI][CJ],
+                                             float (&dp)[RI][CJ], int sy,
+                                             int sx) {
+  constexpr int HP = HD + 1, VP = HDV + 1;
+  constexpr int LO = HD < HDV ? HD : HDV;
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < LO; ++d) {
+    float a[RI], bb[CJ], c[RI], e[CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      a[i] = A[(sy * RI + i) * HP + d];
+      c[i] = C[(sy * RI + i) * VP + d];
+    }
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      bb[j] = B[(sx + 16 * j) * HP + d];
+      e[j] = E[(sx + 16 * j) * VP + d];
+    }
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        s[i][j] = fmaf(a[i], bb[j], s[i][j]);
+        dp[i][j] = fmaf(c[i], e[j], dp[i][j]);
+      }
+  }
+#pragma unroll 4
+  for (int d = LO; d < HD; ++d) {
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+        s[i][j] = fmaf(A[(sy * RI + i) * HP + d], B[(sx + 16 * j) * HP + d],
+                       s[i][j]);
+  }
+#pragma unroll 4
+  for (int d = LO; d < HDV; ++d) {
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+        dp[i][j] = fmaf(C[(sy * RI + i) * VP + d], E[(sx + 16 * j) * VP + d],
+                        dp[i][j]);
+  }
+}
+
+template <int HD, int HDV>
+constexpr int dkdv_smem_floats() {
+  constexpr int QT = fma_rows<HD>();
+  return (BK + QT) * (HD + 1) + (BK + QT) * (HDV + 1) + 2 * QT * (BK + 1) +
+         2 * QT;
+}
+
+template <typename T, int HD, int HDV>
+__global__ void __launch_bounds__(THREADS)
+fa_bwd_dkdv_kernel(const Params p, float* dk_part, float* dv_part) {
+  extern __shared__ float smem[];
+  constexpr int HP = HD + 1, VP = HDV + 1;
+  constexpr int QT = fma_rows<HD>();  // query rows a tile
+  constexpr int RI = QT / 16;         // score rows a thread
+  constexpr int PP = BK + 1;          // padded row of a P / dS tile
+  float* Ks = smem;                 // [BK][HP]
+  float* Vs = Ks + BK * HP;         // [BK][VP]
+  float* Qs = Vs + BK * VP;         // [QT][HP]
+  float* dOs = Qs + QT * HP;        // [QT][VP]
+  float* Ps = dOs + QT * VP;        // [QT][PP]
+  float* dSs = Ps + QT * PP;        // [QT][PP]
+  float* lse_s = dSs + QT * PP;     // [QT]
+  float* D_s = lse_s + QT;          // [QT]
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * BK;
+  const long long bh = blockIdx.y;
+  const int b = blockIdx.y / p.h, head = blockIdx.y % p.h;
+  const int kvh = head / p.g;
+  const int keys = min(BK, p.sk - k0);
+
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + head * p.q_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + head * p.do_sh;
+  stage<T, HD, BK>(Ks, k + k0 * p.k_ss, p.k_ss, keys, tid);
+  stage<T, HDV, BK>(Vs, v + k0 * p.v_ss, p.v_ss, keys, tid);
+
+  // the query tiles whose mask reaches keys [k0, k0 + keys)
+  const int nq = (p.sq + QT - 1) / QT;
+  const int qt_lo = p.causal ? min(nq, k0 / QT) : 0;
+  int qt_hi = nq;
+  if (p.window > 0) qt_hi = min(nq, (k0 + keys - 1 + p.window - 1) / QT + 1);
+
+  const int sy = tid / 16, sx = tid % 16;
+  // dK: thread (ky, kx) owns key rows ky*KR + i, columns kx + KX*j; dV
+  // the same over HDV with (vy, vx)
+  constexpr int KX = lanes_x<HD>(), KR = BK / (THREADS / KX), KC = HD / KX;
+  constexpr int VX = lanes_x<HDV>(), VR = BK / (THREADS / VX), VC = HDV / VX;
+  static_assert(HD % KX == 0 && HDV % VX == 0 && KR >= 1 && VR >= 1,
+                "dK / dV thread layout");
+  const int ky = tid / KX, kx = tid % KX, vy = tid / VX, vx = tid % VX;
+  float dk[KR][KC], dv[VR][VC];
+#pragma unroll
+  for (int i = 0; i < KR; ++i)
+#pragma unroll
+    for (int j = 0; j < KC; ++j) dk[i][j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < VR; ++i)
+#pragma unroll
+    for (int j = 0; j < VC; ++j) dv[i][j] = 0.f;
+
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int q0 = qt * QT;
+    const int rows = min(QT, p.sq - q0);
+    __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
+    stage<T, HD, QT>(Qs, q + q0 * p.q_ss, p.q_ss, rows, tid);
+    stage<T, HDV, QT>(dOs, dout + q0 * p.do_ss, p.do_ss, rows, tid);
+    for (int r = tid; r < QT; r += THREADS) {
+      lse_s[r] = r < rows ? p.lse[bh * p.sq + q0 + r] : 0.f;
+      D_s[r] = r < rows ? p.delta[bh * p.sq + q0 + r] : 0.f;
+    }
+    __syncthreads();
+
+    float s[RI][4], dp[RI][4];
+    two_products<HD, HDV, RI, 4>(Qs, Ks, dOs, Vs, s, dp, sy, sx);
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int r = sy * RI + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = sx + 16 * j;
+        // a select, not a product: lse of a masked row may be -1e30
+        const float pe = r < rows && attends(p, q0 + r, k0 + c)
+                             ? expf(s[i][j] * p.scale - lse_s[r])
+                             : 0.f;
+        Ps[r * PP + c] = pe;
+        dSs[r * PP + c] = pe * (dp[i][j] - D_s[r]);
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO, dK += dS^T Q over the tile's rows
+#pragma unroll 4
+    for (int r = 0; r < QT; ++r) {
+      float pv[VR], ds[KR];
+#pragma unroll
+      for (int i = 0; i < VR; ++i) pv[i] = Ps[r * PP + vy * VR + i];
+#pragma unroll
+      for (int i = 0; i < KR; ++i) ds[i] = dSs[r * PP + ky * KR + i];
+#pragma unroll
+      for (int j = 0; j < VC; ++j) {
+        const float dov = dOs[r * VP + vx + VX * j];
+#pragma unroll
+        for (int i = 0; i < VR; ++i) dv[i][j] = fmaf(pv[i], dov, dv[i][j]);
+      }
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        const float qv = Qs[r * HP + kx + KX * j];
+#pragma unroll
+        for (int i = 0; i < KR; ++i) dk[i][j] = fmaf(ds[i], qv, dk[i][j]);
+      }
+    }
+  }
+
+  // g = 1: this CTA owns the rows (the operands' dtype); else float32
+  // partials of this query head, (B, Sk, H, hd) and (B, Sk, H, hdv)
+  T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+  T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+  const long long prow = (static_cast<long long>(b) * p.sk + k0) * p.h + head;
+#pragma unroll
+  for (int i = 0; i < KR; ++i) {
+    const int c = ky * KR + i;
+    if (c < keys) {
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        const float x = dk[i][j] * p.scale;
+        if (dk_part != nullptr)
+          dk_part[(prow + static_cast<long long>(c) * p.h) * HD + kx +
+                  KX * j] = x;
+        else
+          store_f32(dkp + (k0 + c) * p.dk_ss + kx + KX * j, x);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < VR; ++i) {
+    const int c = vy * VR + i;
+    if (c < keys) {
+#pragma unroll
+      for (int j = 0; j < VC; ++j) {
+        if (dv_part != nullptr)
+          dv_part[(prow + static_cast<long long>(c) * p.h) * HDV + vx +
+                  VX * j] = dv[i][j];
+        else
+          store_f32(dvp + (k0 + c) * p.dv_ss + vx + VX * j, dv[i][j]);
+      }
+    }
+  }
+}
+
+// four float32 sums as four elements of T (16-byte or 8-byte stores)
+__device__ __forceinline__ void store4(float* dst, float4 x) {
+  *reinterpret_cast<float4*>(dst) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x) {
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(tc::pack_bf16(x.x, x.y), tc::pack_bf16(x.z, x.w));
+}
+
+// dK, dV (in T) = the sums of the g query heads' float32 partials of each
+// kv head, in head order: four columns of dK (those below hd) and four of
+// dV (those below hdv) a thread.  Both routes' last step where H > Hkv;
+// dk and dv are contiguous outputs of the wrapper (aligned vector stores)
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fa_bwd_gqa_reduce_kernel(const Params p, const float* dk_part,
+                         const float* dv_part, int batch, int hd, int hdv) {
+  const int hkv = p.h / p.g, d4n = (hd > hdv ? hd : hdv) / 4;
+  const long long n4 = static_cast<long long>(batch) * p.sk * hkv * d4n;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (i >= n4) return;
+  const int d = static_cast<int>(i % d4n) * 4;
+  long long rest = i / d4n;
+  const int kvh = static_cast<int>(rest % hkv);
+  rest /= hkv;
+  const int s = static_cast<int>(rest % p.sk);
+  const int b = static_cast<int>(rest / p.sk);
+  // the partials' row of the kv head's first query head
+  const long long row = (static_cast<long long>(b) * p.sk + s) * p.h +
+                        static_cast<long long>(kvh) * p.g;
+  if (d < hd) {
+    float4 sk4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int hq = 0; hq < p.g; ++hq) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(dk_part + (row + hq) * hd + d);
+      sk4.x += a.x; sk4.y += a.y; sk4.z += a.z; sk4.w += a.w;
+    }
+    store4(static_cast<T*>(p.dk) + b * p.dk_sb + s * p.dk_ss +
+               kvh * p.dk_sh + d, sk4);
+  }
+  if (d < hdv) {
+    float4 sv4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int hq = 0; hq < p.g; ++hq) {
+      const float4 c =
+          *reinterpret_cast<const float4*>(dv_part + (row + hq) * hdv + d);
+      sv4.x += c.x; sv4.y += c.y; sv4.z += c.z; sv4.w += c.w;
+    }
+    store4(static_cast<T*>(p.dv) + b * p.dv_sb + s * p.dv_ss +
+               kvh * p.dv_sh + d, sv4);
+  }
+}
+
+// the reduction's launch: one thread a column quad of a key's kv head
+template <typename T>
+cudaError_t launch_reduce(const Params& p, int batch, int hd, int hdv,
+                          const float* dk_part, const float* dv_part,
+                          cudaStream_t stream) {
+  const long long n4 = static_cast<long long>(batch) * p.sk * (p.h / p.g) *
+                       ((hd > hdv ? hd : hdv) / 4);
+  fa_bwd_gqa_reduce_kernel<T>
+      <<<static_cast<unsigned>((n4 + THREADS - 1) / THREADS), THREADS, 0,
+         stream>>>(p, dk_part, dv_part, batch, hd, hdv);
+  return cudaGetLastError();
+}
+
+template <int HD, int HDV>
+constexpr int dq_smem_floats() {
+  constexpr int KT = fma_rows<HD>();
+  return (BQ + KT) * (HD + 1) + (BQ + KT) * (HDV + 1) + BQ * (KT + 1) +
+         2 * BQ;
+}
+
+template <typename T, int HD, int HDV>
+__global__ void __launch_bounds__(THREADS)
+fa_bwd_dq_kernel(const Params p) {
+  extern __shared__ float smem[];
+  constexpr int HP = HD + 1, VP = HDV + 1;
+  constexpr int KT = fma_rows<HD>();  // keys a tile
+  constexpr int CJ = KT / 16;         // score columns a thread
+  constexpr int PP = KT + 1;          // padded row of a dS tile
+  float* Qs = smem;                 // [BQ][HP]
+  float* dOs = Qs + BQ * HP;        // [BQ][VP]
+  float* Ks = dOs + BQ * VP;        // [KT][HP]
+  float* Vs = Ks + KT * HP;         // [KT][VP]
+  float* dSs = Vs + KT * VP;        // [BQ][PP]
+  float* lse_s = dSs + BQ * PP;     // [BQ]
+  float* D_s = lse_s + BQ;          // [BQ]
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQ;
+  const long long bh = blockIdx.y;
+  const int b = blockIdx.y / p.h, head = blockIdx.y % p.h;
+  const int kvh = head / p.g;
+  const int rows = min(BQ, p.sq - q0);
+
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + head * p.q_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + head * p.do_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  stage<T, HD, BQ>(Qs, q + q0 * p.q_ss, p.q_ss, rows, tid);
+  stage<T, HDV, BQ>(dOs, dout + q0 * p.do_ss, p.do_ss, rows, tid);
+  for (int r = tid; r < BQ; r += THREADS) {
+    lse_s[r] = r < rows ? p.lse[bh * p.sq + q0 + r] : 0.f;
+    D_s[r] = r < rows ? p.delta[bh * p.sq + q0 + r] : 0.f;
+  }
+
+  // the key tiles this query tile reaches (the forward's loop bounds)
+  const int nk = (p.sk + KT - 1) / KT;
+  int hi = nk;
+  if (p.causal) hi = min(nk, (q0 + rows + KT - 1) / KT);
+  int lo = 0;
+  if (p.window > 0) {
+    const int first = q0 - p.window + 1;
+    lo = first > 0 ? first / KT : 0;
+  }
+
+  const int sy = tid / 16, sx = tid % 16;
+  // dQ: thread (qy, qx) owns rows qy*QR + i, columns qx + QX*j
+  constexpr int QX = lanes_x<HD>(), QR = BQ / (THREADS / QX), QC = HD / QX;
+  static_assert(HD % QX == 0 && QR >= 1, "dQ thread layout");
+  const int qy = tid / QX, qx = tid % QX;
+  float dq[QR][QC];
+#pragma unroll
+  for (int i = 0; i < QR; ++i)
+#pragma unroll
+    for (int j = 0; j < QC; ++j) dq[i][j] = 0.f;
+
+  for (int kt = lo; kt < hi; ++kt) {
+    const int k0 = kt * KT;
+    __syncthreads();  // the previous tile's K, V and dS are consumed
+    stage<T, HD, KT>(Ks, k + k0 * p.k_ss, p.k_ss, p.sk - k0, tid);
+    stage<T, HDV, KT>(Vs, v + k0 * p.v_ss, p.v_ss, p.sk - k0, tid);
+    __syncthreads();
+
+    float s[4][CJ], dp[4][CJ];
+    two_products<HD, HDV, 4, CJ>(Qs, Ks, dOs, Vs, s, dp, sy, sx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = sy * 4 + i;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const int c = sx + 16 * j;
+        const float pe = r < rows && attends(p, q0 + r, k0 + c)
+                             ? expf(s[i][j] * p.scale - lse_s[r])
+                             : 0.f;
+        dSs[r * PP + c] = pe * (dp[i][j] - D_s[r]);
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K over the tile's keys
+#pragma unroll 4
+    for (int c = 0; c < KT; ++c) {
+      float ds[QR];
+#pragma unroll
+      for (int i = 0; i < QR; ++i) ds[i] = dSs[(qy * QR + i) * PP + c];
+#pragma unroll
+      for (int j = 0; j < QC; ++j) {
+        const float kv = Ks[c * HP + qx + QX * j];
+#pragma unroll
+        for (int i = 0; i < QR; ++i) dq[i][j] = fmaf(ds[i], kv, dq[i][j]);
+      }
+    }
+  }
+
+  T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + head * p.dq_sh;
+#pragma unroll
+  for (int i = 0; i < QR; ++i) {
+    const int r = qy * QR + i;
+    if (r < rows) {
+#pragma unroll
+      for (int j = 0; j < QC; ++j)
+        store_f32(dqp + (q0 + r) * p.dq_ss + qx + QX * j, dq[i][j] * p.scale);
+    }
+  }
+}
+
+template <typename T, int HD, int HDV>
+cudaError_t launch(const Params& p, int batch, float* dk_part,
+                   float* dv_part, cudaStream_t stream) {
+  fa_bwd_preprocess_kernel<T><<<dim3((p.sq + BQ - 1) / BQ, batch * p.h),
+                                THREADS, 0, stream>>>(p, HDV);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int dkdv_bytes = dkdv_smem_floats<HD, HDV>() * sizeof(float);
+  auto dkdv = fa_bwd_dkdv_kernel<T, HD, HDV>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dkdv_bytes);
+  if (err != cudaSuccess) return err;
+  dkdv<<<dim3((p.sk + BK - 1) / BK, batch * p.h), THREADS, dkdv_bytes,
+         stream>>>(p, p.g > 1 ? dk_part : nullptr,
+                   p.g > 1 ? dv_part : nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (p.g > 1) {
+    err = launch_reduce<T>(p, batch, HD, HDV, dk_part, dv_part, stream);
+    if (err != cudaSuccess) return err;
+  }
+
+  constexpr int dq_bytes = dq_smem_floats<HD, HDV>() * sizeof(float);
+  auto dqk = fa_bwd_dq_kernel<T, HD, HDV>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dq_bytes);
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3((p.sq + BQ - 1) / BQ, batch * p.h), THREADS, dq_bytes,
+        stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const Params& p, int hd, int hdv, int batch,
+                     float* dk_part, float* dv_part, cudaStream_t stream) {
+  switch (pair(hd, hdv)) {
+    case pair(8, 8):
+      return launch<T, 8, 8>(p, batch, dk_part, dv_part, stream);
+    case pair(16, 16):
+      return launch<T, 16, 16>(p, batch, dk_part, dv_part, stream);
+    case pair(24, 16):
+      return launch<T, 24, 16>(p, batch, dk_part, dv_part, stream);
+    case pair(32, 32):
+      return launch<T, 32, 32>(p, batch, dk_part, dv_part, stream);
+    case pair(64, 64):
+      return launch<T, 64, 64>(p, batch, dk_part, dv_part, stream);
+    case pair(128, 128):
+      return launch<T, 128, 128>(p, batch, dk_part, dv_part, stream);
+    case pair(192, 128):
+      return launch<T, 192, 128>(p, batch, dk_part, dv_part, stream);
+    case pair(256, 256):
+      return launch<T, 256, 256>(p, batch, dk_part, dv_part, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd
+
+// ------------------------------------------- backward, tensor cores (bf16)
+// The same gradient for bfloat16 operands at the tensor-core forward's
+// (hd, hdv) pairs, (16, 16), (24, 16), (32, 32), (64, 64), (128, 128),
+// (192, 128) and (256, 256) (`fa_backward_tc`), its products on the tensor
+// cores.  It replaces what the JAX package leaves to XLA autodiff of its
+// jnp chunked attention (src/repro/models/attention.py:92); there is no
+// Pallas backward.
+//
+// What bounds it.  The five products are 2 (3 hd + 2 hdv) FLOP per live
+// (q, k) pair and head (S and dK, dQ over hd; dP and dV over hdv): at the
+// training shapes, (2 or 4, 1024, 1024, 12, 2, 128) causal, 13 or 26
+// GFLOP against 16 or 31 MB of operands (~800 FLOP per byte), so the bf16
+// tensor cores bound it (0.0163 ms at B = 2, 989 TFLOP/s); DeepSeek-V2-
+// Lite's (2, 2048, 16, 16) at (192, 128) is 111.7 GFLOP (0.1130 ms) and
+// RecurrentGemma-9B's (1, 3072, 16, 1) at (256, 256) with window 2,048
+// 171.8 GFLOP (0.1738 ms).
+//
+// What the design does about that.  Every product is a warpgroup MMA
+// (`wgmma.mma_async`, bf16 inputs, float32 accumulators) on the forward's
+// 128-byte-swizzled shared tiles (`tc::load_tile`, `tc::desc`); Q, K and
+// their gradients' tiles are hd wide, V and dO tiles hdv wide (a width
+// below 64 is padded with zero columns, which leave every product
+// unchanged):
+//
+//   fa_bwd_preprocess_tc_kernel  D = rowsum(dO o) over hdv, bytes-bound:
+//       16-byte loads, hdv / 8 lanes a row reduced by shuffles
+//   fa_bwd_dkdv_tc_kernel  one CTA per (b, query head, 64-key tile).  K
+//       and V are loaded once; Q, dO and the tile's lse and D stream in
+//       double-buffered (cp.async) over the query tiles of the causal /
+//       window reach.  Per query tile:
+//         S^T = K.Q^T, dP^T = V.dO^T     m64n64k16, both operands K-major
+//         P^T = exp(scale S^T - lse), dS^T = P^T (dP^T - D)   in registers
+//         dV += P^T.dO, dK += dS^T.Q     m64nNk16, A = the accumulator
+//             fragments in bf16 (as the forward's P.V), B = dO / Q read
+//             MN-major (the forward's V descriptor), N = hdv or hd
+//       dK and dV stay in float32 registers for the whole loop.  Up to hd
+//       128 one warpgroup holds both (dK's and dV's 64 floats a thread at
+//       hd 128 beside S's and dP's 32: 255 registers).  Past it
+//       they do not fit, so a CTA is two warpgroups over the same 64 keys,
+//       split by role: warpgroup 0 computes S^T and P^T and keeps dV
+//       (m64n128k16 at (192, 128), m64n256k16 at 256); warpgroup 1
+//       computes S^T, P^T, dP^T and dS^T and keeps dK (m64n192k16 at qk
+//       192, m64n256k16 at 256).  Each thread then holds one gradient
+//       (at most 128 floats) beside S's and dP's 64, as at hd 128.  S^T is
+//       computed twice, as the (256, 256) forward computes S twice, for a
+//       kernel that is simple and right; a split by columns would compute
+//       S and dP in both warpgroups (1,792 against 1,536 hd-units of
+//       tensor work a tile at (256, 256)), and at (192, 128) would cut dK
+//       into halves of 96 columns that straddle a 64-column swizzle atom.
+//       The roles branch on the warpgroup, so ptxas serialises their
+//       wgmma (its C7520 note).  Shared memory holds K, V, two Q and two
+//       dO stages: 120 KiB at (192, 128), 194 KiB at (256, 256) (one CTA
+//       an SM).  With g = H / Hkv > 1 each CTA writes float32
+//       partials of its query head into (B, Sk, H, hd) and (B, Sk, H, hdv)
+//       scratches and fa_bwd_gqa_reduce_kernel sums the g partials of each
+//       kv head in head order into bf16 (RecurrentGemma: g = 16); with g
+//       = 1 the CTA writes bf16 itself.  A CTA per query head (not per kv
+//       head looping over its g heads) gives B H Sk / 64 CTAs: 768 at the
+//       4 x 1024 training step against 128, and the key tiles launch
+//       longest causal reach first (tile 0 sees every query tile).
+//   fa_bwd_dq_tc_kernel  one CTA per (b, head, 64-row query tile), in
+//       reverse q-tile order as the forward: Q, dO, lse, D loaded once, K
+//       and V double-buffered over the forward's reach; S = Q.K^T, dP =
+//       dO.V^T, dS in registers, dQ += dS.K (K read MN-major).  Up to hd
+//       128 one warpgroup; past it two, each computing S and dP, warpgroup
+//       0 keeping dQ's first 128 columns and warpgroup 1 the rest (64 at
+//       192, 128 at 256; K's descriptor advanced by two 64-column atoms):
+//       at 192 one warpgroup holding dQ's 96 floats a thread beside S's and
+//       dP's 64 spilled (ptxas: 255 registers, 8 bytes of spill stores).
+//
+// Numerics.  P is rounded to bf16 before P^T.dO, as the forward's P.V and
+// SDPA's backward do; dS is formed from the float P.  dS enters dK and dQ
+// as two bf16 terms, hi = bf16(dS) and lo = bf16(dS - hi), so one more
+// product each: with dS as one bf16 term (SDPA's way) a random draw at the
+// model's heads missed the card tests' tolerance (rtol = atol = 2e-2
+// against float32 autograd), and SDPA's own backward misses it too; the
+// split keeps dK and dQ at the FMA route's error.  Masks are built,
+// branch-free, only on tiles that hold a masked pair (the diagonal, the
+// window's edge, a ragged tile); P is a select on the mask (a row that
+// attends nothing has lse ~ -1e30).  Deterministic: every output element
+// is written by one CTA or summed in a fixed order; no float atomics.
+// What it gives up: the products, the exponentials and the
+// copies of one CTA run one after the other (no producer warp, no TMA, no
+// ping-pong), S and dP are computed twice (nine products in all with the
+// split dS, against the five the bound counts; past hd 128 S once more),
+// and every query head re-reads its kv head's tiles.
+//
+// Alignment: as the forward, every operand starts on a 16-byte boundary and
+// its b, s and h strides are multiples of 8 elements; `fa_backward_tc`
+// refuses otherwise.
+
+namespace tc {
+
+// d (64 x 192 f32) += A (64 x 16 bf16, registers) . B (16 x 192, MN-major
+// in shared memory, descriptor)
+__device__ __forceinline__ void wgmma_rs_n192(float* d, const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 256 f32) += A (64 x 16 bf16, registers) . B (16 x 256, MN-major
+// in shared memory, descriptor)
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+}  // namespace tc
+
+namespace bwd_tc {
+
+constexpr int B64 = 64;          // query rows and keys per tile
+constexpr int THREADS = 128;     // one warpgroup
+constexpr int RED_THREADS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+
+using tc::smem_u32;
+
+// warpgroups of a dK / dV CTA: one up to hd 128; two past it, by role
+// (warpgroup 0 keeps dV, warpgroup 1 dK)
+template <int HD>
+__host__ __device__ constexpr int dkdv_warpgroups() {
+  return HD > 128 ? 2 : 1;
+}
+
+// warpgroups of a dQ CTA: one up to hd 128; two past it, warpgroup 0
+// keeping dQ's first 128 columns and warpgroup 1 the rest (64 at 192, 128
+// at 256)
+template <int HD>
+__host__ __device__ constexpr int dq_warpgroups() {
+  return HD > 128 ? 2 : 1;
+}
+
+// Two bf16 packed in a 32-bit word, as floats (.x the low half)
+__device__ __forceinline__ float2 bf16x2(uint32_t w) {
+  __nv_bfloat162 h;
+  memcpy(&h, &w, sizeof(h));
+  return __bfloat1622float2(h);
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool valid) {
+  const int n = valid ? 4 : 0;  // 0: fill the 4 bytes with zero
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+template <int HD, int HDV>
+constexpr int smem_bytes(int row_stages) {
+  // three hd-wide and three hdv-wide 64-row tiles (one of each loaded
+  // once, two stages of each streamed), lse and D rows, slack to align to
+  // 1,024 bytes
+  return 3 * 64 * (tc::hd_padded<HD>() + tc::hd_padded<HDV>()) * 2 +
+         row_stages * 2 * 64 * 4 + 1024;
+}
+
+// A tile holds a masked pair: a ragged edge, the causal diagonal, or the
+// window's edge (q_offset is 0 in the backward)
+__device__ __forceinline__ bool edge_tile(const bwd::Params& p, int q0,
+                                          int k0) {
+  return (q0 + B64 > p.sq) | (k0 + B64 > p.sk) |
+         (p.causal & (k0 + B64 - 1 > q0)) |
+         ((p.window > 0) & (q0 + B64 - 1 - k0 >= p.window));
+}
+
+// Bit i: is element i of this thread's 64 x 64 accumulator fragment an
+// attended pair?  Element i sits at row r0 + 8 ((i % 4) / 2) and column
+// c0 + 8 (i / 4) + (i & 1); KEY_ROWS: rows are keys and columns queries
+// (S^T), else rows are queries (S).
+template <bool KEY_ROWS>
+__device__ __forceinline__ uint32_t valid_bits(const bwd::Params& p, int r0,
+                                               int c0) {
+  uint32_t valid = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = r0 + 8 * ((i % 4) / 2), c = c0 + 8 * (i / 4) + (i & 1);
+    const int qp = KEY_ROWS ? c : r, kp = KEY_ROWS ? r : c;
+    const bool ok = (qp < p.sq) & (kp < p.sk) & (!p.causal | (qp >= kp)) &
+                    ((p.window <= 0) | (qp - kp < p.window));
+    valid |= static_cast<uint32_t>(ok) << i;
+  }
+  return valid;
+}
+
+// d (64 x 64) = A (64 x W) . B^T (64 x W), both K-major swizzled tiles
+// (W = hd or hdv, padded)
+template <int W>
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint32_t a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
+    tc::wgmma_ss_n64(d, tc::desc(a + off, 16, 1024),
+                     tc::desc(b + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc[0, N / 2) (64 x N) += A (64 x 64, bf16 fragments) . B (64 rows x N
+// columns of a tile, read MN-major: 16 rows per step are two 1,024-byte
+// atoms, 64-column atoms 8 KiB apart)
+template <int N>
+__device__ __forceinline__ void mma_rs(float* acc, const uint32_t (&a)[4][4],
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = tc::desc(b + kk * 2048, 8192, 1024);
+    if constexpr (N == 256)
+      tc::wgmma_rs_n256(acc, a[kk], db);
+    else if constexpr (N == 192)
+      tc::wgmma_rs_n192(acc, a[kk], db);
+    else if constexpr (N == 128)
+      tc::wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(acc), a[kk], db);
+    else
+      tc::wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(acc), a[kk], db);
+  }
+}
+
+// The accumulator fragment of a 64 x 64 product as the A fragments of a
+// 64 x 64 (K = 64) bf16 operand
+__device__ __forceinline__ void pack_a(const float (&s)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = tc::pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+}
+
+// The same as two bf16 fragments, hi = bf16(s) and lo = bf16(s - hi): a
+// product with both keeps s to about 16 significant bits
+__device__ __forceinline__ void pack_split(const float (&s)[32],
+                                           uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+  pack_a(s, hi);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 h = bf16x2(hi[kk][j]);
+      lo[kk][j] = tc::pack_bf16(s[8 * kk + 2 * j] - h.x,
+                                s[8 * kk + 2 * j + 1] - h.y);
+    }
+}
+
+// S -> P = exp(scale S - lse) in place, a select on the pairs `valid`
+// leaves out (a row that attends nothing has lse ~ -1e30); lse2(i) is the
+// lse of element i in log2 units
+template <typename Lse>
+__device__ __forceinline__ void probs(float (&s)[32], Lse lse2,
+                                      uint32_t valid, float sl2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float pe = exp2f(fmaf(s[i], sl2, -lse2(i)));
+    s[i] = ((valid >> i) & 1u) ? pe : 0.f;
+  }
+}
+
+// dP -> dS = P (dP - D) in place; d(i) is the D of element i
+template <typename Dd>
+__device__ __forceinline__ void dscores(const float (&pr)[32],
+                                        float (&dp)[32], Dd d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dp[i] = pr[i] * (dp[i] - d(i));
+}
+
+// One fragment row (half r: rows g and g + 8) of a warpgroup's W columns
+// of an accumulator, times mul: bf16 into `out` (the CTA owns the row) or,
+// where `part` is not null, float32 into `part`; both point at the row's
+// column 2 t4
+template <int W>
+__device__ __forceinline__ void put_row(const float* acc, int r, float mul,
+                                        __nv_bfloat16* out, float* part) {
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    const float x = acc[4 * j + 2 * r] * mul, y = acc[4 * j + 2 * r + 1] * mul;
+    if (part != nullptr)
+      *reinterpret_cast<float2*>(part + 8 * j) = make_float2(x, y);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+          __floats2bfloat162_rn(x, y);
+  }
+}
+
+// D = rowsum(dO o) for the route's aligned operands: 16-byte loads (8
+// bf16), HDV / 8 neighbouring lanes a row, 64 rows a CTA
+template <int HDV>
+__global__ void __launch_bounds__(RED_THREADS)
+fa_bwd_preprocess_tc_kernel(const bwd::Params p) {
+  constexpr int L = HDV / 8;              // lanes per row
+  static_assert(L <= 32 && 32 % L == 0, "a row's lanes within a warp");
+  const int bh = blockIdx.y, b = bh / p.h, head = bh % p.h;
+  const int c = threadIdx.x % L;
+  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o) +
+                           b * p.o_sb + head * p.o_sh + 8 * c;
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) +
+                              b * p.do_sb + head * p.do_sh + 8 * c;
+  const int r_end = min(p.sq, (blockIdx.x + 1) * B64);
+  // every thread takes every pass, so whole rows meet in the shuffles
+  for (int r0 = blockIdx.x * B64; r0 < r_end; r0 += RED_THREADS / L) {
+    const int r = r0 + static_cast<int>(threadIdx.x) / L;
+    float s = 0.f;
+    if (r < r_end) {
+      const uint4 a = *reinterpret_cast<const uint4*>(o + r * p.o_ss);
+      const uint4 e = *reinterpret_cast<const uint4*>(dout + r * p.do_ss);
+      const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
+      const uint32_t ew[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = bf16x2(aw[i]), y = bf16x2(ew[i]);
+        s = fmaf(x.x, y.x, s);
+        s = fmaf(x.y, y.y, s);
+      }
+    }
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (r < r_end && c == 0)
+      p.delta[static_cast<long long>(bh) * p.sq + r] = s;
+  }
+}
+
+template <int HD, int HDV>
+__global__ void __launch_bounds__(THREADS * dkdv_warpgroups<HD>())
+fa_bwd_dkdv_tc_kernel(const bwd::Params p, float* dk_part, float* dv_part) {
+  constexpr int HDP = tc::hd_padded<HD>(), HDVP = tc::hd_padded<HDV>();
+  constexpr int NWG = dkdv_warpgroups<HD>();
+  constexpr int NT = THREADS * NWG;     // threads of the CTA
+  constexpr int TILE = 64 * HDP * 2;    // bytes of a K or Q tile
+  constexpr int VTILE = 64 * HDVP * 2;  // bytes of a V or dO tile
+  // the accumulators: one warpgroup keeps dK at [0, HDP / 2) and dV after
+  // it; two keep dV (warpgroup 0) or dK (warpgroup 1) from 0
+  constexpr int DV = NWG == 1 ? HDP / 2 : 0;
+  constexpr int ACC = NWG == 1 ? (HDP + HDVP) / 2
+                               : (HDP > HDVP ? HDP : HDVP) / 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+  const uint32_t ks = (s0 + 1023u) & ~1023u;
+  const uint32_t vs = ks + TILE;
+  const uint32_t qs = vs + VTILE;       // two stages
+  const uint32_t dos = qs + 2 * TILE;   // two stages
+  const uint32_t rs = dos + 2 * VTILE;  // per stage: lse[64], then D[64]
+  const float* rows_p = reinterpret_cast<const float*>(smem + (rs - s0));
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / THREADS, warp = (tid % THREADS) / 32;
+  const bool with_dv = NWG == 1 || wg == 0;
+  const bool with_dk = NWG == 1 || wg == 1;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.x, b = bh / p.h, head = bh % p.h;
+  const int kvh = head / p.g;
+  const int k0 = blockIdx.y * B64;  // key tile 0 (the longest reach) first
+  const int keys = min(B64, p.sk - k0);
+
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) +
+                           b * p.k_sb + kvh * p.k_sh + k0 * p.k_ss;
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) +
+                           b * p.v_sb + kvh * p.v_sh + k0 * p.v_ss;
+  const __nv_bfloat16* q =
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + head * p.q_sh;
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) +
+                              b * p.do_sb + head * p.do_sh;
+  const float* lse = p.lse + static_cast<long long>(bh) * p.sq;
+  const float* delta = p.delta + static_cast<long long>(bh) * p.sq;
+
+  // the query tiles whose mask reaches keys [k0, k0 + keys)
+  const int nq = (p.sq + B64 - 1) / B64;
+  const int qt_lo = p.causal ? min(nq, k0 / B64) : 0;
+  int qt_hi = nq;
+  if (p.window > 0)
+    qt_hi = min(nq, (k0 + keys - 1 + p.window - 1) / B64 + 1);
+
+  auto load_q_tile = [&](int qt, int st) {
+    const int q0 = qt * B64, n = p.sq - q0;
+    tc::load_tile<HD, HDP, NT>(qs + st * TILE, q + q0 * p.q_ss, p.q_ss, n,
+                               tid);
+    tc::load_tile<HDV, HDVP, NT>(dos + st * VTILE, dout + q0 * p.do_ss,
+                                 p.do_ss, n, tid);
+    if (tid < 2 * B64) {
+      const int r = tid % B64;
+      const float* src = (tid < B64 ? lse : delta) + q0;
+      cp_async4(rs + st * 512 + tid * 4, r < n ? src + r : src, r < n);
+    }
+  };
+  tc::load_tile<HD, HDP, NT>(ks, k, p.k_ss, keys, tid);
+  tc::load_tile<HDV, HDVP, NT>(vs, v, p.v_ss, keys, tid);
+  if (qt_lo < qt_hi) load_q_tile(qt_lo, 0);
+  tc::cp_async_commit();
+
+  float acc[ACC];
+#pragma unroll
+  for (int j = 0; j < ACC; ++j) acc[j] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+  const int krow = warp * 16 + g8;  // this thread's rows: krow, krow + 8
+
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int st = (qt - qt_lo) & 1;
+    if (qt + 1 < qt_hi) {  // the next query tile streams in meanwhile
+      load_q_tile(qt + 1, st ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    tc::fence_async_smem();
+    __syncthreads();
+    const uint32_t qst = qs + st * TILE, dost = dos + st * VTILE;
+
+    // S^T first, then P^T in float (kept for dS^T) and as bf16 fragments;
+    // dP^T's accumulator is born after them (no spills at hd 128)
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    tc::wgmma_fence();
+    mma_ss<HDP>(s, ks, qst);     // S^T = K.Q^T
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+    // lse, then D, of this thread's column (query) c of element i
+    const float* lse_t = rows_p + st * 128;
+    auto col = [&](int i) { return 2 * t4 + 8 * (i / 4) + (i & 1); };
+    const int q0 = qt * B64;
+    probs(s, [&](int i) { return lse_t[col(i)] * LOG2E; },
+          edge_tile(p, q0, k0) ? valid_bits<true>(p, k0 + krow, q0 + 2 * t4)
+                               : 0xFFFFFFFFu,
+          sl2);
+    uint32_t ap[4][4];
+    if (with_dv) pack_a(s, ap);
+    float dp[32];
+    if (with_dk) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = 0.f;
+    }
+    tc::wgmma_fence();
+    if (with_dk) mma_ss<HDVP>(dp, vs, dost);      // dP^T = V.dO^T
+    if (with_dv) mma_rs<HDVP>(acc + DV, ap, dost);  // dV += P^T.dO
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+    if (with_dk) {
+      dscores(s, dp, [&](int i) { return lse_t[64 + col(i)]; });
+      uint32_t as[4][4], al[4][4];
+      pack_split(dp, as, al);
+      tc::wgmma_fence();
+      mma_rs<HDP>(acc, as, qst);   // dK += dS^T.Q, dS^T as hi + lo
+      mma_rs<HDP>(acc, al, qst);
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  tc::cp_async_wait<0>();  // no copy may outlive the CTA
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = krow + 8 * r;
+    if (row >= keys) continue;
+    // g = 1: this CTA owns the rows (bf16); else float32 partials of this
+    // query head, (B, Sk, H, hd) and (B, Sk, H, hdv)
+    const long long prow =
+        (static_cast<long long>(b) * p.sk + k0 + row) * p.h + head;
+    if (with_dk)
+      put_row<HD>(acc, r, p.scale,
+                  static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb +
+                      kvh * p.dk_sh + (k0 + row) * p.dk_ss + 2 * t4,
+                  dk_part ? dk_part + prow * HD + 2 * t4 : nullptr);
+    if (with_dv)
+      put_row<HDV>(acc + DV, r, 1.f,
+                   static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb +
+                       kvh * p.dv_sh + (k0 + row) * p.dv_ss + 2 * t4,
+                   dv_part ? dv_part + prow * HDV + 2 * t4 : nullptr);
+  }
+}
+
+template <int HD, int HDV>
+__global__ void __launch_bounds__(THREADS * dq_warpgroups<HD>())
+fa_bwd_dq_tc_kernel(const bwd::Params p) {
+  constexpr int HDP = tc::hd_padded<HD>(), HDVP = tc::hd_padded<HDV>();
+  constexpr int NWG = dq_warpgroups<HD>();
+  constexpr int NT = THREADS * NWG;     // threads of the CTA
+  // dQ columns of warpgroup 0 and of warpgroup 1 (none with one)
+  constexpr int W0 = NWG == 1 ? HDP : 128, W1 = HDP - W0;
+  static_assert(W1 % 64 == 0 && W1 <= W0 && (NWG == 1 || HD == HDP),
+                "whole swizzle atoms a warpgroup");
+  constexpr int TILE = 64 * HDP * 2;    // bytes of a Q or K tile
+  constexpr int VTILE = 64 * HDVP * 2;  // bytes of a dO or V tile
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+  const uint32_t qs = (s0 + 1023u) & ~1023u;
+  const uint32_t dos = qs + TILE;
+  const uint32_t ks = dos + VTILE;      // two stages
+  const uint32_t vs = ks + 2 * TILE;    // two stages
+  const uint32_t rs = vs + 2 * VTILE;   // lse[64], then D[64]
+  const float* rows_p = reinterpret_cast<const float*>(smem + (rs - s0));
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / THREADS, warp = (tid % THREADS) / 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.x, b = bh / p.h, head = bh % p.h;
+  const int kvh = head / p.g;
+  const int nq = (p.sq + B64 - 1) / B64;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * B64;
+  const int rows = min(B64, p.sq - q0);
+
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) +
+                           b * p.q_sb + head * p.q_sh + q0 * p.q_ss;
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) +
+                              b * p.do_sb + head * p.do_sh + q0 * p.do_ss;
+  const __nv_bfloat16* k =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const __nv_bfloat16* v =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+
+  // the key tiles this query tile reaches (the forward's loop bounds)
+  const int nk = (p.sk + B64 - 1) / B64;
+  int hi = nk;
+  if (p.causal) hi = min(nk, (q0 + rows + B64 - 1) / B64);
+  int lo = 0;
+  if (p.window > 0) {
+    const int first = q0 - p.window + 1;
+    lo = first > 0 ? first / B64 : 0;
+  }
+
+  tc::load_tile<HD, HDP, NT>(qs, q, p.q_ss, rows, tid);
+  tc::load_tile<HDV, HDVP, NT>(dos, dout, p.do_ss, rows, tid);
+  if (tid < 2 * B64) {
+    const int r = tid % B64;
+    const float* src = (tid < B64 ? p.lse : p.delta) +
+                       static_cast<long long>(bh) * p.sq + q0;
+    cp_async4(rs + tid * 4, r < rows ? src + r : src, r < rows);
+  }
+  auto load_kv_tile = [&](int kt, int st) {
+    const int kk0 = kt * B64;
+    tc::load_tile<HD, HDP, NT>(ks + st * TILE, k + kk0 * p.k_ss, p.k_ss,
+                               p.sk - kk0, tid);
+    tc::load_tile<HDV, HDVP, NT>(vs + st * VTILE, v + kk0 * p.v_ss, p.v_ss,
+                                 p.sk - kk0, tid);
+  };
+  if (lo < hi) load_kv_tile(lo, 0);
+  tc::cp_async_commit();
+
+  float dq[W0 / 2];
+#pragma unroll
+  for (int j = 0; j < W0 / 2; ++j) dq[j] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+  const int qrow = warp * 16 + g8;  // this thread's rows: qrow, qrow + 8
+  float lse2[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+
+  for (int kt = lo; kt < hi; ++kt) {
+    const int st = (kt - lo) & 1;
+    if (kt + 1 < hi) {
+      load_kv_tile(kt + 1, st ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    tc::fence_async_smem();
+    __syncthreads();
+    if (kt == lo) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lse2[r] = rows_p[qrow + 8 * r] * LOG2E;
+        dd[r] = rows_p[64 + qrow + 8 * r];
+      }
+    }
+    const uint32_t kst = ks + st * TILE, vst = vs + st * VTILE;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    tc::wgmma_fence();
+    mma_ss<HDP>(s, qs, kst);     // S = Q.K^T
+    mma_ss<HDVP>(dp, dos, vst);  // dP = dO.V^T
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+
+    const int k0 = kt * B64;
+    probs(s, [&](int i) { return lse2[(i % 4) / 2]; },
+          edge_tile(p, q0, k0) ? valid_bits<false>(p, q0 + qrow, k0 + 2 * t4)
+                               : 0xFFFFFFFFu,
+          sl2);
+    dscores(s, dp, [&](int i) { return dd[(i % 4) / 2]; });
+    uint32_t as[4][4], al[4][4];
+    pack_split(dp, as, al);
+    // this warpgroup's columns of K: warpgroup 1's start W0 / 64 atoms of
+    // 8 KiB in
+    const uint32_t kcols = kst + wg * (W0 / 64) * 8192;
+    tc::wgmma_fence();
+    if (W1 == 0 || W1 == W0 || wg == 0) {
+      mma_rs<W0>(dq, as, kcols);   // dQ += dS.K, dS as hi + lo
+      mma_rs<W0>(dq, al, kcols);
+    } else {
+      mma_rs<W1 == 0 ? W0 : W1>(dq, as, kcols);
+      mma_rs<W1 == 0 ? W0 : W1>(dq, al, kcols);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + 8 * r;
+    if (row >= rows) continue;
+    __nv_bfloat16* dqr = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb +
+                         head * p.dq_sh + (q0 + row) * p.dq_ss + wg * W0 +
+                         2 * t4;
+    if (NWG == 1)
+      put_row<HD>(dq, r, p.scale, dqr, nullptr);
+    else if (wg == 0)
+      put_row<W0>(dq, r, p.scale, dqr, nullptr);
+    else
+      put_row<HD - W0 < 8 ? 8 : HD - W0>(dq, r, p.scale, dqr, nullptr);
+  }
+}
+
+template <int HD, int HDV>
+cudaError_t launch(const bwd::Params& p, int batch, float* dk_part,
+                   float* dv_part, cudaStream_t stream) {
+  const int nq = (p.sq + B64 - 1) / B64, nk = (p.sk + B64 - 1) / B64;
+  fa_bwd_preprocess_tc_kernel<HDV>
+      <<<dim3(nq, batch * p.h), RED_THREADS, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int dkdv_bytes = smem_bytes<HD, HDV>(2);
+  auto dkdv = fa_bwd_dkdv_tc_kernel<HD, HDV>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dkdv_bytes);
+  if (err != cudaSuccess) return err;
+  dkdv<<<dim3(batch * p.h, nk), THREADS * dkdv_warpgroups<HD>(), dkdv_bytes,
+         stream>>>(p, p.g > 1 ? dk_part : nullptr,
+                   p.g > 1 ? dv_part : nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  if (p.g > 1) {
+    err = bwd::launch_reduce<__nv_bfloat16>(p, batch, HD, HDV, dk_part,
+                                            dv_part, stream);
+    if (err != cudaSuccess) return err;
+  }
+
+  constexpr int dq_bytes = smem_bytes<HD, HDV>(1);
+  auto dqk = fa_bwd_dq_tc_kernel<HD, HDV>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dq_bytes);
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3(batch * p.h, nq), THREADS * dq_warpgroups<HD>(), dq_bytes,
+        stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const bwd::Params& p, int hd, int hdv, int batch,
+                     float* dk_part, float* dv_part, cudaStream_t stream) {
+  switch (pair(hd, hdv)) {
+    case pair(16, 16):
+      return launch<16, 16>(p, batch, dk_part, dv_part, stream);
+    case pair(24, 16):
+      return launch<24, 16>(p, batch, dk_part, dv_part, stream);
+    case pair(32, 32):
+      return launch<32, 32>(p, batch, dk_part, dv_part, stream);
+    case pair(64, 64):
+      return launch<64, 64>(p, batch, dk_part, dv_part, stream);
+    case pair(128, 128):
+      return launch<128, 128>(p, batch, dk_part, dv_part, stream);
+    case pair(192, 128):
+      return launch<192, 128>(p, batch, dk_part, dv_part, stream);
+    case pair(256, 256):
+      return launch<256, 256>(p, batch, dk_part, dv_part, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd_tc
+
+}  // namespace
+
+extern "C" {
+
+// The backward's parameters from the entry points' arguments (24 element
+// strides: (b, s, h) of q, k, v, o, dO, dq, dk, dv in that order).
+static cudaError_t make_bwd_params(
+    bwd::Params& p, const void* q, const void* k, const void* v,
+    const void* o, const void* dout, const float* lse, float* delta, void* dq,
+    void* dk, void* dv, const long long* strides, int batch, int sq, int sk,
+    int h, int hkv, int causal, int window, float scale) {
+  if (batch <= 0 || sq <= 0 || sk <= 0 || hkv <= 0 || h % hkv != 0)
+    return cudaErrorInvalidValue;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
+  p.lse = lse; p.delta = delta;
+  p.dq = dq; p.dk = dk; p.dv = dv;
+  long long* fields[24] = {
+      &p.q_sb, &p.q_ss, &p.q_sh, &p.k_sb, &p.k_ss, &p.k_sh,
+      &p.v_sb, &p.v_ss, &p.v_sh, &p.o_sb, &p.o_ss, &p.o_sh,
+      &p.do_sb, &p.do_ss, &p.do_sh, &p.dq_sb, &p.dq_ss, &p.dq_sh,
+      &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.dv_sb, &p.dv_ss, &p.dv_sh};
+  for (int i = 0; i < 24; ++i) *fields[i] = strides[i];
+  p.sq = sq;
+  p.sk = sk;
+  p.h = h;
+  p.g = h / hkv;
+  p.causal = causal;
+  p.window = window;
+  p.scale = scale;
+  return cudaSuccess;
+}
+
+// The FMA route's backward (float32, and bfloat16 with any pair): dq, dk,
+// dv (in the operands' dtype, written whole) from dO, q, k, v, the
+// forward's o and lse, through three kernels on `stream` (four where H >
+// Hkv: the GQA reduction); delta is a float32 (B, H, Sq) scratch, dk_part
+// and dv_part float32 (B, Sk, H, hd) and (B, Sk, H, hdv) scratches (null
+// where H == Hkv).  hd: q, k, dq and dk's head dim; hdv: v, o, dO and
+// dv's, a pair of bwd::dispatch.  strides: 24 element strides, (b, s, h)
+// of q, k, v, o, dO, dq, dk, dv in that order; dk and dv contiguous.
+// dtype: 0 float32, 1 bfloat16.  Returns the CUDA status of the launches
+// (cudaErrorInvalidValue for a pair not built).
+int fa_backward(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const float* lse, float* delta, void* dq,
+                void* dk, void* dv, float* dk_part, float* dv_part,
+                const long long* strides, int batch, int sq, int sk, int h,
+                int hkv, int hd, int hdv, int causal, int window,
+                float scale, int dtype, void* stream) {
+  if (hkv > 0 && h != hkv && (dk_part == nullptr || dv_part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  bwd::Params p;
+  cudaError_t err = make_bwd_params(p, q, k, v, o, dout, lse, delta, dq, dk,
+                                    dv, strides, batch, sq, sk, h, hkv,
+                                    causal, window, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto s = static_cast<cudaStream_t>(stream);
+  err = dtype == 0
+            ? bwd::dispatch<float>(p, hd, hdv, batch, dk_part, dv_part, s)
+        : dtype == 1 ? bwd::dispatch<__nv_bfloat16>(p, hd, hdv, batch,
+                                                    dk_part, dv_part, s)
+                     : cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The tensor-core route's backward: bfloat16, (hd, hdv) a pair of
+// bwd_tc::dispatch; the same arguments as `fa_backward` without dtype.
+// Every pointer on a 16-byte boundary and every stride a multiple of 8
+// elements.  Four kernels: preprocess, dK/dV, the GQA reduction (H >
+// Hkv), dQ.
+int fa_backward_tc(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, float* dk_part,
+                   float* dv_part, const long long* strides, int batch,
+                   int sq, int sk, int h, int hkv, int hd, int hdv,
+                   int causal, int window, float scale, void* stream) {
+  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  for (int i = 0; i < 24; ++i)
+    if (strides[i] % 8 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  if (hkv > 0 && h != hkv && (dk_part == nullptr || dv_part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  bwd::Params p;
+  cudaError_t err = make_bwd_params(p, q, k, v, o, dout, lse, delta, dq, dk,
+                                    dv, strides, batch, sq, sk, h, hkv,
+                                    causal, window, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = bwd_tc::dispatch(p, hd, hdv, batch, dk_part, dv_part,
+                         static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+}  // extern "C"

@@ -2,7 +2,8 @@
 
 Each source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, cached under ``build/`` beside
-this package by a hash of the source and the flags, and loaded with
+this package by a hash of the source, the headers it includes from
+``csrc/`` (``#include "name"``) and the flags, and loaded with
 ``ctypes``.  Importing this module builds nothing; nothing here runs on
 the CPU path of the wrappers.
 
@@ -25,6 +26,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,6 +37,8 @@ from repro_torch.testing.chaos import chaos_point
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
+#: a local include of a source: ``#include "name"``, found beside it
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -71,9 +75,21 @@ class CudaLibrary:
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
 
-    def path(self) -> str:
+    def _text(self) -> bytes:
+        """The source and, after it, each header it includes from its
+        directory, in the order included."""
         with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+            text = f.read()
+        parts = [text]
+        for name in _LOCAL_INCLUDE.findall(text):
+            with open(os.path.join(os.path.dirname(self.source),
+                                   name.decode()), "rb") as f:
+                parts.append(f.read())
+        return b"".join(parts)
+
+    def path(self) -> str:
+        digest = hashlib.sha256(self._text()
+                                + " ".join(NVCC_FLAGS).encode())
         stem = os.path.splitext(os.path.basename(self.source))[0]
         return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -1,5 +1,6 @@
-"""Hopper flash-attention kernels (``csrc/flash_attention.cu``) and their
-wrapper.
+"""Hopper flash-attention kernels (``csrc/flash_attention.cu``, the
+forward; ``csrc/flash_attention_bwd.cu``, the backward; two libraries
+that build in parallel) and their wrapper.
 
 :func:`flash_attention` takes the JAX package's layout, q (B, Sq, H, hd),
 k (B, Sk, Hkv, hd) and v (B, Sk, Hkv, hdv), and returns (B, Sq, H, hdv):
@@ -25,25 +26,31 @@ and bfloat16 with hd = 8, run ``flash_attention_kernel`` (float32 FMAs).
 Nothing falls back from one route to the other.  hd ≠ hdv is DeepSeek-V2's
 MLA: (192, 128) published, (24, 16) in its smoke config; (256, 256) is
 RecurrentGemma's local attention (the tensor-core kernel runs two
-warpgroups a CTA there, each holding half of O's columns); any other pair
-raises "not ported yet".
+warpgroups a CTA there, each holding half of O's columns); a pair
+outside :data:`HEAD_DIMS` has no kernel and raises ``ValueError`` from the
+shapes alone, before any device work.
 
 The gradient: where grad mode is on and an operand requires grad,
 :func:`flash_attention` on CUDA tensors goes through
 :class:`FlashAttentionFn`, whose forward launches the routed kernel with
 its per-row log-sum-exp (``lse``, float32 (B, H, Sq)) and whose backward
 launches the backward kernels (:func:`backward`), routed by the same
-rule:
+rule, at every pair of :data:`HEAD_DIMS`:
 
-* ``"tc"`` (bfloat16, hd in :data:`BWD_TC_HEAD_DIMS`): ``fa_backward_tc``,
-  four kernels: ``D = rowsum(dO o)`` (16-byte loads), then on the
-  tensor cores dK / dV per (query head, key tile) into float32
-  partials, their sum over the g query heads of each kv head in head
-  order (only where H > Hkv), and dQ per query tile; operands aligned as
-  the forward's tensor-core route wants (a misaligned upstream gradient
-  is copied, q, k and v raise); ``LAUNCHES["flash_attention_bwd_tc"]``;
+* ``"tc"`` (bfloat16, (hd, hdv) in :data:`TC_HEAD_DIMS`):
+  ``fa_backward_tc``, four kernels: ``D = rowsum(dO o)`` over hdv
+  (16-byte loads), then on the tensor cores dK / dV per (query head, key
+  tile) into float32 partials ((B, Sk, H, hd) and (B, Sk, H, hdv)), their
+  sum over the g query heads of each kv head in head order (only where H
+  > Hkv), and dQ per query tile; past hd 128 a dK / dV CTA is two
+  warpgroups by role (one keeps dV, the other dK), and a dQ CTA two
+  (dQ's first 128 columns, and the rest); operands aligned as the forward's
+  tensor-core route wants (a misaligned upstream gradient is copied, q, k
+  and v raise); ``LAUNCHES["flash_attention_bwd_tc"]``;
 * ``"fma"`` (float32, and bfloat16 with hd 8): ``fa_backward``, three
-  kernels of float32 FMAs (``D``, dK / dV per kv head and key tile, dQ).
+  kernels of float32 FMAs (``D``, dK / dV per query head and key tile,
+  dQ; 32-row streamed tiles past hd 128), and the same GQA reduction of
+  float32 partials where H > Hkv.
 
 Both are deterministic (no float atomics); ``LAUNCHES
 ["flash_attention_bwd"]`` counts every backward call.
@@ -51,11 +58,8 @@ Both are deterministic (no float atomics); ``LAUNCHES
 shapes alone.  :func:`launch` itself stays forward only and raises on an
 operand that requires grad.
 On CPU tensors autograd runs through the plain version.  The backward
-covers the forward's pairs with hd == hdv in :data:`BWD_HEAD_DIMS`, with
-``q_offset = 0`` (training); any other ``q_offset`` raises, and hd ≠ hdv
-(MLA) or hd 256 (RecurrentGemma) raises ``NotImplementedError`` ("not
-ported yet") before any launch: nothing falls back to the plain version
-on the card.
+takes ``q_offset = 0`` (training); any other ``q_offset`` raises.  Nothing
+falls back to the plain version on the card.
 
 The forward kernels replace the Pallas kernel ``flash_attention_pallas``
 of the JAX package's ``kernels/flash_attention.py``; the JAX package has
@@ -82,12 +86,8 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
 #: published), (256, 256) RecurrentGemma-9B's local attention
 HEAD_DIMS = ((8, 8), (16, 16), (24, 16), (32, 32), (64, 64), (128, 128),
              (192, 128), (256, 256))
-#: the pairs of the tensor-core forward (bfloat16 only)
+#: the pairs of the tensor-core forward and backward (bfloat16 only)
 TC_HEAD_DIMS = tuple(p for p in HEAD_DIMS if p[0] >= 16)
-#: head dims of the backward kernels (hdv == hd), and of its tensor-core
-#: route (bfloat16 only)
-BWD_HEAD_DIMS = (8, 16, 32, 64, 128)
-BWD_TC_HEAD_DIMS = (16, 32, 64, 128)
 ROUTES = ("tc", "fma")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: rows and keys per tile of the backward kernels; threads of a CTA of the
@@ -102,27 +102,32 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+
+
+def _declare_forward(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    strides = ctypes.POINTER(ctypes.c_longlong)
     # q, k, v, o, strides, b, sq, sk, h, hkv, hd, hdv, causal, window,
     # q_offset, scale, lse, [dtype,] stream
-    lib.fa_forward.argtypes = [p, p, p, p, strides,
+    lib.fa_forward.argtypes = [p, p, p, p, _STRIDES,
                                i, i, i, i, i, i, i, i, i, i, f, p, i, p]
     lib.fa_forward.restype = ctypes.c_int
     lib.fa_forward_tc.argtypes = lib.fa_forward.argtypes[:-2] + [p]
     lib.fa_forward_tc.restype = ctypes.c_int
-    # q, k, v, o, dO, lse, delta, dq, dk, dv, strides, b, sq, sk, h, hkv,
-    # hd, causal, window, scale, dtype, stream
-    lib.fa_backward.argtypes = [p] * 10 + [strides] + [i] * 8 + [f, i, p]
+
+
+def _declare_backward(lib: ctypes.CDLL) -> None:
+    p, i, f, strides = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, _STRIDES
+    # q, k, v, o, dO, lse, delta, dq, dk, dv, dk_part, dv_part, strides,
+    # b, sq, sk, h, hkv, hd, hdv, causal, window, scale, [dtype,] stream
+    lib.fa_backward.argtypes = [p] * 12 + [strides] + [i] * 9 + [f, i, p]
     lib.fa_backward.restype = ctypes.c_int
-    # ... dv, dk_part, dv_part, strides, b, sq, sk, h, hkv, hd, causal,
-    # window, scale, stream
-    lib.fa_backward_tc.argtypes = [p] * 12 + [strides] + [i] * 8 + [f, p]
+    lib.fa_backward_tc.argtypes = [p] * 12 + [strides] + [i] * 9 + [f, p]
     lib.fa_backward_tc.restype = ctypes.c_int
 
 
-LIBRARY = CudaLibrary("flash_attention.cu", _declare)
+LIBRARY = CudaLibrary("flash_attention.cu", _declare_forward)
+BWD_LIBRARY = CudaLibrary("flash_attention_bwd.cu", _declare_backward)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -137,10 +142,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (k.shape[0] != b or k.shape[3] != hd or v.shape[:3] != k.shape[:3]):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if (hd, hdv) not in HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention: head dims (hd {hd}, hdv {hdv}) are not "
-            f"ported yet; the kernels take (hd, hdv) in {HEAD_DIMS}")
+    _check_pair(hd, hdv)
     if min(b, sq, sk, h, hkv) == 0 or h % hkv != 0:
         raise ValueError(f"flash_attention: unsupported shape q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
@@ -158,6 +160,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1:
             raise ValueError("flash_attention: the head dim must have "
                              "stride 1")
+
+
+def _check_pair(hd: int, hdv: int) -> None:
+    """Raise ``ValueError`` for head dims no kernel is built for."""
+    if (hd, hdv) not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention: no kernel is built for head dims (hd {hd}, "
+            f"hdv {hdv}); the kernels take (hd, hdv) in {HEAD_DIMS}")
 
 
 def _route(dtype: torch.dtype, hd: int, hdv: int) -> str:
@@ -251,30 +261,18 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _backward_ported(hd: int, hdv: int) -> None:
-    """Raise ``NotImplementedError`` for head dims the backward kernels
-    are not built for: hd ≠ hdv (MLA) or hd outside
-    :data:`BWD_HEAD_DIMS` (RecurrentGemma's 256)."""
-    if hd != hdv or hd not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention backward: head dims (hd {hd}, hdv {hdv}) are "
-            f"not ported yet; the backward kernels take hd == hdv in "
-            f"{BWD_HEAD_DIMS}")
-
-
 def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
                   dtype: torch.dtype, route: str | None = None, *,
                   hdv: int | None = None) -> dict:
     """The backward's launches for these shapes, from the shapes alone:
     ``route`` (None takes :func:`_route`), ``kernels`` as (name, grid) in
-    launch order, and ``scratch_floats``, the float32 elements of the
-    tensor-core route's dK / dV partials (0 where none).  ``hdv`` (v's
-    head dim) defaults to ``hd``.  Raises ``NotImplementedError`` for
-    head dims the backward is not ported to (:func:`_backward_ported`),
-    ``ValueError`` for an unknown route or a tensor-core route that the
-    dtype or head dim does not take."""
+    launch order, and ``scratch_floats``, the float32 elements of the dK
+    and dV partials, b·sk·h·(hd + hdv) where H > Hkv (0 where none).
+    ``hdv`` (v's head dim) defaults to ``hd``.  Raises ``ValueError`` for
+    a pair outside :data:`HEAD_DIMS`, an unknown route or a tensor-core
+    route that the dtype or head dims do not take."""
     hdv = hd if hdv is None else hdv
-    _backward_ported(hd, hdv)
+    _check_pair(hd, hdv)
     if route is None:
         route = _route(dtype, hd, hdv)
     if route not in ROUTES:
@@ -282,23 +280,25 @@ def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
                          f"{ROUTES}")
     if route == "tc" and _route(dtype, hd, hdv) != "tc":
         raise ValueError(f"flash_attention backward: the tensor-core route "
-                         f"takes bfloat16 with hd in {BWD_TC_HEAD_DIMS}, got "
-                         f"{dtype}, hd {hd}")
+                         f"takes bfloat16 with (hd, hdv) in {TC_HEAD_DIMS}, "
+                         f"got {dtype}, ({hd}, {hdv})")
     nq, nk = _cdiv(sq, _TILE), _cdiv(sk, _TILE)
-    scratch = 0
     if route == "fma":
         kernels = [("fa_bwd_preprocess_kernel", (nq, b * h)),
-                   ("fa_bwd_dkdv_kernel", (nk, b * hkv)),
-                   ("fa_bwd_dq_kernel", (nq, b * h))]
+                   ("fa_bwd_dkdv_kernel", (nk, b * h))]
+        last = ("fa_bwd_dq_kernel", (nq, b * h))
     else:
         kernels = [("fa_bwd_preprocess_tc_kernel", (nq, b * h)),
                    ("fa_bwd_dkdv_tc_kernel", (b * h, nk))]
-        if h != hkv:  # per-query-head partials, summed per kv head
-            scratch = 2 * b * sk * h * hd
-            kernels.append(("fa_bwd_gqa_reduce_kernel",
-                            (_cdiv(b * sk * hkv * hd // 4, _BWD_THREADS),)))
-        kernels.append(("fa_bwd_dq_tc_kernel", (b * h, nq)))
-    return {"route": route, "kernels": kernels, "scratch_floats": scratch}
+        last = ("fa_bwd_dq_tc_kernel", (b * h, nq))
+    scratch = 0
+    if h != hkv:  # per-query-head partials, summed per kv head
+        scratch = b * sk * h * (hd + hdv)
+        kernels.append(("fa_bwd_gqa_reduce_kernel",
+                        (_cdiv(b * sk * hkv * max(hd, hdv) // 4,
+                               _BWD_THREADS),)))
+    return {"route": route, "kernels": kernels + [last],
+            "scratch_floats": scratch}
 
 
 def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
@@ -318,25 +318,25 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     window = int(window)
     _check(q, k, v, window, 0)
     b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
     route = plan["route"]
     if do.stride(3) != 1 or (route == "tc" and not _tc_aligned(do)):
         # a copy, not another route (a contiguous view may start off the
         # 16-byte boundary, so not .contiguous())
         do = do.clone(memory_format=torch.contiguous_format)
     for t in (o, do):
-        if (t.shape != q.shape or t.dtype != q.dtype
+        if (t.shape != (b, sq, h, hdv) or t.dtype != q.dtype
                 or t.device != q.device or t.stride(3) != 1):
             raise ValueError(f"flash_attention backward: o / dO "
-                             f"{tuple(t.shape)} {t.dtype} do not match q "
-                             f"{tuple(q.shape)} {q.dtype}")
+                             f"{tuple(t.shape)} {t.dtype} do not match "
+                             f"{(b, sq, h, hdv)} {q.dtype}")
     if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError("flash_attention backward: want a contiguous "
                          "float32 lse of shape (B, H, Sq) on q's device")
     if route == "tc":
         _check_tc(q, k, v, o, do)
-    lib = LIBRARY.load()
+    lib = BWD_LIBRARY.load()
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -345,18 +345,20 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr())
     dims = (_strides(q, k, v, o, do, dq, dk, dv), b, sq, sk, h, hkv, hd,
-            int(bool(causal)), window, 1.0 / math.sqrt(hd))
+            hdv, int(bool(causal)), window, 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        # dK's partials (B, Sk, H, hd), then dV's (B, Sk, H, hdv)
+        part = (torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                            device=q.device)
+                if plan["scratch_floats"] else None)
+        parts = ((part.data_ptr(), part[b * sk * h * hd:].data_ptr())
+                 if part is not None else (None, None))
         if route == "tc":
-            part = (torch.empty((2, plan["scratch_floats"] // 2),
-                                dtype=torch.float32, device=q.device)
-                    if plan["scratch_floats"] else None)
-            parts = ((part[0].data_ptr(), part[1].data_ptr())
-                     if part is not None else (None, None))
             rc = lib.fa_backward_tc(*args, *parts, *dims, stream)
         else:
-            rc = lib.fa_backward(*args, *dims, _DTYPES[q.dtype], stream)
+            rc = lib.fa_backward(*args, *parts, *dims, _DTYPES[q.dtype],
+                                 stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward: CUDA launch failed "
                            f"with status {rc}")
@@ -369,16 +371,14 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention on CUDA tensors with a kernel for its gradient:
     the forward saves q, k, v, the output and the per-row ``lse``; the
-    backward is :func:`backward`.  Both take :func:`_route`'s route: the
-    tensor cores for bfloat16 with hd in :data:`BWD_TC_HEAD_DIMS`
-    (forward ``flash_attention_tc_kernel``, backward ``fa_backward_tc``),
-    float32 FMAs otherwise.  ``q_offset`` is 0.  Head dims the backward
-    is not ported to (hd ≠ hdv, hd 256) raise ``NotImplementedError``
-    before the forward launches."""
+    backward is :func:`backward`.  Both take :func:`_route`'s route at
+    every (hd, hdv) pair of :data:`HEAD_DIMS`: the tensor cores for
+    bfloat16 with the pair in :data:`TC_HEAD_DIMS` (forward
+    ``flash_attention_tc_kernel``, backward ``fa_backward_tc``), float32
+    FMAs otherwise.  ``q_offset`` is 0."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        _backward_ported(q.shape[-1], v.shape[-1])
         out, lse = _forward(q, k, v, causal, window, 0,
                             _route(q.dtype, q.shape[-1], v.shape[-1]),
                             with_lse=True)

@@ -86,12 +86,19 @@ def test_plain_flash_attention_matches_pallas_interpret(case, dtype):
                                atol=TOL[dtype])
 
 
-# (B, S, H, Hkv, hd, causal, window): training shapes (q_offset 0)
+# (B, S, H, Hkv, hd, hdv, causal, window): training shapes (q_offset 0),
+# at the backward kernels' pairs: hd == hdv, DeepSeek-V2-Lite's MLA (24,
+# 16) smoke and (192, 128) published, RecurrentGemma-9B's (256, 256) with
+# a window and its smoke config's (16, 16) over one kv head, window 8
 GRAD_CASES = [
-    (2, 40, 4, 2, 16, True, 0),     # GQA causal
-    (1, 50, 4, 1, 8, True, 13),     # MQA local window
-    (1, 33, 6, 2, 16, True, 7),     # GQA window, ragged chunks
-    (2, 24, 4, 4, 8, False, 0),     # MHA, no mask
+    (2, 40, 4, 2, 16, 16, True, 0),      # GQA causal
+    (1, 50, 4, 1, 8, 8, True, 13),       # MQA local window
+    (1, 33, 6, 2, 16, 16, True, 7),      # GQA window, ragged chunks
+    (2, 24, 4, 4, 8, 8, False, 0),       # MHA, no mask
+    (2, 40, 4, 4, 24, 16, True, 0),      # MLA smoke, causal
+    (1, 20, 2, 2, 192, 128, True, 0),    # MLA published, short
+    (1, 40, 4, 1, 256, 256, True, 24),   # RecurrentGemma, window
+    (2, 30, 4, 1, 16, 16, True, 8),      # RecurrentGemma smoke
 ]
 
 
@@ -100,9 +107,12 @@ def test_plain_flash_attention_grads_match_jax(case):
     """dq, dk, dv by autograd through the plain version (the CPU path of
     ``flash_attention``) against ``jax.grad`` of the JAX package's
     chunked attention, float32, on the same upstream gradient."""
-    b, s, h, hkv, hd, causal, window = case
-    arrs = _qkv((b, s, s, h, hkv, hd))
-    do = np.random.default_rng(5).normal(size=(b, s, h, hd)).astype(np.float32)
+    b, s, h, hkv, hd, hdv, causal, window = case
+    rng = np.random.default_rng(0)
+    arrs = [rng.normal(size=sh).astype(np.float32)
+            for sh in ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hdv))]
+    do = np.random.default_rng(5).normal(size=(b, s, h, hdv)).astype(
+        np.float32)
 
     def jloss(q, k, v):
         o = jattn.flash_attention(q, k, v, causal=causal, window=window,
@@ -114,9 +124,12 @@ def test_plain_flash_attention_grads_match_jax(case):
     out = tattn.flash_attention(*qkv, causal=causal, window=window, cq=16,
                                 ck=16)
     got = torch.autograd.grad(out, qkv, torch.from_numpy(do))
+    # float32 sums in another order: the error of a sum over the head dim
+    # grows as its square root (1e-6 at hd 16, 4e-6 at 256)
+    atol = 1e-6 * max(1.0, (max(hd, hdv) / 16) ** 0.5)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
-                                   atol=1e-6)
+                                   atol=atol)
 
 
 def test_fully_masked_rows_give_zero():
@@ -214,18 +227,14 @@ def test_kernel_checks_refuse_cpu_operands():
 def test_route_rule(dtype, hd):
     """bf16 with hd >= 16 goes to the tensor-core kernel; float32 and bf16
     with hd = 8 to the FMA kernel, at each (hd, hdv) pair.  The backward
-    follows the same rule where it is built, and raises "not ported yet"
-    for MLA's hd != hdv and for hd 256, from the shapes alone."""
+    follows the same rule at every pair, MLA's hd != hdv and hd 256
+    included, from the shapes alone."""
     hdv = dict(tfa.HEAD_DIMS)[hd]
     route = tfa._route(getattr(torch, dtype), hd, hdv)
     assert route == ("tc" if dtype == "bfloat16" and hd >= 16 else "fma")
     assert route in tfa.ROUTES
-    if hd != hdv or hd not in tfa.BWD_HEAD_DIMS:   # MLA; RecurrentGemma's 256
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tfa.backward_plan(2, 64, 64, 4, 2, hd, getattr(torch, dtype),
-                              hdv=hdv)
-        return
-    plan = tfa.backward_plan(2, 64, 64, 4, 2, hd, getattr(torch, dtype))
+    plan = tfa.backward_plan(2, 64, 64, 4, 2, hd, getattr(torch, dtype),
+                             hdv=hdv)
     assert plan["route"] == route
     assert plan["kernels"][1][0] == ("fa_bwd_dkdv_tc_kernel" if route == "tc"
                                      else "fa_bwd_dkdv_kernel")
@@ -234,68 +243,30 @@ def test_route_rule(dtype, hd):
 @pytest.mark.parametrize("hd,hdv", [(256, 128), (192, 192), (128, 64),
                                     (16, 8), (96, 96)])
 def test_unported_head_dims_are_refused_before_the_device(hd, hdv):
-    """Pairs outside HEAD_DIMS raise "not ported yet" from the shapes,
-    naming the pairs that are built, before the operands' device: the
-    forward's check, launch(), and the backward."""
-    q = torch.zeros((1, 8, 4, hd), dtype=torch.bfloat16)
-    v = torch.zeros((1, 8, 4, hdv), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=r"not ported yet; the kernels take "
-                                         r"\(hd, hdv\) in .*\(256, 256\)"):
-        tfa._check(q, q, v, 0, 0)
-    with pytest.raises(ValueError, match="not ported yet"):
-        tfa.launch(q, q, v, True, 0, 0, route="fma")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tfa.backward(q, q, q, v, q, torch.zeros((1, 4, 8)), True, 0)
-    assert tfa._route(torch.bfloat16, hd, hdv) == "fma"
-
-
-@pytest.mark.parametrize("hd,hdv", [(192, 128), (24, 16)])
-def test_mla_backward_refused_before_launch(hd, hdv):
-    """MLA's head dims: the forward takes them on both routes, the
-    backward raises NotImplementedError from the shapes alone (backward,
-    backward_plan on either route, and the autograd Function before its
-    forward launches), so nothing falls back to the plain version."""
+    """Pairs outside HEAD_DIMS have no kernel and raise ValueError from
+    the shapes, naming the pairs that are built, before the operands'
+    device: the forward's check, launch(), the backward and its plan on
+    every route, and the autograd Function before its forward launches."""
     q = torch.zeros((1, 8, 4, hd), dtype=torch.bfloat16)
     v = torch.zeros((1, 8, 4, hdv), dtype=torch.bfloat16)
     lse = torch.zeros((1, 4, 8))
-    assert (hd, hdv) in tfa.TC_HEAD_DIMS
+    with pytest.raises(ValueError, match=r"no kernel is built for head dims "
+                                         r".*the kernels take \(hd, hdv\) in "
+                                         r".*\(256, 256\)"):
+        tfa._check(q, q, v, 0, 0)
+    with pytest.raises(ValueError, match="no kernel is built"):
+        tfa.launch(q, q, v, True, 0, 0, route="fma")
     for route in (None, "tc", "fma"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tfa.backward(v, q, q, v, v, lse, True, 0, route=route)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(ValueError, match="no kernel is built"):
             tfa.backward_plan(1, 8, 8, 4, 4, hd, torch.bfloat16, route,
                               hdv=hdv)
+        with pytest.raises(ValueError, match="no kernel is built"):
+            tfa.backward(v, q, q, v, v, lse, True, 0, route=route)
     tfa.reset_launches()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="no kernel is built"):
         tfa.FlashAttentionFn.apply(q, q, v, True, 0)
-    assert tfa.LAUNCHES["flash_attention"] == 0
-    with pytest.raises(ValueError, match="CUDA"):           # the forward
-        tfa.launch(q, q, v, True, 0, 0, route="tc")
-
-
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_recurrentgemma_backward_refused_before_launch(dtype):
-    """RecurrentGemma's (256, 256): the forward takes it on both routes,
-    the backward raises NotImplementedError from the shapes alone
-    (backward and backward_plan on every route, and the autograd Function
-    before its forward launches)."""
-    q = torch.zeros((1, 8, 4, 256), dtype=getattr(torch, dtype))
-    lse = torch.zeros((1, 4, 8))
-    assert (256, 256) in tfa.HEAD_DIMS and 256 not in tfa.BWD_HEAD_DIMS
-    assert tfa._route(getattr(torch, dtype), 256, 256) == (
-        "tc" if dtype == "bfloat16" else "fma")
-    for route in (None, "tc", "fma"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tfa.backward(q, q, q, q, q, lse, True, 0, route=route)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tfa.backward_plan(1, 8, 8, 4, 4, 256, getattr(torch, dtype),
-                              route)
-    tfa.reset_launches()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tfa.FlashAttentionFn.apply(q, q, q, True, 2048)
-    assert tfa.LAUNCHES["flash_attention"] == 0
-    with pytest.raises(ValueError, match="CUDA"):           # the forward
-        tfa.launch(q, q, q, True, 2048, 0, route="fma")
+    assert set(tfa.LAUNCHES.values()) == {0}
+    assert tfa._route(torch.bfloat16, hd, hdv) == "fma"
 
 
 @pytest.mark.parametrize("dtype,hd", [("float32", 16), ("float32", 128),
@@ -318,7 +289,8 @@ def test_backward_tc_route_refuses_before_launch(dtype, hd):
 
 def test_backward_plan_hand_counts():
     """The backward's launches against counts by hand (64-row tiles; the
-    reduction's CTAs take 256 threads of four elements)."""
+    reduction's CTAs take 256 threads of four elements; both routes keep
+    per-query-head partials where H > Hkv)."""
     bf16 = torch.bfloat16
     # the train step: B 4, S 1024, H 12, Hkv 2, hd 128
     plan = tfa.backward_plan(4, 1024, 1024, 12, 2, 128, bf16)
@@ -329,8 +301,9 @@ def test_backward_plan_hand_counts():
         ("fa_bwd_dq_tc_kernel", (48, 16))],
         "scratch_floats": 2 * 4 * 1024 * 12 * 128}     # 2 x 25.2 MB
     fma = tfa.backward_plan(4, 1024, 1024, 12, 2, 128, bf16, "fma")
-    assert fma["kernels"][1] == ("fa_bwd_dkdv_kernel", (16, 8))  # 128 CTAs
-    assert fma["scratch_floats"] == 0
+    assert fma["kernels"][1] == ("fa_bwd_dkdv_kernel", (16, 48))  # 768 CTAs
+    assert fma["kernels"][2] == ("fa_bwd_gqa_reduce_kernel", (1024,))
+    assert fma["scratch_floats"] == 2 * 4 * 1024 * 12 * 128
     # ragged, and MHA (g = 1: no partials, no reduction)
     assert tfa.backward_plan(2, 1000, 1000, 12, 2, 128, bf16)["kernels"][2] \
         == ("fa_bwd_gqa_reduce_kernel", (500,))         # 128,000 / 256
@@ -341,18 +314,74 @@ def test_backward_plan_hand_counts():
         "scratch_floats": 0}
     assert tfa.backward_plan(1, 200, 200, 6, 2, 8, torch.float32) == {
         "route": "fma", "kernels": [("fa_bwd_preprocess_kernel", (4, 6)),
-                                    ("fa_bwd_dkdv_kernel", (4, 2)),
+                                    ("fa_bwd_dkdv_kernel", (4, 6)),
+                                    ("fa_bwd_gqa_reduce_kernel", (4,)),
                                     ("fa_bwd_dq_kernel", (4, 6))],
-        "scratch_floats": 0}
+        "scratch_floats": 200 * 6 * (8 + 8)}          # 800 / 256 -> 4
+
+
+# (name, (B, S, H, Hkv, hd, hdv), dtype, want): the plans of the training
+# phases' attention by hand; the grids count 64-row tiles (the FMA route's
+# 32-row streamed tiles past hd 128 run inside a CTA, not in its grid)
+PAIR_PLANS = [
+    # DeepSeek-V2-Lite's MLA at 2 x 2048: H = Hkv, so no partials and no
+    # reduction; 2 * 16 (b, head) rows of 32 key tiles
+    ("mla_train", (2, 2048, 16, 16, 192, 128), torch.bfloat16,
+     {"route": "tc", "kernels": [("fa_bwd_preprocess_tc_kernel", (32, 32)),
+                                 ("fa_bwd_dkdv_tc_kernel", (32, 32)),
+                                 ("fa_bwd_dq_tc_kernel", (32, 32))],
+      "scratch_floats": 0}),
+    # RecurrentGemma-9B at 1 x 3072, 16 query heads over one kv head (g =
+    # 16): partials of 3072 * 16 * (256 + 256) floats (100.7 MB), and the
+    # reduction over 3072 * 1 * 256 / 4 = 196,608 threads in 768 CTAs
+    ("rg_train", (1, 3072, 16, 1, 256, 256), torch.bfloat16,
+     {"route": "tc", "kernels": [("fa_bwd_preprocess_tc_kernel", (48, 16)),
+                                 ("fa_bwd_dkdv_tc_kernel", (16, 48)),
+                                 ("fa_bwd_gqa_reduce_kernel", (768,)),
+                                 ("fa_bwd_dq_tc_kernel", (16, 48))],
+      "scratch_floats": 3072 * 16 * (256 + 256)}),
+    # MLA with GQA (g = 2): dK's partials at 192, dV's at 128, the
+    # reduction over max(192, 128) / 4 = 48 column quads a key
+    ("mla_gqa", (1, 100, 4, 2, 192, 128), torch.bfloat16,
+     {"route": "tc", "kernels": [("fa_bwd_preprocess_tc_kernel", (2, 4)),
+                                 ("fa_bwd_dkdv_tc_kernel", (4, 2)),
+                                 ("fa_bwd_gqa_reduce_kernel", (38,)),
+                                 ("fa_bwd_dq_tc_kernel", (4, 2))],
+      "scratch_floats": 100 * 4 * (192 + 128)}),     # 9,600 / 256 -> 38
+    # the float32 FMA route at (256, 256) (a dK / dV CTA a query head and
+    # key tile, the same partials and reduction) and at MLA's smoke (24, 16)
+    ("rg_f32", (1, 3072, 16, 1, 256, 256), torch.float32,
+     {"route": "fma", "kernels": [("fa_bwd_preprocess_kernel", (48, 16)),
+                                  ("fa_bwd_dkdv_kernel", (48, 16)),
+                                  ("fa_bwd_gqa_reduce_kernel", (768,)),
+                                  ("fa_bwd_dq_kernel", (48, 16))],
+      "scratch_floats": 3072 * 16 * (256 + 256)}),
+    ("mla_smoke", (2, 64, 4, 4, 24, 16), torch.float32,
+     {"route": "fma", "kernels": [("fa_bwd_preprocess_kernel", (1, 8)),
+                                  ("fa_bwd_dkdv_kernel", (1, 8)),
+                                  ("fa_bwd_dq_kernel", (1, 8))],
+      "scratch_floats": 0}),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,want",
+                         [p[1:] for p in PAIR_PLANS],
+                         ids=[p[0] for p in PAIR_PLANS])
+def test_backward_plan_hand_counts_at_pairs(shape, dtype, want):
+    """The backward's launches at hd != hdv and at (256, 256) against
+    counts by hand: the scratch is b·sk·h·(hd + hdv) floats where H >
+    Hkv, none where H == Hkv."""
+    b, s, h, hkv, hd, hdv = shape
+    assert tfa.backward_plan(b, s, s, h, hkv, hd, dtype, hdv=hdv) == want
 
 
 def test_backward_wrapper_marshals_each_route(monkeypatch):
     """What the wrapper hands the C entry points, with a stand-in library
     (no card): the tensor-core route gets a 16-byte-aligned copy of a
-    misaligned upstream gradient and two float32 partials where H > Hkv
-    (none where H == Hkv); the FMA route the gradient as it is and the
-    dtype; the launch counters count each call and the tensor-core
-    ones."""
+    misaligned upstream gradient; both routes two float32 partials where H
+    > Hkv (none where H == Hkv), and hd and hdv; the FMA route the
+    gradient as it is and the dtype; the launch counters count each call
+    and the tensor-core ones."""
     import contextlib
     import types
 
@@ -367,7 +396,7 @@ def test_backward_wrapper_marshals_each_route(monkeypatch):
             calls.append(("fma", args))
             return 0
 
-    monkeypatch.setattr(tfa.LIBRARY, "load", lambda: Lib())
+    monkeypatch.setattr(tfa.BWD_LIBRARY, "load", lambda: Lib())
     monkeypatch.setattr(tfa, "_check", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
@@ -380,20 +409,33 @@ def test_backward_wrapper_marshals_each_route(monkeypatch):
     buf = torch.zeros(q.numel() + 8, dtype=bf16)
     do = buf[1:1 + q.numel()].view(q.shape)              # 2 bytes off
     assert not tfa._tc_aligned(do)
+    # MLA's smoke pair with GQA: q, k at 24, v, o, dO at 16
+    q24 = torch.zeros((2, 8, 4, 24), dtype=bf16)
+    k24 = torch.zeros((2, 8, 2, 24), dtype=bf16)
     tfa.reset_launches()
     tfa.backward(do, q, kv, kv, q, lse, True, 0)
     tfa.backward(do, q, q, q, q, lse, True, 0)           # MHA
     tfa.backward(do, q, kv, kv, q, lse, True, 0, route="fma")
-    (r0, a0), (r1, a1), (r2, a2) = calls
-    assert (r0, r1, r2) == ("tc", "tc", "fma")
+    tfa.backward(q, q24, k24, kv, q, lse, True, 0)
+    tfa.backward(q, q24, k24, kv, q, lse, True, 0, route="fma")
+    (r0, a0), (r1, a1), (r2, a2), (r3, a3), (r4, a4) = calls
+    assert (r0, r1, r2, r3, r4) == ("tc", "tc", "fma", "tc", "fma")
     assert a0[4] % 16 == 0 and a0[4] != do.data_ptr()    # the copy
     assert a0[10] is not None and a0[11] is not None     # the partials
     assert a0[11] - a0[10] == 2 * 8 * 4 * 16 * 4         # (B, Sk, H, hd) f32
     assert a1[10] is None and a1[11] is None
     assert a2[4] == do.data_ptr() and a2[-2] == 1        # as is; bf16
-    assert len(a0) == 23 and len(a2) == 22
-    assert tfa.LAUNCHES["flash_attention_bwd"] == 3
-    assert tfa.LAUNCHES["flash_attention_bwd_tc"] == 2
+    assert len(a0) == 24 and len(a2) == 25
+    # hd and hdv through the ABI: (b, sq, sk, h, hkv, hd, hdv, causal,
+    # window) after the strides
+    assert a0[13:22] == (2, 8, 8, 4, 2, 16, 16, 1, 0)
+    assert a3[13:22] == (2, 8, 8, 4, 2, 24, 16, 1, 0)
+    assert a4[13:22] == (2, 8, 8, 4, 2, 24, 16, 1, 0)
+    for a, hd in ((a2, 16), (a3, 24), (a4, 24)):         # dK's at hd
+        assert a[11] - a[10] == 2 * 8 * 4 * hd * 4
+    assert a3[22] == pytest.approx(1 / 24 ** 0.5)        # 1/sqrt(hd)
+    assert tfa.LAUNCHES["flash_attention_bwd"] == 5
+    assert tfa.LAUNCHES["flash_attention_bwd_tc"] == 3
 
 
 def test_tc_alignment_check():

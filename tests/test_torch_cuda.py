@@ -697,21 +697,6 @@ def test_flash_attention_mla_head_dims_match_plain(cuda, case, dtype, route):
                                atol=FA_TOL[dtype])
 
 
-def test_flash_attention_mla_backward_is_not_ported(cuda):
-    """hd != hdv with grad: ``NotImplementedError`` before any launch,
-    never the plain version; the forward alone runs."""
-    q = torch.zeros((1, 64, 4, 192), dtype=torch.bfloat16, device=cuda)
-    k = torch.zeros_like(q)
-    v = torch.zeros((1, 64, 4, 128), dtype=torch.bfloat16, device=cuda)
-    tfa.reset_launches()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tfa.flash_attention(q.clone().requires_grad_(), k, v)
-    assert tfa.LAUNCHES["flash_attention"] == 0
-    with torch.no_grad():
-        assert tfa.flash_attention(q, k, v).shape == (1, 64, 4, 128)
-    assert tfa.LAUNCHES["flash_attention_tc"] == 1
-
-
 def test_flash_attention_mla_instantiations_do_not_spill(cuda):
     """ptxas -v of the library: the forward kernels at (192, 128) and
     (24, 16), both routes, spill no registers."""
@@ -850,25 +835,38 @@ def test_prefill_and_serve_on_card_match_cpu(cuda, arch):
     assert out[0] == out[1]
 
 
-# (B, Sq, Sk, H, Hkv, hd, causal, window): the backward takes q_offset 0
+# (B, Sq, Sk, H, Hkv, hd, hdv, causal, window): the backward takes
+# q_offset 0; past the hd == hdv cases, DeepSeek-V2-Lite's MLA at (192,
+# 128) and its smoke config's (24, 16), MHA as the model runs it and with
+# GQA, and RecurrentGemma-9B's (256, 256) with its window masking keys, 16
+# query heads over one kv head (the GQA reduction at g = 16), and without
+# a mask
 BWD_CASES = [
-    (2, 130, 130, 4, 2, 16, True, 0),      # GQA causal, ragged tiles
-    (1, 200, 200, 6, 2, 8, True, 70),      # window, hd 8
-    (1, 100, 150, 4, 4, 32, False, 0),     # cross, MHA, ragged
-    (1, 150, 150, 2, 1, 64, False, 40),    # window without causal
-    (1, 256, 256, 12, 2, 128, True, 0),    # the model's heads
-    (1, 64, 64, 2, 1, 128, True, 1),       # each row attends itself
-    (2, 1000, 1000, 12, 2, 128, True, 0),  # the model's heads, ragged
+    (2, 130, 130, 4, 2, 16, 16, True, 0),      # GQA causal, ragged tiles
+    (1, 200, 200, 6, 2, 8, 8, True, 70),       # window, hd 8
+    (1, 100, 150, 4, 4, 32, 32, False, 0),     # cross, MHA, ragged
+    (1, 150, 150, 2, 1, 64, 64, False, 40),    # window without causal
+    (1, 256, 256, 12, 2, 128, 128, True, 0),   # the model's heads
+    (1, 64, 64, 2, 1, 128, 128, True, 1),      # each row attends itself
+    (2, 1000, 1000, 12, 2, 128, 128, True, 0),  # the model's heads, ragged
+    (2, 130, 130, 4, 4, 192, 128, True, 0),
+    (1, 200, 200, 4, 2, 192, 128, True, 70),
+    (1, 100, 150, 2, 2, 192, 128, False, 0),
+    (2, 100, 100, 4, 4, 24, 16, True, 0),
+    (1, 150, 150, 4, 2, 24, 16, False, 40),
+    (1, 300, 300, 16, 1, 256, 256, True, 100),
+    (2, 130, 130, 4, 1, 256, 256, True, 0),
+    (1, 100, 150, 4, 4, 256, 256, False, 0),
 ]
 # (dtype, backward route): float32 takes the FMA route; bf16 both, the
-# tensor cores only with hd in BWD_TC_HEAD_DIMS
+# tensor cores only with (hd, hdv) in TC_HEAD_DIMS
 BWD_PARAMS = [
     pytest.param(case, dtype, route, id=f"{name}-{route}-{i}")
     for i, case in enumerate(BWD_CASES)
     for name, dtype, route in (("f32", torch.float32, "fma"),
                                ("bf16", torch.bfloat16, "fma"),
                                ("bf16", torch.bfloat16, "tc"))
-    if route == "fma" or case[5] in tfa.BWD_TC_HEAD_DIMS
+    if route == "fma" or (case[5], case[6]) in tfa.TC_HEAD_DIMS
 ]
 # the backward against autograd through the plain version: float32 sums
 # in another order; bf16 gradients one bf16 rounding apart (the forward's
@@ -877,11 +875,15 @@ BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 
-def _bwd_inputs(case, dtype, device, seed=0):
+def _bwd_inputs(case, dtype, device, seed=0, hdv=None):
     b, sq, sk, h, hkv, hd = case[:6]
-    q, k, v = _qkv(case, dtype, device, seed)
+    hdv = hd if hdv is None else hdv
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(device=device, dtype=dtype)
+               for s in ((b, sq, h, hd), (b, sk, hkv, hd), (b, sk, hkv, hdv)))
     do = torch.from_numpy(np.random.default_rng(seed + 9).normal(
-        size=(b, sq, h, hd)).astype(np.float32)).to(device=device, dtype=dtype)
+        size=(b, sq, h, hdv)).astype(np.float32)).to(device=device, dtype=dtype)
     return [t.requires_grad_() for t in (q, k, v)], do
 
 
@@ -893,8 +895,8 @@ def test_flash_attention_fn_grads_match_plain_autograd(cuda, case, dtype,
     card; two backward runs give the same bits."""
     import functools
 
-    causal, window = case[6:]
-    qkv, do = _bwd_inputs(case, dtype, cuda)
+    causal, window = case[7:]
+    qkv, do = _bwd_inputs(case, dtype, cuda, hdv=case[6])
     monkeypatch.setattr(tfa, "backward",
                         functools.partial(tfa.backward, route=route))
     tfa.reset_launches()
@@ -919,6 +921,52 @@ def test_flash_attention_fn_grads_match_plain_autograd(cuda, case, dtype,
         torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype])
 
 
+def test_flash_attention_backward_tc_does_not_spill(cuda):
+    """ptxas -v of the library: no tensor-core backward kernel spills, at
+    any pair (preprocess at each hdv, dK / dV and dQ at each pair, the
+    GQA reduction into bf16 and into float32)."""
+    import re
+
+    tfa.BWD_LIBRARY.build()
+    with open(tfa.BWD_LIBRARY.log_path()) as f:
+        log = f.read()
+    found = {}
+    for name, body in re.findall(
+            r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
+            log, re.S):
+        if re.search(r"fa_bwd_\w*(tc|reduce)_kernel", name):
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          body)
+            found[name] = (int(m.group(1)), int(m.group(2)))
+    # 5 preprocess (hdv 16, 32, 64, 128, 256), 7 dK / dV, 7 dQ, 2 reductions
+    assert len(found) == 21, found
+    assert all(v == (0, 0) for v in found.values()), found
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "recurrentgemma-9b"])
+def test_launch_train_trains_on_card(cuda, tmp_path, arch):
+    """``launch.train --smoke --steps 2`` on the card: the smoke config
+    (float32: the FMA backward at (24, 16) and (16, 16)) trains through
+    the flash kernels, one forward and one backward an attention layer a
+    step (remat off), and checkpoints."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.store import checkpoint as tckpt
+    from repro_torch.store.snapshot import SnapshotStore
+
+    cfg = get_smoke_config(arch)
+    attn_layers = (cfg.n_layers // 3 if cfg.block_pattern
+                   else cfg.n_layers)
+    ws = str(tmp_path / "ws")
+    tfa.reset_launches()
+    train_cli.main(["--arch", arch, "--smoke", "--steps", "2",
+                    "--ckpt-every", "2", "--batch", "2", "--seq", "32",
+                    "--workspace", ws])
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == 2 * attn_layers
+    assert tfa.LAUNCHES["flash_attention_bwd"] == 2 * attn_layers
+    assert tckpt.latest_checkpoint(SnapshotStore(ws)) == "train-step-00000002"
+
+
 def test_flash_attention_fn_forward_equals_launch(cuda):
     """The lse-writing forward gives the serving kernel's bits; lse is
     the row log-sum-exp of the scaled scores."""
@@ -939,8 +987,8 @@ def test_flash_attention_fn_forward_equals_launch(cuda):
 
 
 def test_flash_attention_fn_takes_the_tc_backward_for_bf16(cuda):
-    """The route rule: bf16 with hd in BWD_TC_HEAD_DIMS trains through the
-    tensor-core backward, float32 through the FMA one."""
+    """The route rule: bf16 with (hd, hdv) in TC_HEAD_DIMS trains through
+    the tensor-core backward, float32 through the FMA one."""
     case = (1, 64, 64, 4, 2, 32, True, 0)
     for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
         qkv, do = _bwd_inputs(case, dtype, cuda)
@@ -1135,7 +1183,7 @@ def test_flash_attention_256_lse_matches_fma(cuda):
 
 def test_flash_attention_256_tc_refuses_misaligned(cuda):
     """At (256, 256) too the tensor-core route raises on operands its
-    16-byte copies cannot read, and the backward is not ported."""
+    16-byte copies cannot read."""
     q = torch.zeros((1, 8, 4, 256), dtype=torch.bfloat16, device=cuda)
     buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
     q_off = buf[1:].view(q.shape)                           # 2-byte offset
@@ -1145,8 +1193,6 @@ def test_flash_attention_256_tc_refuses_misaligned(cuda):
     wide = torch.zeros((1, 8, 2, 260), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="multiples of 8"):
         tfa.flash_attention(q, wide[..., :256], wide[..., :256])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tfa.flash_attention(q.clone().requires_grad_(), q, q)
     assert tfa.LAUNCHES["flash_attention"] == 0
 
 

@@ -96,7 +96,7 @@ def test_kernel_checks_refuse_cpu_operands():
 
 def _forbid_library_loads(tmp_path, monkeypatch):
     monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path / "build"))
-    for lib in (mb.LIBRARY, fa.LIBRARY):
+    for lib in (mb.LIBRARY, fa.LIBRARY, fa.BWD_LIBRARY):
         monkeypatch.setattr(lib, "_lib", None)
         monkeypatch.setattr(
             lib, "load",
@@ -221,7 +221,7 @@ def test_cpu_training_never_loads_the_library(tmp_path, monkeypatch):
              for k, v in synth_batch(0, 0, 2, 8, cfg.vocab_size).items()}
     state, metrics = make_train_step(model, AdamWConfig())(state, batch)
     assert np.isfinite(float(metrics["loss"])) and int(state.opt.step) == 1
-    assert fa.LIBRARY._lib is None
+    assert fa.LIBRARY._lib is None and fa.BWD_LIBRARY._lib is None
     assert not os.path.exists(kbuild.BUILD_DIR)
     assert set(fa.LAUNCHES.values()) == {0}
 

@@ -164,6 +164,24 @@ def test_build_crash_before_rename_publishes_nothing(tmp_path, monkeypatch):
     assert lib.build() == lib.path()                  # the next build runs
 
 
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A source's cached library is named by a hash of the source and the
+    headers it includes from its directory: a change to a header is a new
+    build, a change to a header it does not include is not."""
+    calls = []
+    lib = _fake_build(tmp_path, monkeypatch, calls)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// kernel\n')
+    (tmp_path / "common.cuh").write_text("// helpers\n")
+    (tmp_path / "other.cuh").write_text("// unrelated\n")
+    first = lib.path()
+    (tmp_path / "other.cuh").write_text("// unrelated, changed\n")
+    assert lib.path() == first
+    (tmp_path / "common.cuh").write_text("// helpers, changed\n")
+    second = lib.path()
+    assert second != first
+    assert lib.build() == second and calls[0] == ("compile", calls[0][1])
+
+
 _BUILDER = """
 import sys
 from repro_torch.kernels import build as kbuild

@@ -41,7 +41,10 @@ from repro_torch.train.train_state import (  # noqa: E402
     model_params,
 )
 
-ARCHS = ["qwen2-1.5b", "granite-3-8b"]
+# the dense family, DeepSeek-V2-Lite (MLA + MoE) and RecurrentGemma-9B
+# (RG-LRU + local attention), at their smoke configs
+ARCHS = ["qwen2-1.5b", "granite-3-8b", "deepseek-v2-lite-16b",
+         "recurrentgemma-9b"]
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)
 
 
@@ -432,9 +435,11 @@ def test_port_checkpoint_loads_into_jax(tmp_path):
 
 
 # ------------------------------------------------------------- launcher
-def test_launch_train_trains_checkpoints_and_resumes(tmp_path, capsys):
+def _train_checkpoint_resume(tmp_path, capsys, arch):
+    """``launch.train --smoke --device cpu``: 4 steps checkpointed every 2,
+    then a rerun to 6 resumes from the latest checkpoint."""
     ws = str(tmp_path / "ws")
-    argv = ["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
+    argv = ["--arch", arch, "--smoke", "--device", "cpu",
             "--steps", "4", "--ckpt-every", "2", "--batch", "2", "--seq",
             "16", "--workspace", ws]
     train_cli.main(argv)
@@ -446,6 +451,17 @@ def test_launch_train_trains_checkpoints_and_resumes(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from train-step-00000004 at step 4" in out
     assert tckpt.latest_checkpoint(SnapshotStore(ws)) == "train-step-00000006"
+
+
+def test_launch_train_trains_checkpoints_and_resumes(tmp_path, capsys):
+    _train_checkpoint_resume(tmp_path, capsys, "qwen2-1.5b")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "recurrentgemma-9b"])
+def test_launch_train_trains_mla_and_hybrid_families(tmp_path, capsys, arch):
+    """DeepSeek-V2-Lite (MLA + MoE) and RecurrentGemma-9B through the
+    launcher as the dense family goes."""
+    _train_checkpoint_resume(tmp_path, capsys, arch)
 
 
 @pytest.mark.parametrize("flag", ["--production-mesh", "--multi-pod"])
