@@ -304,6 +304,9 @@ FA_CASES = [
      0, "tc"),
     ("rg_prefill_f32", (1, 3072, 3072, 16, 1, 256, 256), "float32", True,
      2048, 0, "fma"),
+    # DeepSeek-V2-Lite's smoke config at (24, 16), at the backward's
+    # mla_smoke shape
+    ("mla_smoke", (2, 256, 256, 4, 4, 24, 16), "bfloat16", True, 0, 0, "tc"),
 ]
 # the served models' rows of the contract line: case label -> launch
 # counter (the serve_mla and serve_griffin phases' counts: bf16 prefill on
@@ -1275,6 +1278,10 @@ def flash_bwd_rows(device, seed, timer):
             "ms": ms[route], "fma_ms": ms["fma"], "route_turns_ms": turns,
             "device_ms_by_kernel": by_kernel,
             "device_ms": sum(by_kernel.values()) if by_kernel else None,
+            # the route's products a (64 x 64) tile and each warpgroup's
+            # share of them, in hd-units
+            "tile_work": (fa.backward_tile_work(hd, hdv) if route == "tc"
+                          else None),
             "plain_ms": timer(plain, reps=reps, warm=warm),
             "library_ms": library_dev,
             "library_event_ms": timer(library, reps=reps, warm=warm),
@@ -3577,17 +3584,26 @@ def phase_store(root, device, seed, block_size):
 
 def ptxas_report(log_path):
     """Per kernel of one build: registers, spills, stack and static shared
-    memory, from nvcc's ``-Xptxas -v`` output."""
+    memory, from nvcc's ``-Xptxas -v`` output, and ``serialised``: each
+    note of ptxas that serialises the kernel's wgmma ("(C7520) Potential
+    Performance Loss: wgmma.mma_async instructions are serialized due to
+    ..."), as "code: reason"."""
     from repro_torch.kernels.build import nvcc
 
     cufilt = os.path.join(os.path.dirname(nvcc()), "cu++filt")  # demangler
     out, cur = {}, None
     with open(log_path) as f:
         for ln in f:
+            m = re.search(r"\((C\d+)\) Potential Performance Loss: (.*?) in "
+                          r"the function '(\S+?)'", ln)
+            if m:
+                out.setdefault(m.group(3), {}).setdefault(
+                    "serialised", []).append(f"{m.group(1)}: {m.group(2)}")
+                continue
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 cur = m.group(1)
-                out[cur] = {}
+                out.setdefault(cur, {})
                 continue
             if cur is None:
                 continue
@@ -3696,6 +3712,22 @@ def main() -> int:
         raise AssertionError(f"ptxas: a tensor-core backward, an MLA "
                              f"forward or the (256, 256) tensor-core forward "
                              f"spills in {spills}")
+    # the two-warpgroup dK / dV and dQ CTAs past hd 128 run one instruction
+    # stream, so ptxas must not serialise their wgmma (its C7520 note);
+    # a note on any other kernel stands in the ptxas line above
+    wide = [n for n in ptxas["flash_attention_bwd.cu"]
+            if re.search(r"fa_bwd_(dkdv|dq)_tc_kernel(<192, 128>|<256, 256>|"
+                         r"ILi192ELi128E|ILi256ELi256E)",
+                         n.replace("(int)", ""))]
+    if len(wide) != 4:
+        raise AssertionError(f"ptxas: want the 4 two-warpgroup backward "
+                             f"kernels, found {wide}")
+    serialised = [n for n in wide
+                  if ptxas["flash_attention_bwd.cu"][n].get("serialised")]
+    if serialised:
+        raise AssertionError(f"ptxas serialises the wgmma of the "
+                             f"tensor-core backward past hd 128 in "
+                             f"{serialised}")
     # 21 backward kernels (the tensor cores' preprocess at 5 hdv, dK / dV
     # and dQ at 7 pairs; the GQA reduction into bf16 and into float32), 6
     # MLA forwards, the tensor-core (256, 256) forward

@@ -629,23 +629,9 @@ cudaError_t dispatch(const Params& p, int hd, int hdv, int batch,
 //             fragments in bf16 (as the forward's P.V), B = dO / Q read
 //             MN-major (the forward's V descriptor), N = hdv or hd
 //       dK and dV stay in float32 registers for the whole loop.  Up to hd
-//       128 one warpgroup holds both (dK's and dV's 64 floats a thread at
-//       hd 128 beside S's and dP's 32: 255 registers).  Past it
-//       they do not fit, so a CTA is two warpgroups over the same 64 keys,
-//       split by role: warpgroup 0 computes S^T and P^T and keeps dV
-//       (m64n128k16 at (192, 128), m64n256k16 at 256); warpgroup 1
-//       computes S^T, P^T, dP^T and dS^T and keeps dK (m64n192k16 at qk
-//       192, m64n256k16 at 256).  Each thread then holds one gradient
-//       (at most 128 floats) beside S's and dP's 64, as at hd 128.  S^T is
-//       computed twice, as the (256, 256) forward computes S twice, for a
-//       kernel that is simple and right; a split by columns would compute
-//       S and dP in both warpgroups (1,792 against 1,536 hd-units of
-//       tensor work a tile at (256, 256)), and at (192, 128) would cut dK
-//       into halves of 96 columns that straddle a 64-column swizzle atom.
-//       The roles branch on the warpgroup, so ptxas serialises their
-//       wgmma (its C7520 note).  Shared memory holds K, V, two Q and two
-//       dO stages: 120 KiB at (192, 128), 194 KiB at (256, 256) (one CTA
-//       an SM).  With g = H / Hkv > 1 each CTA writes float32
+//       128 one warpgroup does every product and holds both (dK's and
+//       dV's 64 floats a thread at hd 128 beside S's and dP's 32: 255
+//       registers).  With g = H / Hkv > 1 each CTA writes float32
 //       partials of its query head into (B, Sk, H, hd) and (B, Sk, H, hdv)
 //       scratches and fa_bwd_gqa_reduce_kernel sums the g partials of each
 //       kv head in head order into bf16 (RecurrentGemma: g = 16); with g
@@ -657,11 +643,61 @@ cudaError_t dispatch(const Params& p, int hd, int hdv, int batch,
 //       reverse q-tile order as the forward: Q, dO, lse, D loaded once, K
 //       and V double-buffered over the forward's reach; S = Q.K^T, dP =
 //       dO.V^T, dS in registers, dQ += dS.K (K read MN-major).  Up to hd
-//       128 one warpgroup; past it two, each computing S and dP, warpgroup
-//       0 keeping dQ's first 128 columns and warpgroup 1 the rest (64 at
-//       192, 128 at 256; K's descriptor advanced by two 64-column atoms):
-//       at 192 one warpgroup holding dQ's 96 floats a thread beside S's and
-//       dP's 64 spilled (ptxas: 255 registers, 8 bytes of spill stores).
+//       128 one warpgroup.
+//
+//   Past hd 128 (MLA's (192, 128), RecurrentGemma's (256, 256)) one
+//   warpgroup cannot hold the gradients beside S and dP (224 and 320
+//   accumulator floats), so each CTA is two warpgroups, and they split
+//   every tile so that S and dP are computed once across the CTA and
+//   their tensor work is equal.  Counted in hd-units (a 64 x N product
+//   over the tile's 64 rows counts N; dK and dQ twice, hi + lo), a tile
+//   costs each warpgroup 416 (dK / dV) and 352 (dQ) at (192, 128), 640
+//   and 512 at (256, 256) (`backward_tile_work` in
+//   kernels/flash_attention.py; 1,536 and 2,304 for both CTAs, where a
+//   split by role, one warpgroup keeping dV and the other dK, each
+//   computing S^T, costs 2,048 and 3,072, its longer warpgroup 704 and
+//   1,024).  Both warpgroups run one instruction stream: only addresses
+//   depend on the warpgroup, and no wgmma sits under a branch on it, so
+//   ptxas serialises none (roles that branch on the warpgroup draw its
+//   C7520 note: "program dependence on compiler-inserted WG.AR in
+//   divergent path").
+//     dK / dV: each warpgroup computes S^T and dP^T over its 32 of the
+//       query tile's 64 queries (m64n32k16, K and V shared).  At (192,
+//       128) it accumulates dV and dK over its queries (register-A
+//       products, K = 32: m64n128k16, m64n192k16), P^T's and dS^T's
+//       fragments in bf16 as above, dV's product running while dS^T is
+//       formed; the two partials (96 + 64 floats a thread) are summed
+//       once after the loop through the freed stages (warpgroup 1 hands
+//       over its dK, warpgroup 0 its dV; a + b, so the order is fixed).
+//       At (256, 256) those partials (256 floats) would not fit, so P^T
+//       and dS^T (hi, lo) go to shared memory as bf16 (three 8 KiB
+//       tiles), and each warpgroup accumulates its half of dK's and of
+//       dV's columns over all 64 queries (shared-memory products,
+//       m64n128k16, B read MN-major); dV's product is issued before dS^T
+//       is formed.  ptxas: 255 registers at (192, 128), 233 at (256, 256),
+//       no spill.  Shared memory: K, V, two Q and two dO stages, 122 KiB
+//       at (192, 128); with the P^T and dS^T tiles 218 KiB at (256, 256)
+//       (one CTA an SM either way).
+//     dQ: each warpgroup computes S and dP over its 32 of the key tile's
+//       64 keys and a dQ partial over them (register-A, K = 32:
+//       m64n192k16 or m64n256k16); the partials are summed once after the
+//       loop, each warpgroup writing half of dQ's columns.  Q, dO, lse and
+//       D are shared; each warpgroup streams only its own 32 rows of K and
+//       V (two stages) behind a barrier of its own (bar.sync 1 / 2, 128
+//       threads), so the warpgroups need not meet inside the loop.
+//       ptxas: 234 registers at (192, 128), 255 at (256, 256), no spill;
+//       122 KiB and 194 KiB of shared memory.
+//   What still holds these CTAs back (tools/ablate_flash_backward.py):
+//   within a tile the S / dP products, the softmax math and the dK / dV
+//   (dQ) products run one after the other, and leaving out any one of
+//   them shortens the kernel by about its own share.  Neither turn-taking
+//   between the warpgroups (two named barriers) nor interleaving S's and
+//   dP's k-steps moved them; a software-pipelined dQ (the next tile's S
+//   and dP issued before this tile's dQ, three stages) drew ptxas's C7515
+//   note (non-wgmma instructions defining accumulators inside a pipeline
+//   stage) and ran slower.  The m64n32k16 products read their A tile
+//   from shared memory in both warpgroups, and at (256, 256) every dK /
+//   dV CTA streams 64 KiB of Q and dO a tile.
 //
 // Numerics.  P is rounded to bf16 before P^T.dO, as the forward's P.V and
 // SDPA's backward do; dS is formed from the float P.  dS enters dK and dQ
@@ -675,9 +711,9 @@ cudaError_t dispatch(const Params& p, int hd, int hdv, int batch,
 // attends nothing has lse ~ -1e30).  Deterministic: every output element
 // is written by one CTA or summed in a fixed order; no float atomics.
 // What it gives up: the products, the exponentials and the
-// copies of one CTA run one after the other (no producer warp, no TMA, no
-// ping-pong), S and dP are computed twice (nine products in all with the
-// split dS, against the five the bound counts; past hd 128 S once more),
+// copies of one CTA run one after the other (no producer warp, no TMA),
+// S and dP are computed twice, once in each of the two CTAs (nine
+// products in all with the split dS, against the five the bound counts),
 // and every query head re-reads its kv head's tiles.
 //
 // Alignment: as the forward, every operand starts on a 16-byte boundary and
@@ -771,6 +807,66 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 32 f32) = A (64 x 16) . B^T (B 32 x 16), both K-major in shared
+// memory (descriptors); scale_d = 0 overwrites d, 1 accumulates
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128 f32) += A (64 x 16, K-major) . B (16 x 128, MN-major), both
+// in shared memory (descriptors)
+__device__ __forceinline__ void wgmma_ss_n128_mn(float (&d)[64], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// wait until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers the compiler must not read or write across this point (an
+// accumulator around its wgmma's issue and wait)
+template <int F>
+__device__ __forceinline__ void fence_regs(float (&r)[F]) {
+#pragma unroll
+  for (int i = 0; i < F; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
 
 }  // namespace tc
 
@@ -783,19 +879,23 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 using tc::smem_u32;
 
-// warpgroups of a dK / dV CTA: one up to hd 128; two past it, by role
-// (warpgroup 0 keeps dV, warpgroup 1 dK)
+// warpgroups of a dK / dV or a dQ CTA: one up to hd 128; two past it,
+// each computing S and dP over its 32 of the tile's 64 queries (dK / dV)
+// or keys (dQ)
 template <int HD>
-__host__ __device__ constexpr int dkdv_warpgroups() {
+__host__ __device__ constexpr int warpgroups() {
   return HD > 128 ? 2 : 1;
 }
 
-// warpgroups of a dQ CTA: one up to hd 128; two past it, warpgroup 0
-// keeping dQ's first 128 columns and warpgroup 1 the rest (64 at 192, 128
-// at 256)
-template <int HD>
-__host__ __device__ constexpr int dq_warpgroups() {
-  return HD > 128 ? 2 : 1;
+// Past hd 128, whether a dK / dV CTA splits dK's and dV's columns between
+// its warpgroups (P^T and dS^T through shared memory) rather than the
+// tile's queries (each warpgroup's partial dK and dV over its queries in
+// registers, summed after the loop): where the partials, (HD + HDV) / 2
+// floats a thread, would not fit beside S^T's and dP^T's 32.  (256, 256)
+// splits columns, (192, 128) queries.
+template <int HD, int HDV>
+__host__ __device__ constexpr bool dkdv_split_cols() {
+  return HD + HDV > 320;
 }
 
 // Two bf16 packed in a 32-bit word, as floats (.x the low half)
@@ -822,6 +922,18 @@ constexpr int smem_bytes(int row_stages) {
          row_stages * 2 * 64 * 4 + 1024;
 }
 
+// bytes of a 64 x 64 bf16 tile of P^T or dS^T (one swizzle atom wide)
+constexpr int PTILE = 64 * 64 * 2;
+
+// a dK / dV CTA's: smem_bytes, and where it splits columns, the P^T, dS^T
+// hi and dS^T lo tiles
+template <int HD, int HDV>
+constexpr int dkdv_smem_bytes() {
+  return smem_bytes<HD, HDV>(2) +
+         (warpgroups<HD>() == 2 && dkdv_split_cols<HD, HDV>() ? 3 * PTILE
+                                                              : 0);
+}
+
 // A tile holds a masked pair: a ragged edge, the causal diagonal, or the
 // window's edge (q_offset is 0 in the backward)
 __device__ __forceinline__ bool edge_tile(const bwd::Params& p, int q0,
@@ -831,16 +943,17 @@ __device__ __forceinline__ bool edge_tile(const bwd::Params& p, int q0,
          ((p.window > 0) & (q0 + B64 - 1 - k0 >= p.window));
 }
 
-// Bit i: is element i of this thread's 64 x 64 accumulator fragment an
-// attended pair?  Element i sits at row r0 + 8 ((i % 4) / 2) and column
-// c0 + 8 (i / 4) + (i & 1); KEY_ROWS: rows are keys and columns queries
-// (S^T), else rows are queries (S).
-template <bool KEY_ROWS>
+// Bit i: is element i of this thread's 64 x (F / 2 * 4) accumulator
+// fragment (64 x 64 at F = 32, 64 x 32 at 16) an attended pair?  Element
+// i sits at row r0 + 8 ((i % 4) / 2) and column c0 + 8 (i / 4) + (i & 1);
+// KEY_ROWS: rows are keys and columns queries (S^T), else rows are queries
+// (S).
+template <bool KEY_ROWS, int F = 32>
 __device__ __forceinline__ uint32_t valid_bits(const bwd::Params& p, int r0,
                                                int c0) {
   uint32_t valid = 0;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < F; ++i) {
     const int r = r0 + 8 * ((i % 4) / 2), c = c0 + 8 * (i / 4) + (i & 1);
     const int qp = KEY_ROWS ? c : r, kp = KEY_ROWS ? r : c;
     const bool ok = (qp < p.sq) & (kp < p.sk) & (!p.causal | (qp >= kp)) &
@@ -863,14 +976,14 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint32_t a,
   }
 }
 
-// acc[0, N / 2) (64 x N) += A (64 x 64, bf16 fragments) . B (64 rows x N
-// columns of a tile, read MN-major: 16 rows per step are two 1,024-byte
-// atoms, 64-column atoms 8 KiB apart)
-template <int N>
-__device__ __forceinline__ void mma_rs(float* acc, const uint32_t (&a)[4][4],
+// acc[0, N / 2) (64 x N) += A (64 x 16 KS, bf16 fragments) . B (16 KS rows
+// x N columns of a tile from `b`, read MN-major: 16 rows per step are two
+// 1,024-byte atoms, 64-column atoms 8 KiB apart)
+template <int N, int KS>
+__device__ __forceinline__ void mma_rs(float* acc, const uint32_t (&a)[KS][4],
                                        uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const uint64_t db = tc::desc(b + kk * 2048, 8192, 1024);
     if constexpr (N == 256)
       tc::wgmma_rs_n256(acc, a[kk], db);
@@ -883,12 +996,14 @@ __device__ __forceinline__ void mma_rs(float* acc, const uint32_t (&a)[4][4],
   }
 }
 
-// The accumulator fragment of a 64 x 64 product as the A fragments of a
-// 64 x 64 (K = 64) bf16 operand
-__device__ __forceinline__ void pack_a(const float (&s)[32],
-                                       uint32_t (&a)[4][4]) {
+// The accumulator fragment of a 64 x (F / 2 * 4) product as the A
+// fragments of a 64 x (F / 2 * 4) (K = 64 at F = 32, 32 at 16) bf16
+// operand
+template <int F>
+__device__ __forceinline__ void pack_a(const float (&s)[F],
+                                       uint32_t (&a)[F / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < F / 8; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       a[kk][j] = tc::pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
@@ -896,12 +1011,13 @@ __device__ __forceinline__ void pack_a(const float (&s)[32],
 
 // The same as two bf16 fragments, hi = bf16(s) and lo = bf16(s - hi): a
 // product with both keeps s to about 16 significant bits
-__device__ __forceinline__ void pack_split(const float (&s)[32],
-                                           uint32_t (&hi)[4][4],
-                                           uint32_t (&lo)[4][4]) {
+template <int F>
+__device__ __forceinline__ void pack_split(const float (&s)[F],
+                                           uint32_t (&hi)[F / 8][4],
+                                           uint32_t (&lo)[F / 8][4]) {
   pack_a(s, hi);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < F / 8; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float2 h = bf16x2(hi[kk][j]);
@@ -913,22 +1029,100 @@ __device__ __forceinline__ void pack_split(const float (&s)[32],
 // S -> P = exp(scale S - lse) in place, a select on the pairs `valid`
 // leaves out (a row that attends nothing has lse ~ -1e30); lse2(i) is the
 // lse of element i in log2 units
-template <typename Lse>
-__device__ __forceinline__ void probs(float (&s)[32], Lse lse2,
+template <int F, typename Lse>
+__device__ __forceinline__ void probs(float (&s)[F], Lse lse2,
                                       uint32_t valid, float sl2) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < F; ++i) {
     const float pe = exp2f(fmaf(s[i], sl2, -lse2(i)));
     s[i] = ((valid >> i) & 1u) ? pe : 0.f;
   }
 }
 
 // dP -> dS = P (dP - D) in place; d(i) is the D of element i
-template <typename Dd>
-__device__ __forceinline__ void dscores(const float (&pr)[32],
-                                        float (&dp)[32], Dd d) {
+template <int F, typename Dd>
+__device__ __forceinline__ void dscores(const float (&pr)[F],
+                                        float (&dp)[F], Dd d) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dp[i] = pr[i] * (dp[i] - d(i));
+  for (int i = 0; i < F; ++i) dp[i] = pr[i] * (dp[i] - d(i));
+}
+
+// S^T-like (64 x 32) = A (64 x W) . B^T (rows of B: 32 from `b`), both
+// K-major swizzled tiles (W = hd or hdv, a multiple of 64); the first step
+// overwrites d
+template <int W>
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint32_t a,
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
+    tc::wgmma_ss_n32(d, tc::desc(a + off, 16, 1024),
+                     tc::desc(b + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc (64 x 128) += A (a 64 x 64 K-major tile at `a`) . B (64 rows x 128
+// columns of a tile from `b`, read MN-major)
+__device__ __forceinline__ void mma_ss_n128_mn(float (&acc)[64], uint32_t a,
+                                               uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    tc::wgmma_ss_n128_mn(acc, tc::desc(a + kk * 32, 16, 1024),
+                         tc::desc(b + kk * 2048, 8192, 1024));
+}
+
+// A 64 x 32 accumulator fragment (this thread's rows `row` and row + 8,
+// the tile's columns 8 chunk0 + 8 (i / 4) + 2 t4 + (i & 1)) into a 64 x 64
+// K-major swizzled bf16 tile (`tile`: a generic pointer to it, 1,024-byte
+// aligned) as bf16, or (`lo`) as the rest after bf16, x - bf16(x)
+template <bool LO>
+__device__ __forceinline__ void put_tile(unsigned char* tile,
+                                         const float (&x)[16], int row,
+                                         int chunk0, int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float a = x[4 * j + 2 * r], b = x[4 * j + 2 * r + 1];
+      if (LO) {
+        const float2 h = bf16x2(tc::pack_bf16(a, b));
+        a -= h.x;
+        b -= h.y;
+      }
+      *reinterpret_cast<uint32_t*>(
+          tile + rr * 128 + (((chunk0 + j) ^ (rr % 8)) * 16) + 4 * t4) =
+          tc::pack_bf16(a, b);
+    }
+  }
+}
+
+// Copy rows [0, n_valid) of 32 rows from `src` (row stride ss elements)
+// into rows [r0, r0 + 32) of the 64-row swizzled tile at `dst` (as
+// tc::load_tile lays it out), with the 128 threads of one warpgroup (t:
+// the thread's index in it); rows past n_valid become zeros.  HD is a
+// multiple of 64.
+template <int HD>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long ss, int n_valid, int t,
+                                          int r0) {
+  constexpr int C = HD / 8;  // 16-byte chunks per row
+  static_assert(HD % 64 == 0 && 32 * C % THREADS == 0, "whole chunks");
+#pragma unroll
+  for (int j = 0; j < 32 * C / THREADS; ++j) {
+    const int i = t + j * THREADS;
+    const int r = i / C, c = i % C, rr = r0 + r;
+    const bool ok = r < n_valid;
+    tc::cp_async16(dst + (c / 8) * 8192 + rr * 128 + ((c % 8) ^ (rr % 8)) * 16,
+               ok ? src + r * ss + c * 8 : src, ok);
+  }
+}
+
+// A barrier over the 128 threads of warpgroup wg (barriers 1 and 2;
+// __syncthreads takes 0)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
 // One fragment row (half r: rows g and g + 8) of a warpgroup's W columns
@@ -987,19 +1181,41 @@ fa_bwd_preprocess_tc_kernel(const bwd::Params p) {
   }
 }
 
+// The query tiles [x, y) whose mask reaches keys [k0, k0 + keys)
+__device__ __forceinline__ int2 query_tiles(const bwd::Params& p, int k0,
+                                            int keys) {
+  const int nq = (p.sq + B64 - 1) / B64;
+  const int lo = p.causal ? min(nq, k0 / B64) : 0;
+  int hi = nq;
+  if (p.window > 0) hi = min(nq, (k0 + keys - 1 + p.window - 1) / B64 + 1);
+  return make_int2(lo, hi);
+}
+
+// The key tiles [x, y) that query rows [q0, q0 + rows) reach (the
+// forward's loop bounds)
+__device__ __forceinline__ int2 key_tiles(const bwd::Params& p, int q0,
+                                          int rows) {
+  const int nk = (p.sk + B64 - 1) / B64;
+  int hi = nk;
+  if (p.causal) hi = min(nk, (q0 + rows + B64 - 1) / B64);
+  int lo = 0;
+  if (p.window > 0) {
+    const int first = q0 - p.window + 1;
+    lo = first > 0 ? first / B64 : 0;
+  }
+  return make_int2(lo, hi);
+}
+
+// dK / dV up to hd 128: one warpgroup computes S^T, P^T, dP^T, dS^T and
+// keeps dK and dV
 template <int HD, int HDV>
-__global__ void __launch_bounds__(THREADS * dkdv_warpgroups<HD>())
-fa_bwd_dkdv_tc_kernel(const bwd::Params p, float* dk_part, float* dv_part) {
+__device__ __forceinline__ void dkdv_one_warpgroup(const bwd::Params& p,
+                                                   float* dk_part,
+                                                   float* dv_part) {
   constexpr int HDP = tc::hd_padded<HD>(), HDVP = tc::hd_padded<HDV>();
-  constexpr int NWG = dkdv_warpgroups<HD>();
-  constexpr int NT = THREADS * NWG;     // threads of the CTA
   constexpr int TILE = 64 * HDP * 2;    // bytes of a K or Q tile
   constexpr int VTILE = 64 * HDVP * 2;  // bytes of a V or dO tile
-  // the accumulators: one warpgroup keeps dK at [0, HDP / 2) and dV after
-  // it; two keep dV (warpgroup 0) or dK (warpgroup 1) from 0
-  constexpr int DV = NWG == 1 ? HDP / 2 : 0;
-  constexpr int ACC = NWG == 1 ? (HDP + HDVP) / 2
-                               : (HDP > HDVP ? HDP : HDVP) / 2;
+  constexpr int DV = HDP / 2;           // dK at acc[0, DV), dV after it
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t s0 = smem_u32(smem);
   const uint32_t ks = (s0 + 1023u) & ~1023u;
@@ -1009,10 +1225,7 @@ fa_bwd_dkdv_tc_kernel(const bwd::Params p, float* dk_part, float* dv_part) {
   const uint32_t rs = dos + 2 * VTILE;  // per stage: lse[64], then D[64]
   const float* rows_p = reinterpret_cast<const float*>(smem + (rs - s0));
 
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int wg = tid / THREADS, warp = (tid % THREADS) / 32;
-  const bool with_dv = NWG == 1 || wg == 0;
-  const bool with_dk = NWG == 1 || wg == 1;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g8 = lane / 4, t4 = lane % 4;
   const int bh = blockIdx.x, b = bh / p.h, head = bh % p.h;
   const int kvh = head / p.g;
@@ -1029,34 +1242,28 @@ fa_bwd_dkdv_tc_kernel(const bwd::Params p, float* dk_part, float* dv_part) {
                               b * p.do_sb + head * p.do_sh;
   const float* lse = p.lse + static_cast<long long>(bh) * p.sq;
   const float* delta = p.delta + static_cast<long long>(bh) * p.sq;
-
-  // the query tiles whose mask reaches keys [k0, k0 + keys)
-  const int nq = (p.sq + B64 - 1) / B64;
-  const int qt_lo = p.causal ? min(nq, k0 / B64) : 0;
-  int qt_hi = nq;
-  if (p.window > 0)
-    qt_hi = min(nq, (k0 + keys - 1 + p.window - 1) / B64 + 1);
+  const int2 qtr = query_tiles(p, k0, keys);
+  const int qt_lo = qtr.x, qt_hi = qtr.y;
 
   auto load_q_tile = [&](int qt, int st) {
     const int q0 = qt * B64, n = p.sq - q0;
-    tc::load_tile<HD, HDP, NT>(qs + st * TILE, q + q0 * p.q_ss, p.q_ss, n,
-                               tid);
-    tc::load_tile<HDV, HDVP, NT>(dos + st * VTILE, dout + q0 * p.do_ss,
-                                 p.do_ss, n, tid);
+    tc::load_tile<HD, HDP>(qs + st * TILE, q + q0 * p.q_ss, p.q_ss, n, tid);
+    tc::load_tile<HDV, HDVP>(dos + st * VTILE, dout + q0 * p.do_ss, p.do_ss,
+                             n, tid);
     if (tid < 2 * B64) {
       const int r = tid % B64;
       const float* src = (tid < B64 ? lse : delta) + q0;
       cp_async4(rs + st * 512 + tid * 4, r < n ? src + r : src, r < n);
     }
   };
-  tc::load_tile<HD, HDP, NT>(ks, k, p.k_ss, keys, tid);
-  tc::load_tile<HDV, HDVP, NT>(vs, v, p.v_ss, keys, tid);
+  tc::load_tile<HD, HDP>(ks, k, p.k_ss, keys, tid);
+  tc::load_tile<HDV, HDVP>(vs, v, p.v_ss, keys, tid);
   if (qt_lo < qt_hi) load_q_tile(qt_lo, 0);
   tc::cp_async_commit();
 
-  float acc[ACC];
+  float acc[(HDP + HDVP) / 2];
 #pragma unroll
-  for (int j = 0; j < ACC; ++j) acc[j] = 0.f;
+  for (int j = 0; j < (HDP + HDVP) / 2; ++j) acc[j] = 0.f;
   const float sl2 = p.scale * LOG2E;
   const int krow = warp * 16 + g8;  // this thread's rows: krow, krow + 8
 
@@ -1091,27 +1298,23 @@ fa_bwd_dkdv_tc_kernel(const bwd::Params p, float* dk_part, float* dv_part) {
                                : 0xFFFFFFFFu,
           sl2);
     uint32_t ap[4][4];
-    if (with_dv) pack_a(s, ap);
+    pack_a(s, ap);
     float dp[32];
-    if (with_dk) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dp[i] = 0.f;
-    }
+    for (int i = 0; i < 32; ++i) dp[i] = 0.f;
     tc::wgmma_fence();
-    if (with_dk) mma_ss<HDVP>(dp, vs, dost);      // dP^T = V.dO^T
-    if (with_dv) mma_rs<HDVP>(acc + DV, ap, dost);  // dV += P^T.dO
+    mma_ss<HDVP>(dp, vs, dost);            // dP^T = V.dO^T
+    mma_rs<HDVP>(acc + DV, ap, dost);      // dV += P^T.dO
     tc::wgmma_commit();
     tc::wgmma_wait_all();
-    if (with_dk) {
-      dscores(s, dp, [&](int i) { return lse_t[64 + col(i)]; });
-      uint32_t as[4][4], al[4][4];
-      pack_split(dp, as, al);
-      tc::wgmma_fence();
-      mma_rs<HDP>(acc, as, qst);   // dK += dS^T.Q, dS^T as hi + lo
-      mma_rs<HDP>(acc, al, qst);
-      tc::wgmma_commit();
-      tc::wgmma_wait_all();
-    }
+    dscores(s, dp, [&](int i) { return lse_t[64 + col(i)]; });
+    uint32_t as[4][4], al[4][4];
+    pack_split(dp, as, al);
+    tc::wgmma_fence();
+    mma_rs<HDP>(acc, as, qst);   // dK += dS^T.Q, dS^T as hi + lo
+    mma_rs<HDP>(acc, al, qst);
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
     __syncthreads();  // this stage is consumed before it is refilled
   }
   tc::cp_async_wait<0>();  // no copy may outlive the CTA
@@ -1124,29 +1327,230 @@ fa_bwd_dkdv_tc_kernel(const bwd::Params p, float* dk_part, float* dv_part) {
     // query head, (B, Sk, H, hd) and (B, Sk, H, hdv)
     const long long prow =
         (static_cast<long long>(b) * p.sk + k0 + row) * p.h + head;
-    if (with_dk)
-      put_row<HD>(acc, r, p.scale,
+    put_row<HD>(acc, r, p.scale,
+                static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb +
+                    kvh * p.dk_sh + (k0 + row) * p.dk_ss + 2 * t4,
+                dk_part ? dk_part + prow * HD + 2 * t4 : nullptr);
+    put_row<HDV>(acc + DV, r, 1.f,
+                 static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb +
+                     kvh * p.dv_sh + (k0 + row) * p.dv_ss + 2 * t4,
+                 dv_part ? dv_part + prow * HDV + 2 * t4 : nullptr);
+  }
+}
+
+// dK / dV past hd 128: two warpgroups over the CTA's 64 keys, each
+// computing S^T and dP^T over its 32 of a query tile's 64 queries, so
+// that the CTA computes each once.  Then (dkdv_split_cols) either each
+// warpgroup accumulates dK and dV over its queries (register-A products,
+// K = 32) and the two partials are summed once, after the loop, or both
+// put P^T and dS^T into shared memory and each accumulates its half of
+// dK's and of dV's columns over all 64 queries.  Both warpgroups run one
+// instruction stream: only addresses depend on the warpgroup.
+template <int HD, int HDV>
+__device__ __forceinline__ void dkdv_two_warpgroups(const bwd::Params& p,
+                                                    float* dk_part,
+                                                    float* dv_part) {
+  constexpr bool COLS = dkdv_split_cols<HD, HDV>();
+  static_assert(HD % 64 == 0 && HDV % 64 == 0 &&
+                    (!COLS || (HD == 256 && HDV == 256)),
+                "whole swizzle atoms; a column half is 128 wide");
+  constexpr int NT = 2 * THREADS;
+  constexpr int TILE = 64 * HD * 2;    // bytes of a K or Q tile
+  constexpr int VTILE = 64 * HDV * 2;  // bytes of a V or dO tile
+  // this thread's dK and dV columns: all of them (a partial over its
+  // warpgroup's queries) or its warpgroup's half
+  constexpr int KW = COLS ? HD / 2 : HD, VW = COLS ? HDV / 2 : HDV;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+  const uint32_t ks = (s0 + 1023u) & ~1023u;
+  const uint32_t vs = ks + TILE;
+  const uint32_t qs = vs + VTILE;        // two stages
+  const uint32_t dos = qs + 2 * TILE;    // two stages
+  const uint32_t pts = dos + 2 * VTILE;  // COLS: P^T, dS^T hi, dS^T lo
+  const uint32_t rs = pts + (COLS ? 3 * PTILE : 0);  // lse[64], D[64] a stage
+  const float* rows_p = reinterpret_cast<const float*>(smem + (rs - s0));
+  unsigned char* ptile = smem + (pts - s0);
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / THREADS, warp = (tid % THREADS) / 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.x, b = bh / p.h, head = bh % p.h;
+  const int kvh = head / p.g;
+  const int k0 = blockIdx.y * B64;  // key tile 0 (the longest reach) first
+  const int keys = min(B64, p.sk - k0);
+
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) +
+                           b * p.k_sb + kvh * p.k_sh + k0 * p.k_ss;
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) +
+                           b * p.v_sb + kvh * p.v_sh + k0 * p.v_ss;
+  const __nv_bfloat16* q =
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + head * p.q_sh;
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) +
+                              b * p.do_sb + head * p.do_sh;
+  const float* lse = p.lse + static_cast<long long>(bh) * p.sq;
+  const float* delta = p.delta + static_cast<long long>(bh) * p.sq;
+  const int2 qtr = query_tiles(p, k0, keys);
+
+  auto load_q_tile = [&](int qt, int st) {
+    const int q0 = qt * B64, n = p.sq - q0;
+    tc::load_tile<HD, HD, NT>(qs + st * TILE, q + q0 * p.q_ss, p.q_ss, n,
+                              tid);
+    tc::load_tile<HDV, HDV, NT>(dos + st * VTILE, dout + q0 * p.do_ss,
+                                p.do_ss, n, tid);
+    if (tid < 2 * B64) {
+      const int r = tid % B64;
+      const float* src = (tid < B64 ? lse : delta) + q0;
+      cp_async4(rs + st * 512 + tid * 4, r < n ? src + r : src, r < n);
+    }
+  };
+  tc::load_tile<HD, HD, NT>(ks, k, p.k_ss, keys, tid);
+  tc::load_tile<HDV, HDV, NT>(vs, v, p.v_ss, keys, tid);
+  if (qtr.x < qtr.y) load_q_tile(qtr.x, 0);
+  tc::cp_async_commit();
+
+  float dk[KW / 2], dv[VW / 2];
+#pragma unroll
+  for (int j = 0; j < KW / 2; ++j) dk[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < VW / 2; ++j) dv[j] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+  const int krow = warp * 16 + g8;  // this thread's keys: krow, krow + 8
+  const int qh = 32 * wg;           // this warpgroup's queries of a tile
+  // the query of the tile in S^T's column of element i
+  auto col = [&](int i) { return qh + 2 * t4 + 8 * (i / 4) + (i & 1); };
+
+  for (int qt = qtr.x; qt < qtr.y; ++qt) {
+    const int st = (qt - qtr.x) & 1;
+    tc::cp_async_wait<0>();
+    tc::fence_async_smem();
+    // tile qt has landed, and both warpgroups are past tile qt - 1's
+    // products: its stage (and P^T and dS^T) may be written
+    __syncthreads();
+    if (qt + 1 < qtr.y) load_q_tile(qt + 1, st ^ 1);  // streams in meanwhile
+    tc::cp_async_commit();
+    const uint32_t qst = qs + st * TILE, dost = dos + st * VTILE;
+    const float* lse_t = rows_p + st * 128;  // lse[64], then D[64]
+    const int q0 = qt * B64;
+
+    // S^T = K.Q^T and dP^T = V.dO^T over this warpgroup's queries
+    float s[16], dp[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+    tc::wgmma_fence();
+    mma_ss_n32<HD>(s, ks, qst + qh * 128);
+    tc::wgmma_commit();
+    mma_ss_n32<HDV>(dp, vs, dost + qh * 128);
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();  // S^T; dP^T runs on
+    tc::fence_regs(s);
+    probs(s, [&](int i) { return lse_t[col(i)] * LOG2E; },
+          edge_tile(p, q0, k0)
+              ? valid_bits<true, 16>(p, k0 + krow, q0 + qh + 2 * t4)
+              : 0xFFFFFFFFu,
+          sl2);
+    if constexpr (COLS) {
+      // P^T (bf16) into its shared tile; dV's product over all 64 queries
+      // runs while dS^T is formed
+      put_tile<false>(ptile, s, krow, qh / 8, t4);
+      tc::fence_async_smem();
+      __syncthreads();
+      tc::wgmma_fence();
+      mma_ss_n128_mn(dv, pts, dost + wg * 2 * 8192);  // dV += P^T.dO
+      tc::wgmma_commit();
+      tc::wgmma_wait<1>();  // dP^T; dV runs on
+      tc::fence_regs(dp);
+      dscores(s, dp, [&](int i) { return lse_t[64 + col(i)]; });
+      put_tile<false>(ptile + PTILE, dp, krow, qh / 8, t4);
+      put_tile<true>(ptile + 2 * PTILE, dp, krow, qh / 8, t4);
+      tc::fence_async_smem();
+      __syncthreads();
+      tc::wgmma_fence();
+      // dK += dS^T.Q, dS^T as hi + lo
+      mma_ss_n128_mn(dk, pts + PTILE, qst + wg * 2 * 8192);
+      mma_ss_n128_mn(dk, pts + 2 * PTILE, qst + wg * 2 * 8192);
+      tc::wgmma_commit();
+    } else {
+      uint32_t ap[2][4];
+      pack_a(s, ap);
+      tc::wgmma_fence();
+      mma_rs<HDV>(dv, ap, dost + qh * 128);  // dV += P^T.dO, its queries
+      tc::wgmma_commit();
+      tc::wgmma_wait<1>();  // dP^T; dV runs on
+      tc::fence_regs(dp);
+      dscores(s, dp, [&](int i) { return lse_t[64 + col(i)]; });
+      uint32_t as[2][4], al[2][4];
+      pack_split(dp, as, al);
+      tc::wgmma_fence();
+      mma_rs<HD>(dk, as, qst + qh * 128);  // dK += dS^T.Q, hi + lo
+      mma_rs<HD>(dk, al, qst + qh * 128);
+      tc::wgmma_commit();
+    }
+    tc::wgmma_wait<0>();
+  }
+  tc::fence_regs(dk);
+  tc::fence_regs(dv);
+  tc::cp_async_wait<0>();  // no copy may outlive the CTA
+
+  const int t = tid % THREADS;
+  if constexpr (!COLS) {
+    // the two partials meet in the stages' shared memory, free now:
+    // warpgroup 1 hands over its dK, warpgroup 0 its dV
+    static_assert((KW + VW) / 2 * THREADS * 4 <= 2 * (TILE + VTILE),
+                  "the partials fit the stages");
+    float* x = reinterpret_cast<float*>(smem + (qs - s0));
+    __syncthreads();
+    if (wg == 1) {
+#pragma unroll
+      for (int j = 0; j < KW / 2; ++j) x[j * THREADS + t] = dk[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < VW / 2; ++j) x[(KW / 2 + j) * THREADS + t] = dv[j];
+    }
+    __syncthreads();
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < KW / 2; ++j) dk[j] += x[j * THREADS + t];
+    } else {
+#pragma unroll
+      for (int j = 0; j < VW / 2; ++j) dv[j] += x[(KW / 2 + j) * THREADS + t];
+    }
+  }
+  // each warpgroup's halves (COLS), else dK by warpgroup 0 and dV by 1
+  const int kc = COLS ? wg * KW : 0, vc = COLS ? wg * VW : 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = krow + 8 * r;
+    if (row >= keys) continue;
+    // g = 1: this CTA owns the rows (bf16); else float32 partials of this
+    // query head, (B, Sk, H, hd) and (B, Sk, H, hdv)
+    const long long prow =
+        (static_cast<long long>(b) * p.sk + k0 + row) * p.h + head;
+    if (COLS || wg == 0)
+      put_row<KW>(dk, r, p.scale,
                   static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb +
-                      kvh * p.dk_sh + (k0 + row) * p.dk_ss + 2 * t4,
-                  dk_part ? dk_part + prow * HD + 2 * t4 : nullptr);
-    if (with_dv)
-      put_row<HDV>(acc + DV, r, 1.f,
-                   static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb +
-                       kvh * p.dv_sh + (k0 + row) * p.dv_ss + 2 * t4,
-                   dv_part ? dv_part + prow * HDV + 2 * t4 : nullptr);
+                      kvh * p.dk_sh + (k0 + row) * p.dk_ss + kc + 2 * t4,
+                  dk_part ? dk_part + prow * HD + kc + 2 * t4 : nullptr);
+    if (COLS || wg == 1)
+      put_row<VW>(dv, r, 1.f,
+                  static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb +
+                      kvh * p.dv_sh + (k0 + row) * p.dv_ss + vc + 2 * t4,
+                  dv_part ? dv_part + prow * HDV + vc + 2 * t4 : nullptr);
   }
 }
 
 template <int HD, int HDV>
-__global__ void __launch_bounds__(THREADS * dq_warpgroups<HD>())
-fa_bwd_dq_tc_kernel(const bwd::Params p) {
+__global__ void __launch_bounds__(THREADS * warpgroups<HD>())
+fa_bwd_dkdv_tc_kernel(const bwd::Params p, float* dk_part, float* dv_part) {
+  if constexpr (warpgroups<HD>() == 1)
+    dkdv_one_warpgroup<HD, HDV>(p, dk_part, dv_part);
+  else
+    dkdv_two_warpgroups<HD, HDV>(p, dk_part, dv_part);
+}
+
+// dQ up to hd 128: one warpgroup computes S, P, dP, dS and keeps dQ
+template <int HD, int HDV>
+__device__ __forceinline__ void dq_one_warpgroup(const bwd::Params& p) {
   constexpr int HDP = tc::hd_padded<HD>(), HDVP = tc::hd_padded<HDV>();
-  constexpr int NWG = dq_warpgroups<HD>();
-  constexpr int NT = THREADS * NWG;     // threads of the CTA
-  // dQ columns of warpgroup 0 and of warpgroup 1 (none with one)
-  constexpr int W0 = NWG == 1 ? HDP : 128, W1 = HDP - W0;
-  static_assert(W1 % 64 == 0 && W1 <= W0 && (NWG == 1 || HD == HDP),
-                "whole swizzle atoms a warpgroup");
   constexpr int TILE = 64 * HDP * 2;    // bytes of a Q or K tile
   constexpr int VTILE = 64 * HDVP * 2;  // bytes of a dO or V tile
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -1158,8 +1562,7 @@ fa_bwd_dq_tc_kernel(const bwd::Params p) {
   const uint32_t rs = vs + 2 * VTILE;   // lse[64], then D[64]
   const float* rows_p = reinterpret_cast<const float*>(smem + (rs - s0));
 
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int wg = tid / THREADS, warp = (tid % THREADS) / 32;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g8 = lane / 4, t4 = lane % 4;
   const int bh = blockIdx.x, b = bh / p.h, head = bh % p.h;
   const int kvh = head / p.g;
@@ -1175,19 +1578,11 @@ fa_bwd_dq_tc_kernel(const bwd::Params p) {
       static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const __nv_bfloat16* v =
       static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const int2 ktr = key_tiles(p, q0, rows);
+  const int lo = ktr.x, hi = ktr.y;
 
-  // the key tiles this query tile reaches (the forward's loop bounds)
-  const int nk = (p.sk + B64 - 1) / B64;
-  int hi = nk;
-  if (p.causal) hi = min(nk, (q0 + rows + B64 - 1) / B64);
-  int lo = 0;
-  if (p.window > 0) {
-    const int first = q0 - p.window + 1;
-    lo = first > 0 ? first / B64 : 0;
-  }
-
-  tc::load_tile<HD, HDP, NT>(qs, q, p.q_ss, rows, tid);
-  tc::load_tile<HDV, HDVP, NT>(dos, dout, p.do_ss, rows, tid);
+  tc::load_tile<HD, HDP>(qs, q, p.q_ss, rows, tid);
+  tc::load_tile<HDV, HDVP>(dos, dout, p.do_ss, rows, tid);
   if (tid < 2 * B64) {
     const int r = tid % B64;
     const float* src = (tid < B64 ? p.lse : p.delta) +
@@ -1196,17 +1591,17 @@ fa_bwd_dq_tc_kernel(const bwd::Params p) {
   }
   auto load_kv_tile = [&](int kt, int st) {
     const int kk0 = kt * B64;
-    tc::load_tile<HD, HDP, NT>(ks + st * TILE, k + kk0 * p.k_ss, p.k_ss,
-                               p.sk - kk0, tid);
-    tc::load_tile<HDV, HDVP, NT>(vs + st * VTILE, v + kk0 * p.v_ss, p.v_ss,
-                                 p.sk - kk0, tid);
+    tc::load_tile<HD, HDP>(ks + st * TILE, k + kk0 * p.k_ss, p.k_ss,
+                           p.sk - kk0, tid);
+    tc::load_tile<HDV, HDVP>(vs + st * VTILE, v + kk0 * p.v_ss, p.v_ss,
+                             p.sk - kk0, tid);
   };
   if (lo < hi) load_kv_tile(lo, 0);
   tc::cp_async_commit();
 
-  float dq[W0 / 2];
+  float dq[HDP / 2];
 #pragma unroll
-  for (int j = 0; j < W0 / 2; ++j) dq[j] = 0.f;
+  for (int j = 0; j < HDP / 2; ++j) dq[j] = 0.f;
   const float sl2 = p.scale * LOG2E;
   const int qrow = warp * 16 + g8;  // this thread's rows: qrow, qrow + 8
   float lse2[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
@@ -1248,17 +1643,9 @@ fa_bwd_dq_tc_kernel(const bwd::Params p) {
     dscores(s, dp, [&](int i) { return dd[(i % 4) / 2]; });
     uint32_t as[4][4], al[4][4];
     pack_split(dp, as, al);
-    // this warpgroup's columns of K: warpgroup 1's start W0 / 64 atoms of
-    // 8 KiB in
-    const uint32_t kcols = kst + wg * (W0 / 64) * 8192;
     tc::wgmma_fence();
-    if (W1 == 0 || W1 == W0 || wg == 0) {
-      mma_rs<W0>(dq, as, kcols);   // dQ += dS.K, dS as hi + lo
-      mma_rs<W0>(dq, al, kcols);
-    } else {
-      mma_rs<W1 == 0 ? W0 : W1>(dq, as, kcols);
-      mma_rs<W1 == 0 ? W0 : W1>(dq, al, kcols);
-    }
+    mma_rs<HDP>(dq, as, kst);   // dQ += dS.K, dS as hi + lo
+    mma_rs<HDP>(dq, al, kst);
     tc::wgmma_commit();
     tc::wgmma_wait_all();
     __syncthreads();  // this stage is consumed before it is refilled
@@ -1269,16 +1656,177 @@ fa_bwd_dq_tc_kernel(const bwd::Params p) {
   for (int r = 0; r < 2; ++r) {
     const int row = qrow + 8 * r;
     if (row >= rows) continue;
-    __nv_bfloat16* dqr = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb +
-                         head * p.dq_sh + (q0 + row) * p.dq_ss + wg * W0 +
-                         2 * t4;
-    if (NWG == 1)
-      put_row<HD>(dq, r, p.scale, dqr, nullptr);
-    else if (wg == 0)
-      put_row<W0>(dq, r, p.scale, dqr, nullptr);
-    else
-      put_row<HD - W0 < 8 ? 8 : HD - W0>(dq, r, p.scale, dqr, nullptr);
+    put_row<HD>(dq, r, p.scale,
+                static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb +
+                    head * p.dq_sh + (q0 + row) * p.dq_ss + 2 * t4,
+                nullptr);
   }
+}
+
+// dQ past hd 128: two warpgroups over the CTA's 64 queries, each taking
+// 32 of every key tile's 64 keys: S and dP over its keys (so the CTA
+// computes each once), dS in registers, and a partial dQ over its keys
+// (register-A products, K = 32).  The partials are summed once, after the
+// loop, each warpgroup writing half of dQ's columns.  Q, dO, lse and D
+// are shared; each warpgroup streams only its own rows of K and V (two
+// stages) behind a barrier of its own, as the dK / dV CTA by queries does.
+template <int HD, int HDV>
+__device__ __forceinline__ void dq_two_warpgroups(const bwd::Params& p) {
+  static_assert(HD % 64 == 0 && HDV % 64 == 0, "whole swizzle atoms");
+  constexpr int NT = 2 * THREADS;
+  constexpr int TILE = 64 * HD * 2;    // bytes of a Q or K tile
+  constexpr int VTILE = 64 * HDV * 2;  // bytes of a dO or V tile
+  constexpr int H4 = HD / 4;  // dQ's floats a thread in half its columns
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+  const uint32_t qs = (s0 + 1023u) & ~1023u;
+  const uint32_t dos = qs + TILE;
+  const uint32_t ks = dos + VTILE;      // two stages
+  const uint32_t vs = ks + 2 * TILE;    // two stages
+  const uint32_t rs = vs + 2 * VTILE;   // lse[64], then D[64]
+  const float* rows_p = reinterpret_cast<const float*>(smem + (rs - s0));
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / THREADS, t = tid % THREADS, warp = t / 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.x, b = bh / p.h, head = bh % p.h;
+  const int kvh = head / p.g;
+  const int nq = (p.sq + B64 - 1) / B64;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * B64;
+  const int rows = min(B64, p.sq - q0);
+  const int kh = 32 * wg;  // this warpgroup's keys of a tile
+
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) +
+                           b * p.q_sb + head * p.q_sh + q0 * p.q_ss;
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) +
+                              b * p.do_sb + head * p.do_sh + q0 * p.do_ss;
+  const __nv_bfloat16* k =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const __nv_bfloat16* v =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const int2 ktr = key_tiles(p, q0, rows);
+
+  tc::load_tile<HD, HD, NT>(qs, q, p.q_ss, rows, tid);
+  tc::load_tile<HDV, HDV, NT>(dos, dout, p.do_ss, rows, tid);
+  if (tid < 2 * B64) {
+    const int r = tid % B64;
+    const float* src = (tid < B64 ? p.lse : p.delta) +
+                       static_cast<long long>(bh) * p.sq + q0;
+    cp_async4(rs + tid * 4, r < rows ? src + r : src, r < rows);
+  }
+  // this warpgroup's 32 rows of key tile kt into stage st
+  auto load_kv_rows = [&](int kt, int st) {
+    const int k0 = kt * B64 + kh, n = p.sk - k0;
+    load_rows<HD>(ks + st * TILE, k + k0 * p.k_ss, p.k_ss, n, t, kh);
+    load_rows<HDV>(vs + st * VTILE, v + k0 * p.v_ss, p.v_ss, n, t, kh);
+  };
+  if (ktr.x < ktr.y) load_kv_rows(ktr.x, 0);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  tc::fence_async_smem();
+  __syncthreads();  // Q, dO, lse, D: both warpgroups read all 64 queries
+
+  float dq[HD / 2];
+#pragma unroll
+  for (int j = 0; j < HD / 2; ++j) dq[j] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+  const int qrow = warp * 16 + g8;  // this thread's rows: qrow, qrow + 8
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse2[r] = rows_p[qrow + 8 * r] * LOG2E;
+    dd[r] = rows_p[64 + qrow + 8 * r];
+  }
+
+  for (int kt = ktr.x; kt < ktr.y; ++kt) {
+    const int st = (kt - ktr.x) & 1;
+    if (kt > ktr.x) {
+      tc::cp_async_wait<0>();
+      tc::fence_async_smem();
+      // this warpgroup's rows of tile kt have landed, and its threads are
+      // past tile kt - 1's products: that stage may be refilled
+      warpgroup_sync(wg);
+    }
+    const uint32_t kst = ks + st * TILE + kh * 128;
+    const uint32_t vst = vs + st * VTILE + kh * 128;
+
+    // S = Q.K^T and dP = dO.V^T over this warpgroup's keys
+    float s[16], dp[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+    tc::wgmma_fence();
+    mma_ss_n32<HD>(s, qs, kst);
+    tc::wgmma_commit();
+    mma_ss_n32<HDV>(dp, dos, vst);
+    tc::wgmma_commit();
+    // the next tile's rows stream in meanwhile
+    if (kt + 1 < ktr.y) load_kv_rows(kt + 1, st ^ 1);
+    tc::cp_async_commit();
+    tc::wgmma_wait<1>();  // S; dP runs on
+    tc::fence_regs(s);
+    const int k0 = kt * B64;
+    probs(s, [&](int i) { return lse2[(i % 4) / 2]; },
+          edge_tile(p, q0, k0)
+              ? valid_bits<false, 16>(p, q0 + qrow, k0 + kh + 2 * t4)
+              : 0xFFFFFFFFu,
+          sl2);
+    tc::wgmma_wait<0>();
+    tc::fence_regs(dp);
+    dscores(s, dp, [&](int i) { return dd[(i % 4) / 2]; });
+    uint32_t as[2][4], al[2][4];
+    pack_split(dp, as, al);
+    tc::wgmma_fence();
+    mma_rs<HD>(dq, as, kst);  // dQ += dS.K, dS as hi + lo
+    mma_rs<HD>(dq, al, kst);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+  }
+  tc::fence_regs(dq);
+  tc::cp_async_wait<0>();
+
+  // the partials meet in the K stages' shared memory, free once both
+  // warpgroups are past their loops: warpgroup 0 writes dQ's columns [0,
+  // HD / 2) and warpgroup 1 the rest, each handing the other its partial
+  // of the other's columns
+  static_assert(HD / 2 * THREADS * 4 <= 2 * TILE, "the partials fit");
+  float* x = reinterpret_cast<float*>(smem + (ks - s0));
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int j = 0; j < H4; ++j) x[(H4 + j) * THREADS + t] = dq[H4 + j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < H4; ++j) x[j * THREADS + t] = dq[j];
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int j = 0; j < H4; ++j) dq[j] += x[j * THREADS + t];
+  } else {
+#pragma unroll
+    for (int j = 0; j < H4; ++j) dq[H4 + j] += x[(H4 + j) * THREADS + t];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + 8 * r;
+    if (row >= rows) continue;
+    __nv_bfloat16* dqr = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb +
+                         head * p.dq_sh + (q0 + row) * p.dq_ss +
+                         wg * (HD / 2) + 2 * t4;
+    if (wg == 0)
+      put_row<HD / 2>(dq, r, p.scale, dqr, nullptr);
+    else
+      put_row<HD / 2>(dq + H4, r, p.scale, dqr, nullptr);
+  }
+}
+
+template <int HD, int HDV>
+__global__ void __launch_bounds__(THREADS * warpgroups<HD>())
+fa_bwd_dq_tc_kernel(const bwd::Params p) {
+  if constexpr (warpgroups<HD>() == 1)
+    dq_one_warpgroup<HD, HDV>(p);
+  else
+    dq_two_warpgroups<HD, HDV>(p);
 }
 
 template <int HD, int HDV>
@@ -1290,12 +1838,12 @@ cudaError_t launch(const bwd::Params& p, int batch, float* dk_part,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr int dkdv_bytes = smem_bytes<HD, HDV>(2);
+  constexpr int dkdv_bytes = dkdv_smem_bytes<HD, HDV>();
   auto dkdv = fa_bwd_dkdv_tc_kernel<HD, HDV>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dkdv_bytes);
   if (err != cudaSuccess) return err;
-  dkdv<<<dim3(batch * p.h, nk), THREADS * dkdv_warpgroups<HD>(), dkdv_bytes,
+  dkdv<<<dim3(batch * p.h, nk), THREADS * warpgroups<HD>(), dkdv_bytes,
          stream>>>(p, p.g > 1 ? dk_part : nullptr,
                    p.g > 1 ? dv_part : nullptr);
   err = cudaGetLastError();
@@ -1312,7 +1860,7 @@ cudaError_t launch(const bwd::Params& p, int batch, float* dk_part,
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dq_bytes);
   if (err != cudaSuccess) return err;
-  dqk<<<dim3(batch * p.h, nq), THREADS * dq_warpgroups<HD>(), dq_bytes,
+  dqk<<<dim3(batch * p.h, nq), THREADS * warpgroups<HD>(), dq_bytes,
         stream>>>(p);
   return cudaGetLastError();
 }

@@ -42,9 +42,10 @@ rule, at every pair of :data:`HEAD_DIMS`:
   (16-byte loads), then on the tensor cores dK / dV per (query head, key
   tile) into float32 partials ((B, Sk, H, hd) and (B, Sk, H, hdv)), their
   sum over the g query heads of each kv head in head order (only where H
-  > Hkv), and dQ per query tile; past hd 128 a dK / dV CTA is two
-  warpgroups by role (one keeps dV, the other dK), and a dQ CTA two
-  (dQ's first 128 columns, and the rest); operands aligned as the forward's
+  > Hkv), and dQ per query tile; past hd 128 each CTA is two warpgroups
+  that split a tile's queries (dK / dV) or keys (dQ), so S and dP are
+  computed once a tile (:func:`backward_tile_work`); operands aligned as
+  the forward's
   tensor-core route wants (a misaligned upstream gradient is copied, q, k
   and v raise); ``LAUNCHES["flash_attention_bwd_tc"]``;
 * ``"fma"`` (float32, and bfloat16 with hd 8): ``fa_backward``, three
@@ -299,6 +300,38 @@ def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
                                _BWD_THREADS),)))
     return {"route": route, "kernels": kernels + [last],
             "scratch_floats": scratch}
+
+
+def backward_tile_work(hd: int, hdv: int) -> dict:
+    """The tensor-core backward's products per (64-query, 64-key) tile, from
+    the head dims alone (``csrc/flash_attention_bwd.cu``'s layout): for the
+    dK / dV CTA and the dQ CTA, its ``layout``, its ``products`` and
+    ``hd_units``, each warpgroup's tensor work, counted as the widths of
+    64 x N products over the tile's 64 rows (dK and dQ twice: dS enters as
+    bf16 hi + lo).  Up to hd 128 one warpgroup does every product on widths
+    padded to 64.  Past it two warpgroups split S and dP by the tile's
+    queries (dK / dV) or keys (dQ), 32 each; dK / dV then accumulate over
+    each warpgroup's queries (``"by_queries"``) where the partials fit its
+    registers, (hd + hdv) / 2 <= 160 floats a thread, else over all 64 with
+    each warpgroup a half of the columns (``"by_columns"``).  Raises
+    ``ValueError`` for a pair outside :data:`TC_HEAD_DIMS`."""
+    if (hd, hdv) not in TC_HEAD_DIMS:
+        raise ValueError(f"flash_attention backward: no tensor-core kernel "
+                         f"at (hd, hdv) = ({hd}, {hdv})")
+    products = {"dkdv": ["S", "dP", "dV", "dK hi", "dK lo"],
+                "dq": ["S", "dP", "dQ hi", "dQ lo"]}
+    if hd <= 128:
+        hdp, hdvp = max(hd, _TILE), max(hdv, _TILE)
+        return {"dkdv": {"layout": "one_warpgroup",
+                         "products": products["dkdv"],
+                         "hd_units": [3 * hdp + 2 * hdvp]},
+                "dq": {"layout": "one_warpgroup", "products": products["dq"],
+                       "hd_units": [3 * hdp + hdvp]}}
+    layout = "by_queries" if hd + hdv <= 320 else "by_columns"
+    return {"dkdv": {"layout": layout, "products": products["dkdv"],
+                     "hd_units": [(3 * hd + 2 * hdv) // 2] * 2},
+            "dq": {"layout": "by_keys", "products": products["dq"],
+                   "hd_units": [(3 * hd + hdv) // 2] * 2}}
 
 
 def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,

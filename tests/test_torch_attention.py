@@ -375,6 +375,58 @@ def test_backward_plan_hand_counts_at_pairs(shape, dtype, want):
     assert tfa.backward_plan(b, s, s, h, hkv, hd, dtype, hdv=hdv) == want
 
 
+# ((hd, hdv), dK / dV layout, its hd-units a warpgroup, dQ layout, its
+# hd-units a warpgroup): the tensor-core backward's work per (64-query,
+# 64-key) tile by hand, counting a 64 x N product over the tile's 64 rows
+# as N (S over hd, dP and dV over hdv, dK and dQ over hd twice: dS as hi
+# + lo).  Up to hd 128 one warpgroup, widths padded to 64; past it each
+# of two warpgroups does half of every product.  (A split by role, each
+# warpgroup computing S (and dP) again, would cost 320 + 704 and 576 +
+# 448 at (192, 128), 512 + 1,024 and 768 + 768 at (256, 256).)
+TILE_WORK = [
+    ((16, 16), "one_warpgroup", [320], "one_warpgroup", [256]),
+    ((24, 16), "one_warpgroup", [320], "one_warpgroup", [256]),
+    ((32, 32), "one_warpgroup", [320], "one_warpgroup", [256]),
+    ((64, 64), "one_warpgroup", [320], "one_warpgroup", [256]),
+    ((128, 128), "one_warpgroup", [640], "one_warpgroup", [512]),
+    # 96 + 64 + 64 + 2 * 96; 96 + 64 + 2 * 96
+    ((192, 128), "by_queries", [416, 416], "by_keys", [352, 352]),
+    # 128 + 128 + 128 + 2 * 128; 128 + 128 + 2 * 128
+    ((256, 256), "by_columns", [640, 640], "by_keys", [512, 512]),
+]
+
+
+@pytest.mark.parametrize("pair,dkdv_layout,dkdv,dq_layout,dq", TILE_WORK,
+                         ids=[f"{p[0][0]}-{p[0][1]}" for p in TILE_WORK])
+def test_backward_tile_work_hand_counts(pair, dkdv_layout, dkdv, dq_layout,
+                                        dq):
+    """The products a tile and each warpgroup's tensor work against
+    counts by hand; past hd 128 the warpgroups are balanced (within 25%,
+    here equal) and the two CTAs together do S and dP once each plus dV
+    and the split dK and dQ: 1,536 hd-units at (192, 128), 2,304 at (256,
+    256), against 2,048 and 3,072 for a split by role."""
+    work = tfa.backward_tile_work(*pair)
+    assert work == {
+        "dkdv": {"layout": dkdv_layout,
+                 "products": ["S", "dP", "dV", "dK hi", "dK lo"],
+                 "hd_units": dkdv},
+        "dq": {"layout": dq_layout, "products": ["S", "dP", "dQ hi", "dQ lo"],
+               "hd_units": dq}}
+    for units in (dkdv, dq):
+        assert max(units) <= 1.25 * min(units)
+    hd, hdv = pair
+    if hd > 128:
+        assert sum(dkdv) + sum(dq) == 2 * (hd + hdv) + hdv + 4 * hd
+        assert sum(dkdv) + sum(dq) == {192: 1536, 256: 2304}[hd]
+
+
+def test_backward_tile_work_refuses_fma_pairs():
+    """hd 8 has no tensor-core kernel, nor has a pair outside HEAD_DIMS."""
+    for pair in ((8, 8), (96, 96), (128, 64)):
+        with pytest.raises(ValueError, match="no tensor-core kernel"):
+            tfa.backward_tile_work(*pair)
+
+
 def test_backward_wrapper_marshals_each_route(monkeypatch):
     """What the wrapper hands the C entry points, with a stand-in library
     (no card): the tensor-core route gets a 16-byte-aligned copy of a

@@ -857,6 +857,19 @@ BWD_CASES = [
     (1, 300, 300, 16, 1, 256, 256, True, 100),
     (2, 130, 130, 4, 1, 256, 256, True, 0),
     (1, 100, 150, 4, 4, 256, 256, False, 0),
+    # past hd 128 each warpgroup takes 32 of a tile's 64 queries (dK / dV)
+    # or keys (dQ): Sq != Sk under the causal mask (keys no query reaches,
+    # rows that reach a tile's first half only), a length 32 past a
+    # multiple of 64 (a tile with one warpgroup's half empty), windows
+    # whose edge cuts a half, and (256, 256) with g = 4
+    (1, 160, 96, 2, 1, 192, 128, True, 0),
+    (1, 96, 160, 2, 2, 192, 128, True, 0),
+    (1, 160, 160, 4, 2, 192, 128, True, 0),
+    (1, 200, 200, 2, 2, 192, 128, True, 48),
+    (1, 160, 96, 4, 4, 256, 256, True, 0),
+    (1, 96, 160, 4, 1, 256, 256, True, 0),
+    (1, 160, 160, 8, 2, 256, 256, True, 0),
+    (1, 200, 200, 8, 2, 256, 256, False, 80),
 ]
 # (dtype, backward route): float32 takes the FMA route; bf16 both, the
 # tensor cores only with (hd, hdv) in TC_HEAD_DIMS
@@ -924,7 +937,9 @@ def test_flash_attention_fn_grads_match_plain_autograd(cuda, case, dtype,
 def test_flash_attention_backward_tc_does_not_spill(cuda):
     """ptxas -v of the library: no tensor-core backward kernel spills, at
     any pair (preprocess at each hdv, dK / dV and dQ at each pair, the
-    GQA reduction into bf16 and into float32)."""
+    GQA reduction into bf16 and into float32), and ptxas serialises the
+    wgmma of none of the two-warpgroup dK / dV and dQ kernels past hd 128
+    (no "(C7520) Potential Performance Loss" note names them)."""
     import re
 
     tfa.BWD_LIBRARY.build()
@@ -941,6 +956,13 @@ def test_flash_attention_backward_tc_does_not_spill(cuda):
     # 5 preprocess (hdv 16, 32, 64, 128, 256), 7 dK / dV, 7 dQ, 2 reductions
     assert len(found) == 21, found
     assert all(v == (0, 0) for v in found.values()), found
+    wide = [n for n in found if re.search(
+        r"fa_bwd_(dkdv|dq)_tc_kernelI(Li192ELi128E|Li256ELi256E)", n)]
+    assert len(wide) == 4, wide
+    serialised = re.findall(r"Potential Performance Loss: wgmma\S* "
+                            r"instructions are serialized.*? in the function "
+                            r"'(\S+?)'", log)
+    assert not set(serialised) & set(wide), serialised
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "recurrentgemma-9b"])
