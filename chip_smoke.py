@@ -156,7 +156,7 @@ Phases, one JSON line each:
            (the FMA route at (192, 128)) against the plain attention:
            prefill logits within LOGIT_TOL and identical greedy tokens;
            then bf16: one tensor-core launch a layer a request, the
-           profile showing flash_attention_tc_kernel and no FMA kernel;
+           profile showing flash_attention_ws_kernel and no FMA kernel;
            load, prefill and decode rates, the MoE's dropped-pair share
            at prefill, device busy time, idle share, top device ops,
            peak memory
@@ -169,7 +169,7 @@ Phases, one JSON line each:
            request) against the plain attention: prefill logits within
            LOGIT_TOL and identical greedy tokens; then bf16: one
            tensor-core launch an attention layer a request, the profile
-           showing flash_attention_tc_kernel and no FMA kernel; load,
+           showing flash_attention_ws_kernel and no FMA kernel; load,
            prefill and decode rates, device busy time, idle share, top
            device ops, the RG-LRU scan's device time (its calls replayed)
            and share, peak memory
@@ -238,8 +238,11 @@ Phases, one JSON line each:
            in its profile, each TIES launch on ties_route's route, wall,
            bytes, device busy time and idle share
 
-Then the total seconds, the kernels' contract line, and last {"ok": true,
-"device": ...}.
+The loop phase runs in a spawned process of its own beside the store
+phase (both host-bound, on workspaces of their own; the kernel timing,
+serve and train phases run before them, alone on the card), so their
+walls are taken side by side.  Then the total seconds, the kernels'
+contract line, and last {"ok": true, "device": ...}.
 Any failure raises and exits non-zero.  The workspace lives under
 build/ (gitignored) and is removed at the end.
 """
@@ -258,7 +261,8 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -1083,8 +1087,8 @@ def flash_rows(device, seed, timer):
                   + got.numel()) * q.element_size()
         bytes_ms = nbytes / PEAK["bytes"] * 1e3
         ops_ms = flops / PEAK["bf16" if dt == "bfloat16" else "f32"] * 1e3
-        kernel = ("flash_attention_tc_kernel" if route == "tc"
-                  else "flash_attention_kernel")
+        plan = fa.forward_plan(b, sq, sk, h, hkv, hd, dtype, route, hdv=hdv)
+        kernel = plan["kernel"]
         row = {
             "name": "flash_attention", "route": "cuda", "case": label,
             "fa_route": route, "kernel": kernel,
@@ -1103,6 +1107,10 @@ def flash_rows(device, seed, timer):
         if label in FA_ROWS:
             row.update(counter=FA_ROWS[label], device_ms=kernel_device_ms(
                 kern, rf"\b{kernel}\b", timer))
+        if route == "tc" and hd > 128:
+            # the warp-specialised layout, beside its time
+            row.update(layout=fa.forward_tile_work(hd, hdv),
+                       smem_bytes=plan["smem_bytes"], stages=plan["stages"])
         rows.append(row)
         del q, k, v, got, want, mask
     return rows
@@ -1255,7 +1263,7 @@ def flash_bwd_rows(device, seed, timer):
             fwd["lse" if with_lse else "lse_null"].append(kernel_device_ms(
                 lambda: fa._forward(q, k, v, causal, window, 0, route,
                                     with_lse=with_lse),
-                r"flash_attention(_tc)?_kernel", timer))
+                r"flash_attention(_tc|_ws)?_kernel", timer))
         rows.append({
             "name": "flash_attention_bwd", "route": "cuda", "case": label,
             "fa_route": route,
@@ -2199,8 +2207,9 @@ def profiled_serve(run, wall, what):
     """``run()`` again under the profiler (device activity only, as in
     ``merge``): device time by activity, the flash kernel's, and the idle
     share against the timed run's ``wall``, which the profiler does not
-    stretch.  The prefill must show the tensor-core kernel and no FMA
-    one (bf16)."""
+    stretch.  The prefill must show a tensor-core kernel (the one-
+    warpgroup kernel up to hd 128, the warp-specialised one past it) and
+    no FMA one (bf16)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2211,7 +2220,7 @@ def profiled_serve(run, wall, what):
     prof_wall = time.perf_counter() - t0
     device_ms = device_time_ms(prof)
     kernel_ms = sum(t for n, t in device_ms.items()
-                    if re.search(r"\bflash_attention_tc_kernel\b", n))
+                    if re.search(r"\bflash_attention_(tc|ws)_kernel\b", n))
     fma_ms = sum(t for n, t in device_ms.items()
                  if re.search(r"\bflash_attention_kernel\b", n))
     if kernel_ms == 0 or fma_ms != 0:
@@ -2859,7 +2868,7 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
         "backward_route": bwd_plan["route"],
         "profiled_step_s": prof_wall, "device_busy_ms": busy,
         "device_idle_share": 1 - busy / 1e3 / prof_wall,
-        "flash_forward_ms": kernel_time(r"flash_attention(_tc)?_kernel"),
+        "flash_forward_ms": kernel_time(r"flash_attention(_tc|_ws)?_kernel"),
         "flash_backward_ms": kernel_time(r"fa_bwd_\w+_kernel"),
         "flash_backward_by_kernel_ms": {
             n: kernel_time(n) for n, _ in bwd_plan["kernels"]},
@@ -3063,6 +3072,19 @@ def phase_loop(root, device, seed, layers, block_size):
     return launches
 
 
+def loop_process(root, seed, layers, block_size):
+    """phase_loop in a spawned process of its own (it runs beside the
+    store phase): the card and the float settings as ``main`` sets them;
+    returns the loop path's launches, counted in this process."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return phase_loop(root, torch.device("cuda", 0), seed, layers,
+                      block_size)
+
+
 # ------------------------------------------------------------------ store
 def populate_store(sess, layers, k, seed, device):
     """Register base (``DecoderLM`` init) and k experts shaped like a
@@ -3166,8 +3188,6 @@ def phase_store(root, device, seed, block_size):
     engine), then fsck finding and repairing a corrupt packed extent and
     a corrupt cache extent."""
     import io as _io
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3585,17 +3605,20 @@ def phase_store(root, device, seed, block_size):
 def ptxas_report(log_path):
     """Per kernel of one build: registers, spills, stack and static shared
     memory, from nvcc's ``-Xptxas -v`` output, and ``serialised``: each
-    note of ptxas that serialises the kernel's wgmma ("(C7520) Potential
-    Performance Loss: wgmma.mma_async instructions are serialized due to
-    ..."), as "code: reason"."""
+    note of ptxas that serialises the kernel's wgmma, as "code: reason":
+    C7520 (a wgmma in a divergent path) and C7515 (an accumulator written
+    between a wgmma's issue and its wait), or any other code ptxas gives
+    in the same form ("(C7520) Potential Performance Loss:
+    wgmma.mma_async instructions are serialized due to ... in the function
+    '...'")."""
     from repro_torch.kernels.build import nvcc
 
     cufilt = os.path.join(os.path.dirname(nvcc()), "cu++filt")  # demangler
     out, cur = {}, None
     with open(log_path) as f:
         for ln in f:
-            m = re.search(r"\((C\d+)\) Potential Performance Loss: (.*?) in "
-                          r"the function '(\S+?)'", ln)
+            m = re.search(r"\((C\d+)\)\s*(?:Potential Performance Loss:"
+                          r"\s*)?(.*?) in the function '(\S+?)'", ln)
             if m:
                 out.setdefault(m.group(3), {}).setdefault(
                     "serialised", []).append(f"{m.group(1)}: {m.group(2)}")
@@ -3701,17 +3724,53 @@ def main() -> int:
                                     "flash_attention_bwd.cu")
                for n in ptxas[src]
                if re.search(r"fa_bwd_\w*(tc|reduce)_kernel|flash_attention_"
-                            r"(tc_)?kernel(<\w*,? ?(192, 128|24, 16)>|"
-                            r"I\w*Li(192ELi128|24ELi16)E)|flash_attention_"
-                            r"tc_kernel(<256, 256>|ILi256ELi256E)",
-                            n.replace("(int)", ""))]
+                            r"(tc_|ws_)?kernel(<\w*,? ?(192, 128|24, 16|"
+                            r"256, 256)>|I\w*Li(192ELi128|24ELi16|256ELi256)"
+                            r"E)", n.replace("(int)", ""))]
     spills = [n for src, n in watched
               if ptxas[src][n].get("spill_stores")
               or ptxas[src][n].get("spill_loads")]
     if spills:
         raise AssertionError(f"ptxas: a tensor-core backward, an MLA "
-                             f"forward or the (256, 256) tensor-core forward "
-                             f"spills in {spills}")
+                             f"forward or a (256, 256) forward spills in "
+                             f"{spills}")
+    # the warp-specialised forwards past hd 128: found, their wgmma not
+    # serialised (C7520, C7515), and their shared memory as the source
+    # and forward_plan state it, as ptxas and the launch's attribute see
+    # it
+    ws = {n: pair for n in ptxas["flash_attention.cu"]
+          for pair in ((192, 128), (256, 256))
+          if re.search(rf"flash_attention_ws_kernel(<{pair[0]}, {pair[1]}>|"
+                       rf"ILi{pair[0]}ELi{pair[1]}E)", n.replace("(int)", ""))}
+    if sorted(ws.values()) != [(192, 128), (256, 256)]:
+        raise AssertionError(f"ptxas: want the warp-specialised forwards at "
+                             f"(192, 128) and (256, 256), found {ws}")
+    serialised = {n: ptxas["flash_attention.cu"][n]["serialised"]
+                  for n in ws if ptxas["flash_attention.cu"][n].get(
+                      "serialised")}
+    if serialised:
+        raise AssertionError(f"ptxas serialises the wgmma of the "
+                             f"warp-specialised forward: {serialised}")
+    smem = {}
+    for n, (hd, hdv) in ws.items():
+        plan = fa.forward_plan(1, 1, 1, 1, 1, hd, torch.bfloat16, "tc",
+                               hdv=hdv)
+        attrs = fa.tc_attributes(hd, hdv)
+        info = ptxas["flash_attention.cu"][n]
+        smem[f"{hd}x{hdv}"] = {"plan": plan, "attributes": attrs,
+                               "ptxas_static": info["smem_static"],
+                               "ptxas_registers": info["registers"]}
+        if not (plan["smem_bytes"] == attrs["smem_bytes"]
+                == attrs["max_dynamic_smem_bytes"]
+                and plan["static_smem_bytes"] == attrs["static_smem_bytes"]
+                == info["smem_static"]
+                and plan["threads"] == attrs["threads"]
+                and plan["rows"] == attrs["rows"]
+                and attrs["registers"] == info["registers"]):
+            raise AssertionError(f"forward_plan, the source and ptxas "
+                                 f"disagree at ({hd}, {hdv}): "
+                                 f"{smem[f'{hd}x{hdv}']}")
+    emit({"ws_forward": smem})
     # the two-warpgroup dK / dV and dQ CTAs past hd 128 run one instruction
     # stream, so ptxas must not serialise their wgmma (its C7520 note);
     # a note on any other kernel stands in the ptxas line above
@@ -3730,9 +3789,12 @@ def main() -> int:
                              f"{serialised}")
     # 21 backward kernels (the tensor cores' preprocess at 5 hdv, dK / dV
     # and dQ at 7 pairs; the GQA reduction into bf16 and into float32), 6
-    # MLA forwards, the tensor-core (256, 256) forward
-    if len(watched) != 28:
-        raise AssertionError(f"ptxas: want the 28 spill-checked kernels, "
+    # MLA forwards (the FMA kernel in float32 and bf16 at (192, 128) and
+    # (24, 16), the one-warpgroup tensor-core kernel at (24, 16), the
+    # warp-specialised one at (192, 128)), 3 forwards at (256, 256) (the
+    # FMA kernel in float32 and bf16, the warp-specialised one)
+    if len(watched) != 30:
+        raise AssertionError(f"ptxas: want the 30 spill-checked kernels, "
                              f"found {watched}")
 
     walls = {}
@@ -3765,11 +3827,21 @@ def main() -> int:
                             TRAIN_MLA, "train_mla")
         trained_griffin = timed("train_griffin", phase_train, device, seed,
                                 TRAIN_GRIFFIN, "train_griffin")
-        loop = timed("loop", phase_loop, root, device, seed, LOOP["layers"],
-                     bs)
         shutil.rmtree(os.path.join(root, "merge"), ignore_errors=True)
-        store, store_worker = timed("store", phase_store, root, device, seed,
-                                    bs)
+        # the loop phase in a process of its own beside the store phase:
+        # both are host-bound (checkpoint and snapshot I/O, hashing, zlib,
+        # the numpy stream engine) on workspaces of their own
+        # (root/loop-*, root/store*), and the card has room for both
+        t_loop = time.perf_counter()
+        with ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as side:
+            looping = side.submit(loop_process, root, seed, LOOP["layers"],
+                                  bs)
+            looping.add_done_callback(lambda _f: walls.__setitem__(
+                "loop", time.perf_counter() - t_loop))
+            store, store_worker = timed("store", phase_store, root, device,
+                                        seed, bs)
+            loop = looping.result()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # each kernel's launches over the paths that run it: the merge, the

@@ -287,7 +287,9 @@ class DeltaIterator:
     ) -> Tuple[np.ndarray, List[int], List[str]]:
         """Returns (stacked deltas (K_sel, n) float32, expert indexes,
         expert ids).  Performs expert I/O iff the plan selected the block."""
-        deltas: List[np.ndarray] = []
+        # each delta row is computed straight into its row of the stack
+        stack = np.empty((len(self._sources), base_block.size),
+                         dtype=np.float32)
         idxs: List[int] = []
         ids: List[str] = []
         base_f = None
@@ -295,28 +297,25 @@ class DeltaIterator:
             x = src.pull(block_idx)
             if x is None:
                 continue
+            row = stack[len(ids)]
             if x is ELIDED:
                 # packed-layout elision: the stored block equals the base
                 # (full kind) or zero (delta kind) bit-exactly, so its
                 # delta row is exactly what the flat path would compute —
                 # all zeros — at zero expert I/O.
-                deltas.append(np.zeros(base_block.size, dtype=np.float32))
-                idxs.append(ei)
-                ids.append(e)
-                continue
-            xf = to_float32(x)
-            if src.kind == "full":
-                if base_f is None:
-                    base_f = to_float32(base_block)
-                xf = xf - base_f
-            deltas.append(xf)
+                row[:] = 0
+            else:
+                xf = to_float32(x)
+                if src.kind == "full":
+                    if base_f is None:
+                        base_f = to_float32(base_block)
+                    np.subtract(xf, base_f, out=row)
+                else:
+                    row[:] = xf
             idxs.append(ei)
             ids.append(e)
         self._used_experts = ids
-        if deltas:
-            return np.stack(deltas), idxs, ids
-        n = base_block.size
-        return np.zeros((0, n), dtype=np.float32), [], []
+        return stack[:len(ids)], idxs, ids
 
     def used_experts(self) -> List[str]:
         """Experts that contributed to the most recent block (coverage)."""

@@ -1,25 +1,29 @@
-// Flash attention for NVIDIA Hopper (sm_90a), plain C interface: two
+// Flash attention for NVIDIA Hopper (sm_90a), plain C interface: the
 // forward kernels (their backward is flash_attention_bwd.cu; the helpers
 // both use, flash_attention_common.cuh).
-// The two forward kernels compute the same function; the wrapper
-// (kernels/flash_attention.py, `_route`) picks one by dtype and head dim:
+// The forward kernels compute the same function; the wrapper
+// (kernels/flash_attention.py, `_route`) picks a route by dtype and head
+// dims, and the tensor-core route a kernel by hd:
 //
 //   flash_attention_tc_kernel  bfloat16, (hd, hdv) in {(16, 16), (24, 16),
-//                              (32, 32), (64, 64), (128, 128), (192, 128),
-//                              (256, 256)}: products on the tensor cores,
-//                              wgmma (`fa_forward_tc`)
+//                              (32, 32), (64, 64), (128, 128)}: products on
+//                              the tensor cores, wgmma (`fa_forward_tc`)
+//   flash_attention_ws_kernel  bfloat16, (192, 128) and (256, 256): the
+//                              same products in a warp-specialised CTA, a
+//                              TMA producer and two consumer warpgroups
+//                              (`fa_forward_tc`)
 //   flash_attention_kernel     float32 (those pairs and (8, 8)) and bfloat16
 //                              with hd = 8: float32 FMAs (`fa_forward`)
 //
 // hd is the q.k head dim, hdv v's and the output's: they differ for
 // DeepSeek-V2's multi-head latent attention (qk = nope 128 + rope 64 = 192,
 // v 128; 24 / 16 in its smoke config); RecurrentGemma's local attention
-// takes (256, 256), 16 query heads over one kv head.  Both kernels are
+// takes (256, 256), 16 query heads over one kv head.  The kernels are
 // templates over
 // <HD, HDV>: the Q and K tiles are HD wide; the V tile, the O accumulator,
 // the output store are HDV wide; m, l and lse are per query row.
 //
-// Both replace the Pallas TPU kernel `flash_attention_pallas` (`_fa_kernel`,
+// All replace the Pallas TPU kernel `flash_attention_pallas` (`_fa_kernel`,
 // src/repro/kernels/flash_attention.py:102) and compute what
 // `repro.models.attention.flash_attention` computes (l. 92-196): a chunked
 // online softmax over key tiles, GQA (kv head = q head / g, read in place),
@@ -33,7 +37,7 @@
 // and written through element strides (the last dimension has stride 1).
 // No pad or transpose copy: the ragged q and k edges are masked here.
 //
-// What bounds both.  At the smoke's prefill shape, (B, Sq, Sk, H, Hkv, hd) =
+// What bounds them.  At the smoke's prefill shape, (B, Sq, Sk, H, Hkv, hd) =
 // (1, 2048, 2048, 12, 2, 128) bf16 causal, the live causal half is about
 // 12.9 GFLOP against about 15 MB of q, k, v and o: ~860 FLOP per byte, far
 // above the card's ~295 bf16 FLOP per byte, so the bound is the tensor
@@ -61,8 +65,10 @@
 // of shared memory (one CTA an SM, under the 232,448-byte opt-in) and the
 // accumulator 4 x 16 floats a thread.
 //
-// flash_attention_tc_kernel (the bfloat16 route) is described above its
-// definition below.
+// flash_attention_tc_kernel and flash_attention_ws_kernel (the bfloat16
+// route) are described above their definitions below.
+
+#include <cuda.h>
 
 #include "flash_attention_common.cuh"
 
@@ -309,17 +315,20 @@ cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
 
 
 // ------------------------------------------------ tensor-core route (bf16)
-// flash_attention_tc_kernel: the same function for bfloat16 operands with
-// (hd, hdv) in {(16, 16), (24, 16), (32, 32), (64, 64), (128, 128),
-// (192, 128), (256, 256)}, its products on the tensor cores.
+// The same function for bfloat16 operands with (hd, hdv) in {(16, 16),
+// (24, 16), (32, 32), (64, 64), (128, 128), (192, 128), (256, 256)}, its
+// products on the tensor cores: `flash_attention_tc_kernel` up to hd 128,
+// `flash_attention_ws_kernel` past it (DeepSeek-V2's MLA at (192, 128),
+// RecurrentGemma's (256, 256)).  `tc::launch` picks by HD.
 //
-// Design (a FlashAttention-3-style warpgroup kernel without the producer
-// warp).  One CTA is one warpgroup of 4 warps and owns one (b, h, 64-row q
-// tile); it loops over 64-key tiles.  Both products are Hopper warpgroup
-// MMAs (`wgmma.mma_async`, bf16 inputs, float32 accumulators):
+// flash_attention_tc_kernel (hd <= 128; a FlashAttention-3-style
+// warpgroup kernel without the producer warp).  One CTA is one warpgroup
+// of 4 warps and owns one (b, h, 64-row q tile); it loops over 64-key
+// tiles.  Both products are Hopper warpgroup MMAs (`wgmma.mma_async`, bf16
+// inputs, float32 accumulators):
 //   S = Q.K^T  m64n64k16, A = Q and B = K read by the tensor cores straight
 //              from shared memory through matrix descriptors (both K-major);
-//              hd / 16 k-steps (12 at hd 192);
+//              hd / 16 k-steps;
 //   O += P.V   m64nNk16 (N = hdv padded: 64 or 128), A = P from
 //              registers — the S
 //              accumulator fragment rounded to bf16 (as every tensor-core
@@ -331,12 +340,8 @@ cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
 // cores read without bank conflicts.  Q and K tiles are hd wide, V tiles
 // hdv wide.  A width below 64 (hd 16, 24, 32; hdv 16, 32) is padded to 64
 // columns of zeros in shared memory (the copy zero-fills them), which
-// leaves S and the kept columns of O unchanged.  At (192, 128) shared memory
-// holds Q (24 KiB), two K stages (48 KiB) and two V stages (32 KiB): 105
-// KiB, so two CTAs still share an SM.  Q and K stay in shared memory, so
-// the accumulators are those of hd 128 (S's 32 floats a thread, O's 64):
-// ptxas gives 236 registers at (192, 128), 196 at (128, 128), no spills.
-// K and V tiles are
+// leaves S and the kept columns of O unchanged.  ptxas gives 196 registers
+// at (128, 128), no spills.  K and V tiles are
 // double-buffered: 16-byte `cp.async.cg` copies of tile j + 1 run while
 // tile j is multiplied (then `fence.proxy.async` makes them visible to the
 // tensor cores); ragged q and k rows are zero-filled by the copy itself.
@@ -349,31 +354,78 @@ cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
 // more than the products.  The key loop is bounded to the causal / window
 // reach as in the float32 kernel.  The grid runs (B * H, q tiles) with the q
 // tiles in reverse order, so the longest causal tiles of every head start
-// first and the short ones fill the tail.
+// first and the short ones fill the tail.  What it gives up: the products
+// and the softmax of one CTA run one after the other (several CTAs share an
+// SM and overlap each other), and the copies are cp.async rather than TMA.
 //
-// hdv 256 (RecurrentGemma).  One warpgroup cannot hold O at 256 columns:
-// 128 floats a thread beside S's 32 and P's 16 pass the 255-register limit
-// once addresses count ((192, 128) already takes 236).  So a CTA there is
-// two warpgroups (256 threads) over the same 64 q rows: both run S = Q.K^T
-// (16 k-steps) and the same register softmax on the same tile, so their m
-// and l agree bit for bit; warpgroup w keeps O's columns [128 w, 128 w +
-// 128) and runs P.V (m64n128k16) on V's descriptor advanced by two
-// 64-column atoms (16 KiB) a warpgroup.  The 256 threads share the
-// cp.async copies, warpgroup 0 writes lse and each warpgroup stores its
-// half of O.  Each thread's accumulators stay those of (192, 128) (ptxas:
-// 199 registers, no spill); shared memory holds Q (32 KiB), two K stages
-// (64 KiB) and two V stages (64 KiB): 161 KiB, one CTA an SM.  The cost is S computed twice: 1.5 times the tensor work of one S
-// and P.V, chosen over P through shared memory (a barrier between the
-// warpgroups each tile) for a first kernel that is simple and right.
+// flash_attention_ws_kernel (hd > 128: (192, 128) and (256, 256); warp-
+// specialised).  Past hd 128 one SM holds one CTA (its tiles take 169 and
+// 193 KiB), so the overlap has to come from inside it.  A CTA is three
+// warpgroups over one (b, h, 128-row q tile):
+//   warpgroup 0, the producer: `setmaxnreg` lowers it to 24 registers a
+//     thread; one thread loads Q once and streams K and V tiles through
+//     rings of STAGES slots with TMA (`cp.async.bulk.tensor.4d` on tensor
+//     maps over (d, h, s, b), built by the launcher from the element
+//     strides; 64 x 64-column boxes, 128-byte swizzle, exactly the layout
+//     the wgmma descriptors read).  Each slot has a full mbarrier (the
+//     producer's arrive.expect_tx, completed by the copy's bytes) and an
+//     empty one (one arrival from each consumer warp).  K and V have rings
+//     of their own, since K_j is free once S_j is computed and V_j only
+//     after P_j.V_j a tile later.
+//   warpgroups 1 and 2, the consumers, 240 registers a thread: each owns
+//     64 of the q rows and all of O's columns for them, so S is computed
+//     once for each (query row, key): hd + hdv hd-units a row and tile (512
+//     at (256, 256), 320 at (192, 128)), where the two-warpgroup CTA this
+//     replaces computed S in both warpgroups (768 at (256, 256)).  O is
+//     hdv / 2 floats a thread (128 at (256, 256)), S 32, P 16.  At (192,
+//     128) Q also moves into registers once (48 a thread): S then takes
+//     A from registers and reads only K from shared memory, where S as
+//     m64n64k16 with both operands there is held to shared memory's rate
+//     (3% of the kernel's time on an H100 80GB HBM3, measured with
+//     tools/compare_flash_forward.py).  At (256, 256) there is no room
+//     for Q.
+// The softmax folds the score scale into the exponent (one fma and the
+// flush-to-zero ex2 an element, the max over raw scores): 9% and 7% of
+// the kernel's time at (192, 128) and (256, 256) against a scale, a
+// subtract and exp2f an element (H100 80GB HBM3, the same tool).
+// Softmax beside the products: the consumers take turns on two named
+// barriers (`bar.sync id, 256`, the other warpgroup's `bar.arrive`).  In
+// its turn a consumer issues O += P_{j-1}.V_{j-1} and S_j = Q.K_j^T as one
+// wgmma group and hands the turn over; it then waits for its group, frees
+// K_j and V_{j-1}, and runs the softmax of S_j and O's rescale while the
+// other consumer's group runs on the tensor cores.  The first tile's S and
+// the last tile's P.V run in turns of their own, so every turn is the
+// same straight-line code: no wgmma under a branch on the warpgroup (the
+// role is a warp-uniform `__shfl_sync` value, branched on once), and no
+// accumulator is read or written between a group's issue and its wait
+// (`fence_regs` pins them).  Both consumers walk the CTA's whole key
+// range; a tile that masks all of one warpgroup's rows changes neither
+// its m, l nor O (exact, as in the float32 kernel), and costs the lower
+// warpgroup about one tile on the causal diagonal.  Rows past Sq and keys
+// past Sk arrive as zeros (TMA clips each box per dimension, so a box never
+// crosses into the next head or batch); keys past Sk are masked in the
+// softmax as in the tc kernel, rows past Sq are not stored.  The q tiles
+// run longest-reach first, as in the tc kernel.
+//   (192, 128): Q 48 KiB (two warpgroups' 64 rows), 3 stages of K (24 KiB)
+//     and V (16 KiB): 168 KiB + 1 KiB alignment slack.
+//   (256, 256): Q 64 KiB, 2 stages of K (32 KiB) and V (32 KiB): 192 KiB +
+//     1 KiB.
+// Barriers are static shared memory (8 bytes each, 1 + 4 STAGES; ptxas
+// counts 1,024 bytes, the alignment of the dynamic tiles after them).
+// ptxas: 168 registers at the launch bound (384 threads), the consumers
+// 240 after `setmaxnreg`, the producer 24 (128 x 24 + 256 x 240 = 64,512
+// of 65,536); no spill, no C7520 or C7515 note.  A ring of 2, 3 or 4
+// stages timed the same at (192, 128) (the same tool), so it keeps 3.
+// What still does not overlap: within one consumer the softmax waits for
+// its own S (only the other consumer's group covers it), and the output
+// is stored from registers after the last tile; the grid is not
+// persistent, so one CTA's epilogue does not overlap the next one's loads;
+// GQA heads are not packed per K/V tile (their K / V come from L2).
 //
-// What it gives up: the products and the softmax of one CTA run one after
-// the other (two CTAs per SM overlap each other; no producer warp, no
-// ping-pong of two warpgroups), the copies are cp.async rather than TMA,
-// and every q tile re-reads its K and V tiles (GQA heads are not packed).
-//
-// Alignment: cp.async moves 16 bytes, so q, k, v and o must start on a
-// 16-byte boundary and their b, s and h strides must be multiples of 8
-// elements; the wrapper checks and raises, and `fa_forward_tc` refuses.
+// Alignment: cp.async and TMA move 16-byte pieces, so q, k, v and o must
+// start on a 16-byte boundary and their b, s and h strides must be
+// multiples of 8 elements; the wrapper checks and raises, and
+// `fa_forward_tc` refuses.
 
 namespace tc {
 
@@ -381,6 +433,21 @@ constexpr int BQ = 64;              // q rows per CTA: one warpgroup
 constexpr int BK = 64;              // keys per tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// Bit i: does the thread's score s[i] of a tile (row q + 8 ((i % 4) / 2),
+// key k + 8 (i / 4) + (i & 1)) pair a query with a key it attends?
+__device__ __forceinline__ uint32_t valid_bits(const Params& p, int q,
+                                               int k) {
+  uint32_t valid = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int qp = q + 8 * ((i % 4) / 2), kp = k + 8 * (i / 4) + (i & 1);
+    const bool ok = (kp < p.sk) & (!p.causal | (qp >= kp)) &
+                    ((p.window <= 0) | (qp - kp < p.window));
+    valid |= static_cast<uint32_t>(ok) << i;
+  }
+  return valid;
+}
 
 // Online softmax of one key tile in registers.  s[4 nb + e] is this
 // thread's score of row q + 8 (e / 2) and key k + 8 nb + (e & 1); on return
@@ -393,17 +460,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m_r)[2],
                                              float (&alpha)[2],
                                              const Params& p, int q, int k,
                                              float sl2) {
-  uint32_t valid = 0xFFFFFFFFu;
-  if (MASK) {
-    valid = 0;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int qp = q + 8 * ((i % 4) / 2), kp = k + 8 * (i / 4) + (i & 1);
-      const bool ok = (kp < p.sk) & (!p.causal | (qp >= kp)) &
-                      ((p.window <= 0) | (qp - kp < p.window));
-      valid |= static_cast<uint32_t>(ok) << i;
-    }
-  }
+  const uint32_t valid = MASK ? valid_bits(p, q, k) : 0xFFFFFFFFu;
   float mx[2] = {NEG, NEG};
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
@@ -431,11 +488,50 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m_r)[2],
   for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
 }
 
-// warpgroups of a CTA: one, or one per 128 of O's columns past 128 (two at
-// hdv 256)
-template <int HDV>
-__host__ __device__ constexpr int warpgroups() {
-  return hd_padded<HDV>() > 128 ? hd_padded<HDV>() / 128 : 1;
+// the first key tile and one past the last that a q range starting at
+// query position qpos_lo with `rows` rows can reach (attention.py:164-172)
+__device__ __forceinline__ void key_range(const Params& p, int qpos_lo,
+                                          int rows, int& lo, int& hi) {
+  const int nk = (p.sk + BK - 1) / BK;
+  hi = nk;
+  if (p.causal) hi = min(nk, (qpos_lo + rows + BK - 1) / BK);
+  lo = 0;
+  if (p.window > 0) {
+    const int first = qpos_lo - p.window + 1;
+    lo = first > 0 ? first / BK : 0;
+  }
+}
+
+// does the key tile at k0 hold a masked pair for the 64 rows from qpos?
+__device__ __forceinline__ bool edge_tile(const Params& p, int qpos,
+                                          int rows, int k0) {
+  return k0 + BK > p.sk || (p.causal && k0 + BK - 1 > qpos) ||
+         (p.window > 0 && qpos + rows - 1 - k0 >= p.window);
+}
+
+// P's A fragments (bf16) from the S fragments, 16 keys per k-step
+__device__ __forceinline__ void pack_p(const float (&s)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// S = Q.K^T over HD: k16 steps 32 bytes apart inside a 128-byte swizzle
+// row, 8 KiB apart across the 64-column atoms
+template <int HDP>
+__device__ __forceinline__ void issue_s(float (&s)[32], uint32_t qt,
+                                        uint32_t kt) {
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
+    wgmma_ss_n64(s, desc(qt + off, 16, 1024), desc(kt + off, 16, 1024),
+                 kk > 0);
+  }
 }
 
 template <int HD, int HDV>
@@ -445,16 +541,12 @@ constexpr int smem_bytes() {
 }
 
 template <int HD, int HDV>
-__global__ void __launch_bounds__(THREADS * warpgroups<HDV>())
+__global__ void __launch_bounds__(THREADS)
 flash_attention_tc_kernel(const Params p) {
   constexpr int HDP = hd_padded<HD>();
   constexpr int HDVP = hd_padded<HDV>();
-  constexpr int NWG = warpgroups<HDV>();
-  constexpr int NT = THREADS * NWG;     // threads of the CTA
-  constexpr int WN = HDVP / NWG;        // O columns of one warpgroup
-  constexpr int OCOLS = NWG == 1 ? HDV : WN;  // of them, stored
   static_assert(HD % 8 == 0 && HDV % 8 == 0 && HDP % 64 == 0 &&
-                    (WN == 64 || WN == 128) && (NWG == 1 || HDV == HDVP),
+                    (HDVP == 64 || HDVP == 128) && HD <= 128,
                 "16-byte chunks; whole swizzle atoms; wgmma N of 64 or 128");
   constexpr int TILE = 64 * HDP * 2;    // bytes of one Q or K tile
   constexpr int VTILE = 64 * HDVP * 2;  // bytes of one V tile
@@ -463,8 +555,7 @@ flash_attention_tc_kernel(const Params p) {
   const uint32_t ks = qs + TILE;
   const uint32_t vs = ks + 2 * TILE;
 
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int wg = tid / THREADS, warp = (tid % THREADS) / 32;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int nqt = (p.sq + BQ - 1) / BQ;
   const int q0 = (nqt - 1 - static_cast<int>(blockIdx.y)) * BQ;
   const int b = blockIdx.x / p.h;
@@ -481,34 +572,26 @@ flash_attention_tc_kernel(const Params p) {
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
                      head * p.o_sh + q0 * p.o_ss;
 
-  // the tiles this q tile can reach (attention.py:164-172)
-  const int nk = (p.sk + BK - 1) / BK;
   const int qpos_lo = p.q_offset + q0;
-  int hi = nk;
-  if (p.causal) hi = min(nk, (qpos_lo + rows + BK - 1) / BK);
-  int lo = 0;
-  if (p.window > 0) {
-    const int first = qpos_lo - p.window + 1;
-    lo = first > 0 ? first / BK : 0;
-  }
+  int lo, hi;
+  key_range(p, qpos_lo, rows, lo, hi);
 
-  load_tile<HD, HDP, NT>(qs, q, p.q_ss, rows, tid);
+  load_tile<HD, HDP>(qs, q, p.q_ss, rows, tid);
   if (lo < hi) {
     const int k0 = lo * BK;
-    load_tile<HD, HDP, NT>(ks, k + k0 * p.k_ss, p.k_ss, p.sk - k0, tid);
-    load_tile<HDV, HDVP, NT>(vs, v + k0 * p.v_ss, p.v_ss, p.sk - k0, tid);
+    load_tile<HD, HDP>(ks, k + k0 * p.k_ss, p.k_ss, p.sk - k0, tid);
+    load_tile<HDV, HDVP>(vs, v + k0 * p.v_ss, p.v_ss, p.sk - k0, tid);
   }
   cp_async_commit();
 
-  // accumulator fragments: warp w of a warpgroup holds rows 16 w + g and
-  // 16 w + g + 8, columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-wide
-  // block j of its warpgroup's WN columns
+  // accumulator fragments: warp w holds rows 16 w + g and 16 w + g + 8,
+  // columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-wide block j
   const int g = lane / 4, t4 = lane % 4;
   const int wrow = warp * 16;
   const float sl2 = p.scale * LOG2E;
-  float acc[WN / 2];
+  float acc[HDVP / 2];
 #pragma unroll
-  for (int j = 0; j < WN / 2; ++j) acc[j] = 0.f;
+  for (int j = 0; j < HDVP / 2; ++j) acc[j] = 0.f;
   float m_r[2] = {NEG, NEG};  // running max of rows g, g + 8 (log2 units)
   float l_r[2] = {0.f, 0.f};  // this thread's part of the running sums
 
@@ -516,10 +599,10 @@ flash_attention_tc_kernel(const Params p) {
     const int st = (kt - lo) & 1;
     if (kt + 1 < hi) {  // the next tile streams in while this one runs
       const int k1 = (kt + 1) * BK;
-      load_tile<HD, HDP, NT>(ks + (st ^ 1) * TILE, k + k1 * p.k_ss, p.k_ss,
-                             p.sk - k1, tid);
-      load_tile<HDV, HDVP, NT>(vs + (st ^ 1) * VTILE, v + k1 * p.v_ss,
-                               p.v_ss, p.sk - k1, tid);
+      load_tile<HD, HDP>(ks + (st ^ 1) * TILE, k + k1 * p.k_ss, p.k_ss,
+                         p.sk - k1, tid);
+      load_tile<HDV, HDVP>(vs + (st ^ 1) * VTILE, v + k1 * p.v_ss, p.v_ss,
+                           p.sk - k1, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -528,59 +611,41 @@ flash_attention_tc_kernel(const Params p) {
     fence_async_smem();
     __syncthreads();
     const uint32_t kst = ks + st * TILE;
-    // this warpgroup's columns of V: WN / 64 atoms of 8 KiB a warpgroup
-    const uint32_t vst = vs + st * VTILE + wg * (WN / 64) * 8192;
+    const uint32_t vst = vs + st * VTILE;
 
-    // S = Q.K^T: k16 steps along hd, 32 bytes apart inside a 128-byte
-    // swizzle row, 8 KiB apart across the 64-column halves
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
-      const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
-      wgmma_ss_n64(s, desc(qs + off, 16, 1024), desc(kst + off, 16, 1024),
-                   kk > 0);
-    }
+    issue_s<HDP>(s, qs, kst);
     wgmma_commit();
     wgmma_wait_all();
 
     const int k0 = kt * BK;
-    const bool edge = k0 + BK > p.sk ||
-                      (p.causal && k0 + BK - 1 > qpos_lo) ||
-                      (p.window > 0 && qpos_lo + rows - 1 - k0 >= p.window);
     float alpha[2];
-    if (edge)
+    if (edge_tile(p, qpos_lo, rows, k0))
       softmax_tile<true>(s, m_r, l_r, alpha, p, qpos_lo + wrow + g,
                          k0 + 2 * t4, sl2);
     else
       softmax_tile<false>(s, m_r, l_r, alpha, p, qpos_lo + wrow + g,
                           k0 + 2 * t4, sl2);
 #pragma unroll
-    for (int j = 0; j < WN / 8; ++j) {
+    for (int j = 0; j < HDVP / 8; ++j) {
       acc[4 * j + 0] *= alpha[0];
       acc[4 * j + 1] *= alpha[0];
       acc[4 * j + 2] *= alpha[1];
       acc[4 * j + 3] *= alpha[1];
     }
 
-    // O += P.V: P's A fragments from the S fragments, 16 keys per step;
-    // V's 16 key rows per step are two 1,024-byte atoms (SBO) and its
-    // 64-column halves 8 KiB apart (LBO)
+    // O += P.V: V's 16 key rows per step are two 1,024-byte atoms (SBO) and
+    // its 64-column halves 8 KiB apart (LBO)
     uint32_t a[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-      a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
+    pack_p(s, a);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dv = desc(vst + kk * 2048, 8192, 1024);
-      if constexpr (WN == 128)
+      if constexpr (HDVP == 128)
         wgmma_rs_n128(acc, a[kk], dv);
       else
         wgmma_rs_n64(acc, a[kk], dv);
@@ -598,15 +663,14 @@ flash_attention_tc_kernel(const Params p) {
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int row = wrow + g + 8 * r;
-    // m_r is in log2 units: lse = m_r ln 2 + log(l), natural units; the
-    // warpgroups' m and l are equal, warpgroup 0 writes it
-    if (p.lse != nullptr && wg == 0 && t4 == 0 && row < rows)
+    // m_r is in log2 units: lse = m_r ln 2 + log(l), natural units
+    if (p.lse != nullptr && t4 == 0 && row < rows)
       p.lse[static_cast<long long>(blockIdx.x) * p.sq + q0 + row] =
           m_r[r] * LN2 + logf(fmaxf(l, 1e-30f));
     if (row < rows) {
-      __nv_bfloat16* orow = o + row * p.o_ss + wg * WN + 2 * t4;
+      __nv_bfloat16* orow = o + row * p.o_ss + 2 * t4;
 #pragma unroll
-      for (int j = 0; j < OCOLS / 8; ++j)
+      for (int j = 0; j < HDV / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
             __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
                                   acc[4 * j + 2 * r + 1] * inv);
@@ -614,28 +678,464 @@ flash_attention_tc_kernel(const Params p) {
   }
 }
 
+// ------------------------------------ the warp-specialised CTA past hd 128
+namespace ws {
+
+constexpr int BQ = 128;             // q rows per CTA: two consumers of 64
+constexpr int THREADS = 384;        // producer + two consumer warpgroups
+constexpr int TURN = 256;           // threads on a turn's named barrier
+
+template <int HD, int HDV>
+__host__ __device__ constexpr int stages() {
+  return HD + HDV > 320 ? 2 : 3;
+}
+
+// 64 x 64-column boxes of Q (two warpgroups), the K and V rings, and slack
+// to align to 1,024 bytes
+template <int HD, int HDV>
+__host__ __device__ constexpr int smem_bytes() {
+  return 2 * 64 * HD * 2 + stages<HD, HDV>() * 64 * (HD + HDV) * 2 + 1024;
+}
+
+// Q as S's register operand where the registers allow it (hd / 4 a
+// thread beside O's hdv / 2): only K is then read from shared memory
+template <int HD, int HDV>
+__host__ __device__ constexpr bool q_in_registers() {
+  return HD + HDV <= 320;
+}
+
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// softmax_tile with the score scale folded into the exponent: the row max
+// is taken over the raw scores (the scale is positive, so it commutes with
+// the max and its rounding), and each p is exp2(fma(s, scale, -m)) on the
+// flush-to-zero ex2 (a p below 2^-126 is 0; P is rounded to bf16 anyway).
+// m_r, l_r and alpha mean what they mean in softmax_tile.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile_fma(float (&s)[32],
+                                                 float (&m_r)[2],
+                                                 float (&l_r)[2],
+                                                 float (&alpha)[2],
+                                                 const Params& p, int q,
+                                                 int k, float sl2) {
+  const uint32_t valid = MASK ? valid_bits(p, q, k) : 0xFFFFFFFFu;
+  float mx[2] = {NEG, NEG};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (MASK) s[i] = ((valid >> i) & 1u) ? s[i] : NEG;
+    mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+  }
+  float m_new[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    m_new[r] = fmaxf(m_r[r], mx[r] == NEG ? NEG : mx[r] * sl2);
+    alpha[r] = ex2_ftz(m_r[r] - m_new[r]);
+    m_r[r] = m_new[r];
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float pe = ex2_ftz(fmaf(s[i], sl2, -m_new[(i % 4) / 2]));
+    if (MASK) pe = ((valid >> i) & 1u) ? pe : 0.f;  // p = exp(s - m) * valid
+    s[i] = pe;
+    rs[(i % 4) / 2] += pe;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
+}
+
+template <int HD, int HDV>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_ws_kernel(const __grid_constant__ Params p,
+                          const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv) {
+  constexpr int NS = stages<HD, HDV>();
+  constexpr int QT = 64 * HD * 2;   // bytes of one warpgroup's Q, one K tile
+  constexpr int VT = 64 * HDV * 2;  // bytes of one V tile
+  constexpr int NH = HDV / 128;     // m64n128 column halves of O
+  static_assert(HD > 128 && HD % 64 == 0 && HDV % 128 == 0,
+                "whole 64-column boxes; O in 128-column wgmma halves");
+  extern __shared__ __align__(1024) unsigned char ws_smem[];
+  // q full; K full, K empty, V full, V empty per stage
+  __shared__ __align__(8) uint64_t bars[1 + 4 * NS];
+  const uint32_t qs = (smem_u32(ws_smem) + 1023u) & ~1023u;
+  const uint32_t ks = qs + 2 * QT;
+  const uint32_t vs = ks + NS * QT;
+  const uint32_t q_full = smem_u32(&bars[0]);
+  const uint32_t k_full = q_full + 8, k_empty = k_full + 8 * NS;
+  const uint32_t v_full = k_empty + 8 * NS, v_empty = v_full + 8 * NS;
+
+  const int nqt = (p.sq + BQ - 1) / BQ;
+  const int q0 = (nqt - 1 - static_cast<int>(blockIdx.y)) * BQ;
+  const int b = blockIdx.x / p.h;
+  const int head = blockIdx.x % p.h;
+  const int kvh = head / p.g;
+  int lo, hi;
+  key_range(p, p.q_offset + q0, min(BQ, p.sq - q0), lo, hi);
+  const int n = hi - lo;  // key tiles of the CTA: the same for both consumers
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);  // one arrival a consumer warp
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warp-uniform role: 0 the producer, 1 and 2 the consumers
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0 && n > 0) {
+      mbar_expect_tx(q_full, 2 * QT);
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c)
+          tma_load_4d(qs + w * QT + c * 8192, &tq, q_full, c * 64, head,
+                      q0 + 64 * w, b);
+      for (int j = 0; j < n; ++j) {
+        const int st = j % NS;
+        const uint32_t ph = (j / NS) & 1;
+        const int k0 = (lo + j) * BK;
+        mbar_wait(k_empty + 8 * st, ph ^ 1);  // a fresh slot passes
+        mbar_expect_tx(k_full + 8 * st, QT);
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c)
+          tma_load_4d(ks + st * QT + c * 8192, &tk, k_full + 8 * st, c * 64,
+                      kvh, k0, b);
+        mbar_wait(v_empty + 8 * st, ph ^ 1);
+        mbar_expect_tx(v_full + 8 * st, VT);
+#pragma unroll
+        for (int c = 0; c < HDV / 64; ++c)
+          tma_load_4d(vs + st * VT + c * 8192, &tv, v_full + 8 * st, c * 64,
+                      kvh, k0, b);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = role - 1;
+  const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wrow = warp * 16;
+  const int qw = q0 + 64 * wg;  // this warpgroup's first row
+  const int qpos = p.q_offset + qw;
+  const int rows = max(0, min(64, p.sq - qw));
+  const uint32_t qt = qs + wg * QT;
+  const int mine = 1 + wg, other = 2 - wg;  // named barriers of the turns
+  const float sl2 = p.scale * LOG2E;
+
+  float acc[NH][64];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[h][j] = 0.f;
+  float m_r[2] = {NEG, NEG};  // running max of rows g, g + 8 (log2 units)
+  float l_r[2] = {0.f, 0.f};  // this thread's part of the running sums
+  float s[32];
+  uint32_t a[4][4];
+  constexpr bool QREG = q_in_registers<HD, HDV>();
+  uint32_t aq[QREG ? HD / 16 : 1][4];  // Q's A fragments (QREG)
+  // S = Q.K^T for the K tile at kt, Q from registers or shared memory
+  auto issue_qk = [&](uint32_t kt) {
+    if constexpr (QREG) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_rs_n64_k(s, aq[kk],
+                       desc(kt + (kk / 4) * 8192 + (kk % 4) * 32, 16, 1024),
+                       kk > 0);
+    } else {
+      issue_s<HD>(s, qt, kt);
+    }
+  };
+
+  // the softmax of tile lo + j in s, O rescaled (not before the first)
+  auto softmax = [&](int j, bool rescale) {
+    const int k0 = (lo + j) * BK;
+    float alpha[2];
+    if (edge_tile(p, qpos, 64, k0))
+      softmax_tile_fma<true>(s, m_r, l_r, alpha, p, qpos + wrow + g,
+                             k0 + 2 * t4, sl2);
+    else
+      softmax_tile_fma<false>(s, m_r, l_r, alpha, p, qpos + wrow + g,
+                              k0 + 2 * t4, sl2);
+    if (rescale) {
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j2 = 0; j2 < 16; ++j2) {
+          acc[h][4 * j2 + 0] *= alpha[0];
+          acc[h][4 * j2 + 1] *= alpha[0];
+          acc[h][4 * j2 + 2] *= alpha[1];
+          acc[h][4 * j2 + 3] *= alpha[1];
+        }
+    }
+    pack_p(s, a);
+  };
+  // O += P.V for the V tile at vt: V's 16 key rows per k-step are two
+  // 1,024-byte atoms (SBO), its 64-column atoms 8 KiB apart (LBO), each
+  // 128-column half of O 16 KiB further
+  auto issue_pv = [&](uint32_t vt) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        wgmma_rs_n128(acc[h], a[kk],
+                      desc(vt + h * 16384 + kk * 2048, 8192, 1024));
+  };
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int h = 0; h < NH; ++h) fence_regs(acc[h]);
+  };
+
+  if (n > 0) {
+    if (wg == 1) named_arrive(1, TURN);  // warpgroup 1's turn comes first
+    mbar_wait(q_full, 0);
+    if constexpr (QREG) {
+      // aq[kk][e]: row g + 8 (e & 1), columns 16 kk + 2 t4 + 8 (e >> 1)
+      // and the next one, read through the 128-byte swizzle
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = wrow + g + 8 * (e & 1);
+          const int c = 16 * kk + 2 * t4 + 8 * (e >> 1);
+          const uint32_t addr = qt + (c / 64) * 8192 + r * 128 +
+                                ((((c % 64) / 8) ^ (r % 8)) * 16) +
+                                (c % 8) * 2;
+          asm volatile("ld.shared.u32 %0, [%1];\n"
+                       : "=r"(aq[kk][e])
+                       : "r"(addr));
+        }
+    }
+    // turn 0: S of the first tile
+    mbar_wait(k_full, 0);
+    named_sync(mine, TURN);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+    issue_qk(ks);
+    wgmma_commit();
+    named_arrive(other, TURN);
+    wgmma_wait_all();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(k_empty);
+    softmax(0, false);
+    // turn j: P_{j-1}.V_{j-1} and S_j in one group
+    for (int j = 1; j < n; ++j) {
+      const int st = j % NS, pst = (j - 1) % NS;
+      mbar_wait(k_full + 8 * st, (j / NS) & 1);
+      mbar_wait(v_full + 8 * pst, ((j - 1) / NS) & 1);
+      named_sync(mine, TURN);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      fence_regs(s);
+      fence_acc();
+      wgmma_fence();
+      issue_pv(vs + pst * VT);
+      issue_qk(ks + st * QT);
+      wgmma_commit();
+      named_arrive(other, TURN);
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_acc();
+      if (lane == 0) {
+        mbar_arrive(k_empty + 8 * st);
+        mbar_arrive(v_empty + 8 * pst);
+      }
+      softmax(j, true);
+    }
+    // the last turn: P.V of the last tile; warpgroup 2 takes no turn after
+    // it, so it hands none over
+    const int pst = (n - 1) % NS;
+    mbar_wait(v_full + 8 * pst, ((n - 1) / NS) & 1);
+    named_sync(mine, TURN);
+    fence_acc();
+    wgmma_fence();
+    issue_pv(vs + pst * VT);
+    wgmma_commit();
+    if (wg == 0) named_arrive(other, TURN);
+    wgmma_wait_all();
+    fence_acc();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const int row = wrow + g + 8 * r;
+    if (row < rows) {
+      // m_r is in log2 units: lse = m_r ln 2 + log(l), natural units
+      if (p.lse != nullptr && t4 == 0)
+        p.lse[static_cast<long long>(blockIdx.x) * p.sq + qw + row] =
+            m_r[r] * LN2 + logf(fmaxf(l, 1e-30f));
+      __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
+                            head * p.o_sh + (qw + row) * p.o_ss + 2 * t4;
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 128 * h + 8 * j) =
+              __floats2bfloat162_rn(acc[h][4 * j + 2 * r] * inv,
+                                    acc[h][4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, reached through the runtime (no
+// link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map over (d, h, s, b) = (width, n[0], n[1], n[2]) with
+// element strides st[] (h, s, b), in 64-column x 64-row boxes, 128-byte
+// swizzle.  A dimension of length 1 is never stepped over (the wrapper
+// passes stride 0): it gets the packed stride.
+bool encode(CUtensorMap* map, const void* base, int width, const int (&n)[3],
+            const long long (&st)[3]) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), 0, 0, 0};
+  cuuint64_t strides[3];
+  long long packed = width;
+  for (int i = 0; i < 3; ++i) {
+    const long long s = n[i] == 1 || st[i] == 0 ? packed : st[i];
+    dims[i + 1] = static_cast<cuuint64_t>(n[i]);
+    strides[i] = static_cast<cuuint64_t>(s) * 2;
+    packed = s * n[i];
+  }
+  const cuuint32_t box[4] = {64, 1, 64, 1}, unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int HD, int HDV>
 cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
+  const int batch = batch_heads / p.h, hkv = p.h / p.g;
+  alignas(64) CUtensorMap tq, tk, tv;
+  if (!encode(&tq, p.q, HD, {p.h, p.sq, batch}, {p.q_sh, p.q_ss, p.q_sb}) ||
+      !encode(&tk, p.k, HD, {hkv, p.sk, batch}, {p.k_sh, p.k_ss, p.k_sb}) ||
+      !encode(&tv, p.v, HDV, {hkv, p.sk, batch}, {p.v_sh, p.v_ss, p.v_sb}))
+    return cudaErrorInvalidValue;
   constexpr int bytes = smem_bytes<HD, HDV>();
-  auto kernel = flash_attention_tc_kernel<HD, HDV>;
+  auto kernel = flash_attention_ws_kernel<HD, HDV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch_heads, (p.sq + BQ - 1) / BQ);
-  kernel<<<grid, THREADS * warpgroups<HDV>(), bytes, stream>>>(p);
+  kernel<<<grid, THREADS, bytes, stream>>>(p, tq, tk, tv);
   return cudaGetLastError();
 }
+
+}  // namespace ws
+
+template <int HD, int HDV>
+cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
+  if constexpr (HD > 128) {
+    return ws::launch<HD, HDV>(p, batch_heads, stream);
+  } else {
+    constexpr int bytes = smem_bytes<HD, HDV>();
+    auto kernel = flash_attention_tc_kernel<HD, HDV>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(batch_heads, (p.sq + BQ - 1) / BQ);
+    kernel<<<grid, THREADS, bytes, stream>>>(p);
+    return cudaGetLastError();
+  }
+}
+
+// What a launch at (HD, HDV) uses, from the source and the loaded kernel:
+// threads, dynamic shared memory bytes, q rows a CTA, then (after the
+// launch's own cudaFuncSetAttribute) cudaFuncGetAttributes' static shared
+// memory, registers and maximum dynamic shared memory.
+template <int HD, int HDV>
+cudaError_t attributes(int* out) {
+  const void* kernel;
+  if constexpr (HD > 128) {
+    kernel = reinterpret_cast<const void*>(
+        ws::flash_attention_ws_kernel<HD, HDV>);
+    out[0] = ws::THREADS;
+    out[1] = ws::smem_bytes<HD, HDV>();
+    out[2] = ws::BQ;
+  } else {
+    kernel = reinterpret_cast<const void*>(flash_attention_tc_kernel<HD, HDV>);
+    out[0] = THREADS;
+    out[1] = smem_bytes<HD, HDV>();
+    out[2] = BQ;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[1]);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  out[3] = static_cast<int>(attr.sharedSizeBytes);
+  out[4] = attr.numRegs;
+  out[5] = attr.maxDynamicSharedSizeBytes;
+  return cudaSuccess;
+}
+
+#define FA_TC_PAIRS(X)                                                 \
+  X(16, 16) X(24, 16) X(32, 32) X(64, 64) X(128, 128) X(192, 128)      \
+  X(256, 256)
 
 cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
                      cudaStream_t stream) {
   switch (pair(hd, hdv)) {
-    case pair(16, 16): return launch<16, 16>(p, batch_heads, stream);
-    case pair(24, 16): return launch<24, 16>(p, batch_heads, stream);
-    case pair(32, 32): return launch<32, 32>(p, batch_heads, stream);
-    case pair(64, 64): return launch<64, 64>(p, batch_heads, stream);
-    case pair(128, 128): return launch<128, 128>(p, batch_heads, stream);
-    case pair(192, 128): return launch<192, 128>(p, batch_heads, stream);
-    case pair(256, 256): return launch<256, 256>(p, batch_heads, stream);
+#define FA_CASE(A, B) \
+  case pair(A, B): return launch<A, B>(p, batch_heads, stream);
+    FA_TC_PAIRS(FA_CASE)
+#undef FA_CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_attributes(int hd, int hdv, int* out) {
+  switch (pair(hd, hdv)) {
+#define FA_CASE(A, B) \
+  case pair(A, B): return attributes<A, B>(out);
+    FA_TC_PAIRS(FA_CASE)
+#undef FA_CASE
     default: return cudaErrorInvalidValue;
   }
 }
@@ -696,7 +1196,8 @@ int fa_forward(const void* q, const void* k, const void* v, void* o,
 
 // The tensor-core route: bfloat16, (hd, hdv) a pair of tc::dispatch;
 // pointers on 16-byte boundaries and strides in multiples of 8 elements
-// (cp.async).
+// (cp.async, TMA).  cudaErrorInvalidValue also where the driver does not
+// take a tensor map of the operands (past hd 128).
 int fa_forward_tc(const void* q, const void* k, const void* v, void* o,
                   const long long* strides, int batch, int sq, int sk, int h,
                   int hkv, int hd, int hdv, int causal, int window,
@@ -715,6 +1216,14 @@ int fa_forward_tc(const void* q, const void* k, const void* v, void* o,
   err = tc::dispatch(p, hd, hdv, batch * h,
                      static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
+}
+
+// What the tensor-core route's launch at (hd, hdv) uses (out: 6 ints):
+// threads a CTA, dynamic shared memory bytes, q rows a CTA, static shared
+// memory bytes, registers a thread, and the dynamic shared memory the
+// kernel's attribute allows once the launch has set it.
+int fa_forward_tc_attributes(int hd, int hdv, int* out) {
+  return static_cast<int>(tc::dispatch_attributes(hd, hdv, out));
 }
 
 }  // extern "C"

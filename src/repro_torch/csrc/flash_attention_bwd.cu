@@ -860,14 +860,6 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Registers the compiler must not read or write across this point (an
-// accumulator around its wgmma's issue and wait)
-template <int F>
-__device__ __forceinline__ void fence_regs(float (&r)[F]) {
-#pragma unroll
-  for (int i = 0; i < F; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
 }  // namespace tc
 
 namespace bwd_tc {

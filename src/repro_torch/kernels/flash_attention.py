@@ -19,16 +19,21 @@ k (B, Sk, Hkv, hd) and v (B, Sk, Hkv, hdv), and returns (B, Sq, H, hdv):
   so ``cq``, ``ck`` and ``skip_masked_chunks`` do not change the result.
 
 The route rule (:func:`_route`): bfloat16 with (hd, hdv) in
-:data:`TC_HEAD_DIMS` runs ``flash_attention_tc_kernel`` (tensor cores,
-``wgmma``; q, k, v need 16-byte-aligned storage and b / s / h
-strides in multiples of 8 elements, else the wrapper raises); float32,
-and bfloat16 with hd = 8, run ``flash_attention_kernel`` (float32 FMAs).
-Nothing falls back from one route to the other.  hd ≠ hdv is DeepSeek-V2's
-MLA: (192, 128) published, (24, 16) in its smoke config; (256, 256) is
-RecurrentGemma's local attention (the tensor-core kernel runs two
-warpgroups a CTA there, each holding half of O's columns); a pair
-outside :data:`HEAD_DIMS` has no kernel and raises ``ValueError`` from the
-shapes alone, before any device work.
+:data:`TC_HEAD_DIMS` takes the tensor cores (``wgmma``; q, k, v need
+16-byte-aligned storage and b / s / h strides in multiples of 8
+elements, else the wrapper raises): ``flash_attention_tc_kernel`` (one
+warpgroup a CTA) up to hd 128, ``flash_attention_ws_kernel`` past it (a
+TMA producer warpgroup and two consumer warpgroups of 64 query rows
+each, taking turns on the tensor cores); float32, and bfloat16 with hd =
+8, run ``flash_attention_kernel`` (float32 FMAs).  Nothing falls back
+from one route to the other.  hd ≠ hdv is DeepSeek-V2's MLA: (192, 128)
+published, (24, 16) in its smoke config; (256, 256) is RecurrentGemma's
+local attention; a pair outside :data:`HEAD_DIMS` has no kernel and
+raises ``ValueError`` from the shapes alone, before any device work.
+:func:`forward_plan` gives a launch's kernel, grid, threads and shared
+memory from the shapes alone, :func:`forward_tile_work` each
+warpgroup's role and tensor work a tile, :func:`tc_attributes` (card
+only) what the loaded library's launch uses.
 
 The gradient: where grad mode is on and an operand requires grad,
 :func:`flash_attention` on CUDA tensors goes through
@@ -115,6 +120,8 @@ def _declare_forward(lib: ctypes.CDLL) -> None:
     lib.fa_forward.restype = ctypes.c_int
     lib.fa_forward_tc.argtypes = lib.fa_forward.argtypes[:-2] + [p]
     lib.fa_forward_tc.restype = ctypes.c_int
+    lib.fa_forward_tc_attributes.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.fa_forward_tc_attributes.restype = ctypes.c_int
 
 
 def _declare_backward(lib: ctypes.CDLL) -> None:
@@ -262,6 +269,94 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def forward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
+                 dtype: torch.dtype, route: str | None = None, *,
+                 hdv: int | None = None) -> dict:
+    """The forward's launch for these shapes, from the shapes alone (the
+    constants of ``csrc/flash_attention.cu``): ``route`` (None takes
+    :func:`_route`), the ``kernel``'s name, its ``grid``, ``threads`` a
+    CTA, ``rows`` (queries a CTA), ``smem_bytes`` (dynamic shared memory)
+    and ``static_smem_bytes`` (the warp-specialised kernel's mbarriers,
+    as ptxas counts them); past hd 128 also ``stages``, the K / V ring's
+    slots.
+    ``hdv`` defaults to ``hd``.  Raises ``ValueError`` for a pair outside
+    :data:`HEAD_DIMS`, an unknown route or a tensor-core route that the
+    dtype or head dims do not take."""
+    hdv = hd if hdv is None else hdv
+    _check_pair(hd, hdv)
+    if route is None:
+        route = _route(dtype, hd, hdv)
+    if route not in ROUTES:
+        raise ValueError(f"flash_attention: route {route!r} not in {ROUTES}")
+    if route == "tc" and _route(dtype, hd, hdv) != "tc":
+        raise ValueError(f"flash_attention: the tensor-core route takes "
+                         f"bfloat16 with (hd, hdv) in {TC_HEAD_DIMS}, got "
+                         f"{dtype}, ({hd}, {hdv})")
+    if route == "fma":   # float32 tiles: Q, K (padded), V, P, m / l / alpha
+        floats = (_TILE * hd + _TILE * (hd + 1) + _TILE * hdv
+                  + _TILE * (_TILE + 1) + 3 * _TILE)
+        return {"route": route, "kernel": "flash_attention_kernel",
+                "grid": (_cdiv(sq, _TILE), b * h), "threads": 256,
+                "rows": _TILE, "smem_bytes": 4 * floats,
+                "static_smem_bytes": 0}
+    if hd <= 128:  # Q, two K and two V stages, widths padded to 64
+        hdp, hdvp = max(hd, _TILE), max(hdv, _TILE)
+        return {"route": route, "kernel": "flash_attention_tc_kernel",
+                "grid": (b * h, _cdiv(sq, _TILE)), "threads": 128,
+                "rows": _TILE, "smem_bytes": 2 * _TILE * (3 * hdp + 2 * hdvp)
+                + 1024, "static_smem_bytes": 0}
+    stages = 2 if hd + hdv > 320 else 3   # K / V ring slots
+    return {"route": route, "kernel": "flash_attention_ws_kernel",
+            "grid": (b * h, _cdiv(sq, 2 * _TILE)), "threads": 384,
+            "rows": 2 * _TILE, "stages": stages,
+            "smem_bytes": 2 * _TILE * (2 * hd + stages * (hd + hdv)) + 1024,
+            # 1 + 4 stages mbarriers of 8 bytes, padded to the 1,024-byte
+            # alignment of the dynamic tiles that follow them
+            "static_smem_bytes": _cdiv(8 * (1 + 4 * stages), 1024) * 1024}
+
+
+def forward_tile_work(hd: int, hdv: int) -> dict:
+    """The tensor-core forward's CTA per 64-key tile, from the head dims
+    alone: its ``kernel``, ``rows`` (queries a CTA), each warpgroup's
+    ``roles`` and ``hd_units`` (its tensor work: the widths of its 64 x N
+    products over the tile, S counted by hd and P.V by hdv), and
+    ``hd_units_per_64_rows``.  Up to hd 128 one warpgroup copies (cp.async)
+    and multiplies on widths padded to 64.  Past it a producer warpgroup
+    streams tiles by TMA and two consumers each own 64 rows, so S is
+    computed once for each (query, key): hd + hdv a consumer.  Raises
+    ``ValueError`` for a pair outside :data:`TC_HEAD_DIMS`."""
+    if (hd, hdv) not in TC_HEAD_DIMS:
+        raise ValueError(f"flash_attention: no tensor-core forward at "
+                         f"(hd, hdv) = ({hd}, {hdv})")
+    if hd <= 128:
+        units = max(hd, _TILE) + max(hdv, _TILE)
+        return {"kernel": "flash_attention_tc_kernel", "rows": _TILE,
+                "roles": ["copy_and_multiply"], "hd_units": [units],
+                "hd_units_per_64_rows": units}
+    return {"kernel": "flash_attention_ws_kernel", "rows": 2 * _TILE,
+            "roles": ["producer", "consumer", "consumer"],
+            "hd_units": [0, hd + hdv, hd + hdv],
+            "hd_units_per_64_rows": hd + hdv}
+
+
+def tc_attributes(hd: int, hdv: int) -> dict:
+    """What the tensor-core forward's launch at (hd, hdv) uses, from the
+    loaded library (card only): ``threads``, ``smem_bytes`` (dynamic) and
+    ``rows`` from the source's constants, then ``static_smem_bytes``,
+    ``registers`` and ``max_dynamic_smem_bytes`` from
+    ``cudaFuncGetAttributes`` once the launch's attribute is set."""
+    if (hd, hdv) not in TC_HEAD_DIMS:
+        raise ValueError(f"flash_attention: no tensor-core forward at "
+                         f"(hd, hdv) = ({hd}, {hdv})")
+    out = (ctypes.c_int * 6)()
+    rc = LIBRARY.load().fa_forward_tc_attributes(hd, hdv, out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: attributes failed with "
+                           f"status {rc}")
+    return dict(zip(("threads", "smem_bytes", "rows", "static_smem_bytes",
+                     "registers", "max_dynamic_smem_bytes"), out))
+
+
 def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
                   dtype: torch.dtype, route: str | None = None, *,
                   hdv: int | None = None) -> dict:
@@ -407,7 +502,8 @@ class FlashAttentionFn(torch.autograd.Function):
     backward is :func:`backward`.  Both take :func:`_route`'s route at
     every (hd, hdv) pair of :data:`HEAD_DIMS`: the tensor cores for
     bfloat16 with the pair in :data:`TC_HEAD_DIMS` (forward
-    ``flash_attention_tc_kernel``, backward ``fa_backward_tc``), float32
+    ``flash_attention_tc_kernel`` or, past hd 128,
+    ``flash_attention_ws_kernel``; backward ``fa_backward_tc``), float32
     FMAs otherwise.  ``q_offset`` is 0."""
 
     @staticmethod

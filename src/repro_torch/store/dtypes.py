@@ -56,7 +56,10 @@ def to_float32(arr: np.ndarray) -> np.ndarray:
     """Exact upcast to float32 (bf16 words shift into the high half)."""
     arr = np.asarray(arr)
     if arr.dtype == BFLOAT16:
-        return (arr.astype(np.uint32) << 16).view(np.float32)
+        # shifted in place: one pass over the widened copy
+        out = arr.astype(np.uint32)
+        np.left_shift(out, 16, out=out)
+        return out.view(np.float32)
     return np.asarray(arr, dtype=np.float32)
 
 

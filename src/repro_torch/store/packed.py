@@ -58,6 +58,7 @@ import time
 import uuid
 import zlib
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,6 +83,10 @@ _DOWNCASTS = {"float32": ("float16", "bfloat16")}
 #: dtypes whose blocks participate in elision (merge semantics only ever
 #: pull deltas from float tensors; everything else is base passthrough)
 _FLOAT_DTYPES = ("float32", "float16", "float64", "bfloat16")
+#: blocks a repack reads before it encodes them at once, and the threads
+#: that encode them (zlib releases the GIL)
+_ENCODE_CHUNK = 64
+_ENCODE_THREADS = min(8, os.cpu_count() or 1)
 
 
 def content_hash(raw: bytes) -> str:
@@ -341,13 +346,16 @@ class PackedStore:
         try:
             # w+b: dedup hits pread the stored payload back for byte
             # verification while the file is still being appended
-            with open(data_path, "w+b") as data_f:
+            with open(data_path, "w+b") as data_f, ThreadPoolExecutor(
+                max_workers=_ENCODE_THREADS, thread_name_prefix="repack-encode"
+            ) as encoders:
                 for model_id in model_ids:
                     with self.models.open_model(model_id) as reader:
                         m_logical, m_physical, offset = self._pack_member(
                             model_id, reader, base_reader, base_cache,
                             block_size, options, extents, members,
                             block_rows, adapter_rows, totals, data_f, offset,
+                            encoders,
                         )
                     member_rows.append((model_id, m_logical, m_physical))
         finally:
@@ -486,10 +494,17 @@ class PackedStore:
         totals: Dict[str, int],
         data_f,
         offset: int,
+        encoders: ThreadPoolExecutor,
     ) -> Tuple[int, int, int]:
         """Pack one member checkpoint; returns (logical, marginal physical,
         new extent-file offset).  ``block_rows`` gains the catalog's
-        physical cost rows (virtual base-grid rows for adapters)."""
+        physical cost rows (virtual base-grid rows for adapters).
+
+        A tensor's blocks go in chunks of :data:`_ENCODE_CHUNK`: each
+        chunk is read and elision-checked in block order, its kept blocks
+        are encoded on ``encoders`` at once (zlib releases the GIL), then
+        deduplicated and appended in block order — so the layout's bytes
+        are those of a block-by-block pass."""
         kind = reader.meta.get("kind", "full")
         member = {
             "meta": dict(reader.meta),
@@ -517,64 +532,81 @@ class PackedStore:
                     base_spec = bs
             entries: List = []
             t_physical = 0
-            for rng in blk.partition(spec.nbytes, block_size):
-                raw = reader.read_range(
-                    tensor_id, rng.offset, rng.nbytes, "repack"
-                )
-                m_logical += rng.nbytes
-                totals["logical_bytes"] += rng.nbytes
-                if is_float and kind in ("full", "delta") and self._elide(
-                    raw, rng, tensor_id, kind, base_spec, base_cache,
-                    spec.dtype, options,
-                ):
-                    entries.append(["z"])
-                    block_rows.append(
-                        (model_id, tensor_id, rng.block_idx, "elided",
-                         None, 0, rng.nbytes)
+            ranges = list(blk.partition(spec.nbytes, block_size))
+            chunks = [ranges[i:i + _ENCODE_CHUNK]
+                      for i in range(0, len(ranges), _ENCODE_CHUNK)]
+            for chunk in chunks:
+                raws, elided = [], []
+                for rng in chunk:
+                    raw = reader.read_range(
+                        tensor_id, rng.offset, rng.nbytes, "repack"
                     )
-                    totals["elided_blocks"] += 1
-                    continue
-                payload, encoding = encode_extent(raw, spec["dtype"], options)
-                base_key = content_hash(raw)
-                key, ent = base_key, extents.get(base_key)
-                suffix = 0
-                while ent is not None:
-                    # verify a dedup hit byte-for-byte against the stored
-                    # payload (64-bit content hashes alias eventually; a
-                    # silent collision would substitute one block's
-                    # weights for another's).  A mismatch — collision or
-                    # dtype-dependent encoding — gets a disambiguated key.
-                    data_f.flush()
-                    stored = os.pread(data_f.fileno(), ent[1], ent[0])
-                    if ent[3] == encoding and stored == payload:
-                        break
-                    suffix += 1
-                    key = f"{base_key}~{suffix}"
-                    ent = extents.get(key)
-                if ent is None:
-                    data_f.write(payload)
-                    self.stats.record_write("repack", len(payload))
-                    ent = extents[key] = [
-                        offset, len(payload), rng.nbytes, encoding,
-                        spec["dtype"], 0,
-                    ]
-                    offset += len(payload)
-                    m_physical += len(payload)
-                    totals["physical_bytes"] += len(payload)
-                else:
-                    totals["dedup_blocks"] += 1
-                ent[5] += 1
-                totals["extent_blocks"] += 1
-                t_physical += ent[1]
-                entries.append(["x", key])
-                if kind != "adapter":
-                    # adapters get costing rows on the *virtual* base-grid
-                    # below (factor extents are reading-map-only, so the
-                    # catalog never double-counts their bytes)
-                    block_rows.append(
-                        (model_id, tensor_id, rng.block_idx, "extent", key,
-                         ent[1], rng.nbytes)
+                    m_logical += rng.nbytes
+                    totals["logical_bytes"] += rng.nbytes
+                    raws.append(raw)
+                    elided.append(
+                        is_float and kind in ("full", "delta")
+                        and self._elide(
+                            raw, rng, tensor_id, kind, base_spec,
+                            base_cache, spec.dtype, options,
+                        )
                     )
+                encoded = iter(list(encoders.map(
+                    lambda r: encode_extent(r, spec["dtype"], options),
+                    [r for r, e in zip(raws, elided) if not e],
+                )))
+                for rng, raw, is_elided in zip(chunk, raws, elided):
+                    if is_elided:
+                        entries.append(["z"])
+                        block_rows.append(
+                            (model_id, tensor_id, rng.block_idx, "elided",
+                             None, 0, rng.nbytes)
+                        )
+                        totals["elided_blocks"] += 1
+                        continue
+                    payload, encoding = next(encoded)
+                    base_key = content_hash(raw)
+                    key, ent = base_key, extents.get(base_key)
+                    suffix = 0
+                    while ent is not None:
+                        # verify a dedup hit byte-for-byte against the
+                        # stored payload (64-bit content hashes alias
+                        # eventually; a silent collision would substitute
+                        # one block's weights for another's).  A mismatch
+                        # — collision or dtype-dependent encoding — gets a
+                        # disambiguated key.
+                        data_f.flush()
+                        stored = os.pread(data_f.fileno(), ent[1], ent[0])
+                        if ent[3] == encoding and stored == payload:
+                            break
+                        suffix += 1
+                        key = f"{base_key}~{suffix}"
+                        ent = extents.get(key)
+                    if ent is None:
+                        data_f.write(payload)
+                        self.stats.record_write("repack", len(payload))
+                        ent = extents[key] = [
+                            offset, len(payload), rng.nbytes, encoding,
+                            spec["dtype"], 0,
+                        ]
+                        offset += len(payload)
+                        m_physical += len(payload)
+                        totals["physical_bytes"] += len(payload)
+                    else:
+                        totals["dedup_blocks"] += 1
+                    ent[5] += 1
+                    totals["extent_blocks"] += 1
+                    t_physical += ent[1]
+                    entries.append(["x", key])
+                    if kind != "adapter":
+                        # adapters get costing rows on the *virtual*
+                        # base-grid below (factor extents are
+                        # reading-map-only, so the catalog never
+                        # double-counts their bytes)
+                        block_rows.append(
+                            (model_id, tensor_id, rng.block_idx, "extent",
+                             key, ent[1], rng.nbytes)
+                        )
             member["blocks"][tensor_id] = entries
             if kind == "adapter" and tensor_id.endswith(
                 ("::lora_A", "::lora_B")

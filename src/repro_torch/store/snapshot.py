@@ -23,6 +23,7 @@ import shutil
 import threading
 import time
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Mapping, Optional
 
 import numpy as np
@@ -33,6 +34,55 @@ from repro_torch.store.journal import ProgressJournal, ResumeState, journal_path
 from repro_torch.store.packed import PackedStore
 from repro_torch.store.tensorstore import MODEL_MANIFEST, TENSOR_DIR, CheckpointStore
 from repro_torch.testing.chaos import chaos_point
+
+
+#: a block at least this long (a checkpoint's whole tensor; not a merge's
+#: block, whose handoff to the threads would cost more than its hashes)
+#: has its two hashes computed beside its write, on the hash threads
+#: (blake2b and file writes release the GIL)
+_PARALLEL_HASH_BYTES = 4 << 20
+_HASH_THREADS = 4
+_hash_pool: Optional[ThreadPoolExecutor] = None
+_hash_pool_lock = threading.Lock()
+
+
+def _hashers() -> ThreadPoolExecutor:
+    """The process's hash threads, shared by every staging writer."""
+    global _hash_pool
+    with _hash_pool_lock:
+        if _hash_pool is None:
+            _hash_pool = ThreadPoolExecutor(
+                max_workers=_HASH_THREADS, thread_name_prefix="staging-hash"
+            )
+        return _hash_pool
+
+
+def _forget_hashers() -> None:
+    # a forked child has none of its parent's threads
+    global _hash_pool
+    _hash_pool = None
+
+
+os.register_at_fork(after_in_child=_forget_hashers)
+
+
+def _block_hash(raw: bytes) -> str:
+    return hashlib.blake2b(raw, digest_size=8).hexdigest()
+
+
+def _file_hash(path: str):
+    """(bytes, blake2b-16 hex digest) of a staged file, read in 8 MiB
+    chunks."""
+    h = hashlib.blake2b(digest_size=16)
+    n = 0
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(8 << 20)
+            if not chunk:
+                break
+            h.update(chunk)
+            n += len(chunk)
+    return n, h.hexdigest()
 
 
 class StagingWriter:
@@ -133,9 +183,20 @@ class StagingWriter:
                 f"got {block_idx}"
             )
         raw = np.ascontiguousarray(block).tobytes()
-        self._open_file.write(raw)
-        self._open_hash.update(raw)
-        h8 = hashlib.blake2b(raw, digest_size=8).hexdigest()
+        if len(raw) >= _PARALLEL_HASH_BYTES:
+            # the streaming hash and the block hash run beside the write;
+            # both finish before the next block, so the streaming hash
+            # still takes the blocks in order
+            pool = _hashers()
+            streamed = pool.submit(self._open_hash.update, raw)
+            hashed = pool.submit(_block_hash, raw)
+            self._open_file.write(raw)
+            streamed.result()
+            h8 = hashed.result()
+        else:
+            self._open_file.write(raw)
+            self._open_hash.update(raw)
+            h8 = _block_hash(raw)
         self._block_hashes.append(h8)
         self._written += len(raw)
         self._next_block += 1
@@ -161,19 +222,15 @@ class StagingWriter:
         catches torn writes / disk corruption before publish."""
         if self._open_name is not None:
             raise RuntimeError(f"tensor {self._open_name} never finished")
-        for tensor_id, spec in self.specs.items():
-            path = os.path.join(self.dir, spec["file"])
-            h = hashlib.blake2b(digest_size=16)
-            n = 0
-            with open(path, "rb") as f:
-                while True:
-                    chunk = f.read(1 << 20)
-                    if not chunk:
-                        break
-                    h.update(chunk)
-                    n += len(chunk)
+        # the tensors' files re-read and hashed at once on the hash threads
+        items = list(self.specs.items())
+        found = _hashers().map(
+            lambda item: _file_hash(os.path.join(self.dir, item[1]["file"])),
+            items,
+        )
+        for (tensor_id, spec), (n, digest) in zip(items, found):
             self.stats.record_read("meta", n)
-            if n != spec["nbytes"] or h.hexdigest() != spec["hash"]:
+            if n != spec["nbytes"] or digest != spec["hash"]:
                 raise IOError(f"hash validation failed for staged tensor {tensor_id}")
 
     def abort(self) -> None:

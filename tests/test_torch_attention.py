@@ -132,6 +132,70 @@ def test_plain_flash_attention_grads_match_jax(case):
                                    atol=atol)
 
 
+# (B, Sq, Sk, H, Hkv, hd, hdv, causal, window, q_offset): the forward at
+# the pairs past hd 128, which the tensor cores run in the warp-specialised
+# CTA: DeepSeek-V2-Lite's MLA (192, 128) and RecurrentGemma-9B's (256, 256)
+# with a window, each also ragged with Sq != Sk and a q_offset
+WIDE_FA_CASES = [
+    (1, 20, 20, 2, 2, 192, 128, True, 0, 0),     # MLA, causal
+    (1, 13, 29, 2, 1, 192, 128, True, 0, 16),    # ragged, appended queries
+    (1, 40, 40, 4, 1, 256, 256, True, 24, 0),    # RecurrentGemma, window
+    (1, 11, 37, 4, 2, 256, 256, True, 9, 26),    # ragged, window, offset
+]
+
+
+def _wide(case, seed):
+    b, sq, sk, h, hkv, hd, hdv = case[:7]
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32)
+            for s in ((b, sq, h, hd), (b, sk, hkv, hd), (b, sk, hkv, hdv))]
+
+
+def _wide_atol(hd, hdv):
+    # the GRAD_CASES rule: float32 sums in another order, the error of a
+    # sum over the head dim growing as its square root
+    return 1e-6 * max(1.0, (max(hd, hdv) / 16) ** 0.5)
+
+
+@pytest.mark.parametrize("case", WIDE_FA_CASES,
+                         ids=[f"{c[5]}-{c[6]}-{i}"
+                              for i, c in enumerate(WIDE_FA_CASES)])
+def test_plain_flash_attention_wide_pairs_match_jax(case):
+    """The plain forward (the CPU path of ``flash_attention``) at (192,
+    128) and (256, 256) against the JAX package's chunked
+    ``flash_attention`` (``src/repro/models/attention.py:92``), float32."""
+    hd, hdv, causal, window, q_offset = case[5:]
+    arrs = _wide(case, seed=3)
+    want = jattn.flash_attention(*_jax(arrs, "float32"), causal=causal,
+                                 window=window, q_offset=q_offset, cq=16,
+                                 ck=16)
+    got = tfa.flash_attention(*_torch(arrs, "float32"), causal=causal,
+                              window=window, q_offset=q_offset,
+                              skip_masked_chunks=True)
+    assert got.shape == (*case[:2], case[3], hdv)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5,
+                               atol=_wide_atol(hd, hdv))
+
+
+@pytest.mark.parametrize("case", WIDE_FA_CASES,
+                         ids=[f"{c[5]}-{c[6]}-{i}"
+                              for i, c in enumerate(WIDE_FA_CASES)])
+def test_plain_flash_attention_wide_pairs_match_pallas_interpret(case):
+    """The same cases against the TPU kernel the forward replaces
+    (``flash_attention_pallas``, which takes v's own head dim) in
+    interpret mode, float32."""
+    hd, hdv, causal, window, q_offset = case[5:]
+    arrs = _wide(case, seed=4)
+    want = flash_attention_pallas(*_jax(arrs, "float32"), causal=causal,
+                                  window=window, q_offset=q_offset, cq=16,
+                                  ck=16, interpret=True)
+    got = tfa.flash_attention(*_torch(arrs, "float32"), causal=causal,
+                              window=window, q_offset=q_offset,
+                              skip_masked_chunks=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5,
+                               atol=_wide_atol(hd, hdv))
+
+
 def test_fully_masked_rows_give_zero():
     """Window 1 with q_offset past every key: each row attends nothing."""
     arrs = _qkv((1, 4, 8, 2, 1, 8))
@@ -425,6 +489,126 @@ def test_backward_tile_work_refuses_fma_pairs():
     for pair in ((8, 8), (96, 96), (128, 64)):
         with pytest.raises(ValueError, match="no tensor-core kernel"):
             tfa.backward_tile_work(*pair)
+
+
+# (name, (B, Sq, H, Hkv, hd, hdv), dtype, route, want): the forward's launch
+# by hand.  Past hd 128 (bf16) the warp-specialised CTA: 128 q rows, 384
+# threads, Q (two warpgroups' 64 rows) and a ring of K / V stages (3 at
+# (192, 128), 2 at (256, 256)) plus 1,024 bytes of alignment slack, its
+# mbarriers padded to 1,024 static bytes; up to hd 128 one warpgroup over
+# 64 rows with Q and two K / V stages at widths padded to 64; the FMA
+# route's float32 tiles (K rows padded by one, P 65 wide, three row stats)
+FORWARD_PLANS = [
+    ("mla_prefill", (1, 2048, 16, 16, 192, 128), torch.bfloat16, None,
+     {"route": "tc", "kernel": "flash_attention_ws_kernel", "grid": (16, 16),
+      "threads": 384, "rows": 128, "stages": 3,
+      "smem_bytes": 2 * 64 * (2 * 192 + 3 * (192 + 128)) + 1024,   # 173,056
+      "static_smem_bytes": 1024}),
+    ("mla_train", (2, 2048, 16, 16, 192, 128), torch.bfloat16, "tc",
+     {"route": "tc", "kernel": "flash_attention_ws_kernel", "grid": (32, 16),
+      "threads": 384, "rows": 128, "stages": 3, "smem_bytes": 173056,
+      "static_smem_bytes": 1024}),
+    ("rg_prefill", (1, 3072, 16, 1, 256, 256), torch.bfloat16, None,
+     {"route": "tc", "kernel": "flash_attention_ws_kernel", "grid": (16, 24),
+      "threads": 384, "rows": 128, "stages": 2,
+      "smem_bytes": 2 * 64 * (2 * 256 + 2 * 512) + 1024,           # 197,632
+      "static_smem_bytes": 1024}),
+    ("rg_ragged", (3, 129, 4, 1, 256, 256), torch.bfloat16, None,
+     {"route": "tc", "kernel": "flash_attention_ws_kernel", "grid": (12, 2),
+      "threads": 384, "rows": 128, "stages": 2, "smem_bytes": 197632,
+      "static_smem_bytes": 1024}),
+    ("prefill_128", (1, 2048, 12, 2, 128, 128), torch.bfloat16, None,
+     {"route": "tc", "kernel": "flash_attention_tc_kernel", "grid": (12, 32),
+      "threads": 128, "rows": 64,
+      "smem_bytes": 2 * 64 * (3 * 128 + 2 * 128) + 1024,           # 82,944
+      "static_smem_bytes": 0}),
+    ("mla_smoke", (2, 256, 4, 4, 24, 16), torch.bfloat16, None,
+     {"route": "tc", "kernel": "flash_attention_tc_kernel", "grid": (8, 4),
+      "threads": 128, "rows": 64, "smem_bytes": 2 * 64 * 5 * 64 + 1024,
+      "static_smem_bytes": 0}),
+    ("mla_f32", (1, 2048, 16, 16, 192, 128), torch.float32, None,
+     {"route": "fma", "kernel": "flash_attention_kernel", "grid": (32, 16),
+      "threads": 256, "rows": 64,
+      "smem_bytes": 4 * (64 * 192 + 64 * 193 + 64 * 128 + 64 * 65 + 3 * 64),
+      "static_smem_bytes": 0}),
+    ("rg_bf16_fma", (1, 3072, 16, 1, 256, 256), torch.bfloat16, "fma",
+     {"route": "fma", "kernel": "flash_attention_kernel", "grid": (48, 16),
+      "threads": 256, "rows": 64, "smem_bytes": 214272,
+      "static_smem_bytes": 0}),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,route,want",
+                         [p[1:] for p in FORWARD_PLANS],
+                         ids=[p[0] for p in FORWARD_PLANS])
+def test_forward_plan_hand_counts(shape, dtype, route, want):
+    """The forward's kernel, grid, threads and shared memory from the
+    shapes alone against counts by hand; every layout fits the 232,448
+    bytes a block may opt into."""
+    b, s, h, hkv, hd, hdv = shape
+    plan = tfa.forward_plan(b, s, s, h, hkv, hd, dtype, route, hdv=hdv)
+    assert plan == want
+    assert plan["smem_bytes"] + plan["static_smem_bytes"] <= 232448
+
+
+def test_forward_plan_refuses():
+    """A pair outside HEAD_DIMS, an unknown route, and the tensor-core
+    route for float32 or hd 8 raise before anything is built."""
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.forward_plan(1, 64, 64, 4, 4, 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="route"):
+        tfa.forward_plan(1, 64, 64, 4, 4, 128, torch.bfloat16, "wgmma")
+    for dtype, hd in ((torch.float32, 192), (torch.bfloat16, 8)):
+        with pytest.raises(ValueError, match="tensor-core route takes"):
+            tfa.forward_plan(1, 64, 64, 4, 4, hd, dtype, "tc",
+                             hdv=128 if hd == 192 else hd)
+
+
+# ((hd, hdv), kernel, rows, roles, hd-units a warpgroup, hd-units per 64
+# query rows): the tensor-core forward's work per 64-key tile by hand,
+# counting a 64 x N product over a warpgroup's 64 rows as N (S over hd,
+# P.V over hdv).  Up to hd 128 one warpgroup copies and multiplies at
+# widths padded to 64; past it the producer does no products and each
+# consumer hd + hdv.  (The two-warpgroup CTA it replaces at (256, 256)
+# computed S in both warpgroups beside a half of P.V each: 2 * 256 + 256 =
+# 768 a tile of 64 rows.)
+FORWARD_WORK = [
+    ((16, 16), "flash_attention_tc_kernel", 64, ["copy_and_multiply"],
+     [128], 128),
+    ((24, 16), "flash_attention_tc_kernel", 64, ["copy_and_multiply"],
+     [128], 128),
+    ((128, 128), "flash_attention_tc_kernel", 64, ["copy_and_multiply"],
+     [256], 256),
+    ((192, 128), "flash_attention_ws_kernel", 128,
+     ["producer", "consumer", "consumer"], [0, 320, 320], 320),
+    ((256, 256), "flash_attention_ws_kernel", 128,
+     ["producer", "consumer", "consumer"], [0, 512, 512], 512),
+]
+
+
+@pytest.mark.parametrize("pair,kernel,rows,roles,units,per64", FORWARD_WORK,
+                         ids=[f"{w[0][0]}-{w[0][1]}" for w in FORWARD_WORK])
+def test_forward_tile_work_hand_counts(pair, kernel, rows, roles, units,
+                                       per64):
+    """Each warpgroup's role and tensor work a tile against counts by
+    hand: past hd 128, S once for each (query, key), 512 hd-units per 64
+    rows at (256, 256) against the replaced CTA's 768, and the consumers
+    balanced."""
+    work = tfa.forward_tile_work(*pair)
+    assert work == {"kernel": kernel, "rows": rows, "roles": roles,
+                    "hd_units": units, "hd_units_per_64_rows": per64}
+    hd, hdv = pair
+    if hd > 128:
+        assert per64 == hd + hdv and sum(units) * 64 == per64 * rows
+        assert per64 < 2 * hd + hdv   # S twice: 768 at (256, 256)
+
+
+def test_forward_tile_work_refuses_fma_pairs():
+    """hd 8 has no tensor-core forward, nor has a pair outside
+    HEAD_DIMS."""
+    for pair in ((8, 8), (96, 96), (128, 64)):
+        with pytest.raises(ValueError, match="no tensor-core forward"):
+            tfa.forward_tile_work(*pair)
 
 
 def test_backward_wrapper_marshals_each_route(monkeypatch):

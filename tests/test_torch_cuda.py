@@ -699,7 +699,8 @@ def test_flash_attention_mla_head_dims_match_plain(cuda, case, dtype, route):
 
 def test_flash_attention_mla_instantiations_do_not_spill(cuda):
     """ptxas -v of the library: the forward kernels at (192, 128) and
-    (24, 16), both routes, spill no registers."""
+    (24, 16), both routes (the tensor cores' one-warpgroup kernel at (24,
+    16), the warp-specialised one at (192, 128)), spill no registers."""
     import re
 
     tfa.LIBRARY.build()
@@ -709,8 +710,8 @@ def test_flash_attention_mla_instantiations_do_not_spill(cuda):
     for name, body in re.findall(
             r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
             log, re.S):
-        if re.search(r"flash_attention_(tc_)?kernelI\w*Li(192ELi128|24ELi16)E",
-                     name):
+        if re.search(r"flash_attention_(tc_|ws_)?kernelI\w*Li(192ELi128|"
+                     r"24ELi16)E", name):
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           body)
             found[name] = (int(m.group(1)), int(m.group(2)))
@@ -1167,7 +1168,8 @@ RG_PARAMS = [pytest.param(case, dtype, route, id=f"{name}-{route}-{i}")
 @pytest.mark.parametrize("case,dtype,route", RG_PARAMS)
 def test_flash_attention_256_matches_plain(cuda, case, dtype, route):
     """Both forward kernels at (256, 256) against the plain version (the
-    tensor-core route: two warpgroups a CTA, each half of O's columns)."""
+    tensor-core route: the warp-specialised CTA, a TMA producer and two
+    consumer warpgroups of 64 rows each)."""
     b, sq, sk, h, hkv, causal, window, q_offset = case
     rng = np.random.default_rng(sum(case[:5]))
     q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
@@ -1192,8 +1194,9 @@ def test_flash_attention_256_matches_plain(cuda, case, dtype, route):
 
 
 def test_flash_attention_256_lse_matches_fma(cuda):
-    """The tensor-core forward's per-row lse at (256, 256) (warpgroup 0
-    writes it) against the FMA kernel's on the same inputs in float32."""
+    """The tensor-core forward's per-row lse at (256, 256) (each consumer
+    warpgroup writes its rows') against the FMA kernel's on the same
+    inputs in float32."""
     q, k, v = (torch.randn(s, device=cuda).to(torch.bfloat16)
                for s in ((1, 200, 4, 256), (1, 200, 1, 256),
                          (1, 200, 1, 256)))
@@ -1230,7 +1233,8 @@ def test_flash_attention_256_tc_does_not_spill(cuda):
     for name, body in re.findall(
             r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
             log, re.S):
-        if re.search(r"flash_attention_(tc_)?kernelI\w*Li256ELi256E", name):
+        if re.search(r"flash_attention_(tc_|ws_)?kernelI\w*Li256ELi256E",
+                     name):
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           body)
             found[name] = (int(m.group(1)), int(m.group(2)))
@@ -1274,3 +1278,165 @@ def test_griffin_prefill_and_serve_on_card_match_cpu(cuda, head_dim):
         ServeEngine(model, batch_slots=2, max_len=96).run(reqs)
         out.append([r.out_tokens for r in reqs])
     assert out[0] == out[1]
+
+
+# (B, Sq, Sk, H, Hkv, hd, hdv, causal, window, q_offset): the
+# warp-specialised forward past hd 128 (128 q rows a CTA, two consumer
+# warpgroups of 64): ragged Sq across its 128-row tiles (1,000, 65, 129),
+# Sq != Sk with a q_offset, decode-style Sq = 1, windows of 64 and 2,048,
+# g = 16 and g = 1, and B = 3, where a tile's rows run past one batch's
+# end (TMA's boxes are clipped at Sq per batch, never read the next one)
+WS_FA_CASES = [
+    (1, 1000, 1000, 16, 16, 192, 128, True, 0, 0),
+    (1, 65, 65, 4, 4, 192, 128, True, 64, 0),
+    (3, 129, 129, 4, 2, 192, 128, True, 0, 0),
+    (3, 65, 200, 4, 1, 192, 128, True, 0, 135),
+    (1, 100, 300, 4, 2, 192, 128, False, 70, 200),
+    (1, 1, 300, 16, 16, 192, 128, True, 0, 299),
+    (1, 1000, 1000, 16, 1, 256, 256, True, 2048, 0),
+    (1, 129, 129, 4, 4, 256, 256, True, 64, 0),
+    (3, 65, 65, 16, 1, 256, 256, True, 64, 0),
+    (2, 77, 200, 4, 2, 256, 256, True, 50, 123),
+    (1, 1, 2048, 16, 1, 256, 256, True, 2048, 2047),
+    (3, 129, 129, 4, 4, 256, 256, False, 0, 0),
+]
+
+
+def _ws_qkv(case, device, seed):
+    b, sq, sk, h, hkv, hd, hdv = case[:7]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            .to(device=device, dtype=torch.bfloat16)
+            for s in ((b, sq, h, hd), (b, sk, hkv, hd), (b, sk, hkv, hdv))]
+
+
+@pytest.mark.parametrize("case", WS_FA_CASES,
+                         ids=[f"{c[5]}-{c[6]}-{i}"
+                              for i, c in enumerate(WS_FA_CASES)])
+def test_flash_attention_ws_matches_plain(cuda, case):
+    """The warp-specialised tensor-core forward against the plain version
+    (bf16, 2e-2: outputs one bf16 rounding apart), and its lse against the
+    FMA kernel's on the same inputs in float32 (1e-5: the same scores
+    summed in another order)."""
+    b, sq, sk, h, hkv, hd, hdv = case[:7]
+    causal, window, q_offset = case[7:]
+    q, k, v = _ws_qkv(case, cuda, seed=sum(case[:7]))
+    assert tfa.forward_plan(b, sq, sk, h, hkv, hd, torch.bfloat16,
+                            hdv=hdv)["kernel"] == "flash_attention_ws_kernel"
+    tfa.reset_launches()
+    got, lse = tfa._forward(q, k, v, causal, window, q_offset, "tc",
+                            with_lse=True)
+    assert tfa.LAUNCHES["flash_attention_tc"] == 1
+    want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
+                                    skip_masked_chunks=True)
+    _, lse_fma = tfa._forward(q.float(), k.float(), v.float(), causal,
+                              window, q_offset, "fma", with_lse=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (b, sq, h, hdv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, lse_fma, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_ws_reads_strided_views(cuda):
+    """q, k and v as views (no copies) through the warp-specialised
+    kernel's tensor maps: q / k / v sliced out of a fused (B, S, H + 2 Hkv,
+    256) projection, and at (192, 128) v a transposed (B, Hkv, S, 128)
+    tensor, whose s stride is below its h stride."""
+    rng = np.random.default_rng(6)
+
+    def bf16(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+
+    qkv = bf16((2, 150, 6, 256))
+    cases = [(qkv[:, :, :4], qkv[:, :, 4:5], qkv[:, :, 5:], 64)]
+    qk = bf16((2, 150, 6, 192))
+    v = bf16((2, 2, 150, 128)).transpose(1, 2)
+    cases.append((qk[:, :, :4], qk[:, :, 4:], v, 0))
+    for q, k, v, window in cases:
+        assert not q.is_contiguous() and tfa._tc_aligned(v)
+        tfa.reset_launches()
+        got = tfa.flash_attention(q, k, v, causal=True, window=window)
+        assert tfa.LAUNCHES["flash_attention_tc"] == 1
+        want = tref.flash_attention_ref(q, k, v, True, window)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_flash_attention_ws_refuses_misaligned(cuda):
+    """At (192, 128) too the tensor-core route raises on operands its TMA
+    boxes cannot read, before any launch."""
+    q, k, v = _ws_qkv((1, 8, 8, 4, 4, 192, 128), cuda, seed=1)
+    buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    q_off = buf[1:].view(q.shape)                           # 2-byte offset
+    q_off.copy_(q)
+    tfa.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(q_off, k, v)
+    wide = torch.zeros((1, 8, 4, 196), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfa.flash_attention(q, wide[..., :192], v)          # h stride 196
+    assert tfa.LAUNCHES["flash_attention"] == 0
+
+
+def _forward_ptxas():
+    import re
+
+    tfa.LIBRARY.build()
+    with open(tfa.LIBRARY.log_path()) as f:
+        log = f.read()
+    found = {}
+    for name, body in re.findall(
+            r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
+            log, re.S):
+        m = re.search(r"flash_attention_ws_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            found[(int(m.group(1)), int(m.group(2)))] = (name, body)
+    return log, found
+
+
+def test_flash_attention_ws_does_not_spill_or_serialise(cuda):
+    """ptxas -v of the library: the warp-specialised forwards at (192,
+    128) and (256, 256) spill no registers, and no "(C7520)" or "(C7515)"
+    note (wgmma serialised: in a divergent path; an accumulator written
+    between issue and wait) names them."""
+    import re
+
+    log, found = _forward_ptxas()
+    assert sorted(found) == [(192, 128), (256, 256)], found
+    for name, body in found.values():
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      body)
+        assert (int(m.group(1)), int(m.group(2))) == (0, 0), name
+    notes = re.findall(r"\((C75\d\d)\).*? in the function '(\S+?)'", log)
+    names = {name for name, _ in found.values()}
+    assert not [n for n in notes if n[1] in names], notes
+
+
+def test_forward_plan_smem_matches_ptxas_and_launch(cuda):
+    """forward_plan's shared memory, threads and rows at every
+    tensor-core pair against the source's launch (the dynamic bytes it
+    sets on the kernel) and, past hd 128, ptxas's static bytes and
+    registers; a launch at each pair then runs."""
+    import re
+
+    _, found = _forward_ptxas()
+    for hd, hdv in tfa.TC_HEAD_DIMS:
+        plan = tfa.forward_plan(1, 64, 64, 4, 4, hd, torch.bfloat16,
+                                hdv=hdv)
+        attrs = tfa.tc_attributes(hd, hdv)
+        assert attrs["smem_bytes"] == attrs["max_dynamic_smem_bytes"]
+        assert (plan["smem_bytes"], plan["static_smem_bytes"],
+                plan["threads"], plan["rows"]) == (
+            attrs["smem_bytes"], attrs["static_smem_bytes"],
+            attrs["threads"], attrs["rows"]), (hd, hdv)
+        if hd > 128:
+            _, body = found[(hd, hdv)]
+            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", body)
+            assert (int(m.group(1)), int(m.group(2))) == (
+                attrs["registers"], plan["static_smem_bytes"])
+        q, k, v = _ws_qkv((1, 70, 70, 4, 4, hd, hdv), cuda, seed=hd)
+        out = tfa.launch(q, k, v, True, 0, 0, "tc")
+        torch.cuda.synchronize()
+        assert out.shape == (1, 70, 4, hdv)

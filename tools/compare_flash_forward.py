@@ -12,9 +12,12 @@ and times ``kernels.flash_attention.launch`` (the serving forward,
 ``lse`` not written) at CASES, by device time in ``torch.profiler``
 (REPS launches, each after an L2 flush) and by CUDA events around the
 same launches.  Where the tree's wrapper has ``_forward`` (the training
-forward, which writes ``lse``), that is timed too.  One JSON line per
-tree, then the card's name and power limit.  Give the trees as parent,
-change, change, parent to see the spread beside the difference.
+forward, which writes ``lse``), that is timed too, and each case's
+output is held against the tree's plain version (``max_abs_err``, bf16
+tolerance 2e-2).  The profile's kernel names are listed per case
+(``kernels``), so a tree's layout shows beside its time.  One JSON line
+per tree, then the card's name and power limit.  Give the trees as
+parent, change, change, parent to see the spread beside the difference.
 
 Exits 2 without a card.
 """
@@ -25,22 +28,34 @@ import os
 import subprocess
 import sys
 
-#: (label, (B, Sq, Sk, H, Hkv, hd), dtype, causal, window, route)
+#: (label, (B, Sq, Sk, H, Hkv, hd, hdv), dtype, causal, window, route); the
+#: "mla" and "rg" rows are DeepSeek-V2-Lite's (192, 128) and
+#: RecurrentGemma-9B's (256, 256) forwards at the smoke's prefill
+#: (FA_CASES) and training (train_mla, train_griffin) shapes
 CASES = [
-    ("prefill", (1, 2048, 2048, 12, 2, 128), "bfloat16", True, 0, "tc"),
-    ("train", (2, 1024, 1024, 12, 2, 128), "bfloat16", True, 0, "tc"),
-    ("train_window", (2, 1024, 1024, 12, 2, 128), "bfloat16", True, 256, "tc"),
-    ("prefill_fma", (1, 2048, 2048, 12, 2, 128), "bfloat16", True, 0, "fma"),
-    ("f32_hd8", (1, 512, 512, 4, 2, 8), "float32", True, 0, "fma"),
-    ("f32_hd16", (1, 512, 512, 4, 2, 16), "float32", True, 0, "fma"),
+    ("prefill", (1, 2048, 2048, 12, 2, 128, 128), "bfloat16", True, 0, "tc"),
+    ("train", (2, 1024, 1024, 12, 2, 128, 128), "bfloat16", True, 0, "tc"),
+    ("train_window", (2, 1024, 1024, 12, 2, 128, 128), "bfloat16", True, 256,
+     "tc"),
+    ("prefill_fma", (1, 2048, 2048, 12, 2, 128, 128), "bfloat16", True, 0,
+     "fma"),
+    ("f32_hd8", (1, 512, 512, 4, 2, 8, 8), "float32", True, 0, "fma"),
+    ("f32_hd16", (1, 512, 512, 4, 2, 16, 16), "float32", True, 0, "fma"),
+    ("mla_prefill", (1, 2048, 2048, 16, 16, 192, 128), "bfloat16", True, 0,
+     "tc"),
+    ("mla_train", (2, 2048, 2048, 16, 16, 192, 128), "bfloat16", True, 0,
+     "tc"),
+    ("rg_prefill", (1, 3072, 3072, 16, 1, 256, 256), "bfloat16", True, 2048,
+     "tc"),
 ]
 REPS = 20
 
 _CHILD = r"""
-import json, statistics, sys
+import json, re, statistics, sys
 import torch
 from torch.profiler import ProfilerActivity, profile
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
 
 CASES, REPS = json.loads(sys.argv[1]), int(sys.argv[2])
 dev = torch.device("cuda", 0)
@@ -65,26 +80,41 @@ def timed(fn):
             e1.record()
             events.append((e0, e1))
         torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if "flash_attention" in e.key]
     us = sum(getattr(e, "self_device_time_total", 0)
              or getattr(e, "self_cuda_time_total", 0)
              for e in prof.key_averages() if "flash_attention" in e.key)
     return {"device_ms": us / 1e3 / REPS,
             "event_ms": statistics.median(a.elapsed_time(b)
-                                          for a, b in events)}
+                                          for a, b in events),
+            "kernels": sorted({m.group(0) for n in names for m in
+                               [re.search(r"flash_attention_\w*kernel", n)]
+                               if m})}
 
 
 out = {}
-for label, (b, sq, sk, h, hkv, hd), dt, causal, window, route in CASES:
+for label, (b, sq, sk, h, hkv, hd, hdv), dt, causal, window, route in CASES:
     dtype = getattr(torch, dt)
     q = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dtype)
     k = torch.randn((b, sk, hkv, hd), generator=g, device=dev).to(dtype)
-    v = torch.randn((b, sk, hkv, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, sk, hkv, hdv), generator=g, device=dev).to(dtype)
     row = {"launch": timed(lambda: fa.launch(q, k, v, causal, window, 0,
                                              route))}
     if hasattr(fa, "_forward"):
         row["forward_lse"] = timed(lambda: fa._forward(
             q, k, v, causal, window, 0, route, with_lse=True))
+        got = fa.launch(q, k, v, causal, window, 0, route).float()
+        want = ref.flash_attention_ref(q, k, v, causal, window, 0,
+                                       skip_masked_chunks=True).float()
+        row["max_abs_err"] = float((got - want).abs().max())
+        tol = 2e-2 if dt == "bfloat16" else 2e-5
+        if not torch.allclose(got, want, rtol=tol, atol=tol):
+            raise SystemExit(f"{label}: the kernel disagrees with the plain "
+                             f"version, max abs err {row['max_abs_err']}")
+        del got, want
     out[label] = row
+    del q, k, v
 print(json.dumps(out))
 """
 
