@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's merge, service, shard-worker, serve,
-MoE / MLA serve, hybrid (RG-LRU) serve, training (dense, MoE / MLA and
-hybrid) and store paths once on one NVIDIA card.
+MoE / MLA serve, hybrid (RG-LRU) serve, SSM (Mamba-2), encoder–decoder
+(Whisper) and vision (Llama-3.2-Vision) serve, training (dense, MoE /
+MLA, hybrid, SSM and encoder–decoder) and store paths once on one NVIDIA
+card.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 2 without
 
@@ -27,7 +29,18 @@ head at head dim 256, window 2,048, d_ff 12288, vocab 256000), depth
 GRIFFIN["layers"], its bf16 weights drawn on the card from ``--seed``.
 The train_mla and train_griffin phases train the same two models at
 their published widths (float32 params, bf16 compute, remat), depth cut
-to TRAIN_MLA["layers"] and TRAIN_GRIFFIN["layers"].
+to TRAIN_MLA["layers"] and TRAIN_GRIFFIN["layers"].  The serve_mamba
+phase serves Mamba-2 2.7B at its published widths and all 64 layers
+(d_model 2560, SSD with d_inner 5120, 80 heads of 64, state 128, chunk
+128, conv 4, vocab 50280); serve_whisper whisper-tiny (4 + 4 layers,
+d_model 384, 6 heads at hd 64, 1,500 frames, vocab 51865); serve_vlm
+Llama-3.2-Vision-90B at its published widths (d_model 8192, 64 / 8 heads
+at hd 128, d_ff 28672, 1,024 vision tokens, vocab 128256), depth
+VLM["layers"]; each drawn on the card from ``--seed`` with its
+zero-initialised norms and cross-attention gates redrawn (DRAWN_NORMS;
+the conv and vision frontends are stubs, as in the reference:
+random frame and patch embeddings).  train_mamba and train_whisper train
+Mamba-2 at TRAIN_MAMBA["layers"] and whisper-tiny whole.
 
 Phases, one JSON line each:
 
@@ -70,6 +83,9 @@ Phases, one JSON line each:
            (1, 2048, 2048, 16, 16) at qk 192 / v 128 and RecurrentGemma-
            9B's (1, 3072, 3072, 16, 1) at (256, 256) with window 2,048,
            each bf16 on the tensor cores and float32 on the FMA route,
+           whisper-tiny's encoder (1, 1500, 1500, 6, 6) at hd 64 and
+           Llama-3.2-Vision's cross-attention (1, 2048, 1024, 64, 8) at
+           hd 128, both without a mask, on the tensor cores,
            each with its profiler device time (tolerance 2e-5 float32, 2e-2 bf16; the elements
            that differ from the plain version counted); the flash backward (dq, dk, dv) against autograd
            through the plain version at (B, S, H, Hkv, hd) = (2, 1024,
@@ -77,8 +93,9 @@ Phases, one JSON line each:
            at the ragged length 1,000, and float32 hd 8 and 16, the
            training phases' attention (DeepSeek-V2-Lite's (2, 2048, 16,
            16) at qk 192 / v 128; RecurrentGemma-9B's (1, 3072, 16, 1) at
-           (256, 256) with window 2,048), each bf16 and float32, and
-           (24, 16) at a small shape (BWD_TOL),
+           (256, 256) with window 2,048), each bf16 and float32,
+           (24, 16) at a small shape and train_whisper's encoder (8,
+           1500, 6, 6) at hd 64 without a mask (BWD_TOL),
            bf16 on both routes (tensor cores, then float32 FMAs; timed in
            turns, and the tensor cores must win at the first case: the
            route gate), two runs bit-equal, SDPA's backward as the
@@ -193,6 +210,36 @@ Phases, one JSON line each:
            attention at (256, 256), 16 query heads over one kv head),
            TRAIN_GRIFFIN["layers"] of 38 layers (one attention layer), 1 x
            3,072 tokens (the window of 2,048 masks keys), 1 + 3 steps
+  serve_mamba  Mamba-2 2.7B through ServeEngine (MAMBA: 4 requests of
+           1,024-2,048 prompt tokens, 16 greedy tokens each, 4 slots):
+           first, on the bf16 weights, the float32 engine's greedy tokens
+           against the argmax of ``forward`` over each extended sequence,
+           and each request's chunked-SSD prefill plus recurrent decode
+           steps (teacher-forced on those tokens) against that forward's
+           logits in float64 compute (LOGIT_TOL; float32's own rounding
+           through 64 layers exceeds it, its share reported); then bf16:
+           no flash
+           launch (attention-free), prefill and decode rates, device busy
+           time, idle share, the chunked SSD's device time (its calls
+           replayed) and share, peak memory
+  serve_whisper  whisper-tiny request by request through its own prefill
+           (the encoder over 1,500 frames, the decoder's 4-token prefix,
+           the cross k / v computed once) and decode_step: float32
+           compute, the kernels (the FMA route at hd 64) against the plain
+           attention (prefill logits within LOGIT_TOL, identical greedy
+           tokens); then bf16: every flash launch on the tensor cores,
+           counted by shape (the encoder's at FA_CASES' whisper_encoder),
+           prefill and decode times, device busy time, idle share
+  serve_vlm  Llama-3.2-Vision-90B at VLM["layers"] the same way over
+           1,024 vision tokens (the cross-attention's launches at
+           FA_CASES' vlm_cross)
+  train_mamba  Mamba-2 at TRAIN_MAMBA["layers"] of 64 (4 x 2,048 tokens,
+           1 + 3 steps): the first step's loss and every sampled gradient
+           finite (no attention to hold against a plain version), no
+           flash launch, step ms, tokens/s, MFU, peak memory
+  train_whisper  whisper-tiny whole, 8 clips of 1,500 frames and 448
+           decoder tokens, as train (the backward at hd 64 on the tensor
+           cores: the encoder's, the decoder's and the cross-attention's)
   loop     at LOOP["layers"] layers: two experts (skills 0 and 1) from one
            seeded base with TrainLoop, checkpoints in a SnapshotStore;
            expert 0 crashed before step 3 and resumed from its step-2
@@ -311,6 +358,14 @@ FA_CASES = [
     # DeepSeek-V2-Lite's smoke config at (24, 16), at the backward's
     # mla_smoke shape
     ("mla_smoke", (2, 256, 256, 4, 4, 24, 16), "bfloat16", True, 0, 0, "tc"),
+    # whisper-tiny's encoder (1,500 frames, 6 heads at hd 64, no mask): the
+    # serve_whisper phase's bf16 prefill launches at this shape
+    ("whisper_encoder", (1, 1500, 1500, 6, 6, 64, 64), "bfloat16", False, 0,
+     0, "tc"),
+    # llama-3.2-vision-90b's gated cross-attention: the serve_vlm phase's
+    # longest prompt over 1,024 vision tokens, GQA 64 / 8 at hd 128
+    ("vlm_cross", (1, 2048, 1024, 64, 8, 128, 128), "bfloat16", False, 0, 0,
+     "tc"),
 ]
 # the served models' rows of the contract line: case label -> launch
 # counter (the serve_mla and serve_griffin phases' counts: bf16 prefill on
@@ -318,7 +373,9 @@ FA_CASES = [
 FA_ROWS = {"mla_prefill": "flash_attention_mla",
            "mla_prefill_f32": "flash_attention_mla_fma",
            "rg_prefill": "flash_attention_rg",
-           "rg_prefill_f32": "flash_attention_rg_fma"}
+           "rg_prefill_f32": "flash_attention_rg_fma",
+           "whisper_encoder": "flash_attention_whisper",
+           "vlm_cross": "flash_attention_vlm_cross"}
 # (label, (NB, K, W)) float32 TIES launches: the merge path's largest
 # window group and its median launch by rows (the merge phase reports the
 # launches' shapes: 15 rows of 128 KiB blocks, 1 to 46)
@@ -389,12 +446,16 @@ BWD_CASES = [
     ("rg_train", (1, 3072, 16, 1, 256, 256), "bfloat16", True, 2048),
     ("rg_train_f32", (1, 3072, 16, 1, 256, 256), "float32", True, 2048),
     ("mla_smoke", (2, 256, 4, 4, 24, 16), "bfloat16", True, 0),
+    # the train_whisper phase's encoder: 8 clips of 1,500 frames, 6 heads
+    # at hd 64, no mask
+    ("whisper_train", (8, 1500, 6, 6, 64, 64), "bfloat16", False, 0),
 ]
 # the training phases' backward rows of the contract line: case label ->
-# launch counter (the train_mla and train_griffin phases' tensor-core
-# backward launches)
+# launch counter (the train_mla, train_griffin and train_whisper phases'
+# tensor-core backward launches)
 BWD_ROWS = {"mla_train": "flash_attention_bwd_mla",
-            "rg_train": "flash_attention_bwd_rg"}
+            "rg_train": "flash_attention_bwd_rg",
+            "whisper_train": "flash_attention_bwd_whisper"}
 # the backward against autograd through flash_attention_ref: float32 sums
 # in another order; bf16 gradients one bf16 rounding apart (the
 # tensor-core forward rounds P to bf16)
@@ -465,6 +526,58 @@ TRAIN_GRIFFIN = {"config": "recurrentgemma-9b", "layers": 5, "batch": 1,
                                  "rec/w_r", "rec/w_i", "rec/lam"),
                  "counter": "flash_attention_bwd_rg",
                  "cut_by": "38 layers need ~150 GB with AdamW"}
+# the serve_mamba phase: Mamba-2 2.7B at its published widths and all 64
+# layers (bf16, ~5.4 GB), requests of min-max prompt tokens, new greedy
+# tokens each (16: an eager decode step of 64 layers took 124 ms of host
+# time on an H100 80GB HBM3 at 700 W, and at 32 tokens the phase took
+# 68.3 s), on batch_slots slots (the state cache is O(1) in max_len)
+MAMBA = {"layers": None, "requests": 4, "min_prompt": 1024,
+         "max_prompt": 2048, "new_tokens": 16, "batch_slots": 4,
+         "max_len": 2560}
+# the serve_whisper phase: whisper-tiny at full depth (4 + 4 layers),
+# requests of the decoder's 4-token task prefix over 1,500 stub frames
+# each, new greedy tokens, one request at a time through prefill and
+# decode_step
+WHISPER = {"requests": 4, "prompt": 4, "new_tokens": 32}
+# the serve_vlm phase: llama-3.2-vision-90b at its published widths, depth
+# 5 of 100 (one super-block: the gated cross-attention layer and 5 self
+# layers, ~5.5 B bf16 parameters with the tied 128,256 x 8,192 embedding),
+# prompts of these lengths over 1,024 stub vision tokens each, new greedy
+# tokens, one request at a time through prefill and decode_step
+VLM = {"layers": 5, "prompts": (2048, 1536, 768), "new_tokens": 32}
+# the zero-initialised leaves the served and trained new families redraw
+# (norms as 0.2 * N(0, 1), the tanh gates uniform in [0.5, 1]): at init the
+# cross-attention gates are zero and its layers contribute nothing
+DRAWN_NORMS = ("ln", "ln1", "ln2", "lnx", "ln_x", "ln_f", "out_norm",
+               "enc_ln1", "enc_ln2", "enc_ln_f", "dec_ln1", "dec_lnx",
+               "dec_ln2")
+# the train_mamba phase: Mamba-2 2.7B at its published widths (float32
+# params, bf16 compute, the SSD in float32, remat), depth cut to 16 of 64
+# (0.77 B parameters, ~12 GB with AdamW; all 64 would need ~43 GB before
+# activations, and the smoke's time), 4 x 2,048 tokens, 1 + 3 steps; its
+# gradient sample: the SSD's decay rate (A_log, where the reference's
+# gradient is NaN), step bias, skip, and the projections
+TRAIN_MAMBA = {"config": "mamba2-2.7b", "layers": 16, "batch": 4,
+               "seq": 2048, "warmup": 1, "steps": 3, "lr": 3e-4,
+               "grad_sample": ("mixer/A_log", "mixer/dt_bias", "mixer/D",
+                               "mixer/in_proj", "mixer/conv_w",
+                               "mixer/out_proj", "embed/embedding"),
+               "draw": True,
+               "cut_by": "the smoke's time; all 64 need ~43 GB with "
+                         "AdamW before activations"}
+# the train_whisper phase: whisper-tiny as published (4 + 4 layers),
+# 8 clips of 1,500 stub frames and 448 decoder tokens (Whisper's longest
+# text), 1 + 3 steps, the gates and norms redrawn so the cross-attention's
+# gradients are not zero; its gradient sample: the encoder's, the
+# decoder's and the cross-attention's projections and gate
+TRAIN_WHISPER = {"config": "whisper-tiny", "layers": None, "batch": 8,
+                 "seq": 448, "warmup": 1, "steps": 3, "lr": 3e-4,
+                 "context": "audio_embeds", "draw": True,
+                 "grad_sample": ("enc_attn/wq", "enc_attn/wo", "dec_attn/wq",
+                                 "dec_xattn/wq", "dec_xattn/wk",
+                                 "dec_xattn/wv", "dec_xattn/gate",
+                                 "dec_mlp/w_down"),
+                 "counter": "flash_attention_bwd_whisper"}
 # the loop phase: two experts from one base, a crash of expert 0 before
 # step CRASH_AT, then ANALYZE, TIES at 50%, and serving the merge, at
 # LOOP["layers"] decoder layers (cut from the merge depth of 4 when the
@@ -1214,9 +1327,10 @@ def flash_bwd_rows(device, seed, timer):
         lib_q, lib_k, lib_v = (t.transpose(1, 2).detach().clone()
                                .requires_grad_() for t in (q, k, v))
         full_causal = causal and window == 0
+        lib_mask = None if full_causal or bool(mask.all()) else mask
         lib_out = F.scaled_dot_product_attention(
-            lib_q, lib_k, lib_v, attn_mask=None if full_causal else mask,
-            is_causal=full_causal, enable_gqa=True)
+            lib_q, lib_k, lib_v, attn_mask=lib_mask, is_causal=full_causal,
+            enable_gqa=True)
         lib_do = do.transpose(1, 2)
 
         def library():
@@ -2203,13 +2317,14 @@ def timed_serve(engine, reqs):
     }
 
 
-def profiled_serve(run, wall, what):
+def profiled_serve(run, wall, what, flash=True):
     """``run()`` again under the profiler (device activity only, as in
     ``merge``): device time by activity, the flash kernel's, and the idle
     share against the timed run's ``wall``, which the profiler does not
-    stretch.  The prefill must show a tensor-core kernel (the one-
-    warpgroup kernel up to hd 128, the warp-specialised one past it) and
-    no FMA one (bf16)."""
+    stretch.  With ``flash`` the prefill must show a tensor-core kernel
+    (the one-warpgroup kernel up to hd 128, the warp-specialised one past
+    it) and no FMA one (bf16); without (an attention-free model) no flash
+    kernel at all.  Either way the card must have done work."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2223,10 +2338,12 @@ def profiled_serve(run, wall, what):
                     if re.search(r"\bflash_attention_(tc|ws)_kernel\b", n))
     fma_ms = sum(t for n, t in device_ms.items()
                  if re.search(r"\bflash_attention_kernel\b", n))
-    if kernel_ms == 0 or fma_ms != 0:
+    if (kernel_ms == 0) == flash or fma_ms != 0:
         raise AssertionError(f"{what}: profile shows {kernel_ms} ms of the "
                              f"tensor-core kernel, {fma_ms} ms of the FMA one")
     busy = sum(device_ms.values())
+    if busy == 0:
+        raise AssertionError(f"{what}: the profile shows no device work")
     return {"profiled_wall_s": prof_wall, "flash_kernel_ms": kernel_ms,
             "device_busy_ms": busy,
             "device_idle_share": 1 - busy / 1e3 / wall,
@@ -2467,23 +2584,39 @@ def phase_serve_mla(device, seed):
 
 
 @contextlib.contextmanager
-def scan_calls():
-    """Record the shape of every RG-LRU scan (``rglru.rglru_scan``, which
-    the recurrent layers call through the module) that runs inside."""
-    from repro_torch.models import rglru
-
-    scan = rglru.rglru_scan
+def calls_by_shape(module, name, key):
+    """Count the calls of ``module.<name>`` that run inside (callers reach
+    it through the module) by ``key(*args, **kwargs)``: the RG-LRU scan's
+    shapes (``scan_shape``), the chunked SSD's (``ssd_shape``), the flash
+    attention's (``attention_shape``)."""
+    fn = getattr(module, name)
     shapes = collections.Counter()
 
-    def recording(a, b, h0=None):
-        shapes[tuple(a.shape)] += 1
-        return scan(a, b, h0)
+    def recording(*args, **kwargs):
+        shapes[key(*args, **kwargs)] += 1
+        return fn(*args, **kwargs)
 
-    rglru.rglru_scan = recording
+    setattr(module, name, recording)
     try:
         yield shapes
     finally:
-        rglru.rglru_scan = scan
+        setattr(module, name, fn)
+
+
+def scan_shape(a, b, h0=None):
+    return tuple(a.shape)
+
+
+def ssd_shape(xh, la, Bm, Cm, chunk, s0=None):
+    """(xh's (B, T, H, P), N, chunk)."""
+    return tuple(xh.shape), Bm.shape[-1], chunk
+
+
+def attention_shape(q, k, v, causal=True, **kw):
+    """(B, Sq, Sk, H, Hkv, hd, hdv, causal), the order of FA_CASES'
+    shapes."""
+    return (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+            q.shape[3], v.shape[3], causal)
 
 
 def scan_device_ms(shapes, device):
@@ -2524,7 +2657,7 @@ def phase_serve_griffin(device, seed):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, rglru
     from repro_torch.serve.engine import Request, ServeEngine
 
     cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
@@ -2625,7 +2758,7 @@ def phase_serve_griffin(device, seed):
         engine.run(reqs)
         finished(reqs)
 
-    with scan_calls() as scans:
+    with calls_by_shape(rglru, "rglru_scan", scan_shape) as scans:
         profiled = profiled_serve(again, rates["wall_s"], "serve_griffin")
     scan_ms = scan_device_ms(scans, device)
     out = {
@@ -2663,13 +2796,507 @@ def phase_serve_griffin(device, seed):
             "flash_attention_rg_fma": fma_launches}
 
 
+def draw_zero_leaves(model, g):
+    """Redraw, in place, the parameters that start at zero and would hide
+    a layer's terms: the norms (DRAWN_NORMS, 0.2 * N(0, 1) under the 1 + w
+    convention) and the cross-attention's tanh gates (uniform in [0.5,
+    1]: tanh(0) = 0 hides the whole cross-attention at init)."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.split(".")[-1]
+            if leaf == "gate":
+                p.copy_(torch.rand(p.shape, generator=g, device=p.device)
+                        * 0.5 + 0.5)
+            elif leaf in DRAWN_NORMS:
+                p.copy_(0.2 * torch.randn(p.shape, generator=g,
+                                          device=p.device))
+
+
+def ssd_device_ms(shapes, device, reps=2):
+    """Device time (torch.profiler, all of its kernels) of the chunked
+    SSDs ``shapes`` counts: each shape replayed ``reps`` times on float32
+    inputs of its shape (log-decay in [-1, -0.01]) in one profiled window,
+    its mean time a call times its count.  The SSD's part of a served
+    run, which its plain tensor ops leave nameless in the run's own
+    profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm
+
+    total = 0.0
+    for ((b, t, h, p), n, chunk), count in shapes.items():
+        args = (torch.randn((b, t, h, p), device=device),
+                -torch.rand((b, t, h), device=device) * 0.99 - 0.01,
+                torch.randn((b, t, n), device=device),
+                torch.randn((b, t, n), device=device), chunk)
+        ssm.ssd_chunked(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                ssm.ssd_chunked(*args)
+            torch.cuda.synchronize()
+        total += sum(device_time_ms(prof).values()) / reps * count
+    return total
+
+
+def phase_serve_mamba(device, seed):
+    """Serve Mamba-2 2.7B (attention-free: the chunked SSD at prefill, its
+    O(1) recurrence at decode) at its published widths and depth, its bf16
+    weights drawn on the card from ``seed``, through build_model and
+    ServeEngine.  First, on the bf16 weights: the float32 engine's greedy
+    tokens against the argmax of ``forward`` over each extended sequence,
+    and in float64 compute each request's prefill plus decode steps
+    (teacher-forced on those tokens) against that forward's logits (float32
+    rounding through 64 layers exceeds LOGIT_TOL; its share is reported);
+    then the bf16 run timed and profiled, with the SSD's share of the
+    device time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model, ssm
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    if MAMBA["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=MAMBA["layers"])
+    rng = np.random.default_rng(seed + 26)
+    lengths = rng.integers(MAMBA["min_prompt"], MAMBA["max_prompt"] + 1,
+                           size=MAMBA["requests"])
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lengths]
+    new = MAMBA["new_tokens"]
+
+    def run(model, prompts=prompts):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+        engine = ServeEngine(model, batch_slots=MAMBA["batch_slots"],
+                             max_len=MAMBA["max_len"])
+        engine.run(reqs)
+        if not all(r.done and len(r.out_tokens) == new for r in reqs):
+            raise AssertionError("serve_mamba: a request did not finish")
+        if any(not 0 <= t < cfg.vocab_size for r in reqs
+               for t in r.out_tokens):
+            raise AssertionError("serve_mamba: token out of the vocabulary")
+        return reqs
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(seed + 26)
+    model = build_model(cfg, device=device, generator=g)
+    draw_zero_leaves(model, g)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # parity on the bf16 weights.  float32 compute: the engine's greedy
+    # tokens against the argmax of the chunked forward over each extended
+    # sequence.  float64 compute: the chunked prefill plus the recurrent
+    # decode steps (teacher-forced on those tokens) against that forward's
+    # logits within LOGIT_TOL.  float32's own rounding through 64 layers
+    # exceeds LOGIT_TOL (the float32 forward misses the float64 one by ~6x
+    # the tolerance), so the float32 logits are reported against the
+    # float64 forward, not held
+    def teacher_forced(ext, n, toks):
+        logits, cache = model.prefill(ext[:, :n])
+        got = [logits[0, 0]]
+        for t in toks[:-1]:
+            logits, cache = model.decode_step(
+                torch.tensor([[t]], device=device), cache)
+            got.append(logits[0, 0])
+        return torch.stack(got)
+
+    def tol_used(diff, want):
+        """The largest share of its LOGIT_TOL an element uses."""
+        return float((diff / (LOGIT_TOL["atol"] + LOGIT_TOL["rtol"]
+                              * want.abs())).max())
+
+    t0 = time.perf_counter()
+    f32 = {"forward_vs_float64": 0.0, "decode_vs_float64": 0.0,
+           "decode_vs_forward": 0.0}
+    worst = used = 0.0
+    with torch.inference_mode():
+        with compute_in(model, "float32"):
+            reqs = run(model)
+            exts, fwd32, dec32 = [], [], []
+            for p, r in zip(prompts, reqs):
+                ext = torch.as_tensor(np.concatenate([p, r.out_tokens[:-1]]),
+                                      dtype=torch.long, device=device)[None]
+                want = model(ext)[0, len(p) - 1:]        # (new, V)
+                greedy = torch.argmax(want, dim=-1).tolist()
+                if greedy != r.out_tokens:
+                    raise AssertionError(f"serve_mamba parity: engine tokens "
+                                         f"{r.out_tokens} against the "
+                                         f"forward's greedy {greedy}")
+                exts.append(ext)
+                fwd32.append(want)
+            # the float32 decode of the first request, for its report
+            dec32 = teacher_forced(exts[0], len(prompts[0]),
+                                   reqs[0].out_tokens)
+        with compute_in(model, "float64"):
+            for p, r, ext, a in zip(prompts, reqs, exts, fwd32):
+                want = model(ext)[0, len(p) - 1:]
+                got = teacher_forced(ext, len(p), r.out_tokens)
+                diff = (got - want).abs()
+                worst = max(worst, float(diff.max()))
+                used = max(used, tol_used(diff, want))
+                if not torch.isfinite(got).all() or not torch.allclose(
+                        got, want, **LOGIT_TOL):
+                    raise AssertionError(f"serve_mamba parity (float64): "
+                                         f"prefill + decode logits differ "
+                                         f"from the forward's by {worst} at "
+                                         f"prompt length {len(p)}")
+                pairs = [("forward_vs_float64", a, want)]
+                if ext is exts[0]:
+                    pairs += [("decode_vs_float64", dec32, want),
+                              ("decode_vs_forward", dec32, a)]
+                for key, x, w in pairs:
+                    f32[key] = max(f32[key], tol_used((x.double() - w)
+                                                      .abs(), w))
+                del want, got, diff
+    del exts, fwd32, dec32
+    parity_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    run(model)  # warm-up: bf16 GEMMs
+    warmup_s = time.perf_counter() - t0
+
+    # the main path: no flash attention may launch (attention-free)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new)
+            for i, p in enumerate(prompts)]
+    engine = ServeEngine(model, batch_slots=MAMBA["batch_slots"],
+                         max_len=MAMBA["max_len"])
+    fa.reset_launches()
+    rates = timed_serve(engine, reqs)
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"serve_mamba: {fa.LAUNCHES}")
+    if not all(r.done and len(r.out_tokens) == new for r in reqs):
+        raise AssertionError("serve_mamba: a request did not finish")
+
+    # the profile: the first request alone (the profiler stretches its
+    # thousands of small launches many times over), its idle share against
+    # its own unprofiled wall
+    def one():
+        with torch.inference_mode():
+            run(model, prompts[:1])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    with calls_by_shape(ssm, "ssd_chunked", ssd_shape) as ssds:
+        profiled = profiled_serve(one, one_wall, "serve_mamba", flash=False)
+    ssd_ms = ssd_device_ms(ssds, device)
+    d_in = cfg.ssm_expand * cfg.d_model
+    out = {
+        "phase": "serve_mamba", "config": cfg.name, "layers": cfg.n_layers,
+        "params": n_params, "param_bytes": 2 * n_params,
+        "ssm": {"d_inner": d_in, "heads": d_in // cfg.ssm_head_dim,
+                "head_dim": cfg.ssm_head_dim, "state": cfg.ssm_state,
+                "chunk": cfg.ssm_chunk, "conv": cfg.conv_kernel},
+        "requests": len(prompts), "prompt_lengths": [int(n) for n in lengths],
+        "new_tokens": new, "batch_slots": MAMBA["batch_slots"],
+        "load_s": load_s, "parity_s": parity_s, "warmup_s": warmup_s,
+        "parity": {"against": "the chunked forward over each extended "
+                              "sequence",
+                   "tokens": "float32 engine tokens equal its argmax",
+                   "logits": "float64 prefill + decode within LOGIT_TOL",
+                   "max_logit_diff": worst, "tolerance_used": used,
+                   "logit_tol": LOGIT_TOL, "tokens_identical": True,
+                   "float32_tolerance_used": f32,
+                   "float32_decode": "the first request"},
+        **rates,
+        "launches": {"flash_attention": 0},
+        "profiled_request_wall_s": one_wall,
+        **profiled,
+        "ssd": {"calls": sum(ssds.values()),
+                "shapes": {f"{'x'.join(map(str, k[0]))}/N{k[1]}/Q{k[2]}": n
+                           for k, n in ssds.items()},
+                "device_ms": ssd_ms,
+                "device_share": ssd_ms / profiled["device_busy_ms"]},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(out)
+    del model, engine
+    torch.cuda.empty_cache()
+
+
+def greedy_context(model, prompt, context, new):
+    """One request through a context model's own entry points: prefill
+    over ``prompt`` (1, S) with ``context`` (1, S_ctx, D), the cache
+    copied into one of S + new positions, then ``new - 1`` greedy decode
+    steps.  Returns (prefill logits (V,), the greedy tokens, prefill
+    seconds, decode seconds), each time ending in a host sync."""
+    import torch
+
+    t0 = time.perf_counter()
+    logits, small = model.prefill(prompt, context)
+    first = int(torch.argmax(logits[0, 0]))
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cache = model.init_cache(1, prompt.shape[1] + new)
+    for name in model.cache_batch_axes():
+        part = small[name]
+        cache[name][tuple(slice(0, n) for n in part.shape)] = part
+    cache["len"] = small["len"]
+    toks = [first]
+    for _ in range(new - 1):
+        step, cache = model.decode_step(
+            torch.tensor([[toks[-1]]], device=prompt.device), cache)
+        toks.append(int(torch.argmax(step[0, 0])))
+    return logits[0, 0], toks, prefill_s, time.perf_counter() - t0
+
+
+def serve_context(phase, model, prompts, contexts, new, want):
+    """A context model (encoder-decoder, vision) served request by request
+    through ``greedy_context``: float32 compute against the plain
+    attention first (prefill logits within LOGIT_TOL, identical greedy
+    tokens; the kernels on the FMA route), then bf16: a warm-up, the
+    main path timed with every flash launch counted by shape (each on the
+    tensor-core route; ``want`` the calls a request makes), and the first
+    request once more, timed and then profiled.  Returns the phase's line (without its header) and the
+    launch shapes of the main path."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    def serve_all():
+        return [greedy_context(model, p, c, new)
+                for p, c in zip(prompts, contexts)]
+
+    worst, t0 = 0.0, time.perf_counter()
+    with compute_in(model, "float32"), torch.inference_mode():
+        fa.reset_launches()
+        kern = serve_all()
+        fma = dict(fa.LAUNCHES)
+        with plain_attention():
+            plain = serve_all()
+    for (lk, tk, *_), (lp, tp, *_), p in zip(kern, plain, prompts):
+        worst = max(worst, float((lk - lp).abs().max()))
+        if not torch.isfinite(lk).all() or not torch.allclose(lk, lp,
+                                                              **LOGIT_TOL):
+            raise AssertionError(f"{phase} parity: prefill logits differ by "
+                                 f"{worst} at prompt length {p.shape[1]}")
+        if tk != tp:
+            raise AssertionError(f"{phase} parity: greedy tokens {tk} "
+                                 f"against the plain attention's {tp}")
+    if (fma["flash_attention"] != want * len(prompts)
+            or fma["flash_attention_tc"]):
+        raise AssertionError(f"{phase} float32: {fma}, want "
+                             f"{want * len(prompts)} FMA launches")
+    parity_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        serve_all()  # warm-up: bf16 GEMMs, the kernels' first launches
+    warmup_s = time.perf_counter() - t0
+
+    # the main path: the launch count starts at 0 here and is read after
+    with torch.inference_mode(), calls_by_shape(
+            attention, "flash_attention", attention_shape) as shapes:
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve_all()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+    if not (launches["flash_attention_tc"] == launches["flash_attention"]
+            == sum(shapes.values()) == want * len(prompts)):
+        raise AssertionError(f"{phase}: {launches}, {dict(shapes)}, want "
+                             f"{want} tensor-core launches a request")
+    tokens = [toks for _, toks, *_ in out]
+    if any(len(t) != new or not all(0 <= x < model.cfg.vocab_size
+                                    for x in t) for t in tokens):
+        raise AssertionError(f"{phase}: bad tokens {tokens}")
+    prefill_s = sum(o[2] for o in out)
+    decode_s = sum(o[3] for o in out)
+
+    # the profile: the first request again (the profiler stretches a run
+    # of thousands of small launches many times over), its idle share
+    # against its own unprofiled wall
+    def again():
+        with torch.inference_mode():
+            greedy_context(model, prompts[0], contexts[0], new)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again()
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+
+    line = {
+        "requests": len(prompts),
+        "prompt_lengths": [int(p.shape[1]) for p in prompts],
+        "context_tokens": int(contexts[0].shape[1]), "new_tokens": new,
+        "parity_s": parity_s, "warmup_s": warmup_s,
+        "parity": {"compute_dtype": "float32", "max_logit_diff": worst,
+                   "logit_tol": LOGIT_TOL, "tokens_identical": True,
+                   "fma_launches": fma["flash_attention"]},
+        "wall_s": wall, "prefill_s": prefill_s,
+        "prefill_tokens": sum(int(p.shape[1]) for p in prompts),
+        "prefill_ms_per_request": prefill_s / len(prompts) * 1e3,
+        "decode_s": decode_s, "decode_steps": len(prompts) * (new - 1),
+        "ms_per_decode_step": decode_s / (len(prompts) * (new - 1)) * 1e3,
+        "launches": {"flash_attention": launches["flash_attention"],
+                     "flash_attention_tc": launches["flash_attention_tc"],
+                     "by_shape": {"x".join(map(str, k)): n
+                                  for k, n in shapes.items()}},
+        "profiled_request_wall_s": one_wall,
+        **profiled_serve(again, one_wall, phase),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    return line, shapes
+
+
+def phase_serve_whisper(device, seed):
+    """Serve whisper-tiny (the encoder–decoder: a non-causal encoder over
+    1,500 stub frames, causal decoder self-attention, cross-attention with
+    Sq != Sk, all at hd 64) at its published widths and depth, its bf16
+    weights drawn on the card from ``seed`` with nonzero gates and norms,
+    through its own prefill and decode_step (serve_context).  Returns the
+    encoder's tensor-core launches at FA_CASES' whisper_encoder shape and
+    the float32 run's FMA launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("whisper-tiny"),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    rng = np.random.default_rng(seed + 27)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            size=(1, WHISPER["prompt"])),
+                               dtype=torch.long, device=device)
+               for _ in range(WHISPER["requests"])]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(seed + 27)
+    model = build_model(cfg, device=device, generator=g)
+    draw_zero_leaves(model, g)
+    frames = [torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=g,
+                          device=device) for _ in prompts]
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    want = attention_layers(cfg)   # the encoder's, and self + cross a layer
+    line, shapes = serve_context("serve_whisper", model, prompts, frames,
+                                 WHISPER["new_tokens"], want)
+    enc = next(c for c in FA_CASES if c[0] == "whisper_encoder")
+    enc_shape = enc[1] + (enc[3],)
+    encoder = shapes[enc_shape]
+    if encoder != len(prompts) * cfg.n_encoder_layers:
+        raise AssertionError(f"serve_whisper: {dict(shapes)}, want "
+                             f"{cfg.n_encoder_layers} encoder launches at "
+                             f"{enc_shape} a request")
+    emit({"phase": "serve_whisper", "config": cfg.name,
+          "layers": {"encoder": cfg.n_encoder_layers,
+                     "decoder": cfg.n_layers},
+          "params": n_params, "param_bytes": 2 * n_params,
+          "head_dim": cfg.resolved_head_dim,
+          "heads": {"q": cfg.n_heads, "kv": cfg.n_kv_heads},
+          "frames": cfg.encoder_seq, "load_s": load_s, **line,
+          "encoder_frames_per_s": len(prompts) * cfg.encoder_seq
+          / line["prefill_s"]})
+    fma = line["parity"]["fma_launches"]
+    del model
+    torch.cuda.empty_cache()
+    return {"flash_attention_whisper": encoder,
+            "flash_attention_whisper_fma": fma}
+
+
+def phase_serve_vlm(device, seed):
+    """Serve llama-3.2-vision-90b (gated cross-attention over 1,024 stub
+    vision tokens at hd 128, GQA 64 / 8) at its published widths, depth
+    VLM["layers"] (one super-block), its bf16 weights drawn on the card
+    from ``seed`` with nonzero gates and norms, through its own prefill and
+    decode_step (serve_context).  Returns the cross-attention's
+    tensor-core launches at FA_CASES' vlm_cross shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b"),
+                              n_layers=VLM["layers"], param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    rng = np.random.default_rng(seed + 28)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, n)),
+                               dtype=torch.long, device=device)
+               for n in VLM["prompts"]]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(seed + 28)
+    model = build_model(cfg, device=device, generator=g)
+    draw_zero_leaves(model, g)
+    vision = [torch.randn((1, cfg.vision_tokens, cfg.d_model), generator=g,
+                          device=device) for _ in prompts]
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    n_super = cfg.n_layers // cfg.cross_attn_every
+    line, shapes = serve_context("serve_vlm", model, prompts, vision,
+                                 VLM["new_tokens"], cfg.n_layers + n_super)
+    row = next(c for c in FA_CASES if c[0] == "vlm_cross")
+    cross = shapes[row[1] + (row[3],)]
+    if cross != n_super:
+        raise AssertionError(f"serve_vlm: {dict(shapes)}, want {n_super} "
+                             f"cross-attention launches at {row[1]}")
+    emit({"phase": "serve_vlm", "config": cfg.name, "layers": cfg.n_layers,
+          "super_blocks": n_super,
+          "layer_pattern": "a gated cross-attention sub-layer, then "
+                           f"{cfg.cross_attn_every} self layers, a block",
+          "params": n_params, "param_bytes": 2 * n_params,
+          "head_dim": cfg.resolved_head_dim,
+          "heads": {"q": cfg.n_heads, "kv": cfg.n_kv_heads},
+          "vision_tokens": cfg.vision_tokens, "load_s": load_s, **line,
+          "prefill_tokens_per_s": line["prefill_tokens"]
+          / line["prefill_s"]})
+    del model
+    torch.cuda.empty_cache()
+    return {"flash_attention_vlm_cross": cross}
+
+
 def attention_layers(cfg):
-    """The layers that run attention: every layer, but for a hybrid the
-    non-recurrent entries of its block pattern (Griffin: one in three)."""
+    """The attention calls of one forward: one a layer, but for a hybrid
+    the non-recurrent entries of its block pattern (Griffin: one in
+    three), none for an attention-free model (Mamba-2), and for an
+    encoder-decoder the encoder's layers and two a decoder layer (self and
+    cross)."""
+    if cfg.attention_free:
+        return 0
+    if cfg.encoder_decoder:
+        return cfg.n_encoder_layers + 2 * cfg.n_layers
     if not cfg.block_pattern:
         return cfg.n_layers
     pat = cfg.block_pattern
     return sum(pat[i % len(pat)] != "rec" for i in range(cfg.n_layers))
+
+
+def attention_pairs(cfg, seq):
+    """Live (query, key) pairs a head of one forward over ``seq`` tokens,
+    summed over its attention calls: causal (or windowed) self-attention
+    a layer; an encoder-decoder's encoder over its frames (no mask), and
+    a decoder layer's causal self-attention and cross-attention over
+    the frames."""
+    pairs = seq * (seq + 1) // 2 if cfg.local_window == 0 else sum(
+        min(i + 1, cfg.local_window) for i in range(seq))
+    if cfg.encoder_decoder:
+        frames = cfg.encoder_seq
+        return (cfg.n_encoder_layers * frames * frames
+                + cfg.n_layers * (pairs + seq * frames))
+    return pairs * attention_layers(cfg)
 
 
 def attention_head_dims(cfg):
@@ -2690,20 +3317,23 @@ def active_params(cfg, params):
     return n
 
 
-def train_flops(cfg, n_params, n_layer_params, batch, seq):
+def train_flops(cfg, n_params, n_layer_params, batch, seq, n_encoder=0):
     """FLOPs of one training step: the model's (6·N·tokens over the active
-    parameters ``n_params``, plus attention's 2·(hd + hdv) FLOP per live
-    pair and head forward and 2·(3·hd + 2·hdv) backward, over the
-    attention layers) and remat's recomputed layer forward
-    (2·N_layers·tokens + attention's forward)."""
+    parameters ``n_params``, an encoder's ``n_encoder`` of them over its
+    frames instead, plus attention's 2·(hd + hdv) FLOP per live pair and
+    head forward and 2·(3·hd + 2·hdv) backward, over the attention calls)
+    and remat's recomputed layer forward (2·N_layers·tokens + attention's
+    forward).  Mamba-2's SSD contractions (float32, outside the
+    parameter count) are not counted."""
     tokens = batch * seq
-    pairs = seq * (seq + 1) // 2 if cfg.local_window == 0 else sum(
-        min(i + 1, cfg.local_window) for i in range(seq))
+    frames = batch * cfg.encoder_seq if n_encoder else 0
     hd, hdv = attention_head_dims(cfg)
-    per_pair = pairs * batch * cfg.n_heads * attention_layers(cfg)
+    per_pair = attention_pairs(cfg, seq) * batch * cfg.n_heads
     fwd = 2 * (hd + hdv) * per_pair
-    model = 6 * n_params * tokens + fwd + 2 * (3 * hd + 2 * hdv) * per_pair
-    remat = (2 * n_layer_params * tokens + fwd) if cfg.remat else 0
+    model = (6 * (n_params - n_encoder) * tokens + 6 * n_encoder * frames
+             + fwd + 2 * (3 * hd + 2 * hdv) * per_pair)
+    remat = (2 * (n_layer_params - n_encoder) * tokens
+             + 2 * n_encoder * frames + fwd) if cfg.remat else 0
     return model, remat
 
 
@@ -2751,17 +3381,25 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
     batch_n, seq = spec["batch"], spec["seq"]
     t0 = time.perf_counter()
     model = build_model(cfg, device=device)
-    state = init_train_state(model, torch.Generator(device=device)
-                             .manual_seed(seed))
+    g = torch.Generator(device=device).manual_seed(seed)
+    state = init_train_state(model, g)
+    if spec.get("draw"):  # nonzero gates and norms (in place: the params)
+        draw_zero_leaves(model, g)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     params = model_params(model)
     n_params = sum(p.numel() for p in params.values())
     n_active = active_params(cfg, params)
     n_layer = n_active - model.embed["embedding"].numel() - model.ln_f.numel()
+    n_encoder = sum(p.numel() for n, p in params.items()
+                    if n.startswith("enc_"))
     steps = spec["warmup"] + spec["steps"]
+    # an encoder-decoder's stub frontend output, the same every batch
+    extra = ({spec["context"]: torch.randn(
+        (batch_n, cfg.encoder_seq, cfg.d_model), generator=g,
+        device=device)} if spec.get("context") else None)
     pipe = DataPipeline(cfg.vocab_size, batch=batch_n, seq=seq, seed=seed,
-                        device=device)
+                        extra=extra, device=device)
 
     def routing(replay=None):
         return (moe_routing(replay) if cfg.moe
@@ -2778,19 +3416,28 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
             loss_k.backward()
         loss_k = float(loss_k.detach())
         grads_k = grad_sample(model, spec["grad_sample"])
-        with plain_attention(), routing(rec) as rep:
-            loss_p = model.loss_fn(batch0)
-            loss_p.backward()
-        loss_p = float(loss_p.detach())
-        grads_p = grad_sample(model, spec["grad_sample"])
-        rel = {n: float((grads_k[n] - grads_p[n]).norm()
-                        / grads_p[n].norm().clamp(min=1e-30))
-               for n in spec["grad_sample"]}
-        del grads_k, grads_p, rec
+        finite = {n: bool(torch.isfinite(t).all()) for n, t in grads_k.items()}
+        if not np.isfinite(loss_k) or not all(finite.values()):
+            raise AssertionError(f"{phase}: loss {loss_k}, finite gradients "
+                                 f"{finite}")
+        # an attention-free model has no kernel to hold against the plain
+        # attention: its first step is held to finite values alone
+        loss_p, rel = None, {}
+        if attn:
+            with plain_attention(), routing(rec) as rep:
+                loss_p = model.loss_fn(batch0)
+                loss_p.backward()
+            loss_p = float(loss_p.detach())
+            grads_p = grad_sample(model, spec["grad_sample"])
+            rel = {n: float((grads_k[n] - grads_p[n]).norm()
+                            / grads_p[n].norm().clamp(min=1e-30))
+                   for n in spec["grad_sample"]}
+            del grads_p
+        del grads_k, rec
         parity_s = time.perf_counter() - t0
-        if (not np.isfinite(loss_k) or abs(loss_k - loss_p) >
-                TRAIN_TOL["loss_rtol"] * abs(loss_p)
-                or max(rel.values()) > TRAIN_TOL["grad_rel_l2"]):
+        if attn and (abs(loss_k - loss_p) >
+                     TRAIN_TOL["loss_rtol"] * abs(loss_p)
+                     or max(rel.values()) > TRAIN_TOL["grad_rel_l2"]):
             raise AssertionError(f"{phase} parity: loss {loss_k} vs plain "
                                  f"{loss_p}, gradient errors {rel}")
 
@@ -2824,9 +3471,10 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
     # the backward's route for the model's compute dtype and head dims:
     # the tensor cores for bf16 (where the kernels phase's route gate held)
     hd, hdv = attention_head_dims(cfg)
-    bwd_plan = fa.backward_plan(batch_n, seq, seq, cfg.n_heads,
-                                cfg.n_kv_heads, hd,
-                                getattr(torch, cfg.compute_dtype), hdv=hdv)
+    bwd_plan = (fa.backward_plan(batch_n, seq, seq, cfg.n_heads,
+                                 cfg.n_kv_heads, hd,
+                                 getattr(torch, cfg.compute_dtype), hdv=hdv)
+                if attn else {"route": None, "kernels": []})
     per = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
            "flash_attention_bwd_tc":
                attn if bwd_plan["route"] == "tc" else 0}
@@ -2845,7 +3493,7 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
     step_s = statistics.median(walls[spec["warmup"]:])
     tokens = batch_n * seq
     model_flops, remat_flops = train_flops(cfg, n_active, n_layer, batch_n,
-                                           seq)
+                                           seq, n_encoder)
     emit({
         "phase": phase, "config": cfg.name, "layers": cfg.n_layers,
         "published_layers": published, "attention_layers": attn,
@@ -2854,8 +3502,10 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
         "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
         "batch": batch_n, "seq": seq, "window": cfg.local_window,
         "init_s": init_s, "parity_s": parity_s,
+        "frames": cfg.encoder_seq if extra else None,
         "parity": {"loss": loss_k, "loss_plain": loss_p,
-                   "grad_rel_l2": rel, "tolerance": TRAIN_TOL,
+                   "grad_rel_l2": rel, "grads_finite": finite,
+                   "tolerance": TRAIN_TOL if attn else None,
                    **({"routing": "the plain pass replays the kernel "
                                   "pass's expert choices",
                        "routing_flips": rep["flips"]} if cfg.moe else {})},
@@ -3707,6 +4357,21 @@ def main() -> int:
                      f"{GRIFFIN['layers']} of "
                      f"{get_config('recurrentgemma-9b').n_layers} "
                      f"({GRIFFIN['cut_by']}); "
+                     f"serve_mamba (mamba2-2.7b): all "
+                     f"{get_config('mamba2-2.7b').n_layers} layers; "
+                     f"serve_whisper and train_whisper (whisper-tiny): full "
+                     f"depth, the conv frontend a stub (random frames, as "
+                     f"in the reference); serve_vlm (llama-3.2-vision-90b): "
+                     f"depth {VLM['layers']} of "
+                     f"{get_config('llama-3.2-vision-90b').n_layers} (one "
+                     f"super-block), the vision encoder a stub (random "
+                     f"patch embeddings, as in the reference); "
+                     f"train_mamba: depth {TRAIN_MAMBA['layers']} of "
+                     f"{get_config('mamba2-2.7b').n_layers} "
+                     f"({TRAIN_MAMBA['cut_by']}); llama-3.2-vision-90b is "
+                     f"not trained: one super-block with float32 AdamW "
+                     f"needs ~88 GB before activations, past the card's "
+                     f"80 GB; "
                      f"widths as published"})
 
     t0 = time.perf_counter()
@@ -3827,6 +4492,15 @@ def main() -> int:
                             TRAIN_MLA, "train_mla")
         trained_griffin = timed("train_griffin", phase_train, device, seed,
                                 TRAIN_GRIFFIN, "train_griffin")
+        timed("serve_mamba", phase_serve_mamba, device, seed)
+        served_whisper = timed("serve_whisper", phase_serve_whisper, device,
+                               seed)
+        served_vlm = timed("serve_vlm", phase_serve_vlm, device, seed)
+        # attention-free: phase_train holds its flash launches to 0
+        timed("train_mamba", phase_train, device, seed, TRAIN_MAMBA,
+              "train_mamba")
+        trained_whisper = timed("train_whisper", phase_train, device, seed,
+                                TRAIN_WHISPER, "train_whisper")
         shutil.rmtree(os.path.join(root, "merge"), ignore_errors=True)
         # the loop phase in a process of its own beside the store phase:
         # both are host-bound (checkpoint and snapshot I/O, hashing, zlib,
@@ -3871,6 +4545,15 @@ def main() -> int:
         TRAIN_GRIFFIN["counter"]]
     launches["flash_attention_mla"] += trained_mla["flash_attention_tc"]
     launches["flash_attention_rg"] += trained_griffin["flash_attention_tc"]
+    # whisper-tiny's encoder at (1, 1,500, 1,500, 6, 6) hd 64 and Llama-3.2-
+    # Vision's cross-attention over 1,024 vision tokens at hd 128: the
+    # serve_whisper and serve_vlm phases' bf16 launches at those shapes;
+    # whisper's backward: the train_whisper phase's tensor-core backward
+    # launches (encoder, decoder self and cross, all at hd 64)
+    launches.update(served_whisper)
+    launches.update(served_vlm)
+    launches["flash_attention_bwd_whisper"] = trained_whisper[
+        TRAIN_WHISPER["counter"]]
     keys = ("name", "kernel", "route", "source", "replaces", "launches",
             "worker_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "copy_ms")

@@ -9,7 +9,11 @@ there is no card; ``cpu`` runs the plain attention and its autograd).
 On the card the model's attention runs the Hopper flash kernels, forward
 and backward.  ``--grad-compress`` enables int8 error-feedback gradient
 compression (train/grad_compress.py).  ``--production-mesh`` and
-``--multi-pod`` (the reference's device meshes) are not ported yet.
+``--multi-pod`` (the reference's device meshes) are not ported yet.  The
+vision and audio families exit with an error: their loss needs context
+embeddings (``vision_embeds`` / ``audio_embeds``) that the synthetic
+data pipeline does not make, in the reference's launcher as here; train
+them through ``make_train_step`` with those in the batch.
 """
 from __future__ import annotations
 
@@ -27,6 +31,9 @@ from repro_torch.train.data import DataPipeline
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_loop import TrainLoop
 from repro_torch.train.train_state import init_train_state, make_train_step
+
+# the families whose loss reads context embeddings from the batch
+_NEEDS_CONTEXT = {"vlm": "vision_embeds", "audio": "audio_embeds"}
 
 
 def main(argv=None) -> None:
@@ -56,8 +63,13 @@ def main(argv=None) -> None:
     if args.production_mesh or args.multi_pod:
         raise SystemExit("--production-mesh / --multi-pod: the device-mesh "
                          "layer is not ported yet")
-    device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family in _NEEDS_CONTEXT:
+        raise SystemExit(f"{args.arch}: the {cfg.family} family's loss needs "
+                         f"{_NEEDS_CONTEXT[cfg.family]} in every batch, and "
+                         f"the launcher's data pipeline supplies no context "
+                         f"embeddings")
+    device = resolve_device(args.device)
     model = build_model(cfg, device=device)
 
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),

@@ -8,8 +8,10 @@ it runs the plain chunked version.  :func:`decode_attention` is plain
 torch, as the reference computes it outside any kernel.  GQA never
 repeats KV: queries are reshaped to (B, S, Hkv, g, hd).  MLA caches the
 compressed latent and expands it to per-head k (qk head dim nope + rope)
-and v (v head dim) with :func:`mla_expand_kv`.  Cross-attention is not
-ported yet.
+and v (v head dim) with :func:`mla_expand_kv`.  Cross-attention (the
+encoder–decoder's and the vision model's gated layers) attends from the
+decoder stream over a context with no mask and no RoPE, through
+:func:`flash_attention` with ``causal=False`` (Sq ≠ Sk).
 """
 from __future__ import annotations
 
@@ -150,3 +152,33 @@ def mla_expand_kv(
     k_rope_b = k_rope[:, :, None, :].expand(*k_nope.shape[:2], h,
                                             k_rope.shape[-1])
     return torch.cat([k_nope, k_rope_b], dim=-1), v
+
+
+# ------------------------------------------------------------- cross-attn
+def init_cross_attention(cfg: ModelConfig, n_layers: int, generator, device,
+                         dtype) -> dict:
+    """Cross-attention (VLM image layers / enc-dec): q from the decoder
+    stream, k / v from frozen context states (vision embeddings / encoder
+    output), and a tanh-gated residual (zeros at init, llama-vision)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    return {
+        "wq": dense_init((n_layers, d, nq, hd), generator, device, dtype, 1),
+        "wk": dense_init((n_layers, d, nkv, hd), generator, device, dtype, 1),
+        "wv": dense_init((n_layers, d, nkv, hd), generator, device, dtype, 1),
+        "wo": dense_init((n_layers, nq, hd, d), generator, device, dtype, 2),
+        "gate": torch.zeros((n_layers,), dtype=dtype, device=device),
+    }
+
+
+def cross_attention(
+    pl: Mapping[str, torch.Tensor], x: torch.Tensor, context: torch.Tensor,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """x (B, S, D) attends over context (B, Sc, D); no mask, no rope."""
+    q = torch.einsum("bsd,dhk->bshk", x, pl["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", context, pl["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", context, pl["wv"].to(x.dtype))
+    out = flash_attention(q, k, v, causal=False)
+    out = torch.einsum("bshk,hkd->bsd", out, pl["wo"].to(x.dtype))
+    return torch.tanh(pl["gate"]).to(x.dtype) * out

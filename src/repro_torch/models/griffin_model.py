@@ -33,7 +33,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -43,24 +42,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import rglru
 
 
-def _unbind(tree: Dict[str, torch.Tensor], n: int):
-    """``n`` dicts of views, one per entry of each tensor's leading axis,
-    from one ``unbind`` a tensor (autograd stacks the gradients once)."""
-    parts = {k: v.unbind(0) for k, v in tree.items()}
-    return [{k: t[i] for k, t in parts.items()} for i in range(n)]
-
-
-class GriffinLM(nn.Module):
+class GriffinLM(L.StackedLM):
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
         self.n_super = cfg.n_layers // 3
         self.n_rest = cfg.n_layers % 3  # trailing recurrent layers
-        tree = self._draw(resolve_device(device), generator)
-        for name, node in tree.items():
-            setattr(self, name, nn.ParameterDict(node) if isinstance(
-                node, dict) else nn.Parameter(node))
+        self._hold(self._draw(resolve_device(device), generator))
 
     # ------------------------------------------------------------- params
     def _draw(self, device, generator) -> Dict:
@@ -89,27 +78,13 @@ class GriffinLM(nn.Module):
             tree["rest_ln_c"] = torch.zeros((nr, d), dtype=pd, device=device)
         return tree
 
-    @torch.no_grad()
-    def init(self, generator: Optional[torch.Generator] = None) -> "GriffinLM":
-        """Redraw every parameter from ``generator``, in place."""
-        tree = self._draw(self.device, generator)
-        for name, p in self.named_parameters():
-            node = tree
-            for part in name.split("."):
-                node = node[part]
-            p.copy_(node)
-        return self
-
-    @property
-    def device(self) -> torch.device:
-        return self.ln_f.device
-
     def _supers(self):
         """Each super-block's parameters: (rec, attn, mlp, ln_t, ln_c),
         rec / mlp / ln_* still stacked over the block's 2 / 3 layers."""
         ns = self.n_super
-        return list(zip(_unbind(self.rec, ns), _unbind(self.attn, ns),
-                        _unbind(self.mlp, ns), self.ln_t.unbind(0),
+        return list(zip(L.unbind_stack(self.rec, ns),
+                        L.unbind_stack(self.attn, ns),
+                        L.unbind_stack(self.mlp, ns), self.ln_t.unbind(0),
                         self.ln_c.unbind(0)))
 
     def _rests(self):
@@ -117,11 +92,9 @@ class GriffinLM(nn.Module):
         nr = self.n_rest
         if not nr:
             return []
-        return list(zip(_unbind(self.rest_rec, nr), _unbind(self.rest_mlp, nr),
+        return list(zip(L.unbind_stack(self.rest_rec, nr),
+                        L.unbind_stack(self.rest_mlp, nr),
                         self.rest_ln_t.unbind(0), self.rest_ln_c.unbind(0)))
-
-    def _compute_dtype(self) -> torch.dtype:
-        return L.torch_dtype(self.cfg.compute_dtype)
 
     # ------------------------------------------------------------ forward
     def _rec_layer(self, pl_rec, ln_t, ln_c, pl_mlp, x):
@@ -201,13 +174,6 @@ class GriffinLM(nn.Module):
         if self.n_rest:
             axes.update(rest_h=1, rest_conv=1)
         return axes
-
-    def init_cache(self, batch: int, max_len: int) -> Dict:
-        cache = {name: torch.zeros(shape, dtype=dt, device=self.device)
-                 for name, (shape, dt) in self.cache_specs(batch, max_len).items()
-                 if name != "len"}
-        cache["len"] = 0
-        return cache
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor,

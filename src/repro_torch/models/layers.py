@@ -7,21 +7,32 @@ layer-stacked tensors carry a leading layer axis, matrices are
 weights use the ``1 + w`` convention (zeros at init).  Init draws from an
 explicit ``torch.Generator``; its numbers differ from ``jax.random``'s,
 so tests carry weights across instead of re-drawing them.
+:class:`StackedLM` is what every family's model shares (its parameters
+held and redrawn from the family's tree, its device, its zero-filled
+decode cache), :func:`unbind_stack` its per-layer views.
 """
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16}
+          "float16": torch.float16, "float64": torch.float64}
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or wider where it is wider (float64: a check's
+    reference precision): the reference's float32 islands (norm
+    statistics, the SSD) widen bf16 and float16 and never narrow."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 # ------------------------------------------------------------------- init
@@ -59,10 +70,10 @@ def init_embed(vocab: int, d_model: int, generator, device, dtype) -> dict:
 
 # ------------------------------------------------------------------- norms
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = at_least_f32(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * (1.0 + w.float())).to(x.dtype)
+    return (out * (1.0 + w.to(xf.dtype))).to(x.dtype)
 
 
 def head_rmsnorm(x: torch.Tensor, w: torch.Tensor,
@@ -123,3 +134,53 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()
+
+
+# ------------------------------------------------------------ model base
+def unbind_stack(tree: Mapping[str, torch.Tensor],
+                 n: int) -> List[Dict[str, torch.Tensor]]:
+    """``n`` dicts of views, one per entry of each tensor's leading axis,
+    from one ``unbind`` a tensor: autograd stacks the entries' gradients
+    once, where indexing ``v[i]`` per entry would add a full-size,
+    zero-filled gradient per entry (n² traffic)."""
+    parts = {k: v.unbind(0) for k, v in tree.items()}
+    return [{k: t[i] for k, t in parts.items()} for i in range(n)]
+
+
+class StackedLM(nn.Module):
+    """What every family's model shares: its parameters are the tree
+    ``self._draw(device, generator)`` returns (the reference's parameter
+    tree: a dict node becomes an ``nn.ParameterDict``, a tensor an
+    ``nn.Parameter``, under the tree's names, so the ``/``-joined flat
+    names are the JAX ``flatten_tree`` names), redrawn in place by
+    :meth:`init`; its decode cache is ``cache_specs`` zero-filled."""
+
+    def _hold(self, tree: Dict) -> None:
+        for name, node in tree.items():
+            setattr(self, name, nn.ParameterDict(node) if isinstance(
+                node, dict) else nn.Parameter(node))
+
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator] = None):
+        """Redraw every parameter from ``generator``, in place."""
+        tree = self._draw(self.device, generator)
+        for name, p in self.named_parameters():
+            node = tree
+            for part in name.split("."):
+                node = node[part]
+            p.copy_(node)
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.ln_f.device
+
+    def _compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.cfg.compute_dtype)
+
+    def init_cache(self, batch: int, max_len: int) -> Dict:
+        specs = self.cache_specs(batch, max_len)
+        cache = {name: torch.zeros(shape, dtype=dt, device=self.device)
+                 for name, (shape, dt) in specs.items() if name != "len"}
+        cache["len"] = 0
+        return cache

@@ -2,10 +2,12 @@
 
 ``build_model(cfg, device="cuda")`` returns the family implementation on
 ``device`` (a card that is not there raises; ``device="cpu"`` for the
-tests).  The dense and MoE families (the MoE family's DeepSeek-V2-Lite
+tests): the dense and MoE families (the MoE family's DeepSeek-V2-Lite
 with MLA attention) run ``DecoderLM``, the hybrid family (Griffin /
-RecurrentGemma: RG-LRU and local attention) ``GriffinLM``; the others
-raise.
+RecurrentGemma: RG-LRU and local attention) ``GriffinLM``, the SSM
+family (Mamba-2's SSD) ``Mamba2LM``, the audio family (Whisper's
+encoder–decoder) ``EncDecLM`` and the vision family (Llama-3.2-Vision's
+gated cross-attention) ``VisionLM``.
 ``load_flat`` / ``from_jax_flat`` fill a model from
 ``flatten_tree(params)`` of the JAX package, or from a merged snapshot
 of such a tree (the same names): numpy arrays, bf16 as the store's
@@ -23,26 +25,25 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.griffin_model import GriffinLM
+from repro_torch.models.mamba_model import Mamba2LM
 from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.vlm import VisionLM
 from repro_torch.store.checkpoint import copy_into, pick, to_tensor
 from repro_torch.train.grad_compress import init_error_feedback
 from repro_torch.train.optimizer import init_opt_state
 from repro_torch.train.train_state import TrainState, model_params
 
-_NOT_PORTED = ("ssm", "vlm", "audio")
+_FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "hybrid": GriffinLM,
+             "ssm": Mamba2LM, "audio": EncDecLM, "vlm": VisionLM}
 
 
 def build_model(cfg: ModelConfig, device="cuda",
                 generator: Optional[torch.Generator] = None) -> torch.nn.Module:
-    if cfg.family in ("dense", "moe"):
-        return DecoderLM(cfg, device=device, generator=generator)
-    if cfg.family == "hybrid":
-        return GriffinLM(cfg, device=device, generator=generator)
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet")
-    raise KeyError(f"unknown family {cfg.family!r}")
+    if cfg.family not in _FAMILIES:
+        raise KeyError(f"unknown family {cfg.family!r}")
+    return _FAMILIES[cfg.family](cfg, device=device, generator=generator)
 
 
 @torch.no_grad()

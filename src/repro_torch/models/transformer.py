@@ -36,7 +36,6 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -46,18 +45,12 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 
 
-class DecoderLM(nn.Module):
+class DecoderLM(L.StackedLM):
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
-        tree = self._draw(resolve_device(device), generator)
-        self.embed = nn.ParameterDict(tree["embed"])
-        self.attn = nn.ParameterDict(tree["attn"])
-        self.ffn = nn.ParameterDict(tree["ffn"])
-        self.ln1 = nn.Parameter(tree["ln1"])
-        self.ln2 = nn.Parameter(tree["ln2"])
-        self.ln_f = nn.Parameter(tree["ln_f"])
+        self._hold(self._draw(resolve_device(device), generator))
 
     # ------------------------------------------------------------- params
     def _draw(self, device, generator) -> Dict:
@@ -76,32 +69,13 @@ class DecoderLM(nn.Module):
             "ln_f": torch.zeros((d,), dtype=pd, device=device),
         }
 
-    @torch.no_grad()
-    def init(self, generator: Optional[torch.Generator] = None) -> "DecoderLM":
-        """Redraw every parameter from ``generator``, in place."""
-        tree = self._draw(self.device, generator)
-        for name, p in self.named_parameters():
-            node = tree
-            for part in name.split("."):
-                node = node[part]
-            p.copy_(node)
-        return self
-
-    @property
-    def device(self) -> torch.device:
-        return self.ln_f.device
-
     def _layers(self):
-        """Each layer's (attn, ffn, ln1, ln2) parameters, as views from one
-        ``unbind`` per layer-stacked tensor: autograd stacks the layers'
-        gradients once, where indexing ``v[i]`` per layer would add a
-        full-size, zero-filled gradient per layer (L² traffic)."""
-        attn_l = {k: v.unbind(0) for k, v in self.attn.items()}
-        ffn_l = {k: v.unbind(0) for k, v in self.ffn.items()}
-        ln1, ln2 = self.ln1.unbind(0), self.ln2.unbind(0)
-        return [({k: t[i] for k, t in attn_l.items()},
-                 {k: t[i] for k, t in ffn_l.items()}, ln1[i], ln2[i])
-                for i in range(self.cfg.n_layers)]
+        """Each layer's (attn, ffn, ln1, ln2) parameters, as views
+        (:func:`layers.unbind_stack`)."""
+        n = self.cfg.n_layers
+        return list(zip(L.unbind_stack(self.attn, n),
+                        L.unbind_stack(self.ffn, n), self.ln1.unbind(0),
+                        self.ln2.unbind(0)))
 
     # ------------------------------------------------------------ forward
     def _ffn(self, pf, h):
@@ -133,8 +107,7 @@ class DecoderLM(nn.Module):
         return self._block(layer, x, positions, skip_masked_chunks=False)[0]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return L.embed_tokens(self.embed, tokens,
-                              L.torch_dtype(self.cfg.compute_dtype))
+        return L.embed_tokens(self.embed, tokens, self._compute_dtype())
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V)."""
@@ -167,7 +140,7 @@ class DecoderLM(nn.Module):
     def cache_specs(self, batch: int, max_len: int) -> Dict:
         """name -> (shape, dtype) of the decode cache."""
         cfg = self.cfg
-        cd = L.torch_dtype(cfg.compute_dtype)
+        cd = self._compute_dtype()
         if cfg.mla:
             lead = (cfg.n_layers, batch, max_len)
             return {"ckv": (lead + (cfg.kv_lora_rank,), cd),
@@ -176,13 +149,6 @@ class DecoderLM(nn.Module):
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         return {"k": (shape, cd), "v": (shape, cd), "len": ((), torch.int32)}
-
-    def init_cache(self, batch: int, max_len: int) -> Dict:
-        cache = {name: torch.zeros(shape, dtype=dt, device=self.device)
-                 for name, (shape, dt) in self.cache_specs(batch, max_len).items()
-                 if name != "len"}
-        cache["len"] = 0
-        return cache
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:

@@ -147,14 +147,16 @@ class BlockReaderMixin:
                 payload += ranges[ri].nbytes
                 ri += 1
             waste = max(0, nbytes - payload)
-            # pass waste only when present: gap=0 keeps the historical
-            # 4-arg call shape (tests/benches wrap read_range to emulate
-            # storage profiles and must see an unchanged surface)
+            # pass waste (and the selected ranges it lies between) only
+            # when present: gap=0 keeps the historical 4-arg call shape
+            # (tests/benches wrap read_range to emulate storage profiles
+            # and must see an unchanged surface)
             data = (
                 self.read_range(tensor_id, offset, nbytes, category)
                 if waste == 0
                 else self.read_range(
-                    tensor_id, offset, nbytes, category, waste_nbytes=waste
+                    tensor_id, offset, nbytes, category, waste_nbytes=waste,
+                    selected=[(r.offset, r.nbytes) for r in run_ranges],
                 )
             )
             v = self.verifier
@@ -226,6 +228,7 @@ class ModelReader(BlockReaderMixin):
         nbytes: int,
         category: str,
         waste_nbytes: int = 0,
+        selected: Optional[Sequence[Tuple[int, int]]] = None,
     ) -> bytes:
         """Positional read — safe under arbitrary thread concurrency
         (``pread`` never moves a shared file offset).
@@ -234,7 +237,9 @@ class ModelReader(BlockReaderMixin):
         requested (gap-tolerant coalescing reads them to save a round
         trip); they are tagged ``other`` instead of ``category`` so
         budget categories count payload bytes only while total physical
-        volume stays fully accounted.
+        volume stays fully accounted.  ``selected`` names the requested
+        ``(offset, nbytes)`` ranges around that waste; one file is one
+        tier, so this reader needs only their total.
         """
         fd = self._fd(tensor_id)
         chunks = []

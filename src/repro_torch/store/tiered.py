@@ -41,7 +41,7 @@ import json
 import os
 import re
 import threading
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core import blocks as blk
 from repro_torch.store.iostats import IOStats
@@ -775,8 +775,20 @@ class TieredReader(BlockReaderMixin):
         nbytes: int,
         category: str,
         waste_nbytes: int = 0,
+        selected: Optional[Sequence[Tuple[int, int]]] = None,
     ) -> bytes:
+        """Read ``[offset, offset+nbytes)`` from the disk tier where it
+        holds the bytes, else from remote, and bill each byte to the tier
+        that served it.  ``waste_nbytes`` of the range were not requested
+        (a coalesced run's gaps); ``selected`` names the requested
+        ``(offset, nbytes)`` ranges, so a run the disk tier covers in part
+        bills each piece for the requested bytes inside it."""
         payload = nbytes - waste_nbytes
+        if selected is None:
+            if waste_nbytes:
+                raise ValueError("read_range: waste_nbytes needs the "
+                                 "selected ranges around it")
+            selected = [(offset, nbytes)]
         if self.disk is None:
             data = self._fetch_remote(tensor_id, offset, nbytes)()
             self._record(category, "remote", payload, waste_nbytes)
@@ -806,7 +818,7 @@ class TieredReader(BlockReaderMixin):
             pieces = self.disk.pieces(ckey, offset, nbytes)
             if len(pieces) > 1:
                 return self._read_pieces(
-                    tensor_id, ckey, pieces, category, waste_nbytes, snap
+                    tensor_id, ckey, pieces, category, selected, snap
                 )
         return self._miss(tensor_id, ckey, offset, nbytes, category,
                           waste_nbytes, snap, corrupt_dropped)
@@ -817,7 +829,7 @@ class TieredReader(BlockReaderMixin):
         ckey: str,
         pieces: List[Tuple[int, int, bool]],
         category: str,
-        waste_nbytes: int,
+        selected: Sequence[Tuple[int, int]],
         snap: List[Tuple[int, int]],
     ) -> bytes:
         """A range the disk tier covers in part (a coalesced run of warm
@@ -828,17 +840,12 @@ class TieredReader(BlockReaderMixin):
         weight, and the reference fetches such a run whole from remote,
         so its realized remote bytes can pass the plan.
 
-        The run's unrequested gap bytes (``waste_nbytes``) are charged to
-        its uncovered pieces first: a gap is unselected blocks, and a
-        tier-billed plan leaves cold blocks out before warm ones, so the
-        remote payload stays within the cold bytes the plan selected."""
-        left = waste_nbytes
-        waste = [0] * len(pieces)
-        for want_covered in (False, True):
-            for i, (_o, n, covered) in enumerate(pieces):
-                if covered == want_covered:
-                    waste[i] = min(left, n)
-                    left -= waste[i]
+        Each piece bills its tier for the ``selected`` bytes inside it;
+        the rest of the piece (the run's unrequested gap bytes that lie
+        there) is waste, tagged ``other``, whichever tier the gap is in."""
+        waste = [n - sum(max(0, min(o + n, so + sn) - max(o, so))
+                         for so, sn in selected)
+                 for o, n, _covered in pieces]
         v = self.verifier
         parts = []
         for (o, n, covered), w in zip(pieces, waste):

@@ -1,8 +1,10 @@
 """The port's model stack against the JAX package on the CPU: configs,
 parameter names and shapes, forward / prefill / decode_step on weights
 carried across (the dense family, grok-1's MoE and DeepSeek-V2-Lite's
-MLA + MoE), the flat checkpoint helpers, and the families that are not
-ported yet (the hybrid family: tests/test_torch_griffin.py)."""
+MLA + MoE), the flat checkpoint helpers, and every family building on
+the CPU (the hybrid family: tests/test_torch_griffin.py; the SSM, audio
+and vision families: tests/test_torch_ssm.py, test_torch_encdec.py and
+test_torch_vlm.py)."""
 import dataclasses
 
 import numpy as np
@@ -189,8 +191,12 @@ def test_checkpoint_round_trip_and_errors():
         load_flat(model, dict(mflat, ln_f=np.zeros(3, np.float32)))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "llama-3.2-vision-90b",
-                                  "whisper-tiny"])
-def test_other_families_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(get_smoke_config(arch), device="cpu")
+@pytest.mark.parametrize("arch", jax_arch_ids())
+def test_build_model_builds_every_family(arch):
+    """Every architecture of the configs builds on the CPU, its flat
+    names and shapes those of the JAX package's parameter tree."""
+    _, params = _jax_model(arch)
+    model = build_model(get_smoke_config(arch), device="cpu")
+    assert model.device == torch.device("cpu")
+    want = {k: v.shape for k, v in jax_flatten_tree(params).items()}
+    assert {k: v.shape for k, v in flatten_tree(model).items()} == want

@@ -278,6 +278,46 @@ def test_tier_billing_whole_tiers_match_reference(tmp_path, tier):
     assert_same_arrays(out["jax"][4], out["port"][4])
 
 
+@pytest.mark.parametrize("warm,gap_tier", [((1, 2), "warm"),
+                                            ((0,), "cold")])
+def test_coalesced_gap_bills_each_piece_its_selected_bytes(tmp_path, warm,
+                                                          gap_tier):
+    """A coalesced run over blocks 0 and 2 of ``emb`` bridges block 1 (its
+    gap) and is read piece by piece over a partly warm disk tier: each
+    piece bills its tier for exactly the selected bytes inside it, and
+    the gap's bytes go to ``other`` whichever tier holds it.  With the
+    gap in a warm piece, remote is billed for the cold selected block
+    (charging the gap to the cold piece first would bill remote 0); with
+    the gap in a cold piece, disk is billed for the warm selected block
+    and remote for the cold one."""
+    sess, ids = _pair_session(tmp_path, "port", "float32", remote=True,
+                              profile={"latency_s": 0.0})
+    sess.evict_disk_cache(0)
+    sess = _reopen(sess, "port")
+    reader = sess.snapshots.models.open_model(ids[0])
+    assert isinstance(reader, TieredReader)
+    for i in warm:                          # fill the disk tier's extents
+        reader.read_block("emb", i, BS, "expert")
+    ckey = reader._content_key("emb")
+    pieces = reader.disk.pieces(ckey, 0, 3 * BS)
+    gap = [c for o, n, c in pieces if o <= BS and BS + BS <= o + n]
+    assert gap == [gap_tier == "warm"] and len(pieces) == 2
+    cats = ("expert_remote", "expert_disk", "other")
+    before = {c: reader.stats.bytes_read(c) for c in cats}
+    got = reader.read_blocks_coalesced("emb", [0, 2], BS, "expert",
+                                       gap_bytes=BS)
+    moved = {c: reader.stats.bytes_read(c) - before[c] for c in cats}
+    cold_selected = sum(i not in warm for i in (0, 2)) * BS
+    assert moved == {"expert_remote": cold_selected,
+                     "expert_disk": 2 * BS - cold_selected, "other": BS}
+    _, experts = _pair_fleet()
+    flat = experts[0]["emb"].reshape(-1)
+    w = BS // 4
+    for i in (0, 2):
+        np.testing.assert_array_equal(got[i], flat[i * w:(i + 1) * w])
+    sess.close()
+
+
 def test_late_filler_reads_the_cache_instead_of_fetching(tmp_path):
     """A caller that reaches ``fill`` after an earlier filler published
     the extent and left the in-flight table is served from the cache:

@@ -457,10 +457,11 @@ def test_launch_train_trains_checkpoints_and_resumes(tmp_path, capsys):
     _train_checkpoint_resume(tmp_path, capsys, "qwen2-1.5b")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "recurrentgemma-9b",
+                                  "mamba2-2.7b"])
 def test_launch_train_trains_mla_and_hybrid_families(tmp_path, capsys, arch):
-    """DeepSeek-V2-Lite (MLA + MoE) and RecurrentGemma-9B through the
-    launcher as the dense family goes."""
+    """DeepSeek-V2-Lite (MLA + MoE), RecurrentGemma-9B and Mamba-2 (SSD)
+    through the launcher as the dense family goes."""
     _train_checkpoint_resume(tmp_path, capsys, arch)
 
 
@@ -478,7 +479,13 @@ def test_launch_train_defaults_to_the_card(tmp_path):
              str(tmp_path / "ws")]))
 
 
-def test_launch_train_refuses_other_families(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_cli.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu",
+@pytest.mark.parametrize("arch,embeds", [
+    ("llama-3.2-vision-90b", "vision_embeds"),
+    ("whisper-tiny", "audio_embeds")])
+def test_launch_train_refuses_other_families(tmp_path, arch, embeds):
+    """The vision and audio families need context embeddings in every
+    batch, which the launcher's data pipeline (as the reference's) does
+    not make: one clear error, before any model is built."""
+    with pytest.raises(SystemExit, match=f"needs {embeds} in every batch"):
+        train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
                         "--workspace", str(tmp_path / "ws")])
