@@ -285,6 +285,24 @@ Phases, one JSON line each:
            in its profile, each TIES launch on ties_route's route, wall,
            bytes, device busy time and idle share
 
+  mesh     training under launch/train.py's path on the (1, 1) mesh
+           (MESH: Qwen2-1.5B at 4 of 28 layers, 4 x 1,024 tokens, 3
+           steps; DeepSeek-V2-Lite at 2 of 27, 2 x 2,048, 2 steps;
+           published widths, float32 params, bf16 compute, remat): each
+           model meshless, then through ``build_on_mesh`` under
+           ``make_debug_mesh()`` and ``train_rules`` (DTensor parameters,
+           moments and batches; the flash kernels and the MoE's routing
+           through ``local_map``), from the same seed's weights and
+           batches: losses bit-equal (Qwen2) or within TRAIN_TOL's
+           loss_rtol (DeepSeek), the same non-zero tensor-core flash
+           forward and backward launches both ways, step ms both ways,
+           and the card's peak memory against the dry-run's accounting
+           of the same step on the same mesh (not below it by more than
+           MESH_MEMORY_SLACK)
+  dryrun   python -m repro_torch.launch.dryrun, host only, in processes
+           of its own beside every card phase: DRYRUN's archs x every
+           shape x both production meshes; every applicable cell ok
+
 The loop phase runs in a spawned process of its own beside the store
 phase (both host-bound, on workspaces of their own; the kernel timing,
 serve and train phases run before them, alone on the card), so their
@@ -616,6 +634,30 @@ STORE_IO = ("base_read", "expert_read", "expert_packed_read",
 # merge, service and inline paths)
 SHARDS = {"workers": 2, "crash_at": 0.5, "whole_shard": ("ties",),
           "pipelined": ("ties", "dare")}
+# the mesh phase: launch/train.py's path under the (1, 1) mesh over the
+# card (DTensor parameters, moments and batches under train_rules, the
+# kernels on each rank's shard through local_map) against the same steps
+# meshless, from the same seed's weights and batches; published widths
+# and configs (float32 params, bf16 compute, remat), depth cut.  Qwen2's
+# losses must be bit-equal (no atomics on its path; deterministic cuBLAS,
+# as the loop phase has it); DeepSeek's within TRAIN_TOL's loss_rtol
+# (its MoE dispatch adds rows with index_add_'s atomics, and autograd
+# sums a tensor's gradients in another order around local_map)
+MESH = ({"config": "qwen2-1.5b", "layers": 4, "batch": 4, "seq": 1024,
+         "steps": 3, "lr": 3e-4, "exact": True,
+         "counters": {"flash_attention": "flash_attention",
+                      "flash_attention_bwd": "flash_attention_bwd",
+                      "flash_attention_bwd_tc": "flash_attention_bwd_tc"}},
+        {"config": "deepseek-v2-lite-16b", "layers": 2, "batch": 2,
+         "seq": 2048, "steps": 2, "lr": 3e-4, "exact": False,
+         "counters": {"flash_attention_tc": "flash_attention_mla",
+                      "flash_attention_bwd_tc": "flash_attention_bwd_mla"}})
+# the predicted peak may fall below the card's by this share at most
+MESH_MEMORY_SLACK = 0.10
+# the dryrun phase: python -m repro_torch.launch.dryrun in processes of
+# its own (no card: CUDA_VISIBLE_DEVICES empty), each of these archs x
+# every shape x both production meshes, beside the card's phases
+DRYRUN = {"archs": ("qwen2-1.5b", "deepseek-v2-lite-16b"), "timeout_s": 900}
 # the linear kernel's whole-shard launch with a per-row divisor: about
 # the rows a shard stacks at a merge depth of 4 (6,418 blocks of the
 # 4-layer model over 2 workers), K = 4, 128 KiB bf16 blocks as float32
@@ -3533,6 +3575,213 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
     return launches
 
 
+def phase_mesh(device, seed):
+    """Train MESH's configs twice each, meshless (as phase_train does) and
+    through launch/train.py's ``build_on_mesh`` under ``make_debug_mesh()``
+    (the (1, 1) mesh over the card, in a one-rank NCCL group) and
+    ``train_rules``, from the same seed's weights and the same batches:
+    equal losses (bit-equal where MESH says so, else within TRAIN_TOL's
+    loss_rtol), equal and non-zero tensor-core flash forward and backward
+    launches (nothing falls back to the plain attention under DTensor),
+    step ms both ways, and the card's peak memory beside the dry-run's
+    accounting of the same step on the same mesh (meta tensors).
+    Returns the mesh runs' launches under the kernels line's counters."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ensure_process_group, make_debug_mesh
+    from repro_torch.launch.train import build_on_mesh
+    from repro_torch.models import build_model, shardctx
+    from repro_torch.train.data import DataPipeline
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+
+    counted = collections.Counter()
+    opened = ensure_process_group("cuda")
+    try:
+        mesh = make_debug_mesh(device_type="cuda")
+        rules = shardctx.train_rules(False)
+        for spec in MESH:
+            cfg = dataclasses.replace(get_config(spec["config"]),
+                                      n_layers=spec["layers"])
+            opt = AdamWConfig(lr=spec["lr"], warmup_steps=1,
+                              total_steps=spec["steps"])
+            runs = {}
+            for way in ("meshless", "mesh"):
+                t0 = time.perf_counter()
+                scope = (shardctx.use_mesh(mesh, rules) if way == "mesh"
+                         else contextlib.nullcontext())
+                with scope:
+                    if way == "mesh":
+                        model, step_fn, state = build_on_mesh(
+                            cfg, device, mesh, rules, opt, seed)
+                    else:
+                        model = build_model(cfg, device=device)
+                        state = init_train_state(model, torch.Generator(
+                            device=device).manual_seed(seed))
+                        step_fn = make_train_step(model, opt)
+                    torch.cuda.synchronize()
+                    init_s = time.perf_counter() - t0
+                    pipe = DataPipeline(cfg.vocab_size, batch=spec["batch"],
+                                        seq=spec["seq"], seed=seed,
+                                        device=device)
+                    # the main path: the launch counts start at 0 here
+                    fa.reset_launches()
+                    torch.cuda.reset_peak_memory_stats(device)
+                    walls, losses = [], []
+                    try:
+                        for _ in range(spec["steps"]):
+                            batch = next(pipe)
+                            torch.cuda.synchronize()
+                            t = time.perf_counter()
+                            state, metrics = step_fn(state, batch)
+                            torch.cuda.synchronize()
+                            walls.append(time.perf_counter() - t)
+                            losses.append(float(metrics["loss"]))
+                    finally:
+                        pipe.close()
+                    runs[way] = {
+                        "init_s": init_s, "step_walls_s": walls,
+                        "median_step_ms": 1e3 * statistics.median(
+                            walls[1:]),
+                        "losses": losses, "launches": dict(fa.LAUNCHES),
+                        "peak_memory_bytes":
+                            torch.cuda.max_memory_allocated(device),
+                        "batch": type(batch["tokens"]).__name__,
+                        "params": type(next(model.parameters())).__name__,
+                    }
+                    del model, state, step_fn, batch, metrics
+                    torch.cuda.empty_cache()
+            a, b = runs["meshless"], runs["mesh"]
+            if (b["batch"], b["params"]) != ("DTensor", "DTensor") or (
+                    a["batch"], a["params"]) != ("Tensor", "Parameter"):
+                raise AssertionError(f"mesh: {spec['config']} ran "
+                                     f"meshless {a['batch']} / {a['params']}"
+                                     f", meshed {b['batch']} / "
+                                     f"{b['params']}")
+            if spec["exact"]:
+                equal = a["losses"] == b["losses"]
+            else:
+                equal = all(abs(x - y) <= TRAIN_TOL["loss_rtol"] * abs(x)
+                            for x, y in zip(a["losses"], b["losses"]))
+            if not equal or not all(np.isfinite(a["losses"])):
+                raise AssertionError(f"mesh: {spec['config']} losses "
+                                     f"{b['losses']} under the mesh, "
+                                     f"{a['losses']} meshless")
+            for name in ("flash_attention_tc", "flash_attention_bwd_tc"):
+                if not a["launches"][name] == b["launches"][name] > 0:
+                    raise AssertionError(
+                        f"mesh: {spec['config']} {name} launches "
+                        f"{b['launches'][name]} under the mesh, "
+                        f"{a['launches'][name]} meshless")
+            t0 = time.perf_counter()
+            predicted = dryrun.train_memory(cfg, spec["batch"], spec["seq"],
+                                            mesh, rules)
+            predict_s = time.perf_counter() - t0
+            if predicted["peak_bytes"] < (1 - MESH_MEMORY_SLACK) * b[
+                    "peak_memory_bytes"]:
+                raise AssertionError(f"mesh: {spec['config']} predicted "
+                                     f"{predicted} under the card's peak "
+                                     f"{b['peak_memory_bytes']}")
+            for name, counter in spec["counters"].items():
+                counted[counter] += b["launches"][name]
+            emit({"phase": "mesh", "config": cfg.name, "layers": cfg.n_layers,
+                  "published_layers": get_config(spec["config"]).n_layers,
+                  "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                  "rules": "train_rules", "batch": spec["batch"],
+                  "seq": spec["seq"], "steps": spec["steps"],
+                  "losses": "bit-equal" if spec["exact"]
+                            else f"within loss_rtol {TRAIN_TOL['loss_rtol']}",
+                  "meshless": a, "mesh_run": b,
+                  "step_ms_ratio": b["median_step_ms"] / a["median_step_ms"],
+                  "predicted_memory": predicted,
+                  "predicted_over_measured": predicted["peak_bytes"]
+                  / b["peak_memory_bytes"], "predict_s": predict_s})
+    finally:
+        if opened:
+            dist.destroy_process_group()
+    return dict(counted)
+
+
+def start_dryrun(out_dir):
+    """Start the dryrun phase: one ``python -m repro_torch.launch.dryrun
+    --both-meshes`` process at a time for each DRYRUN arch x shape, on the
+    host only, in a thread; returns (future, stop) — stop() kills a
+    running process."""
+    from repro_torch.models import SHAPES
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+
+    def run():
+        t0 = time.perf_counter()
+        records = []
+        for arch in DRYRUN["archs"]:
+            for shape in SHAPES:
+                out = os.path.join(out_dir, f"{arch}.{shape}.jsonl")
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--both-meshes",
+                     "--out", out], cwd=HERE, env=env,
+                    stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                    text=True)
+                procs.append(proc)
+                _, err = proc.communicate(timeout=DRYRUN["timeout_s"])
+                if proc.returncode:
+                    raise AssertionError(f"dryrun {arch} {shape}: exit "
+                                         f"{proc.returncode}: {err[-2000:]}")
+                with open(out) as f:
+                    records += [json.loads(line) for line in f]
+        return records, time.perf_counter() - t0
+
+    def stop():
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    ex = ThreadPoolExecutor(1)
+    future = ex.submit(run)
+    ex.shutdown(wait=False)
+    return future, stop
+
+
+def phase_dryrun(records, wall_s):
+    """Hold the dry-run's records: every applicable cell ``ok`` on both
+    production meshes, the others the reference's skip; one line."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import SHAPES, shape_applicable
+
+    cells = {(r["arch"], r["shape"], r["mesh"]): r for r in records}
+    want = {(a, s, m) for a in DRYRUN["archs"] for s in SHAPES
+            for m in ("16x16", "2x16x16")}
+    if set(cells) != want:
+        raise AssertionError(f"dryrun: cells {sorted(cells)}")
+    bad = {k: r["status"] for k, r in cells.items()
+           if r["status"] != (shape_applicable(get_config(k[0]), k[1])
+                              or "ok")}
+    if bad:
+        raise AssertionError(f"dryrun: {bad}")
+    emit({"phase": "dryrun", "wall_s": wall_s, "hardware": "host only "
+          "(no card: meta tensors on a fake process group of 256 / 512 "
+          "ranks)", "cells": [
+              {k: r.get(k) for k in ("arch", "shape", "mesh", "status",
+                                     "build_s", "step_s")}
+              | ({"peak_gb": r["memory"]["peak_bytes"] / 1e9,
+                  "flops": r["cost"]["flops"],
+                  "collective_bytes": r["collectives"]["bytes_by_kind"],
+                  "dominant_term": r["dominant_term"],
+                  "useful_fraction": (r["model_flops"] or {}).get(
+                      "useful_fraction")} if r["status"] == "ok" else {})
+              for r in records]})
+
+
 def eval_loss(model, vocab, skill):
     """Mean loss over LOOP["eval_batches"] held-out batches of a skill."""
     import torch
@@ -4371,8 +4620,16 @@ def main() -> int:
                      f"({TRAIN_MAMBA['cut_by']}); llama-3.2-vision-90b is "
                      f"not trained: one super-block with float32 AdamW "
                      f"needs ~88 GB before activations, past the card's "
-                     f"80 GB; "
-                     f"widths as published"})
+                     f"80 GB; mesh: "
+                     + "; ".join(f"{m['config']} depth {m['layers']} of "
+                                 f"{get_config(m['config']).n_layers}, "
+                                 f"{m['batch']} x {m['seq']} tokens, "
+                                 f"{m['steps']} steps, meshless and under "
+                                 f"the (1, 1) mesh" for m in MESH)
+                     + f"; dryrun: {' and '.join(DRYRUN['archs'])} only "
+                       f"(every shape, both production meshes; the other "
+                       f"archs' cells run off the card, PERF.md); "
+                       f"widths as published"})
 
     t0 = time.perf_counter()
     libraries = (mb.LIBRARY, fa.LIBRARY, fa.BWD_LIBRARY)
@@ -4463,6 +4720,11 @@ def main() -> int:
                              f"found {watched}")
 
     walls = {}
+    # the dryrun phase: host-only processes, beside every card phase
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    dry_dir = tempfile.mkdtemp(prefix="smoke-dryrun-",
+                               dir=os.path.join(HERE, "build"))
+    dry, stop_dry = start_dryrun(dry_dir)
 
     def timed(name, phase, *a):
         t = time.perf_counter()
@@ -4471,11 +4733,10 @@ def main() -> int:
         finally:
             walls[name] = time.perf_counter() - t
 
-    rows = timed("kernels", phase_kernels, device, args.seed)
-    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="smoke-ws-", dir=os.path.join(HERE, "build"))
     seed, bs, layers = args.seed, args.block_size, args.layers
     try:
+        rows = timed("kernels", phase_kernels, device, args.seed)
         pair = timed("parity", phase_parity, root, device, seed, bs)
         launches, merged, local = timed("merge", phase_merge, root, device,
                                         seed, bs, layers)
@@ -4501,6 +4762,7 @@ def main() -> int:
               "train_mamba")
         trained_whisper = timed("train_whisper", phase_train, device, seed,
                                 TRAIN_WHISPER, "train_whisper")
+        meshed = timed("mesh", phase_mesh, device, seed)
         shutil.rmtree(os.path.join(root, "merge"), ignore_errors=True)
         # the loop phase in a process of its own beside the store phase:
         # both are host-bound (checkpoint and snapshot I/O, hashing, zlib,
@@ -4516,8 +4778,12 @@ def main() -> int:
             store, store_worker = timed("store", phase_store, root, device,
                                         seed, bs)
             loop = looping.result()
+        records, walls["dryrun"] = dry.result()
+        phase_dryrun(records, walls["dryrun"])
     finally:
+        stop_dry()
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(dry_dir, ignore_errors=True)
     # each kernel's launches over the paths that run it: the merge, the
     # service, the parity phase's TIES merge at 2 MiB blocks (the pair
     # route), the shards phase's inline window, the loop's merge and the
@@ -4554,6 +4820,11 @@ def main() -> int:
     launches.update(served_vlm)
     launches["flash_attention_bwd_whisper"] = trained_whisper[
         TRAIN_WHISPER["counter"]]
+    # the mesh phase's runs under the (1, 1) mesh: Qwen2's at hd 128 with
+    # the served and trained ones, DeepSeek's tensor-core forwards and
+    # backwards at (192, 128) with train_mla's
+    for counter, n in meshed.items():
+        launches[counter] += n
     keys = ("name", "kernel", "route", "source", "replaces", "launches",
             "worker_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "copy_ms")

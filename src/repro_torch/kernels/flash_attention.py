@@ -5,7 +5,7 @@ that build in parallel) and their wrapper.
 :func:`flash_attention` takes the JAX package's layout, q (B, Sq, H, hd),
 k (B, Sk, Hkv, hd) and v (B, Sk, Hkv, hdv), and returns (B, Sq, H, hdv):
 
-* on CPU tensors it runs the plain version,
+* on CPU (or ``meta``: the dry-run) tensors it runs the plain version,
   :func:`repro_torch.kernels.ref.flash_attention_ref`, with the given
   chunk sizes and ``skip_masked_chunks``;
 * otherwise it checks the operands (one CUDA device, float32 or bfloat16,
@@ -66,6 +66,16 @@ operand that requires grad.
 On CPU tensors autograd runs through the plain version.  The backward
 takes ``q_offset = 0`` (training); any other ``q_offset`` raises.  Nothing
 falls back to the plain version on the card.
+
+Under a device mesh the operands are DTensors, and :func:`flash_attention`
+runs each rank's shard through ``local_map`` (the reference's GSPMD
+partitions its attention the same way): per mesh dim, a batch shard of q
+takes k and v batch-sharded too, a head shard stays where q, k and v are
+all head-sharded, and any other layout (a head-sharded q over replicated
+kv heads, a sequence-sharded KV cache, a partial sum) is gathered first
+(:func:`local_placements`).  The local call is the same wrapper on plain
+tensors, so the card's shards launch the kernels, forward and backward,
+and nothing routes to the plain version because an input is a DTensor.
 
 The forward kernels replace the Pallas kernel ``flash_attention_pallas``
 of the JAX package's ``kernels/flash_attention.py``; the JAX package has
@@ -522,6 +532,85 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+#: the plain version's query and key chunk on ``meta`` tensors (the
+#: dry-run): a tile a 2,048 x 2,048 block, 8-16x fewer ops to trace than
+#: the CPU's 512 x 1,024, its causal skip at that grain
+META_CHUNK = 2048
+
+
+class PlainRecomputeFn(torch.autograd.Function):
+    """The plain version holding what :class:`FlashAttentionFn` holds
+    (q, k, v and the output) and recomputing the rest in its backward, as
+    the backward kernels do: the dry-run's attention on ``meta`` tensors,
+    so its memory count sees the kernels' activations between the forward
+    and the backward, not the plain version's autograd tiles."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out = ref.flash_attention_ref(q, k, v, causal, window, 0,
+                                      META_CHUNK, META_CHUNK)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = bool(causal), int(window)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, _ = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = ref.flash_attention_ref(*qkv, ctx.causal, ctx.window, 0,
+                                          META_CHUNK, META_CHUNK)
+            dq, dk, dv = torch.autograd.grad(out, qkv, do)
+        return dq, dk, dv, None, None
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def local_placements(q, k, v, mesh) -> tuple:
+    """(q's and the output's placements, k's and v's) for a rank-local
+    attention: per mesh dim, batch (dim 0) sharded for all three where q
+    is; heads (dim 2) sharded where q, k and v all are and both head
+    counts divide; else replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def placements(t):
+        return (tuple(t.placements) if isinstance(t, DTensor)
+                else (Replicate(),) * mesh.ndim)
+
+    pq, pk, pv = placements(q), placements(k), placements(v)
+    out_q, out_kv = [], []
+    for m in range(mesh.ndim):
+        n = mesh.size(m)
+        if pq[m] == Shard(0):
+            out_q.append(Shard(0))
+            out_kv.append(Shard(0))
+        elif (pq[m] == pk[m] == pv[m] == Shard(2)
+              and q.shape[2] % n == 0 and k.shape[2] % n == 0):
+            out_q.append(Shard(2))
+            out_kv.append(Shard(2))
+        else:
+            out_q.append(Replicate())
+            out_kv.append(Replicate())
+    return tuple(out_q), tuple(out_kv)
+
+
+def _sharded(q, k, v, *args):
+    """:func:`flash_attention` of DTensor operands, shard by shard."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(t.device_mesh for t in (q, k, v) if isinstance(t, DTensor))
+    pq, pkv = local_placements(q, k, v, mesh)
+    return local_map(flash_attention, out_placements=(pq,),
+                     in_placements=(pq, pkv, pkv) + (None,) * len(args),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         q, k, v, *args)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -535,8 +624,18 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention of q over k / v; (B, Sq, H, hdv) in q's dtype.  On CUDA
     tensors with grad mode on and an operand that requires grad, the
-    differentiable :class:`FlashAttentionFn` (``q_offset`` must be 0)."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    differentiable :class:`FlashAttentionFn` (``q_offset`` must be 0).
+    DTensor operands (a device mesh) go shard by shard through
+    ``local_map``."""
+    if any(type(t) is not torch.Tensor and _is_dtensor(t) for t in (q, k, v)):
+        return _sharded(q, k, v, causal, window, q_offset, cq, ck,
+                        skip_masked_chunks)
+    if all(t.device.type == "meta" for t in (q, k, v)):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return PlainRecomputeFn.apply(q, k, v, causal, window)
+        cq = ck = META_CHUNK
+    if all(t.device.type in ("cpu", "meta") for t in (q, k, v)):
         return ref.flash_attention_ref(q, k, v, causal, window, q_offset,
                                        cq, ck, skip_masked_chunks)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

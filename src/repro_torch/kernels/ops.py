@@ -48,14 +48,15 @@ _TORCH_DTYPES = {
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """A CUDA device that is not there raises; it never becomes the CPU."""
+    """A CUDA device that is not there raises; it never becomes the CPU.
+    ``meta`` (shapes only: the dry-run's models) is allowed too."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA device requested but torch.cuda.is_available() is False "
             "(pass device='cpu' to run the plain versions on the host)"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

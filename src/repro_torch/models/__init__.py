@@ -1,5 +1,13 @@
 """Model zoo, every family of the configs: layers, attention, MoE, RG-LRU,
 SSD; DecoderLM, GriffinLM, Mamba2LM, EncDecLM, VisionLM."""
-from repro_torch.models.model import build_model, from_jax_flat, load_flat
+from repro_torch.models.model import (
+    SHAPES,
+    build_model,
+    from_jax_flat,
+    input_specs,
+    load_flat,
+    shape_applicable,
+)
 
-__all__ = ["build_model", "from_jax_flat", "load_flat"]
+__all__ = ["SHAPES", "build_model", "from_jax_flat", "input_specs",
+           "load_flat", "shape_applicable"]

@@ -24,10 +24,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.models.layers import (
     apply_rope,
+    contract,
     dense_init,
     head_rmsnorm,
     rmsnorm,
 )
+from repro_torch.models.shardctx import constrain
 
 _NEG = -1.0e30
 
@@ -53,14 +55,30 @@ def init_attention(cfg: ModelConfig, n_layers: int, generator, device,
     return p
 
 
+def attention_specs(cfg: ModelConfig) -> dict:
+    """:func:`init_attention`'s logical axes."""
+    s = {
+        "wq": ("stack", "fsdp", "heads", None),
+        "wk": ("stack", "fsdp", "kv_heads", None),
+        "wv": ("stack", "fsdp", "kv_heads", None),
+        "wo": ("stack", "heads", None, "fsdp"),
+    }
+    if cfg.qkv_bias:
+        s.update(bq=("stack", "heads", None), bk=("stack", "kv_heads", None),
+                 bv=("stack", "kv_heads", None))
+    if cfg.qk_norm:
+        s.update(q_norm=("stack", None), k_norm=("stack", None))
+    return s
+
+
 def qkv_project(
     pl: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     positions: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> q (B, S, H, hd), k/v (B, S, Hkv, hd), roped+normed."""
-    q = torch.einsum("bsd,dhk->bshk", x, pl["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, pl["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, pl["wv"].to(x.dtype))
+    q = contract(x, pl["wq"])
+    k = contract(x, pl["wk"])
+    v = contract(x, pl["wv"])
     if cfg.qkv_bias:
         q = q + pl["bq"].to(x.dtype)
         k = k + pl["bk"].to(x.dtype)
@@ -70,6 +88,9 @@ def qkv_project(
         k = head_rmsnorm(k, pl["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, ("batch", None, "heads", None))
+    k = constrain(k, ("batch", None, "kv_heads", None))
+    v = constrain(v, ("batch", None, "kv_heads", None))
     return q, k, v
 
 
@@ -81,6 +102,28 @@ def decode_attention(
     length: int,            # valid cache entries, this token included
     window: int = 0,
 ) -> torch.Tensor:
+    """One query position over a cache.  On DTensors each rank attends
+    over its own shard through ``local_map``, with flash attention's
+    placements (``local_placements``: batch and matching head shards
+    kept, a sequence-sharded cache gathered first)."""
+    if hasattr(q, "device_mesh") or hasattr(k_cache, "device_mesh"):
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import local_map
+
+        from repro_torch.kernels.flash_attention import local_placements
+
+        mesh = next(t.device_mesh for t in (q, k_cache, v_cache)
+                    if isinstance(t, DTensor))
+        pq, pkv = local_placements(q, k_cache, v_cache, mesh)
+        return local_map(_decode_attention, out_placements=(pq,),
+                         in_placements=(pq, pkv, pkv, None, None),
+                         device_mesh=mesh, redistribute_inputs=True)(
+                             q, k_cache, v_cache, length, window)
+    return _decode_attention(q, k_cache, v_cache, length, window)
+
+
+def _decode_attention(q, k_cache, v_cache, length: int,
+                      window: int) -> torch.Tensor:
     b, _, h, hd = q.shape
     s_max, hkv = k_cache.shape[1], k_cache.shape[2]
     hdv = v_cache.shape[-1]
@@ -119,6 +162,16 @@ def init_mla(cfg: ModelConfig, n_layers: int, generator, device,
     }
 
 
+MLA_SPECS = {
+    "wq": ("stack", "fsdp", "heads", None),
+    "w_dkv": ("stack", "fsdp", None),
+    "ckv_norm": ("stack", None),
+    "w_uk": ("stack", "fsdp", "heads", None),
+    "w_uv": ("stack", "fsdp", "heads", None),
+    "wo": ("stack", "heads", None, "fsdp"),
+}
+
+
 def mla_project(
     pl: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     positions: torch.Tensor,
@@ -128,11 +181,11 @@ def mla_project(
     per-head keys come from :func:`mla_expand_kv`, so decode can cache the
     compressed latent."""
     dn, r = cfg.nope_head_dim, cfg.kv_lora_rank
-    q = torch.einsum("bsd,dhk->bshk", x, pl["wq"].to(x.dtype))
+    q = contract(x, pl["wq"])
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    ckv_full = torch.einsum("bsd,dr->bsr", x, pl["w_dkv"].to(x.dtype))
+    ckv_full = contract(x, pl["w_dkv"])
     c_kv, k_rope = ckv_full[..., :r], ckv_full[..., r:]
     c_kv = rmsnorm(c_kv, pl["ckv_norm"], cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
@@ -146,8 +199,8 @@ def mla_expand_kv(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """c_kv (B, S, r), k_rope (B, S, dr) -> k (B, S, H, dn + dr), v (B, S,
     H, dv): the shared roped key broadcast to every head."""
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, pl["w_uk"].to(x_dtype))
-    v = torch.einsum("bsr,rhk->bshk", c_kv, pl["w_uv"].to(x_dtype))
+    k_nope = contract(c_kv, pl["w_uk"])
+    v = contract(c_kv, pl["w_uv"])
     h = k_nope.shape[2]
     k_rope_b = k_rope[:, :, None, :].expand(*k_nope.shape[:2], h,
                                             k_rope.shape[-1])
@@ -171,14 +224,23 @@ def init_cross_attention(cfg: ModelConfig, n_layers: int, generator, device,
     }
 
 
+CROSS_SPECS = {
+    "wq": ("stack", "fsdp", "heads", None),
+    "wk": ("stack", "fsdp", "kv_heads", None),
+    "wv": ("stack", "fsdp", "kv_heads", None),
+    "wo": ("stack", "heads", None, "fsdp"),
+    "gate": ("stack",),
+}
+
+
 def cross_attention(
     pl: Mapping[str, torch.Tensor], x: torch.Tensor, context: torch.Tensor,
     cfg: ModelConfig,
 ) -> torch.Tensor:
     """x (B, S, D) attends over context (B, Sc, D); no mask, no rope."""
-    q = torch.einsum("bsd,dhk->bshk", x, pl["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", context, pl["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", context, pl["wv"].to(x.dtype))
+    q = contract(x, pl["wq"])
+    k = contract(context, pl["wk"])
+    v = contract(context, pl["wv"])
     out = flash_attention(q, k, v, causal=False)
-    out = torch.einsum("bshk,hkd->bsd", out, pl["wo"].to(x.dtype))
+    out = contract(out, pl["wo"], 2)
     return torch.tanh(pl["gate"]).to(x.dtype) * out

@@ -32,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models.shardctx import constrain
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -67,6 +68,19 @@ class EncDecLM(L.StackedLM):
             "ln_f": z(d),
         }
 
+    def _spec_tree(self) -> Dict:
+        attn_s = attn.attention_specs(self.cfg)
+        return {
+            "embed": L.EMBED_SPECS,
+            "enc_attn": attn_s, "enc_mlp": L.MLP_SPECS,
+            "enc_ln1": ("stack", None), "enc_ln2": ("stack", None),
+            "enc_ln_f": (None,),
+            "dec_attn": attn_s, "dec_xattn": attn.CROSS_SPECS,
+            "dec_mlp": L.MLP_SPECS,
+            "dec_ln1": ("stack", None), "dec_lnx": ("stack", None),
+            "dec_ln2": ("stack", None), "ln_f": (None,),
+        }
+
     def _enc_layers(self):
         ne = self.cfg.n_encoder_layers
         return list(zip(L.unbind_stack(self.enc_attn, ne),
@@ -93,7 +107,7 @@ class EncDecLM(L.StackedLM):
         h = L.rmsnorm(x, ln1, cfg.norm_eps)
         q, k, v = attn.qkv_project(pa, h, cfg, positions)
         o = attn.flash_attention(q, k, v, causal=False)
-        x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
+        x = x + L.contract(o, pa["wo"], 2)
         h = L.rmsnorm(x, ln2, cfg.norm_eps)
         return x + L.swiglu_mlp(pm, h)
 
@@ -113,11 +127,11 @@ class EncDecLM(L.StackedLM):
         h = L.rmsnorm(x, ln1, cfg.norm_eps)
         q, k, v = attn.qkv_project(pa, h, cfg, positions)
         o = attn.flash_attention(q, k, v, causal=True)
-        x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
+        x = x + L.contract(o, pa["wo"], 2)
         h = L.rmsnorm(x, lnx, cfg.norm_eps)
         x = x + attn.cross_attention(px, h, enc_out, cfg)
         h = L.rmsnorm(x, ln2, cfg.norm_eps)
-        return x + L.swiglu_mlp(pm, h)
+        return constrain(x + L.swiglu_mlp(pm, h), ("batch", None, None))
 
     def forward(self, tokens: torch.Tensor,
                 audio_embeds: torch.Tensor) -> torch.Tensor:
@@ -148,6 +162,11 @@ class EncDecLM(L.StackedLM):
         return {"k": (kv, cd), "v": (kv, cd), "xk": (xkv, cd),
                 "xv": (xkv, cd), "len": ((), torch.int32)}
 
+    def cache_logical_specs(self) -> Dict:
+        """Each cache entry's logical axes."""
+        kv = ("stack", "batch", "seq", "kv_heads", None)
+        return {"k": kv, "v": kv, "xk": kv, "xv": kv, "len": ()}
+
     def cache_batch_axes(self) -> Dict[str, int]:
         """The batch axis of each cache entry but ``len``."""
         return {"k": 1, "v": 1, "xk": 1, "xv": 1}
@@ -169,13 +188,13 @@ class EncDecLM(L.StackedLM):
             q, k, v = attn.qkv_project(pa, h, cfg, positions)
             o = attn.flash_attention(q, k, v, causal=True,
                                      skip_masked_chunks=True)
-            x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
+            x = x + L.contract(o, pa["wo"], 2)
             h = L.rmsnorm(x, lnx, cfg.norm_eps)
-            xk = torch.einsum("bsd,dhk->bshk", enc_out, px["wk"].to(x.dtype))
-            xv = torch.einsum("bsd,dhk->bshk", enc_out, px["wv"].to(x.dtype))
-            q2 = torch.einsum("bsd,dhk->bshk", h, px["wq"].to(x.dtype))
+            xk = L.contract(enc_out, px["wk"])
+            xv = L.contract(enc_out, px["wv"])
+            q2 = L.contract(h, px["wq"])
             o = attn.flash_attention(q2, xk, xv, causal=False)
-            o = torch.einsum("bshk,hkd->bsd", o, px["wo"].to(x.dtype))
+            o = L.contract(o, px["wo"], 2)
             x = x + torch.tanh(px["gate"]).to(x.dtype) * o
             h = L.rmsnorm(x, ln2, cfg.norm_eps)
             x = x + L.swiglu_mlp(pm, h)
@@ -201,15 +220,15 @@ class EncDecLM(L.StackedLM):
             h = L.rmsnorm(x, ln1, cfg.norm_eps)
             q, k, v = attn.qkv_project(pa, h, cfg, positions)
             k_c, v_c = cache["k"][i], cache["v"][i]
-            k_c[:, pos] = k[:, 0].to(k_c.dtype)
-            v_c[:, pos] = v[:, 0].to(v_c.dtype)
+            L.write_position(k_c, pos, k[:, 0])
+            L.write_position(v_c, pos, v[:, 0])
             o = attn.decode_attention(q, k_c, v_c, pos + 1)
-            x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
+            x = x + L.contract(o, pa["wo"], 2)
             h = L.rmsnorm(x, lnx, cfg.norm_eps)
-            q2 = torch.einsum("bsd,dhk->bshk", h, px["wq"].to(x.dtype))
+            q2 = L.contract(h, px["wq"])
             xk = cache["xk"][i]
             o = attn.decode_attention(q2, xk, cache["xv"][i], xk.shape[1])
-            o = torch.einsum("bshk,hkd->bsd", o, px["wo"].to(x.dtype))
+            o = L.contract(o, px["wo"], 2)
             x = x + torch.tanh(px["gate"]).to(x.dtype) * o
             h = L.rmsnorm(x, ln2, cfg.norm_eps)
             x = x + L.swiglu_mlp(pm, h)

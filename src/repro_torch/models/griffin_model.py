@@ -40,6 +40,7 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import rglru
+from repro_torch.models.shardctx import constrain
 
 
 class GriffinLM(L.StackedLM):
@@ -78,6 +79,21 @@ class GriffinLM(L.StackedLM):
             tree["rest_ln_c"] = torch.zeros((nr, d), dtype=pd, device=device)
         return tree
 
+    def _spec_tree(self) -> Dict:
+        tree = {
+            "embed": L.EMBED_SPECS,
+            "rec": L.stacked_twice(rglru.RGLRU_SPECS),
+            "attn": attn.attention_specs(self.cfg),
+            "mlp": L.stacked_twice(L.MLP_SPECS),
+            "ln_t": ("stack", None, None),
+            "ln_c": ("stack", None, None),
+            "ln_f": (None,),
+        }
+        if self.n_rest:
+            tree.update(rest_rec=rglru.RGLRU_SPECS, rest_mlp=L.MLP_SPECS,
+                        rest_ln_t=("stack", None), rest_ln_c=("stack", None))
+        return tree
+
     def _supers(self):
         """Each super-block's parameters: (rec, attn, mlp, ln_t, ln_c),
         rec / mlp / ln_* still stacked over the block's 2 / 3 layers."""
@@ -109,7 +125,7 @@ class GriffinLM(L.StackedLM):
         h = L.rmsnorm(x, ln_t, cfg.norm_eps)
         q, k, v = attn.qkv_project(pl_attn, h, cfg, positions)
         o = attn.flash_attention(q, k, v, causal=True, window=cfg.local_window)
-        o = torch.einsum("bshk,hkd->bsd", o, pl_attn["wo"].to(x.dtype))
+        o = L.contract(o, pl_attn["wo"], 2)
         x = x + o
         h = L.rmsnorm(x, ln_c, cfg.norm_eps)
         return x + L.swiglu_mlp(pl_mlp, h)
@@ -119,9 +135,9 @@ class GriffinLM(L.StackedLM):
         for j in (0, 1):  # two recurrent layers
             x = self._rec_layer({k: v[j] for k, v in pr.items()}, ln_t[j],
                                 ln_c[j], {k: v[j] for k, v in pm.items()}, x)
-        return self._attn_layer(pa, ln_t[2], ln_c[2],
-                                {k: v[2] for k, v in pm.items()}, x,
-                                positions)
+        x = self._attn_layer(pa, ln_t[2], ln_c[2],
+                             {k: v[2] for k, v in pm.items()}, x, positions)
+        return constrain(x, ("batch", None, None))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V)."""
@@ -168,6 +184,20 @@ class GriffinLM(L.StackedLM):
             spec["rest_conv"] = ((self.n_rest, batch, km1, w), cd)
         return spec
 
+    def cache_logical_specs(self) -> Dict:
+        """Each cache entry's logical axes."""
+        spec = {
+            "h": ("stack", None, "batch", "mlp"),
+            "conv": ("stack", None, "batch", None, "mlp"),
+            "k": ("stack", "batch", "seq", "kv_heads", None),
+            "v": ("stack", "batch", "seq", "kv_heads", None),
+            "len": (),
+        }
+        if self.n_rest:
+            spec["rest_h"] = ("stack", "batch", "mlp")
+            spec["rest_conv"] = ("stack", "batch", None, "mlp")
+        return spec
+
     def cache_batch_axes(self) -> Dict[str, int]:
         """The batch axis of each cache entry but ``len``."""
         axes = {"h": 2, "conv": 2, "k": 1, "v": 1}
@@ -203,12 +233,12 @@ class GriffinLM(L.StackedLM):
             h = L.rmsnorm(x, ln_t[2], cfg.norm_eps)
             q, k, v = attn.qkv_project(pa, h, cfg, positions)
             k_c, v_c = cache["k"][i], cache["v"][i]
-            k_c[:, slot] = k[:, 0].to(k_c.dtype)
-            v_c[:, slot] = v[:, 0].to(v_c.dtype)
+            L.write_position(k_c, slot, k[:, 0])
+            L.write_position(v_c, slot, v[:, 0])
             # ring buffer holds the last min(pos+1, win) tokens — all valid
             o = attn.decode_attention(q, k_c, v_c, min(pos + 1, win),
                                       window=0)
-            x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
+            x = x + L.contract(o, pa["wo"], 2)
             h = L.rmsnorm(x, ln_c[2], cfg.norm_eps)
             x = x + L.swiglu_mlp({k: v[2] for k, v in pm.items()}, h)
 
@@ -231,7 +261,7 @@ class GriffinLM(L.StackedLM):
         (B, S, W) float32 and the conv tail (B, K-1, W) of the branch's
         projection, before the conv."""
         k = self.cfg.conv_kernel
-        u = torch.einsum("btd,dw->btw", h, pr["w_rec_branch"].to(h.dtype))
+        u = L.contract(h, pr["w_rec_branch"])
         conv_tail = u[:, -(k - 1):, :]
         a, gated = rglru._gates(pr, rglru.causal_conv(pr, u, k))
         return rglru.rglru_scan(a, gated), conv_tail
@@ -241,11 +271,10 @@ class GriffinLM(L.StackedLM):
         prefill runs it: (output (B, S, D), final LRU state (B, W)
         float32, conv tail)."""
         gate = F.gelu(
-            torch.einsum("btd,dw->btw", h, pr["w_gate_branch"].to(h.dtype)),
+            L.contract(h, pr["w_gate_branch"]),
             approximate="tanh")
         hh, conv_tail = self._lru(pr, h)
-        out = torch.einsum("btw,wd->btd", hh.to(h.dtype) * gate,
-                           pr["w_out"].to(h.dtype))
+        out = L.contract(hh.to(h.dtype) * gate, pr["w_out"])
         return out, hh[:, -1], conv_tail
 
     @torch.no_grad()
@@ -280,7 +309,7 @@ class GriffinLM(L.StackedLM):
             o = attn.flash_attention(q, k, v, causal=True,
                                      window=cfg.local_window,
                                      skip_masked_chunks=True)
-            x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
+            x = x + L.contract(o, pa["wo"], 2)
             h = L.rmsnorm(x, ln_c[2], cfg.norm_eps)
             x = x + L.swiglu_mlp({k: v[2] for k, v in pm.items()}, h)
             entries["h"].append(torch.stack(new_h))

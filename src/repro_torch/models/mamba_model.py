@@ -30,6 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.models.shardctx import constrain
 
 
 class Mamba2LM(L.StackedLM):
@@ -51,6 +52,10 @@ class Mamba2LM(L.StackedLM):
             "ln_f": torch.zeros((d,), dtype=pd, device=device),
         }
 
+    def _spec_tree(self) -> Dict:
+        return {"embed": L.EMBED_SPECS, "mixer": ssm.SSM_SPECS,
+                "ln": ("stack", None), "ln_f": (None,)}
+
     def _layers(self):
         """Each layer's (mixer, ln) parameters, as views
         (:func:`layers.unbind_stack`)."""
@@ -61,7 +66,8 @@ class Mamba2LM(L.StackedLM):
     def _layer(self, x, layer):
         pm, ln = layer
         h = L.rmsnorm(x, ln, self.cfg.norm_eps)
-        return x + ssm.ssm_block(pm, h, self.cfg)
+        return constrain(x + ssm.ssm_block(pm, h, self.cfg),
+                         ("batch", None, None))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V)."""
@@ -93,6 +99,11 @@ class Mamba2LM(L.StackedLM):
                      self._compute_dtype()),
             "len": ((), torch.int32),
         }
+
+    def cache_logical_specs(self) -> Dict:
+        """Each cache entry's logical axes."""
+        return {"s": ("stack", "batch", "heads", None, None),
+                "conv": ("stack", "batch", None, "mlp"), "len": ()}
 
     def cache_batch_axes(self) -> Dict[str, int]:
         """The batch axis of each cache entry but ``len``."""

@@ -14,9 +14,12 @@ The reference's dropping implementation (MaxText-style):
 :func:`moe_ffn` routes each sequence row alone (the reference's ``vmap``
 over rows is a batch dimension written out here) with the per-row
 capacity ``max(k, _row_capacity(S))``; :func:`moe_ffn_global` is the
-reference's global-token dispatch over all B·S tokens.  The reference's
-``shard_map`` over a device mesh has no counterpart on one card
-(``shardctx.get_mesh()`` is None).  Expert weights are (L, E, D, F);
+reference's global-token dispatch over all B·S tokens.  Under a device
+mesh whose batch axes divide B (:func:`_batch_axes`), routing, dispatch
+and combine run on each batch shard alone through ``local_map``, the
+reference's ``shard_map``: the only cross-device traffic left is the
+expert GEMMs' (their weights gathered, their partial sums reduced).
+Expert weights are (L, E, D, F);
 shared experts (DeepSeek) run as one dense SwiGLU of width
 ``n_shared_experts · F``.  The JAX package has no kernel here: the
 products stay ``torch.einsum``.
@@ -27,10 +30,23 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init
-from repro_torch.models.shardctx import constrain
+from repro_torch.models import shardctx
+from repro_torch.models.layers import contract, dense_init
+from repro_torch.models.shardctx import constrain, get_mesh
+
+
+def _batch_axes(b: int, mesh) -> tuple:
+    """Mesh axes carrying the batch dim (divisibility-checked), else ()."""
+    if mesh is None:
+        return ()
+    axes = shardctx.resolve_axes(("batch",), (b,))[0]
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -64,6 +80,22 @@ def init_moe(cfg: ModelConfig, n_layers: int, generator, device,
         p["ws_up"] = dense_init((n_layers, d, fs), generator, device, dtype)
         p["ws_down"] = dense_init((n_layers, fs, d), generator, device, dtype)
     return p
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    """:func:`init_moe`'s logical axes: D FSDP-sharded over "data", F
+    tensor-parallel over "model", E unsharded."""
+    s = {
+        "router": ("stack", "fsdp", None),
+        "w_gate": ("stack", None, "fsdp", "mlp"),
+        "w_up": ("stack", None, "fsdp", "mlp"),
+        "w_down": ("stack", None, "mlp", "fsdp"),
+    }
+    if cfg.n_shared_experts:
+        s.update(ws_gate=("stack", "fsdp", "mlp"),
+                 ws_up=("stack", "fsdp", "mlp"),
+                 ws_down=("stack", "mlp", "fsdp"))
+    return s
 
 
 def route(x: torch.Tensor, router: torch.Tensor, k: int
@@ -133,21 +165,77 @@ def combine(y_exp: torch.Tensor, state: Tuple, w: torch.Tensor,
                         w).to(out_dtype)
 
 
-def _experts(pl: Dict[str, torch.Tensor], buf: torch.Tensor) -> torch.Tensor:
-    """The routed experts' SwiGLU over a dispatch buffer (..., E, C, D)."""
+def _route_dispatch(x: torch.Tensor, router: torch.Tensor, k: int,
+                    n_experts: int, cap: int):
+    """:func:`route`, then :func:`dispatch` (called through the module):
+    (buf, state, w)."""
+    w, idx = route(x, router, k)
+    buf, state = dispatch(x, idx, n_experts, cap)
+    return buf, state, w
+
+
+def _hidden(pl: Dict[str, torch.Tensor], buf: torch.Tensor) -> torch.Tensor:
+    """The routed experts' SwiGLU activations over a dispatch buffer
+    (..., E, C, D) -> (..., E, C, F)."""
     dt = buf.dtype
     h = F.silu(torch.einsum("...ecd,edf->...ecf", buf, pl["w_gate"].to(dt)))
-    h = h * torch.einsum("...ecd,edf->...ecf", buf, pl["w_up"].to(dt))
-    h = constrain(h, ("batch", None, None, "mlp"))
-    return torch.einsum("...ecf,efd->...ecd", h, pl["w_down"].to(dt))
+    return h * torch.einsum("...ecd,edf->...ecf", buf, pl["w_up"].to(dt))
+
+
+def _down(pl: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("...ecf,efd->...ecd", h, pl["w_down"].to(h.dtype))
+
+
+def _local_experts(buf, w_gate, w_up, w_down) -> torch.Tensor:
+    """The per-row path's experts (B, E, C, D) -> (B, E, C, D)."""
+    pl = {"w_gate": w_gate, "w_up": w_up, "w_down": w_down}
+    h = constrain(_hidden(pl, buf), ("batch", None, None, "mlp"))
+    return _down(pl, h)
+
+
+def _shard_local(b: int, f: int, mesh):
+    """:func:`moe_ffn`'s three stages on batch-sharded DTensors, each
+    through ``local_map``: routing + dispatch and combine on each batch
+    shard alone (the router gathered, its gradient a partial sum over the
+    batch shards), and the experts on each (batch shard, F shard) with
+    the expert weights gathered over "data" and split over F where "mlp"
+    divides it, their output a partial sum over the F shards (the
+    reference's constraint on the hidden activations, made explicit)."""
+    bt = shardctx.resolve(("batch",), (b,))
+    f_on = shardctx.resolve((None, None, "mlp"), (1, 1, f))
+    rep = tuple(Replicate() for _ in bt)
+
+    def per_dim(batch, mlp, other=Replicate()):
+        return tuple(batch if p == Shard(0) else mlp if q == Shard(2)
+                     else other for p, q in zip(bt, f_on))
+
+    part = Partial()
+    routed = local_map(_route_dispatch, out_placements=(bt,) * 6,
+                       in_placements=(bt, rep, None, None, None),
+                       in_grad_placements=(bt, per_dim(part, Replicate()),
+                                           None, None, None),
+                       device_mesh=mesh, redistribute_inputs=True)
+    w_in, wd_in = per_dim(Replicate(), Shard(2)), per_dim(Replicate(), Shard(1))
+    w_grad = per_dim(part, Shard(2))
+    wd_grad = per_dim(part, Shard(1))
+    experts = local_map(_local_experts, out_placements=(per_dim(Shard(0),
+                                                                part),),
+                        in_placements=(bt, w_in, w_in, wd_in),
+                        in_grad_placements=(per_dim(Shard(0), part), w_grad,
+                                            w_grad, wd_grad),
+                        device_mesh=mesh, redistribute_inputs=True)
+    merge = local_map(combine, out_placements=(bt,),
+                      in_placements=(bt,) * 6 + (None,),
+                      device_mesh=mesh, redistribute_inputs=True)
+    return routed, experts, merge
 
 
 def _shared(pl: Dict[str, torch.Tensor], x2: torch.Tensor) -> torch.Tensor:
     """The shared experts, one dense SwiGLU over tokens x2 (T, D)."""
     dt = x2.dtype
-    hs = F.silu(torch.einsum("td,df->tf", x2, pl["ws_gate"].to(dt)))
-    hs = hs * torch.einsum("td,df->tf", x2, pl["ws_up"].to(dt))
-    return torch.einsum("tf,fd->td", hs, pl["ws_down"].to(dt))
+    hs = F.silu(contract(x2, pl["ws_gate"]))
+    hs = hs * contract(x2, pl["ws_up"])
+    return contract(hs, pl["ws_down"])
 
 
 def moe_ffn(pl: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -157,9 +245,14 @@ def moe_ffn(pl: Dict[str, torch.Tensor], x: torch.Tensor,
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     cap = max(k, _row_capacity(s, cfg))
-    w, idx = route(x, pl["router"], k)
-    buf, state = dispatch(x, idx, e, cap)                 # (B, E, C, D)
-    y = combine(_experts(pl, buf), state, w, x.dtype)
+    mesh = get_mesh()
+    if _batch_axes(b, mesh):
+        routed, experts, merge = _shard_local(b, pl["w_gate"].shape[-1], mesh)
+    else:
+        routed, experts, merge = _route_dispatch, _local_experts, combine
+    buf, state, w = routed(x, pl["router"], k, e, cap)   # (B, E, C, D)
+    y = merge(experts(buf, pl["w_gate"], pl["w_up"], pl["w_down"]), state, w,
+              x.dtype)
     y = constrain(y, ("batch", None, None))
     if cfg.n_shared_experts:
         y = y + _shared(pl, x.reshape(b * s, d)).reshape(b, s, d)
@@ -177,7 +270,8 @@ def moe_ffn_global(pl: Dict[str, torch.Tensor], x: torch.Tensor,
     w, idx = route(x2, pl["router"], k)
     buf, state = dispatch(x2, idx, e, _capacity(t, cfg))  # (1, E, C, D)
     buf = constrain(buf, (None, None, "batch", None))
-    y = combine(_experts(pl, buf), state, w, x.dtype)[0]
+    h = constrain(_hidden(pl, buf), (None, None, "batch", "mlp"))
+    y = combine(_down(pl, h), state, w, x.dtype)[0]
     if cfg.n_shared_experts:
         y = y + _shared(pl, x2[0])
     return y.reshape(b, s, d)

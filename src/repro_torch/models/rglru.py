@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import contract, dense_init, pad_time
 
 _C = 8.0
 
@@ -59,6 +59,20 @@ def init_rglru_block(cfg: ModelConfig, n_layers: int, generator, device,
     }
 
 
+RGLRU_SPECS = {
+    "w_gate_branch": ("stack", "fsdp", "mlp"),
+    "w_rec_branch": ("stack", "fsdp", "mlp"),
+    "conv_w": ("stack", None, "mlp"),
+    "conv_b": ("stack", "mlp"),
+    "w_r": ("stack", "fsdp", "mlp"),
+    "b_r": ("stack", "mlp"),
+    "w_i": ("stack", "fsdp", "mlp"),
+    "b_i": ("stack", "mlp"),
+    "lam": ("stack", "mlp"),
+    "w_out": ("stack", "mlp", "fsdp"),
+}
+
+
 def _gates(pl: Dict[str, torch.Tensor], u: torch.Tensor):
     """u (B, T, W) -> per-step decay a_t (f32) and gated input.
 
@@ -66,10 +80,10 @@ def _gates(pl: Dict[str, torch.Tensor], u: torch.Tensor):
     (sigmoid / softplus / exp and the scan itself) stays float32."""
     uf = u.float()
     r = torch.sigmoid(
-        torch.einsum("btw,wv->btv", u, pl["w_r"].to(u.dtype)).float()
+        contract(u, pl["w_r"]).float()
         + pl["b_r"])
     i = torch.sigmoid(
-        torch.einsum("btw,wv->btv", u, pl["w_i"].to(u.dtype)).float()
+        contract(u, pl["w_i"]).float()
         + pl["b_i"])
     lam = pl["lam"].float()
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))
@@ -113,7 +127,21 @@ def _scan(elems):
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Parallel prefix for h_t = a_t h_{t-1} + b_t over axis 1."""
+    """Parallel prefix for h_t = a_t h_{t-1} + b_t over axis 1.  On
+    DTensors each rank scans its own shard through ``local_map``: batch
+    (dim 0) and width (dim 2) shards are kept, a shard of the time axis
+    is gathered."""
+    if hasattr(a, "device_mesh"):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+
+        pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+                   for p in a.placements)
+        ph = None if h0 is None else tuple(
+            Shard(1) if p == Shard(2) else p for p in pl)
+        return local_map(rglru_scan, out_placements=(pl,),
+                         in_placements=(pl, pl, ph), device_mesh=a.device_mesh,
+                         redistribute_inputs=True)(a, b, h0)
     if h0 is not None:
         # fold initial state into the first step
         b = b.clone()
@@ -127,7 +155,7 @@ def causal_conv(pl: Dict[str, torch.Tensor], u: torch.Tensor,
     """Causal depthwise conv(k) over axis 1 of u (B, T, W): the
     reference's shifted sum in u's dtype, term 0 first, bias last."""
     t = u.shape[1]
-    pad = F.pad(u, (0, 0, k - 1, 0))
+    pad = pad_time(u, k - 1)
     out = pad[:, 0:t, :] * pl["conv_w"][0][None, None, :].to(u.dtype)
     for i in range(1, k):
         out = out + pad[:, i:i + t, :] * pl["conv_w"][i][None, None, :].to(
@@ -139,14 +167,14 @@ def rglru_block(pl: Dict[str, torch.Tensor], x: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """Griffin recurrent block for training/prefill. x (B,T,D) -> (B,T,D)."""
     gate = F.gelu(
-        torch.einsum("btd,dw->btw", x, pl["w_gate_branch"].to(x.dtype)),
+        contract(x, pl["w_gate_branch"]),
         approximate="tanh")
-    u = torch.einsum("btd,dw->btw", x, pl["w_rec_branch"].to(x.dtype))
+    u = contract(x, pl["w_rec_branch"])
     u = causal_conv(pl, u, cfg.conv_kernel)
     a, gated = _gates(pl, u)
     h = rglru_scan(a, gated).to(x.dtype)
     out = h * gate
-    return torch.einsum("btw,wd->btd", out, pl["w_out"].to(x.dtype))
+    return contract(out, pl["w_out"])
 
 
 def rglru_decode_step(
@@ -155,14 +183,14 @@ def rglru_decode_step(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token step. state = {"h": (B, W), "conv": (B, K-1, W)}."""
     gate = F.gelu(
-        torch.einsum("btd,dw->btw", x, pl["w_gate_branch"].to(x.dtype)),
+        contract(x, pl["w_gate_branch"]),
         approximate="tanh")
-    u_new = torch.einsum("btd,dw->btw", x, pl["w_rec_branch"].to(x.dtype))
+    u_new = contract(x, pl["w_rec_branch"])
     hist = torch.cat([state["conv"], u_new], dim=1)  # (B, K, W)
     u = (torch.einsum("bkw,kw->bw", hist, pl["conv_w"].to(x.dtype))
          + pl["conv_b"].to(x.dtype))[:, None, :]
     a, gated = _gates(pl, u)
     h = a[:, 0] * state["h"] + gated[:, 0]
     out = h[:, None, :].to(x.dtype) * gate
-    out = torch.einsum("btw,wd->btd", out, pl["w_out"].to(x.dtype))
+    out = contract(out, pl["w_out"])
     return out, {"h": h, "conv": hist[:, 1:]}

@@ -40,7 +40,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import at_least_f32, dense_init, rmsnorm
+from repro_torch.models.layers import (
+    at_least_f32,
+    contract,
+    dense_init,
+    pad_time,
+    rmsnorm,
+)
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -74,6 +80,18 @@ def init_ssm(cfg: ModelConfig, n_layers: int, generator, device,
     }
 
 
+SSM_SPECS = {
+    "in_proj": ("stack", "fsdp", "mlp"),
+    "conv_w": ("stack", None, "mlp"),
+    "conv_b": ("stack", "mlp"),
+    "A_log": ("stack", None),
+    "D": ("stack", None),
+    "dt_bias": ("stack", None),
+    "out_norm": ("stack", "mlp"),
+    "out_proj": ("stack", "mlp", "fsdp"),
+}
+
+
 def _split_proj(proj: torch.Tensor, cfg: ModelConfig):
     d_in, h, n = ssm_dims(cfg)
     z = proj[..., :d_in]
@@ -91,7 +109,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
                  bias: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over time. xbc (B, T, C), w (K, C)."""
     k = w.shape[0]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    pad = pad_time(xbc, k - 1)
     t = xbc.shape[1]
     out = sum(pad[:, i: i + t, :] * w[i][None, None, :] for i in range(k))
     return F.silu(out + bias[None, None, :])
@@ -105,7 +123,7 @@ def conv_tail(xbc: torch.Tensor, k: int) -> torch.Tensor:
     of 1 or 2 tokens.)"""
     t = xbc.shape[1]
     if t < k - 1:
-        xbc = F.pad(xbc, (0, 0, k - 1 - t, 0))
+        xbc = pad_time(xbc, k - 1 - t)
     return xbc[:, -(k - 1):, :]
 
 
@@ -131,7 +149,11 @@ def ssd_chunked(
     chunk: int,
     s0: Optional[torch.Tensor] = None,  # (B, H, P, N) initial state
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunk-parallel SSD. Returns (y (B,T,H,P), final_state (B,H,P,N))."""
+    """Chunk-parallel SSD. Returns (y (B,T,H,P), final_state (B,H,P,N)).
+    On DTensors each rank runs its own shard through ``local_map``
+    (:func:`_ssd_sharded`)."""
+    if hasattr(xh, "device_mesh"):
+        return _ssd_sharded(xh, la, Bm, Cm, chunk, s0)
     b, t, h, p = xh.shape
     n = Bm.shape[-1]
     q = min(chunk, t)
@@ -178,6 +200,42 @@ def ssd_chunked(
     return y[:, :t], s
 
 
+def _ssd_sharded(xh, la, Bm, Cm, chunk: int, s0):
+    """:func:`ssd_chunked` shard by shard: per mesh dim, a batch shard of
+    ``xh`` keeps every input batch-sharded; a head shard of ``xh`` and
+    ``la`` keeps them (and the state) head-sharded, B and C whole, their
+    gradients partial sums over the head shards; anything else (a shard
+    of the time axis, which the chunk recurrence runs along) is
+    gathered."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xh.device_mesh
+
+    def placed(t):
+        return (tuple(t.placements) if isinstance(t, DTensor)
+                else (Replicate(),) * mesh.ndim)
+
+    cols = [[] for _ in range(5)]
+    for px, pa in zip(placed(xh), placed(la)):
+        if px == Shard(0):
+            row = (Shard(0), Shard(0), Shard(0), Shard(0), Shard(0))
+        elif px == pa == Shard(2):
+            row = (Shard(2), Shard(2), Replicate(), Partial(), Shard(1))
+        else:
+            row = (Replicate(),) * 5
+        for col, p in zip(cols, row):
+            col.append(p)
+    x_p, la_p, bc_p, bc_grad, s_p = (tuple(c) for c in cols)
+    s0_p = None if s0 is None else s_p
+    return local_map(ssd_chunked, out_placements=(x_p, s_p),
+                     in_placements=(x_p, la_p, bc_p, bc_p, None, s0_p),
+                     in_grad_placements=(x_p, la_p, bc_grad, bc_grad, None,
+                                         s0_p),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         xh, la, Bm, Cm, chunk, s0)
+
+
 def _ssd_inputs(pl: Mapping[str, torch.Tensor], xbc: torch.Tensor,
                 dt_raw: torch.Tensor, cfg: ModelConfig):
     """The SSD's float32 inputs from the conv's output (float64 where the
@@ -199,7 +257,7 @@ def _gated_out(pl: Mapping[str, torch.Tensor], y: torch.Tensor,
     y = y + pl["D"][None, None, :, None] * xh
     y = y.reshape(*z.shape[:2], -1).to(z.dtype)
     y = rmsnorm(y * F.silu(z), pl["out_norm"], cfg.norm_eps)    # gated norm
-    return y @ pl["out_proj"].to(z.dtype)
+    return contract(y, pl["out_proj"])
 
 
 def ssm_mixer(pl: Mapping[str, torch.Tensor], x: torch.Tensor,
@@ -208,7 +266,7 @@ def ssm_mixer(pl: Mapping[str, torch.Tensor], x: torch.Tensor,
     """The mixer over a whole sequence: (output (B, T, D), final SSD state
     (B, H, P, N) float32, the conv's input (B, T, C) for the decode
     cache's tail)."""
-    proj = x @ pl["in_proj"].to(x.dtype)
+    proj = contract(x, pl["in_proj"])
     z, xbc_in, dt_raw = _split_proj(proj, cfg)
     xbc = _causal_conv(xbc_in, pl["conv_w"].to(x.dtype),
                        pl["conv_b"].to(x.dtype))
@@ -231,7 +289,7 @@ def ssm_decode_step(
     cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     d_in, h, n = ssm_dims(cfg)
-    proj = x @ pl["in_proj"].to(x.dtype)
+    proj = contract(x, pl["in_proj"])
     z, xbc, dt_raw = _split_proj(proj, cfg)
 
     conv_hist = torch.cat([state["conv"], xbc], dim=1)          # (B, K, C)

@@ -43,6 +43,7 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models.shardctx import constrain
 
 
 class DecoderLM(L.StackedLM):
@@ -67,6 +68,17 @@ class DecoderLM(L.StackedLM):
             "ln1": torch.zeros((n, d), dtype=pd, device=device),
             "ln2": torch.zeros((n, d), dtype=pd, device=device),
             "ln_f": torch.zeros((d,), dtype=pd, device=device),
+        }
+
+    def _spec_tree(self) -> Dict:
+        cfg = self.cfg
+        return {
+            "embed": L.EMBED_SPECS,
+            "attn": attn.MLA_SPECS if cfg.mla else attn.attention_specs(cfg),
+            "ffn": moe_mod.moe_specs(cfg) if cfg.moe else L.MLP_SPECS,
+            "ln1": ("stack", None),
+            "ln2": ("stack", None),
+            "ln_f": (None,),
         }
 
     def _layers(self):
@@ -98,13 +110,14 @@ class DecoderLM(L.StackedLM):
             cached = (k, v)
         o = attn.flash_attention(q, k, v, causal=True, window=cfg.local_window,
                                  skip_masked_chunks=skip_masked_chunks)
-        x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
+        x = x + L.contract(o, pa["wo"], 2)
         h = L.rmsnorm(x, ln2, cfg.norm_eps)
         return x + self._ffn(pf, h), cached
 
     def _layer(self, x, positions, layer):
         """One layer of the training forward (no masked-chunk skip)."""
-        return self._block(layer, x, positions, skip_masked_chunks=False)[0]
+        x = self._block(layer, x, positions, skip_masked_chunks=False)[0]
+        return constrain(x, ("batch", None, None))
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return L.embed_tokens(self.embed, tokens, self._compute_dtype())
@@ -136,6 +149,14 @@ class DecoderLM(L.StackedLM):
     def cache_batch_axes(self) -> Dict[str, int]:
         """The batch axis of each cache entry but ``len``: (L, B, S, ...)."""
         return {name: 1 for name in self._cache_names()}
+
+    def cache_logical_specs(self) -> Dict:
+        """Each cache entry's logical axes."""
+        if self.cfg.mla:
+            return {"ckv": ("stack", "batch", "seq", None),
+                    "krope": ("stack", "batch", "seq", None), "len": ()}
+        return {"k": ("stack", "batch", "seq", "kv_heads", None),
+                "v": ("stack", "batch", "seq", "kv_heads", None), "len": ()}
 
     def cache_specs(self, batch: int, max_len: int) -> Dict:
         """name -> (shape, dtype) of the decode cache."""
@@ -190,14 +211,14 @@ class DecoderLM(L.StackedLM):
                 q, *new = attn.qkv_project(pa, h, cfg, positions)
             layer_cache = [cache[name][i] for name in names]
             for c, t in zip(layer_cache, new):
-                c[:, pos] = t[:, 0].to(c.dtype)
+                L.write_position(c, pos, t[:, 0])
             if cfg.mla:  # the whole compressed cache, expanded
                 k_c, v_c = attn.mla_expand_kv(pa, *layer_cache, h.dtype)
             else:
                 k_c, v_c = layer_cache
             o = attn.decode_attention(q, k_c, v_c, pos + 1,
                                       window=cfg.local_window)
-            x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
+            x = x + L.contract(o, pa["wo"], 2)
             h = L.rmsnorm(x, ln2, cfg.norm_eps)
             x = x + self._ffn(pf, h)
         x = L.rmsnorm(x, self.ln_f, cfg.norm_eps)

@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models.shardctx import constrain
 
 
 class VisionLM(L.StackedLM):
@@ -70,6 +71,16 @@ class VisionLM(L.StackedLM):
             "ln_f": torch.zeros((d,), dtype=pd, device=device),
         }
 
+    def _spec_tree(self) -> Dict:
+        return {
+            "embed": L.EMBED_SPECS,
+            "attn": L.stacked_twice(attn.attention_specs(self.cfg)),
+            "xattn": attn.CROSS_SPECS,
+            "mlp": L.stacked_twice(L.MLP_SPECS),
+            "ln1": ("stack", None, None), "ln2": ("stack", None, None),
+            "ln_x": ("stack", None), "ln_f": (None,),
+        }
+
     def _supers(self):
         """Each super-block's (attn, xattn, mlp, ln1, ln2, ln_x); attn /
         mlp / ln1 / ln2 still stacked over its cross_attn_every layers."""
@@ -88,7 +99,7 @@ class VisionLM(L.StackedLM):
         q, k, v = attn.qkv_project(pa, h, cfg, positions)
         o = attn.flash_attention(q, k, v, causal=True,
                                  skip_masked_chunks=skip_chunks)
-        x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype))
+        x = x + L.contract(o, pa["wo"], 2)
         h = L.rmsnorm(x, ln2, cfg.norm_eps)
         return x + L.swiglu_mlp(pm, h), (k, v)
 
@@ -101,7 +112,7 @@ class VisionLM(L.StackedLM):
             x, _ = self._self_layer({k: v[j] for k, v in pa.items()}, ln1[j],
                                     ln2[j], {k: v[j] for k, v in pm.items()},
                                     x, positions)
-        return x
+        return constrain(x, ("batch", None, None))
 
     def forward(self, tokens: torch.Tensor,
                 vision: torch.Tensor) -> torch.Tensor:
@@ -137,6 +148,16 @@ class VisionLM(L.StackedLM):
         return {"k": (kv, cd), "v": (kv, cd), "xk": (xkv, cd),
                 "xv": (xkv, cd), "len": ((), torch.int32)}
 
+    def cache_logical_specs(self) -> Dict:
+        """Each cache entry's logical axes."""
+        return {
+            "k": ("stack", None, "batch", "seq", "kv_heads", None),
+            "v": ("stack", None, "batch", "seq", "kv_heads", None),
+            "xk": ("stack", "batch", "seq", "kv_heads", None),
+            "xv": ("stack", "batch", "seq", "kv_heads", None),
+            "len": (),
+        }
+
     def cache_batch_axes(self) -> Dict[str, int]:
         """The batch axis of each cache entry but ``len``."""
         return {"k": 2, "v": 2, "xk": 1, "xv": 1}
@@ -155,11 +176,11 @@ class VisionLM(L.StackedLM):
         entries = {"k": [], "v": [], "xk": [], "xv": []}
         for pa, px, pm, ln1, ln2, ln_x in self._supers():
             h = L.rmsnorm(x, ln_x, cfg.norm_eps)
-            xk = torch.einsum("bsd,dhk->bshk", vision, px["wk"].to(x.dtype))
-            xv = torch.einsum("bsd,dhk->bshk", vision, px["wv"].to(x.dtype))
-            q = torch.einsum("bsd,dhk->bshk", h, px["wq"].to(x.dtype))
+            xk = L.contract(vision, px["wk"])
+            xv = L.contract(vision, px["wv"])
+            q = L.contract(h, px["wq"])
             o = attn.flash_attention(q, xk, xv, causal=False)
-            o = torch.einsum("bshk,hkd->bsd", o, px["wo"].to(x.dtype))
+            o = L.contract(o, px["wo"], 2)
             x = x + torch.tanh(px["gate"]).to(x.dtype) * o
             ks, vs = [], []
             for j in range(cfg.cross_attn_every):
@@ -190,20 +211,20 @@ class VisionLM(L.StackedLM):
         positions = torch.full((b, 1), pos, device=tokens.device)
         for i, (pa, px, pm, ln1, ln2, ln_x) in enumerate(self._supers()):
             h = L.rmsnorm(x, ln_x, cfg.norm_eps)
-            q = torch.einsum("bsd,dhk->bshk", h, px["wq"].to(x.dtype))
+            q = L.contract(h, px["wq"])
             xk = cache["xk"][i]
             o = attn.decode_attention(q, xk, cache["xv"][i], xk.shape[1])
-            o = torch.einsum("bshk,hkd->bsd", o, px["wo"].to(x.dtype))
+            o = L.contract(o, px["wo"], 2)
             x = x + torch.tanh(px["gate"]).to(x.dtype) * o
             for j in range(cfg.cross_attn_every):
                 pl = {n: t[j] for n, t in pa.items()}
                 h = L.rmsnorm(x, ln1[j], cfg.norm_eps)
                 q, k, v = attn.qkv_project(pl, h, cfg, positions)
                 k_c, v_c = cache["k"][i, j], cache["v"][i, j]
-                k_c[:, pos] = k[:, 0].to(k_c.dtype)
-                v_c[:, pos] = v[:, 0].to(v_c.dtype)
+                L.write_position(k_c, pos, k[:, 0])
+                L.write_position(v_c, pos, v[:, 0])
                 o = attn.decode_attention(q, k_c, v_c, pos + 1)
-                x = x + torch.einsum("bshk,hkd->bsd", o, pl["wo"].to(x.dtype))
+                x = x + L.contract(o, pl["wo"], 2)
                 h = L.rmsnorm(x, ln2[j], cfg.norm_eps)
                 x = x + L.swiglu_mlp({n: t[j] for n, t in pm.items()}, h)
         x = L.rmsnorm(x, self.ln_f, cfg.norm_eps)

@@ -87,6 +87,8 @@ def as_storage(arr) -> np.ndarray:
     import torch
 
     if isinstance(arr, torch.Tensor):
+        if hasattr(arr, "full_tensor"):  # a DTensor: its whole value
+            arr = arr.full_tensor()
         t = arr.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(BFLOAT16)

@@ -8,7 +8,9 @@ the reference's, numpy for numpy, so both packages train on the same
 arrays.  :class:`DataPipeline` places each batch on its ``device``: on a
 card the int64 arrays are staged in pinned host memory and copied with
 ``non_blocking=True``; a small host-side prefetch queue overlaps batch
-synthesis with device compute.
+synthesis with device compute.  Under a device mesh
+(``models/shardctx.py``) the token arrays become DTensors placed by
+``sharding_for(("batch", None))``: each rank keeps its batch shard.
 
 The synthetic distribution is a mixture of K "skill" Markov chains so
 that experts fine-tuned on different skills genuinely diverge — the merge
@@ -24,6 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch.sharding import distribute
+from repro_torch.models.shardctx import sharding_for
 
 
 def _chain(rng: np.random.Generator, vocab: int, skill: int, n: int) -> np.ndarray:
@@ -119,7 +123,11 @@ class DataPipeline:
             if step < self.step:  # stale after a resume seek
                 continue
             self.step = step + 1
-            return to_device(b, self.device)
+            b = to_device(b, self.device)
+            sh = {k: sharding_for(("batch", None), tuple(v.shape))
+                  for k, v in b.items() if getattr(v, "ndim", 0) == 2}
+            return {k: distribute(v, *sh[k]) if sh.get(k) else v
+                    for k, v in b.items()}
 
     def state(self) -> Dict[str, int]:
         """Pipeline state for the checkpoint — just the step cursor."""

@@ -40,8 +40,9 @@ class OptState(NamedTuple):
 
 
 def init_opt_state(params: Tree) -> OptState:
-    def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros():  # placed as the params are (a DTensor's moments too)
+        return {n: torch.zeros_like(p, dtype=torch.float32,
+                                    requires_grad=False)
                 for n, p in params.items()}
 
     device = next(iter(params.values())).device

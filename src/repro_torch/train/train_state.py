@@ -7,7 +7,9 @@ and the JAX package uses), so the step updates the model in place and
 ``flatten_tree(state)`` names every tensor as the reference's
 ``flatten_tree(TrainState)`` does: ``params/<...>``, ``opt/m/<...>``,
 ``opt/v/<...>``, ``opt/step`` and, with compression, ``ef/<...>``.
-There is no ``jit``: a step runs eagerly.
+There is no ``jit``: a step runs eagerly.  Under a device mesh the
+parameters, their moments and the batch are DTensors (the moments
+placed as their parameters), and the step's metrics come back whole.
 """
 from __future__ import annotations
 
@@ -22,6 +24,12 @@ from repro_torch.train.optimizer import (
     adamw_update,
     init_opt_state,
 )
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (a collective: every rank calls it); a
+    plain tensor itself."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 class TrainState(NamedTuple):
@@ -72,7 +80,9 @@ def make_train_step(
         _, opt, om = adamw_update(opt_cfg, state.params, grads, state.opt)
         for p in own.values():
             p.grad = None
-        return TrainState(state.params, opt, ef), {"loss": loss.detach(), **om}
+        metrics = {"loss": loss.detach(), **om}
+        return TrainState(state.params, opt, ef), {
+            k: whole(v) for k, v in metrics.items()}
 
     return train_step
 

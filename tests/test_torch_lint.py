@@ -36,6 +36,7 @@ WAIVED = sorted([
     (PORT + "core/executor.py", "_produce", "except BaseException"),
     (PORT + "dist/lease.py", "write", "durability edge os.replace"),
     (PORT + "dist/worker.py", "_write_json", "durability edge os.replace"),
+    (PORT + "launch/dryrun.py", "main", "except Exception"),
     (PORT + "launch/merge_cli.py", "_cmd_submit", "durability edge os.rename"),
     (PORT + "store/blockcache.py", "CachingModelReader._admit", "read of self._blocks"),
     (PORT + "store/blockcache.py", "CachingModelReader._admit", "read of self._blocks"),

@@ -163,9 +163,32 @@ def test_dispatch_drops_overflow_into_the_last_slot():
 
 
 def test_shardctx_is_the_no_mesh_context():
+    """No mesh: constrain is the identity and sharding_for None.  A mesh
+    (anything with mesh_dim_names and shape): logical names resolve to
+    placements, one per mesh dim, and the MoE sees its batch axes."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import Replicate, Shard
+
     x = torch.ones(3)
     assert shardctx.get_mesh() is None
     assert shardctx.constrain(x, ("batch",)) is x
-    shardctx.set_context(None, None)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        shardctx.set_context(object(), {})
+    assert shardctx.sharding_for(("batch",), (3,)) is None
+    assert tmoe._batch_axes(32, None) == ()
+    mesh = SimpleNamespace(mesh_dim_names=("pod", "data", "model"),
+                           shape=(2, 16, 16))
+    shardctx.set_context(mesh, shardctx.train_rules(True))
+    try:
+        assert shardctx.resolve(("batch", None, "heads"), (64, 5, 16)) == (
+            Shard(0), Shard(0), Shard(2))
+        # kv_heads 8 cannot divide the model axis: replicated, no error
+        assert shardctx.resolve((None, "kv_heads"), (4, 8)) == (
+            Replicate(),) * 3
+        assert shardctx.sharding_for(("batch",), (64,)) == (
+            mesh, (Shard(0), Shard(0), Replicate()))
+        assert shardctx.constrain(x, ("batch",)) is x  # a plain tensor
+        assert tmoe._batch_axes(32, mesh) == ("pod", "data")
+        assert tmoe._batch_axes(3, mesh) == ()
+    finally:
+        shardctx.set_context(None, None)
+    assert shardctx.get_mesh() is None

@@ -467,9 +467,15 @@ def test_launch_train_trains_mla_and_hybrid_families(tmp_path, capsys, arch):
 
 @pytest.mark.parametrize("flag", ["--production-mesh", "--multi-pod"])
 def test_launch_train_mesh_flags_not_ported(tmp_path, flag):
-    with pytest.raises(SystemExit, match="not ported yet"):
+    """The production meshes are taken, and need a group of 256 / 512
+    ranks: one process fails loudly, and closes the group it opened."""
+    import torch.distributed as dist
+
+    with pytest.raises(RuntimeError, match="production mesh needs a process "
+                                           "group of (256|512) ranks"):
         train_cli.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
                         "--workspace", str(tmp_path / "ws"), flag])
+    assert not dist.is_initialized()
 
 
 def test_launch_train_defaults_to_the_card(tmp_path):
