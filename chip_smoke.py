@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's merge, service, shard-worker, serve,
 MoE / MLA serve, hybrid (RG-LRU) serve, SSM (Mamba-2), encoder–decoder
 (Whisper) and vision (Llama-3.2-Vision) serve, training (dense, MoE /
-MLA, hybrid, SSM and encoder–decoder) and store paths once on one NVIDIA
-card.
+MLA, hybrid, SSM and encoder–decoder) and store paths, and its
+quickstart and budget-sweep examples, once on one NVIDIA card, and its
+lint beside them on the host.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 2 without
 
@@ -302,6 +303,21 @@ Phases, one JSON line each:
   dryrun   python -m repro_torch.launch.dryrun, host only, in processes
            of its own beside every card phase: DRYRUN's archs x every
            shape x both production meshes; every applicable cell ok
+  examples the JAX package's quickstart and budget-sweep examples as
+           ported (``repro_torch.launch.quickstart`` / ``budget_sweep``,
+           at their own sizes: nothing cut), each through its main() with
+           --device cuda, then --device cpu: every committed snapshot
+           bit-equal (content hashes), every IOStats category equal
+           (``meta`` within META_SLACK bytes: the catalog's JSON carries
+           timestamps), the budget held (realized expert bytes <= planned
+           <= B), the sweep's shared-read batch below the sequential
+           bytes, and the card runs' TIES (on ties_route's route) and
+           DARE launches, each example's wall both ways
+  lint     python -m repro_torch.analysis --format json (mergelint: the
+           guarded-by, accounting, except-discipline and durability
+           passes over src/repro_torch), host only, in a process of its
+           own beside the card phases, with no JAX on the machine: exit
+           0, no unwaived finding, each pass's findings and waivers
 
 The loop phase runs in a spawned process of its own beside the store
 phase (both host-bound, on workspaces of their own; the kernel timing,
@@ -658,6 +674,12 @@ MESH_MEMORY_SLACK = 0.10
 # its own (no card: CUDA_VISIBLE_DEVICES empty), each of these archs x
 # every shape x both production meshes, beside the card's phases
 DRYRUN = {"archs": ("qwen2-1.5b", "deepseek-v2-lite-16b"), "timeout_s": 900}
+#: the examples phase: a run's ``meta`` bytes (catalog and manifest JSON,
+#: which carry timestamps) move by a byte or two between any two runs of
+#: one device; every other IOStats category must be equal
+META_SLACK = 64
+#: the lint phase's process limit (seconds; it takes a few)
+LINT_TIMEOUT_S = 300
 # the linear kernel's whole-shard launch with a per-row divisor: about
 # the rows a shard stacks at a merge depth of 4 (6,418 blocks of the
 # 4-layer model over 2 workers), K = 4, 128 KiB bf16 blocks as float32
@@ -3782,6 +3804,146 @@ def phase_dryrun(records, wall_s):
               for r in records]})
 
 
+def phase_examples(device):
+    """The ported quickstart and budget-sweep examples on the card and on
+    the CPU (see the module doc); returns the card runs' merge-kernel
+    launches, counted from 0 before each card run."""
+    import io as _io
+
+    import torch
+
+    from repro_torch.kernels import merge_block as mb
+    from repro_torch.launch import budget_sweep, quickstart
+
+    out = {"phase": "examples", "examples": {}}
+    launched = collections.Counter()
+    for name, example in (("quickstart", quickstart),
+                          ("budget_sweep", budget_sweep)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            mb.reset_launches()
+            t = time.perf_counter()
+            # the example's report stays off the smoke's JSON lines
+            with ties_routes() as seen, contextlib.redirect_stdout(
+                    _io.StringIO()):
+                got = example.main(["--device", dev])
+                if dev == "cuda":
+                    torch.cuda.synchronize(device)
+            runs[dev] = {"result": got, "wall_s": time.perf_counter() - t,
+                         "launches": dict(mb.LAUNCHES), "seen": seen}
+        card, cpu = runs["cuda"], runs["cpu"]
+        a, b = card["result"], cpu["result"]
+        if a["snapshots"] != b["snapshots"]:
+            differ = sorted((s, t) for s in b["snapshots"]
+                            for t in b["snapshots"][s]
+                            if a["snapshots"].get(s, {}).get(t)
+                            != b["snapshots"][s][t])
+            raise AssertionError(f"examples {name}: card and CPU snapshots "
+                                 f"differ at {differ}")
+        io_card, io_cpu = a["iostats"], b["iostats"]
+        for kind in sorted(set(io_card) | set(io_cpu)):
+            for cat in sorted(set(io_card.get(kind, {}))
+                              | set(io_cpu.get(kind, {}))):
+                x = io_card.get(kind, {}).get(cat, 0)
+                y = io_cpu.get(kind, {}).get(cat, 0)
+                if x != y and not (cat == "meta" and abs(x - y) <= META_SLACK):
+                    raise AssertionError(f"examples {name}: IOStats "
+                                         f"{kind}/{cat}: card {x}, CPU {y}")
+        if sum(cpu["launches"].values()):
+            raise AssertionError(f"examples {name}: the CPU run launched "
+                                 f"{cpu['launches']}")
+        routes = check_ties_routes(card["seen"], card["launches"],
+                                   f"examples {name}")
+        if not card["seen"]:
+            raise AssertionError(f"examples {name}: no TIES kernel launched")
+        if name == "quickstart":
+            if card["launches"]["dare_merge"] == 0:
+                raise AssertionError("examples quickstart: the DARE "
+                                     "sub-merge launched no DARE kernel")
+            if not a["expert_read"] <= a["planned"] <= a["budget_b"]:
+                raise AssertionError(f"examples quickstart: realized "
+                                     f"{a['expert_read']}, planned "
+                                     f"{a['planned']}, B {a['budget_b']}")
+            summary = {k: a[k] for k in ("expert_read", "base_read",
+                                         "out_written", "naive", "planned",
+                                         "budget_b")}
+        else:
+            over = [r for r in a["rows"] if r["planned"] > r["budget_b"]]
+            if over or not a["expert_mb"] < a["sequential_mb"]:
+                raise AssertionError(f"examples budget_sweep: planned past "
+                                     f"B at {over}; expert MB "
+                                     f"{a['expert_mb']} of sequential "
+                                     f"{a['sequential_mb']}")
+            summary = {k: a[k] for k in ("rows", "expert_mb", "sequential_mb",
+                                         "sharing_factor",
+                                         "cached_block_reads")}
+            summary["batch_wall_s"] = {"cuda": a["batch_wall_s"],
+                                       "cpu": b["batch_wall_s"]}
+        launched.update(card["launches"])
+        out["examples"][name] = {
+            **summary, "snapshots_bit_equal": len(a["snapshots"]),
+            "iostats": io_card, "cpu_meta": {
+                k: io_cpu[k]["meta"] for k in io_cpu if "meta" in io_cpu[k]},
+            "wall_s": {"cuda": card["wall_s"], "cpu": cpu["wall_s"]},
+            "launches": card["launches"], "ties_routes": routes}
+    out["launches"] = dict(launched)
+    emit(out)
+    return out["launches"]
+
+
+def start_lint():
+    """Start the lint phase: ``python -m repro_torch.analysis --format
+    json`` over this checkout, host only, in a thread; returns (future,
+    stop) as start_dryrun does.  The future gives (the report, the exit
+    code, the wall)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+
+    def run():
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.analysis", "--format", "json",
+             "--root", HERE], cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        procs.append(proc)
+        stdout, err = proc.communicate(timeout=LINT_TIMEOUT_S)
+        if proc.returncode not in (0, 1):
+            raise AssertionError(f"lint: exit {proc.returncode}: "
+                                 f"{err[-2000:]}")
+        return json.loads(stdout), proc.returncode, time.perf_counter() - t0
+
+    def stop():
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    ex = ThreadPoolExecutor(1)
+    future = ex.submit(run)
+    ex.shutdown(wait=False)
+    return future, stop
+
+
+def phase_lint(doc, code, wall_s):
+    """Hold the lint's report: exit 0 and no unwaived finding; one line
+    with each pass's findings and waivers."""
+    from repro_torch.analysis.runner import ALL_PASSES
+
+    per_pass = {p: {"findings": 0, "waived": 0} for p in ALL_PASSES}
+    for kind in ("findings", "waived"):
+        for f in doc[kind]:
+            per_pass.setdefault(f["pass"], {"findings": 0, "waived": 0})
+            per_pass[f["pass"]][kind] += 1
+    if code != 0 or doc["findings"]:
+        raise AssertionError(f"lint: exit {code}, unwaived findings "
+                             f"{doc['findings'][:8]}")
+    emit({"phase": "lint", "wall_s": wall_s, "exit_code": code,
+          "hardware": "host only (no card, no JAX)",
+          "passes": per_pass,
+          "findings": len(doc["findings"]), "waived": len(doc["waived"])})
+
+
 def eval_loss(model, vocab, skill):
     """Mean loss over LOOP["eval_batches"] held-out batches of a skill."""
     import torch
@@ -4629,6 +4791,9 @@ def main() -> int:
                      + f"; dryrun: {' and '.join(DRYRUN['archs'])} only "
                        f"(every shape, both production meshes; the other "
                        f"archs' cells run off the card, PERF.md); "
+                       f"examples: quickstart and budget_sweep at their "
+                       f"own sizes, nothing cut; lint: all of "
+                       f"src/repro_torch, nothing cut; "
                        f"widths as published"})
 
     t0 = time.perf_counter()
@@ -4725,6 +4890,8 @@ def main() -> int:
     dry_dir = tempfile.mkdtemp(prefix="smoke-dryrun-",
                                dir=os.path.join(HERE, "build"))
     dry, stop_dry = start_dryrun(dry_dir)
+    # the lint phase: one host-only process, beside the card phases too
+    lint, stop_lint = start_lint()
 
     def timed(name, phase, *a):
         t = time.perf_counter()
@@ -4763,6 +4930,7 @@ def main() -> int:
         trained_whisper = timed("train_whisper", phase_train, device, seed,
                                 TRAIN_WHISPER, "train_whisper")
         meshed = timed("mesh", phase_mesh, device, seed)
+        examples = timed("examples", phase_examples, device)
         shutil.rmtree(os.path.join(root, "merge"), ignore_errors=True)
         # the loop phase in a process of its own beside the store phase:
         # both are host-bound (checkpoint and snapshot I/O, hashing, zlib,
@@ -4780,19 +4948,23 @@ def main() -> int:
             loop = looping.result()
         records, walls["dryrun"] = dry.result()
         phase_dryrun(records, walls["dryrun"])
+        doc, code, walls["lint"] = lint.result()
+        phase_lint(doc, code, walls["lint"])
     finally:
         stop_dry()
+        stop_lint()
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(dry_dir, ignore_errors=True)
     # each kernel's launches over the paths that run it: the merge, the
     # service, the parity phase's TIES merge at 2 MiB blocks (the pair
     # route), the shards phase's inline window, the loop's merge and the
-    # store phase's merges and ANALYZE; flash attention: serving,
-    # training and the loop.  The shard worker processes' launches (their
-    # result docs: the shards phase and the store phase's sharded merge)
-    # are a column of their own
+    # store phase's merges and ANALYZE, the examples' card runs (their
+    # ANALYZE, TIES and DARE merges); flash attention: serving, training
+    # and the loop.  The shard worker processes' launches (their result
+    # docs: the shards phase and the store phase's sharded merge) are a
+    # column of their own
     launches = {n: launches[n] + service[n] + pair[n] + shards[n] + loop[n]
-                + store[n] for n in launches}
+                + store[n] + examples.get(n, 0) for n in launches}
     worker = collections.Counter(worker) + collections.Counter(store_worker)
     for name in ("flash_attention", "flash_attention_bwd",
                  "flash_attention_bwd_tc"):

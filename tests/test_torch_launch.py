@@ -3,14 +3,25 @@ torch versions of the JAX package's ``examples/train_and_merge.py``
 (train K experts from one seeded base, TIES-merge them under a budget,
 evaluate every model on every skill) and ``examples/serve_merged.py``
 (train two experts, merge through a live ``MergeService``, serve the
-snapshot with ``ServeEngine``).  Both default to the card."""
+snapshot with ``ServeEngine``).  Both default to the card, and so do
+the ported quickstart and budget-sweep examples
+(``tests/test_torch_examples.py`` holds them against the reference)."""
 import math
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.launch import serve_merged, train_and_merge  # noqa: E402
+from repro_torch.launch import (  # noqa: E402
+    budget_sweep,
+    quickstart,
+    serve_merged,
+    train_and_merge,
+)
+
+#: each launcher's arguments where they default to the card
+CARD_ARGV = {train_and_merge: ["--steps", "1"], serve_merged: ["--steps", "1"],
+             quickstart: [], budget_sweep: []}
 
 
 def test_train_and_merge_runs_on_the_cpu(capsys):
@@ -46,9 +57,10 @@ def test_serve_merged_hybrid_runs_on_the_cpu(capsys):
     assert all(r.done and len(r.out_tokens) == 12 for r in reqs)
 
 
-@pytest.mark.parametrize("launcher", [train_and_merge, serve_merged])
+@pytest.mark.parametrize("launcher", [train_and_merge, serve_merged,
+                                      quickstart, budget_sweep])
 def test_launchers_default_to_the_card(launcher):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device exists")
     with pytest.raises(RuntimeError, match="CUDA device requested"):
-        launcher.main(["--steps", "1"])
+        launcher.main(CARD_ARGV[launcher])

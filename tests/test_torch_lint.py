@@ -1,11 +1,11 @@
-"""The repository's lint (mergelint, ``repro.analysis``: the guarded-by,
+"""The port's lint (mergelint, ``repro_torch.analysis``: the guarded-by,
 accounting, except-discipline and durability passes) over the port, and
 the kernel build's publish order: the library is fsynced before the
 rename that makes it visible, with a crash point between them, and
 processes building at once compile a source once.
 
 The lint's registry-drift check reads the chaos registry of the package
-it lints; for the port that is ``repro_torch.testing.chaos``, whose
+it lints; the port's copy reads ``repro_torch.testing.chaos``, whose
 points (``build:publish`` among them) are the ones the port's injectors
 can arm.  The findings are pinned: the ones the port's copies waive in
 their own comments, and the registered points whose call sites live in
@@ -20,7 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro.analysis import durability, runner  # noqa: E402
+from repro_torch.analysis import durability, runner  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.testing import chaos  # noqa: E402
 
@@ -61,20 +61,21 @@ WAIVED = sorted([
 NOT_PORTED = {}
 
 
-def _port_lint(monkeypatch):
-    monkeypatch.setattr(durability, "_REGISTRIES", (
+def _port_lint():
+    # the copy's drift check reads the port's own registry, unpatched
+    assert durability._REGISTRIES == (
         ("chaos_point", chaos.CRASH_POINTS, "CRASH_POINTS", "armed"),
         ("chaos_corrupt", chaos.CORRUPTION_POINTS, "CORRUPTION_POINTS",
          "injected"),
-    ))
+    )
     paths = sorted(glob.glob(os.path.join(ROOT, PORT, "**", "*.py"),
                              recursive=True))
     assert any(p.endswith("train/train_loop.py") for p in paths)
     return runner.run_paths(paths, root=ROOT)
 
 
-def test_port_lint_gives_exactly_the_pinned_findings(monkeypatch):
-    findings = _port_lint(monkeypatch)
+def test_port_lint_gives_exactly_the_pinned_findings():
+    findings = _port_lint()
 
     def key(f):
         prefix = next((w[2] for w in WAIVED if f.message.startswith(w[2])),
