@@ -87,6 +87,9 @@ Phases, one JSON line each:
            whisper-tiny's encoder (1, 1500, 1500, 6, 6) at hd 64 and
            Llama-3.2-Vision's cross-attention (1, 2048, 1024, 64, 8) at
            hd 128, both without a mask, on the tensor cores,
+           DeepSeek-V2-Lite's smoke pair (2, 256, 256, 4, 4) at (24,
+           16) through the narrow CTA (bf16), the FMA kernel (float32)
+           and, one key past the narrow limit, the general kernel,
            each with its profiler device time (tolerance 2e-5 float32, 2e-2 bf16; the elements
            that differ from the plain version counted); the flash backward (dq, dk, dv) against autograd
            through the plain version at (B, S, H, Hkv, hd) = (2, 1024,
@@ -95,8 +98,12 @@ Phases, one JSON line each:
            training phases' attention (DeepSeek-V2-Lite's (2, 2048, 16,
            16) at qk 192 / v 128; RecurrentGemma-9B's (1, 3072, 16, 1) at
            (256, 256) with window 2,048), each bf16 and float32,
-           (24, 16) at a small shape and train_whisper's encoder (8,
-           1500, 6, 6) at hd 64 without a mask (BWD_TOL),
+           (24, 16) at (2, 256, 4, 4) (bf16: the one-launch kernel;
+           float32; and at 257, past its limit, the three kernels) and
+           train_whisper's encoder (8, 1500, 6, 6) at hd 64 without a
+           mask (BWD_TOL); the (24, 16) rows beside the event and device
+           time of an empty launch (torch.cuda._sleep(0)) under the same
+           timer,
            bf16 on both routes (tensor cores, then float32 FMAs; timed in
            turns, and the tensor cores must win at the first case: the
            route gate), two runs bit-equal, SDPA's backward as the
@@ -211,6 +218,12 @@ Phases, one JSON line each:
            attention at (256, 256), 16 query heads over one kv head),
            TRAIN_GRIFFIN["layers"] of 38 layers (one attention layer), 1 x
            3,072 tokens (the window of 2,048 masks keys), 1 + 3 steps
+  train_mla_smoke  the same for DeepSeek-V2-Lite's smoke config (the
+           launchers' --smoke: 2 layers, 4 heads at qk 24 / v 16, remat
+           off) computing in bf16 (TRAIN_MLA_SMOKE), 2 x 256 tokens: its
+           attention is the kernels phase's mla_smoke shape, and every
+           launch must be the narrow forward (flash_attention_narrow_kernel)
+           and the one-launch backward (fa_bwd_narrow_tc_kernel)
   serve_mamba  Mamba-2 2.7B through ServeEngine (MAMBA: 4 requests of
            1,024-2,048 prompt tokens, 16 greedy tokens each, 4 slots):
            first, on the bf16 weights, the float32 engine's greedy tokens
@@ -390,8 +403,15 @@ FA_CASES = [
     ("rg_prefill_f32", (1, 3072, 3072, 16, 1, 256, 256), "float32", True,
      2048, 0, "fma"),
     # DeepSeek-V2-Lite's smoke config at (24, 16), at the backward's
-    # mla_smoke shape
+    # mla_smoke shape: the narrow CTA (Sk <= NARROW_MAX_LEN; the
+    # train_mla_smoke phase's launches); the float32 FMA route the
+    # launchers take with the smoke config as it stands (compute_dtype
+    # float32); one key past the narrow limit, the general kernel
     ("mla_smoke", (2, 256, 256, 4, 4, 24, 16), "bfloat16", True, 0, 0, "tc"),
+    ("mla_smoke_f32", (2, 256, 256, 4, 4, 24, 16), "float32", True, 0, 0,
+     "fma"),
+    ("mla_smoke_257", (2, 257, 257, 4, 4, 24, 16), "bfloat16", True, 0, 0,
+     "tc"),
     # whisper-tiny's encoder (1,500 frames, 6 heads at hd 64, no mask): the
     # serve_whisper phase's bf16 prefill launches at this shape
     ("whisper_encoder", (1, 1500, 1500, 6, 6, 64, 64), "bfloat16", False, 0,
@@ -405,6 +425,7 @@ FA_CASES = [
 # counter (the serve_mla and serve_griffin phases' counts: bf16 prefill on
 # the tensor cores, the float32 run on the FMA kernel)
 FA_ROWS = {"mla_prefill": "flash_attention_mla",
+           "mla_smoke": "flash_attention_narrow",
            "mla_prefill_f32": "flash_attention_mla_fma",
            "rg_prefill": "flash_attention_rg",
            "rg_prefill_f32": "flash_attention_rg_fma",
@@ -480,6 +501,8 @@ BWD_CASES = [
     ("rg_train", (1, 3072, 16, 1, 256, 256), "bfloat16", True, 2048),
     ("rg_train_f32", (1, 3072, 16, 1, 256, 256), "float32", True, 2048),
     ("mla_smoke", (2, 256, 4, 4, 24, 16), "bfloat16", True, 0),
+    ("mla_smoke_f32", (2, 256, 4, 4, 24, 16), "float32", True, 0),
+    ("mla_smoke_257", (2, 257, 4, 4, 24, 16), "bfloat16", True, 0),
     # the train_whisper phase's encoder: 8 clips of 1,500 frames, 6 heads
     # at hd 64, no mask
     ("whisper_train", (8, 1500, 6, 6, 64, 64), "bfloat16", False, 0),
@@ -488,6 +511,7 @@ BWD_CASES = [
 # launch counter (the train_mla, train_griffin and train_whisper phases'
 # tensor-core backward launches)
 BWD_ROWS = {"mla_train": "flash_attention_bwd_mla",
+            "mla_smoke": "flash_attention_bwd_narrow",
             "rg_train": "flash_attention_bwd_rg",
             "whisper_train": "flash_attention_bwd_whisper"}
 # the backward against autograd through flash_attention_ref: float32 sums
@@ -546,6 +570,18 @@ TRAIN_MLA = {"config": "deepseek-v2-lite-16b", "layers": 2, "batch": 2,
                              "ffn/w_down"),
              "counter": "flash_attention_bwd_mla",
              "cut_by": "27 layers need ~256 GB with AdamW"}
+# the train_mla_smoke phase: DeepSeek-V2-Lite's smoke config (the
+# launchers' --smoke: 2 layers, d_model 64, 4 heads at qk 24 / v 16, 8
+# experts top-2) with its compute in bf16, the published config's dtype
+# (the smoke config computes in float32, which takes the FMA kernels),
+# 2 x 256 tokens a step: its attention is the kernels phase's mla_smoke
+# shape, so the narrow forward and the one-launch backward run on the
+# training path (remat off, as the smoke config has it)
+TRAIN_MLA_SMOKE = {"config": "deepseek-v2-lite-16b", "smoke": True,
+                   "compute_dtype": "bfloat16", "layers": None, "batch": 2,
+                   "seq": 256, "warmup": 1, "steps": 3, "lr": 3e-4,
+                   "grad_sample": TRAIN_MLA["grad_sample"],
+                   "counter": "flash_attention_bwd_narrow", "narrow": True}
 # the train_griffin phase: RecurrentGemma-9B at its published widths,
 # depth 5 of 38 (one super-block of two recurrent layers and a local
 # attention layer, then the two trailing recurrent layers: 5 = 2 mod 3;
@@ -1220,6 +1256,12 @@ def flash_rows(device, seed, timer):
     from repro_torch.kernels import ref
 
     g = torch.Generator(device=device).manual_seed(seed + 2)
+    # what any one launch costs under the same timer: an empty kernel, by
+    # CUDA events and by device time (every kernel of the call but the
+    # flush's fill)
+    empty_ms = timer(lambda: torch.cuda._sleep(0))
+    empty_dev = kernel_device_ms(lambda: torch.cuda._sleep(0),
+                                 r"^(?!.*FillFunctor<unsign)", timer)
     rows = []
     for (label, (b, sq, sk, h, hkv, hd, hdv), dt, causal, window, qoff,
          route) in FA_CASES:
@@ -1288,6 +1330,17 @@ def flash_rows(device, seed, timer):
             # the warp-specialised layout, beside its time
             row.update(layout=fa.forward_tile_work(hd, hdv),
                        smem_bytes=plan["smem_bytes"], stages=plan["stages"])
+        if label.startswith("mla_smoke"):
+            # a launch-bound row: its share of the bound beside the cost
+            # of an empty launch
+            row.update(empty_launch_ms=empty_ms,
+                       empty_launch_device_ms=empty_dev,
+                       smem_bytes=plan["smem_bytes"],
+                       threads=plan["threads"],
+                       layout=(fa.forward_tile_work(
+                           hd, hdv, narrow=kernel ==
+                           "flash_attention_narrow_kernel")
+                               if route == "tc" else None))
         rows.append(row)
         del q, k, v, got, want, mask
     return rows
@@ -1345,6 +1398,10 @@ def flash_bwd_rows(device, seed, timer):
     from repro_torch.kernels import ref
 
     g = torch.Generator(device=device).manual_seed(seed + 7)
+    # an empty launch, by CUDA events and by device time
+    empty_ms = timer(lambda: torch.cuda._sleep(0))
+    empty_dev = kernel_device_ms(lambda: torch.cuda._sleep(0),
+                                 r"^(?!.*FillFunctor<unsign)", timer)
     rows = []
     for label, (b, s, h, hkv, hd, hdv), dt, causal, window in BWD_CASES:
         dtype = getattr(torch, dt)
@@ -1417,8 +1474,9 @@ def flash_bwd_rows(device, seed, timer):
             raise AssertionError(f"route gate: the tensor-core backward "
                                  f"({ms['tc']} ms) is not faster than the "
                                  f"FMA backward ({ms['fma']} ms)")
-        kernels = [n for n, _ in fa.backward_plan(b, s, s, h, hkv, hd,
-                                                  dtype, hdv=hdv)["kernels"]]
+        bwd_plan = fa.backward_plan(b, s, s, h, hkv, hd, dtype, hdv=hdv)
+        kernels = [n for n, _ in bwd_plan["kernels"]]
+        narrow = kernels == ["fa_bwd_narrow_tc_kernel"]
         by_kernel = None
         if route == "tc":  # device time of each kernel of the route
             by_kernel = {n: kernel_device_ms(kerns["tc"], n, timer)
@@ -1441,7 +1499,7 @@ def flash_bwd_rows(device, seed, timer):
             fwd["lse" if with_lse else "lse_null"].append(kernel_device_ms(
                 lambda: fa._forward(q, k, v, causal, window, 0, route,
                                     with_lse=with_lse),
-                r"flash_attention(_tc|_ws)?_kernel", timer))
+                r"flash_attention(_tc|_ws|_narrow)?_kernel", timer))
         rows.append({
             "name": "flash_attention_bwd", "route": "cuda", "case": label,
             "fa_route": route,
@@ -1466,8 +1524,14 @@ def flash_bwd_rows(device, seed, timer):
             "device_ms": sum(by_kernel.values()) if by_kernel else None,
             # the route's products a (64 x 64) tile and each warpgroup's
             # share of them, in hd-units
-            "tile_work": (fa.backward_tile_work(hd, hdv) if route == "tc"
-                          else None),
+            "tile_work": (fa.backward_tile_work(hd, hdv, narrow=narrow)
+                          if route == "tc" else None),
+            "launches_a_call": len(kernels) if route == "tc" else None,
+            **({"empty_launch_ms": empty_ms,
+                "empty_launch_device_ms": empty_dev,
+                "threads": bwd_plan.get("threads"),
+                "smem_bytes": bwd_plan.get("smem_bytes")}
+               if label.startswith("mla_smoke") else {}),
             "plain_ms": timer(plain, reps=reps, warm=warm),
             "library_ms": library_dev,
             "library_event_ms": timer(library, reps=reps, warm=warm),
@@ -3415,20 +3479,24 @@ def grad_sample(model, names):
 
 def phase_train(device, seed, spec=TRAIN, phase="train"):
     """Train ``spec["config"]`` at its published widths (``spec["layers"]``
-    deep, or all its layers) for a few steps through make_train_step: the
-    flash forward and backward kernels on every attention layer, remat
-    on.  First the first step's loss and ``spec["grad_sample"]`` through
-    the kernels against the same step through the plain attention (an
+    deep, or all its layers; its smoke config where ``spec["smoke"]``,
+    computing in ``spec["compute_dtype"]`` where named) for a few steps
+    through make_train_step: the flash forward and backward kernels on
+    every attention layer, remat as the config has it (where
+    ``spec["narrow"]``, every launch the narrow CTAs').  First the first
+    step's loss and ``spec["grad_sample"]`` through the kernels against
+    the same step through the plain attention (an
     MoE's plain pass replaying the kernel pass's expert choices, forward
     and remat's recompute in the same order, its flips counted), then
     warm-up and timed steps with their launch counts, then one step under
     the profiler.  Returns the launch counts, with the tensor-core
-    backward's also under ``spec["counter"]`` where the spec names one."""
+    backward's also under ``spec["counter"]`` where the spec names one
+    (the narrow CTAs count under their own counters)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import merge_block as mb
     from repro_torch.models import build_model
@@ -3437,10 +3505,13 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
     from repro_torch.train.train_state import (init_train_state,
                                                make_train_step, model_params)
 
-    cfg = get_config(spec["config"])
+    cfg = (get_smoke_config if spec.get("smoke") else get_config)(
+        spec["config"])
     published = cfg.n_layers
     if spec.get("layers"):
         cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    if spec.get("compute_dtype"):
+        cfg = dataclasses.replace(cfg, compute_dtype=spec["compute_dtype"])
     attn = attention_layers(cfg)
     batch_n, seq = spec["batch"], spec["seq"]
     t0 = time.perf_counter()
@@ -3539,10 +3610,15 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
                                  cfg.n_kv_heads, hd,
                                  getattr(torch, cfg.compute_dtype), hdv=hdv)
                 if attn else {"route": None, "kernels": []})
-    per = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+    # remat: forward and its recompute
+    per = {"flash_attention": (2 if cfg.remat else 1) * attn,
+           "flash_attention_bwd": attn,
            "flash_attention_bwd_tc":
                attn if bwd_plan["route"] == "tc" else 0}
-    for name, n in per.items():  # remat: forward and its recompute
+    if spec.get("narrow"):  # every launch the narrow CTAs'
+        per.update(flash_attention_narrow=per["flash_attention"],
+                   flash_attention_bwd_narrow=attn)
+    for name, n in per.items():
         if launches[name] != n * steps:
             raise AssertionError(f"{phase}: {launches} over {steps} steps, "
                                  f"want {n} {name} launches a step")
@@ -3582,7 +3658,8 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
         "backward_route": bwd_plan["route"],
         "profiled_step_s": prof_wall, "device_busy_ms": busy,
         "device_idle_share": 1 - busy / 1e3 / prof_wall,
-        "flash_forward_ms": kernel_time(r"flash_attention(_tc|_ws)?_kernel"),
+        "flash_forward_ms": kernel_time(
+            r"flash_attention(_tc|_ws|_narrow)?_kernel"),
         "flash_backward_ms": kernel_time(r"fa_bwd_\w+_kernel"),
         "flash_backward_by_kernel_ms": {
             n: kernel_time(n) for n, _ in bwd_plan["kernels"]},
@@ -3592,7 +3669,7 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
     })
     del model, state, step_fn, batch, batch0, params
     torch.cuda.empty_cache()
-    if spec.get("counter"):
+    if spec.get("counter") and not spec.get("narrow"):
         launches[spec["counter"]] = launches["flash_attention_bwd_tc"]
     return launches
 
@@ -4754,7 +4831,10 @@ def main() -> int:
                      f"host at ~9 MB/s); shards: pipelined windows of "
                      f"{', '.join(SHARDS['pipelined'])} only, whole-shard "
                      f"merges of {', '.join(SHARDS['whole_shard'])} only; "
-                     f"train: all layers; train_mla (deepseek-v2-lite-16b): "
+                     f"train: all layers; train_mla_smoke: "
+                     f"deepseek-v2-lite-16b's smoke config as --smoke "
+                     f"gives it, its compute in bf16 (the config's is "
+                     f"float32); train_mla (deepseek-v2-lite-16b): "
                      f"depth {TRAIN_MLA['layers']} of "
                      f"{get_config('deepseek-v2-lite-16b').n_layers} "
                      f"({TRAIN_MLA['cut_by']}); train_griffin "
@@ -4811,9 +4891,9 @@ def main() -> int:
                                     "flash_attention_bwd.cu")
                for n in ptxas[src]
                if re.search(r"fa_bwd_\w*(tc|reduce)_kernel|flash_attention_"
-                            r"(tc_|ws_)?kernel(<\w*,? ?(192, 128|24, 16|"
-                            r"256, 256)>|I\w*Li(192ELi128|24ELi16|256ELi256)"
-                            r"E)", n.replace("(int)", ""))]
+                            r"(tc_|ws_|narrow_)?kernel(<\w*,? ?(192, 128|"
+                            r"24, 16|256, 256)>|I\w*Li(192ELi128|24ELi16|"
+                            r"256ELi256)E)", n.replace("(int)", ""))]
     spills = [n for src, n in watched
               if ptxas[src][n].get("spill_stores")
               or ptxas[src][n].get("spill_loads")]
@@ -4868,20 +4948,31 @@ def main() -> int:
     if len(wide) != 4:
         raise AssertionError(f"ptxas: want the 4 two-warpgroup backward "
                              f"kernels, found {wide}")
+    # the narrow CTAs at (24, 16): four warpgroups, one instruction stream
+    narrow = [(src, n) for src in ("flash_attention.cu",
+                                   "flash_attention_bwd.cu")
+              for n in ptxas[src]
+              if re.search(r"flash_attention_narrow_kernel|"
+                           r"fa_bwd_narrow_tc_kernel", n)]
+    if len(narrow) != 2:
+        raise AssertionError(f"ptxas: want the narrow forward and the "
+                             f"one-launch backward, found {narrow}")
     serialised = [n for n in wide
                   if ptxas["flash_attention_bwd.cu"][n].get("serialised")]
+    serialised += [n for src, n in narrow if ptxas[src][n].get("serialised")]
     if serialised:
         raise AssertionError(f"ptxas serialises the wgmma of the "
-                             f"tensor-core backward past hd 128 in "
-                             f"{serialised}")
-    # 21 backward kernels (the tensor cores' preprocess at 5 hdv, dK / dV
-    # and dQ at 7 pairs; the GQA reduction into bf16 and into float32), 6
-    # MLA forwards (the FMA kernel in float32 and bf16 at (192, 128) and
-    # (24, 16), the one-warpgroup tensor-core kernel at (24, 16), the
+                             f"tensor-core backward past hd 128 or of a "
+                             f"narrow CTA in {serialised}")
+    # 22 backward kernels (the tensor cores' preprocess at 5 hdv, dK / dV
+    # and dQ at 7 pairs; the GQA reduction into bf16 and into float32; the
+    # one-launch kernel at (24, 16)), 7 MLA forwards (the FMA kernel in
+    # float32 and bf16 at (192, 128) and (24, 16), the one-warpgroup
+    # tensor-core kernel and the narrow CTA at (24, 16), the
     # warp-specialised one at (192, 128)), 3 forwards at (256, 256) (the
     # FMA kernel in float32 and bf16, the warp-specialised one)
-    if len(watched) != 30:
-        raise AssertionError(f"ptxas: want the 30 spill-checked kernels, "
+    if len(watched) != 32:
+        raise AssertionError(f"ptxas: want the 32 spill-checked kernels, "
                              f"found {watched}")
 
     walls = {}
@@ -4920,6 +5011,8 @@ def main() -> int:
                             TRAIN_MLA, "train_mla")
         trained_griffin = timed("train_griffin", phase_train, device, seed,
                                 TRAIN_GRIFFIN, "train_griffin")
+        trained_narrow = timed("train_mla_smoke", phase_train, device, seed,
+                               TRAIN_MLA_SMOKE, "train_mla_smoke")
         timed("serve_mamba", phase_serve_mamba, device, seed)
         served_whisper = timed("serve_whisper", phase_serve_whisper, device,
                                seed)
@@ -4983,6 +5076,10 @@ def main() -> int:
         TRAIN_GRIFFIN["counter"]]
     launches["flash_attention_mla"] += trained_mla["flash_attention_tc"]
     launches["flash_attention_rg"] += trained_griffin["flash_attention_tc"]
+    # DeepSeek-V2-Lite's smoke config in bf16 (train_mla_smoke): the narrow
+    # forward and the one-launch backward at (24, 16)
+    for name in ("flash_attention_narrow", "flash_attention_bwd_narrow"):
+        launches[name] = trained_narrow[name]
     # whisper-tiny's encoder at (1, 1,500, 1,500, 6, 6) hd 64 and Llama-3.2-
     # Vision's cross-attention over 1,024 vision tokens at hd 128: the
     # serve_whisper and serve_vlm phases' bf16 launches at those shapes;
@@ -5007,16 +5104,19 @@ def main() -> int:
     # route), the forward at DeepSeek-V2-Lite's (192, 128) on both routes
     # (FA_ROWS: the serve_mla phase's launches of each), RecurrentGemma's
     # (256, 256) with window 2,048 on both routes (the serve_griffin
-    # phase's launches), the flash
+    # phase's launches), the narrow forward and the one-launch backward at
+    # (24, 16) (the train_mla_smoke phase's launches), the flash
     # backward at the training shape through the tensor-core route (its
     # launches: that route's counter)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_walls_s": walls})
     firsts = {}
     for r in rows:
-        if r.get("case") in FA_ROWS or (r.get("case") in BWD_ROWS
-                                        and r.get("fa_route") == "tc"):
-            firsts[r["case"]] = r
+        if ((r["name"] == "flash_attention" and r.get("case") in FA_ROWS)
+                or (r["name"] == "flash_attention_bwd"
+                    and r.get("case") in BWD_ROWS
+                    and r["fa_route"] == "tc")):
+            firsts[(r["name"], r["case"])] = r
         elif r.get("fa_route", "tc") == "tc":
             firsts.setdefault(r["name"], r)
     line = []

@@ -8,6 +8,11 @@
 //   flash_attention_tc_kernel  bfloat16, (hd, hdv) in {(16, 16), (24, 16),
 //                              (32, 32), (64, 64), (128, 128)}: products on
 //                              the tensor cores, wgmma (`fa_forward_tc`)
+//   flash_attention_narrow_kernel  bfloat16, (24, 16) with at most 256
+//                              keys: the same products, one key tile a
+//                              one-warpgroup CTA, four CTAs a cluster
+//                              (`fa_forward_narrow`; the wrapper's
+//                              forward_plan picks it from the shapes)
 //   flash_attention_ws_kernel  bfloat16, (192, 128) and (256, 256): the
 //                              same products in a warp-specialised CTA, a
 //                              TMA producer and two consumer warpgroups
@@ -65,12 +70,16 @@
 // of shared memory (one CTA an SM, under the 232,448-byte opt-in) and the
 // accumulator 4 x 16 floats a thread.
 //
-// flash_attention_tc_kernel and flash_attention_ws_kernel (the bfloat16
-// route) are described above their definitions below.
+// flash_attention_tc_kernel, flash_attention_narrow_kernel and
+// flash_attention_ws_kernel (the bfloat16 route) are described above
+// their definitions below.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 
 #include "flash_attention_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -1068,6 +1077,241 @@ cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
 
 }  // namespace ws
 
+// ----------------------------- the narrow CTAs at (24, 16), short key ranges
+// flash_attention_narrow_kernel: DeepSeek-V2-Lite's smoke pair (24, 16)
+// where the keys number at most narrow::MAX_KEYS (256), chosen by the
+// wrapper's forward_plan from the shapes alone (`fa_forward_narrow`);
+// longer key ranges take flash_attention_tc_kernel<24, 16>.
+//
+// What bounds it.  At the smoke's (2, 256, 256, 4, 4) causal the live
+// work is 2 (24 + 16) x 8 heads x 32,896 pairs = 21 MFLOP against 328 KB
+// of q, k, v and o: 0.1 us on the bytes, 0.02 us on the tensor cores.
+// Neither binds: an empty launch takes 0.9 us of device time on an H100
+// 80GB HBM3 (chip_smoke.py's mla_smoke row), and the tc
+// kernel's CTA of the last q tile walks its four key tiles in a strict
+// chain (copy, S, wait, softmax, P.V, wait, barrier) on widths padded to
+// 64.
+//
+// What the design does about that.  A cluster of WG = 4 CTAs of one
+// warpgroup each owns one (b, h, 64-row q tile): CTA r loads Q and the
+// r-th key tile of the q tile's range (lo + r) and computes, for that tile
+// alone, S = Q.K^T (m64n64k16, both K-major), its softmax in registers
+// (scale folded into the exponent, flush-to-zero ex2, as the
+// warp-specialised kernel's) and O = P.V (m64n16k16, V MN-major), so no
+// CTA walks more than one tile.  CTAs 1..3 then push their O, m and l (12
+// floats a thread, in fragment order) into CTA 0's shared memory through
+// the cluster's distributed shared memory; after one cluster barrier CTA 0
+// rescales and sums them in rank order (the same bits every run) and
+// writes o and lse.  A tile past the range is zero-filled and masked
+// whole, so every CTA runs the same code.  Widths are padded only to the
+// next k16 step: q.k's 24 to 32 (64-byte rows, 64-byte swizzle: S in two
+// k-steps, not four), v's 16 stays 16 (32-byte rows, 32-byte swizzle: P.V
+// at N = 16, not 64).  Shared memory a CTA: Q 4 KiB, K 4 KiB, V 2 KiB, the
+// hand-over 18 KiB.  Every case of the tc kernel holds: causal or not,
+// window, GQA, q_offset, ragged Sq and Sk, lse.
+// (A first layout, one CTA of four warpgroups a q tile with the hand-over
+// in its own shared memory, took 0.0063 ms of device time at the smoke's
+// shape against the tc kernel's 0.0066; leaving its softmax out saved
+// 0.0021 ms and its K / V loads 0.0010 (tools/ablate_flash_narrow.py):
+// four tiles' scalar work issued from one SM, sixteen warps on its four
+// schedulers.)
+namespace narrow {
+
+constexpr int WG = 4;                // CTAs a cluster: one key tile each
+constexpr int THREADS = 128;         // one warpgroup a CTA
+constexpr int MAX_KEYS = WG * BK;    // the keys a cluster holds at once
+constexpr int HANDOVER = 12;         // floats a thread: O's 8, m and l x 2
+
+template <int HD, int HDV>
+constexpr int smem_bytes() {
+  // Q, the CTA's K and V tiles, the hand-over of WG - 1 CTAs (read in
+  // rank 0), and slack to align to 1,024 bytes
+  return 2 * 64 * k16_padded<HD>() * 2 + 64 * k16_padded<HDV>() * 2 +
+         (WG - 1) * HANDOVER * 128 * 4 + 1024;
+}
+
+template <int HD, int HDV>
+__global__ void __cluster_dims__(WG, 1, 1) __launch_bounds__(THREADS)
+flash_attention_narrow_kernel(const Params p) {
+  constexpr int HDP = k16_padded<HD>(), HDVP = k16_padded<HDV>();
+  static_assert(HD % 8 == 0 && HDV % 8 == 0 && HDP <= 64 && HDVP == 16,
+                "16-byte chunks; rows of at most 128 bytes; O at N = 16");
+  constexpr int KT = 64 * HDP * 2;   // bytes of the Q tile or a K tile
+  constexpr int VT = 64 * HDVP * 2;  // bytes of a V tile
+  extern __shared__ __align__(1024) unsigned char nw_smem[];
+  const uint32_t s0 = smem_u32(nw_smem);
+  const uint32_t qs = (s0 + 1023u) & ~1023u;
+  const uint32_t ks = qs + KT;
+  const uint32_t vs = ks + KT;
+  float* hand = reinterpret_cast<float*>(nw_smem + (vs + VT - s0));
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4, wrow = warp * 16;
+  const int bh = blockIdx.x / WG;
+  const int nqt = (p.sq + BQ - 1) / BQ;
+  const int q0 = (nqt - 1 - static_cast<int>(blockIdx.y)) * BQ;
+  const int b = bh / p.h;
+  const int head = bh % p.h;
+  const int kvh = head / p.g;
+  const int rows = min(BQ, p.sq - q0);
+
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) +
+                           b * p.q_sb + head * p.q_sh + q0 * p.q_ss;
+  const __nv_bfloat16* k =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const __nv_bfloat16* v =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
+                     head * p.o_sh + q0 * p.o_ss;
+
+  const int qpos_lo = p.q_offset + q0;
+  int lo, hi;
+  key_range(p, qpos_lo, rows, lo, hi);
+  // this CTA's key tile (past the range: zeros, masked whole)
+  const int k0 = (lo + rank) * BK;
+  const bool live = lo + rank < hi;
+  load_narrow<HD, HDP, THREADS>(qs, q, p.q_ss, rows, BQ, tid);
+  load_narrow<HD, HDP, THREADS>(ks, live ? k + k0 * p.k_ss : k, p.k_ss,
+                                live ? p.sk - k0 : 0, BK, tid);
+  load_narrow<HDV, HDVP, THREADS>(vs, live ? v + k0 * p.v_ss : v, p.v_ss,
+                                  live ? p.sk - k0 : 0, BK, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_async_smem();
+  __syncthreads();
+
+  // S = Q.K^T: k16 steps 32 bytes apart in the 2 HDP-byte rows, 8-row
+  // groups 16 HDP bytes apart
+  float s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk)
+    wgmma_ss_n64(s, desc_row<2 * HDP>(qs + kk * 32, 16, 16 * HDP),
+                 desc_row<2 * HDP>(ks + kk * 32, 16, 16 * HDP), kk > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+
+  // the tile's softmax; a tile past the range holds no attended pair, and
+  // every such tile is an edge tile, so it leaves m = -1e30, l = 0, P = 0
+  const float sl2 = p.scale * LOG2E;
+  float m_r[2] = {NEG, NEG};  // row max of rows g, g + 8 (log2 units)
+  float l_r[2] = {0.f, 0.f};  // this thread's part of the row sums
+  float alpha[2];
+  if (edge_tile(p, qpos_lo, rows, k0))
+    ws::softmax_tile_fma<true>(s, m_r, l_r, alpha, p, qpos_lo + wrow + g,
+                               k0 + 2 * t4, sl2);
+  else
+    ws::softmax_tile_fma<false>(s, m_r, l_r, alpha, p, qpos_lo + wrow + g,
+                                k0 + 2 * t4, sl2);
+
+  // O = P.V: V's 16 key rows per step are 16 rows of 2 HDVP bytes, its
+  // 8-row groups 16 HDVP bytes apart (SBO)
+  float acc[HDVP / 2];
+#pragma unroll
+  for (int j = 0; j < HDVP / 2; ++j) acc[j] = 0.f;
+  uint32_t a[4][4];
+  pack_p(s, a);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_n16(acc, a[kk],
+                 desc_row<2 * HDVP>(vs + kk * 32 * HDVP, VT, 16 * HDVP));
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+
+  // the hand-over: CTA r > 0 stores element j of thread t into rank 0's
+  // hand[((r - 1) HANDOVER + j) 128 + t]
+  if (rank > 0) {
+    float* h = cluster.map_shared_rank(hand, 0) +
+               (rank - 1) * HANDOVER * 128 + tid;
+#pragma unroll
+    for (int j = 0; j < HDVP / 2; ++j) h[j * 128] = acc[j];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      h[(8 + r) * 128] = m_r[r];
+      h[(10 + r) * 128] = l_r[r];
+    }
+  }
+  cluster.sync();  // every hand-over has landed in rank 0
+  if (rank > 0) return;
+
+  // rank 0 sums the four (m, l, O) in rank order
+  float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+  for (int w = 1; w < WG; ++w)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      mx[r] = fmaxf(mx[r], hand[((w - 1) * HANDOVER + 8 + r) * 128 + tid]);
+  float l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float e = exp2f(m_r[r] - mx[r]);
+    l[r] = l_r[r] * e;
+#pragma unroll
+    for (int j = 0; j < HDVP / 8; ++j) {
+      acc[4 * j + 2 * r] *= e;
+      acc[4 * j + 2 * r + 1] *= e;
+    }
+  }
+#pragma unroll
+  for (int w = 1; w < WG; ++w) {
+    const float* h = hand + (w - 1) * HANDOVER * 128 + tid;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float e = exp2f(h[(8 + r) * 128] - mx[r]);
+      l[r] += h[(10 + r) * 128] * e;
+#pragma unroll
+      for (int j = 0; j < HDVP / 8; ++j) {
+        acc[4 * j + 2 * r] += h[(4 * j + 2 * r) * 128] * e;
+        acc[4 * j + 2 * r + 1] += h[(4 * j + 2 * r + 1) * 128] * e;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const float inv = 1.f / fmaxf(lr, 1e-30f);
+    const int row = wrow + g + 8 * r;
+    // mx is in log2 units: lse = mx ln 2 + log(l), natural units
+    if (p.lse != nullptr && t4 == 0 && row < rows)
+      p.lse[static_cast<long long>(bh) * p.sq + q0 + row] =
+          mx[r] * LN2 + logf(fmaxf(lr, 1e-30f));
+    if (row < rows) {
+      __nv_bfloat16* orow = o + row * p.o_ss + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < HDV / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                  acc[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int HD, int HDV>
+cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
+  if (p.sk > MAX_KEYS) return cudaErrorInvalidValue;
+  constexpr int bytes = smem_bytes<HD, HDV>();
+  auto kernel = flash_attention_narrow_kernel<HD, HDV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  // a cluster of WG CTAs (__cluster_dims__) per (b, h, q tile)
+  const dim3 grid(batch_heads * WG, (p.sq + BQ - 1) / BQ);
+  kernel<<<grid, THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace narrow
+
 template <int HD, int HDV>
 cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
   if constexpr (HD > 128) {
@@ -1140,6 +1384,50 @@ cudaError_t dispatch_attributes(int hd, int hdv, int* out) {
   }
 }
 
+// the pairs of the narrow CTA (short key ranges)
+#define FA_NARROW_PAIRS(X) X(24, 16)
+
+cudaError_t dispatch_narrow(const Params& p, int hd, int hdv,
+                            int batch_heads, cudaStream_t stream) {
+  switch (pair(hd, hdv)) {
+#define FA_CASE(A, B) \
+  case pair(A, B): return narrow::launch<A, B>(p, batch_heads, stream);
+    FA_NARROW_PAIRS(FA_CASE)
+#undef FA_CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// What the narrow CTA's launch uses, as `attributes` gives it
+template <int HD, int HDV>
+cudaError_t narrow_attributes(int* out) {
+  const void* kernel = reinterpret_cast<const void*>(
+      narrow::flash_attention_narrow_kernel<HD, HDV>);
+  out[0] = narrow::THREADS;
+  out[1] = narrow::smem_bytes<HD, HDV>();
+  out[2] = BQ;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[1]);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  out[3] = static_cast<int>(attr.sharedSizeBytes);
+  out[4] = attr.numRegs;
+  out[5] = attr.maxDynamicSharedSizeBytes;
+  return cudaSuccess;
+}
+
+cudaError_t dispatch_narrow_attributes(int hd, int hdv, int* out) {
+  switch (pair(hd, hdv)) {
+#define FA_CASE(A, B) \
+  case pair(A, B): return narrow_attributes<A, B>(out);
+    FA_NARROW_PAIRS(FA_CASE)
+#undef FA_CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace tc
 
 }  // namespace
@@ -1194,6 +1482,24 @@ int fa_forward(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(err);
 }
 
+// The tensor-core routes' operands: pointers on 16-byte boundaries and
+// strides in multiples of 8 elements (cp.async, TMA), else
+// cudaErrorMisalignedAddress; then the parameters
+static cudaError_t make_tc_params(Params& p, const void* q, const void* k,
+                                  const void* v, void* o, float* lse,
+                                  const long long* strides, int batch,
+                                  int sq, int sk, int h, int hkv, int causal,
+                                  int window, int q_offset, float scale) {
+  const void* ptrs[4] = {q, k, v, o};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8 != 0) return cudaErrorMisalignedAddress;
+  return make_params(p, q, k, v, o, lse, strides, batch, sq, sk, h, hkv,
+                     causal, window, q_offset, scale);
+}
+
 // The tensor-core route: bfloat16, (hd, hdv) a pair of tc::dispatch;
 // pointers on 16-byte boundaries and strides in multiples of 8 elements
 // (cp.async, TMA).  cudaErrorInvalidValue also where the driver does not
@@ -1202,19 +1508,31 @@ int fa_forward_tc(const void* q, const void* k, const void* v, void* o,
                   const long long* strides, int batch, int sq, int sk, int h,
                   int hkv, int hd, int hdv, int causal, int window,
                   int q_offset, float scale, float* lse, void* stream) {
-  const void* ptrs[4] = {q, k, v, o};
-  for (const void* ptr : ptrs)
-    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
-      return static_cast<int>(cudaErrorMisalignedAddress);
-  for (int i = 0; i < 12; ++i)
-    if (strides[i] % 8 != 0)
-      return static_cast<int>(cudaErrorMisalignedAddress);
   Params p;
-  cudaError_t err = make_params(p, q, k, v, o, lse, strides, batch, sq, sk,
-                                h, hkv, causal, window, q_offset, scale);
+  cudaError_t err = make_tc_params(p, q, k, v, o, lse, strides, batch, sq,
+                                   sk, h, hkv, causal, window, q_offset,
+                                   scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = tc::dispatch(p, hd, hdv, batch * h,
                      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// The tensor-core route's narrow CTA: the arguments of `fa_forward_tc`,
+// (hd, hdv) a pair of tc::dispatch_narrow and sk at most
+// tc::narrow::MAX_KEYS (else cudaErrorInvalidValue).
+int fa_forward_narrow(const void* q, const void* k, const void* v, void* o,
+                      const long long* strides, int batch, int sq, int sk,
+                      int h, int hkv, int hd, int hdv, int causal,
+                      int window, int q_offset, float scale, float* lse,
+                      void* stream) {
+  Params p;
+  cudaError_t err = make_tc_params(p, q, k, v, o, lse, strides, batch, sq,
+                                   sk, h, hkv, causal, window, q_offset,
+                                   scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = tc::dispatch_narrow(p, hd, hdv, batch * h,
+                            static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 
@@ -1224,6 +1542,11 @@ int fa_forward_tc(const void* q, const void* k, const void* v, void* o,
 // kernel's attribute allows once the launch has set it.
 int fa_forward_tc_attributes(int hd, int hdv, int* out) {
   return static_cast<int>(tc::dispatch_attributes(hd, hdv, out));
+}
+
+// The same for the narrow CTA at (hd, hdv).
+int fa_forward_narrow_attributes(int hd, int hdv, int* out) {
+  return static_cast<int>(tc::dispatch_narrow_attributes(hd, hdv, out));
 }
 
 }  // extern "C"

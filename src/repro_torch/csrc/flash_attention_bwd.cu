@@ -1,10 +1,16 @@
 // Flash-attention backward for NVIDIA Hopper (sm_90a), plain C interface:
 // the gradient of the forward kernels of flash_attention.cu, on two routes
 // (float32 FMAs: three kernels, `fa_backward`; tensor cores: four,
-// `fa_backward_tc`), templates over the forward's (hd, hdv) pairs.  Its own
+// `fa_backward_tc`, or at (24, 16) for heads of at most 256 queries and
+// keys one, `fa_backward_narrow`), templates over the forward's (hd, hdv)
+// pairs.  Its own
 // source so that nvcc builds it beside the forward, in parallel.
 
+#include <cooperative_groups.h>
+
 #include "flash_attention_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -852,6 +858,39 @@ __device__ __forceinline__ void wgmma_ss_n128_mn(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 16 f32) (+)= A (64 x 16) . B (16 x 16), both in shared memory
+// (descriptors): A K-major (TA 0) or MN-major (TA 1), B MN-major; scale_d
+// = 0 overwrites d, 1 accumulates
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_n16_bmn(float (&d)[8], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+}
+
+// d (64 x 32 f32) (+)= A (64 x 16) . B (16 x 32), as wgmma_ss_n16_bmn
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_n32_bmn(float (&d)[16], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, "
+      "%16, %17, p, 1, 1, %19, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
 }
 
 // wait until at most N committed wgmma groups are still in flight
@@ -1821,6 +1860,369 @@ fa_bwd_dq_tc_kernel(const bwd::Params p) {
     dq_two_warpgroups<HD, HDV>(p);
 }
 
+// ------------------------- the one-launch backward at (24, 16), short heads
+// fa_bwd_narrow_tc_kernel: DeepSeek-V2-Lite's smoke pair (24, 16) where
+// Sq and Sk are at most narrow::MAX_LEN (256), chosen by the wrapper's
+// backward_plan from the shapes alone (`fa_backward_narrow`); longer heads
+// take the three (four with GQA) kernels above.
+//
+// What bounds it.  At the smoke's (2, 256, 4, 4) causal the five products
+// are 2 (3 x 24 + 2 x 16) x 8 heads x 32,896 pairs = 55 MFLOP against
+// 165 KB of operands and gradients: 0.05 us on the bytes, 0.06 us on the
+// tensor cores.  Neither binds.  The three-kernel route pays three
+// launches and, in each of its 32-CTA kernels, a chain of up to four
+// dependent tile steps on widths padded to 64 (its dK / dV kernel alone
+// takes 0.0101 ms of device time on an H100 80GB HBM3,
+// tools/compare_flash_backward.py).
+//
+// What the design does about that.  One launch computes D, dQ, dK and dV,
+// deterministic (no float atomics), and no CTA walks more than one
+// (query tile, key tile) step a query head:
+//   - a cluster of WG = 4 CTAs owns one (b, kv head); CTA r of it owns
+//     query tile r, and each CTA's four warpgroups own one key tile each,
+//     so the cluster covers the head's 4 x 4 tiles at once;
+//   - a CTA loads every K and V tile once, then per query head of the kv
+//     head (GQA: the g heads in head order) its Q, dO and lse tile and
+//     computes D = rowsum(dO o) for its rows (two lanes a row, summed as
+//     fa_bwd_preprocess_tc_kernel sums them), not in a launch of its own;
+//   - each warpgroup computes, for one half of the tile's queries after
+//     the other, S^T = K.Q^T and dP^T = V.dO^T (m64n32k16, K-major), P^T
+//     and dS^T in registers, and writes P^T and dS^T (hi and lo) as bf16
+//     into its own three 64 x 64 shared tiles; behind a barrier of the
+//     warpgroup's own it issues, as one group, dV += P^T.dO (m64n16k16),
+//     dK += dS^T.Q (m64n32k16, hi + lo; A K-major) and dQ's partial over
+//     its keys, dS.K (m64n32k16, hi + lo; A read MN-major from the same
+//     dS^T tiles), every B MN-major.  So no A fragment sits in registers,
+//     and 32 score floats, not 64, sit beside the gradients' 24: with P^T
+//     and dS^T as register fragments, and again with S^T and dP^T whole
+//     (64 x 64), ptxas spilled 24 and 28 bytes at the 128 registers four
+//     warpgroups allow;
+//   - dQ: the four warpgroups' partials meet in shared memory (two sets,
+//     by the parity of the head, so one CTA barrier a head suffices) and
+//     are summed in warpgroup order, each warpgroup 8 of dQ's columns;
+//   - dK and dV: each warpgroup keeps its key tile's partial over its
+//     CTA's queries in registers over the heads; after the last head it
+//     stores the partial into the tile's owner CTA through the cluster's
+//     distributed shared memory (a cluster barrier before, one after), and
+//     CTA r's warpgroup r sums key tile r's four partials in rank order.
+//   (A first layout, one CTA a (b, kv head) walking the four query tiles
+//   itself, took 0.0200-0.0222 ms of device time at the smoke's shape,
+//   against the three kernels' 0.0213: the chain of tile steps, not the
+//   launches, set its time.)
+// A (query, key) tile past the causal or window reach, or past Sq or Sk,
+// is masked whole (P = dS = 0) rather than skipped, so every warpgroup runs
+// the same code: no wgmma sits under a branch on the warpgroup.  Widths
+// are padded only to the next k16 step: q.k's 24 to 32 (64-byte rows and
+// swizzle), v's 16 stays 16 (32-byte rows and swizzle).  Shared memory a
+// CTA: K 16 KiB, V 8 KiB, its Q and dO tiles 6 KiB, lse and D 0.5 KiB,
+// P^T and dS^T 96 KiB, the partials 64 KiB: 191.5 KiB (one CTA an SM).
+// Numerics as above: P rounded to bf16 for dV, dS as hi + lo for dK and
+// dQ.
+namespace narrow {
+
+constexpr int WG = 4;                // warpgroups a CTA, CTAs a cluster
+constexpr int THREADS = 128 * WG;
+constexpr int MAX_LEN = WG * B64;    // the queries and keys of one head
+constexpr int ST = 64 * 64 * 2;      // bytes of a P^T or dS^T tile
+
+template <int HD, int HDV>
+constexpr int smem_bytes() {
+  // K and V (MAX_LEN rows), the CTA's Q and dO tiles, its lse and D rows,
+  // each warpgroup's P^T, dS^T hi and lo, two sets of WG dQ partials (64
+  // x hd float32; after the heads, the dK and dV partials), slack to align
+  // to 1,024 bytes
+  return (MAX_LEN + B64) *
+             (tc::k16_padded<HD>() + tc::k16_padded<HDV>()) * 2 +
+         2 * B64 * 4 + WG * 3 * ST + 2 * WG * 64 * tc::k16_padded<HD>() * 4 +
+         1024;
+}
+
+template <int HD, int HDV>
+__global__ void __cluster_dims__(WG, 1, 1) __launch_bounds__(THREADS, 1)
+fa_bwd_narrow_tc_kernel(const bwd::Params p) {
+  constexpr int HDP = tc::k16_padded<HD>(), HDVP = tc::k16_padded<HDV>();
+  static_assert(HD % 8 == 0 && HDP == 32 && HDV == 16,
+                "dK and dQ at N = 32, dV at N = 16; D two lanes a row");
+  constexpr int KT = 64 * HDP * 2;   // bytes of a K or Q tile
+  constexpr int VT = 64 * HDVP * 2;  // bytes of a V or dO tile
+  constexpr int NQ = HDP / 2;        // a thread's floats of dK, dQ
+  constexpr int NV = HDVP / 2;       // a thread's floats of dV
+  static_assert((NQ + NV) <= 2 * NQ, "dK and dV's partials fit dQ's");
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+  const uint32_t ks = (s0 + 1023u) & ~1023u;  // WG tiles
+  const uint32_t vs = ks + WG * KT;           // WG tiles
+  const uint32_t qs = vs + WG * VT;           // the CTA's query tile
+  const uint32_t dos = qs + KT;
+  const uint32_t sts = dos + VT;  // a warpgroup's P^T, dS^T hi, lo
+  const uint32_t dqs = sts + WG * 3 * ST;     // 2 x WG dQ partials
+  const uint32_t rs = dqs + 2 * WG * NQ * 128 * 4;
+  float* part = reinterpret_cast<float*>(smem + (dqs - s0));
+  float* lse_s = reinterpret_cast<float*>(smem + (rs - s0));  // 64
+  float* d_s = lse_s + B64;                                    // 64
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  // warp-uniform: only addresses depend on it until the sums
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int t = tid % 128, lane = t % 32, warp = t / 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int hkv = p.h / p.g;
+  const int bk = blockIdx.x / WG, b = bk / hkv, kvh = bk % hkv;
+  const int qt = static_cast<int>(cluster.block_rank());  // query tile
+  const int q0 = qt * B64;
+  const int k0 = wg * B64;          // this warpgroup's key tile
+  const int krow = warp * 16 + g8;  // this thread's rows: krow, krow + 8
+  const uint32_t kst = ks + wg * KT, vst = vs + wg * VT;
+  const uint32_t pts = sts + wg * 3 * ST;  // P^T, dS^T hi, dS^T lo
+  const float sl2 = p.scale * LOG2E;
+
+  const __nv_bfloat16* k =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const __nv_bfloat16* v =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  // every key tile once (row r of the MAX_LEN lands in tile r / 64)
+  tc::load_narrow<HD, HDP, THREADS>(ks, k, p.k_ss, p.sk, MAX_LEN, tid);
+  tc::load_narrow<HDV, HDVP, THREADS>(vs, v, p.v_ss, p.sk, MAX_LEN, tid);
+
+  float dk[NQ], dv[NV];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) dk[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) dv[j] = 0.f;
+
+  for (int hq = kvh * p.g; hq < (kvh + 1) * p.g; ++hq) {
+    const int step = hq - kvh * p.g;  // its parity: the partials' set
+    const long long bh = static_cast<long long>(b) * p.h + hq;
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) +
+                             b * p.q_sb + hq * p.q_sh + q0 * p.q_ss;
+    const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) +
+                                b * p.do_sb + hq * p.do_sh + q0 * p.do_ss;
+    const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o) +
+                             b * p.o_sb + hq * p.o_sh + q0 * p.o_ss;
+    // the stages of the head before (Q, dO, lse, D) were last read before
+    // the CTA barrier of its step
+    tc::load_narrow<HD, HDP, THREADS>(qs, q, p.q_ss, p.sq - q0, B64, tid);
+    tc::load_narrow<HDV, HDVP, THREADS>(dos, dout, p.do_ss, p.sq - q0, B64,
+                                        tid);
+    tc::cp_async_commit();
+    if (tid < 2 * B64) {  // lse and D of the tile's rows: two lanes a row
+      const int r = tid / 2, c = tid % 2;
+      const bool live = q0 + r < p.sq;
+      float s = 0.f;
+      if (live) {
+        const uint4 a =
+            *reinterpret_cast<const uint4*>(o + r * p.o_ss + 8 * c);
+        const uint4 e =
+            *reinterpret_cast<const uint4*>(dout + r * p.do_ss + 8 * c);
+        const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
+        const uint32_t ew[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x = bf16x2(aw[i]), y = bf16x2(ew[i]);
+          s = fmaf(x.x, y.x, s);
+          s = fmaf(x.y, y.y, s);
+        }
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      if (c == 0) {
+        d_s[r] = s;
+        lse_s[r] = live ? p.lse[bh * p.sq + q0 + r] : 0.f;
+      }
+    }
+    tc::cp_async_wait<0>();
+    tc::fence_async_smem();
+    __syncthreads();
+
+    // Two halves of the tile's 64 queries, one after the other (32 score
+    // floats a thread live, not 64): S^T = K.Q^T over hd and dP^T =
+    // V.dO^T over hdv (m64n32k16; k16 steps 32 bytes apart in a row, 8-row
+    // groups 16 W bytes apart), P^T and dS^T in registers, then P^T and
+    // dS^T (hi, lo) into this warpgroup's tiles as bf16 pairs: elements 8
+    // kk + 2 j and + 1 of half h are row krow + 8 (j & 1), columns
+    // (queries) 32 h + 16 kk + 8 (j >> 1) + 2 t4 and + 1
+    const bool edge = edge_tile(p, q0, k0);
+    auto put = [&](uint32_t tile, int kk, int j, uint32_t word) {
+      *reinterpret_cast<uint32_t*>(
+          smem + (tile - s0) +
+          tc::swizzled<128>(krow + 8 * (j & 1), 2 * kk + (j >> 1)) + 4 * t4) =
+          word;
+    };
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      float s[16], dp[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk)
+        tc::wgmma_ss_n32(
+            s, tc::desc_row<2 * HDP>(kst + kk * 32, 16, 16 * HDP),
+            tc::desc_row<2 * HDP>(qs + h * 64 * HDP + kk * 32, 16, 16 * HDP),
+            kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < HDVP / 16; ++kk)
+        tc::wgmma_ss_n32(
+            dp, tc::desc_row<2 * HDVP>(vst + kk * 32, 16, 16 * HDVP),
+            tc::desc_row<2 * HDVP>(dos + h * 64 * HDVP + kk * 32, 16,
+                                   16 * HDVP),
+            kk > 0);
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+      tc::fence_regs(s);
+      tc::fence_regs(dp);
+      // the query (of the tile) in S^T's column of element i
+      auto col = [&](int i) {
+        return 32 * h + 2 * t4 + 8 * (i / 4) + (i & 1);
+      };
+      probs(s, [&](int i) { return lse_s[col(i)] * LOG2E; },
+            edge ? valid_bits<true, 16>(p, k0 + krow, q0 + 32 * h + 2 * t4)
+                 : 0xFFFFu,
+            sl2);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          put(pts, 2 * h + kk, j,
+              tc::pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]));
+      dscores(s, dp, [&](int i) { return d_s[col(i)]; });
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float x = dp[8 * kk + 2 * j], y = dp[8 * kk + 2 * j + 1];
+          const uint32_t hi = tc::pack_bf16(x, y);
+          const float2 hf = bf16x2(hi);
+          put(pts + ST, 2 * h + kk, j, hi);
+          put(pts + 2 * ST, 2 * h + kk, j,
+              tc::pack_bf16(x - hf.x, y - hf.y));
+        }
+    }
+    tc::fence_async_smem();
+    warpgroup_sync(wg);  // the warpgroup's P^T and dS^T are all in
+    // A from those tiles (16 queries a k-step: K-major, 32 bytes apart; 16
+    // keys a k-step: MN-major, 2,048 bytes apart), B the 16 rows of a
+    // k-step of dO, Q or K, MN-major:
+    //   dV += P^T.dO, dK += dS^T.Q (hi + lo), dQ's partial over this key
+    //   tile = dS.K (hi + lo)
+    float dq[NQ];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) dq[j] = 0.f;
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::wgmma_ss_n16_bmn<0>(
+          dv, tc::desc_row<128>(pts + kk * 32, 16, 1024),
+          tc::desc_row<2 * HDVP>(dos + kk * 32 * HDVP, VT, 16 * HDVP), 1);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      tc::wgmma_ss_n32_bmn<0>(
+          dk,
+          tc::desc_row<128>(pts + (1 + kk / 4) * ST + (kk % 4) * 32, 16,
+                            1024),
+          tc::desc_row<2 * HDP>(qs + (kk % 4) * 32 * HDP, KT, 16 * HDP), 1);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      tc::wgmma_ss_n32_bmn<1>(
+          dq,
+          tc::desc_row<128>(pts + (1 + kk / 4) * ST + (kk % 4) * 2048, ST,
+                            1024),
+          tc::desc_row<2 * HDP>(kst + (kk % 4) * 32 * HDP, KT, 16 * HDP),
+          kk > 0);
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();  // dV, dK and dQ's partial
+    tc::fence_regs(dq);
+    tc::fence_regs(dk);
+    tc::fence_regs(dv);
+    float* mine = part + ((step & 1) * WG + wg) * NQ * 128 + t;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) mine[j * 128] = dq[j];
+    __syncthreads();
+    // dQ of the tile: warpgroup w sums fragment elements [4 w, 4 w + 4)
+    // (columns 8 w + 2 t4 and + 1 of rows krow, krow + 8) over the WG
+    // partials in warpgroup order
+    if (8 * wg < HD) {
+      const float* set = part + (step & 1) * WG * NQ * 128 + t;
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int w = 0; w < WG; ++w)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] += set[(w * NQ + 4 * wg + e) * 128];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + krow + 8 * r;
+        if (row < p.sq)
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb +
+              hq * p.dq_sh + row * p.dq_ss + 8 * wg + 2 * t4) =
+              __floats2bfloat162_rn(x[2 * r] * p.scale,
+                                    x[2 * r + 1] * p.scale);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();  // no copy may outlive the CTA
+
+  // dK and dV: warpgroup w pushes its key tile's partial (over this
+  // CTA's queries and the heads) into the shared memory of CTA w, the
+  // tile's owner, element j of thread t at kv[(qt (NQ + NV) + j) 128 + t]
+  // (remote stores: no load waits on the cluster); then CTA r's warpgroup
+  // r sums key tile r's four partials in rank order.  (Reading the
+  // partials remotely instead cost 0.0010 ms of the kernel's 0.0113,
+  // tools/ablate_flash_narrow.py.)
+  float* kv = part;
+  cluster.sync();  // every CTA is past its dQ sums: the sets are free
+  {
+    float* dst = cluster.map_shared_rank(kv, wg) + qt * (NQ + NV) * 128 + t;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) dst[j * 128] = dk[j];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) dst[(NQ + j) * 128] = dv[j];
+  }
+  cluster.sync();  // every push has landed
+  if (wg == qt) {
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) dk[j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) dv[j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < WG; ++c) {
+      const float* rp = kv + c * (NQ + NV) * 128 + t;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) dk[j] += rp[j * 128];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) dv[j] += rp[(NQ + j) * 128];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = k0 + krow + 8 * r;
+      if (row >= p.sk) continue;
+      put_row<HD>(dk, r, p.scale,
+                  static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb +
+                      kvh * p.dk_sh + row * p.dk_ss + 2 * t4,
+                  nullptr);
+      put_row<HDV>(dv, r, 1.f,
+                   static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb +
+                       kvh * p.dv_sh + row * p.dv_ss + 2 * t4,
+                   nullptr);
+    }
+  }
+}
+
+template <int HD, int HDV>
+cudaError_t launch(const bwd::Params& p, int batch, cudaStream_t stream) {
+  if (p.sq > MAX_LEN || p.sk > MAX_LEN) return cudaErrorInvalidValue;
+  constexpr int bytes = smem_bytes<HD, HDV>();
+  auto kernel = fa_bwd_narrow_tc_kernel<HD, HDV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  // a cluster of WG CTAs (__cluster_dims__) per (b, kv head)
+  kernel<<<batch * (p.h / p.g) * WG, THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace narrow
+
 template <int HD, int HDV>
 cudaError_t launch(const bwd::Params& p, int batch, float* dk_part,
                    float* dv_part, cudaStream_t stream) {
@@ -1874,6 +2276,14 @@ cudaError_t dispatch(const bwd::Params& p, int hd, int hdv, int batch,
       return launch<192, 128>(p, batch, dk_part, dv_part, stream);
     case pair(256, 256):
       return launch<256, 256>(p, batch, dk_part, dv_part, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_narrow(const bwd::Params& p, int hd, int hdv, int batch,
+                            cudaStream_t stream) {
+  switch (pair(hd, hdv)) {
+    case pair(24, 16): return narrow::launch<24, 16>(p, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1944,6 +2354,17 @@ int fa_backward(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(err);
 }
 
+// Every operand of the tensor-core routes on a 16-byte boundary and every
+// stride a multiple of 8 elements
+static bool tc_aligned(const void* const (&ptrs)[8],
+                       const long long* strides) {
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  for (int i = 0; i < 24; ++i)
+    if (strides[i] % 8 != 0) return false;
+  return true;
+}
+
 // The tensor-core route's backward: bfloat16, (hd, hdv) a pair of
 // bwd_tc::dispatch; the same arguments as `fa_backward` without dtype.
 // Every pointer on a 16-byte boundary and every stride a multiple of 8
@@ -1955,13 +2376,8 @@ int fa_backward_tc(const void* q, const void* k, const void* v,
                    float* dv_part, const long long* strides, int batch,
                    int sq, int sk, int h, int hkv, int hd, int hdv,
                    int causal, int window, float scale, void* stream) {
-  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
-  for (const void* ptr : ptrs)
-    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
-      return static_cast<int>(cudaErrorMisalignedAddress);
-  for (int i = 0; i < 24; ++i)
-    if (strides[i] % 8 != 0)
-      return static_cast<int>(cudaErrorMisalignedAddress);
+  if (!tc_aligned({q, k, v, o, dout, dq, dk, dv}, strides))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if (hkv > 0 && h != hkv && (dk_part == nullptr || dv_part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   bwd::Params p;
@@ -1971,6 +2387,28 @@ int fa_backward_tc(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   err = bwd_tc::dispatch(p, hd, hdv, batch, dk_part, dv_part,
                          static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// The tensor-core route's one-launch backward (fa_bwd_narrow_tc_kernel):
+// the arguments of `fa_backward_tc` without its scratches (D is computed
+// in the kernel; no partials), (hd, hdv) a pair of bwd_tc::dispatch_narrow
+// and sq, sk at most bwd_tc::narrow::MAX_LEN (else cudaErrorInvalidValue).
+int fa_backward_narrow(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       void* dq, void* dk, void* dv,
+                       const long long* strides, int batch, int sq, int sk,
+                       int h, int hkv, int hd, int hdv, int causal,
+                       int window, float scale, void* stream) {
+  if (!tc_aligned({q, k, v, o, dout, dq, dk, dv}, strides))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  bwd::Params p;
+  cudaError_t err = make_bwd_params(p, q, k, v, o, dout, lse, nullptr, dq,
+                                    dk, dv, strides, batch, sq, sk, h, hkv,
+                                    causal, window, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = bwd_tc::dispatch_narrow(p, hd, hdv, batch,
+                                static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

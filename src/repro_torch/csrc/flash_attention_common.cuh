@@ -207,6 +207,71 @@ __host__ __device__ constexpr int hd_padded() {
   return HD < 64 ? 64 : HD;
 }
 
+// --- narrow tiles (the (24, 16) kernels for short sequences): a width
+// padded only to the next k16 step, its rows 2 W bytes in the 2 W-byte
+// swizzle (32 or 64 bytes; 128 is the layout above)
+
+template <int W>
+__host__ __device__ constexpr int k16_padded() {
+  return (W + 15) / 16 * 16;
+}
+
+// Byte offset of the 16-byte chunk c of row r in a tile of ROW-byte rows
+// in the ROW-byte swizzle: address bits [4, 4 + log2(ROW / 16)) XOR bits
+// [7, ...), i.e. the chunk index XOR (r ROW / 128) mod (ROW / 16)
+template <int ROW>
+__host__ __device__ constexpr uint32_t swizzled(int r, int c) {
+  return r * ROW + ((c ^ ((r * ROW / 128) % (ROW / 16))) * 16);
+}
+
+// The descriptor of a tile of ROW-byte rows in the ROW-byte swizzle
+// (`desc` is ROW 128): layout type 3, 2 or 1 for 32, 64 or 128 bytes.
+// K-major: k16 steps 32 bytes apart in a row, SBO between 8-row groups
+// (8 ROW); MN-major: SBO between 8-row groups along K, LBO between atoms
+// along M / N.
+template <int ROW>
+__device__ __forceinline__ uint64_t desc_row(uint32_t addr, uint32_t lbo,
+                                             uint32_t sbo) {
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "a wgmma swizzle");
+  constexpr uint64_t mode = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+// Copy rows [0, n_valid) of `rows` rows from `src` (row stride ss
+// elements) into the tile of W-element rows at `dst` (2 W-byte swizzle),
+// with the NT threads of the CTA; rows past n_valid and columns past HD
+// become zeros (the copy fills them)
+template <int HD, int W, int NT>
+__device__ __forceinline__ void load_narrow(uint32_t dst,
+                                            const __nv_bfloat16* src,
+                                            long long ss, int n_valid,
+                                            int rows, int tid) {
+  constexpr int C = W / 8;  // 16-byte chunks per row
+  for (int i = tid; i < rows * C; i += NT) {
+    const int r = i / C, c = i % C;
+    const bool ok = r < n_valid && c * 8 < HD;
+    cp_async16(dst + swizzled<2 * W>(r, c), ok ? src + r * ss + c * 8 : src,
+               ok);
+  }
+}
+
+// d (64 x 16 f32) += A (64 x 16 bf16, registers) . B (16 x 16, MN-major
+// in shared memory, descriptor)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // --- mbarriers and TMA (the warp-specialised forward past hd 128)
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {

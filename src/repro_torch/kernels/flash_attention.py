@@ -24,8 +24,13 @@ The route rule (:func:`_route`): bfloat16 with (hd, hdv) in
 elements, else the wrapper raises): ``flash_attention_tc_kernel`` (one
 warpgroup a CTA) up to hd 128, ``flash_attention_ws_kernel`` past it (a
 TMA producer warpgroup and two consumer warpgroups of 64 query rows
-each, taking turns on the tensor cores); float32, and bfloat16 with hd =
-8, run ``flash_attention_kernel`` (float32 FMAs).  Nothing falls back
+each, taking turns on the tensor cores), and at a pair of
+:data:`NARROW_PAIRS` with at most :data:`NARROW_MAX_LEN` keys
+``flash_attention_narrow_kernel`` (a cluster of four one-warpgroup CTAs
+a q tile, one key tile each, widths padded to the next k16 step;
+``LAUNCHES["flash_attention_narrow"]``);
+float32, and bfloat16 with hd = 8, run ``flash_attention_kernel``
+(float32 FMAs).  Nothing falls back
 from one route to the other.  hd ≠ hdv is DeepSeek-V2's MLA: (192, 128)
 published, (24, 16) in its smoke config; (256, 256) is RecurrentGemma's
 local attention; a pair outside :data:`HEAD_DIMS` has no kernel and
@@ -52,7 +57,11 @@ rule, at every pair of :data:`HEAD_DIMS`:
   computed once a tile (:func:`backward_tile_work`); operands aligned as
   the forward's
   tensor-core route wants (a misaligned upstream gradient is copied, q, k
-  and v raise); ``LAUNCHES["flash_attention_bwd_tc"]``;
+  and v raise); ``LAUNCHES["flash_attention_bwd_tc"]``; at a pair of
+  :data:`NARROW_PAIRS` with at most :data:`NARROW_MAX_LEN` queries and
+  keys, one launch, ``fa_backward_narrow`` (a cluster of four CTAs per
+  (b, kv head), one a query tile: D, dQ, dK and dV in one kernel;
+  ``LAUNCHES["flash_attention_bwd_narrow"]``);
 * ``"fma"`` (float32, and bfloat16 with hd 8): ``fa_backward``, three
   kernels of float32 FMAs (``D``, dK / dV per query head and key tile,
   dQ; 32-row streamed tiles past hd 128), and the same GQA reduction of
@@ -93,10 +102,12 @@ from repro_torch.kernels.build import CudaLibrary
 
 #: launches since the last :func:`reset_launches`: every forward launch,
 #: those of the tensor-core route, every backward call (each one call of
-#: ``fa_backward`` or ``fa_backward_tc``: all its kernels), and those of
-#: the tensor-core route
+#: ``fa_backward``, ``fa_backward_tc`` or ``fa_backward_narrow``: all its
+#: kernels), and those of the tensor-core route; of these, the narrow
+#: forward's and the one-launch backward's (:data:`NARROW_PAIRS`)
 LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
-            "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0}
+            "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+            "flash_attention_narrow": 0, "flash_attention_bwd_narrow": 0}
 #: (hd, hdv) pairs the forward kernels are built for: q.k's head dim and
 #: v's; (24, 16) and (192, 128) are DeepSeek-V2-Lite's MLA (smoke,
 #: published), (256, 256) RecurrentGemma-9B's local attention
@@ -106,6 +117,17 @@ HEAD_DIMS = ((8, 8), (16, 16), (24, 16), (32, 32), (64, 64), (128, 128),
 TC_HEAD_DIMS = tuple(p for p in HEAD_DIMS if p[0] >= 16)
 ROUTES = ("tc", "fma")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the tensor-core pairs with a narrow CTA for short sequences: the forward
+#: ``flash_attention_narrow_kernel`` where Sk <= :data:`NARROW_MAX_LEN`,
+#: the one-launch backward ``fa_bwd_narrow_tc_kernel`` where Sq and Sk are
+#: (DeepSeek-V2-Lite's smoke pair); longer shapes take the pair's general
+#: kernels
+NARROW_PAIRS = ((24, 16),)
+#: the narrow kernels' warpgroups a q tile, one 64-key tile each (the
+#: forward: four one-warpgroup CTAs of a cluster; the backward: a
+#: cluster of four CTAs, one a query tile, of four warpgroups each)
+_NARROW_WARPGROUPS = 4
+NARROW_MAX_LEN = 64 * _NARROW_WARPGROUPS
 #: rows and keys per tile of the backward kernels; threads of a CTA of the
 #: preprocess kernel and of the GQA reduction (four elements a thread)
 _TILE = 64
@@ -130,8 +152,11 @@ def _declare_forward(lib: ctypes.CDLL) -> None:
     lib.fa_forward.restype = ctypes.c_int
     lib.fa_forward_tc.argtypes = lib.fa_forward.argtypes[:-2] + [p]
     lib.fa_forward_tc.restype = ctypes.c_int
-    lib.fa_forward_tc_attributes.argtypes = [i, i, ctypes.POINTER(i)]
-    lib.fa_forward_tc_attributes.restype = ctypes.c_int
+    lib.fa_forward_narrow.argtypes = lib.fa_forward_tc.argtypes
+    lib.fa_forward_narrow.restype = ctypes.c_int
+    for fn in (lib.fa_forward_tc_attributes, lib.fa_forward_narrow_attributes):
+        fn.argtypes = [i, i, ctypes.POINTER(i)]
+        fn.restype = ctypes.c_int
 
 
 def _declare_backward(lib: ctypes.CDLL) -> None:
@@ -142,6 +167,10 @@ def _declare_backward(lib: ctypes.CDLL) -> None:
     lib.fa_backward.restype = ctypes.c_int
     lib.fa_backward_tc.argtypes = [p] * 12 + [strides] + [i] * 9 + [f, p]
     lib.fa_backward_tc.restype = ctypes.c_int
+    # q, k, v, o, dO, lse, dq, dk, dv, strides, b, sq, sk, h, hkv, hd, hdv,
+    # causal, window, scale, stream
+    lib.fa_backward_narrow.argtypes = [p] * 9 + [strides] + [i] * 9 + [f, p]
+    lib.fa_backward_narrow.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("flash_attention.cu", _declare_forward)
@@ -194,6 +223,21 @@ def _route(dtype: torch.dtype, hd: int, hdv: int) -> str:
     in :data:`TC_HEAD_DIMS`, else ``"fma"`` (float32 FMAs)."""
     return ("tc" if dtype == torch.bfloat16 and (hd, hdv) in TC_HEAD_DIMS
             else "fma")
+
+
+def _narrow(hd: int, hdv: int, sq: int, sk: int,
+            backward: bool = False) -> bool:
+    """Does the tensor-core route take its narrow CTA at these shapes: a
+    pair of :data:`NARROW_PAIRS` with Sk (and, for the backward, Sq) at
+    most :data:`NARROW_MAX_LEN`?  The shapes alone decide, before any
+    launch."""
+    return ((hd, hdv) in NARROW_PAIRS and sk <= NARROW_MAX_LEN
+            and (not backward or sq <= NARROW_MAX_LEN))
+
+
+def _k16(w: int) -> int:
+    """A width padded to the next 16-element wgmma k-step."""
+    return -(-w // 16) * 16
 
 
 def _tc_aligned(t: torch.Tensor) -> bool:
@@ -262,16 +306,23 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _strides(q, k, v, out), b, sq, sk, h, hkv, hd, hdv,
             int(bool(causal)), window, q_offset, 1.0 / math.sqrt(hd),
             lse.data_ptr() if with_lse else None)
+    narrow = route == "tc" and _narrow(hd, hdv, sq, sk)
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        rc = (lib.fa_forward_tc(*args, stream) if route == "tc" else
-              lib.fa_forward(*args, _DTYPES[q.dtype], stream))
+        if route == "fma":
+            rc = lib.fa_forward(*args, _DTYPES[q.dtype], stream)
+        elif narrow:
+            rc = lib.fa_forward_narrow(*args, stream)
+        else:
+            rc = lib.fa_forward_tc(*args, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention: CUDA launch failed with "
                            f"status {rc}")
     LAUNCHES["flash_attention"] += 1
     if route == "tc":
         LAUNCHES["flash_attention_tc"] += 1
+    if narrow:
+        LAUNCHES["flash_attention_narrow"] += 1
     return out, lse
 
 
@@ -288,7 +339,10 @@ def forward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
     CTA, ``rows`` (queries a CTA), ``smem_bytes`` (dynamic shared memory)
     and ``static_smem_bytes`` (the warp-specialised kernel's mbarriers,
     as ptxas counts them); past hd 128 also ``stages``, the K / V ring's
-    slots.
+    slots.  At a pair of :data:`NARROW_PAIRS` with sk at most
+    :data:`NARROW_MAX_LEN` the tensor-core route takes the narrow CTAs:
+    a ``cluster`` of four one-warpgroup CTAs a q tile, one key tile
+    each.
     ``hdv`` defaults to ``hd``.  Raises ``ValueError`` for a pair outside
     :data:`HEAD_DIMS`, an unknown route or a tensor-core route that the
     dtype or head dims do not take."""
@@ -309,6 +363,18 @@ def forward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
                 "grid": (_cdiv(sq, _TILE), b * h), "threads": 256,
                 "rows": _TILE, "smem_bytes": 4 * floats,
                 "static_smem_bytes": 0}
+    if _narrow(hd, hdv, sq, sk):
+        # a cluster of four one-warpgroup CTAs a q tile, one key tile each:
+        # Q, the CTA's K and V tiles at widths padded to the next k16 step,
+        # the hand-over of three CTAs' O, m and l (12 floats a thread, read
+        # in rank 0); 1,024 bytes of alignment slack
+        wgs = _NARROW_WARPGROUPS
+        return {"route": route, "kernel": "flash_attention_narrow_kernel",
+                "grid": (wgs * b * h, _cdiv(sq, _TILE)), "threads": 128,
+                "rows": _TILE, "cluster": wgs,
+                "smem_bytes": 2 * _TILE * (2 * _k16(hd) + _k16(hdv))
+                + (wgs - 1) * 12 * 128 * 4 + 1024,
+                "static_smem_bytes": 0}
     if hd <= 128:  # Q, two K and two V stages, widths padded to 64
         hdp, hdvp = max(hd, _TILE), max(hdv, _TILE)
         return {"route": route, "kernel": "flash_attention_tc_kernel",
@@ -325,19 +391,36 @@ def forward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
             "static_smem_bytes": _cdiv(8 * (1 + 4 * stages), 1024) * 1024}
 
 
-def forward_tile_work(hd: int, hdv: int) -> dict:
+def forward_tile_work(hd: int, hdv: int, *,
+                      narrow: bool | None = None) -> dict:
     """The tensor-core forward's CTA per 64-key tile, from the head dims
     alone: its ``kernel``, ``rows`` (queries a CTA), each warpgroup's
     ``roles`` and ``hd_units`` (its tensor work: the widths of its 64 x N
     products over the tile, S counted by hd and P.V by hdv), and
-    ``hd_units_per_64_rows``.  Up to hd 128 one warpgroup copies (cp.async)
-    and multiplies on widths padded to 64.  Past it a producer warpgroup
-    streams tiles by TMA and two consumers each own 64 rows, so S is
-    computed once for each (query, key): hd + hdv a consumer.  Raises
-    ``ValueError`` for a pair outside :data:`TC_HEAD_DIMS`."""
+    ``hd_units_per_64_rows``.  ``narrow`` (None: wherever the pair has
+    one, i.e. at short key ranges) takes the narrow CTAs of
+    :data:`NARROW_PAIRS`: four one-warpgroup CTAs of a cluster, each one
+    key tile of the q tile's range at widths padded to the next k16
+    step.  Up to hd 128 one warpgroup copies (cp.async) and multiplies on
+    widths padded to 64.  Past it a producer warpgroup streams tiles by
+    TMA and two consumers each own 64 rows, so S is computed once for
+    each (query, key): hd + hdv a consumer.  Raises ``ValueError`` for a
+    pair outside :data:`TC_HEAD_DIMS`, or ``narrow`` at a pair without
+    narrow CTAs."""
     if (hd, hdv) not in TC_HEAD_DIMS:
         raise ValueError(f"flash_attention: no tensor-core forward at "
                          f"(hd, hdv) = ({hd}, {hdv})")
+    if narrow is None:
+        narrow = (hd, hdv) in NARROW_PAIRS
+    if narrow:
+        if (hd, hdv) not in NARROW_PAIRS:
+            raise ValueError(f"flash_attention: no narrow forward at "
+                             f"(hd, hdv) = ({hd}, {hdv})")
+        units = _k16(hd) + _k16(hdv)
+        return {"kernel": "flash_attention_narrow_kernel", "rows": _TILE,
+                "roles": ["key_tile"] * _NARROW_WARPGROUPS,
+                "hd_units": [units] * _NARROW_WARPGROUPS,
+                "hd_units_per_64_rows": units}
     if hd <= 128:
         units = max(hd, _TILE) + max(hdv, _TILE)
         return {"kernel": "flash_attention_tc_kernel", "rows": _TILE,
@@ -349,17 +432,21 @@ def forward_tile_work(hd: int, hdv: int) -> dict:
             "hd_units_per_64_rows": hd + hdv}
 
 
-def tc_attributes(hd: int, hdv: int) -> dict:
+def tc_attributes(hd: int, hdv: int, narrow: bool = False) -> dict:
     """What the tensor-core forward's launch at (hd, hdv) uses, from the
     loaded library (card only): ``threads``, ``smem_bytes`` (dynamic) and
     ``rows`` from the source's constants, then ``static_smem_bytes``,
     ``registers`` and ``max_dynamic_smem_bytes`` from
-    ``cudaFuncGetAttributes`` once the launch's attribute is set."""
-    if (hd, hdv) not in TC_HEAD_DIMS:
+    ``cudaFuncGetAttributes`` once the launch's attribute is set.
+    ``narrow``: the narrow CTA's launch (a pair of
+    :data:`NARROW_PAIRS`)."""
+    if (hd, hdv) not in (NARROW_PAIRS if narrow else TC_HEAD_DIMS):
         raise ValueError(f"flash_attention: no tensor-core forward at "
                          f"(hd, hdv) = ({hd}, {hdv})")
     out = (ctypes.c_int * 6)()
-    rc = LIBRARY.load().fa_forward_tc_attributes(hd, hdv, out)
+    lib = LIBRARY.load()
+    rc = (lib.fa_forward_narrow_attributes if narrow
+          else lib.fa_forward_tc_attributes)(hd, hdv, out)
     if rc != 0:
         raise RuntimeError(f"flash_attention: attributes failed with "
                            f"status {rc}")
@@ -373,7 +460,12 @@ def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
     """The backward's launches for these shapes, from the shapes alone:
     ``route`` (None takes :func:`_route`), ``kernels`` as (name, grid) in
     launch order, and ``scratch_floats``, the float32 elements of the dK
-    and dV partials, b·sk·h·(hd + hdv) where H > Hkv (0 where none).
+    and dV partials, b·sk·h·(hd + hdv) where H > Hkv (0 where none).  At a
+    pair of :data:`NARROW_PAIRS` with sq and sk at most
+    :data:`NARROW_MAX_LEN` the tensor-core route is one launch of
+    ``fa_bwd_narrow_tc_kernel`` with no scratch: a ``cluster`` of four
+    CTAs per (b, kv head), one a query tile; that plan also gives a CTA's
+    ``threads`` and ``smem_bytes``.
     ``hdv`` (v's head dim) defaults to ``hd``.  Raises ``ValueError`` for
     a pair outside :data:`HEAD_DIMS`, an unknown route or a tensor-core
     route that the dtype or head dims do not take."""
@@ -389,6 +481,19 @@ def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
                          f"takes bfloat16 with (hd, hdv) in {TC_HEAD_DIMS}, "
                          f"got {dtype}, ({hd}, {hdv})")
     nq, nk = _cdiv(sq, _TILE), _cdiv(sk, _TILE)
+    if route == "tc" and _narrow(hd, hdv, sq, sk, backward=True):
+        # a CTA: K and V of the whole head and its query tile's Q and dO
+        # (hd and hdv wide), that tile's lse and D, each warpgroup's P^T,
+        # dS^T hi and lo (64 x 64 bf16), two sets of its dQ partial (64 x
+        # hd float32), 1,024 bytes of alignment slack
+        wgs = _NARROW_WARPGROUPS
+        return {"route": route,
+                "kernels": [("fa_bwd_narrow_tc_kernel", (wgs * b * hkv,))],
+                "scratch_floats": 0, "threads": 128 * wgs, "cluster": wgs,
+                "smem_bytes": (NARROW_MAX_LEN + _TILE) * 2
+                * (_k16(hd) + _k16(hdv)) + 2 * _TILE * 4
+                + wgs * 3 * _TILE * _TILE * 2
+                + 2 * wgs * _TILE * _k16(hd) * 4 + 1024}
     if route == "fma":
         kernels = [("fa_bwd_preprocess_kernel", (nq, b * h)),
                    ("fa_bwd_dkdv_kernel", (nk, b * h))]
@@ -407,22 +512,42 @@ def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
             "scratch_floats": scratch}
 
 
-def backward_tile_work(hd: int, hdv: int) -> dict:
+def backward_tile_work(hd: int, hdv: int, *,
+                       narrow: bool | None = None) -> dict:
     """The tensor-core backward's products per (64-query, 64-key) tile, from
     the head dims alone (``csrc/flash_attention_bwd.cu``'s layout): for the
     dK / dV CTA and the dQ CTA, its ``layout``, its ``products`` and
     ``hd_units``, each warpgroup's tensor work, counted as the widths of
     64 x N products over the tile's 64 rows (dK and dQ twice: dS enters as
-    bf16 hi + lo).  Up to hd 128 one warpgroup does every product on widths
-    padded to 64.  Past it two warpgroups split S and dP by the tile's
-    queries (dK / dV) or keys (dQ), 32 each; dK / dV then accumulate over
-    each warpgroup's queries (``"by_queries"``) where the partials fit its
-    registers, (hd + hdv) / 2 <= 160 floats a thread, else over all 64 with
-    each warpgroup a half of the columns (``"by_columns"``).  Raises
-    ``ValueError`` for a pair outside :data:`TC_HEAD_DIMS`."""
+    bf16 hi + lo).  ``narrow`` (None: wherever the pair has one, i.e. for
+    short heads) takes the one-launch kernel of :data:`NARROW_PAIRS`
+    instead, under the key ``"one_launch"``: each of a CTA's four
+    warpgroups one key tile of the CTA's query tile, every product once
+    at widths padded to the next k16 step (S, dK and dQ at 32 for hd 24,
+    dP and dV at 16).  Up to hd 128 one warpgroup does every product on
+    widths padded to 64.  Past it two warpgroups split S and dP by the
+    tile's queries (dK / dV) or keys (dQ), 32 each; dK / dV then
+    accumulate over each warpgroup's queries (``"by_queries"``) where the
+    partials fit its registers, (hd + hdv) / 2 <= 160 floats a thread,
+    else over all 64 with each warpgroup a half of the columns
+    (``"by_columns"``).  Raises ``ValueError`` for a pair outside
+    :data:`TC_HEAD_DIMS`, or ``narrow`` at a pair without the one-launch
+    kernel."""
     if (hd, hdv) not in TC_HEAD_DIMS:
         raise ValueError(f"flash_attention backward: no tensor-core kernel "
                          f"at (hd, hdv) = ({hd}, {hdv})")
+    if narrow is None:
+        narrow = (hd, hdv) in NARROW_PAIRS
+    if narrow:
+        if (hd, hdv) not in NARROW_PAIRS:
+            raise ValueError(f"flash_attention backward: no one-launch "
+                             f"kernel at (hd, hdv) = ({hd}, {hdv})")
+        hdp, hdvp = _k16(hd), _k16(hdv)
+        return {"one_launch": {
+            "layout": "key_tile_per_warpgroup",
+            "products": ["S", "dP", "dV", "dK hi", "dK lo", "dQ hi",
+                         "dQ lo"],
+            "hd_units": [5 * hdp + 2 * hdvp] * _NARROW_WARPGROUPS}}
     products = {"dkdv": ["S", "dP", "dV", "dK hi", "dK lo"],
                 "dq": ["S", "dP", "dQ hi", "dQ lo"]}
     if hd <= 128:
@@ -478,31 +603,35 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    delta = torch.empty_like(lse)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr())
+    narrow = plan["kernels"][0][0] == "fa_bwd_narrow_tc_kernel"
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           do.data_ptr(), lse.data_ptr())
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     dims = (_strides(q, k, v, o, do, dq, dk, dv), b, sq, sk, h, hkv, hd,
             hdv, int(bool(causal)), window, 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        # dK's partials (B, Sk, H, hd), then dV's (B, Sk, H, hdv)
-        part = (torch.empty(plan["scratch_floats"], dtype=torch.float32,
-                            device=q.device)
-                if plan["scratch_floats"] else None)
-        parts = ((part.data_ptr(), part[b * sk * h * hd:].data_ptr())
-                 if part is not None else (None, None))
-        if route == "tc":
-            rc = lib.fa_backward_tc(*args, *parts, *dims, stream)
+        if narrow:  # D in the kernel, no partials
+            rc = lib.fa_backward_narrow(*ins, *outs, *dims, stream)
         else:
-            rc = lib.fa_backward(*args, *parts, *dims, _DTYPES[q.dtype],
-                                 stream)
+            delta = torch.empty_like(lse)
+            # dK's partials (B, Sk, H, hd), then dV's (B, Sk, H, hdv)
+            part = (torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                                device=q.device)
+                    if plan["scratch_floats"] else None)
+            parts = ((part.data_ptr(), part[b * sk * h * hd:].data_ptr())
+                     if part is not None else (None, None))
+            args = (*ins, delta.data_ptr(), *outs, *parts, *dims)
+            rc = (lib.fa_backward_tc(*args, stream) if route == "tc"
+                  else lib.fa_backward(*args, _DTYPES[q.dtype], stream))
     if rc != 0:
         raise RuntimeError(f"flash_attention backward: CUDA launch failed "
                            f"with status {rc}")
     LAUNCHES["flash_attention_bwd"] += 1
     if route == "tc":
         LAUNCHES["flash_attention_bwd_tc"] += 1
+    if narrow:
+        LAUNCHES["flash_attention_bwd_narrow"] += 1
     return dq, dk, dv
 
 

@@ -292,7 +292,8 @@ def test_route_rule(dtype, hd):
     """bf16 with hd >= 16 goes to the tensor-core kernel; float32 and bf16
     with hd = 8 to the FMA kernel, at each (hd, hdv) pair.  The backward
     follows the same rule at every pair, MLA's hd != hdv and hd 256
-    included, from the shapes alone."""
+    included, from the shapes alone (at a narrow pair's short heads, the
+    tensor-core route's one launch)."""
     hdv = dict(tfa.HEAD_DIMS)[hd]
     route = tfa._route(getattr(torch, dtype), hd, hdv)
     assert route == ("tc" if dtype == "bfloat16" and hd >= 16 else "fma")
@@ -300,8 +301,12 @@ def test_route_rule(dtype, hd):
     plan = tfa.backward_plan(2, 64, 64, 4, 2, hd, getattr(torch, dtype),
                              hdv=hdv)
     assert plan["route"] == route
-    assert plan["kernels"][1][0] == ("fa_bwd_dkdv_tc_kernel" if route == "tc"
-                                     else "fa_bwd_dkdv_kernel")
+    if route == "tc" and (hd, hdv) in tfa.NARROW_PAIRS:
+        assert plan["kernels"] == [("fa_bwd_narrow_tc_kernel", (16,))]
+    else:
+        assert plan["kernels"][1][0] == ("fa_bwd_dkdv_tc_kernel"
+                                         if route == "tc"
+                                         else "fa_bwd_dkdv_kernel")
 
 
 @pytest.mark.parametrize("hd,hdv", [(256, 128), (192, 192), (128, 64),
@@ -425,6 +430,29 @@ PAIR_PLANS = [
                                   ("fa_bwd_dkdv_kernel", (1, 8)),
                                   ("fa_bwd_dq_kernel", (1, 8))],
       "scratch_floats": 0}),
+    # the smoke pair in bf16 up to NARROW_MAX_LEN: one launch, a cluster
+    # of four CTAs (one a query tile) of four warpgroups (one a key tile)
+    # per (b, kv head), no scratch; a CTA's shared memory: K (256 x 32
+    # bf16), V (256 x 16), its Q (64 x 32) and dO (64 x 16), lse and D
+    # (64 floats each), four warpgroups' P^T, dS^T hi and lo (64 x 64
+    # bf16), two sets of four dQ partials (64 x 32 float32), 1,024 bytes
+    # of slack
+    ("mla_smoke_bf16", (2, 256, 4, 4, 24, 16), torch.bfloat16,
+     {"route": "tc", "kernels": [("fa_bwd_narrow_tc_kernel", (32,))],
+      "scratch_floats": 0, "threads": 512, "cluster": 4,
+      "smem_bytes": (256 + 64) * 2 * (32 + 16) + 2 * 64 * 4
+      + 4 * 3 * 8192 + 2 * 4 * 64 * 32 * 4 + 1024}),    # 196,096
+    # GQA: a cluster per kv head walks its g = 4 query heads
+    ("mla_smoke_gqa", (3, 100, 8, 2, 24, 16), torch.bfloat16,
+     {"route": "tc", "kernels": [("fa_bwd_narrow_tc_kernel", (24,))],
+      "scratch_floats": 0, "threads": 512, "cluster": 4,
+      "smem_bytes": 196096}),
+    # one past the limit: the three kernels (H = Hkv)
+    ("mla_smoke_257", (2, 257, 4, 4, 24, 16), torch.bfloat16,
+     {"route": "tc", "kernels": [("fa_bwd_preprocess_tc_kernel", (5, 8)),
+                                 ("fa_bwd_dkdv_tc_kernel", (8, 5)),
+                                 ("fa_bwd_dq_tc_kernel", (8, 5))],
+      "scratch_floats": 0}),
 ]
 
 
@@ -449,6 +477,8 @@ def test_backward_plan_hand_counts_at_pairs(shape, dtype, want):
 # 448 at (192, 128), 512 + 1,024 and 768 + 768 at (256, 256).)
 TILE_WORK = [
     ((16, 16), "one_warpgroup", [320], "one_warpgroup", [256]),
+    # past NARROW_MAX_LEN (narrow=False); test_backward_tile_work_narrow
+    # has the one-launch CTA
     ((24, 16), "one_warpgroup", [320], "one_warpgroup", [256]),
     ((32, 32), "one_warpgroup", [320], "one_warpgroup", [256]),
     ((64, 64), "one_warpgroup", [320], "one_warpgroup", [256]),
@@ -469,7 +499,7 @@ def test_backward_tile_work_hand_counts(pair, dkdv_layout, dkdv, dq_layout,
     here equal) and the two CTAs together do S and dP once each plus dV
     and the split dK and dQ: 1,536 hd-units at (192, 128), 2,304 at (256,
     256), against 2,048 and 3,072 for a split by role."""
-    work = tfa.backward_tile_work(*pair)
+    work = tfa.backward_tile_work(*pair, narrow=False)
     assert work == {
         "dkdv": {"layout": dkdv_layout,
                  "products": ["S", "dP", "dV", "dK hi", "dK lo"],
@@ -482,6 +512,28 @@ def test_backward_tile_work_hand_counts(pair, dkdv_layout, dkdv, dq_layout,
     if hd > 128:
         assert sum(dkdv) + sum(dq) == 2 * (hd + hdv) + hdv + 4 * hd
         assert sum(dkdv) + sum(dq) == {192: 1536, 256: 2304}[hd]
+
+
+def test_backward_tile_work_narrow():
+    """The one-launch CTA at (24, 16), the pair's default: four
+    warpgroups, each one key tile doing all seven products a (64-query,
+    64-key) tile once, at widths padded to the next k16 step (S, dK hi /
+    lo, dQ hi / lo at 32; dP, dV at 16): 192 hd-units against the three
+    kernels' 320 + 256 (S and dP twice, widths padded to 64).  Refused
+    at a pair without it."""
+    work = tfa.backward_tile_work(24, 16)
+    assert work == {"one_launch": {
+        "layout": "key_tile_per_warpgroup",
+        "products": ["S", "dP", "dV", "dK hi", "dK lo", "dQ hi", "dQ lo"],
+        "hd_units": [192] * 4}}
+    assert 192 == 5 * 32 + 2 * 16
+    general = tfa.backward_tile_work(24, 16, narrow=False)
+    assert sum(general["dkdv"]["hd_units"] + general["dq"]["hd_units"]) \
+        == 576
+    for pair in ((16, 16), (192, 128)):
+        assert "one_launch" not in tfa.backward_tile_work(*pair)
+        with pytest.raises(ValueError, match="no one-launch kernel"):
+            tfa.backward_tile_work(*pair, narrow=True)
 
 
 def test_backward_tile_work_refuses_fma_pairs():
@@ -522,8 +574,18 @@ FORWARD_PLANS = [
       "threads": 128, "rows": 64,
       "smem_bytes": 2 * 64 * (3 * 128 + 2 * 128) + 1024,           # 82,944
       "static_smem_bytes": 0}),
+    # DeepSeek-V2-Lite's smoke pair up to NARROW_MAX_LEN keys: the narrow
+    # CTAs, a cluster of four one-warpgroup CTAs a q tile, one key tile
+    # each; a CTA's Q and K tiles 32 wide, its V tile 16 wide, three CTAs'
+    # hand-over of 12 floats a thread, 1,024 bytes of slack
     ("mla_smoke", (2, 256, 4, 4, 24, 16), torch.bfloat16, None,
-     {"route": "tc", "kernel": "flash_attention_tc_kernel", "grid": (8, 4),
+     {"route": "tc", "kernel": "flash_attention_narrow_kernel",
+      "grid": (32, 4), "threads": 128, "rows": 64, "cluster": 4,
+      "smem_bytes": 2 * 64 * (2 * 32 + 16) + 3 * 12 * 128 * 4 + 1024,
+      "static_smem_bytes": 0}),                                    # 29,696
+    # one key past it: the one-warpgroup kernel, widths padded to 64
+    ("mla_smoke_257", (2, 257, 4, 4, 24, 16), torch.bfloat16, None,
+     {"route": "tc", "kernel": "flash_attention_tc_kernel", "grid": (8, 5),
       "threads": 128, "rows": 64, "smem_bytes": 2 * 64 * 5 * 64 + 1024,
       "static_smem_bytes": 0}),
     ("mla_f32", (1, 2048, 16, 16, 192, 128), torch.float32, None,
@@ -575,8 +637,10 @@ def test_forward_plan_refuses():
 FORWARD_WORK = [
     ((16, 16), "flash_attention_tc_kernel", 64, ["copy_and_multiply"],
      [128], 128),
-    ((24, 16), "flash_attention_tc_kernel", 64, ["copy_and_multiply"],
-     [128], 128),
+    # the narrow CTAs (the pair's default): each of four warpgroups (one
+    # a CTA of the cluster) one key tile of the range, S at 32, P.V at 16
+    ((24, 16), "flash_attention_narrow_kernel", 64, ["key_tile"] * 4,
+     [48] * 4, 48),
     ((128, 128), "flash_attention_tc_kernel", 64, ["copy_and_multiply"],
      [256], 256),
     ((192, 128), "flash_attention_ws_kernel", 128,
@@ -603,6 +667,18 @@ def test_forward_tile_work_hand_counts(pair, kernel, rows, roles, units,
         assert per64 < 2 * hd + hdv   # S twice: 768 at (256, 256)
 
 
+def test_forward_tile_work_general_at_narrow_pairs():
+    """Past NARROW_MAX_LEN keys (narrow=False) the narrow pair takes the
+    one-warpgroup kernel at widths padded to 64; ``narrow=True`` at a
+    pair without a narrow CTA is refused."""
+    assert tfa.forward_tile_work(24, 16, narrow=False) == {
+        "kernel": "flash_attention_tc_kernel", "rows": 64,
+        "roles": ["copy_and_multiply"], "hd_units": [128],
+        "hd_units_per_64_rows": 128}
+    with pytest.raises(ValueError, match="no narrow forward"):
+        tfa.forward_tile_work(16, 16, narrow=True)
+
+
 def test_forward_tile_work_refuses_fma_pairs():
     """hd 8 has no tensor-core forward, nor has a pair outside
     HEAD_DIMS."""
@@ -626,6 +702,10 @@ def test_backward_wrapper_marshals_each_route(monkeypatch):
     class Lib:
         def fa_backward_tc(self, *args):
             calls.append(("tc", args))
+            return 0
+
+        def fa_backward_narrow(self, *args):
+            calls.append(("narrow", args))
             return 0
 
         def fa_backward(self, *args):
@@ -654,8 +734,15 @@ def test_backward_wrapper_marshals_each_route(monkeypatch):
     tfa.backward(do, q, kv, kv, q, lse, True, 0, route="fma")
     tfa.backward(q, q24, k24, kv, q, lse, True, 0)
     tfa.backward(q, q24, k24, kv, q, lse, True, 0, route="fma")
-    (r0, a0), (r1, a1), (r2, a2), (r3, a3), (r4, a4) = calls
-    assert (r0, r1, r2, r3, r4) == ("tc", "tc", "fma", "tc", "fma")
+    # the same pair past NARROW_MAX_LEN queries: the three (four) kernels
+    s = tfa.NARROW_MAX_LEN + 1
+    q24_long = torch.zeros((2, s, 4, 24), dtype=bf16)
+    q16_long = torch.zeros((2, s, 4, 16), dtype=bf16)
+    tfa.backward(q16_long, q24_long, k24, kv, q16_long,
+                 torch.zeros((2, 4, s)), True, 0)
+    (r0, a0), (r1, a1), (r2, a2), (r3, a3), (r4, a4), (r5, a5) = calls
+    assert (r0, r1, r2, r3, r4, r5) == ("tc", "tc", "fma", "narrow", "fma",
+                                        "tc")
     assert a0[4] % 16 == 0 and a0[4] != do.data_ptr()    # the copy
     assert a0[10] is not None and a0[11] is not None     # the partials
     assert a0[11] - a0[10] == 2 * 8 * 4 * 16 * 4         # (B, Sk, H, hd) f32
@@ -665,13 +752,104 @@ def test_backward_wrapper_marshals_each_route(monkeypatch):
     # hd and hdv through the ABI: (b, sq, sk, h, hkv, hd, hdv, causal,
     # window) after the strides
     assert a0[13:22] == (2, 8, 8, 4, 2, 16, 16, 1, 0)
-    assert a3[13:22] == (2, 8, 8, 4, 2, 24, 16, 1, 0)
     assert a4[13:22] == (2, 8, 8, 4, 2, 24, 16, 1, 0)
-    for a, hd in ((a2, 16), (a3, 24), (a4, 24)):         # dK's at hd
+    assert a5[13:22] == (2, s, 8, 4, 2, 24, 16, 1, 0)
+    for a, hd in ((a2, 16), (a4, 24), (a5, 24)):         # dK's at hd
         assert a[11] - a[10] == 2 * 8 * 4 * hd * 4
-    assert a3[22] == pytest.approx(1 / 24 ** 0.5)        # 1/sqrt(hd)
-    assert tfa.LAUNCHES["flash_attention_bwd"] == 5
-    assert tfa.LAUNCHES["flash_attention_bwd_tc"] == 3
+    assert a5[22] == pytest.approx(1 / 24 ** 0.5)        # 1/sqrt(hd)
+    # the one launch: q, k, v, o, dO, lse, dq, dk, dv (no D, no
+    # partials), the strides, the same ints, the scale, the stream
+    assert len(a3) == 21 and a3[4] == q.data_ptr()
+    assert a3[10:19] == (2, 8, 8, 4, 2, 24, 16, 1, 0)
+    assert a3[19] == pytest.approx(1 / 24 ** 0.5)
+    assert tfa.LAUNCHES["flash_attention_bwd"] == 6
+    assert tfa.LAUNCHES["flash_attention_bwd_tc"] == 4
+    assert tfa.LAUNCHES["flash_attention_bwd_narrow"] == 1
+
+
+def _parent_forward_plan(b, sq, sk, h, hkv, hd, dtype, route, hdv):
+    """forward_plan as it stood before the narrow CTA (for the pairs and
+    shapes that do not take it)."""
+    t = 64
+    if route is None:
+        route = tfa._route(dtype, hd, hdv)
+    if route == "fma":
+        floats = t * hd + t * (hd + 1) + t * hdv + t * (t + 1) + 3 * t
+        return {"route": route, "kernel": "flash_attention_kernel",
+                "grid": (-(-sq // t), b * h), "threads": 256, "rows": t,
+                "smem_bytes": 4 * floats, "static_smem_bytes": 0}
+    if hd <= 128:
+        hdp, hdvp = max(hd, t), max(hdv, t)
+        return {"route": route, "kernel": "flash_attention_tc_kernel",
+                "grid": (b * h, -(-sq // t)), "threads": 128, "rows": t,
+                "smem_bytes": 2 * t * (3 * hdp + 2 * hdvp) + 1024,
+                "static_smem_bytes": 0}
+    stages = 2 if hd + hdv > 320 else 3
+    return {"route": route, "kernel": "flash_attention_ws_kernel",
+            "grid": (b * h, -(-sq // (2 * t))), "threads": 384,
+            "rows": 2 * t, "stages": stages,
+            "smem_bytes": 2 * t * (2 * hd + stages * (hd + hdv)) + 1024,
+            "static_smem_bytes": -(-8 * (1 + 4 * stages) // 1024) * 1024}
+
+
+def _parent_backward_plan(b, sq, sk, h, hkv, hd, dtype, route, hdv):
+    """backward_plan as it stood before the one-launch kernel."""
+    t = 64
+    if route is None:
+        route = tfa._route(dtype, hd, hdv)
+    nq, nk = -(-sq // t), -(-sk // t)
+    if route == "fma":
+        kernels = [("fa_bwd_preprocess_kernel", (nq, b * h)),
+                   ("fa_bwd_dkdv_kernel", (nk, b * h))]
+        last = ("fa_bwd_dq_kernel", (nq, b * h))
+    else:
+        kernels = [("fa_bwd_preprocess_tc_kernel", (nq, b * h)),
+                   ("fa_bwd_dkdv_tc_kernel", (b * h, nk))]
+        last = ("fa_bwd_dq_tc_kernel", (b * h, nq))
+    scratch = 0
+    if h != hkv:
+        scratch = b * sk * h * (hd + hdv)
+        kernels.append(("fa_bwd_gqa_reduce_kernel",
+                        (-(-(b * sk * hkv * max(hd, hdv) // 4) // 256),)))
+    return {"route": route, "kernels": kernels + [last],
+            "scratch_floats": scratch}
+
+
+@pytest.mark.parametrize("pair", tfa.HEAD_DIMS,
+                         ids=[f"{a}-{b}" for a, b in tfa.HEAD_DIMS])
+def test_plans_unchanged_off_the_narrow_shapes(pair):
+    """Every pair's forward and backward plans, on both routes and on both
+    sides of NARROW_MAX_LEN, equal the plans from before the narrow
+    kernels, except the narrow pair's tensor-core route at short shapes:
+    its forward up to NARROW_MAX_LEN keys, its backward up to
+    NARROW_MAX_LEN queries and keys."""
+    hd, hdv = pair
+    n = tfa.NARROW_MAX_LEN
+    narrowed = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for route in (None, "tc", "fma"):
+            if route == "tc" and tfa._route(dtype, hd, hdv) != "tc":
+                continue
+            for b, sq, sk, h, hkv in ((2, n, n, 4, 4), (1, n + 1, n, 4, 2),
+                                      (1, n, n + 1, 8, 2), (1, 1, n, 4, 4),
+                                      (3, 100, 40, 2, 1),
+                                      (1, 2048, 2048, 16, 16)):
+                args = (b, sq, sk, h, hkv, hd, dtype, route, hdv)
+                plan = tfa.forward_plan(*args[:-1], hdv=hdv)
+                bplan = tfa.backward_plan(*args[:-1], hdv=hdv)
+                tc = (route or tfa._route(dtype, hd, hdv)) == "tc"
+                if tc and pair in tfa.NARROW_PAIRS and sk <= n:
+                    assert plan["kernel"] == "flash_attention_narrow_kernel"
+                    narrowed += 1
+                else:
+                    assert plan == _parent_forward_plan(*args)
+                if tc and pair in tfa.NARROW_PAIRS and max(sq, sk) <= n:
+                    assert bplan["kernels"] == [
+                        ("fa_bwd_narrow_tc_kernel", (4 * b * hkv,))]
+                else:
+                    assert bplan == _parent_backward_plan(*args)
+    # bf16 on the rule's route and named "tc", four shapes with sk <= n
+    assert narrowed == (8 if pair in tfa.NARROW_PAIRS else 0)
 
 
 def test_tc_alignment_check():

@@ -699,8 +699,9 @@ def test_flash_attention_mla_head_dims_match_plain(cuda, case, dtype, route):
 
 def test_flash_attention_mla_instantiations_do_not_spill(cuda):
     """ptxas -v of the library: the forward kernels at (192, 128) and
-    (24, 16), both routes (the tensor cores' one-warpgroup kernel at (24,
-    16), the warp-specialised one at (192, 128)), spill no registers."""
+    (24, 16), both routes (the tensor cores' one-warpgroup kernel and the
+    narrow CTA at (24, 16), the warp-specialised one at (192, 128)), spill
+    no registers."""
     import re
 
     tfa.LIBRARY.build()
@@ -710,14 +711,140 @@ def test_flash_attention_mla_instantiations_do_not_spill(cuda):
     for name, body in re.findall(
             r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
             log, re.S):
-        if re.search(r"flash_attention_(tc_|ws_)?kernelI\w*Li(192ELi128|"
-                     r"24ELi16)E", name):
+        if re.search(r"flash_attention_(tc_|ws_|narrow_)?kernelI\w*"
+                     r"Li(192ELi128|24ELi16)E", name):
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           body)
             found[name] = (int(m.group(1)), int(m.group(2)))
-    # float32 and bf16 FMA kernels and the tensor-core kernel, two pairs
-    assert len(found) == 6, found
+    # float32 and bf16 FMA kernels and the tensor-core kernel, two pairs,
+    # and the narrow CTA at (24, 16)
+    assert len(found) == 7, found
     assert all(v == (0, 0) for v in found.values()), found
+
+
+# (B, Sq, Sk, H, Hkv, causal, window, q_offset) at (24, 16): the smoke's
+# shape, the narrow CTA's key limit and one past it (the general kernel),
+# GQA, a window, appended queries and a decode step (q_offset), ragged
+# and cross lengths, Sq past the limit (the forward's limit is Sk's)
+NARROW_FA_CASES = [
+    (2, 256, 256, 4, 4, True, 0, 0),
+    (2, 257, 257, 4, 4, True, 0, 0),
+    (1, 300, 256, 4, 2, False, 0, 0),
+    (1, 200, 200, 8, 2, True, 0, 0),
+    (1, 256, 256, 4, 4, True, 70, 0),
+    (1, 50, 256, 4, 2, True, 13, 206),
+    (2, 1, 256, 4, 4, True, 0, 255),
+    (1, 1, 257, 4, 4, True, 0, 256),
+    (2, 77, 77, 4, 4, True, 0, 0),
+    (1, 70, 130, 4, 4, False, 0, 0),
+    (1, 130, 40, 2, 1, True, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", NARROW_FA_CASES)
+def test_flash_attention_narrow_matches_plain(cuda, case):
+    """The tensor-core forward at (24, 16) against the plain version
+    (bf16, 2e-2) on both sides of NARROW_MAX_LEN keys: the plan names the
+    narrow CTA up to it and the general kernel past it, and the launch
+    counters agree; lse against the FMA kernel's on the same inputs in
+    float32 (1e-5)."""
+    b, sq, sk, h, hkv, causal, window, q_offset = case
+    q, k, v = _ws_qkv((b, sq, sk, h, hkv, 24, 16), cuda, seed=sum(case))
+    narrow = sk <= tfa.NARROW_MAX_LEN
+    plan = tfa.forward_plan(b, sq, sk, h, hkv, 24, torch.bfloat16, hdv=16)
+    assert plan["kernel"] == ("flash_attention_narrow_kernel" if narrow
+                              else "flash_attention_tc_kernel")
+    tfa.reset_launches()
+    got, lse = tfa._forward(q, k, v, causal, window, q_offset, "tc",
+                            with_lse=True)
+    assert tfa.LAUNCHES["flash_attention_tc"] == 1
+    assert tfa.LAUNCHES["flash_attention_narrow"] == int(narrow)
+    want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
+                                    skip_masked_chunks=True)
+    _, lse_fma = tfa._forward(q.float(), k.float(), v.float(), causal,
+                              window, q_offset, "fma", with_lse=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (b, sq, h, 16)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, lse_fma, rtol=1e-5, atol=1e-5)
+    again = tfa.launch(q, k, v, causal, window, q_offset, "tc")
+    assert torch.equal(got, again)
+
+
+# (B, Sq, Sk, H, Hkv, causal, window) at (24, 16): the smoke's training
+# shape, the one-launch limit on both lengths and one past it (three
+# kernels), GQA (a CTA walks its kv head's query heads), a window, Sq !=
+# Sk either way, ragged lengths, a key tile no query reaches
+NARROW_BWD_CASES = [
+    (2, 256, 256, 4, 4, True, 0),
+    (2, 257, 257, 4, 4, True, 0),
+    (1, 256, 257, 4, 4, False, 0),
+    (1, 256, 256, 8, 2, True, 0),
+    (1, 256, 256, 4, 4, True, 70),
+    (1, 150, 150, 4, 2, False, 40),
+    (1, 100, 256, 2, 2, False, 0),
+    (1, 256, 100, 2, 1, True, 0),
+    (2, 77, 77, 4, 4, True, 0),
+    (1, 64, 200, 2, 2, True, 0),
+]
+
+
+@pytest.mark.parametrize("case", NARROW_BWD_CASES)
+def test_flash_attention_narrow_backward_matches_plain(cuda, case):
+    """The tensor-core backward at (24, 16) through FlashAttentionFn
+    against autograd through the plain version (BWD_TOL): one launch of
+    fa_bwd_narrow_tc_kernel where Sq and Sk are at most NARROW_MAX_LEN,
+    the three kernels past it; two backward runs give the same bits."""
+    b, sq, sk, h, hkv, causal, window = case
+    qkv, do = _bwd_inputs((b, sq, sk, h, hkv, 24), torch.bfloat16, cuda,
+                          seed=sum(case), hdv=16)
+    narrow = max(sq, sk) <= tfa.NARROW_MAX_LEN
+    plan = tfa.backward_plan(b, sq, sk, h, hkv, 24, torch.bfloat16, hdv=16)
+    assert [n for n, _ in plan["kernels"]] == (
+        ["fa_bwd_narrow_tc_kernel"] if narrow else
+        ["fa_bwd_preprocess_tc_kernel", "fa_bwd_dkdv_tc_kernel"]
+        + (["fa_bwd_gqa_reduce_kernel"] if h > hkv else [])
+        + ["fa_bwd_dq_tc_kernel"])
+    tfa.reset_launches()
+    out = tfa.flash_attention(*qkv, causal=causal, window=window)
+    got = torch.autograd.grad(out, qkv, do, retain_graph=True)
+    again = torch.autograd.grad(out, qkv, do)
+    assert tfa.LAUNCHES["flash_attention_bwd_tc"] == 2
+    assert tfa.LAUNCHES["flash_attention_bwd_narrow"] == 2 * narrow
+    ref_out = tref.flash_attention_ref(*qkv, causal, window, 0, 64, 64)
+    want = torch.autograd.grad(ref_out, qkv, do)
+    torch.cuda.synchronize()
+    for g, g2, w, t in zip(got, again, want, qkv):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        assert torch.equal(g.view(torch.int16), g2.view(torch.int16))
+        torch.testing.assert_close(g.float(), w.float(),
+                                   **BWD_TOL[torch.bfloat16])
+
+
+def test_narrow_kernels_do_not_spill_or_serialise(cuda):
+    """ptxas -v of both libraries: the narrow forward and the one-launch
+    backward at (24, 16) (four warpgroups, 128 registers a thread at
+    most) spill nothing, and no "(C75xx)" note (wgmma serialised) names
+    either."""
+    import re
+
+    for lib, kernel in ((tfa.LIBRARY, "flash_attention_narrow_kernel"),
+                        (tfa.BWD_LIBRARY, "fa_bwd_narrow_tc_kernel")):
+        lib.build()
+        with open(lib.log_path()) as f:
+            log = f.read()
+        found = {name: body for name, body in re.findall(
+            r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
+            log, re.S) if kernel in name}
+        assert len(found) == 1, (kernel, list(found))
+        (name, body), = found.items()
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      body)
+        assert (int(m.group(1)), int(m.group(2))) == (0, 0), body
+        notes = re.findall(r"\((C75\d\d)\).*? in the function '(\S+?)'",
+                           log)
+        assert not [n for n in notes if n[1] == name], notes
 
 
 def test_flash_attention_kernel_reads_strided_views(cuda):
@@ -741,7 +868,9 @@ def test_flash_attention_fma_route_bf16(cuda, case):
     got = tfa.launch(q, k, v, causal, window, q_offset, route="fma")
     assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_tc": 0,
                             "flash_attention_bwd": 0,
-                            "flash_attention_bwd_tc": 0}
+                            "flash_attention_bwd_tc": 0,
+                            "flash_attention_narrow": 0,
+                            "flash_attention_bwd_narrow": 0}
     want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
                                     skip_masked_chunks=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
@@ -780,7 +909,9 @@ def test_flash_attention_tc_refuses_misaligned(cuda):
         tfa.launch(q.float(), k.float(), v.float(), True, 0, 0, route="tc")
     assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0,
                             "flash_attention_bwd": 0,
-                            "flash_attention_bwd_tc": 0}
+                            "flash_attention_bwd_tc": 0,
+                            "flash_attention_narrow": 0,
+                            "flash_attention_bwd_narrow": 0}
 
 
 def test_flash_attention_wrapper_refuses(cuda):
@@ -938,9 +1069,10 @@ def test_flash_attention_fn_grads_match_plain_autograd(cuda, case, dtype,
 def test_flash_attention_backward_tc_does_not_spill(cuda):
     """ptxas -v of the library: no tensor-core backward kernel spills, at
     any pair (preprocess at each hdv, dK / dV and dQ at each pair, the
-    GQA reduction into bf16 and into float32), and ptxas serialises the
-    wgmma of none of the two-warpgroup dK / dV and dQ kernels past hd 128
-    (no "(C7520) Potential Performance Loss" note names them)."""
+    GQA reduction into bf16 and into float32, the one-launch kernel at
+    (24, 16)), and ptxas serialises the wgmma of none of the two-warpgroup
+    dK / dV and dQ kernels past hd 128 and of the one-launch kernel (no
+    "(C7520) Potential Performance Loss" note names them)."""
     import re
 
     tfa.BWD_LIBRARY.build()
@@ -954,12 +1086,16 @@ def test_flash_attention_backward_tc_does_not_spill(cuda):
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           body)
             found[name] = (int(m.group(1)), int(m.group(2)))
-    # 5 preprocess (hdv 16, 32, 64, 128, 256), 7 dK / dV, 7 dQ, 2 reductions
-    assert len(found) == 21, found
+    # 5 preprocess (hdv 16, 32, 64, 128, 256), 7 dK / dV, 7 dQ, 2
+    # reductions, the one-launch kernel at (24, 16)
+    assert len(found) == 22, found
     assert all(v == (0, 0) for v in found.values()), found
     wide = [n for n in found if re.search(
         r"fa_bwd_(dkdv|dq)_tc_kernelI(Li192ELi128E|Li256ELi256E)", n)]
     assert len(wide) == 4, wide
+    # the one-launch kernel's four warpgroups run one instruction stream
+    wide += [n for n in found if "fa_bwd_narrow_tc_kernel" in n]
+    assert len(wide) == 5, wide
     serialised = re.findall(r"Potential Performance Loss: wgmma\S* "
                             r"instructions are serialized.*? in the function "
                             r"'(\S+?)'", log)
@@ -1422,21 +1558,30 @@ def test_forward_plan_smem_matches_ptxas_and_launch(cuda):
     import re
 
     _, found = _forward_ptxas()
+    # at a narrow pair, the narrow CTA (64 keys) and the general kernel
+    # (past NARROW_MAX_LEN keys)
+    sks = {pair: (64, tfa.NARROW_MAX_LEN + 1) for pair in tfa.NARROW_PAIRS}
     for hd, hdv in tfa.TC_HEAD_DIMS:
-        plan = tfa.forward_plan(1, 64, 64, 4, 4, hd, torch.bfloat16,
-                                hdv=hdv)
-        attrs = tfa.tc_attributes(hd, hdv)
-        assert attrs["smem_bytes"] == attrs["max_dynamic_smem_bytes"]
-        assert (plan["smem_bytes"], plan["static_smem_bytes"],
-                plan["threads"], plan["rows"]) == (
-            attrs["smem_bytes"], attrs["static_smem_bytes"],
-            attrs["threads"], attrs["rows"]), (hd, hdv)
-        if hd > 128:
-            _, body = found[(hd, hdv)]
-            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", body)
-            assert (int(m.group(1)), int(m.group(2))) == (
-                attrs["registers"], plan["static_smem_bytes"])
-        q, k, v = _ws_qkv((1, 70, 70, 4, 4, hd, hdv), cuda, seed=hd)
-        out = tfa.launch(q, k, v, True, 0, 0, "tc")
-        torch.cuda.synchronize()
-        assert out.shape == (1, 70, 4, hdv)
+        for sk in sks.get((hd, hdv), (64,)):
+            plan = tfa.forward_plan(1, 64, sk, 4, 4, hd, torch.bfloat16,
+                                    hdv=hdv)
+            narrow = plan["kernel"] == "flash_attention_narrow_kernel"
+            assert narrow == (sk == 64 and (hd, hdv) in tfa.NARROW_PAIRS)
+            attrs = tfa.tc_attributes(hd, hdv, narrow=narrow)
+            assert attrs["smem_bytes"] == attrs["max_dynamic_smem_bytes"]
+            assert (plan["smem_bytes"], plan["static_smem_bytes"],
+                    plan["threads"], plan["rows"]) == (
+                attrs["smem_bytes"], attrs["static_smem_bytes"],
+                attrs["threads"], attrs["rows"]), (hd, hdv, sk)
+            if hd > 128:
+                _, body = found[(hd, hdv)]
+                m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem",
+                              body)
+                assert (int(m.group(1)), int(m.group(2))) == (
+                    attrs["registers"], plan["static_smem_bytes"])
+            q, k, v = _ws_qkv((1, 70, sk, 4, 4, hd, hdv), cuda, seed=hd)
+            tfa.reset_launches()
+            out = tfa.launch(q, k, v, True, 0, 0, "tc")
+            torch.cuda.synchronize()
+            assert out.shape == (1, 70, 4, hdv)
+            assert tfa.LAUNCHES["flash_attention_narrow"] == int(narrow)

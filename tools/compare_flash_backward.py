@@ -2,7 +2,7 @@
 """Check and time the flash-attention backward's tensor-core route of
 several checkouts of this repository on one NVIDIA card, in turns.
 
-    python3 tools/compare_flash_backward.py TREE [TREE ...]
+    python3 tools/compare_flash_backward.py [--only LABEL,...] TREE [TREE ...]
 
 Each TREE is the root of a checkout (``.`` for this one; an unpacked
 ``git archive`` of another commit beside it).  For each tree, in the
@@ -23,7 +23,9 @@ its ``csrc/flash_attention_bwd.cu`` (into the tree's gitignored
   median of CUDA events around the same calls.
 
 Then the card's name and power limit.  Give the trees as parent, change,
-change, parent to see the spread beside the difference.  A tree that
+change, parent to see the spread beside the difference.  ``--only``
+keeps those labels of CHECKS and TIMES alone (for example ``--only
+mla_smoke,mla_smoke_gqa`` for the (24, 16) pair).  A tree that
 does not build or run gets a line with its error, and the rest go on.
 Exits 1 if a check or a tree fails, 2 without a card.
 """
@@ -45,6 +47,11 @@ CHECKS = [
     ("rg_160_g4", (1, 160, 160, 8, 2, 256, 256), True, 0),
     ("rg_window", (1, 300, 300, 16, 1, 256, 256), True, 80),
     ("hd128", (1, 256, 256, 12, 2, 128, 128), True, 0),
+    # DeepSeek-V2-Lite's smoke pair: the one-launch kernel up to 256
+    # queries and keys (with GQA, a window), three kernels past it
+    ("mla_smoke", (2, 256, 256, 4, 4, 24, 16), True, 0),
+    ("mla_smoke_gqa", (1, 256, 256, 8, 2, 24, 16), True, 70),
+    ("mla_smoke_257", (2, 257, 257, 4, 4, 24, 16), True, 0),
 ]
 #: (label, (B, S, S, H, Hkv, hd, hdv), causal, window): the training
 #: phases' attention (chip_smoke.py BWD_CASES)
@@ -52,6 +59,7 @@ TIMES = [
     ("mla_train", (2, 2048, 2048, 16, 16, 192, 128), True, 0),
     ("rg_train", (1, 3072, 3072, 16, 1, 256, 256), True, 2048),
     ("train", (2, 1024, 1024, 12, 2, 128, 128), True, 0),
+    ("mla_smoke", (2, 256, 256, 4, 4, 24, 16), True, 0),
 ]
 TOL = {"rtol": 2e-2, "atol": 2e-2}
 REPS = 20
@@ -65,7 +73,9 @@ from repro_torch.kernels import ref
 
 CHECKS, TIMES, TOL, REPS = json.loads(sys.argv[1])
 dev = torch.device("cuda", 0)
-flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+# 1 GiB: its fill outlasts the wrapper's host time, so the events time
+# the launch-bound kernels' card time, not the host (chip_smoke.py Timer)
+flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
 fa.BWD_LIBRARY.build()
 out = {"ptxas": {}, "serialised": [], "checks": {}, "times": {}}
 with open(fa.BWD_LIBRARY.log_path()) as f:
@@ -146,13 +156,13 @@ print(json.dumps(out))
 """
 
 
-def run_tree(tree: str) -> dict:
+def run_tree(tree: str, checks=CHECKS, times=TIMES) -> dict:
     """One tree's line: build, ptxas, checks and times in a fresh process
     (``{"tree", "ok": False, "error"}`` where it does not build or run)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(os.path.abspath(tree),
                                                    "src"))
     proc = subprocess.run(
-        [sys.executable, "-c", _CHILD, json.dumps([CHECKS, TIMES, TOL, REPS])],
+        [sys.executable, "-c", _CHILD, json.dumps([checks, times, TOL, REPS])],
         env=env, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         return {"tree": tree, "ok": False, "error": proc.stderr[-2000:]}
@@ -168,8 +178,15 @@ def card() -> str:
 
 
 def main() -> int:
-    trees = sys.argv[1:]
-    if not trees:
+    args = sys.argv[1:]
+    checks, times = CHECKS, TIMES
+    if args[:1] == ["--only"] and len(args) > 1:
+        labels = args[1].split(",")
+        checks = [c for c in CHECKS if c[0] in labels]
+        times = [c for c in TIMES if c[0] in labels]
+        args = args[2:]
+    trees = args
+    if not trees or not (checks or times):
         print(__doc__, file=sys.stderr)
         return 1
     import torch
@@ -179,7 +196,7 @@ def main() -> int:
         return 2
     ok = True
     for tree in trees:
-        row = run_tree(tree)
+        row = run_tree(tree, checks, times)
         ok &= row["ok"]
         print(json.dumps(row), flush=True)
     print(card())

@@ -2,7 +2,7 @@
 """Time the flash-attention forward kernels of several checkouts of this
 repository on one NVIDIA card, in turns.
 
-    python3 tools/compare_flash_forward.py TREE [TREE ...]
+    python3 tools/compare_flash_forward.py [--only LABEL,...] TREE [TREE ...]
 
 Each TREE is the root of a checkout (``.`` for this one; an unpacked
 ``git archive`` of another commit beside it).  For each tree, in the
@@ -18,6 +18,8 @@ tolerance 2e-2).  The profile's kernel names are listed per case
 (``kernels``), so a tree's layout shows beside its time.  One JSON line
 per tree, then the card's name and power limit.  Give the trees as
 parent, change, change, parent to see the spread beside the difference.
+``--only`` times those CASES alone (for example ``--only mla_smoke`` for
+the (24, 16) pair's launch-bound shape).
 
 Exits 2 without a card.
 """
@@ -47,6 +49,11 @@ CASES = [
      "tc"),
     ("rg_prefill", (1, 3072, 3072, 16, 1, 256, 256), "bfloat16", True, 2048,
      "tc"),
+    # DeepSeek-V2-Lite's smoke pair at chip_smoke.py's mla_smoke shape, bf16
+    # (the narrow CTA up to 256 keys) and float32 (the FMA kernel)
+    ("mla_smoke", (2, 256, 256, 4, 4, 24, 16), "bfloat16", True, 0, "tc"),
+    ("mla_smoke_f32", (2, 256, 256, 4, 4, 24, 16), "float32", True, 0,
+     "fma"),
 ]
 REPS = 20
 
@@ -59,7 +66,9 @@ from repro_torch.kernels import ref
 
 CASES, REPS = json.loads(sys.argv[1]), int(sys.argv[2])
 dev = torch.device("cuda", 0)
-flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+# 1 GiB: its fill outlasts the wrapper's host time, so the events time
+# the launch-bound kernels' card time, not the host (chip_smoke.py Timer)
+flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
 fa.LIBRARY.build()
 g = torch.Generator(device=dev).manual_seed(0)
 
@@ -120,8 +129,14 @@ print(json.dumps(out))
 
 
 def main() -> int:
-    trees = sys.argv[1:]
-    if not trees:
+    args = sys.argv[1:]
+    cases = CASES
+    if args[:1] == ["--only"] and len(args) > 1:
+        labels = args[1].split(",")
+        cases = [c for c in CASES if c[0] in labels]
+        args = args[2:]
+    trees = args
+    if not trees or not cases:
         print(__doc__, file=sys.stderr)
         return 1
     import torch
@@ -133,7 +148,7 @@ def main() -> int:
         env = dict(os.environ, PYTHONPATH=os.path.join(os.path.abspath(tree),
                                                        "src"))
         proc = subprocess.run(
-            [sys.executable, "-c", _CHILD, json.dumps(CASES), str(REPS)],
+            [sys.executable, "-c", _CHILD, json.dumps(cases), str(REPS)],
             env=env, capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)
