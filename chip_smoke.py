@@ -86,7 +86,8 @@ Phases, one JSON line each:
            each bf16 on the tensor cores and float32 on the FMA route,
            whisper-tiny's encoder (1, 1500, 1500, 6, 6) at hd 64 and
            Llama-3.2-Vision's cross-attention (1, 2048, 1024, 64, 8) at
-           hd 128, both without a mask, on the tensor cores,
+           hd 128, both without a mask, on the tensor cores (at hd 64
+           the warp-specialised CTA split over a cluster),
            DeepSeek-V2-Lite's smoke pair (2, 256, 256, 4, 4) at (24,
            16) through the narrow CTA (bf16), the FMA kernel (float32)
            and, one key past the narrow limit, the general kernel,
@@ -100,8 +101,10 @@ Phases, one JSON line each:
            (256, 256) with window 2,048), each bf16 and float32,
            (24, 16) at (2, 256, 4, 4) (bf16: the one-launch kernel;
            float32; and at 257, past its limit, the three kernels) and
-           train_whisper's encoder (8, 1500, 6, 6) at hd 64 without a
-           mask (BWD_TOL); the (24, 16) rows beside the event and device
+           train_whisper's encoder (8, 1500, 1500, 6, 6) at hd 64 without
+           a mask, its decoder's causal self-attention (8, 448, 448, 6,
+           6) and cross-attention (8, 448, 1500, 6, 6) (BWD_TOL; each
+           through the one-grid launch); the (24, 16) rows beside the event and device
            time of an empty launch (torch.cuda._sleep(0)) under the same
            timer,
            bf16 on both routes (tensor cores, then float32 FMAs; timed in
@@ -242,8 +245,9 @@ Phases, one JSON line each:
            compute, the kernels (the FMA route at hd 64) against the plain
            attention (prefill logits within LOGIT_TOL, identical greedy
            tokens); then bf16: every flash launch on the tensor cores,
-           counted by shape (the encoder's at FA_CASES' whisper_encoder),
-           prefill and decode times, device busy time, idle share
+           counted by shape (the encoder's at FA_CASES' whisper_encoder,
+           each in a split cluster), prefill and decode times, device
+           busy time, idle share
   serve_vlm  Llama-3.2-Vision-90B at VLM["layers"] the same way over
            1,024 vision tokens (the cross-attention's launches at
            FA_CASES' vlm_cross)
@@ -253,7 +257,8 @@ Phases, one JSON line each:
            flash launch, step ms, tokens/s, MFU, peak memory
   train_whisper  whisper-tiny whole, 8 clips of 1,500 frames and 448
            decoder tokens, as train (the backward at hd 64 on the tensor
-           cores: the encoder's, the decoder's and the cross-attention's)
+           cores, the encoder's, the decoder's and the cross-attention's,
+           each its dK / dV and dQ CTAs in one grid)
   loop     at LOOP["layers"] layers: two experts (skills 0 and 1) from one
            seeded base with TrainLoop, checkpoints in a SnapshotStore;
            expert 0 crashed before step 3 and resumed from its step-2
@@ -332,10 +337,18 @@ Phases, one JSON line each:
            own beside the card phases, with no JAX on the machine: exit
            0, no unwaived finding, each pass's findings and waivers
 
-The loop phase runs in a spawned process of its own beside the store
-phase (both host-bound, on workspaces of their own; the kernel timing,
-serve and train phases run before them, alone on the card), so their
-walls are taken side by side.  Then the total seconds, the kernels'
+The loop and store phases run each in a spawned process of its own
+(both host-bound, on workspaces of their own), started after the
+kernels phase and the training phases that hold most of the card
+(train, train_mla, train_griffin, mesh: SOLO_PHASES), beside every
+later card phase: the kernels phase's timings stand alone on the card,
+and the phases after those share the host and the card with the two
+(their walls are taken from that start, the store phase's line gives
+its steps' walls, sub_walls_s, and main prints it when both are
+collected).  While they run, a thread samples the card's free memory;
+the "side" line gives its least value, each side process's peak
+reserved memory and the phases beside them, and the smoke fails if
+the free memory fell below SIDE_HEADROOM_GB.  Then the total seconds, the kernels'
 contract line, and last {"ok": true, "device": ...}.
 Any failure raises and exits non-zero.  The workspace lives under
 build/ (gitignored) and is removed at the end.
@@ -478,7 +491,7 @@ SERVICE_SPEC = {"jobs": [
 # float32 serve parity, kernel against plain version: prefill logits of
 # std ~40 (vocab 151,936, d 1536) with attention sums in another order
 LOGIT_TOL = {"rtol": 1e-4, "atol": 2e-3}
-# (label, (B, S, H, Hkv, hd, hdv), dtype, causal, window): the flash
+# (label, (B, Sq, Sk, H, Hkv, hd, hdv), dtype, causal, window): the flash
 # backward (q_offset 0) at the training phase's heads, bf16 (the
 # tensor-core forward's lse; both backward routes) and float32 (the FMA
 # forward's lse; the FMA route), at hd 64, and at a ragged length; the
@@ -490,30 +503,39 @@ LOGIT_TOL = {"rtol": 1e-4, "atol": 2e-3}
 # the contract line) and float32 on the FMA route; "mla_smoke" is
 # DeepSeek's smoke config's (24, 16)
 BWD_CASES = [
-    ("train", (2, 1024, 12, 2, 128, 128), "bfloat16", True, 0),
-    ("train_window", (2, 1024, 12, 2, 128, 128), "bfloat16", True, 256),
-    ("hd64", (2, 1024, 8, 2, 64, 64), "bfloat16", True, 0),
-    ("ragged", (2, 1000, 12, 2, 128, 128), "bfloat16", True, 0),
-    ("f32_hd8", (1, 512, 4, 2, 8, 8), "float32", True, 0),
-    ("f32_hd16", (1, 512, 4, 2, 16, 16), "float32", True, 0),
-    ("mla_train", (2, 2048, 16, 16, 192, 128), "bfloat16", True, 0),
-    ("mla_train_f32", (2, 2048, 16, 16, 192, 128), "float32", True, 0),
-    ("rg_train", (1, 3072, 16, 1, 256, 256), "bfloat16", True, 2048),
-    ("rg_train_f32", (1, 3072, 16, 1, 256, 256), "float32", True, 2048),
-    ("mla_smoke", (2, 256, 4, 4, 24, 16), "bfloat16", True, 0),
-    ("mla_smoke_f32", (2, 256, 4, 4, 24, 16), "float32", True, 0),
-    ("mla_smoke_257", (2, 257, 4, 4, 24, 16), "bfloat16", True, 0),
+    ("train", (2, 1024, 1024, 12, 2, 128, 128), "bfloat16", True, 0),
+    ("train_window", (2, 1024, 1024, 12, 2, 128, 128), "bfloat16", True, 256),
+    ("hd64", (2, 1024, 1024, 8, 2, 64, 64), "bfloat16", True, 0),
+    ("ragged", (2, 1000, 1000, 12, 2, 128, 128), "bfloat16", True, 0),
+    ("f32_hd8", (1, 512, 512, 4, 2, 8, 8), "float32", True, 0),
+    ("f32_hd16", (1, 512, 512, 4, 2, 16, 16), "float32", True, 0),
+    ("mla_train", (2, 2048, 2048, 16, 16, 192, 128), "bfloat16", True, 0),
+    ("mla_train_f32", (2, 2048, 2048, 16, 16, 192, 128), "float32", True, 0),
+    ("rg_train", (1, 3072, 3072, 16, 1, 256, 256), "bfloat16", True, 2048),
+    ("rg_train_f32", (1, 3072, 3072, 16, 1, 256, 256), "float32", True, 2048),
+    ("mla_smoke", (2, 256, 256, 4, 4, 24, 16), "bfloat16", True, 0),
+    ("mla_smoke_f32", (2, 256, 256, 4, 4, 24, 16), "float32", True, 0),
+    ("mla_smoke_257", (2, 257, 257, 4, 4, 24, 16), "bfloat16", True, 0),
     # the train_whisper phase's encoder: 8 clips of 1,500 frames, 6 heads
     # at hd 64, no mask
-    ("whisper_train", (8, 1500, 6, 6, 64, 64), "bfloat16", False, 0),
+    ("whisper_train", (8, 1500, 1500, 6, 6, 64, 64), "bfloat16", False, 0),
+    # its decoder: the self-attention (448 text positions, causal) and
+    # the cross-attention (448 over 1,500 frames, no mask)
+    ("whisper_dec_self", (8, 448, 448, 6, 6, 64, 64), "bfloat16", True, 0),
+    ("whisper_dec_cross", (8, 448, 1500, 6, 6, 64, 64), "bfloat16", False,
+     0),
 ]
 # the training phases' backward rows of the contract line: case label ->
 # launch counter (the train_mla, train_griffin and train_whisper phases'
-# tensor-core backward launches)
+# tensor-core backward launches; train_whisper's one-grid launches by
+# shape, one counter a row: ONE_GRID_ROWS)
 BWD_ROWS = {"mla_train": "flash_attention_bwd_mla",
             "mla_smoke": "flash_attention_bwd_narrow",
             "rg_train": "flash_attention_bwd_rg",
-            "whisper_train": "flash_attention_bwd_whisper"}
+            "whisper_train": "flash_attention_bwd_one_grid_enc",
+            "whisper_dec_self": "flash_attention_bwd_one_grid_dec_self",
+            "whisper_dec_cross": "flash_attention_bwd_one_grid_dec_cross"}
+ONE_GRID_ROWS = ("whisper_train", "whisper_dec_self", "whisper_dec_cross")
 # the backward against autograd through flash_attention_ref: float32 sums
 # in another order; bf16 gradients one bf16 rounding apart (the
 # tensor-core forward rounds P to bf16)
@@ -647,12 +669,21 @@ TRAIN_WHISPER = {"config": "whisper-tiny", "layers": None, "batch": 8,
                                  "dec_xattn/wq", "dec_xattn/wk",
                                  "dec_xattn/wv", "dec_xattn/gate",
                                  "dec_mlp/w_down"),
-                 "counter": "flash_attention_bwd_whisper"}
+                 "counter": "flash_attention_bwd_whisper", "one_grid": True}
 # the loop phase: two experts from one base, a crash of expert 0 before
 # step CRASH_AT, then ANALYZE, TIES at 50%, and serving the merge, at
 # LOOP["layers"] decoder layers (cut from the merge depth of 4 when the
 # shards phase came: its float32 checkpoints, ~5 GB at depth 4, are
 # most of the phase's time)
+# the phases that run alone on the card after the kernels phase, before
+# the loop and store processes start: those with the most card memory at
+# peak (train_griffin 64.5 GB, train 44.6 GB, train_mla and mesh's
+# DeepSeek run 36.5 GB on an H100 80GB HBM3)
+SOLO_PHASES = ("train", "train_mla", "train_griffin", "mesh")
+# the least free card memory, in GB, while the loop and store processes
+# run beside the later card phases, and how often a thread samples it
+SIDE_HEADROOM_GB = 2.0
+SIDE_SAMPLE_S = 0.25
 LOOP = {"layers": 1, "batch": 2, "seq": 512, "steps": 4, "ckpt_every": 2,
         "crash_at": 3,
         "lr": 1e-3, "eval_batches": 2, "requests": 4, "min_prompt": 64,
@@ -1306,7 +1337,8 @@ def flash_rows(device, seed, timer):
                   + got.numel()) * q.element_size()
         bytes_ms = nbytes / PEAK["bytes"] * 1e3
         ops_ms = flops / PEAK["bf16" if dt == "bfloat16" else "f32"] * 1e3
-        plan = fa.forward_plan(b, sq, sk, h, hkv, hd, dtype, route, hdv=hdv)
+        plan = fa.forward_plan(b, sq, sk, h, hkv, hd, dtype, route, hdv=hdv,
+                               causal=causal, window=window)
         kernel = plan["kernel"]
         row = {
             "name": "flash_attention", "route": "cuda", "case": label,
@@ -1330,6 +1362,11 @@ def flash_rows(device, seed, timer):
             # the warp-specialised layout, beside its time
             row.update(layout=fa.forward_tile_work(hd, hdv),
                        smem_bytes=plan["smem_bytes"], stages=plan["stages"])
+        if "cluster" in plan and kernel == "flash_attention_ws_kernel":
+            # the warp-specialised CTA split over a cluster
+            row.update(layout=fa.forward_tile_work(hd, hdv, split=True),
+                       cluster=plan["cluster"],
+                       grid=plan["grid"], smem_bytes=plan["smem_bytes"])
         if label.startswith("mla_smoke"):
             # a launch-bound row: its share of the bound beside the cost
             # of an empty launch
@@ -1403,18 +1440,20 @@ def flash_bwd_rows(device, seed, timer):
     empty_dev = kernel_device_ms(lambda: torch.cuda._sleep(0),
                                  r"^(?!.*FillFunctor<unsign)", timer)
     rows = []
-    for label, (b, s, h, hkv, hd, hdv), dt, causal, window in BWD_CASES:
+    for (label, (b, sq, sk, h, hkv, hd, hdv), dt, causal,
+         window) in BWD_CASES:
         dtype = getattr(torch, dt)
         # the training phases' shapes: FMA-route and plain calls of tens of
         # ms, so fewer timed calls
-        reps, warm = ((7, 1) if b * s * s * h > 2 * 1024 * 1024 * 12
+        reps, warm = ((7, 1) if b * sq * sk * h > 2 * 1024 * 1024 * 12
                       else (25, 3))
 
         def rand(*shape):
             return torch.randn(shape, generator=g, device=device).to(dtype)
 
-        q, k, v = rand(b, s, h, hd), rand(b, s, hkv, hd), rand(b, s, hkv, hdv)
-        do = rand(b, s, h, hdv)
+        q = rand(b, sq, h, hd)
+        k, v = rand(b, sk, hkv, hd), rand(b, sk, hkv, hdv)
+        do = rand(b, sq, h, hdv)
         route = fa._route(dtype, hd, hdv)
         o, lse = fa._forward(q, k, v, causal, window, 0, route, with_lse=True)
         qkv = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -1444,7 +1483,7 @@ def flash_bwd_rows(device, seed, timer):
                                      f"runs differ")
             del got, again
         # yardstick only: SDPA's backward on the same inputs
-        mask = attention_mask(s, s, causal, window, 0, device)
+        mask = attention_mask(sq, sk, causal, window, 0, device)
         lib_q, lib_k, lib_v = (t.transpose(1, 2).detach().clone()
                                .requires_grad_() for t in (q, k, v))
         full_causal = causal and window == 0
@@ -1474,7 +1513,7 @@ def flash_bwd_rows(device, seed, timer):
             raise AssertionError(f"route gate: the tensor-core backward "
                                  f"({ms['tc']} ms) is not faster than the "
                                  f"FMA backward ({ms['fma']} ms)")
-        bwd_plan = fa.backward_plan(b, s, s, h, hkv, hd, dtype, hdv=hdv)
+        bwd_plan = fa.backward_plan(b, sq, sk, h, hkv, hd, dtype, hdv=hdv)
         kernels = [n for n, _ in bwd_plan["kernels"]]
         narrow = kernels == ["fa_bwd_narrow_tc_kernel"]
         by_kernel = None
@@ -1511,7 +1550,7 @@ def flash_bwd_rows(device, seed, timer):
             "replaces": "src/repro/models/attention.py:92",
             "replaces_note": "XLA autodiff of the jnp chunked attention; the "
                              "JAX package has no backward kernel",
-            "shape": [b, s, s, h, hkv, hd, hdv], "dtype": dt,
+            "shape": [b, sq, sk, h, hkv, hd, hdv], "dtype": dt,
             "causal": causal,
             "window": window, "forward_route": route, "tolerance": tol,
             "errors": errs[route], "fma_errors": errs.get("fma"),
@@ -2747,6 +2786,12 @@ def attention_shape(q, k, v, causal=True, **kw):
             q.shape[3], v.shape[3], causal)
 
 
+def backward_shape(do, q, k, v, o, lse, causal, window, **kw):
+    """The flash backward's (B, Sq, Sk, H, Hkv, hd, hdv, causal), the
+    order of BWD_CASES' shapes and causal flag."""
+    return attention_shape(q, k, v, bool(causal))
+
+
 def scan_device_ms(shapes, device):
     """Device time (torch.profiler, all of its kernels) of the RG-LRU scans
     ``shapes`` counts, each replayed as often on float32 inputs of its
@@ -3276,6 +3321,8 @@ def serve_context(phase, model, prompts, contexts, new, want):
         "ms_per_decode_step": decode_s / (len(prompts) * (new - 1)) * 1e3,
         "launches": {"flash_attention": launches["flash_attention"],
                      "flash_attention_tc": launches["flash_attention_tc"],
+                     "flash_attention_split":
+                         launches["flash_attention_split"],
                      "by_shape": {"x".join(map(str, k)): n
                                   for k, n in shapes.items()}},
         "profiled_request_wall_s": one_wall,
@@ -3327,6 +3374,11 @@ def phase_serve_whisper(device, seed):
         raise AssertionError(f"serve_whisper: {dict(shapes)}, want "
                              f"{cfg.n_encoder_layers} encoder launches at "
                              f"{enc_shape} a request")
+    # the encoder's launches, and only they, take the warp-specialised
+    # CTA in a split cluster (the decoder's: 4 or 1 queries, or causal)
+    if line["launches"]["flash_attention_split"] != encoder:
+        raise AssertionError(f"serve_whisper: {line['launches']}, want the "
+                             f"{encoder} encoder launches in a cluster")
     emit({"phase": "serve_whisper", "config": cfg.name,
           "layers": {"encoder": cfg.n_encoder_layers,
                      "decoder": cfg.n_layers},
@@ -3491,7 +3543,9 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
     warm-up and timed steps with their launch counts, then one step under
     the profiler.  Returns the launch counts, with the tensor-core
     backward's also under ``spec["counter"]`` where the spec names one
-    (the narrow CTAs count under their own counters)."""
+    (the narrow CTAs count under their own counters), and the backward's
+    calls in the timed steps by shape under ``"bwd_by_shape"``
+    (``backward_shape``)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3583,14 +3637,15 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
         mb.reset_launches()
         torch.cuda.reset_peak_memory_stats(device)
         walls, losses = [], []
-        for _ in range(steps):
-            batch = next(pipe)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
-            losses.append(float(metrics["loss"]))
+        with calls_by_shape(fa, "backward", backward_shape) as bwd_shapes:
+            for _ in range(steps):
+                batch = next(pipe)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+                losses.append(float(metrics["loss"]))
         launches = dict(fa.LAUNCHES)
         peak = torch.cuda.max_memory_allocated(device)
         # one more step under the profiler: device time by kernel
@@ -3618,10 +3673,17 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
     if spec.get("narrow"):  # every launch the narrow CTAs'
         per.update(flash_attention_narrow=per["flash_attention"],
                    flash_attention_bwd_narrow=attn)
+    if spec.get("one_grid"):  # every backward: H == Hkv at (64, 64)
+        per["flash_attention_bwd_one_grid"] = attn
     for name, n in per.items():
         if launches[name] != n * steps:
             raise AssertionError(f"{phase}: {launches} over {steps} steps, "
                                  f"want {n} {name} launches a step")
+    if sum(bwd_shapes.values()) != launches["flash_attention_bwd"]:
+        raise AssertionError(f"{phase}: backward calls by shape "
+                             f"{dict(bwd_shapes)}, launches {launches}")
+    launches["bwd_by_shape"] = {"x".join(map(str, k)): n
+                                for k, n in bwd_shapes.items()}
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{phase}: losses {losses}")
     device_ms = device_time_ms(prof)
@@ -4212,15 +4274,111 @@ def phase_loop(root, device, seed, layers, block_size):
 
 def loop_process(root, seed, layers, block_size):
     """phase_loop in a spawned process of its own (it runs beside the
-    store phase): the card and the float settings as ``main`` sets them;
-    returns the loop path's launches, counted in this process."""
+    store phase and the card phases after SOLO_PHASES): the card and the
+    float settings as ``main`` sets them; returns the loop path's
+    launches, counted in this process, and the process's peak reserved
+    card memory in bytes."""
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return phase_loop(root, torch.device("cuda", 0), seed, layers,
-                      block_size)
+    launches = phase_loop(root, torch.device("cuda", 0), seed, layers,
+                          block_size)
+    return launches, torch.cuda.max_memory_reserved(0)
+
+
+def store_process(root, seed, block_size):
+    """phase_store in a spawned process of its own (beside the loop phase
+    and the card phases after SOLO_PHASES): returns its launches, its
+    shard workers' launches and its line, which ``main`` prints, and the
+    process's peak reserved card memory in bytes (its shard workers' own
+    show in the free memory that ``start_side`` samples)."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = phase_store(root, torch.device("cuda", 0), seed, block_size,
+                      emit_doc=False)
+    return (*out, torch.cuda.max_memory_reserved(0))
+
+
+def start_side(root, seed, block_size, walls):
+    """The loop and store phases, each in a spawned process of its own
+    (one task each, so each exits when its phase ends), started now:
+    both are host-bound (checkpoint and snapshot I/O, hashing, zlib, the
+    numpy stream engine) on workspaces of their own (root/loop-*,
+    root/store*), and the card has room for them beside the card phases
+    after SOLO_PHASES.  Returns the two futures, a function that stops
+    both processes, and a dict that a thread fills until the stop: the
+    card's total and its least free memory in bytes (``total``,
+    ``min_free``; every process's allocations, the store's shard workers'
+    too) sampled every SIDE_SAMPLE_S; each phase's wall (from this start
+    to its end) goes into ``walls``."""
+    import threading
+
+    import torch
+
+    side = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+        "spawn"), max_tasks_per_child=1)
+    free = {}
+    done = threading.Event()
+
+    def sample():
+        while True:
+            f, total = torch.cuda.mem_get_info(0)
+            free["total"] = total
+            free["min_free"] = min(free.get("min_free", f), f)
+            if done.wait(SIDE_SAMPLE_S):
+                return
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    futures = {"loop": side.submit(loop_process, root, seed, LOOP["layers"],
+                                   block_size),
+               "store": side.submit(store_process, root, seed, block_size)}
+    for name, f in futures.items():
+        f.add_done_callback(lambda _f, n=name: walls.__setitem__(
+            n, time.perf_counter() - t0))
+
+    def stop():
+        if done.is_set():
+            return
+        done.set()
+        sampler.join()
+        procs = list((side._processes or {}).values())
+        # once both phases have ended, wait for the executor's own thread
+        # (shutdown without waiting clears its process table under it)
+        side.shutdown(wait=all(f.done() for f in futures.values()),
+                      cancel_futures=True)
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+        for proc in procs:
+            proc.join(30)
+
+    return futures["loop"], futures["store"], stop, free
+
+
+def phase_side(free, loop_peak, store_peak, phases):
+    """The card memory the loop and store processes shared with the
+    card phases after SOLO_PHASES: the card's total and its least free
+    memory over their run (``start_side``'s samples), each side process's
+    peak reserved memory, and the phases that started while they ran.
+    Fails if the free memory fell below SIDE_HEADROOM_GB."""
+    line = {"phase": "side", "card_total_gb": free["total"] / 1e9,
+            "min_free_gb": free["min_free"] / 1e9,
+            "loop_reserved_gb": loop_peak / 1e9,
+            "store_reserved_gb": store_peak / 1e9,
+            "phases_beside": phases, "headroom_gb": SIDE_HEADROOM_GB,
+            "sample_s": SIDE_SAMPLE_S}
+    emit(line)
+    if free["min_free"] < SIDE_HEADROOM_GB * 1e9:
+        raise AssertionError(f"side: the card's free memory fell to "
+                             f"{line['min_free_gb']:.2f} GB beside the "
+                             f"loop and store processes: {line}")
 
 
 # ------------------------------------------------------------------ store
@@ -4316,7 +4474,7 @@ def store_stream_reference(ws, block_size, plan_id, sid):
         return {c: io[c] for c in STORE_IO}, time.perf_counter() - t
 
 
-def phase_store(root, device, seed, block_size):
+def phase_store(root, device, seed, block_size, emit_doc=True):
     """Packed layouts, the tiered / remote store and mergefsck on the
     merge path's widths at STORE["layers"] layers: repack, merges from
     the layout at full budget against flat reads and at half and a tight
@@ -4324,7 +4482,10 @@ def phase_store(root, device, seed, block_size):
     partly warm tier within its plan, a cold, warm and tier-billed
     merge from a remote bucket (the tight ones against the stream
     engine), then fsck finding and repairing a corrupt packed extent and
-    a corrupt cache extent."""
+    a corrupt cache extent.  Its line's ``sub_walls_s`` give each step's
+    wall (they sum to the phase's).  Returns the launches, the shard
+    workers' launches and the line (printed unless ``emit_doc`` is
+    False)."""
     import io as _io
 
     import torch
@@ -4347,15 +4508,28 @@ def phase_store(root, device, seed, block_size):
     out = {"phase": "store", "layers": layers, "k": STORE["k"],
            "block_size": block_size, "frozen": list(STORE["frozen"]),
            "shared": list(STORE["shared"]), "merges": {}}
+    sub = out["sub_walls_s"] = {}
+
+    @contextlib.contextmanager
+    def step(name):
+        """One step's wall into ``sub_walls_s``."""
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            sub[name] = sub.get(name, 0.0) + time.perf_counter() - t
+
     # the store path: the launch counts start at 0 here, read at its end
     mb.reset_launches()
     t_phase = time.perf_counter()
-    sess = Session(ws, block_size=block_size, device=device)
     t0 = time.perf_counter()
-    ids, shapes = populate_store(sess, layers, STORE["k"], seed, device)
+    with step("register"):
+        sess = Session(ws, block_size=block_size, device=device)
+        ids, shapes = populate_store(sess, layers, STORE["k"], seed, device)
     out["register_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sess.ensure_analyzed("base", ids)
+    with step("analyze"):
+        sess.ensure_analyzed("base", ids)
     out["analyze_s"] = time.perf_counter() - t0
     with sess.snapshots.models.open_model("base") as r:
         out["model_bytes"] = sum(r.spec(t)["nbytes"] for t in shapes)
@@ -4460,11 +4634,13 @@ def phase_store(root, device, seed, block_size):
         # 2. full budget: every operator from the flat checkpoints (one
         # batch; its shared-read cache holds every expert block, so each
         # is read once for the four jobs)
-        full_flat = run("full-flat", {f"full-{op}-flat": (op, "100%")
-                                      for op in opnames},
-                        None, prefer_packed=False,
-                        cache_max_bytes=STORE["cache_bytes"])[0]
-        rep, repack_s = repacking.result()
+        with step("full_flat"):
+            full_flat = run("full-flat", {f"full-{op}-flat": (op, "100%")
+                                          for op in opnames},
+                            None, prefer_packed=False,
+                            cache_max_bytes=STORE["cache_bytes"])[0]
+        with step("repack_wait"):
+            rep, repack_s = repacking.result()
         out["repack"] = {k: rep[k] for k in (
             "layout_id", "lossless", "extents", "elided_blocks",
             "dedup_blocks", "logical_bytes", "physical_bytes")}
@@ -4487,7 +4663,8 @@ def phase_store(root, device, seed, block_size):
         for tag, budget in (("half", "50%"), ("tight", tight)):
             for op in opnames:
                 sid = f"{tag}-{op}"
-                res, ios[sid] = run(sid, {sid: (op, budget)}, layout)
+                with step(f"{tag}_merges"):
+                    res, ios[sid] = run(sid, {sid: (op, budget)}, layout)
                 plans[sid] = plan_of(res[sid])
                 if tag == "half" and selected(plans[sid]) == selected(
                         plan_of(full_flat[f"full-{op}-flat"])):
@@ -4498,66 +4675,70 @@ def phase_store(root, device, seed, block_size):
                                         f"{sid}-stream")
         # 2. full budget from the layout (one batch), each bit-equal to
         # the flat merge
-        res = run("full-packed", {f"full-{op}-packed": (op, "100%")
-                                  for op in opnames},
-                  layout, prefer_packed=layout,
-                  cache_max_bytes=STORE["cache_bytes"])[0]
-        refs = {sid: f.result() if f is not None else None
-                for sid, f in refs.items()}
+        with step("full_packed"):
+            res = run("full-packed", {f"full-{op}-packed": (op, "100%")
+                                      for op in opnames},
+                      layout, prefer_packed=layout,
+                      cache_max_bytes=STORE["cache_bytes"])[0]
+        with step("stream_refs_wait"):
+            refs = {sid: f.result() if f is not None else None
+                    for sid, f in refs.items()}
         out["stream_refs_wall_s"] = time.perf_counter() - t
         out["stream_refs"] = sorted(sid for sid, f in refs.items() if f)
-    # every block of the model, the count a plan selects at full budget
-    all_blocks = plan_of(res["full-ties-packed"]).total_selected_blocks()
-    out["all_blocks"] = all_blocks
-    for op in opnames:
-        same(f"full-{op}-packed", f"full-{op}-flat", f"full {op}")
-        drop_snapshots(sess, f"full-{op}-packed")
-    out["half"], out["tight"] = {}, {}
-    for sid, plan in plans.items():
-        tag, op = sid.split("-")
-        if refs[sid] is None:   # the full-budget flat plan's blocks
-            same(sid, f"full-{op}-flat", f"{tag} {op}")
-        else:
-            hold_to_stream(sid, ios[sid], refs[sid], f"{tag} {op}")
-        flat = plan_merge(sess.catalog, "base", ids, op, theta=dict(OPS)[op],
-                          budget_b=plan.budget_b, block_size=block_size,
-                          reuse=False)
-        out[tag][op] = {
-            "budget_b": plan.budget_b,
-            "held_to": "stream" if refs[sid] else f"full-{op}-flat",
-            "stream_wall_s": refs[sid][1] if refs[sid] else None,
-            "selected_blocks_packed": plan.total_selected_blocks(),
-            "selected_blocks_flat": flat.plan.total_selected_blocks(),
-            "c_expert_hat_packed": plan.c_expert_hat,
-            "c_expert_logical_hat_packed": plan.c_expert_logical_hat,
-            "c_expert_hat_flat": flat.plan.c_expert_hat}
-        # under a budget below the layout's physical bytes the packed
-        # plan must leave blocks out
-        if tag == "tight" and not (
-                plan.budget_b < rep["physical_bytes"]
-                and plan.total_selected_blocks() < all_blocks):
-            raise AssertionError(f"store tight {op}: B {plan.budget_b} of "
-                                 f"{rep['physical_bytes']} physical B "
-                                 f"selected {plan.total_selected_blocks()} "
-                                 f"of {all_blocks} blocks")
-        if sid != "half-ties":
-            drop_snapshots(sess, sid)
-    for op in opnames:
-        if op != "ties":
-            drop_snapshots(sess, f"full-{op}-flat")
-    # the TIES merge's bytes, for the one after fsck
-    half_ties = snapshot_hashes(sess, "half-ties")
-    drop_snapshots(sess, "half-ties")
-    sess.close()
+    with step("checks"):
+        # every block of the model, the count a plan selects at full budget
+        all_blocks = plan_of(res["full-ties-packed"]).total_selected_blocks()
+        out["all_blocks"] = all_blocks
+        for op in opnames:
+            same(f"full-{op}-packed", f"full-{op}-flat", f"full {op}")
+            drop_snapshots(sess, f"full-{op}-packed")
+        out["half"], out["tight"] = {}, {}
+        for sid, plan in plans.items():
+            tag, op = sid.split("-")
+            if refs[sid] is None:   # the full-budget flat plan's blocks
+                same(sid, f"full-{op}-flat", f"{tag} {op}")
+            else:
+                hold_to_stream(sid, ios[sid], refs[sid], f"{tag} {op}")
+            flat = plan_merge(sess.catalog, "base", ids, op,
+                              theta=dict(OPS)[op], budget_b=plan.budget_b,
+                              block_size=block_size, reuse=False)
+            out[tag][op] = {
+                "budget_b": plan.budget_b,
+                "held_to": "stream" if refs[sid] else f"full-{op}-flat",
+                "stream_wall_s": refs[sid][1] if refs[sid] else None,
+                "selected_blocks_packed": plan.total_selected_blocks(),
+                "selected_blocks_flat": flat.plan.total_selected_blocks(),
+                "c_expert_hat_packed": plan.c_expert_hat,
+                "c_expert_logical_hat_packed": plan.c_expert_logical_hat,
+                "c_expert_hat_flat": flat.plan.c_expert_hat}
+            # under a budget below the layout's physical bytes the packed
+            # plan must leave blocks out
+            if tag == "tight" and not (
+                    plan.budget_b < rep["physical_bytes"]
+                    and plan.total_selected_blocks() < all_blocks):
+                raise AssertionError(
+                    f"store tight {op}: B {plan.budget_b} of "
+                    f"{rep['physical_bytes']} physical B selected "
+                    f"{plan.total_selected_blocks()} of {all_blocks} blocks")
+            if sid != "half-ties":
+                drop_snapshots(sess, sid)
+        for op in opnames:
+            if op != "ties":
+                drop_snapshots(sess, f"full-{op}-flat")
+        # the TIES merge's bytes, for the one after fsck
+        half_ties = snapshot_hashes(sess, "half-ties")
+        drop_snapshots(sess, "half-ties")
+        sess.close()
 
     # 4. the tiered store: the experts pushed to a bucket behind an
     # emulated endpoint (merge_cli remote push)
     t0 = time.perf_counter()
-    for e in ids:
-        merge_cli.main(["remote", "push", e, "--workspace", ws,
-                        "--remote-root", bucket, "--device", str(device),
-                        "--latency-s", str(STORE["latency_s"]),
-                        "--mbps", str(STORE["mbps"])])
+    with step("push"):
+        for e in ids:
+            merge_cli.main(["remote", "push", e, "--workspace", ws,
+                            "--remote-root", bucket, "--device", str(device),
+                            "--latency-s", str(STORE["latency_s"]),
+                            "--mbps", str(STORE["mbps"])])
     out["push_s"] = time.perf_counter() - t0
     # tier billing over a partly warm tier (ROADMAP C3): a cold merge at
     # the tight budget warms the blocks it selects; tier billing under the
@@ -4568,10 +4749,12 @@ def phase_store(root, device, seed, block_size):
     # and the merge is bit-equal to the stream engine on its plan
     sess = Session(ws, block_size=block_size, device=device)
     sess.evict_disk_cache(0)
-    run("ties-cold-tight", {"ties-cold-tight": ("ties", tight)}, None,
-        prefer_packed=False)
-    res, io = run("ties-mixed", {"ties-mixed": ("ties", tight)}, None,
-                  prefer_packed=False, tier_billing=True)
+    with step("cold_tight"):
+        run("ties-cold-tight", {"ties-cold-tight": ("ties", tight)}, None,
+            prefer_packed=False)
+    with step("mixed"):
+        res, io = run("ties-mixed", {"ties-mixed": ("ties", tight)}, None,
+                      prefer_packed=False, tier_billing=True)
     plan = plan_of(res["ties-mixed"])
     out["mixed"] = {"c_expert_hat": plan.c_expert_hat,
                     "c_expert_run": res["ties-mixed"].stats["c_expert_run"],
@@ -4581,9 +4764,10 @@ def phase_store(root, device, seed, block_size):
     if not (0 < io["expert_remote_read"] <= plan.c_expert_hat
             and io["expert_disk_read"] > 0):
         raise AssertionError(f"store mixed tier: {out['mixed']}")
-    _io_s, out["mixed"]["stream_wall_s"] = store_stream_reference(
-        ws, block_size, plan.plan_id, "ties-mixed-stream")
-    same("ties-mixed", "ties-mixed-stream", "mixed tier")
+    with step("mixed_stream"):
+        _io_s, out["mixed"]["stream_wall_s"] = store_stream_reference(
+            ws, block_size, plan.plan_id, "ties-mixed-stream")
+        same("ties-mixed", "ties-mixed-stream", "mixed tier")
     drop_snapshots(sess, "ties-mixed", "ties-mixed-stream")
     sess.close()
     # a cold TIES merge (the disk tier empty), a warm one from a new
@@ -4593,8 +4777,9 @@ def phase_store(root, device, seed, block_size):
     sess = Session(ws, block_size=block_size, device=device)
     drop_snapshots(sess, "ties-cold-tight")
     sess.evict_disk_cache(0)
-    _, io = run("ties-cold", {"ties-cold": ("ties", "100%")}, None,
-                prefer_packed=False)
+    with step("cold"):
+        _, io = run("ties-cold", {"ties-cold": ("ties", "100%")}, None,
+                    prefer_packed=False)
     # the disk tier is keyed by content: a range whose bytes another
     # expert already fetched (the frozen tensors) is a disk hit
     cold = io["expert_remote_read"] + io["expert_disk_read"]
@@ -4609,7 +4794,7 @@ def phase_store(root, device, seed, block_size):
     sess.evict_disk_cache(0)
     h = sess.submit(spec("ties", "100%"), sid="ties-cold-sharded")
     t0 = time.perf_counter()
-    with measure(sess.stats) as io_sh:
+    with step("cold_sharded"), measure(sess.stats) as io_sh:
         sess.run_all(prefer_packed=False, n_workers=SHARDS["workers"])
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -4629,20 +4814,23 @@ def phase_store(root, device, seed, block_size):
     drop_snapshots(sess, "ties-cold-sharded")
     sess.close()
     sess = Session(ws, block_size=block_size, device=device)
-    _, io = run("ties-warm", {"ties-warm": ("ties", "100%")}, None,
-                prefer_packed=False)
+    with step("warm"):
+        _, io = run("ties-warm", {"ties-warm": ("ties", "100%")}, None,
+                    prefer_packed=False)
     if not (io["expert_remote_read"] == 0 and io["expert_disk_read"] == cold):
         raise AssertionError(f"store warm: {dict(io)}, cold {cold}")
     same("ties-warm", "full-ties-flat", "warm")
-    res, io = run("ties-billed", {"ties-billed": ("ties", "50%")}, None,
-                  prefer_packed=False, tier_billing=True)
+    with step("billed"):
+        res, io = run("ties-billed", {"ties-billed": ("ties", "50%")}, None,
+                      prefer_packed=False, tier_billing=True)
     plan = plan_of(res["ties-billed"])
     out["billed"] = {"selected_blocks": plan.total_selected_blocks(),
                      "c_expert_hat": plan.c_expert_hat,
                      "budget_b": plan.budget_b,
                      "c_expert_run": res["ties-billed"].stats["c_expert_run"]}
     out["billed_tight"] = {}
-    with ProcessPoolExecutor(len(opnames), mp_context=spawn) as pool:
+    with step("billed_tight"), ProcessPoolExecutor(
+            len(opnames), mp_context=spawn) as pool:
         for op in opnames:
             sid = f"billed-tight-{op}"
             res, ios[sid] = run(sid, {sid: (op, tight)}, None,
@@ -4698,6 +4886,7 @@ def phase_store(root, device, seed, block_size):
                                           for p in doc["problems"])}
         return doc
 
+    t_fsck = time.perf_counter()
     run_fsck("clean", "--check")
     if fsck["clean"]["exit_code"] != 0 or fsck["clean"]["problems"]:
         raise AssertionError(f"store fsck: the clean workspace: {fsck}")
@@ -4721,9 +4910,11 @@ def phase_store(root, device, seed, block_size):
             or doc["stores"]["cache"]["repaired"] != 1
             or packed["repaired"] + packed["quarantined"] < 1):
         raise AssertionError(f"store fsck --repair: {fsck['repair']}")
+    sub["fsck"] = time.perf_counter() - t_fsck
     sess = Session(ws, block_size=block_size, device=device)
-    _, io = run("ties-after-fsck", {"ties-after-fsck": ("ties", "50%")},
-                layout)
+    with step("after_fsck"):
+        _, io = run("ties-after-fsck", {"ties-after-fsck": ("ties", "50%")},
+                    layout)
     same("ties-after-fsck", half_ties, "after fsck")
     out["after_fsck"] = {"expert_repair_read": io["expert_repair_read"],
                          "expert_remote_read": io["expert_remote_read"]}
@@ -4734,10 +4925,12 @@ def phase_store(root, device, seed, block_size):
          out["cold_sharded"]["worker_launches"]), collections.Counter()))
     sess.close()
     out["wall_s"] = time.perf_counter() - t_phase
+    sub["other"] = out["wall_s"] - sum(sub.values())
     shutil.rmtree(ws, ignore_errors=True)
     shutil.rmtree(bucket, ignore_errors=True)
-    emit(out)
-    return out["launches"], out["worker_launches"]
+    if emit_doc:
+        emit(out)
+    return out["launches"], out["worker_launches"], out
 
 
 def ptxas_report(log_path):
@@ -4748,7 +4941,7 @@ def ptxas_report(log_path):
     between a wgmma's issue and its wait), or any other code ptxas gives
     in the same form ("(C7520) Potential Performance Loss:
     wgmma.mma_async instructions are serialized due to ... in the function
-    '...'")."""
+    '...'"; C7512, too few registers, says "for the function")."""
     from repro_torch.kernels.build import nvcc
 
     cufilt = os.path.join(os.path.dirname(nvcc()), "cu++filt")  # demangler
@@ -4756,7 +4949,7 @@ def ptxas_report(log_path):
     with open(log_path) as f:
         for ln in f:
             m = re.search(r"\((C\d+)\)\s*(?:Potential Performance Loss:"
-                          r"\s*)?(.*?) in the function '(\S+?)'", ln)
+                          r"\s*)?(.*?) (?:in|for) the function '(\S+?)'", ln)
             if m:
                 out.setdefault(m.group(3), {}).setdefault(
                     "serialised", []).append(f"{m.group(1)}: {m.group(2)}")
@@ -4828,7 +5021,14 @@ def main() -> int:
                      f"and serve; the train-merge-serve loop: depth "
                      f"{LOOP['layers']}; store: depth "
                      f"{STORE['layers']} (its zlib repack runs on the "
-                     f"host at ~9 MB/s); shards: pipelined windows of "
+                     f"host at ~9 MB/s); loop and store: each in a "
+                     f"process of its own from the end of the kernels "
+                     f"phase and of {', '.join(SOLO_PHASES)}, beside the "
+                     f"later card phases (every check kept; what they "
+                     f"overlap shares the host and the card: PERF.md), not "
+                     f"after them, so the smoke ends inside its 1,200 s on "
+                     f"a slow host; shards: pipelined "
+                     f"windows of "
                      f"{', '.join(SHARDS['pipelined'])} only, whole-shard "
                      f"merges of {', '.join(SHARDS['whole_shard'])} only; "
                      f"train: all layers; train_mla_smoke: "
@@ -4892,26 +5092,32 @@ def main() -> int:
                for n in ptxas[src]
                if re.search(r"fa_bwd_\w*(tc|reduce)_kernel|flash_attention_"
                             r"(tc_|ws_|narrow_)?kernel(<\w*,? ?(192, 128|"
-                            r"24, 16|256, 256)>|I\w*Li(192ELi128|24ELi16|"
-                            r"256ELi256)E)", n.replace("(int)", ""))]
+                            r"24, 16|256, 256)(, \d)?>|I\w*Li(192ELi128|"
+                            r"24ELi16|256ELi256)E)|flash_attention_ws_kernel"
+                            r"(<64, 64, 1>|ILi64ELi64ELi1E)",
+                            n.replace("(int)", ""))]
     spills = [n for src, n in watched
               if ptxas[src][n].get("spill_stores")
               or ptxas[src][n].get("spill_loads")]
     if spills:
         raise AssertionError(f"ptxas: a tensor-core backward, an MLA "
-                             f"forward or a (256, 256) forward spills in "
+                             f"forward, a (256, 256) forward or the split "
+                             f"of the warp-specialised forward spills in "
                              f"{spills}")
-    # the warp-specialised forwards past hd 128: found, their wgmma not
-    # serialised (C7520, C7515), and their shared memory as the source
-    # and forward_plan state it, as ptxas and the launch's attribute see
-    # it
-    ws = {n: pair for n in ptxas["flash_attention.cu"]
-          for pair in ((192, 128), (256, 256))
-          if re.search(rf"flash_attention_ws_kernel(<{pair[0]}, {pair[1]}>|"
-                       rf"ILi{pair[0]}ELi{pair[1]}E)", n.replace("(int)", ""))}
-    if sorted(ws.values()) != [(192, 128), (256, 256)]:
+    # the warp-specialised forwards: past hd 128 (mode 0) and split over a
+    # cluster at (64, 64) (mode 1): found, their wgmma not serialised
+    # (C7520, C7515, C7512), and their shared memory as the source and
+    # forward_plan state it, as ptxas and the launch's attribute see it
+    ws = {}
+    for n in ptxas["flash_attention.cu"]:
+        m = re.search(r"flash_attention_ws_kernel(?:<(\d+), (\d+), (\d)>|"
+                      r"ILi(\d+)ELi(\d+)ELi(\d)E)", n.replace("(int)", ""))
+        if m:
+            ws[n] = tuple(int(x) for x in m.groups() if x is not None)
+    if sorted(ws.values()) != [(64, 64, 1), (192, 128, 0), (256, 256, 0)]:
         raise AssertionError(f"ptxas: want the warp-specialised forwards at "
-                             f"(192, 128) and (256, 256), found {ws}")
+                             f"(192, 128) and (256, 256) and the split at "
+                             f"(64, 64), found {ws}")
     serialised = {n: ptxas["flash_attention.cu"][n]["serialised"]
                   for n in ws if ptxas["flash_attention.cu"][n].get(
                       "serialised")}
@@ -4919,14 +5125,21 @@ def main() -> int:
         raise AssertionError(f"ptxas serialises the wgmma of the "
                              f"warp-specialised forward: {serialised}")
     smem = {}
-    for n, (hd, hdv) in ws.items():
-        plan = fa.forward_plan(1, 1, 1, 1, 1, hd, torch.bfloat16, "tc",
-                               hdv=hdv)
-        attrs = fa.tc_attributes(hd, hdv)
+    for n, (hd, hdv, mode) in ws.items():
+        # the split at FA_CASES' whisper_encoder shape
+        label = "split" if mode else None
+        shape = (1, 1500, 1500, 6, 6) if mode else (1, 1, 1, 1, 1)
+        plan = fa.forward_plan(*shape, hd, torch.bfloat16, "tc", hdv=hdv,
+                               causal=not mode)
+        if bool(plan.get("cluster")) != bool(mode):
+            raise AssertionError(f"forward_plan at {shape}: {plan}, want "
+                                 f"mode {mode}")
+        attrs = fa.tc_attributes(hd, hdv, split=bool(mode))
         info = ptxas["flash_attention.cu"][n]
-        smem[f"{hd}x{hdv}"] = {"plan": plan, "attributes": attrs,
-                               "ptxas_static": info["smem_static"],
-                               "ptxas_registers": info["registers"]}
+        smem[f"{hd}x{hdv}" + (f"_{label}" if label else "")] = {
+            "plan": plan, "attributes": attrs,
+            "ptxas_static": info["smem_static"],
+            "ptxas_registers": info["registers"]}
         if not (plan["smem_bytes"] == attrs["smem_bytes"]
                 == attrs["max_dynamic_smem_bytes"]
                 and plan["static_smem_bytes"] == attrs["static_smem_bytes"]
@@ -4935,8 +5148,8 @@ def main() -> int:
                 and plan["rows"] == attrs["rows"]
                 and attrs["registers"] == info["registers"]):
             raise AssertionError(f"forward_plan, the source and ptxas "
-                                 f"disagree at ({hd}, {hdv}): "
-                                 f"{smem[f'{hd}x{hdv}']}")
+                                 f"disagree at ({hd}, {hdv}) mode {label}: "
+                                 f"{plan}, {attrs}, {info}")
     emit({"ws_forward": smem})
     # the two-warpgroup dK / dV and dQ CTAs past hd 128 run one instruction
     # stream, so ptxas must not serialise their wgmma (its C7520 note);
@@ -4964,15 +5177,32 @@ def main() -> int:
         raise AssertionError(f"ptxas serialises the wgmma of the "
                              f"tensor-core backward past hd 128 or of a "
                              f"narrow CTA in {serialised}")
-    # 22 backward kernels (the tensor cores' preprocess at 5 hdv, dK / dV
+    # the one-grid backward at the five one-warpgroup pairs (routed at
+    # (64, 64)): registers a thread, spills, serialised wgmma
+    one_grid = [n for n in ptxas["flash_attention_bwd.cu"]
+                if "fa_bwd_dkdv_dq_tc_kernel" in n]
+    if len(one_grid) != 5:
+        raise AssertionError(f"ptxas: want the one-grid backward at 5 "
+                             f"pairs, found {one_grid}")
+    serialised = {n: ptxas["flash_attention_bwd.cu"][n]["serialised"]
+                  for n in one_grid
+                  if ptxas["flash_attention_bwd.cu"][n].get("serialised")}
+    if serialised:
+        raise AssertionError(f"ptxas serialises the wgmma of the one-grid "
+                             f"backward: {serialised}")
+    emit({"new_kernels": {n: ptxas[src][n] for src, n in watched
+                          if n in one_grid or ws.get(n, (0, 0, 0))[2]}})
+    # 27 backward kernels (the tensor cores' preprocess at 5 hdv, dK / dV
     # and dQ at 7 pairs; the GQA reduction into bf16 and into float32; the
-    # one-launch kernel at (24, 16)), 7 MLA forwards (the FMA kernel in
-    # float32 and bf16 at (192, 128) and (24, 16), the one-warpgroup
-    # tensor-core kernel and the narrow CTA at (24, 16), the
-    # warp-specialised one at (192, 128)), 3 forwards at (256, 256) (the
-    # FMA kernel in float32 and bf16, the warp-specialised one)
-    if len(watched) != 32:
-        raise AssertionError(f"ptxas: want the 32 spill-checked kernels, "
+    # one-launch kernel at (24, 16); the one-grid kernel at the 5 pairs up
+    # to hd 128), 7
+    # MLA forwards (the FMA kernel in float32 and bf16 at (192, 128) and
+    # (24, 16), the one-warpgroup tensor-core kernel and the narrow CTA at
+    # (24, 16), the warp-specialised one at (192, 128)), 3 forwards at
+    # (256, 256) (the FMA kernel in float32 and bf16, the warp-specialised
+    # one), the split at (64, 64)
+    if len(watched) != 38:
+        raise AssertionError(f"ptxas: want the 38 spill-checked kernels, "
                              f"found {watched}")
 
     walls = {}
@@ -4993,8 +5223,21 @@ def main() -> int:
 
     root = tempfile.mkdtemp(prefix="smoke-ws-", dir=os.path.join(HERE, "build"))
     seed, bs, layers = args.seed, args.block_size, args.layers
+    stop_side = None
     try:
         rows = timed("kernels", phase_kernels, device, args.seed)
+        # SOLO_PHASES, the most card memory at peak, alone on the card
+        trained = timed("train", phase_train, device, seed)
+        trained_mla = timed("train_mla", phase_train, device, seed,
+                            TRAIN_MLA, "train_mla")
+        trained_griffin = timed("train_griffin", phase_train, device, seed,
+                                TRAIN_GRIFFIN, "train_griffin")
+        meshed = timed("mesh", phase_mesh, device, seed)
+        # the loop and store phases from here on, beside every later card
+        # phase (the kernels phase's timings stand alone on the card)
+        before = set(walls)
+        looping, storing, stop_side, free = start_side(root, seed, bs,
+                                                       walls)
         pair = timed("parity", phase_parity, root, device, seed, bs)
         launches, merged, local = timed("merge", phase_merge, root, device,
                                         seed, bs, layers)
@@ -5006,11 +5249,6 @@ def main() -> int:
         served_mla = timed("serve_mla", phase_serve_mla, device, seed)
         served_griffin = timed("serve_griffin", phase_serve_griffin, device,
                                seed)
-        trained = timed("train", phase_train, device, seed)
-        trained_mla = timed("train_mla", phase_train, device, seed,
-                            TRAIN_MLA, "train_mla")
-        trained_griffin = timed("train_griffin", phase_train, device, seed,
-                                TRAIN_GRIFFIN, "train_griffin")
         trained_narrow = timed("train_mla_smoke", phase_train, device, seed,
                                TRAIN_MLA_SMOKE, "train_mla_smoke")
         timed("serve_mamba", phase_serve_mamba, device, seed)
@@ -5022,28 +5260,24 @@ def main() -> int:
               "train_mamba")
         trained_whisper = timed("train_whisper", phase_train, device, seed,
                                 TRAIN_WHISPER, "train_whisper")
-        meshed = timed("mesh", phase_mesh, device, seed)
         examples = timed("examples", phase_examples, device)
         shutil.rmtree(os.path.join(root, "merge"), ignore_errors=True)
-        # the loop phase in a process of its own beside the store phase:
-        # both are host-bound (checkpoint and snapshot I/O, hashing, zlib,
-        # the numpy stream engine) on workspaces of their own
-        # (root/loop-*, root/store*), and the card has room for both
-        t_loop = time.perf_counter()
-        with ProcessPoolExecutor(
-                1, mp_context=multiprocessing.get_context("spawn")) as side:
-            looping = side.submit(loop_process, root, seed, LOOP["layers"],
-                                  bs)
-            looping.add_done_callback(lambda _f: walls.__setitem__(
-                "loop", time.perf_counter() - t_loop))
-            store, store_worker = timed("store", phase_store, root, device,
-                                        seed, bs)
-            loop = looping.result()
+        t_wait = time.perf_counter()
+        loop, loop_peak = looping.result()
+        store, store_worker, store_doc, store_peak = storing.result()
+        walls["side_wait"] = time.perf_counter() - t_wait
+        stop_side()
+        emit(store_doc)
+        phase_side(free, loop_peak, store_peak,
+                   [n for n in walls if n not in before
+                    and n not in ("loop", "store", "side_wait")])
         records, walls["dryrun"] = dry.result()
         phase_dryrun(records, walls["dryrun"])
         doc, code, walls["lint"] = lint.result()
         phase_lint(doc, code, walls["lint"])
     finally:
+        if stop_side is not None:
+            stop_side()
         stop_dry()
         stop_lint()
         shutil.rmtree(root, ignore_errors=True)
@@ -5089,6 +5323,21 @@ def main() -> int:
     launches.update(served_vlm)
     launches["flash_attention_bwd_whisper"] = trained_whisper[
         TRAIN_WHISPER["counter"]]
+    # (each with its dK / dV and dQ CTAs in one grid), counted by shape:
+    # each ONE_GRID_ROWS row its own shape's, and the three all of them
+    launches["flash_attention_bwd_one_grid"] = trained_whisper[
+        "flash_attention_bwd_one_grid"]
+    by_shape = trained_whisper["bwd_by_shape"]
+    for label, shape, _, causal, _ in BWD_CASES:
+        if label in ONE_GRID_ROWS:
+            launches[BWD_ROWS[label]] = by_shape.get(
+                "x".join(map(str, (*shape, causal))), 0)
+    if (sum(launches[BWD_ROWS[r]] for r in ONE_GRID_ROWS)
+            != launches["flash_attention_bwd_one_grid"]):
+        raise AssertionError(f"train_whisper: one-grid launches by shape "
+                             f"{by_shape}, want "
+                             f"{launches['flash_attention_bwd_one_grid']} "
+                             f"over {ONE_GRID_ROWS}")
     # the mesh phase's runs under the (1, 1) mesh: Qwen2's at hd 128 with
     # the served and trained ones, DeepSeek's tensor-core forwards and
     # backwards at (192, 128) with train_mla's

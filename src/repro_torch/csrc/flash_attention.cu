@@ -16,7 +16,11 @@
 //   flash_attention_ws_kernel  bfloat16, (192, 128) and (256, 256): the
 //                              same products in a warp-specialised CTA, a
 //                              TMA producer and two consumer warpgroups
-//                              (`fa_forward_tc`)
+//                              (`fa_forward_tc`); at (64, 64) without a
+//                              mask, where the CTAs leave SMs idle, the
+//                              same CTA split over a cluster
+//                              (`fa_forward_split`; forward_plan picks
+//                              it from the shapes)
 //   flash_attention_kernel     float32 (those pairs and (8, 8)) and bfloat16
 //                              with hd = 8: float32 FMAs (`fa_forward`)
 //
@@ -687,16 +691,60 @@ flash_attention_tc_kernel(const Params p) {
   }
 }
 
-// ------------------------------------ the warp-specialised CTA past hd 128
+// ------------------------------------------- the warp-specialised CTA
+// flash_attention_ws_kernel<HD, HDV, MODE>: a TMA producer and two
+// consumer warpgroups of 64 query rows each, taking turns on the tensor
+// cores.  MODE PLAIN past hd 128 (every launch there).  MODE SPLIT at
+// (64, 64), which the wrapper's forward_plan picks from the shapes for a
+// launch without a mask (no causal diagonal, no window) of at least 128
+// queries whose b H ceil(Sq / 128) CTAs leave SMs idle; other (64, 64)
+// launches take flash_attention_tc_kernel.
+//
+// What bounds it there.  whisper-tiny's encoder, (1, 1500, 1500, 6, 6),
+// is 3.5 GFLOP (0.0035 ms at 989 TFLOP/s) on 4.6 MB (0.0014 ms at 3.35
+// TB/s); the one-warpgroup kernel's 144 CTAs of 64 rows each walk 24
+// dependent key tiles and took 0.030 ms on an H100 80GB HBM3: its time is
+// the chain of tile steps in a CTA, and 12 SMs stay idle.
+//
+// What the design does about that.  A cluster of S CTAs (S <= MAX_SPLIT,
+// as many as the SMs hold at once) shares one (b, h, 128-row q tile) and
+// splits its key range: CTA r walks key tiles [n r / S, n (r + 1) / S)
+// (whisper's encoder: 72 q tiles x 3 = 216 CTAs of 8 tiles each, in one
+// wave of two CTAs an SM).  Each then writes its O, m and l (in fragment
+// order) into its own freed ring, and after a cluster barrier rank 0 reads
+// the others' through distributed shared memory and sums them in rank
+// order (the same bits every run), then writes o and lse.  Two CTAs share
+// an SM: the producer is one warp after the two consumer warpgroups (288
+// threads, no setmaxnreg: a producer warpgroup left the consumers too few
+// of the registers two CTAs an SM allow), Q is read from shared memory,
+// and a consumer issues S_j and P_j.V_j in turns of their own, so one
+// accumulator is in flight at a time (issued together, as past hd 128,
+// they drew ptxas's C7512 note: wgmma serialised for want of registers).
 namespace ws {
 
 constexpr int BQ = 128;             // q rows per CTA: two consumers of 64
 constexpr int THREADS = 384;        // producer + two consumer warpgroups
 constexpr int TURN = 256;           // threads on a turn's named barrier
+constexpr int PLAIN = 0, SPLIT = 1;  // no cluster, or the key range split
+constexpr int MAX_SPLIT = 4;        // CTAs a split cluster
 
 template <int HD, int HDV>
 __host__ __device__ constexpr int stages() {
   return HD + HDV > 320 ? 2 : 3;
+}
+
+// CTAs an SM: two at (64, 64)
+template <int HD, int HDV>
+__host__ __device__ constexpr int ctas_per_sm() {
+  return HD + HDV <= 128 ? 2 : 1;
+}
+
+// threads a CTA: two consumer warpgroups and a producer warpgroup (its
+// registers given to the consumers by setmaxnreg), or at two CTAs an SM
+// the consumers then one producer warp
+template <int HD, int HDV>
+__host__ __device__ constexpr int threads() {
+  return ctas_per_sm<HD, HDV>() == 2 ? 2 * 128 + 32 : THREADS;
 }
 
 // 64 x 64-column boxes of Q (two warpgroups), the K and V rings, and slack
@@ -710,7 +758,7 @@ __host__ __device__ constexpr int smem_bytes() {
 // thread beside O's hdv / 2): only K is then read from shared memory
 template <int HD, int HDV>
 __host__ __device__ constexpr bool q_in_registers() {
-  return HD + HDV <= 320;
+  return HD + HDV <= 320 && ctas_per_sm<HD, HDV>() == 1;
 }
 
 __device__ __forceinline__ float ex2_ftz(float x) {
@@ -759,8 +807,8 @@ __device__ __forceinline__ void softmax_tile_fma(float (&s)[32],
   for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
 }
 
-template <int HD, int HDV>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int HD, int HDV, int MODE>
+__global__ void __launch_bounds__(threads<HD, HDV>(), ctas_per_sm<HD, HDV>())
 flash_attention_ws_kernel(const __grid_constant__ Params p,
                           const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -768,9 +816,11 @@ flash_attention_ws_kernel(const __grid_constant__ Params p,
   constexpr int NS = stages<HD, HDV>();
   constexpr int QT = 64 * HD * 2;   // bytes of one warpgroup's Q, one K tile
   constexpr int VT = 64 * HDV * 2;  // bytes of one V tile
-  constexpr int NH = HDV / 128;     // m64n128 column halves of O
-  static_assert(HD > 128 && HD % 64 == 0 && HDV % 128 == 0,
-                "whole 64-column boxes; O in 128-column wgmma halves");
+  constexpr int OW = HDV > 128 ? 128 : HDV;  // O's column blocks: wgmma N
+  constexpr int NH = HDV / OW;               // and their count
+  static_assert(HD % 64 == 0 && (HDV == 64 || HDV % 128 == 0),
+                "whole 64-column boxes; O in 64- or 128-column blocks");
+  static_assert((MODE == PLAIN) == (HD > 128), "a split up to hd 128");
   extern __shared__ __align__(1024) unsigned char ws_smem[];
   // q full; K full, K empty, V full, V empty per stage
   __shared__ __align__(8) uint64_t bars[1 + 4 * NS];
@@ -781,13 +831,26 @@ flash_attention_ws_kernel(const __grid_constant__ Params p,
   const uint32_t k_full = q_full + 8, k_empty = k_full + 8 * NS;
   const uint32_t v_full = k_empty + 8 * NS, v_empty = v_full + 8 * NS;
 
+  // a split's cluster: its CTAs share (b, h) and the q tile
+  int bh = blockIdx.x, rank = 0, nrank = 1;
+  if constexpr (MODE == SPLIT) {
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = static_cast<int>(cluster.block_rank());
+    nrank = static_cast<int>(cluster.num_blocks());
+    bh = blockIdx.x / nrank;
+  }
   const int nqt = (p.sq + BQ - 1) / BQ;
   const int q0 = (nqt - 1 - static_cast<int>(blockIdx.y)) * BQ;
-  const int b = blockIdx.x / p.h;
-  const int head = blockIdx.x % p.h;
+  const int b = bh / p.h;
+  const int head = bh % p.h;
   const int kvh = head / p.g;
   int lo, hi;
   key_range(p, p.q_offset + q0, min(BQ, p.sq - q0), lo, hi);
+  if constexpr (MODE == SPLIT) {  // this CTA's share of the key tiles
+    const int all = hi - lo;
+    hi = lo + all * (rank + 1) / nrank;
+    lo += all * rank / nrank;
+  }
   const int n = hi - lo;  // key tiles of the CTA: the same for both consumers
 
   if (threadIdx.x == 0) {
@@ -802,11 +865,19 @@ flash_attention_ws_kernel(const __grid_constant__ Params p,
   }
   __syncthreads();
 
-  // warp-uniform role: 0 the producer, 1 and 2 the consumers
-  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  // warp-uniform role: 0 the producer, 1 and 2 the consumers (warpgroups
+  // 1 and 2, or 0 and 1 before a producer warp)
+  constexpr bool WARP_PRODUCER = threads<HD, HDV>() != THREADS;
+  const int lead = WARP_PRODUCER ? 2 * 128 : 0;  // the producer's thread
+  const int role = __shfl_sync(
+      0xffffffffu,
+      WARP_PRODUCER ? (threadIdx.x < 2 * 128 ? 1 + threadIdx.x / 128 : 0)
+                    : threadIdx.x / 128,
+      0);
   if (role == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 0 && n > 0) {
+    if constexpr (!WARP_PRODUCER)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == lead && n > 0) {
       mbar_expect_tx(q_full, 2 * QT);
 #pragma unroll
       for (int w = 0; w < 2; ++w)
@@ -832,9 +903,14 @@ flash_attention_ws_kernel(const __grid_constant__ Params p,
                       kvh, k0, b);
       }
     }
+    if constexpr (MODE == SPLIT) {  // the consumers' two around the
+      cg::this_cluster().sync();    // hand-over
+      cg::this_cluster().sync();
+    }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  if constexpr (!WARP_PRODUCER)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   const int wg = role - 1;
   const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t4 = lane % 4;
@@ -846,11 +922,11 @@ flash_attention_ws_kernel(const __grid_constant__ Params p,
   const int mine = 1 + wg, other = 2 - wg;  // named barriers of the turns
   const float sl2 = p.scale * LOG2E;
 
-  float acc[NH][64];
+  float acc[NH][OW / 2];
 #pragma unroll
   for (int h = 0; h < NH; ++h)
 #pragma unroll
-    for (int j = 0; j < 64; ++j) acc[h][j] = 0.f;
+    for (int j = 0; j < OW / 2; ++j) acc[h][j] = 0.f;
   float m_r[2] = {NEG, NEG};  // running max of rows g, g + 8 (log2 units)
   float l_r[2] = {0.f, 0.f};  // this thread's part of the running sums
   float s[32];
@@ -884,7 +960,7 @@ flash_attention_ws_kernel(const __grid_constant__ Params p,
 #pragma unroll
       for (int h = 0; h < NH; ++h)
 #pragma unroll
-        for (int j2 = 0; j2 < 16; ++j2) {
+        for (int j2 = 0; j2 < OW / 8; ++j2) {
           acc[h][4 * j2 + 0] *= alpha[0];
           acc[h][4 * j2 + 1] *= alpha[0];
           acc[h][4 * j2 + 2] *= alpha[1];
@@ -895,14 +971,18 @@ flash_attention_ws_kernel(const __grid_constant__ Params p,
   };
   // O += P.V for the V tile at vt: V's 16 key rows per k-step are two
   // 1,024-byte atoms (SBO), its 64-column atoms 8 KiB apart (LBO), each
-  // 128-column half of O 16 KiB further
+  // 128-column block of O 16 KiB further
   auto issue_pv = [&](uint32_t vt) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int h = 0; h < NH; ++h)
-        wgmma_rs_n128(acc[h], a[kk],
-                      desc(vt + h * 16384 + kk * 2048, 8192, 1024));
+      for (int h = 0; h < NH; ++h) {
+        const uint64_t dv = desc(vt + h * 16384 + kk * 2048, 8192, 1024);
+        if constexpr (OW == 128)
+          wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(acc[h]), a[kk], dv);
+        else
+          wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(acc[h]), a[kk], dv);
+      }
   };
   auto fence_acc = [&]() {
 #pragma unroll
@@ -943,27 +1023,53 @@ flash_attention_ws_kernel(const __grid_constant__ Params p,
     fence_regs(s);
     if (lane == 0) mbar_arrive(k_empty);
     softmax(0, false);
-    // turn j: P_{j-1}.V_{j-1} and S_j in one group
+    // turn j: P_{j-1}.V_{j-1} and S_j in one group, or (two CTAs an SM)
+    // in two turns, one accumulator in flight at a time
     for (int j = 1; j < n; ++j) {
       const int st = j % NS, pst = (j - 1) % NS;
-      mbar_wait(k_full + 8 * st, (j / NS) & 1);
-      mbar_wait(v_full + 8 * pst, ((j - 1) / NS) & 1);
-      named_sync(mine, TURN);
+      if constexpr (WARP_PRODUCER) {
+        mbar_wait(v_full + 8 * pst, ((j - 1) / NS) & 1);
+        named_sync(mine, TURN);
+        fence_acc();
+        wgmma_fence();
+        issue_pv(vs + pst * VT);
+        wgmma_commit();
+        named_arrive(other, TURN);
+        wgmma_wait_all();
+        fence_acc();
+        if (lane == 0) mbar_arrive(v_empty + 8 * pst);
+        mbar_wait(k_full + 8 * st, (j / NS) & 1);
+        named_sync(mine, TURN);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = 0.f;
-      fence_regs(s);
-      fence_acc();
-      wgmma_fence();
-      issue_pv(vs + pst * VT);
-      issue_qk(ks + st * QT);
-      wgmma_commit();
-      named_arrive(other, TURN);
-      wgmma_wait_all();
-      fence_regs(s);
-      fence_acc();
-      if (lane == 0) {
-        mbar_arrive(k_empty + 8 * st);
-        mbar_arrive(v_empty + 8 * pst);
+        for (int i = 0; i < 32; ++i) s[i] = 0.f;
+        fence_regs(s);
+        wgmma_fence();
+        issue_qk(ks + st * QT);
+        wgmma_commit();
+        named_arrive(other, TURN);
+        wgmma_wait_all();
+        fence_regs(s);
+        if (lane == 0) mbar_arrive(k_empty + 8 * st);
+      } else {
+        mbar_wait(k_full + 8 * st, (j / NS) & 1);
+        mbar_wait(v_full + 8 * pst, ((j - 1) / NS) & 1);
+        named_sync(mine, TURN);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = 0.f;
+        fence_regs(s);
+        fence_acc();
+        wgmma_fence();
+        issue_pv(vs + pst * VT);
+        issue_qk(ks + st * QT);
+        wgmma_commit();
+        named_arrive(other, TURN);
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_acc();
+        if (lane == 0) {
+          mbar_arrive(k_empty + 8 * st);
+          mbar_arrive(v_empty + 8 * pst);
+        }
       }
       softmax(j, true);
     }
@@ -981,6 +1087,72 @@ flash_attention_ws_kernel(const __grid_constant__ Params p,
     fence_acc();
   }
 
+  if constexpr (MODE == SPLIT) {
+    // the hand-over: element e of consumer thread c (O's fragment, then m
+    // and l of its two rows) at hand[e 256 + c] in the CTA's own ring,
+    // free once both consumers are past their last tile
+    constexpr int E = NH * OW / 2 + 4;
+    static_assert(E * TURN * 4 <= NS * (QT + VT), "the hand-over fits");
+    float* hand = reinterpret_cast<float*>(ws_smem + (ks - smem_u32(ws_smem)));
+    const int c = wg * 128 + tid;
+    named_sync(3, TURN);
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int j = 0; j < OW / 2; ++j)
+        hand[(h * OW / 2 + j) * TURN + c] = acc[h][j];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      hand[(E - 4 + r) * TURN + c] = m_r[r];
+      hand[(E - 2 + r) * TURN + c] = l_r[r];
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every rank's hand-over is written
+    if (rank == 0) {
+      // m, l and O of ranks 1.. summed into rank 0's in rank order
+      float mx[2] = {m_r[0], m_r[1]};
+      for (int w = 1; w < nrank; ++w) {
+        const float* rh = cluster.map_shared_rank(hand, w);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          mx[r] = fmaxf(mx[r], rh[(E - 4 + r) * TURN + c]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float e = exp2f(m_r[r] - mx[r]);
+        l_r[r] *= e;
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+#pragma unroll
+          for (int j = 0; j < OW / 8; ++j) {
+            acc[h][4 * j + 2 * r] *= e;
+            acc[h][4 * j + 2 * r + 1] *= e;
+          }
+      }
+      for (int w = 1; w < nrank; ++w) {
+        const float* rh = cluster.map_shared_rank(hand, w);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float e = exp2f(rh[(E - 4 + r) * TURN + c] - mx[r]);
+          l_r[r] += rh[(E - 2 + r) * TURN + c] * e;
+#pragma unroll
+          for (int h = 0; h < NH; ++h)
+#pragma unroll
+            for (int j = 0; j < OW / 8; ++j) {
+              acc[h][4 * j + 2 * r] +=
+                  rh[(h * OW / 2 + 4 * j + 2 * r) * TURN + c] * e;
+              acc[h][4 * j + 2 * r + 1] +=
+                  rh[(h * OW / 2 + 4 * j + 2 * r + 1) * TURN + c] * e;
+            }
+        }
+      }
+      m_r[0] = mx[0];
+      m_r[1] = mx[1];
+    }
+    cluster.sync();  // rank 0 has read every hand-over
+    if (rank != 0) return;
+  }
+
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_r[r];
@@ -991,15 +1163,15 @@ flash_attention_ws_kernel(const __grid_constant__ Params p,
     if (row < rows) {
       // m_r is in log2 units: lse = m_r ln 2 + log(l), natural units
       if (p.lse != nullptr && t4 == 0)
-        p.lse[static_cast<long long>(blockIdx.x) * p.sq + qw + row] =
+        p.lse[static_cast<long long>(bh) * p.sq + qw + row] =
             m_r[r] * LN2 + logf(fmaxf(l, 1e-30f));
       __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
                             head * p.o_sh + (qw + row) * p.o_ss + 2 * t4;
 #pragma unroll
       for (int h = 0; h < NH; ++h)
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + 128 * h + 8 * j) =
+        for (int j = 0; j < OW / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + OW * h + 8 * j) =
               __floats2bfloat162_rn(acc[h][4 * j + 2 * r] * inv,
                                     acc[h][4 * j + 2 * r + 1] * inv);
     }
@@ -1057,8 +1229,13 @@ bool encode(CUtensorMap* map, const void* base, int width, const int (&n)[3],
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, int HDV>
-cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
+// A launch: PLAIN on a grid of (b h, q tiles); SPLIT with a cluster of
+// `cluster` CTAs along x, `cluster` CTAs a (b, h)
+template <int HD, int HDV, int MODE>
+cudaError_t launch(const Params& p, int batch_heads, int cluster,
+                   cudaStream_t stream) {
+  if (MODE == SPLIT ? cluster < 2 || cluster > MAX_SPLIT : cluster != 1)
+    return cudaErrorInvalidValue;
   const int batch = batch_heads / p.h, hkv = p.h / p.g;
   alignas(64) CUtensorMap tq, tk, tv;
   if (!encode(&tq, p.q, HD, {p.h, p.sq, batch}, {p.q_sh, p.q_ss, p.q_sb}) ||
@@ -1066,13 +1243,29 @@ cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
       !encode(&tv, p.v, HDV, {hkv, p.sk, batch}, {p.v_sh, p.v_ss, p.v_sb}))
     return cudaErrorInvalidValue;
   constexpr int bytes = smem_bytes<HD, HDV>();
-  auto kernel = flash_attention_ws_kernel<HD, HDV>;
+  auto kernel = flash_attention_ws_kernel<HD, HDV, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch_heads, (p.sq + BQ - 1) / BQ);
-  kernel<<<grid, THREADS, bytes, stream>>>(p, tq, tk, tv);
-  return cudaGetLastError();
+  const int nqt = (p.sq + BQ - 1) / BQ;
+  if constexpr (MODE == PLAIN) {
+    kernel<<<dim3(batch_heads, nqt), THREADS, bytes, stream>>>(p, tq, tk, tv);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(batch_heads * cluster, nqt);
+    cfg.blockDim = dim3(threads<HD, HDV>());
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, kernel, p, tq, tk, tv);
+  }
 }
 
 }  // namespace ws
@@ -1315,7 +1508,7 @@ cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
 template <int HD, int HDV>
 cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
   if constexpr (HD > 128) {
-    return ws::launch<HD, HDV>(p, batch_heads, stream);
+    return ws::launch<HD, HDV, ws::PLAIN>(p, batch_heads, 1, stream);
   } else {
     constexpr int bytes = smem_bytes<HD, HDV>();
     auto kernel = flash_attention_tc_kernel<HD, HDV>;
@@ -1328,25 +1521,10 @@ cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
   }
 }
 
-// What a launch at (HD, HDV) uses, from the source and the loaded kernel:
-// threads, dynamic shared memory bytes, q rows a CTA, then (after the
-// launch's own cudaFuncSetAttribute) cudaFuncGetAttributes' static shared
-// memory, registers and maximum dynamic shared memory.
-template <int HD, int HDV>
-cudaError_t attributes(int* out) {
-  const void* kernel;
-  if constexpr (HD > 128) {
-    kernel = reinterpret_cast<const void*>(
-        ws::flash_attention_ws_kernel<HD, HDV>);
-    out[0] = ws::THREADS;
-    out[1] = ws::smem_bytes<HD, HDV>();
-    out[2] = ws::BQ;
-  } else {
-    kernel = reinterpret_cast<const void*>(flash_attention_tc_kernel<HD, HDV>);
-    out[0] = THREADS;
-    out[1] = smem_bytes<HD, HDV>();
-    out[2] = BQ;
-  }
+// out[3..5] of a kernel whose out[1] dynamic shared memory bytes are set:
+// after the launch's own cudaFuncSetAttribute, cudaFuncGetAttributes'
+// static shared memory, registers and maximum dynamic shared memory
+cudaError_t loaded_attributes(const void* kernel, int* out) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[1]);
   if (err != cudaSuccess) return err;
@@ -1357,6 +1535,28 @@ cudaError_t attributes(int* out) {
   out[4] = attr.numRegs;
   out[5] = attr.maxDynamicSharedSizeBytes;
   return cudaSuccess;
+}
+
+// What a launch at (HD, HDV) uses, from the source and the loaded kernel:
+// threads, dynamic shared memory bytes, q rows a CTA, then (after the
+// launch's own cudaFuncSetAttribute) cudaFuncGetAttributes' static shared
+// memory, registers and maximum dynamic shared memory.
+template <int HD, int HDV>
+cudaError_t attributes(int* out) {
+  const void* kernel;
+  if constexpr (HD > 128) {
+    kernel = reinterpret_cast<const void*>(
+        ws::flash_attention_ws_kernel<HD, HDV, ws::PLAIN>);
+    out[0] = ws::THREADS;
+    out[1] = ws::smem_bytes<HD, HDV>();
+    out[2] = ws::BQ;
+  } else {
+    kernel = reinterpret_cast<const void*>(flash_attention_tc_kernel<HD, HDV>);
+    out[0] = THREADS;
+    out[1] = smem_bytes<HD, HDV>();
+    out[2] = BQ;
+  }
+  return loaded_attributes(kernel, out);
 }
 
 #define FA_TC_PAIRS(X)                                                 \
@@ -1406,16 +1606,7 @@ cudaError_t narrow_attributes(int* out) {
   out[0] = narrow::THREADS;
   out[1] = narrow::smem_bytes<HD, HDV>();
   out[2] = BQ;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[1]);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  out[3] = static_cast<int>(attr.sharedSizeBytes);
-  out[4] = attr.numRegs;
-  out[5] = attr.maxDynamicSharedSizeBytes;
-  return cudaSuccess;
+  return loaded_attributes(kernel, out);
 }
 
 cudaError_t dispatch_narrow_attributes(int hd, int hdv, int* out) {
@@ -1426,6 +1617,25 @@ cudaError_t dispatch_narrow_attributes(int hd, int hdv, int* out) {
 #undef FA_CASE
     default: return cudaErrorInvalidValue;
   }
+}
+
+// the warp-specialised CTA split over a cluster: (64, 64) only
+cudaError_t dispatch_split(const Params& p, int hd, int hdv, int cluster,
+                           int batch_heads, cudaStream_t stream) {
+  if (pair(hd, hdv) != pair(64, 64)) return cudaErrorInvalidValue;
+  return ws::launch<64, 64, ws::SPLIT>(p, batch_heads, cluster, stream);
+}
+
+// What the split's launch uses, as `attributes` gives it
+cudaError_t dispatch_split_attributes(int hd, int hdv, int* out) {
+  if (pair(hd, hdv) != pair(64, 64)) return cudaErrorInvalidValue;
+  out[0] = ws::threads<64, 64>();
+  out[1] = ws::smem_bytes<64, 64>();
+  out[2] = ws::BQ;
+  return loaded_attributes(
+      reinterpret_cast<const void*>(
+          ws::flash_attention_ws_kernel<64, 64, ws::SPLIT>),
+      out);
 }
 
 }  // namespace tc
@@ -1536,12 +1746,36 @@ int fa_forward_narrow(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(err);
 }
 
+// The tensor-core route's warp-specialised CTA split over a cluster: the
+// arguments of `fa_forward_tc`, then the CTAs a cluster that share a q
+// tile's key range (2 <= cluster <= 4), (hd, hdv) (64, 64); else
+// cudaErrorInvalidValue.
+int fa_forward_split(const void* q, const void* k, const void* v, void* o,
+                     const long long* strides, int batch, int sq, int sk,
+                     int h, int hkv, int hd, int hdv, int causal, int window,
+                     int q_offset, float scale, float* lse, int cluster,
+                     void* stream) {
+  Params p;
+  cudaError_t err = make_tc_params(p, q, k, v, o, lse, strides, batch, sq,
+                                   sk, h, hkv, causal, window, q_offset,
+                                   scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = tc::dispatch_split(p, hd, hdv, cluster, batch * h,
+                           static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
 // What the tensor-core route's launch at (hd, hdv) uses (out: 6 ints):
 // threads a CTA, dynamic shared memory bytes, q rows a CTA, static shared
 // memory bytes, registers a thread, and the dynamic shared memory the
 // kernel's attribute allows once the launch has set it.
 int fa_forward_tc_attributes(int hd, int hdv, int* out) {
   return static_cast<int>(tc::dispatch_attributes(hd, hdv, out));
+}
+
+// The same for the warp-specialised CTA split over a cluster.
+int fa_forward_split_attributes(int hd, int hdv, int* out) {
+  return static_cast<int>(tc::dispatch_split_attributes(hd, hdv, out));
 }
 
 // The same for the narrow CTA at (hd, hdv).

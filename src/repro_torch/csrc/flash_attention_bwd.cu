@@ -2,8 +2,9 @@
 // the gradient of the forward kernels of flash_attention.cu, on two routes
 // (float32 FMAs: three kernels, `fa_backward`; tensor cores: four,
 // `fa_backward_tc`, or at (24, 16) for heads of at most 256 queries and
-// keys one, `fa_backward_narrow`), templates over the forward's (hd, hdv)
-// pairs.  Its own
+// keys one, `fa_backward_narrow`; up to hd 128 with H == Hkv, on the
+// caller's word, two, the dK / dV and dQ CTAs in one grid), templates over
+// the forward's (hd, hdv) pairs.  Its own
 // source so that nvcc builds it beside the forward, in parallel.
 
 #include <cooperative_groups.h>
@@ -1238,11 +1239,11 @@ __device__ __forceinline__ int2 key_tiles(const bwd::Params& p, int q0,
 }
 
 // dK / dV up to hd 128: one warpgroup computes S^T, P^T, dP^T, dS^T and
-// keeps dK and dV
+// keeps dK and dV, for key tile `kt` of the (b, head) of blockIdx.x
 template <int HD, int HDV>
 __device__ __forceinline__ void dkdv_one_warpgroup(const bwd::Params& p,
                                                    float* dk_part,
-                                                   float* dv_part) {
+                                                   float* dv_part, int kt) {
   constexpr int HDP = tc::hd_padded<HD>(), HDVP = tc::hd_padded<HDV>();
   constexpr int TILE = 64 * HDP * 2;    // bytes of a K or Q tile
   constexpr int VTILE = 64 * HDVP * 2;  // bytes of a V or dO tile
@@ -1260,7 +1261,7 @@ __device__ __forceinline__ void dkdv_one_warpgroup(const bwd::Params& p,
   const int g8 = lane / 4, t4 = lane % 4;
   const int bh = blockIdx.x, b = bh / p.h, head = bh % p.h;
   const int kvh = head / p.g;
-  const int k0 = blockIdx.y * B64;  // key tile 0 (the longest reach) first
+  const int k0 = kt * B64;  // key tile 0 (the longest reach) first
   const int keys = min(B64, p.sk - k0);
 
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) +
@@ -1573,14 +1574,16 @@ template <int HD, int HDV>
 __global__ void __launch_bounds__(THREADS * warpgroups<HD>())
 fa_bwd_dkdv_tc_kernel(const bwd::Params p, float* dk_part, float* dv_part) {
   if constexpr (warpgroups<HD>() == 1)
-    dkdv_one_warpgroup<HD, HDV>(p, dk_part, dv_part);
+    dkdv_one_warpgroup<HD, HDV>(p, dk_part, dv_part, blockIdx.y);
   else
     dkdv_two_warpgroups<HD, HDV>(p, dk_part, dv_part);
 }
 
-// dQ up to hd 128: one warpgroup computes S, P, dP, dS and keeps dQ
+// dQ up to hd 128: one warpgroup computes S, P, dP, dS and keeps dQ, for
+// the query tile `y` from the last of the (b, head) of blockIdx.x
 template <int HD, int HDV>
-__device__ __forceinline__ void dq_one_warpgroup(const bwd::Params& p) {
+__device__ __forceinline__ void dq_one_warpgroup(const bwd::Params& p,
+                                                 int y) {
   constexpr int HDP = tc::hd_padded<HD>(), HDVP = tc::hd_padded<HDV>();
   constexpr int TILE = 64 * HDP * 2;    // bytes of a Q or K tile
   constexpr int VTILE = 64 * HDVP * 2;  // bytes of a dO or V tile
@@ -1598,7 +1601,7 @@ __device__ __forceinline__ void dq_one_warpgroup(const bwd::Params& p) {
   const int bh = blockIdx.x, b = bh / p.h, head = bh % p.h;
   const int kvh = head / p.g;
   const int nq = (p.sq + B64 - 1) / B64;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * B64;
+  const int q0 = (nq - 1 - y) * B64;
   const int rows = min(B64, p.sq - q0);
 
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) +
@@ -1855,9 +1858,45 @@ template <int HD, int HDV>
 __global__ void __launch_bounds__(THREADS * warpgroups<HD>())
 fa_bwd_dq_tc_kernel(const bwd::Params p) {
   if constexpr (warpgroups<HD>() == 1)
-    dq_one_warpgroup<HD, HDV>(p);
+    dq_one_warpgroup<HD, HDV>(p, blockIdx.y);
   else
     dq_two_warpgroups<HD, HDV>(p);
+}
+
+
+// ----------------------------- dK / dV and dQ in one grid, up to hd 128
+// fa_bwd_dkdv_dq_tc_kernel: the dK / dV CTAs and the dQ CTAs of the
+// kernels above (one warpgroup each, up to hd 128) as one launch, where H
+// == Hkv and `fa_backward_tc`'s caller asks for it (the wrapper's
+// backward_plan: at (64, 64)); the preprocess (D) runs before it as
+// before.
+//
+// What bounds it.  whisper-tiny's encoder in training, (8, 1500, 6, 6) at
+// hd 64, is 69 GFLOP for the five products (0.070 ms at 989 TFLOP/s);
+// the two kernels took 0.220 and 0.176 ms on an H100 80GB HBM3, each
+// 1,152 CTAs two an SM (190 and 178 registers): 4.4 waves of the 264
+// places, so 5 rounds, the last 36% full, and the dQ kernel cannot start
+// before the last dK / dV CTA ends.
+//
+// What the design does about that.  The two kernels' CTAs share one grid,
+// (b H, nk + nq): y below nk a dK / dV CTA of key tile y, else a dQ CTA
+// (the dQ kernel's order: the query tile of longest reach first).  They
+// read the same D, q, k, v, o and dO and write disjoint outputs, so they
+// run side by side: 2,304 CTAs in 8.7 waves, 9 rounds, and the dK / dV
+// CTAs' tail fills with dQ CTAs.  Each CTA's work and numerics are the
+// kernels' own, so the gradients are bit-equal to theirs.  (A one-pass
+// kernel that computed S and dP once a pair and added each key tile's dQ
+// partial into a float32 accumulator in a fixed order of the key tiles,
+// under a ticket a query tile, took 0.54-0.59 ms there: PERF.md.)
+template <int HD, int HDV>
+__global__ void __launch_bounds__(THREADS)
+fa_bwd_dkdv_dq_tc_kernel(const bwd::Params p) {
+  static_assert(warpgroups<HD>() == 1, "one warpgroup a CTA, up to hd 128");
+  const int nk = (p.sk + B64 - 1) / B64;
+  if (static_cast<int>(blockIdx.y) < nk)
+    dkdv_one_warpgroup<HD, HDV>(p, nullptr, nullptr, blockIdx.y);
+  else
+    dq_one_warpgroup<HD, HDV>(p, blockIdx.y - nk);
 }
 
 // ------------------------- the one-launch backward at (24, 16), short heads
@@ -2225,7 +2264,10 @@ cudaError_t launch(const bwd::Params& p, int batch, cudaStream_t stream) {
 
 template <int HD, int HDV>
 cudaError_t launch(const bwd::Params& p, int batch, float* dk_part,
-                   float* dv_part, cudaStream_t stream) {
+                   float* dv_part, bool one_grid, cudaStream_t stream) {
+  // one grid: one warpgroup a CTA and no GQA partials to reduce
+  if (one_grid && (warpgroups<HD>() != 1 || p.g != 1))
+    return cudaErrorInvalidValue;
   const int nq = (p.sq + B64 - 1) / B64, nk = (p.sk + B64 - 1) / B64;
   fa_bwd_preprocess_tc_kernel<HDV>
       <<<dim3(nq, batch * p.h), RED_THREADS, 0, stream>>>(p);
@@ -2233,6 +2275,19 @@ cudaError_t launch(const bwd::Params& p, int batch, float* dk_part,
   if (err != cudaSuccess) return err;
 
   constexpr int dkdv_bytes = dkdv_smem_bytes<HD, HDV>();
+  constexpr int dq_bytes = smem_bytes<HD, HDV>(1);
+  if constexpr (warpgroups<HD>() == 1) {
+    if (one_grid) {  // y below nk a dK / dV CTA, else a dQ CTA
+      constexpr int bytes = dkdv_bytes > dq_bytes ? dkdv_bytes : dq_bytes;
+      auto both = fa_bwd_dkdv_dq_tc_kernel<HD, HDV>;
+      err = cudaFuncSetAttribute(
+          both, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return err;
+      both<<<dim3(batch * p.h, nk + nq), THREADS, bytes, stream>>>(p);
+      return cudaGetLastError();
+    }
+  }
+
   auto dkdv = fa_bwd_dkdv_tc_kernel<HD, HDV>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dkdv_bytes);
@@ -2249,7 +2304,6 @@ cudaError_t launch(const bwd::Params& p, int batch, float* dk_part,
     if (err != cudaSuccess) return err;
   }
 
-  constexpr int dq_bytes = smem_bytes<HD, HDV>(1);
   auto dqk = fa_bwd_dq_tc_kernel<HD, HDV>;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dq_bytes);
@@ -2260,22 +2314,23 @@ cudaError_t launch(const bwd::Params& p, int batch, float* dk_part,
 }
 
 cudaError_t dispatch(const bwd::Params& p, int hd, int hdv, int batch,
-                     float* dk_part, float* dv_part, cudaStream_t stream) {
+                     float* dk_part, float* dv_part, bool one_grid,
+                     cudaStream_t stream) {
   switch (pair(hd, hdv)) {
     case pair(16, 16):
-      return launch<16, 16>(p, batch, dk_part, dv_part, stream);
+      return launch<16, 16>(p, batch, dk_part, dv_part, one_grid, stream);
     case pair(24, 16):
-      return launch<24, 16>(p, batch, dk_part, dv_part, stream);
+      return launch<24, 16>(p, batch, dk_part, dv_part, one_grid, stream);
     case pair(32, 32):
-      return launch<32, 32>(p, batch, dk_part, dv_part, stream);
+      return launch<32, 32>(p, batch, dk_part, dv_part, one_grid, stream);
     case pair(64, 64):
-      return launch<64, 64>(p, batch, dk_part, dv_part, stream);
+      return launch<64, 64>(p, batch, dk_part, dv_part, one_grid, stream);
     case pair(128, 128):
-      return launch<128, 128>(p, batch, dk_part, dv_part, stream);
+      return launch<128, 128>(p, batch, dk_part, dv_part, one_grid, stream);
     case pair(192, 128):
-      return launch<192, 128>(p, batch, dk_part, dv_part, stream);
+      return launch<192, 128>(p, batch, dk_part, dv_part, one_grid, stream);
     case pair(256, 256):
-      return launch<256, 256>(p, batch, dk_part, dv_part, stream);
+      return launch<256, 256>(p, batch, dk_part, dv_part, one_grid, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2366,16 +2421,19 @@ static bool tc_aligned(const void* const (&ptrs)[8],
 }
 
 // The tensor-core route's backward: bfloat16, (hd, hdv) a pair of
-// bwd_tc::dispatch; the same arguments as `fa_backward` without dtype.
-// Every pointer on a 16-byte boundary and every stride a multiple of 8
-// elements.  Four kernels: preprocess, dK/dV, the GQA reduction (H >
-// Hkv), dQ.
+// bwd_tc::dispatch; the same arguments as `fa_backward` without dtype,
+// and one_grid.  Every pointer on a 16-byte boundary and every stride a
+// multiple of 8 elements.  Four kernels: preprocess, dK/dV, the GQA
+// reduction (H > Hkv), dQ; with one_grid nonzero (up to hd 128, h == hkv,
+// else cudaErrorInvalidValue) two: preprocess, then the dK / dV and dQ
+// CTAs in one grid (fa_bwd_dkdv_dq_tc_kernel).
 int fa_backward_tc(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, float* dk_part,
                    float* dv_part, const long long* strides, int batch,
                    int sq, int sk, int h, int hkv, int hd, int hdv,
-                   int causal, int window, float scale, void* stream) {
+                   int causal, int window, float scale, int one_grid,
+                   void* stream) {
   if (!tc_aligned({q, k, v, o, dout, dq, dk, dv}, strides))
     return static_cast<int>(cudaErrorMisalignedAddress);
   if (hkv > 0 && h != hkv && (dk_part == nullptr || dv_part == nullptr))
@@ -2385,7 +2443,7 @@ int fa_backward_tc(const void* q, const void* k, const void* v,
                                     dv, strides, batch, sq, sk, h, hkv,
                                     causal, window, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = bwd_tc::dispatch(p, hd, hdv, batch, dk_part, dv_part,
+  err = bwd_tc::dispatch(p, hd, hdv, batch, dk_part, dv_part, one_grid != 0,
                          static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }

@@ -28,7 +28,11 @@ each, taking turns on the tensor cores), and at a pair of
 :data:`NARROW_PAIRS` with at most :data:`NARROW_MAX_LEN` keys
 ``flash_attention_narrow_kernel`` (a cluster of four one-warpgroup CTAs
 a q tile, one key tile each, widths padded to the next k16 step;
-``LAUNCHES["flash_attention_narrow"]``);
+``LAUNCHES["flash_attention_narrow"]``), and at a pair of
+:data:`SPLIT_PAIRS`, for a launch without a mask whose CTAs leave SMs
+idle (:func:`_split`), ``flash_attention_ws_kernel`` split over a
+cluster (its CTAs share a 128-row q tile and split its key range;
+``LAUNCHES["flash_attention_split"]``);
 float32, and bfloat16 with hd = 8, run ``flash_attention_kernel``
 (float32 FMAs).  Nothing falls back
 from one route to the other.  hd ≠ hdv is DeepSeek-V2's MLA: (192, 128)
@@ -61,7 +65,10 @@ rule, at every pair of :data:`HEAD_DIMS`:
   :data:`NARROW_PAIRS` with at most :data:`NARROW_MAX_LEN` queries and
   keys, one launch, ``fa_backward_narrow`` (a cluster of four CTAs per
   (b, kv head), one a query tile: D, dQ, dK and dV in one kernel;
-  ``LAUNCHES["flash_attention_bwd_narrow"]``);
+  ``LAUNCHES["flash_attention_bwd_narrow"]``); at (64, 64) with H ==
+  Hkv (:func:`_one_grid`), ``fa_backward_tc`` with ``one_grid``: D, then
+  the dK / dV and the dQ CTAs in one grid, ``fa_bwd_dkdv_dq_tc_kernel``
+  (``LAUNCHES["flash_attention_bwd_one_grid"]``);
 * ``"fma"`` (float32, and bfloat16 with hd 8): ``fa_backward``, three
   kernels of float32 FMAs (``D``, dK / dV per query head and key tile,
   dQ; 32-row streamed tiles past hd 128), and the same GQA reduction of
@@ -107,7 +114,8 @@ from repro_torch.kernels.build import CudaLibrary
 #: forward's and the one-launch backward's (:data:`NARROW_PAIRS`)
 LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
-            "flash_attention_narrow": 0, "flash_attention_bwd_narrow": 0}
+            "flash_attention_narrow": 0, "flash_attention_bwd_narrow": 0,
+            "flash_attention_split": 0, "flash_attention_bwd_one_grid": 0}
 #: (hd, hdv) pairs the forward kernels are built for: q.k's head dim and
 #: v's; (24, 16) and (192, 128) are DeepSeek-V2-Lite's MLA (smoke,
 #: published), (256, 256) RecurrentGemma-9B's local attention
@@ -128,6 +136,12 @@ NARROW_PAIRS = ((24, 16),)
 #: cluster of four CTAs, one a query tile, of four warpgroups each)
 _NARROW_WARPGROUPS = 4
 NARROW_MAX_LEN = 64 * _NARROW_WARPGROUPS
+#: the tensor-core pairs whose forward runs the warp-specialised CTA split
+#: over a cluster (:func:`_split`): unmasked launches that leave SMs idle
+SPLIT_PAIRS = ((64, 64),)
+#: the H100's SMs, and the most CTAs of a split cluster
+_SMS = 132
+_MAX_SPLIT = 4
 #: rows and keys per tile of the backward kernels; threads of a CTA of the
 #: preprocess kernel and of the GQA reduction (four elements a thread)
 _TILE = 64
@@ -154,9 +168,14 @@ def _declare_forward(lib: ctypes.CDLL) -> None:
     lib.fa_forward_tc.restype = ctypes.c_int
     lib.fa_forward_narrow.argtypes = lib.fa_forward_tc.argtypes
     lib.fa_forward_narrow.restype = ctypes.c_int
+    # ..., lse, cluster, stream
+    lib.fa_forward_split.argtypes = lib.fa_forward_tc.argtypes[:-1] + [i, p]
+    lib.fa_forward_split.restype = ctypes.c_int
     for fn in (lib.fa_forward_tc_attributes, lib.fa_forward_narrow_attributes):
         fn.argtypes = [i, i, ctypes.POINTER(i)]
         fn.restype = ctypes.c_int
+    lib.fa_forward_split_attributes.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.fa_forward_split_attributes.restype = ctypes.c_int
 
 
 def _declare_backward(lib: ctypes.CDLL) -> None:
@@ -165,7 +184,8 @@ def _declare_backward(lib: ctypes.CDLL) -> None:
     # b, sq, sk, h, hkv, hd, hdv, causal, window, scale, [dtype,] stream
     lib.fa_backward.argtypes = [p] * 12 + [strides] + [i] * 9 + [f, i, p]
     lib.fa_backward.restype = ctypes.c_int
-    lib.fa_backward_tc.argtypes = [p] * 12 + [strides] + [i] * 9 + [f, p]
+    # ..., scale, one_grid, stream
+    lib.fa_backward_tc.argtypes = [p] * 12 + [strides] + [i] * 9 + [f, i, p]
     lib.fa_backward_tc.restype = ctypes.c_int
     # q, k, v, o, dO, lse, dq, dk, dv, strides, b, sq, sk, h, hkv, hd, hdv,
     # causal, window, scale, stream
@@ -233,6 +253,35 @@ def _narrow(hd: int, hdv: int, sq: int, sk: int,
     launch."""
     return ((hd, hdv) in NARROW_PAIRS and sk <= NARROW_MAX_LEN
             and (not backward or sq <= NARROW_MAX_LEN))
+
+
+def _split(b: int, sq: int, sk: int, h: int, hkv: int, hd: int, hdv: int,
+           causal: bool, window: int) -> int:
+    """The CTAs of a cluster over which the tensor-core forward splits a
+    q tile's key range, from the shapes alone, or 0
+    (``flash_attention_tc_kernel``).  Only a pair of :data:`SPLIT_PAIRS`,
+    without a mask (not causal, no window), with at least 128 queries: S
+    CTAs a (b, h, 128-row q tile) each walking a share of its key tiles,
+    S the most (up to :data:`_MAX_SPLIT` and the key tiles) that the
+    :data:`_SMS` SMs hold at once, two CTAs an SM, where that is 2 or
+    more.  (A pair of query heads sharing K / V by multicast at (128,
+    128), and the split there, lost to the one-warpgroup kernel at
+    Llama-3.2-Vision's cross-attention: PERF.md.)"""
+    if ((hd, hdv) not in SPLIT_PAIRS or causal or window > 0
+            or sq < 2 * _TILE):
+        return 0
+    split = min(_MAX_SPLIT, 2 * _SMS // (b * h * _cdiv(sq, 2 * _TILE)),
+                _cdiv(sk, _TILE))
+    return split if split >= 2 else 0
+
+
+def _one_grid(hd: int, hdv: int, h: int, hkv: int) -> bool:
+    """Does the tensor-core backward launch its dK / dV and dQ CTAs in one
+    grid: (64, 64) with H == Hkv, every backward of whisper-tiny, where it
+    was timed to win?  The shapes alone decide.  The kernels take it at
+    any pair up to hd 128 with H == Hkv; the other pairs' rows keep the
+    separate launches (PERF.md)."""
+    return (hd, hdv) == (64, 64) and h == hkv
 
 
 def _k16(w: int) -> int:
@@ -307,12 +356,16 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(bool(causal)), window, q_offset, 1.0 / math.sqrt(hd),
             lse.data_ptr() if with_lse else None)
     narrow = route == "tc" and _narrow(hd, hdv, sq, sk)
+    split = (_split(b, sq, sk, h, hkv, hd, hdv, causal, window)
+             if route == "tc" and not narrow else 0)
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         if route == "fma":
             rc = lib.fa_forward(*args, _DTYPES[q.dtype], stream)
         elif narrow:
             rc = lib.fa_forward_narrow(*args, stream)
+        elif split:
+            rc = lib.fa_forward_split(*args, split, stream)
         else:
             rc = lib.fa_forward_tc(*args, stream)
     if rc != 0:
@@ -323,6 +376,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         LAUNCHES["flash_attention_tc"] += 1
     if narrow:
         LAUNCHES["flash_attention_narrow"] += 1
+    if split:
+        LAUNCHES["flash_attention_split"] += 1
     return out, lse
 
 
@@ -332,7 +387,8 @@ def _cdiv(a: int, b: int) -> int:
 
 def forward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
                  dtype: torch.dtype, route: str | None = None, *,
-                 hdv: int | None = None) -> dict:
+                 hdv: int | None = None, causal: bool = True,
+                 window: int = 0) -> dict:
     """The forward's launch for these shapes, from the shapes alone (the
     constants of ``csrc/flash_attention.cu``): ``route`` (None takes
     :func:`_route`), the ``kernel``'s name, its ``grid``, ``threads`` a
@@ -342,7 +398,9 @@ def forward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
     slots.  At a pair of :data:`NARROW_PAIRS` with sk at most
     :data:`NARROW_MAX_LEN` the tensor-core route takes the narrow CTAs:
     a ``cluster`` of four one-warpgroup CTAs a q tile, one key tile
-    each.
+    each.  At a pair of :data:`SPLIT_PAIRS` without a mask (``causal``
+    False, ``window`` 0) :func:`_split` may split the warp-specialised CTA
+    over a ``cluster`` of that many CTAs.
     ``hdv`` defaults to ``hd``.  Raises ``ValueError`` for a pair outside
     :data:`HEAD_DIMS`, an unknown route or a tensor-core route that the
     dtype or head dims do not take."""
@@ -375,6 +433,15 @@ def forward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
                 "smem_bytes": 2 * _TILE * (2 * _k16(hd) + _k16(hdv))
                 + (wgs - 1) * 12 * 128 * 4 + 1024,
                 "static_smem_bytes": 0}
+    split = _split(b, sq, sk, h, hkv, hd, hdv, causal, window)
+    if split:  # Q of two warpgroups, three K / V stages
+        return {"route": route, "kernel": "flash_attention_ws_kernel",
+                "grid": (b * h * split, _cdiv(sq, 2 * _TILE)),
+                # two CTAs an SM: the consumers and a producer warp
+                "threads": 288, "rows": 2 * _TILE, "stages": 3,
+                "cluster": split,
+                "smem_bytes": 2 * _TILE * (2 * hd + 3 * (hd + hdv)) + 1024,
+                "static_smem_bytes": 1024}
     if hd <= 128:  # Q, two K and two V stages, widths padded to 64
         hdp, hdvp = max(hd, _TILE), max(hdv, _TILE)
         return {"route": route, "kernel": "flash_attention_tc_kernel",
@@ -391,8 +458,8 @@ def forward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
             "static_smem_bytes": _cdiv(8 * (1 + 4 * stages), 1024) * 1024}
 
 
-def forward_tile_work(hd: int, hdv: int, *,
-                      narrow: bool | None = None) -> dict:
+def forward_tile_work(hd: int, hdv: int, *, narrow: bool | None = None,
+                      split: bool = False) -> dict:
     """The tensor-core forward's CTA per 64-key tile, from the head dims
     alone: its ``kernel``, ``rows`` (queries a CTA), each warpgroup's
     ``roles`` and ``hd_units`` (its tensor work: the widths of its 64 x N
@@ -404,9 +471,11 @@ def forward_tile_work(hd: int, hdv: int, *,
     step.  Up to hd 128 one warpgroup copies (cp.async) and multiplies on
     widths padded to 64.  Past it a producer warpgroup streams tiles by
     TMA and two consumers each own 64 rows, so S is computed once for
-    each (query, key): hd + hdv a consumer.  Raises ``ValueError`` for a
-    pair outside :data:`TC_HEAD_DIMS`, or ``narrow`` at a pair without
-    narrow CTAs."""
+    each (query, key): hd + hdv a consumer.  ``split`` (a pair of
+    :data:`SPLIT_PAIRS`) takes that CTA at hd <= 128.
+    Raises ``ValueError`` for a pair outside :data:`TC_HEAD_DIMS`,
+    ``narrow`` at a pair without narrow CTAs, or ``split`` at a pair
+    without the split."""
     if (hd, hdv) not in TC_HEAD_DIMS:
         raise ValueError(f"flash_attention: no tensor-core forward at "
                          f"(hd, hdv) = ({hd}, {hdv})")
@@ -421,6 +490,14 @@ def forward_tile_work(hd: int, hdv: int, *,
                 "roles": ["key_tile"] * _NARROW_WARPGROUPS,
                 "hd_units": [units] * _NARROW_WARPGROUPS,
                 "hd_units_per_64_rows": units}
+    if split:
+        if (hd, hdv) not in SPLIT_PAIRS:
+            raise ValueError(f"flash_attention: no split forward at "
+                             f"(hd, hdv) = ({hd}, {hdv})")
+        return {"kernel": "flash_attention_ws_kernel", "rows": 2 * _TILE,
+                "roles": ["producer", "consumer", "consumer"],
+                "hd_units": [0, hd + hdv, hd + hdv],
+                "hd_units_per_64_rows": hd + hdv}
     if hd <= 128:
         units = max(hd, _TILE) + max(hdv, _TILE)
         return {"kernel": "flash_attention_tc_kernel", "rows": _TILE,
@@ -432,20 +509,25 @@ def forward_tile_work(hd: int, hdv: int, *,
             "hd_units_per_64_rows": hd + hdv}
 
 
-def tc_attributes(hd: int, hdv: int, narrow: bool = False) -> dict:
+def tc_attributes(hd: int, hdv: int, narrow: bool = False,
+                  split: bool = False) -> dict:
     """What the tensor-core forward's launch at (hd, hdv) uses, from the
     loaded library (card only): ``threads``, ``smem_bytes`` (dynamic) and
     ``rows`` from the source's constants, then ``static_smem_bytes``,
     ``registers`` and ``max_dynamic_smem_bytes`` from
     ``cudaFuncGetAttributes`` once the launch's attribute is set.
     ``narrow``: the narrow CTA's launch (a pair of
-    :data:`NARROW_PAIRS`)."""
-    if (hd, hdv) not in (NARROW_PAIRS if narrow else TC_HEAD_DIMS):
+    :data:`NARROW_PAIRS`); ``split``: the warp-specialised CTA's split
+    over a cluster (a pair of :data:`SPLIT_PAIRS`)."""
+    pairs = (NARROW_PAIRS if narrow else SPLIT_PAIRS if split
+             else TC_HEAD_DIMS)
+    if (hd, hdv) not in pairs:
         raise ValueError(f"flash_attention: no tensor-core forward at "
                          f"(hd, hdv) = ({hd}, {hdv})")
     out = (ctypes.c_int * 6)()
     lib = LIBRARY.load()
     rc = (lib.fa_forward_narrow_attributes if narrow
+          else lib.fa_forward_split_attributes if split
           else lib.fa_forward_tc_attributes)(hd, hdv, out)
     if rc != 0:
         raise RuntimeError(f"flash_attention: attributes failed with "
@@ -465,10 +547,12 @@ def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
     :data:`NARROW_MAX_LEN` the tensor-core route is one launch of
     ``fa_bwd_narrow_tc_kernel`` with no scratch: a ``cluster`` of four
     CTAs per (b, kv head), one a query tile; that plan also gives a CTA's
-    ``threads`` and ``smem_bytes``.
-    ``hdv`` (v's head dim) defaults to ``hd``.  Raises ``ValueError`` for
-    a pair outside :data:`HEAD_DIMS`, an unknown route or a tensor-core
-    route that the dtype or head dims do not take."""
+    ``threads`` and ``smem_bytes``.  Where :func:`_one_grid`, two
+    launches: D, then ``fa_bwd_dkdv_dq_tc_kernel``,
+    the dK / dV CTAs (grid rows below nk) and the dQ CTAs (the rest) in
+    one grid.  ``hdv`` (v's head dim) defaults to ``hd``.  Raises
+    ``ValueError`` for a pair outside :data:`HEAD_DIMS`, an unknown route
+    or a tensor-core route that the dtype or head dims do not take."""
     hdv = hd if hdv is None else hdv
     _check_pair(hd, hdv)
     if route is None:
@@ -494,6 +578,13 @@ def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
                 * (_k16(hd) + _k16(hdv)) + 2 * _TILE * 4
                 + wgs * 3 * _TILE * _TILE * 2
                 + 2 * wgs * _TILE * _k16(hd) * 4 + 1024}
+    if route == "tc" and _one_grid(hd, hdv, h, hkv):
+        # D, then grid (b H, nk + nq): y below nk a dK / dV CTA, else a dQ
+        # CTA; no partials (H == Hkv)
+        return {"route": route,
+                "kernels": [("fa_bwd_preprocess_tc_kernel", (nq, b * h)),
+                            ("fa_bwd_dkdv_dq_tc_kernel", (b * h, nk + nq))],
+                "scratch_floats": 0}
     if route == "fma":
         kernels = [("fa_bwd_preprocess_kernel", (nq, b * h)),
                    ("fa_bwd_dkdv_kernel", (nk, b * h))]
@@ -566,14 +657,18 @@ def backward_tile_work(hd: int, hdv: int, *,
 
 def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
              v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-             causal: bool, window: int, route: str | None = None):
+             causal: bool, window: int, route: str | None = None,
+             one_grid: bool | None = None):
     """Launch the backward kernels on CUDA tensors: (dq, dk, dv) in q's
     dtype and shapes, from the upstream gradient ``do`` (shaped as
     ``o``), the forward's operands, its output ``o`` and its ``lse``
     (float32 (B, H, Sq)).  ``q_offset`` is 0 (the training forward).
-    ``route`` None takes :func:`_route`; a caller may name the other route
-    only to time or test it.  The head dims and the route are checked
-    first, before the operands' device."""
+    ``route`` None takes :func:`_route`, ``one_grid`` None the plan's
+    (:func:`_one_grid`); a caller may name the other route, or the
+    separate or the one-grid launches of the tensor-core route (up to hd
+    128 with H == Hkv; else the launch raises), only to time or test
+    them.  The head dims and the route are checked first, before the
+    operands' device."""
     if q.dim() == 4 and k.dim() == 4 and v.dim() == 4:  # else _check raises
         plan = backward_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
                              k.shape[2], q.shape[3], q.dtype, route,
@@ -604,6 +699,11 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     narrow = plan["kernels"][0][0] == "fa_bwd_narrow_tc_kernel"
+    if one_grid is None:
+        one_grid = plan["kernels"][-1][0] == "fa_bwd_dkdv_dq_tc_kernel"
+    elif one_grid and (route != "tc" or narrow):
+        raise ValueError("flash_attention backward: one grid is a launch "
+                         "of the tensor-core route's four-kernel backward")
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
            do.data_ptr(), lse.data_ptr())
     outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
@@ -622,7 +722,8 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
             parts = ((part.data_ptr(), part[b * sk * h * hd:].data_ptr())
                      if part is not None else (None, None))
             args = (*ins, delta.data_ptr(), *outs, *parts, *dims)
-            rc = (lib.fa_backward_tc(*args, stream) if route == "tc"
+            rc = (lib.fa_backward_tc(*args, int(one_grid), stream)
+                  if route == "tc"
                   else lib.fa_backward(*args, _DTYPES[q.dtype], stream))
     if rc != 0:
         raise RuntimeError(f"flash_attention backward: CUDA launch failed "
@@ -632,6 +733,8 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         LAUNCHES["flash_attention_bwd_tc"] += 1
     if narrow:
         LAUNCHES["flash_attention_bwd_narrow"] += 1
+    if one_grid:
+        LAUNCHES["flash_attention_bwd_one_grid"] += 1
     return dq, dk, dv
 
 

@@ -28,6 +28,11 @@ FA_CASES = [
     (1, 50, 50, 4, 1, 8, True, 13, 0),    # MQA local window
     (2, 33, 70, 6, 6, 16, False, 0, 0),   # cross (ragged, MHA)
     (1, 1, 40, 4, 2, 16, True, 0, 39),    # decode-style single query
+    # the served cross-attention shapes cut down: Llama-3.2-Vision's (hd
+    # 128, g = 8, Sq != Sk, no mask) and whisper's decoder's (hd 64, Sq !=
+    # Sk, no mask)
+    (1, 40, 24, 16, 2, 128, False, 0, 0),
+    (2, 48, 80, 3, 3, 64, False, 0, 0),
 ]
 # tests/test_kernels.py:133,149: float32 sums in another order (2e-5);
 # bf16 outputs one bf16 rounding apart (2e-2)
@@ -748,7 +753,8 @@ def test_backward_wrapper_marshals_each_route(monkeypatch):
     assert a0[11] - a0[10] == 2 * 8 * 4 * 16 * 4         # (B, Sk, H, hd) f32
     assert a1[10] is None and a1[11] is None
     assert a2[4] == do.data_ptr() and a2[-2] == 1        # as is; bf16
-    assert len(a0) == 24 and len(a2) == 25
+    assert len(a0) == 25 and len(a2) == 25
+    assert a0[23] == 0 and a1[23] == 0                   # separate launches
     # hd and hdv through the ABI: (b, sq, sk, h, hkv, hd, hdv, causal,
     # window) after the strides
     assert a0[13:22] == (2, 8, 8, 4, 2, 16, 16, 1, 0)
@@ -822,7 +828,8 @@ def test_plans_unchanged_off_the_narrow_shapes(pair):
     sides of NARROW_MAX_LEN, equal the plans from before the narrow
     kernels, except the narrow pair's tensor-core route at short shapes:
     its forward up to NARROW_MAX_LEN keys, its backward up to
-    NARROW_MAX_LEN queries and keys."""
+    NARROW_MAX_LEN queries and keys; and the one-grid backward of the
+    pair (64, 64) with H == Hkv (the same CTAs in one launch)."""
     hd, hdv = pair
     n = tfa.NARROW_MAX_LEN
     narrowed = 0
@@ -846,6 +853,11 @@ def test_plans_unchanged_off_the_narrow_shapes(pair):
                 if tc and pair in tfa.NARROW_PAIRS and max(sq, sk) <= n:
                     assert bplan["kernels"] == [
                         ("fa_bwd_narrow_tc_kernel", (4 * b * hkv,))]
+                elif tc and tfa._one_grid(hd, hdv, h, hkv):
+                    parent = _parent_backward_plan(*args)["kernels"]
+                    assert bplan["kernels"] == parent[:1] + [
+                        ("fa_bwd_dkdv_dq_tc_kernel",
+                         (b * h, parent[1][1][1] + parent[2][1][1]))]
                 else:
                     assert bplan == _parent_backward_plan(*args)
     # bf16 on the rule's route and named "tc", four shapes with sk <= n
@@ -876,3 +888,230 @@ def test_launch_refuses_unknown_route():
         tfa.launch(q, k, v, True, 0, 0, route="wgmma")
     with pytest.raises(ValueError, match="CUDA"):
         tfa.launch(q, k, v, True, 0, 0, route="tc")       # CPU operands
+
+
+# (label, (B, Sq, Sk, H, Hkv, hd, hdv), causal, forward plan): the split
+# route by hand.  whisper-tiny's encoder at serving: 6 x 12 = 72 CTAs of
+# 128 rows, two an SM: 264 // 72 = 3 a cluster (grid (18, 12)); the rest
+# stay on the one-warpgroup kernel: Llama-3.2-Vision's cross-attention at
+# its longest and shortest prompts (hd 128: no split), whisper's training
+# encoder (576 CTAs), its decoder's self-attention (causal) and cross-
+# attention (8 x 6 x 4 = 192 CTAs: 264 // 192 = 1), its decoding
+# cross-attention (4 queries), a decode step of the vision model
+_TC = {"route": "tc", "kernel": "flash_attention_tc_kernel", "threads": 128,
+       "rows": 64, "static_smem_bytes": 0}
+NEW_FORWARD_PLANS = [
+    ("whisper_encoder", (1, 1500, 1500, 6, 6, 64, 64), False,
+     {"route": "tc", "kernel": "flash_attention_ws_kernel", "grid": (18, 12),
+      "threads": 288, "rows": 128, "stages": 3, "cluster": 3,
+      "static_smem_bytes": 1024,                    # two consumers, a warp
+      "smem_bytes": 2 * 64 * (2 * 64 + 3 * 128) + 1024}),        # 66,560
+    ("vlm_cross", (1, 2048, 1024, 64, 8, 128, 128), False,
+     {**_TC, "grid": (64, 32), "smem_bytes": 82944}),
+    ("vlm_cross_768", (1, 768, 1024, 64, 8, 128, 128), False,
+     {**_TC, "grid": (64, 12), "smem_bytes": 82944}),
+    ("whisper_train", (8, 1500, 1500, 6, 6, 64, 64), False,
+     {**_TC, "grid": (48, 24), "smem_bytes": 2 * 64 * 5 * 64 + 1024}),
+    ("whisper_dec_self", (8, 448, 448, 6, 6, 64, 64), True,
+     {**_TC, "grid": (48, 7), "smem_bytes": 41984}),
+    ("whisper_dec_cross", (8, 448, 1500, 6, 6, 64, 64), False,
+     {**_TC, "grid": (48, 7), "smem_bytes": 41984}),
+    ("whisper_serve_cross", (1, 4, 1500, 6, 6, 64, 64), False,
+     {**_TC, "grid": (6, 1), "smem_bytes": 41984}),
+    ("vlm_decode", (1, 1, 1024, 64, 8, 128, 128), False,
+     {**_TC, "grid": (64, 1), "smem_bytes": 82944}),
+]
+
+
+@pytest.mark.parametrize("shape,causal,want",
+                         [p[1:] for p in NEW_FORWARD_PLANS],
+                         ids=[p[0] for p in NEW_FORWARD_PLANS])
+def test_forward_plan_hand_counts_split(shape, causal, want):
+    """The forward's launch at the shape the split was built for, and
+    beside it, against counts by hand; the float32 route of the same
+    shapes keeps the FMA kernel."""
+    b, sq, sk, h, hkv, hd, hdv = shape
+    plan = tfa.forward_plan(b, sq, sk, h, hkv, hd, torch.bfloat16, hdv=hdv,
+                            causal=causal)
+    assert plan == want
+    assert plan["smem_bytes"] + plan["static_smem_bytes"] <= 232448
+    fma = tfa.forward_plan(b, sq, sk, h, hkv, hd, torch.float32, hdv=hdv,
+                           causal=causal)
+    assert fma["kernel"] == "flash_attention_kernel"
+
+
+def test_split_rule():
+    """The split rule from the shapes alone: (64, 64), no mask, at least
+    128 queries, and S = min(MAX_SPLIT, 264 // CTAs, key tiles) of 2 or
+    more (0: no split); never at another pair."""
+    c = tfa._split
+    assert c(1, 1500, 1500, 6, 6, 64, 64, False, 0) == 3
+    assert c(1, 1500, 1500, 6, 6, 64, 64, True, 0) == 0
+    assert c(1, 1500, 1500, 6, 6, 64, 64, False, 64) == 0
+    assert c(1, 127, 1500, 6, 6, 64, 64, False, 0) == 0
+    assert c(8, 1500, 1500, 6, 6, 64, 64, False, 0) == 0        # 576 CTAs
+    assert c(1, 256, 1024, 66, 66, 64, 64, False, 0) == 2
+    assert c(1, 256, 1024, 67, 67, 64, 64, False, 0) == 0       # 134 CTAs
+    # at most MAX_SPLIT, and at most the key tiles
+    assert c(1, 128, 1024, 1, 1, 64, 64, False, 0) == 4
+    assert c(1, 128, 100, 1, 1, 64, 64, False, 0) == 2
+    assert c(1, 128, 64, 1, 1, 64, 64, False, 0) == 0
+    for pair in ((16, 16), (32, 32), (128, 128), (192, 128), (256, 256),
+                 (24, 16)):
+        assert c(1, 1500, 1500, 6, 6, *pair, False, 0) == 0
+
+
+# (label, (B, Sq, Sk, H, Hkv), causal, kernels): the backward at hd 64 by
+# hand.  With H == Hkv, D then one grid of the dK / dV CTAs (rows below
+# nk = ceil(Sk / 64)) and the dQ CTAs (nq = ceil(Sq / 64) rows more), any
+# mask; GQA keeps the four kernels
+NEW_BACKWARD_PLANS = [
+    ("whisper_train", (8, 1500, 1500, 6, 6), False,
+     [("fa_bwd_preprocess_tc_kernel", (24, 48)),
+      ("fa_bwd_dkdv_dq_tc_kernel", (48, 48))]),
+    ("whisper_dec_cross", (8, 448, 1500, 6, 6), False,
+     [("fa_bwd_preprocess_tc_kernel", (7, 48)),
+      ("fa_bwd_dkdv_dq_tc_kernel", (48, 31))]),
+    ("whisper_dec_self", (8, 448, 448, 6, 6), True,
+     [("fa_bwd_preprocess_tc_kernel", (7, 48)),
+      ("fa_bwd_dkdv_dq_tc_kernel", (48, 14))]),
+    ("hd64_gqa", (2, 1024, 1024, 8, 2), True,
+     [("fa_bwd_preprocess_tc_kernel", (16, 16)),
+      ("fa_bwd_dkdv_tc_kernel", (16, 16)),
+      ("fa_bwd_gqa_reduce_kernel", (256,)),
+      ("fa_bwd_dq_tc_kernel", (16, 16))]),
+]
+
+
+@pytest.mark.parametrize("shape,causal,kernels",
+                         [p[1:] for p in NEW_BACKWARD_PLANS],
+                         ids=[p[0] for p in NEW_BACKWARD_PLANS])
+def test_backward_plan_hand_counts_one_grid(shape, causal, kernels):
+    """The backward's launches at whisper-tiny's training shapes and beside
+    them against counts by hand: no partials where H == Hkv; the float32
+    route keeps the FMA kernels."""
+    b, sq, sk, h, hkv = shape
+    plan = tfa.backward_plan(b, sq, sk, h, hkv, 64, torch.bfloat16)
+    assert plan["kernels"] == kernels
+    assert plan["scratch_floats"] == (0 if h == hkv
+                                      else b * sk * h * 128)
+    assert tfa.backward_plan(b, sq, sk, h, hkv, 64,
+                             torch.float32)["route"] == "fma"
+
+
+def test_tile_work_of_the_new_kernels():
+    """The split's CTA by hand: the consumers' work as past hd 128 (hd +
+    hdv a 64 x 64 tile); the one-grid backward's CTAs keep the two
+    kernels' work (dK / dV 320, dQ 256 hd-units a tile)."""
+    assert tfa.forward_tile_work(64, 64, split=True) == {
+        "kernel": "flash_attention_ws_kernel", "rows": 128,
+        "roles": ["producer", "consumer", "consumer"],
+        "hd_units": [0, 128, 128], "hd_units_per_64_rows": 128}
+    for bad in ((128, 128), (192, 128)):
+        with pytest.raises(ValueError, match="no split forward"):
+            tfa.forward_tile_work(*bad, split=True)
+    two = tfa.backward_tile_work(64, 64)
+    assert (two["dkdv"]["hd_units"], two["dq"]["hd_units"]) == ([320],
+                                                               [256])
+
+
+@pytest.mark.parametrize("pair", tfa.HEAD_DIMS,
+                         ids=[f"{a}-{b}" for a, b in tfa.HEAD_DIMS])
+def test_plans_unchanged_off_the_new_routes(pair):
+    """Every pair's forward and backward plans, on both routes, causal or
+    not, with and without a window, equal the plans from before the
+    narrow kernels except where a later route takes them: the narrow
+    pair's short shapes, the split (a tensor-core forward at (64, 64)
+    without a mask, by _split) and the one-grid backward (at (64, 64),
+    H == Hkv)."""
+    hd, hdv = pair
+    n = tfa.NARROW_MAX_LEN
+    moved = {"split": 0, "one_grid": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for route in (None, "tc", "fma"):
+            if route == "tc" and tfa._route(dtype, hd, hdv) != "tc":
+                continue
+            tc = (route or tfa._route(dtype, hd, hdv)) == "tc"
+            for b, sq, sk, h, hkv in ((2, n + 1, n + 1, 4, 4),
+                                      (1, 1500, 1500, 6, 6),
+                                      (8, 1500, 1500, 6, 6),
+                                      (1, 2048, 1024, 64, 8),
+                                      (3, 100, 400, 2, 1),
+                                      (1, 1, 300, 4, 4)):
+                args = (b, sq, sk, h, hkv, hd, dtype, route, hdv)
+                for causal, window in ((True, 0), (False, 0), (True, 64),
+                                       (False, 64)):
+                    kw = {"hdv": hdv, "causal": causal, "window": window}
+                    plan = tfa.forward_plan(*args[:-1], **kw)
+                    bplan = tfa.backward_plan(*args[:-1], hdv=hdv)
+                    split = (tfa._split(b, sq, sk, h, hkv, hd, hdv, causal,
+                                        window) if tc else 0)
+                    if split:
+                        assert plan["cluster"] == split
+                        assert pair in tfa.SPLIT_PAIRS
+                        assert not causal and window == 0
+                        moved["split"] += 1
+                    else:
+                        assert plan == _parent_forward_plan(*args)
+                    if tc and tfa._one_grid(hd, hdv, h, hkv):
+                        assert bplan["kernels"][-1][0] == (
+                            "fa_bwd_dkdv_dq_tc_kernel")
+                        assert pair == (64, 64) and h == hkv
+                        moved["one_grid"] += 1
+                    else:
+                        assert bplan == _parent_backward_plan(*args)
+    # bf16 on the rule's route and named "tc" (two routes), unmasked, at
+    # (64, 64): (2, 257, 257, 4, 4) (24 CTAs) and whisper's serving encoder
+    # (72) split; (3, 100, 400) is under 128 queries.  The one-grid
+    # backward: the four shapes with H == Hkv, at each of the four masks
+    want = {(64, 64): {"split": 4, "one_grid": 32}}
+    assert moved == want.get(pair, {"split": 0, "one_grid": 0})
+
+
+def test_backward_wrapper_marshals_the_one_grid_launch(monkeypatch):
+    """What the wrapper hands fa_backward_tc for the one-grid launch, with
+    a stand-in library (no card): q, k, v, o, dO, lse, D, dq, dk, dv, no
+    partials, the strides, (b, sq, sk, h, hkv, hd, hdv, causal, window),
+    the scale, one_grid 1 and the stream; flash_attention_bwd_one_grid
+    counts it.  GQA at the same head dims, and the separate launches a
+    caller names, get one_grid 0; the FMA route refuses one_grid."""
+    import contextlib
+    import types
+
+    calls = []
+
+    class Lib:
+        def fa_backward_tc(self, *args):
+            calls.append(("tc", args))
+            return 0
+
+    monkeypatch.setattr(tfa.BWD_LIBRARY, "load", lambda: Lib())
+    monkeypatch.setattr(tfa, "_check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    q = torch.zeros((2, 130, 4, 64), dtype=torch.bfloat16)
+    kv = torch.zeros((2, 200, 4, 64), dtype=torch.bfloat16)
+    kv2 = torch.zeros((2, 200, 2, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((2, 4, 130))
+    tfa.reset_launches()
+    tfa.backward(q, q, kv, kv, q, lse, True, 0)
+    tfa.backward(q, q, kv2, kv2, q, lse, False, 0)
+    tfa.backward(q, q, kv, kv, q, lse, True, 0, one_grid=False)
+    (r0, a0), (r1, a1), (r2, a2) = calls
+    assert (r0, r1, r2) == ("tc", "tc", "tc")
+    assert len(a0) == 25
+    assert a0[5] == lse.data_ptr() and a0[6] is not None   # lse, then D
+    assert a0[10] is None and a0[11] is None               # no partials
+    assert a0[13:22] == (2, 130, 200, 4, 4, 64, 64, 1, 0)
+    assert a0[22] == pytest.approx(1 / 8)
+    assert (a0[23], a1[23], a2[23]) == (1, 0, 0)
+    assert a1[10] is not None and a2[10] is None
+    assert tfa.LAUNCHES["flash_attention_bwd_one_grid"] == 1
+    assert tfa.LAUNCHES["flash_attention_bwd_tc"] == 3
+    q32 = q.float()
+    with pytest.raises(ValueError, match="one grid"):
+        tfa.backward(q32, q32, kv.float(), kv.float(), q32, lse, True, 0,
+                     one_grid=True)
+    assert len(calls) == 3

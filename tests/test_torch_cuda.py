@@ -870,7 +870,9 @@ def test_flash_attention_fma_route_bf16(cuda, case):
                             "flash_attention_bwd": 0,
                             "flash_attention_bwd_tc": 0,
                             "flash_attention_narrow": 0,
-                            "flash_attention_bwd_narrow": 0}
+                            "flash_attention_bwd_narrow": 0,
+                            "flash_attention_split": 0,
+                            "flash_attention_bwd_one_grid": 0}
     want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
                                     skip_masked_chunks=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
@@ -911,7 +913,9 @@ def test_flash_attention_tc_refuses_misaligned(cuda):
                             "flash_attention_bwd": 0,
                             "flash_attention_bwd_tc": 0,
                             "flash_attention_narrow": 0,
-                            "flash_attention_bwd_narrow": 0}
+                            "flash_attention_bwd_narrow": 0,
+                            "flash_attention_split": 0,
+                            "flash_attention_bwd_one_grid": 0}
 
 
 def test_flash_attention_wrapper_refuses(cuda):
@@ -1070,9 +1074,10 @@ def test_flash_attention_backward_tc_does_not_spill(cuda):
     """ptxas -v of the library: no tensor-core backward kernel spills, at
     any pair (preprocess at each hdv, dK / dV and dQ at each pair, the
     GQA reduction into bf16 and into float32, the one-launch kernel at
-    (24, 16)), and ptxas serialises the wgmma of none of the two-warpgroup
-    dK / dV and dQ kernels past hd 128 and of the one-launch kernel (no
-    "(C7520) Potential Performance Loss" note names them)."""
+    (24, 16), the one-grid kernel at the five one-warpgroup pairs), and
+    ptxas serialises the wgmma of none of the two-warpgroup dK / dV and
+    dQ kernels past hd 128 and of the one-launch kernel (no "(C7520)
+    Potential Performance Loss" note names them)."""
     import re
 
     tfa.BWD_LIBRARY.build()
@@ -1087,8 +1092,9 @@ def test_flash_attention_backward_tc_does_not_spill(cuda):
                           body)
             found[name] = (int(m.group(1)), int(m.group(2)))
     # 5 preprocess (hdv 16, 32, 64, 128, 256), 7 dK / dV, 7 dQ, 2
-    # reductions, the one-launch kernel at (24, 16)
-    assert len(found) == 22, found
+    # reductions, the one-launch kernel at (24, 16), the one-grid kernel
+    # at (16, 16), (24, 16), (32, 32), (64, 64) and (128, 128)
+    assert len(found) == 27, found
     assert all(v == (0, 0) for v in found.values()), found
     wide = [n for n in found if re.search(
         r"fa_bwd_(dkdv|dq)_tc_kernelI(Li192ELi128E|Li256ELi256E)", n)]
@@ -1526,9 +1532,10 @@ def _forward_ptxas():
     for name, body in re.findall(
             r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
             log, re.S):
-        m = re.search(r"flash_attention_ws_kernelILi(\d+)ELi(\d+)E", name)
+        m = re.search(r"flash_attention_ws_kernelILi(\d+)ELi(\d+)ELi(\d)E",
+                      name)
         if m:
-            found[(int(m.group(1)), int(m.group(2)))] = (name, body)
+            found[tuple(int(x) for x in m.groups())] = (name, body)
     return log, found
 
 
@@ -1540,7 +1547,10 @@ def test_flash_attention_ws_does_not_spill_or_serialise(cuda):
     import re
 
     log, found = _forward_ptxas()
-    assert sorted(found) == [(192, 128), (256, 256)], found
+    # (hd, hdv, mode): past hd 128 mode 0 (no cluster); the split (mode
+    # 1) at (64, 64)
+    assert sorted(found) == [(64, 64, 1), (192, 128, 0),
+                             (256, 256, 0)], found
     for name, body in found.values():
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       body)
@@ -1574,7 +1584,7 @@ def test_forward_plan_smem_matches_ptxas_and_launch(cuda):
                 attrs["smem_bytes"], attrs["static_smem_bytes"],
                 attrs["threads"], attrs["rows"]), (hd, hdv, sk)
             if hd > 128:
-                _, body = found[(hd, hdv)]
+                _, body = found[(hd, hdv, 0)]
                 m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem",
                               body)
                 assert (int(m.group(1)), int(m.group(2))) == (
@@ -1585,3 +1595,262 @@ def test_forward_plan_smem_matches_ptxas_and_launch(cuda):
             torch.cuda.synchronize()
             assert out.shape == (1, 70, 4, hdv)
             assert tfa.LAUNCHES["flash_attention_narrow"] == int(narrow)
+
+
+# the warp-specialised CTA split over a cluster at (64, 64), for launches
+# without a mask (B, Sq, Sk, H, Hkv, hd, hdv): whisper-tiny's encoder
+# (over 3 CTAs), ragged lengths, g = 3, a ragged q tile past one batch's
+# end; each with its cluster
+SPLIT_FA_CASES = [
+    ((1, 1500, 1500, 6, 6, 64, 64), 3),
+    ((1, 200, 333, 2, 2, 64, 64), 4),
+    ((2, 129, 70, 3, 1, 64, 64), 2),
+    ((3, 300, 1000, 4, 4, 64, 64), 4),
+]
+
+
+@pytest.mark.parametrize("case,split", SPLIT_FA_CASES,
+                         ids=[f"split{s}-{i}" for i, (c, s)
+                              in enumerate(SPLIT_FA_CASES)])
+def test_flash_attention_split_matches_plain(cuda, case, split):
+    """The warp-specialised forward split over a cluster against the plain
+    version (bf16, 2e-2), its lse against the FMA kernel's (float32,
+    1e-5): the plan names the cluster from the shapes, the launch counts
+    on flash_attention_split, and a second launch gives the same bits
+    (the split's rank-order sum)."""
+    b, sq, sk, h, hkv, hd, hdv = case
+    plan = tfa.forward_plan(b, sq, sk, h, hkv, hd, torch.bfloat16, hdv=hdv,
+                            causal=False)
+    assert (plan["kernel"], plan["cluster"]) == (
+        "flash_attention_ws_kernel", split)
+    q, k, v = _ws_qkv(case, cuda, seed=sum(case))
+    tfa.reset_launches()
+    got, lse = tfa._forward(q, k, v, False, 0, 0, "tc", with_lse=True)
+    assert tfa.LAUNCHES["flash_attention_split"] == 1
+    want = tref.flash_attention_ref(q, k, v, False, 0, 0)
+    _, lse_fma = tfa._forward(q.float(), k.float(), v.float(), False, 0, 0,
+                              "fma", with_lse=True)
+    again = tfa.launch(q, k, v, False, 0, 0, "tc")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (b, sq, h, hdv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, lse_fma, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+def test_flash_attention_split_reads_strided_views(cuda):
+    """q, k and v sliced out of a fused projection (no copies) through
+    the split's tensor maps."""
+    rng = np.random.default_rng(8)
+    wide = torch.from_numpy(rng.normal(size=(1, 200, 6, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = wide[:, :, :2], wide[:, :, 2:4], wide[:, :, 4:]
+    plan = tfa.forward_plan(1, 200, 200, 2, 2, 64, torch.bfloat16,
+                            causal=False)
+    assert plan.get("cluster") == 4, plan
+    assert not q.is_contiguous() and tfa._tc_aligned(k)
+    tfa.reset_launches()
+    got = tfa.flash_attention(q, k, v, causal=False)
+    assert tfa.LAUNCHES["flash_attention_split"] == 1
+    want = tref.flash_attention_ref(q, k, v, False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_attention_split_refuses_misaligned(cuda):
+    """The split's tensor maps take what the other tensor-core
+    kernels take: a q two bytes off its 16-byte boundary raises before
+    any launch."""
+    q, k, v = _ws_qkv((1, 256, 256, 6, 6, 64, 64), cuda, seed=2)
+    assert tfa.forward_plan(1, 256, 256, 6, 6, 64, torch.bfloat16,
+                            causal=False)["cluster"] == 4
+    buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    q_off = buf[1:].view(q.shape)
+    q_off.copy_(q)
+    tfa.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(q_off, k, v, causal=False)
+    assert tfa.LAUNCHES["flash_attention"] == 0
+
+
+def test_split_plan_smem_matches_launch(cuda):
+    """forward_plan's shared memory, threads and rows in the split against
+    the loaded library's launch attributes and ptxas's static bytes and
+    registers."""
+    import re
+
+    _, found = _forward_ptxas()
+    for (hd, hdv, mode), (name, body) in found.items():
+        if mode == 0:
+            continue
+        attrs = tfa.tc_attributes(hd, hdv, split=True)
+        plan = tfa.forward_plan(1, 1500, 1500, 6, 6, hd, torch.bfloat16,
+                                hdv=hdv, causal=False)
+        assert plan["cluster"] == 3, (hd, plan)
+        assert (plan["smem_bytes"], plan["static_smem_bytes"],
+                plan["threads"], plan["rows"]) == (
+            attrs["smem_bytes"], attrs["static_smem_bytes"],
+            attrs["threads"], attrs["rows"]), (hd, hdv)
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", body)
+        assert (int(m.group(1)), int(m.group(2))) == (
+            attrs["registers"], plan["static_smem_bytes"])
+
+
+# the backward at (64, 64) with H == Hkv, its dK / dV and dQ CTAs in one
+# grid (B, Sq, Sk, H, causal): whisper-tiny's encoder in training, its
+# decoder's cross-attention (Sq != Sk) and self-attention (causal),
+# ragged lengths, one key tile
+ONE_GRID_BWD_CASES = [
+    (8, 1500, 1500, 6, False),
+    (8, 448, 1500, 6, False),
+    (8, 448, 448, 6, True),
+    (1, 200, 333, 2, False),
+    (2, 65, 64, 3, True),
+    (1, 1000, 130, 2, False),
+]
+
+
+@pytest.mark.parametrize("case", ONE_GRID_BWD_CASES)
+def test_flash_attention_one_grid_backward_matches_plain(cuda, case):
+    """The one-grid backward through FlashAttentionFn against autograd
+    through the plain version (BWD_TOL): two launches (D, then
+    fa_bwd_dkdv_dq_tc_kernel), counted on flash_attention_bwd_one_grid;
+    two backward runs give the same bits, and so does the four-kernel
+    route whose CTAs it runs."""
+    b, sq, sk, h, causal = case
+    qkv, do = _bwd_inputs((b, sq, sk, h, h, 64), torch.bfloat16, cuda,
+                          seed=sum(case))
+    plan = tfa.backward_plan(b, sq, sk, h, h, 64, torch.bfloat16)
+    assert [n for n, _ in plan["kernels"]] == [
+        "fa_bwd_preprocess_tc_kernel", "fa_bwd_dkdv_dq_tc_kernel"]
+    tfa.reset_launches()
+    out = tfa.flash_attention(*qkv, causal=causal)
+    got = torch.autograd.grad(out, qkv, do, retain_graph=True)
+    again = torch.autograd.grad(out, qkv, do)
+    assert tfa.LAUNCHES["flash_attention_bwd_one_grid"] == 2
+    ref_out = tref.flash_attention_ref(*qkv, causal, 0, 0, 256, 256)
+    want = torch.autograd.grad(ref_out, qkv, do)
+    # the same CTAs launched as the two kernels (the separate launches
+    # named): the same bits
+    with torch.no_grad():
+        o, lse = tfa._forward(*[t.detach() for t in qkv], causal, 0, 0,
+                              "tc", with_lse=True)
+    two = tfa.backward(do, *[t.detach() for t in qkv], o, lse, causal, 0,
+                       one_grid=False)
+    torch.cuda.synchronize()
+    for g, g2, g3, w, t in zip(got, again, two, want, qkv):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        assert torch.equal(g.view(torch.int16), g2.view(torch.int16))
+        assert torch.equal(g.view(torch.int16), g3.view(torch.int16))
+        torch.testing.assert_close(g.float(), w.float(),
+                                   **BWD_TOL[torch.bfloat16])
+
+
+def test_flash_attention_one_grid_backward_strided_and_misaligned(cuda):
+    """The one-grid backward reads q, k and v as views of a fused
+    projection; a misaligned q raises before any launch."""
+    rng = np.random.default_rng(9)
+    qkv = torch.from_numpy(rng.normal(size=(2, 300, 12, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16).requires_grad_()
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
+    do = torch.from_numpy(rng.normal(size=(2, 300, 4, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    tfa.reset_launches()
+    out = tfa.flash_attention(q, k, v, causal=False)
+    got, = torch.autograd.grad(out, qkv, do)
+    assert tfa.LAUNCHES["flash_attention_bwd_one_grid"] == 1
+    ref = tref.flash_attention_ref(q, k, v, False, 0, 0, 256, 256)
+    want, = torch.autograd.grad(ref, qkv, do)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **BWD_TOL[torch.bfloat16])
+    (q, k, v), _ = _bwd_inputs((1, 128, 128, 2, 2, 64), torch.bfloat16,
+                               cuda, seed=4)
+    with torch.no_grad():
+        buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+        q_off = buf[1:].view(q.shape)
+        q_off.copy_(q)
+    lse = torch.zeros((1, 2, 128), dtype=torch.float32, device=cuda)
+    tfa.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.backward(q, q_off, k, v, q, lse, False, 0)
+    assert tfa.LAUNCHES["flash_attention_bwd"] == 0
+
+
+# the one-grid launch named at the other one-warpgroup pairs, H == Hkv
+# (B, Sq, Sk, H, hd, hdv, causal): the (24, 16) pair past NARROW_MAX_LEN
+# (the smoke's mla_smoke_257), ragged lengths at the rest
+ONE_GRID_NAMED_CASES = [
+    (2, 257, 257, 4, 24, 16, True),
+    (1, 200, 333, 2, 16, 16, False),
+    (2, 130, 130, 3, 32, 32, True),
+    (1, 300, 200, 2, 128, 128, False),
+]
+
+
+@pytest.mark.parametrize("case", ONE_GRID_NAMED_CASES)
+def test_flash_attention_one_grid_named_matches_separate(cuda, case):
+    """fa_backward_tc's one-grid launch where a caller names it (the plan
+    keeps the separate launches at these pairs): the same bits as the
+    separate launches, within BWD_TOL of the plain version; GQA and a
+    pair past hd 128 refuse it."""
+    b, sq, sk, h, hd, hdv, causal = case
+    (q, k, v), do = _bwd_inputs((b, sq, sk, h, h, hd), torch.bfloat16, cuda,
+                                seed=sum(case), hdv=hdv)
+    plan = tfa.backward_plan(b, sq, sk, h, h, hd, torch.bfloat16, hdv=hdv)
+    assert plan["kernels"][-1][0] == "fa_bwd_dq_tc_kernel"
+    o, lse = tfa._forward(q.detach(), k.detach(), v.detach(), causal, 0, 0,
+                          "tc", with_lse=True)
+    args = (do, q.detach(), k.detach(), v.detach(), o, lse, causal, 0)
+    tfa.reset_launches()
+    one = tfa.backward(*args, one_grid=True)
+    two = tfa.backward(*args)
+    assert tfa.LAUNCHES["flash_attention_bwd_one_grid"] == 1
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref = tref.flash_attention_ref(*qkv, causal, 0, 0, 256, 256)
+    want = torch.autograd.grad(ref, qkv, do)
+    for g, g2, w in zip(one, two, want):
+        assert torch.equal(g.view(torch.int16), g2.view(torch.int16))
+        torch.testing.assert_close(g.float(), w.float(),
+                                   **BWD_TOL[torch.bfloat16])
+    (q, k, v), do = _bwd_inputs((1, 300, 300, 4, 2, hd), torch.bfloat16,
+                                cuda, seed=1, hdv=hdv)
+    o, lse = tfa._forward(q.detach(), k.detach(), v.detach(), True, 0, 0,
+                          "tc", with_lse=True)
+    with pytest.raises(RuntimeError, match="status"):
+        tfa.backward(do, q.detach(), k.detach(), v.detach(), o, lse, True,
+                     0, one_grid=True)
+    (q, k, v), do = _bwd_inputs((1, 300, 300, 2, 2, 192), torch.bfloat16,
+                                cuda, seed=1, hdv=128)
+    o, lse = tfa._forward(q.detach(), k.detach(), v.detach(), True, 0, 0,
+                          "tc", with_lse=True)
+    with pytest.raises(RuntimeError, match="status"):
+        tfa.backward(do, q.detach(), k.detach(), v.detach(), o, lse, True,
+                     0, one_grid=True)
+
+
+def test_new_flash_kernels_do_not_spill_or_serialise(cuda):
+    """ptxas -v: the one-grid backward (at each one-warpgroup pair) and
+    the split of the warp-specialised forward spill nothing, and no
+    "(C75xx)" note (wgmma serialised) names them."""
+    import re
+
+    for lib, kernel in ((tfa.LIBRARY, r"flash_attention_ws_kernelILi64"),
+                        (tfa.BWD_LIBRARY, r"fa_bwd_dkdv_dq_tc_kernel")):
+        lib.build()
+        with open(lib.log_path()) as f:
+            log = f.read()
+        found = {name: body for name, body in re.findall(
+            r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
+            log, re.S) if re.search(kernel, name)}
+        assert len(found) == (5 if lib is tfa.BWD_LIBRARY else 1), list(
+            found)
+        # C7520 / C7515 say "in the function", C7512 (too few registers)
+        # "for the function"
+        notes = re.findall(r"\((C75\d\d)\).*? (?:in|for) the function "
+                           r"'(\S+?)'", log)
+        for name, body in found.items():
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", body)
+            assert (int(m.group(1)), int(m.group(2))) == (0, 0), name
+            assert not [n for n in notes if n[1] == name], notes

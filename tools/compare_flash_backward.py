@@ -20,7 +20,10 @@ its ``csrc/flash_attention_bwd.cu`` (into the tree's gitignored
   whether two runs give the same bits;
 - ``times``: at TIMES, the route's device time by kernel in
   ``torch.profiler`` (REPS calls, each after an L2 flush), and the
-  median of CUDA events around the same calls.
+  median of CUDA events around the same calls.  A row that names
+  ``one_grid`` (the dK / dV and dQ CTAs in one grid, or the separate
+  launches) times that launch where the tree's ``backward`` takes the
+  word, and reports ``"skipped"`` where it does not.
 
 Then the card's name and power limit.  Give the trees as parent, change,
 change, parent to see the spread beside the difference.  ``--only``
@@ -52,20 +55,42 @@ CHECKS = [
     ("mla_smoke", (2, 256, 256, 4, 4, 24, 16), True, 0),
     ("mla_smoke_gqa", (1, 256, 256, 8, 2, 24, 16), True, 70),
     ("mla_smoke_257", (2, 257, 257, 4, 4, 24, 16), True, 0),
+    # hd 64 with H == Hkv (the one-grid launch): ragged, Sq != Sk, one
+    # key tile, whisper's causal decoder
+    ("hd64_ragged", (1, 200, 333, 2, 2, 64, 64), False, 0),
+    ("whisper_cross_small", (2, 448, 1500, 2, 2, 64, 64), False, 0),
+    ("hd64_one_block", (2, 65, 64, 3, 3, 64, 64), False, 0),
+    ("whisper_dec_small", (2, 448, 448, 2, 2, 64, 64), True, 0),
 ]
-#: (label, (B, S, S, H, Hkv, hd, hdv), causal, window): the training
-#: phases' attention (chip_smoke.py BWD_CASES)
+#: (label, (B, S, S, H, Hkv, hd, hdv), causal, window[, one_grid]): the
+#: training phases' attention (chip_smoke.py BWD_CASES); one_grid names
+#: the launch where the plan would take the other
 TIMES = [
     ("mla_train", (2, 2048, 2048, 16, 16, 192, 128), True, 0),
     ("rg_train", (1, 3072, 3072, 16, 1, 256, 256), True, 2048),
     ("train", (2, 1024, 1024, 12, 2, 128, 128), True, 0),
     ("mla_smoke", (2, 256, 256, 4, 4, 24, 16), True, 0),
+    # whisper-tiny's training step (train_whisper): the encoder, the
+    # decoder's self-attention (causal) and its cross-attention
+    ("whisper_train", (8, 1500, 1500, 6, 6, 64, 64), False, 0),
+    ("whisper_dec_self", (8, 448, 448, 6, 6, 64, 64), True, 0),
+    ("whisper_dec_cross", (8, 448, 1500, 6, 6, 64, 64), False, 0),
+    # the same three on the separate launches, and the one grid at the
+    # other one-warpgroup row with H == Hkv, (24, 16) past 256 keys
+    ("whisper_train_separate", (8, 1500, 1500, 6, 6, 64, 64), False, 0,
+     False),
+    ("whisper_dec_self_separate", (8, 448, 448, 6, 6, 64, 64), True, 0,
+     False),
+    ("whisper_dec_cross_separate", (8, 448, 1500, 6, 6, 64, 64), False, 0,
+     False),
+    ("mla_smoke_257", (2, 257, 257, 4, 4, 24, 16), True, 0),
+    ("mla_smoke_257_one_grid", (2, 257, 257, 4, 4, 24, 16), True, 0, True),
 ]
 TOL = {"rtol": 2e-2, "atol": 2e-2}
 REPS = 20
 
 _CHILD = r"""
-import json, re, statistics, sys
+import inspect, json, re, statistics, sys
 import torch
 from torch.profiler import ProfilerActivity, profile
 from repro_torch.kernels import flash_attention as fa
@@ -121,12 +146,18 @@ for label, (b, sq, sk, h, hkv, hd, hdv), causal, window in CHECKS:
     ok &= row["equal_bits"] and all(row[n][1] for n in ("dq", "dk", "dv"))
     out["checks"][label] = row
 
-for label, (b, sq, sk, h, hkv, hd, hdv), causal, window in TIMES:
+takes = "one_grid" in inspect.signature(fa.backward).parameters
+for label, (b, sq, sk, h, hkv, hd, hdv), causal, window, *named in TIMES:
+    if named and not takes:
+        out["times"][label] = "skipped"
+        continue
+    kw = {"one_grid": named[0]} if named else {}
     q, k, v, do = inputs(b, sq, sk, h, hkv, hd, hdv)
     o, lse = fa._forward(q, k, v, causal, window, 0, "tc", with_lse=True)
 
     def fn():
-        return fa.backward(do, q, k, v, o, lse, causal, window, route="tc")
+        return fa.backward(do, q, k, v, o, lse, causal, window, route="tc",
+                           **kw)
 
     for _ in range(3):
         fn()

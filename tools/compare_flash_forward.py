@@ -54,6 +54,18 @@ CASES = [
     ("mla_smoke", (2, 256, 256, 4, 4, 24, 16), "bfloat16", True, 0, "tc"),
     ("mla_smoke_f32", (2, 256, 256, 4, 4, 24, 16), "float32", True, 0,
      "fma"),
+    # whisper-tiny's serving encoder (the warp-specialised CTA split over
+    # a cluster); Llama-3.2-Vision's cross-attention at its longest and
+    # shortest prompts and whisper's training encoder, which stay on the
+    # one-warpgroup kernel
+    ("whisper_encoder", (1, 1500, 1500, 6, 6, 64, 64), "bfloat16", False, 0,
+     "tc"),
+    ("vlm_cross", (1, 2048, 1024, 64, 8, 128, 128), "bfloat16", False, 0,
+     "tc"),
+    ("vlm_cross_768", (1, 768, 1024, 64, 8, 128, 128), "bfloat16", False, 0,
+     "tc"),
+    ("whisper_train_fwd", (8, 1500, 1500, 6, 6, 64, 64), "bfloat16", False,
+     0, "tc"),
 ]
 REPS = 20
 
