@@ -78,24 +78,28 @@ Phases, one JSON line each:
            at the prefill shape (B, Sq, Sk, H, Hkv, hd) = (1, 2048, 2048,
            12, 2, 128) bf16 causal through both kernels (the tensor-core
            route, "tc", and the float32-FMA route, "fma"), the tensor-core
-           route with window 512 and at Sq = Sk = 256 and 1,000, the FMA
-           route in float32 with window 512, a decode-style (1, 1,
+           route with window 512 and at Sq = Sk = 256 and 1,000, float32
+           with window 512 on its tensor-core route ("tf32x3", split
+           TF32; every float32 row also times the FMA kernel in turns,
+           with both bounds and the kernels SDPA ran), a decode-style (1, 1,
            2048, ...) with q_offset 2047, DeepSeek-V2-Lite's prefill
            (1, 2048, 2048, 16, 16) at qk 192 / v 128 and RecurrentGemma-
            9B's (1, 3072, 3072, 16, 1) at (256, 256) with window 2,048,
-           each bf16 on the tensor cores and float32 on the FMA route,
+           each bf16 on the tensor cores and float32 on "tf32x3",
            whisper-tiny's encoder (1, 1500, 1500, 6, 6) at hd 64 and
            Llama-3.2-Vision's cross-attention (1, 2048, 1024, 64, 8) at
            hd 128, both without a mask, on the tensor cores (at hd 64
            the warp-specialised CTA split over a cluster),
            DeepSeek-V2-Lite's smoke pair (2, 256, 256, 4, 4) at (24,
-           16) through the narrow CTA (bf16), the FMA kernel (float32)
-           and, one key past the narrow limit, the general kernel,
+           16) through the narrow CTA (bf16), "tf32x3" (float32)
+           and, one key past the narrow limit, the general kernel, the
+           smoke configs' (1, 512, 512, 4, 2) at hd 16 in float32,
            each with its profiler device time (tolerance 2e-5 float32, 2e-2 bf16; the elements
            that differ from the plain version counted); the flash backward (dq, dk, dv) against autograd
            through the plain version at (B, S, H, Hkv, hd) = (2, 1024,
            12, 2, 128) bf16 causal, the same with window 256, at hd 64,
-           at the ragged length 1,000, and float32 hd 8 and 16, the
+           at the ragged length 1,000, and float32 at the first shape and
+           at hd 8 and 16, the
            training phases' attention (DeepSeek-V2-Lite's (2, 2048, 16,
            16) at qk 192 / v 128; RecurrentGemma-9B's (1, 3072, 16, 1) at
            (256, 256) with window 2,048), each bf16 and float32,
@@ -107,9 +111,13 @@ Phases, one JSON line each:
            through the one-grid launch); the (24, 16) rows beside the event and device
            time of an empty launch (torch.cuda._sleep(0)) under the same
            timer,
-           bf16 on both routes (tensor cores, then float32 FMAs; timed in
-           turns, and the tensor cores must win at the first case: the
-           route gate), two runs bit-equal, SDPA's backward as the
+           bf16 and float32 (at hd 8 the FMA route alone) on both their
+           routes (tensor cores, then float32 FMAs; timed in turns, and
+           the tensor cores must win at ROUTE_GATE_ROWS, by events or,
+           at the launch-bound (24, 16) float32 row, by device time: the
+           route gate; at hd 16 in float32, where the rule keeps the FMA
+           backward, both are timed),
+           two runs bit-equal, SDPA's backward as the
            library call (by profiler device time, and by CUDA events)
            with its errors against the same reference, the
            tensor-core route's device time by kernel, and the forward
@@ -173,7 +181,7 @@ Phases, one JSON line each:
            drawn from ``--seed``, 32 greedy tokens each.  First a parity
            check in float32 compute, flash-attention kernel against its
            plain version on the card (prefill logits within tolerance,
-           identical tokens; float32 runs the FMA kernel); then the bf16
+           identical tokens); then the bf16
            run: prefill and decode rates, flash-attention launches (every
            one on the tensor-core route), and from torch.profiler the
            kernel's device time, busy time by activity and idle share
@@ -181,7 +189,8 @@ Phases, one JSON line each:
            ServeEngine(batch_slots = 4, max_len = 2,560): 4 requests of
            512-2,048 prompt tokens from ``--seed``, 32 greedy tokens
            each.  First float32 compute on the bf16 weights, the kernels
-           (the FMA route at (192, 128)) against the plain attention:
+           (the float32 route, "tf32x3", at (192, 128); every launch
+           counted on it) against the plain attention:
            prefill logits within LOGIT_TOL and identical greedy tokens;
            then bf16: one tensor-core launch a layer a request, the
            profile showing flash_attention_ws_kernel and no FMA kernel;
@@ -193,7 +202,7 @@ Phases, one JSON line each:
            max_len = 3,200): one prompt of 3,072 tokens (past the 2,048
            window) and 3 of 512-2,048 from ``--seed``, 32 greedy tokens
            each.  First float32 compute on the bf16 weights, the kernels
-           (the FMA route at (256, 256), one launch an attention layer a
+           ("tf32x3" at (256, 256), one launch an attention layer a
            request) against the plain attention: prefill logits within
            LOGIT_TOL and identical greedy tokens; then bf16: one
            tensor-core launch an attention layer a request, the profile
@@ -227,6 +236,10 @@ Phases, one JSON line each:
            attention is the kernels phase's mla_smoke shape, and every
            launch must be the narrow forward (flash_attention_narrow_kernel)
            and the one-launch backward (fa_bwd_narrow_tc_kernel)
+  train_mla_smoke_f32  the same in the smoke config's own float32
+           (TRAIN_MLA_SMOKE_F32, as `launch.train --smoke` runs it): every
+           forward and backward launch on the float32 tensor-core route
+           (flash_attention_tf32_kernel, fa_backward_tf32)
   serve_mamba  Mamba-2 2.7B through ServeEngine (MAMBA: 4 requests of
            1,024-2,048 prompt tokens, 16 greedy tokens each, 4 slots):
            first, on the bf16 weights, the float32 engine's greedy tokens
@@ -242,7 +255,8 @@ Phases, one JSON line each:
   serve_whisper  whisper-tiny request by request through its own prefill
            (the encoder over 1,500 frames, the decoder's 4-token prefix,
            the cross k / v computed once) and decode_step: float32
-           compute, the kernels (the FMA route at hd 64) against the plain
+           compute, the kernels ("tf32x3" at hd 64, every launch counted
+           on it) against the plain
            attention (prefill logits within LOGIT_TOL, identical greedy
            tokens); then bf16: every flash launch on the tensor cores,
            counted by shape (the encoder's at FA_CASES' whisper_encoder,
@@ -376,22 +390,24 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OPS = [("avg", {}), ("ta", {"lam": 0.7}), ("ties", {"trim_frac": 0.3}),
        ("dare", {"density": 0.5, "seed": 3})]
 # H100 data sheet (SXM): HBM bytes/s, float32 and float64 vector FLOP/s,
-# bf16 dense tensor-core FLOP/s
-PEAK = {"bytes": 3.35e12, "f32": 67e12, "f64": 34e12, "bf16": 989e12}
+# bf16 and TF32 dense tensor-core FLOP/s
+PEAK = {"bytes": 3.35e12, "f32": 67e12, "f64": 34e12, "bf16": 989e12,
+        "tf32": 495e12}
 TOL = 1e-5
 # tests/test_kernels.py:133,149: float32 sums in another order; bf16
 # outputs one rounding apart
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # (label, (B, Sq, Sk, H, Hkv, hd, hdv), dtype, causal, window, q_offset,
 # route); the first is the serving path's prefill shape and the contract
-# line's row; "tc" is the tensor-core kernel, "fma" the float32-FMA
-# kernel.  The "mla" rows are DeepSeek-V2-Lite's prefill (qk 192 / v 128,
-# 16 heads): the serve_mla phase's tensor-core launches, and the FMA
-# route in float32 that its float32 parity run takes; the "rg" rows the
-# same for RecurrentGemma-9B's local attention (qk / v 256, 16 heads over
-# one kv head, window 2,048) at the serve_griffin phase's longest prompt;
-# all four go into the contract line (FA_ROWS) with their profiler device
-# time
+# line's row; "tc" is the tensor-core kernel, "tf32x3" the float32
+# tensor-core kernel (split TF32; each such row also times the float32-
+# FMA kernel in turns), "fma" the float32-FMA kernel.  The "mla" rows are
+# DeepSeek-V2-Lite's prefill (qk 192 / v 128, 16 heads): the serve_mla
+# phase's tensor-core launches, and the float32 route that its float32
+# parity run takes; the "rg" rows the same for RecurrentGemma-9B's local
+# attention (qk / v 256, 16 heads over one kv head, window 2,048) at the
+# serve_griffin phase's longest prompt; all four go into the contract
+# line (FA_ROWS) with their profiler device time
 FA_CASES = [
     ("prefill", (1, 2048, 2048, 12, 2, 128, 128), "bfloat16", True, 0, 0,
      "tc"),
@@ -404,27 +420,32 @@ FA_CASES = [
     ("prefill_1000", (1, 1000, 1000, 12, 2, 128, 128), "bfloat16", True, 0,
      0, "tc"),
     ("prefill_window_f32", (1, 2048, 2048, 12, 2, 128, 128), "float32", True,
-     512, 0, "fma"),
+     512, 0, "tf32x3"),
     ("decode", (1, 1, 2048, 12, 2, 128, 128), "bfloat16", True, 0, 2047,
      "tc"),
     ("mla_prefill", (1, 2048, 2048, 16, 16, 192, 128), "bfloat16", True, 0,
      0, "tc"),
     ("mla_prefill_f32", (1, 2048, 2048, 16, 16, 192, 128), "float32", True,
-     0, 0, "fma"),
+     0, 0, "tf32x3"),
     ("rg_prefill", (1, 3072, 3072, 16, 1, 256, 256), "bfloat16", True, 2048,
      0, "tc"),
     ("rg_prefill_f32", (1, 3072, 3072, 16, 1, 256, 256), "float32", True,
-     2048, 0, "fma"),
+     2048, 0, "tf32x3"),
     # DeepSeek-V2-Lite's smoke config at (24, 16), at the backward's
     # mla_smoke shape: the narrow CTA (Sk <= NARROW_MAX_LEN; the
-    # train_mla_smoke phase's launches); the float32 FMA route the
-    # launchers take with the smoke config as it stands (compute_dtype
-    # float32); one key past the narrow limit, the general kernel
+    # train_mla_smoke phase's launches); the float32 route the launchers
+    # take with the smoke config as it stands (compute_dtype float32; the
+    # train_mla_smoke_f32 phase's launches); one key past the narrow
+    # limit, the general kernel
     ("mla_smoke", (2, 256, 256, 4, 4, 24, 16), "bfloat16", True, 0, 0, "tc"),
     ("mla_smoke_f32", (2, 256, 256, 4, 4, 24, 16), "float32", True, 0, 0,
-     "fma"),
+     "tf32x3"),
     ("mla_smoke_257", (2, 257, 257, 4, 4, 24, 16), "bfloat16", True, 0, 0,
      "tc"),
+    # the smoke configs' attention (hd 16, 4 heads over 2) in float32,
+    # the backward's f32_hd16 shape
+    ("f32_hd16", (1, 512, 512, 4, 2, 16, 16), "float32", True, 0, 0,
+     "tf32x3"),
     # whisper-tiny's encoder (1,500 frames, 6 heads at hd 64, no mask): the
     # serve_whisper phase's bf16 prefill launches at this shape
     ("whisper_encoder", (1, 1500, 1500, 6, 6, 64, 64), "bfloat16", False, 0,
@@ -436,12 +457,14 @@ FA_CASES = [
 ]
 # the served models' rows of the contract line: case label -> launch
 # counter (the serve_mla and serve_griffin phases' counts: bf16 prefill on
-# the tensor cores, the float32 run on the FMA kernel)
+# the tensor cores, the float32 run on the float32 tensor-core kernel;
+# the train_mla_smoke_f32 phase's float32 forwards at (24, 16))
 FA_ROWS = {"mla_prefill": "flash_attention_mla",
            "mla_smoke": "flash_attention_narrow",
-           "mla_prefill_f32": "flash_attention_mla_fma",
+           "mla_smoke_f32": "flash_attention_smoke_tf32x3",
+           "mla_prefill_f32": "flash_attention_mla_tf32x3",
            "rg_prefill": "flash_attention_rg",
-           "rg_prefill_f32": "flash_attention_rg_fma",
+           "rg_prefill_f32": "flash_attention_rg_tf32x3",
            "whisper_encoder": "flash_attention_whisper",
            "vlm_cross": "flash_attention_vlm_cross"}
 # (label, (NB, K, W)) float32 TIES launches: the merge path's largest
@@ -493,17 +516,21 @@ SERVICE_SPEC = {"jobs": [
 LOGIT_TOL = {"rtol": 1e-4, "atol": 2e-3}
 # (label, (B, Sq, Sk, H, Hkv, hd, hdv), dtype, causal, window): the flash
 # backward (q_offset 0) at the training phase's heads, bf16 (the
-# tensor-core forward's lse; both backward routes) and float32 (the FMA
-# forward's lse; the FMA route), at hd 64, and at a ragged length; the
-# first is the contract line's row and the route gate's shape.  The "mla"
-# rows are the train_mla phase's attention (DeepSeek-V2-Lite: 16 heads,
-# qk 192 / v 128, 2 x 2,048 tokens), the "rg" rows the train_griffin
-# phase's (RecurrentGemma-9B: 16 query heads over one kv head at 256,
-# window 2,048 over 3,072 tokens), each bf16 on both routes (BWD_ROWS: in
-# the contract line) and float32 on the FMA route; "mla_smoke" is
-# DeepSeek's smoke config's (24, 16)
+# tensor-core forward's lse; both backward routes) and float32 (the
+# route's forward's lse; the float32 tensor-core route, "tf32x3", and
+# the FMA route in turns where the rule picks the former, at hd 8 the
+# FMA route), at hd 64, and at a ragged length; the first is the
+# contract line's row and the route gate's shape.  The "mla" rows are
+# the train_mla phase's attention (DeepSeek-V2-Lite: 16 heads, qk 192 /
+# v 128, 2 x 2,048 tokens), the "rg" rows the train_griffin phase's
+# (RecurrentGemma-9B: 16 query heads over one kv head at 256, window
+# 2,048 over 3,072 tokens), each bf16 on both routes (BWD_ROWS: in the
+# contract line) and float32 on both of its routes; "mla_smoke" is
+# DeepSeek's smoke config's (24, 16), in float32 the
+# train_mla_smoke_f32 phase's backward
 BWD_CASES = [
     ("train", (2, 1024, 1024, 12, 2, 128, 128), "bfloat16", True, 0),
+    ("train_f32", (2, 1024, 1024, 12, 2, 128, 128), "float32", True, 0),
     ("train_window", (2, 1024, 1024, 12, 2, 128, 128), "bfloat16", True, 256),
     ("hd64", (2, 1024, 1024, 8, 2, 64, 64), "bfloat16", True, 0),
     ("ragged", (2, 1000, 1000, 12, 2, 128, 128), "bfloat16", True, 0),
@@ -531,11 +558,22 @@ BWD_CASES = [
 # shape, one counter a row: ONE_GRID_ROWS)
 BWD_ROWS = {"mla_train": "flash_attention_bwd_mla",
             "mla_smoke": "flash_attention_bwd_narrow",
+            "mla_smoke_f32": "flash_attention_bwd_tf32x3",
             "rg_train": "flash_attention_bwd_rg",
             "whisper_train": "flash_attention_bwd_one_grid_enc",
             "whisper_dec_self": "flash_attention_bwd_one_grid_dec_self",
             "whisper_dec_cross": "flash_attention_bwd_one_grid_dec_cross"}
 ONE_GRID_ROWS = ("whisper_train", "whisper_dec_self", "whisper_dec_cross")
+# where the rule routes a backward row to the tensor cores (bf16 "tc",
+# float32 "tf32x3"), that route must beat the FMA route in turns there,
+# by CUDA events or, at the launch-bound (24, 16) row (kernels of a few
+# microseconds each), by the kernels' device time.  f32_hd16, where the
+# rule keeps the FMA backward (FMA_BACKWARD_PAIRS), times both routes and
+# gates neither: the two were within 1% (kernels/flash_attention.py
+# `_route`)
+ROUTE_GATE_ROWS = {"train": "events", "train_f32": "events",
+                   "mla_train_f32": "events", "rg_train_f32": "events",
+                   "mla_smoke_f32": "device"}
 # the backward against autograd through flash_attention_ref: float32 sums
 # in another order; bf16 gradients one bf16 rounding apart (the
 # tensor-core forward rounds P to bf16)
@@ -595,7 +633,8 @@ TRAIN_MLA = {"config": "deepseek-v2-lite-16b", "layers": 2, "batch": 2,
 # the train_mla_smoke phase: DeepSeek-V2-Lite's smoke config (the
 # launchers' --smoke: 2 layers, d_model 64, 4 heads at qk 24 / v 16, 8
 # experts top-2) with its compute in bf16, the published config's dtype
-# (the smoke config computes in float32, which takes the FMA kernels),
+# (the smoke config computes in float32, which takes the float32
+# tensor-core kernels: train_mla_smoke_f32),
 # 2 x 256 tokens a step: its attention is the kernels phase's mla_smoke
 # shape, so the narrow forward and the one-launch backward run on the
 # training path (remat off, as the smoke config has it)
@@ -604,6 +643,11 @@ TRAIN_MLA_SMOKE = {"config": "deepseek-v2-lite-16b", "smoke": True,
                    "seq": 256, "warmup": 1, "steps": 3, "lr": 3e-4,
                    "grad_sample": TRAIN_MLA["grad_sample"],
                    "counter": "flash_attention_bwd_narrow", "narrow": True}
+# the train_mla_smoke_f32 phase: the same smoke config in its own compute
+# dtype, float32, as the launchers run it (`launch.train --smoke`): the
+# float32 route's forward and backward at (24, 16) on the training path
+TRAIN_MLA_SMOKE_F32 = {k: v for k, v in TRAIN_MLA_SMOKE.items()
+                       if k not in ("compute_dtype", "counter", "narrow")}
 # the train_griffin phase: RecurrentGemma-9B at its published widths,
 # depth 5 of 38 (one super-block of two recurrent layers and a local
 # attention layer, then the two trailing recurrent layers: 5 = 2 mod 3;
@@ -1331,15 +1375,45 @@ def flash_rows(device, seed, timer):
                 enable_gqa=True)
 
         # live work: 2 FLOP per (q, k) pair and q.k head dim, 2 per pair
-        # and v head dim for p.v
+        # and v head dim for p.v; on the float32 tensor-core route three
+        # TF32 products each
         flops = 2 * (hd + hdv) * int(mask.sum()) * b * h
         nbytes = (q.numel() + k.numel() + v.numel()
                   + got.numel()) * q.element_size()
         bytes_ms = nbytes / PEAK["bytes"] * 1e3
-        ops_ms = flops / PEAK["bf16" if dt == "bfloat16" else "f32"] * 1e3
+        ops_ms = route_ops_ms(flops, dt, route)
         plan = fa.forward_plan(b, sq, sk, h, hkv, hd, dtype, route, hdv=hdv,
                                causal=causal, window=window)
         kernel = plan["kernel"]
+        extra = {}
+        if route != "tf32x3":
+            ms = timer(kern)
+        else:
+            # the FMA kernel on the same inputs, in turns (tf32x3, fma,
+            # fma, tf32x3), each by events and by device time; both bounds
+            def fma():
+                return fa.launch(q, k, v, causal, window, qoff, "fma")
+
+            fma_out = fma()
+            fma_err = float((fma_out - want).abs().max())
+            if not torch.allclose(fma_out, want, rtol=tol, atol=tol):
+                raise AssertionError(f"flash_attention {label} (fma): kernel "
+                                     f"disagrees, max abs err {fma_err}")
+            del fma_out
+            turns = {"tf32x3": [], "fma": []}
+            for r in ("tf32x3", "fma", "fma", "tf32x3"):
+                turns[r].append(timer(kern if r == "tf32x3" else fma))
+            fma_bound = max(bytes_ms, route_ops_ms(flops, dt, "fma"))
+            ms = statistics.median(turns["tf32x3"])
+            extra = {
+                "route_turns_ms": turns,
+                "fma_ms": statistics.median(turns["fma"]),
+                "fma_max_abs_err": fma_err,
+                "device_ms": kernel_device_ms(kern, rf"\b{kernel}\b", timer),
+                "fma_device_ms": kernel_device_ms(
+                    fma, r"\bflash_attention_kernel\b", timer),
+                "fma_bound_ms": fma_bound,
+                "sdpa_kernels": kernel_names(library)}
         row = {
             "name": "flash_attention", "route": "cuda", "case": label,
             "fa_route": route, "kernel": kernel,
@@ -1349,15 +1423,22 @@ def flash_rows(device, seed, timer):
             "shape": [b, sq, sk, h, hkv, hd, hdv], "dtype": dt,
             "causal": causal, "window": window, "q_offset": qoff,
             "tolerance": tol, "max_abs_err": err, "elements_differ": n_diff,
-            "ms": timer(kern), "plain_ms": timer(plain),
+            "ms": ms, "plain_ms": timer(plain),
             "copy_ms": None, "library_ms": timer(library),
             "flops": flops, "bytes": nbytes,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            **extra,
         }
+        if extra:
+            row.update(share_of_bound=row["bound_ms"] / row["ms"],
+                       fma_share_of_bound=extra["fma_bound_ms"]
+                       / extra["fma_ms"])
         if label in FA_ROWS:
-            row.update(counter=FA_ROWS[label], device_ms=kernel_device_ms(
-                kern, rf"\b{kernel}\b", timer))
+            row["counter"] = FA_ROWS[label]
+            if not extra:
+                row["device_ms"] = kernel_device_ms(kern, rf"\b{kernel}\b",
+                                                    timer)
         if route == "tc" and hd > 128:
             # the warp-specialised layout, beside its time
             row.update(layout=fa.forward_tile_work(hd, hdv),
@@ -1383,6 +1464,15 @@ def flash_rows(device, seed, timer):
     return rows
 
 
+def route_ops_ms(flops, dtype, route):
+    """The least ms of a route's products: bf16 on the tensor cores,
+    float32 FMAs on the CUDA cores, or (route "tf32x3") three TF32
+    products a float32 product on the tensor cores."""
+    if route == "tf32x3":
+        return 3 * flops / PEAK["tf32"] * 1e3
+    return flops / PEAK["bf16" if dtype == "bfloat16" else "f32"] * 1e3
+
+
 def kernel_device_ms(fn, pattern, timer, reps=20):
     """Mean device time (torch.profiler) of the kernels matching
     ``pattern`` per call of ``fn``, L2 flushed before each call."""
@@ -1399,6 +1489,19 @@ def kernel_device_ms(fn, pattern, timer, reps=20):
         torch.cuda.synchronize()
     return sum(t for n, t in device_time_ms(prof).items()
                if re.search(pattern, n)) / reps
+
+
+def kernel_names(fn):
+    """The names (torch.profiler's, cut to 80 characters) of the kernels
+    one call of ``fn`` runs: which kernels a library call picked."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(device_time_ms(prof))
 
 
 def grad_errors(got, want, tol):
@@ -1420,14 +1523,17 @@ def grad_errors(got, want, tol):
 def flash_bwd_rows(device, seed, timer):
     """Flash backward kernels against autograd through the plain version
     at BWD_CASES, on every route the dtype takes (bf16: the tensor-core
-    route and the FMA route; float32: the FMA route): errors of dq, dk,
+    route and the FMA route; float32: the split-TF32 tensor-core route,
+    "tf32x3", and the FMA route; hd 8: the FMA route): errors of dq, dk,
     dv, determinism (two runs, equal bits), times of both routes in turns
-    (tc, fma, fma, tc), the plain backward and SDPA's backward with SDPA's
-    errors against the same reference, the tensor-core route's device
-    time by kernel (the GQA reduction's own), the bound and the share of
-    it, and the forward timed with and without its lse output.  The route
-    gate: where the rule routes the train case to the tensor cores, they
-    must beat the FMA route there."""
+    (route, fma, fma, route), the plain backward and SDPA's backward with
+    SDPA's errors against the same reference (in float32 with the names
+    of the kernels SDPA ran), the tensor-core routes' device time by
+    kernel (the GQA reduction's own) and the FMA route's beside it, the
+    bounds (the route's and the FMA route's) and the shares of them, and
+    the forward timed with and without its lse output.  The route gate:
+    where the rule routes a ROUTE_GATE_ROWS case to the tensor cores,
+    they must beat the FMA route there, by the row's measure."""
     import torch
     import torch.nn.functional as F
 
@@ -1454,8 +1560,20 @@ def flash_bwd_rows(device, seed, timer):
         q = rand(b, sq, h, hd)
         k, v = rand(b, sk, hkv, hd), rand(b, sk, hkv, hdv)
         do = rand(b, sq, h, hdv)
+        # the pair's tensor-core route (the forward's), timed against the
+        # FMA route; the backward rule may keep the FMA route at the pair
+        # (FMA_BACKWARD_PAIRS): "rule_route" says which one it takes
         route = fa._route(dtype, hd, hdv)
+        rule = fa._route(dtype, hd, hdv, backward=True)
         o, lse = fa._forward(q, k, v, causal, window, 0, route, with_lse=True)
+        # each route's backward from its own forward's o and lse; in bf16
+        # both from the tensor-core forward's (the training path's), in
+        # float32 the FMA backward from the FMA forward's (the route pair
+        # a caller naming "fma" runs)
+        saved = {route: (o, lse)}
+        if route == "tf32x3":
+            saved["fma"] = fa._forward(q, k, v, causal, window, 0, "fma",
+                                       with_lse=True)
         qkv = [t.clone().requires_grad_() for t in (q, k, v)]
         ref_out = ref.flash_attention_ref(*qkv, causal, window, 0)
 
@@ -1465,11 +1583,12 @@ def flash_bwd_rows(device, seed, timer):
         want = plain()
         tol = BWD_TOL[dt]
         view = torch.int16 if dtype == torch.bfloat16 else torch.int32
-        routes = [route] + (["fma"] if route == "tc" else [])
+        routes = [route] + (["fma"] if route != "fma" else [])
         kerns, errs = {}, {}
         for r in routes:
-            kerns[r] = (lambda r=r: fa.backward(do, q, k, v, o, lse, causal,
-                                                window, route=r))
+            kerns[r] = (lambda r=r: fa.backward(
+                do, q, k, v, *saved.get(r, saved[route]), causal, window,
+                route=r))
             got, again = kerns[r](), kerns[r]()
             torch.cuda.synchronize()
             errs[r] = grad_errors(got, want, tol)
@@ -1509,17 +1628,29 @@ def flash_bwd_rows(device, seed, timer):
         for r in routes + routes[::-1]:
             turns[r].append(timer(kerns[r], reps=reps, warm=warm))
         ms = {r: statistics.median(t) for r, t in turns.items()}
-        if label == "train" and route == "tc" and ms["tc"] >= ms["fma"]:
-            raise AssertionError(f"route gate: the tensor-core backward "
-                                 f"({ms['tc']} ms) is not faster than the "
-                                 f"FMA backward ({ms['fma']} ms)")
-        bwd_plan = fa.backward_plan(b, sq, sk, h, hkv, hd, dtype, hdv=hdv)
+        bwd_plan = fa.backward_plan(b, sq, sk, h, hkv, hd, dtype, route,
+                                    hdv=hdv)
         kernels = [n for n, _ in bwd_plan["kernels"]]
         narrow = kernels == ["fa_bwd_narrow_tc_kernel"]
-        by_kernel = None
-        if route == "tc":  # device time of each kernel of the route
-            by_kernel = {n: kernel_device_ms(kerns["tc"], n, timer)
+        by_kernel = fma_dev = None
+        if route != "fma":  # device time of each kernel of both routes
+            by_kernel = {n: kernel_device_ms(kerns[route], n, timer)
                          for n in kernels}
+            fma_names = [n for n, _ in fa.backward_plan(
+                b, sq, sk, h, hkv, hd, dtype, "fma", hdv=hdv)["kernels"]]
+            fma_dev = kernel_device_ms(
+                kerns["fma"], "|".join(rf"\b{n}\b" for n in fma_names),
+                timer)
+        dev = sum(by_kernel.values()) if by_kernel else None
+        gate = ROUTE_GATE_ROWS.get(label) if rule == route != "fma" else None
+        if gate is not None:
+            got_ms, fma_ms = ((ms[route], ms["fma"]) if gate == "events"
+                              else (dev, fma_dev))
+            if got_ms >= fma_ms:
+                raise AssertionError(
+                    f"route gate: the {route} backward at {label} "
+                    f"({got_ms} ms, {gate}) is not faster than the FMA "
+                    f"backward ({fma_ms} ms)")
 
         pairs = int(mask.sum())
         # the five products: S, dK and dQ over hd, dP and dV over hdv
@@ -1529,8 +1660,9 @@ def flash_bwd_rows(device, seed, timer):
         nbytes = (2 * (q.numel() + k.numel() + v.numel() + do.numel()) * el
                   + lse.numel() * 4)
         bytes_ms = nbytes / PEAK["bytes"] * 1e3
-        ops_ms = flops / PEAK["bf16" if dt == "bfloat16" else "f32"] * 1e3
+        ops_ms = route_ops_ms(flops, dt, route)
         bound = max(bytes_ms, ops_ms)
+        fma_bound = max(bytes_ms, route_ops_ms(flops, dt, "fma"))
         # the forward with and without lse, in turns (null, lse, lse,
         # null), by the flash kernel's device time
         fwd = {"lse_null": [], "lse": []}
@@ -1538,13 +1670,14 @@ def flash_bwd_rows(device, seed, timer):
             fwd["lse" if with_lse else "lse_null"].append(kernel_device_ms(
                 lambda: fa._forward(q, k, v, causal, window, 0, route,
                                     with_lse=with_lse),
-                r"flash_attention(_tc|_ws|_narrow)?_kernel", timer))
+                r"flash_attention(_tc|_ws|_narrow|_tf32)?_kernel", timer))
         rows.append({
             "name": "flash_attention_bwd", "route": "cuda", "case": label,
-            "fa_route": route,
-            "counter": BWD_ROWS.get(label, "flash_attention_bwd_tc"
-                                    if route == "tc"
-                                    else "flash_attention_bwd"),
+            "fa_route": route, "rule_route": rule,
+            "counter": BWD_ROWS.get(label, {
+                "tc": "flash_attention_bwd_tc",
+                "tf32x3": "flash_attention_bwd_tf32x3"}.get(
+                    route, "flash_attention_bwd")),
             "kernel": " + ".join(kernels),
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/attention.py:92",
@@ -1560,12 +1693,15 @@ def flash_bwd_rows(device, seed, timer):
             "deterministic": True,
             "ms": ms[route], "fma_ms": ms["fma"], "route_turns_ms": turns,
             "device_ms_by_kernel": by_kernel,
-            "device_ms": sum(by_kernel.values()) if by_kernel else None,
+            "device_ms": dev, "fma_device_ms": fma_dev,
+            "route_gate": gate,
+            **({"sdpa_kernels": kernel_names(library)}
+               if dt == "float32" else {}),
             # the route's products a (64 x 64) tile and each warpgroup's
             # share of them, in hd-units
             "tile_work": (fa.backward_tile_work(hd, hdv, narrow=narrow)
                           if route == "tc" else None),
-            "launches_a_call": len(kernels) if route == "tc" else None,
+            "launches_a_call": len(kernels) if route != "fma" else None,
             **({"empty_launch_ms": empty_ms,
                 "empty_launch_device_ms": empty_dev,
                 "threads": bwd_plan.get("threads"),
@@ -1578,8 +1714,10 @@ def flash_bwd_rows(device, seed, timer):
             "bytes": nbytes, "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "share_of_bound": bound / ms[route],
+            "fma_bound_ms": fma_bound,
+            "fma_share_of_bound": fma_bound / ms["fma"],
         })
-        del q, k, v, do, o, lse, qkv, ref_out, want, lib_out
+        del q, k, v, do, o, lse, qkv, ref_out, want, lib_out, saved
         del lib_q, lib_k, lib_v, mask, kerns
     return rows
 
@@ -2518,6 +2656,23 @@ def profiled_serve(run, wall, what, flash=True):
                                          key=lambda kv: -kv[1])[:8])}
 
 
+#: the route the kernels take for float32 operands at the served pairs
+#: (all of TC_HEAD_DIMS): split TF32 on the tensor cores
+F32_ROUTE = "tf32x3"
+
+
+def f32_route_launches(fa, phase, want):
+    """The forward launches of a float32 pass since the last reset, each
+    on F32_ROUTE (the route ``_route`` picks for float32 at the served
+    pairs): ``want`` of them, none on another route."""
+    n = fa.LAUNCHES["flash_attention"]
+    if (n != want or fa.LAUNCHES["flash_attention_tf32x3"] != n
+            or fa.LAUNCHES["flash_attention_tc"]):
+        raise AssertionError(f"{phase} float32: {fa.LAUNCHES}, want {want} "
+                             f"launches on the {F32_ROUTE} route")
+    return n
+
+
 @contextlib.contextmanager
 def compute_in(model, dtype: str):
     """The model computing in ``dtype`` on its own weights (an engine made
@@ -2646,12 +2801,13 @@ def phase_serve_mla(device, seed):
     load_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
 
-    # parity: float32 compute on the bf16 weights, the kernels (the FMA
-    # route) against the plain attention, the plain pass replaying the
-    # kernel pass's expert choices (moe_routing: the flips it would have
-    # made, and its logits without the replay, are reported); the engine
-    # run through the kernels is this phase's float32 serving, counted
-    # for the FMA row
+    # parity: float32 compute on the bf16 weights, the kernels (the route
+    # _route picks for float32 at (192, 128): "tf32x3", split TF32 on the
+    # tensor cores) against the plain attention, the plain pass replaying
+    # the kernel pass's expert choices (moe_routing: the flips it would
+    # have made, and its logits without the replay, are reported); the
+    # engine run through the kernels is this phase's float32 serving,
+    # counted for the float32 row
     worst, unpinned, flips = 0.0, 0.0, 0
     t0 = time.perf_counter()
     with compute_in(model, "float32"), torch.inference_mode():
@@ -2675,10 +2831,8 @@ def phase_serve_mla(device, seed):
         fa.reset_launches()
         with moe_routing() as rec:
             engine.run(k_reqs)
-        fma_launches = (fa.LAUNCHES["flash_attention"]
-                        - fa.LAUNCHES["flash_attention_tc"])
-        if fma_launches != len(prompts) * cfg.n_layers:
-            raise AssertionError(f"serve_mla float32: {fa.LAUNCHES}")
+        f32_launches = f32_route_launches(fa, "serve_mla",
+                                          len(prompts) * cfg.n_layers)
         with plain_attention(), moe_routing(rec) as rep:
             engine, p_reqs = run(model)
             engine.run(p_reqs)
@@ -2729,7 +2883,7 @@ def phase_serve_mla(device, seed):
         "warmup_s": warmup_s,
         "parity": {"compute_dtype": "float32", "max_logit_diff": worst,
                    "logit_tol": LOGIT_TOL, "tokens_identical": True,
-                   "fma_launches": fma_launches,
+                   "f32_route": F32_ROUTE, "f32_launches": f32_launches,
                    "routing": "the plain pass replays the kernel pass's "
                               "expert choices",
                    "prefill_routing_flips": flips,
@@ -2747,7 +2901,7 @@ def phase_serve_mla(device, seed):
     del model, engine
     torch.cuda.empty_cache()
     return {"flash_attention_mla": launches["flash_attention_tc"],
-            "flash_attention_mla_fma": fma_launches}
+            "flash_attention_mla_tf32x3": f32_launches}
 
 
 @contextlib.contextmanager
@@ -2821,7 +2975,8 @@ def phase_serve_griffin(device, seed):
     16 query heads over one kv head, window 2,048) at its published widths,
     its bf16 weights drawn on the card from ``seed``, through build_model
     and ServeEngine: float32 compute against the plain attention (prefill
-    logits, greedy tokens; the FMA kernel at (256, 256)), then the bf16
+    logits, greedy tokens; the float32 tensor-core kernel at (256, 256)),
+    then the bf16
     run timed (its prefills on the tensor-core kernel: one launch an
     attention layer a request) and profiled, with the RG-LRU scan's share
     of the device time."""
@@ -2871,10 +3026,10 @@ def phase_serve_griffin(device, seed):
     load_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
 
-    # parity: float32 compute on the bf16 weights, the kernels (the FMA
-    # route at (256, 256)) against the plain attention; the engine run
-    # through the kernels is this phase's float32 serving, counted for
-    # the FMA row
+    # parity: float32 compute on the bf16 weights, the kernels (the route
+    # _route picks for float32 at (256, 256), "tf32x3") against the plain
+    # attention; the engine run through the kernels is this phase's
+    # float32 serving, counted for the float32 row
     worst = 0.0
     t0 = time.perf_counter()
     with compute_in(model, "float32"), torch.inference_mode():
@@ -2892,11 +3047,8 @@ def phase_serve_griffin(device, seed):
         engine, k_reqs = run(model)
         fa.reset_launches()
         engine.run(k_reqs)
-        fma_launches = (fa.LAUNCHES["flash_attention"]
-                        - fa.LAUNCHES["flash_attention_tc"])
-        if fma_launches != want_launches or fa.LAUNCHES["flash_attention_tc"]:
-            raise AssertionError(f"serve_griffin float32: {fa.LAUNCHES}, want "
-                                 f"{want_launches} FMA launches")
+        f32_launches = f32_route_launches(fa, "serve_griffin",
+                                          want_launches)
         with plain_attention():
             engine, p_reqs = run(model)
             engine.run(p_reqs)
@@ -2950,7 +3102,7 @@ def phase_serve_griffin(device, seed):
         "parity_s": parity_s, "warmup_s": warmup_s,
         "parity": {"compute_dtype": "float32", "max_logit_diff": worst,
                    "logit_tol": LOGIT_TOL, "tokens_identical": True,
-                   "fma_launches": fma_launches},
+                   "f32_route": F32_ROUTE, "f32_launches": f32_launches},
         **rates,
         "launches": {"flash_attention": launches["flash_attention"],
                      "flash_attention_tc": launches["flash_attention_tc"]},
@@ -2966,7 +3118,7 @@ def phase_serve_griffin(device, seed):
     del model, engine
     torch.cuda.empty_cache()
     return {"flash_attention_rg": launches["flash_attention_tc"],
-            "flash_attention_rg_fma": fma_launches}
+            "flash_attention_rg_tf32x3": f32_launches}
 
 
 def draw_zero_leaves(model, g):
@@ -3231,7 +3383,8 @@ def serve_context(phase, model, prompts, contexts, new, want):
     """A context model (encoder-decoder, vision) served request by request
     through ``greedy_context``: float32 compute against the plain
     attention first (prefill logits within LOGIT_TOL, identical greedy
-    tokens; the kernels on the FMA route), then bf16: a warm-up, the
+    tokens; the kernels on the route _route picks for float32, F32_ROUTE),
+    then bf16: a warm-up, the
     main path timed with every flash launch counted by shape (each on the
     tensor-core route; ``want`` the calls a request makes), and the first
     request once more, timed and then profiled.  Returns the phase's line (without its header) and the
@@ -3249,7 +3402,7 @@ def serve_context(phase, model, prompts, contexts, new, want):
     with compute_in(model, "float32"), torch.inference_mode():
         fa.reset_launches()
         kern = serve_all()
-        fma = dict(fa.LAUNCHES)
+        f32 = f32_route_launches(fa, phase, want * len(prompts))
         with plain_attention():
             plain = serve_all()
     for (lk, tk, *_), (lp, tp, *_), p in zip(kern, plain, prompts):
@@ -3261,10 +3414,6 @@ def serve_context(phase, model, prompts, contexts, new, want):
         if tk != tp:
             raise AssertionError(f"{phase} parity: greedy tokens {tk} "
                                  f"against the plain attention's {tp}")
-    if (fma["flash_attention"] != want * len(prompts)
-            or fma["flash_attention_tc"]):
-        raise AssertionError(f"{phase} float32: {fma}, want "
-                             f"{want * len(prompts)} FMA launches")
     parity_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3313,7 +3462,7 @@ def serve_context(phase, model, prompts, contexts, new, want):
         "parity_s": parity_s, "warmup_s": warmup_s,
         "parity": {"compute_dtype": "float32", "max_logit_diff": worst,
                    "logit_tol": LOGIT_TOL, "tokens_identical": True,
-                   "fma_launches": fma["flash_attention"]},
+                   "f32_route": F32_ROUTE, "f32_launches": f32},
         "wall_s": wall, "prefill_s": prefill_s,
         "prefill_tokens": sum(int(p.shape[1]) for p in prompts),
         "prefill_ms_per_request": prefill_s / len(prompts) * 1e3,
@@ -3339,7 +3488,7 @@ def phase_serve_whisper(device, seed):
     weights drawn on the card from ``seed`` with nonzero gates and norms,
     through its own prefill and decode_step (serve_context).  Returns the
     encoder's tensor-core launches at FA_CASES' whisper_encoder shape and
-    the float32 run's FMA launches."""
+    the float32 run's launches (on F32_ROUTE)."""
     import numpy as np
     import torch
 
@@ -3388,11 +3537,11 @@ def phase_serve_whisper(device, seed):
           "frames": cfg.encoder_seq, "load_s": load_s, **line,
           "encoder_frames_per_s": len(prompts) * cfg.encoder_seq
           / line["prefill_s"]})
-    fma = line["parity"]["fma_launches"]
+    f32 = line["parity"]["f32_launches"]
     del model
     torch.cuda.empty_cache()
     return {"flash_attention_whisper": encoder,
-            "flash_attention_whisper_fma": fma}
+            "flash_attention_whisper_tf32x3": f32}
 
 
 def phase_serve_vlm(device, seed):
@@ -3659,7 +3808,8 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
     finally:
         pipe.close()
     # the backward's route for the model's compute dtype and head dims:
-    # the tensor cores for bf16 (where the kernels phase's route gate held)
+    # the tensor cores, bf16 or split TF32 for float32 (where the kernels
+    # phase's route gate held)
     hd, hdv = attention_head_dims(cfg)
     bwd_plan = (fa.backward_plan(batch_n, seq, seq, cfg.n_heads,
                                  cfg.n_kv_heads, hd,
@@ -3669,7 +3819,11 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
     per = {"flash_attention": (2 if cfg.remat else 1) * attn,
            "flash_attention_bwd": attn,
            "flash_attention_bwd_tc":
-               attn if bwd_plan["route"] == "tc" else 0}
+               attn if bwd_plan["route"] == "tc" else 0,
+           "flash_attention_bwd_tf32x3":
+               attn if bwd_plan["route"] == "tf32x3" else 0}
+    if bwd_plan["route"] == "tf32x3":  # the forward on the same route
+        per["flash_attention_tf32x3"] = per["flash_attention"]
     if spec.get("narrow"):  # every launch the narrow CTAs'
         per.update(flash_attention_narrow=per["flash_attention"],
                    flash_attention_bwd_narrow=attn)
@@ -3721,7 +3875,7 @@ def phase_train(device, seed, spec=TRAIN, phase="train"):
         "profiled_step_s": prof_wall, "device_busy_ms": busy,
         "device_idle_share": 1 - busy / 1e3 / prof_wall,
         "flash_forward_ms": kernel_time(
-            r"flash_attention(_tc|_ws|_narrow)?_kernel"),
+            r"flash_attention(_tc|_ws|_narrow|_tf32)?_kernel"),
         "flash_backward_ms": kernel_time(r"fa_bwd_\w+_kernel"),
         "flash_backward_by_kernel_ms": {
             n: kernel_time(n) for n, _ in bwd_plan["kernels"]},
@@ -5134,7 +5288,7 @@ def main() -> int:
         if bool(plan.get("cluster")) != bool(mode):
             raise AssertionError(f"forward_plan at {shape}: {plan}, want "
                                  f"mode {mode}")
-        attrs = fa.tc_attributes(hd, hdv, split=bool(mode))
+        attrs = fa.tc_attributes(hd, hdv, plan["kernel"])
         info = ptxas["flash_attention.cu"][n]
         smem[f"{hd}x{hdv}" + (f"_{label}" if label else "")] = {
             "plan": plan, "attributes": attrs,
@@ -5204,6 +5358,42 @@ def main() -> int:
     if len(watched) != 38:
         raise AssertionError(f"ptxas: want the 38 spill-checked kernels, "
                              f"found {watched}")
+    # the float32 tensor-core route ("tf32x3"): its forward and both
+    # backward kernels at the 7 pairs of TC_HEAD_DIMS, found, spilling
+    # nothing, their wgmma not serialised (C7520, C7515, C7512), and the
+    # forward's shared memory as forward_plan states it, as the launch's
+    # attribute sets it
+    tf32 = [(src, n) for src in ("flash_attention.cu",
+                                 "flash_attention_bwd.cu")
+            for n in ptxas[src]
+            if re.search(r"(flash_attention|fa_bwd_dkdv|fa_bwd_dq)_tf32_"
+                         r"kernel", n)]
+    if len(tf32) != 3 * len(fa.TC_HEAD_DIMS):
+        raise AssertionError(f"ptxas: want the float32 tensor-core forward "
+                             f"and backward kernels at "
+                             f"{len(fa.TC_HEAD_DIMS)} pairs, found {tf32}")
+    bad = {n: ptxas[src][n] for src, n in tf32
+           if ptxas[src][n].get("spill_stores")
+           or ptxas[src][n].get("spill_loads")
+           or ptxas[src][n].get("serialised")}
+    if bad:
+        raise AssertionError(f"ptxas: a float32 tensor-core kernel spills "
+                             f"or is serialised: {bad}")
+    tf32_smem = {}
+    for hd, hdv in fa.TC_HEAD_DIMS:
+        plan = fa.forward_plan(1, 1, 1, 1, 1, hd, torch.float32, "tf32x3",
+                               hdv=hdv)
+        attrs = fa.tc_attributes(hd, hdv, plan["kernel"])
+        tf32_smem[f"{hd}x{hdv}"] = {"plan": plan["smem_bytes"],
+                                    "attributes": attrs}
+        if not (plan["smem_bytes"] == attrs["smem_bytes"]
+                == attrs["max_dynamic_smem_bytes"]
+                and plan["threads"] == attrs["threads"]):
+            raise AssertionError(f"forward_plan and the float32 "
+                                 f"tensor-core kernel disagree at ({hd}, "
+                                 f"{hdv}): {plan}, {attrs}")
+    emit({"tf32x3_kernels": {n: ptxas[src][n] for src, n in tf32},
+          "tf32x3_forward_smem": tf32_smem})
 
     walls = {}
     # the dryrun phase: host-only processes, beside every card phase
@@ -5251,6 +5441,8 @@ def main() -> int:
                                seed)
         trained_narrow = timed("train_mla_smoke", phase_train, device, seed,
                                TRAIN_MLA_SMOKE, "train_mla_smoke")
+        trained_f32 = timed("train_mla_smoke_f32", phase_train, device, seed,
+                            TRAIN_MLA_SMOKE_F32, "train_mla_smoke_f32")
         timed("serve_mamba", phase_serve_mamba, device, seed)
         served_whisper = timed("serve_whisper", phase_serve_whisper, device,
                                seed)
@@ -5297,10 +5489,10 @@ def main() -> int:
                  "flash_attention_bwd_tc"):
         launches[name] = served.get(name, 0) + trained[name] + loop[name]
     # DeepSeek-V2-Lite's prefill at (192, 128): the serve_mla phase's bf16
-    # run (tensor cores) and its float32 run (FMA kernel)
+    # run (tensor cores) and its float32 run (split TF32)
     launches.update(served_mla)
     # RecurrentGemma-9B's prefill at (256, 256): the serve_griffin phase's
-    # bf16 run (tensor cores) and its float32 run (FMA kernel)
+    # bf16 run (tensor cores) and its float32 run (split TF32)
     launches.update(served_griffin)
     # the training phases of DeepSeek-V2-Lite and RecurrentGemma-9B: their
     # tensor-core backward launches (BWD_ROWS) and their tensor-core
@@ -5314,6 +5506,12 @@ def main() -> int:
     # forward and the one-launch backward at (24, 16)
     for name in ("flash_attention_narrow", "flash_attention_bwd_narrow"):
         launches[name] = trained_narrow[name]
+    # and in its own dtype, float32 (train_mla_smoke_f32): the float32
+    # tensor-core forward and backward at (24, 16)
+    launches["flash_attention_smoke_tf32x3"] = trained_f32[
+        "flash_attention_tf32x3"]
+    launches["flash_attention_bwd_tf32x3"] = trained_f32[
+        "flash_attention_bwd_tf32x3"]
     # whisper-tiny's encoder at (1, 1,500, 1,500, 6, 6) hd 64 and Llama-3.2-
     # Vision's cross-attention over 1,024 vision tokens at hd 128: the
     # serve_whisper and serve_vlm phases' bf16 launches at those shapes;
@@ -5364,7 +5562,7 @@ def main() -> int:
         if ((r["name"] == "flash_attention" and r.get("case") in FA_ROWS)
                 or (r["name"] == "flash_attention_bwd"
                     and r.get("case") in BWD_ROWS
-                    and r["fa_route"] == "tc")):
+                    and r["fa_route"] in ("tc", "tf32x3"))):
             firsts[(r["name"], r["case"])] = r
         elif r.get("fa_route", "tc") == "tc":
             firsts.setdefault(r["name"], r)

@@ -21,8 +21,12 @@
 //                              same CTA split over a cluster
 //                              (`fa_forward_split`; forward_plan picks
 //                              it from the shapes)
-//   flash_attention_kernel     float32 (those pairs and (8, 8)) and bfloat16
-//                              with hd = 8: float32 FMAs (`fa_forward`)
+//   flash_attention_tf32_kernel  float32, the same pairs: the products on
+//                              the tensor cores as split TF32, three
+//                              wgmma a product (`fa_forward_tf32`)
+//   flash_attention_kernel     float32 at (8, 8) (and at any pair when
+//                              named) and bfloat16 with hd = 8: float32
+//                              FMAs (`fa_forward`)
 //
 // hd is the q.k head dim, hdv v's and the output's: they differ for
 // DeepSeek-V2's multi-head latent attention (qk = nope 128 + rope 64 = 192,
@@ -58,7 +62,9 @@
 // pairs a head are 2 H pairs (256 + 256) = 69 GFLOP against about 53 MB
 // of bf16 (70 us against 16 us by bytes): the tensor cores.
 //
-// flash_attention_kernel (the float32 route).  One CTA of 256 threads owns
+// flash_attention_kernel (the FMA route: float32 at hd 8, and the
+// comparison the smoke times flash_attention_tf32_kernel against; its
+// design, kept as written at port time).  One CTA of 256 threads owns
 // one (b, h, 64-row q tile) and loops over 64-key tiles itself (the TPU
 // kernel's sequential k grid axis becomes this loop).  The loop runs from
 // the window's first reachable tile to the causal reach of the q tile (the
@@ -501,24 +507,28 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m_r)[2],
   for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
 }
 
-// the first key tile and one past the last that a q range starting at
-// query position qpos_lo with `rows` rows can reach (attention.py:164-172)
+// the first key tile and one past the last (tiles of TK keys) that a q
+// range starting at query position qpos_lo with `rows` rows can reach
+// (attention.py:164-172)
+template <int TK = BK>
 __device__ __forceinline__ void key_range(const Params& p, int qpos_lo,
                                           int rows, int& lo, int& hi) {
-  const int nk = (p.sk + BK - 1) / BK;
+  const int nk = (p.sk + TK - 1) / TK;
   hi = nk;
-  if (p.causal) hi = min(nk, (qpos_lo + rows + BK - 1) / BK);
+  if (p.causal) hi = min(nk, (qpos_lo + rows + TK - 1) / TK);
   lo = 0;
   if (p.window > 0) {
     const int first = qpos_lo - p.window + 1;
-    lo = first > 0 ? first / BK : 0;
+    lo = first > 0 ? first / TK : 0;
   }
 }
 
-// does the key tile at k0 hold a masked pair for the 64 rows from qpos?
+// does the key tile of TK keys at k0 hold a masked pair for the rows
+// from qpos?
+template <int TK = BK>
 __device__ __forceinline__ bool edge_tile(const Params& p, int qpos,
                                           int rows, int k0) {
-  return k0 + BK > p.sk || (p.causal && k0 + BK - 1 > qpos) ||
+  return k0 + TK > p.sk || (p.causal && k0 + TK - 1 > qpos) ||
          (p.window > 0 && qpos + rows - 1 - k0 >= p.window);
 }
 
@@ -1640,6 +1650,405 @@ cudaError_t dispatch_split_attributes(int hd, int hdv, int* out) {
 
 }  // namespace tc
 
+// ------------------------------------------ float32 route on the tensor
+// cores ("tf32x3")
+// flash_attention_tf32_kernel<HD, HDV>: float32 operands at the pairs of
+// the bfloat16 route, the products on the tensor cores as split TF32
+// (flash_attention_common.cuh: x = hi + lo, each product hi.hi + hi.lo +
+// lo.hi in float32, about 22 of float32's 24 bits).  It replaces, in
+// float32, the Pallas TPU kernel `flash_attention_pallas`
+// (src/repro/kernels/flash_attention.py:102), as every forward kernel
+// here does, and the FMA kernel above at these pairs.
+//
+// What bounds it: the three TF32 products, 3 x 2 (hd + hdv) FLOP a live
+// (query, key) pair at 495 TFLOP/s (a third of the TF32 rate, 2.5x the
+// CUDA cores' 67 TFLOP/s of float32 FMA); at DeepSeek-V2-Lite's prefill,
+// (1, 2048, 2048, 16, 16) at (192, 128) causal, 0.130 ms against 0.019 ms
+// of bytes.  The numerics are the FMA kernel's: scores scaled by
+// 1/sqrt(hd) in float32, masked scores -1e30, the accurate expf, the
+// output acc / max(l, 1e-30), lse = m + log(l) in natural units.
+//
+// One CTA is one warpgroup over one (b, h, 64-row q tile); it walks
+// 32-key tiles from the window's first reachable tile to the causal reach
+// (fully masked tiles are skipped by the loop bounds, exactly), the q
+// tiles longest reach first.  Per tile:
+//   S = Q.K^T  m64n32k8, HD / 8 k-steps of three wgmma each, each step
+//              into a fresh accumulator added to S in float32
+//              (gemm_tf32x3_rn: two steps in flight): A = Q from
+//              registers, split there (the first 12 steps' fragments held
+//              for the whole CTA at (192, 128), the rest read each tile
+//              from Q's rows in shared memory, pitch width + 4 floats:
+//              conflict-free); B = K (K-major, as stored) split into hi
+//              and lo tiles, 128-byte swizzled, 32 floats an atom row.
+//   O += P.V   m64nNk8 (N = hdv in chunks of at most 32), each chunk into
+//              a fresh accumulator (two in flight), O = alpha O + it in
+//              float32; A = P from the
+//              S accumulators, split in registers; B must be K-major for
+//              32-bit types (no transpose bit), so V is staged transposed:
+//              a 4-byte cp.async scatter writes V^T (hdv rows of 32 keys)
+//              and within each 8-key group puts key 2c + e at position c
+//              + 4 e, the order in which the S accumulator fragment (keys
+//              2 t4, 2 t4 + 1 of each 8) is the P.V A fragment (columns
+//              t4, t4 + 4): no shuffle.
+// Each tile of K and V^T is split where it lands (hi in place, lo beside
+// it; 16-byte reads and writes at the same swizzled offsets).  K and V
+// are one stage each, their copies split so that they overlap: K_{j+1}
+// streams in while the softmax and P_j.V_j run, V_{j+1} while S_{j+1}
+// does.  Shared memory: K and its lo part (32 x HD, padded to 32
+// columns), V^T and its lo part (HDV x 32), Q's rows past the register
+// steps, 1 KiB of alignment slack: 108,544 bytes at (192, 128) and
+// 100,352 at (128, 128) (two CTAs an SM), 198,656 at (256, 256) (one),
+// 51,200 at (64, 64).  All of Q in registers (96 floats at (192, 128))
+// spilled and serialised the wgmma (C7512); with none, one CTA an SM
+// took 1.67x the time there (tools/ablate_flash_tf32.py, an H100 80GB
+// HBM3 at 700 W).  The float32 sums of fresh accumulators (S's steps,
+// P.V's tiles) are the accuracy: the tensor cores truncate each wgmma's
+// sum toward zero (gemm_tf32x3_rn); with S as a running sum the output's
+// error was 3x (same tool), and with running sums throughout
+// Llama-3.2-Vision's float32 prefill logits moved past the serving
+// parity's bound.
+// Alignment: 16-byte cp.async, so q, k, v and o start on 16-byte
+// boundaries with b, s, h strides in multiples of 4 elements
+// (`fa_forward_tf32` refuses others; the wrapper checks and raises).
+
+namespace tf32 {
+
+using namespace tc;
+
+constexpr int BQ = 64;   // query rows a CTA: one warpgroup
+constexpr int BK = 32;   // keys a tile
+constexpr int THREADS = 128;
+
+// a K-major tile's width, padded to whole 32-float atom rows
+template <int W>
+__host__ __device__ constexpr int w32() {
+  return (W + 31) / 32 * 32;
+}
+
+template <int HD>
+__host__ __device__ constexpr int k_bytes() {
+  return BK * w32<HD>() * 4;
+}
+
+template <int HDV>
+__host__ __device__ constexpr int v_bytes() {  // V^T: HDV rows of 32 keys
+  return HDV * BK * 4;
+}
+
+// Q's k-steps held in registers as fragments (four floats a thread a
+// step): the first 12 of 24 at (192, 128), so that its tiles fit two CTAs
+// an SM; the rest, and every step at the other pairs, read from Q's rows
+// in shared memory (at (128, 128) two CTAs fit without; all of (192,
+// 128)'s 96 floats, or (256, 256)'s 128 beside O's, spill)
+template <int HD>
+__host__ __device__ constexpr int q_reg_steps() {
+  return HD == 192 ? 12 : 0;
+}
+
+// Q's rows in shared memory: the columns past the register steps, pitch
+// their width + 4 floats (conflict-free fragments)
+template <int HD>
+__host__ __device__ constexpr int q_pitch() {
+  return HD - 8 * q_reg_steps<HD>() + 4;
+}
+
+template <int HD, int HDV>
+__host__ __device__ constexpr int smem_bytes() {
+  return 2 * (k_bytes<HD>() + v_bytes<HDV>()) + BQ * q_pitch<HD>() * 4 +
+         1024;
+}
+
+// V rows [0, n_valid) of a 32-key tile (row stride ss) into V^T at dst:
+// row n of 32 keys (128 bytes, swizzled), key 8 kg + 2 kl + e at position
+// 8 kg + kl + 4 e.  A warp's 32 copies are 4 keys x 8 columns: 32-byte
+// global segments, 32 distinct banks.
+template <int HDV>
+__device__ __forceinline__ void load_vt(uint32_t dst, const float* src,
+                                        long long ss, int n_valid, int tid) {
+  const int lane = tid % 32, warp = tid / 32;
+  const int kl = lane / 8, nl = lane % 8;
+  constexpr int NB = HDV / 8;
+#pragma unroll 4
+  for (int u = warp; u < HDV; u += THREADS / 32) {  // BK * HDV / 32 units
+    const int nb = u % NB, e = (u / NB) % 2, kg = u / NB / 2;
+    const int key = 8 * kg + 2 * kl + e, n = 8 * nb + nl;
+    const bool ok = key < n_valid;
+    cp_async4(dst + n * 128 + (((2 * kg + e) ^ (n % 8)) * 16) + kl * 4,
+              ok ? src + key * ss + n : src, ok);
+  }
+}
+
+template <int HD, int HDV>
+__global__ void __launch_bounds__(THREADS)
+flash_attention_tf32_kernel(const Params p) {
+  constexpr int KB = k_bytes<HD>(), VB = v_bytes<HDV>();
+  constexpr int NV = HDV < 32 ? HDV : 32;  // P.V's N a wgmma
+  constexpr int NCH = HDV / NV;
+  static_assert(HD % 8 == 0 && HDV % 16 == 0 && HDV % NV == 0,
+                "k8 steps; wgmma N of 16 or 32 a chunk");
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  const uint32_t raw = smem_u32(f32_smem);
+  const uint32_t ks = (raw + 1023u) & ~1023u;
+  const uint32_t ks_lo = ks + KB, vs = ks_lo + KB, vs_lo = vs + VB;
+  const uint32_t qs = vs_lo + VB;  // Q's rows past the register steps
+  float* k_raw = reinterpret_cast<float*>(f32_smem + (ks - raw));
+  float* k_lo = k_raw + KB / 4;
+  float* v_raw = k_lo + KB / 4;
+  float* v_lo = v_raw + VB / 4;
+  const float* q_sm = v_lo + VB / 4;
+  constexpr int QR = q_reg_steps<HD>(), QP = q_pitch<HD>();
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int nqt = (p.sq + BQ - 1) / BQ;
+  const int q0 = (nqt - 1 - static_cast<int>(blockIdx.y)) * BQ;
+  const int b = blockIdx.x / p.h;
+  const int head = blockIdx.x % p.h;
+  const int kvh = head / p.g;
+  const int rows = min(BQ, p.sq - q0);
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb +
+                   head * p.q_sh + q0 * p.q_ss;
+  const float* k =
+      static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* v =
+      static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  float* o = static_cast<float*>(p.o) + b * p.o_sb + head * p.o_sh +
+             q0 * p.o_ss;
+
+  const int qpos_lo = p.q_offset + q0;
+  int lo, hi;
+  key_range<BK>(p, qpos_lo, rows, lo, hi);
+
+  // accumulator fragments: warp w holds rows 16 w + g and 16 w + g + 8,
+  // columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-wide block j
+  const int wrow = warp * 16;
+  // Q's fragments: a0 (row g, column 8 kk + t4), a1 (g + 8, the same), a2
+  // and a3 four columns on; the register steps staged through the tile
+  // area before the first K and V tiles, the rest read from Q's rows
+  float qf[QR > 0 ? QR : 1][4];
+  if constexpr (QR > 0) {
+    constexpr int SP = 8 * QR + 4;  // the staged rows' pitch
+    load_rows_f32<8 * QR, THREADS>(ks, q, p.q_ss, rows, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const float* sa = k_raw + (wrow + g) * SP + t4;
+#pragma unroll
+    for (int kk = 0; kk < QR; ++kk) {
+      qf[kk][0] = sa[8 * kk];
+      qf[kk][1] = sa[8 * SP + 8 * kk];
+      qf[kk][2] = sa[8 * kk + 4];
+      qf[kk][3] = sa[8 * SP + 8 * kk + 4];
+    }
+    __syncthreads();  // read before the tiles overwrite it
+  }
+  load_rows_f32<HD - 8 * QR, THREADS>(qs, q + 8 * QR, p.q_ss, rows, tid);
+  const float* qa = q_sm + (wrow + g) * QP + t4 - 8 * QR;
+  auto qfrag = [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    float x[4];
+    if (kk < QR) {  // kk is a constant of the unrolled loop
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = qf[kk < QR ? kk : 0][i];
+    } else {
+      x[0] = qa[8 * kk];
+      x[1] = qa[8 * QP + 8 * kk];
+      x[2] = qa[8 * kk + 4];
+      x[3] = qa[8 * QP + 8 * kk + 4];
+    }
+    tf32_split(x, hi, lo);
+  };
+
+  // Q's rows and the first K tile, then the first V tile: two commit
+  // groups, and one of each a tile after them
+  if (lo < hi)
+    load_tile_f32<HD, THREADS>(ks, k + lo * BK * p.k_ss, p.k_ss,
+                               p.sk - lo * BK, BK, tid);
+  cp_async_commit();
+  if (lo < hi)
+    load_vt<HDV>(vs, v + lo * BK * p.v_ss, p.v_ss, p.sk - lo * BK, tid);
+  cp_async_commit();
+
+  float acc[NCH][NV / 2];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int j = 0; j < NV / 2; ++j) acc[c][j] = 0.f;
+  float m_r[2] = {NEG, NEG};  // running max of rows g, g + 8
+  float l_r[2] = {0.f, 0.f};  // this thread's part of the running sums
+
+  for (int kt = lo; kt < hi; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait<1>();  // K_kt (and Q): all but the newest group, V_kt
+    __syncthreads();
+    tile_split<THREADS>(k_raw, k_lo, KB, tid);
+    fence_async_smem();
+    __syncthreads();
+
+    float s[BK / 2];
+    gemm_tf32x3_rn<BK, HD / 8>(s, qfrag, ks, ks_lo, Steps<BK>{});
+    __syncthreads();  // every warp is past S: K may be refilled
+    if (kt + 1 < hi)
+      load_tile_f32<HD, THREADS>(ks, k + (k0 + BK) * p.k_ss, p.k_ss,
+                                 p.sk - k0 - BK, BK, tid);
+    cp_async_commit();
+
+    // online softmax in natural units: s[4 j + e] is row g + 8 (e / 2),
+    // key k0 + 8 j + 2 t4 + (e & 1)
+    uint32_t valid = 0xFFFFu;
+    if (edge_tile<BK>(p, qpos_lo, rows, k0)) {
+      valid = 0;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int qp = qpos_lo + wrow + g + 8 * ((i % 4) / 2);
+        const int kp = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+        const bool ok = (kp < p.sk) & (!p.causal | (qp >= kp)) &
+                        ((p.window <= 0) | (qp - kp < p.window));
+        valid |= static_cast<uint32_t>(ok) << i;
+      }
+    }
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] = ((valid >> i) & 1u) ? s[i] * p.scale : NEG;
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      alpha[r] = expf(m_r[r] - m_new);
+      m_r[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const float pe = ((valid >> i) & 1u) ? expf(s[i] - m_r[(i % 4) / 2])
+                                           : 0.f;
+      s[i] = pe;
+      rs[(i % 4) / 2] += pe;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
+    // P's A fragments: k-step kk is keys 8 kk .. 8 kk + 7, column t4 key
+    // 2 t4, column t4 + 4 key 2 t4 + 1 (V^T's order)
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float x[4] = {s[4 * kk], s[4 * kk + 2], s[4 * kk + 1],
+                          s[4 * kk + 3]};
+      tf32_split(x, ph[kk], pl[kk]);
+    }
+
+    cp_async_wait<1>();  // V_kt: all but the newest group, K_kt+1
+    __syncthreads();
+    tile_split<THREADS>(v_raw, v_lo, VB, tid);
+    fence_async_smem();
+    __syncthreads();
+    // P_j.V_j a chunk of NV of O's columns at a time, each into a fresh
+    // accumulator (two in flight), O = alpha O + that in float32: a
+    // running O drifts toward zero by an ulp of itself a wgmma
+    // (gemm_tf32x3_rn), a fresh one by an ulp of the tile's share
+    float t[2][NV / 2];
+#pragma unroll
+    for (int j = 0; j < NV / 2; ++j) t[0][j] = t[1][j] = 0.f;
+    auto add = [&](int c) {
+      fence_regs(t[c & 1]);
+#pragma unroll
+      for (int j = 0; j < NV / 2; ++j)
+        acc[c][j] = fmaf(acc[c][j], alpha[(j % 4) / 2], t[c & 1][j]);
+    };
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t off = c * NV * 128 + kk * 32;
+        wgmma_tf32x3<NV>(t[c & 1], ph[kk], pl[kk], desc(vs + off, 16, 1024),
+                         desc(vs_lo + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait<1>();  // chunk c - 1 is done
+        add(c - 1);
+      }
+    }
+    wgmma_wait<0>();
+    add(NCH - 1);
+    __syncthreads();  // every warp is past P.V: V may be refilled
+    if (kt + 1 < hi)
+      load_vt<HDV>(vs, v + (k0 + BK) * p.v_ss, p.v_ss, p.sk - k0 - BK, tid);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-30f);
+    const int row = wrow + g + 8 * r;
+    if (p.lse != nullptr && t4 == 0 && row < rows)
+      p.lse[static_cast<long long>(blockIdx.x) * p.sq + q0 + row] =
+          m_r[r] + logf(l);
+    if (row < rows) {
+      float* orow = o + row * p.o_ss + 2 * t4;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int j = 0; j < NV / 8; ++j)
+          *reinterpret_cast<float2*>(orow + c * NV + 8 * j) = make_float2(
+              acc[c][4 * j + 2 * r] / l, acc[c][4 * j + 2 * r + 1] / l);
+    }
+  }
+}
+
+template <int HD, int HDV>
+cudaError_t launch(const Params& p, int batch_heads, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<HD, HDV>();
+  auto kernel = flash_attention_tf32_kernel<HD, HDV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(batch_heads, (p.sq + BQ - 1) / BQ), THREADS, bytes,
+           stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int HD, int HDV>
+cudaError_t attributes(int* out) {
+  out[0] = THREADS;
+  out[1] = smem_bytes<HD, HDV>();
+  out[2] = BQ;
+  return tc::loaded_attributes(
+      reinterpret_cast<const void*>(flash_attention_tf32_kernel<HD, HDV>),
+      out);
+}
+
+cudaError_t dispatch(const Params& p, int hd, int hdv, int batch_heads,
+                     cudaStream_t stream) {
+  switch (pair(hd, hdv)) {
+#define FA_CASE(A, B) \
+  case pair(A, B): return launch<A, B>(p, batch_heads, stream);
+    FA_TC_PAIRS(FA_CASE)
+#undef FA_CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_attributes(int hd, int hdv, int* out) {
+  switch (pair(hd, hdv)) {
+#define FA_CASE(A, B) \
+  case pair(A, B): return attributes<A, B>(out);
+    FA_TC_PAIRS(FA_CASE)
+#undef FA_CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tf32
+
 }  // namespace
 
 // strides: 12 element strides, (b, s, h) of q, k, v, o in that order.
@@ -1728,6 +2137,30 @@ int fa_forward_tc(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(err);
 }
 
+// The float32 route on the tensor cores (split TF32): float32, (hd, hdv)
+// a pair of tf32::dispatch; pointers on 16-byte boundaries and strides in
+// multiples of 4 elements (16-byte cp.async), else
+// cudaErrorMisalignedAddress.  The arguments of `fa_forward_tc`.
+int fa_forward_tf32(const void* q, const void* k, const void* v, void* o,
+                    const long long* strides, int batch, int sq, int sk,
+                    int h, int hkv, int hd, int hdv, int causal, int window,
+                    int q_offset, float scale, float* lse, void* stream) {
+  const void* ptrs[4] = {q, k, v, o};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 4 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  Params p;
+  cudaError_t err = make_params(p, q, k, v, o, lse, strides, batch, sq, sk,
+                                h, hkv, causal, window, q_offset, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = tf32::dispatch(p, hd, hdv, batch * h,
+                       static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
 // The tensor-core route's narrow CTA: the arguments of `fa_forward_tc`,
 // (hd, hdv) a pair of tc::dispatch_narrow and sk at most
 // tc::narrow::MAX_KEYS (else cudaErrorInvalidValue).
@@ -1781,6 +2214,11 @@ int fa_forward_split_attributes(int hd, int hdv, int* out) {
 // The same for the narrow CTA at (hd, hdv).
 int fa_forward_narrow_attributes(int hd, int hdv, int* out) {
   return static_cast<int>(tc::dispatch_narrow_attributes(hd, hdv, out));
+}
+
+// The same for the float32 route's tensor-core kernel at (hd, hdv).
+int fa_forward_tf32_attributes(int hd, int hdv, int* out) {
+  return static_cast<int>(tf32::dispatch_attributes(hd, hdv, out));
 }
 
 }  // extern "C"

@@ -894,12 +894,6 @@ __device__ __forceinline__ void wgmma_ss_n32_bmn(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
 }
 
-// wait until at most N committed wgmma groups are still in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 }  // namespace tc
 
 namespace bwd_tc {
@@ -2345,6 +2339,569 @@ cudaError_t dispatch_narrow(const bwd::Params& p, int hd, int hdv, int batch,
 
 }  // namespace bwd_tc
 
+// ------------------------------------------ float32 route on the tensor
+// cores ("tf32x3"): `fa_backward_tf32`, the gradient of the forward's
+// flash_attention_tf32_kernel at the bfloat16 route's pairs, its products
+// on the tensor cores as split TF32 (flash_attention_common.cuh: three
+// TF32 wgmma a product, summed in float32).  The same four steps as the
+// other routes: D = rowsum(dO o) (the FMA route's preprocess kernel: it
+// reads two float32 rows a query and is bound by bytes), dK / dV per
+// (query head, key tile) into float32 partials where H > Hkv, their sum
+// in head order (fa_bwd_gqa_reduce_kernel), dQ per query tile.  Every
+// output element is written by one CTA in a fixed order, so two runs
+// give the same bits.
+//
+// 32-bit wgmma operands have no transpose bit: A (registers or shared
+// memory) and B (shared memory) are both K-major.  So each product takes
+// the operand that the product reads transposed as A, from registers:
+// fragments loaded from shared memory with any addressing and split
+// there, and as B only what is stored K-major:
+//   S   = Q.K^T       M 64 queries, N BN keys, K hd:   A = Q rows, B = K
+//   dP  = dO.V^T      M 64 queries, N BN keys, K hdv:  A = dO rows, B = V
+//   dV^T += dO^T.P    M hdv, N BN keys, K 64 queries:  A = dO read by
+//                     columns, B = P^T (keys x queries, written there)
+//   dK^T += Q^T.dS    M hd, the same:                  A = Q by columns,
+//                     B = dS^T
+//   dQ^T += K^T.dS^T  M hd, N 64 queries, K BN keys:   A = K by columns,
+//                     B = dS (queries x keys, written there)
+// with P = exp(scale S - lse) on the attended pairs (a select: the lse of
+// a fully masked row is about -1e30), dS = P (dP - D); dK and dQ take the
+// scale at the store.  M below 64 (hd or hdv 16, 24, 32) is padded with
+// zero fragments.  Q and dO are stored as plain rows of pitch width + 4
+// floats (row fragments conflict-free, column fragments at most two-way);
+// K, V, P^T, dS^T and dS as K-major tiles in the 128-byte swizzle, split
+// in shared memory (hi in place, lo beside it) after the tile lands; K^T's
+// fragments for dQ read both parts as they stand.
+//
+// Accuracy.  The tensor cores truncate each wgmma's float32 sum toward
+// zero, so a running sum drifts by up to an ulp of itself a wgmma.  So
+// dK^T, dV^T and dQ^T take each tile's product in a fresh accumulator and
+// add it to the running sum in float32 (rounded to nearest), and dP sums
+// its k-steps so (gemm_tf32x3_rn): dS = P (dP - D) takes dP against D, a
+// float32 sum, and where a row attends few keys dP - D is that drift
+// alone.  S is summed so too, as the forward sums it, in the dK / dV
+// kernel but at (192, 128), which spilled so; there and in the dQ kernel,
+// whose dQ^T accumulators leave no registers for it past hd 128, on the
+// tensor cores (exp(scale S - lse) then meets the forward's lse to about
+// 1e-6 of P).  With both, the errors against the plain version are the
+// FMA route's (chip_smoke.py's kernels phase, an H100 80GB HBM3 at 700 W).
+//
+// fa_bwd_dkdv_tf32_kernel: one warpgroup a (b, query head, BN-key tile),
+// walking the query tiles the mask lets reach its keys; dK^T and dV^T
+// stay in registers ((hd + hdv) / 64 blocks of BN / 2 floats a thread).
+// Its loads overlap: dO of the next query tile streams in during dK^T,
+// Q during the next dP.  fa_bwd_dq_tf32_kernel: one warpgroup a (b,
+// head, 64-query tile), the q tiles longest reach first, walking the key
+// tiles of the forward's reach; dQ^T in registers (hd / 64 blocks of 32
+// floats, at (256, 256) each block's product in two halves of 32 queries
+// for the registers); V_{j+1} streams in during S_j, dS_j and dQ_j,
+// K_{j+1} during dP_{j+1}.  BN is 32 keys, 16 at (256, 256) so that the
+// tiles fit: K, V and their lo parts 2 BN (hd + hdv) floats, Q and dO 64
+// (hd + hdv + 8), the four P^T / dS^T tiles 4 x 64 BN (dS, dS lo: 2 x 64
+// x 32), the query tile's lse and D 2 x 64 (in shared memory, for the
+// registers), 1,024 bytes of slack: 200,192 and 183,808 bytes at (192,
+// 128), 216,576 either at (256, 256), 167,424 and 151,040 at (128, 128):
+// one CTA an SM.
+//
+// What bounds it: five products, 2 (3 hd + 2 hdv) FLOP a live pair, each
+// as three TF32 products at 495 TFLOP/s; this route does seven (S and dP
+// in both kernels), from L2 the q tiles once a key tile (dK / dV) and the
+// key tiles once a q tile (dQ).
+
+namespace bwd_tf32 {
+
+using namespace tc;
+using bwd::Params;
+
+constexpr int BQ = 64;        // queries: the M of S and dP
+constexpr int THREADS = 128;  // one warpgroup
+
+// keys a tile: the N of S and dP, the keys of a dK / dV CTA
+template <int HD, int HDV>
+__host__ __device__ constexpr int bn() {
+  return HD + HDV > 384 ? 16 : 32;
+}
+
+template <int W>
+__host__ __device__ constexpr int w32() {
+  return (W + 31) / 32 * 32;
+}
+
+// blocks of 64 rows of a product whose M is W (hd or hdv)
+template <int W>
+__host__ __device__ constexpr int mblocks() {
+  return (W + 63) / 64;
+}
+
+template <int HD, int HDV>
+__host__ __device__ constexpr int kv_bytes() {  // K, V and their lo parts
+  return 2 * bn<HD, HDV>() * (w32<HD>() + w32<HDV>()) * 4;
+}
+
+template <int HD, int HDV>
+__host__ __device__ constexpr int rows_bytes() {  // Q and dO rows
+  return BQ * (HD + 4 + HDV + 4) * 4;
+}
+
+template <int HD, int HDV>
+__host__ __device__ constexpr int dkdv_smem_bytes() {  // + P^T, dS^T, lo,
+  return kv_bytes<HD, HDV>() + rows_bytes<HD, HDV>() +   // lse, D
+         4 * bn<HD, HDV>() * BQ * 4 + 2 * BQ * 4 + 1024;
+}
+
+template <int HD, int HDV>
+__host__ __device__ constexpr int dq_smem_bytes() {  // + dS, dS lo, lse, D
+  return kv_bytes<HD, HDV>() + rows_bytes<HD, HDV>() + 2 * BQ * 128 +
+         2 * BQ * 4 + 1024;
+}
+
+// A fragments of a row tile (pitch P floats) read by rows: a points at
+// this thread's a0 (row 16 w + g, column t4)
+template <int P>
+struct RowFrag {
+  const float* a;
+  __device__ __forceinline__ void operator()(int kk, uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) const {
+    const float x[4] = {a[8 * kk], a[8 * P + 8 * kk], a[8 * kk + 4],
+                        a[8 * P + 8 * kk + 4]};
+    tf32_split(x, hi, lo);
+  }
+};
+
+// A fragments of a row tile (pitch P floats, W columns) read by columns,
+// M the tile's columns from d0 = 64 mb + 16 w + g: a points at row t4,
+// column d0; columns past W are zeros
+template <int P, int W>
+struct ColFrag {
+  const float* a;
+  int d0;
+  __device__ __forceinline__ void operator()(int kk, uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) const {
+    const float* r = a + 8 * kk * P;
+    const float x[4] = {d0 < W ? r[0] : 0.f, d0 + 8 < W ? r[8] : 0.f,
+                        d0 < W ? r[4 * P] : 0.f,
+                        d0 + 8 < W ? r[4 * P + 8] : 0.f};
+    tf32_split(x, hi, lo);
+  }
+};
+
+// A fragments of a swizzled K-major tile of R rows (keys) and W columns
+// already split (the tile holds hi, `lo` the lo part at the same offsets)
+// read by columns (K^T): rows 8 kk + t4 (+ 4), columns d0 (+ 8) of block
+// m, from four byte offsets of block 0, step 0 (the swizzle's XOR term
+// is the same at every step and block); columns past W are zeros
+template <int R, int W>
+struct SwzColFrag {
+  const unsigned char* t;
+  const unsigned char* lo;
+  uint32_t at[4];
+  int d0;
+  __device__ __forceinline__ SwzColFrag(const unsigned char* t_,
+                                        const unsigned char* lo_, int t4,
+                                        int c0, int m)
+      : t(t_ + m * 2 * R * 128), lo(lo_ + m * 2 * R * 128), d0(64 * m + c0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) at[i] = swz_f32(t4 + 4 * (i / 2), c0 + 8 * (i % 2), R);
+  }
+  __device__ __forceinline__ void operator()(int kk, uint32_t (&hi)[4],
+                                             uint32_t (&lo_)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool ok = d0 + 8 * (i % 2) < W;
+      const uint32_t o = at[i] + kk * 8 * 128;
+      hi[i] = ok ? *reinterpret_cast<const uint32_t*>(t + o) : 0u;
+      lo_[i] = ok ? *reinterpret_cast<const uint32_t*>(lo + o) : 0u;
+    }
+  }
+};
+
+
+template <int HD, int HDV>
+__global__ void __launch_bounds__(THREADS)
+fa_bwd_dkdv_tf32_kernel(const Params p, float* dk_part, float* dv_part) {
+  constexpr int BN = bn<HD, HDV>();
+  constexpr int KB = BN * w32<HD>() * 4, VB = BN * w32<HDV>() * 4;
+  constexpr int PB = BN * BQ * 4;  // a P^T or dS^T tile
+  constexpr int QP = HD + 4, OP = HDV + 4;
+  constexpr int MK = mblocks<HD>(), MV = mblocks<HDV>();
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  const uint32_t raw = smem_u32(f32_smem);
+  const uint32_t ks = (raw + 1023u) & ~1023u, ks_lo = ks + KB;
+  const uint32_t vs = ks_lo + KB, vs_lo = vs + VB;
+  const uint32_t pt = vs_lo + VB, pt_lo = pt + PB;
+  const uint32_t dst = pt_lo + PB, dst_lo = dst + PB;
+  const uint32_t qs = dst_lo + PB, dos = qs + BQ * QP * 4;
+  unsigned char* sm = f32_smem + (ks - raw);  // generic, at ks
+  const float* q_sm = reinterpret_cast<const float*>(sm + (qs - ks));
+  const float* do_sm = reinterpret_cast<const float*>(sm + (dos - ks));
+  // the query tile's lse and D (in shared memory, not registers: past hd
+  // 128 the kernel leaves none)
+  float* lse_sm = const_cast<float*>(do_sm) + BQ * OP;
+  float* d_sm = lse_sm + BQ;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4, wrow = warp * 16;
+  const int k0 = blockIdx.y * BN;
+  const long long bh = blockIdx.x;
+  const int b = blockIdx.x / p.h, head = blockIdx.x % p.h;
+  const int kvh = head / p.g;
+  const int keys = min(BN, p.sk - k0);
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb +
+                   kvh * p.k_sh + k0 * p.k_ss;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb +
+                   kvh * p.v_sh + k0 * p.v_ss;
+  const float* q =
+      static_cast<const float*>(p.q) + b * p.q_sb + head * p.q_sh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.do_sb + head * p.do_sh;
+
+  // the query tiles whose mask reaches keys [k0, k0 + keys)
+  const int nq = (p.sq + BQ - 1) / BQ;
+  const int qt_lo = p.causal ? min(nq, k0 / BQ) : 0;
+  int qt_hi = nq;
+  if (p.window > 0) qt_hi = min(nq, (k0 + keys - 1 + p.window - 1) / BQ + 1);
+
+  // three commit groups: K and V, dO, Q; then one dO and one Q a tile
+  load_tile_f32<HD, THREADS>(ks, k, p.k_ss, keys, BN, tid);
+  load_tile_f32<HDV, THREADS>(vs, v, p.v_ss, keys, BN, tid);
+  cp_async_commit();
+  if (qt_lo < qt_hi) {
+    const int q0 = qt_lo * BQ;
+    load_rows_f32<HDV, THREADS>(dos, dout + q0 * p.do_ss, p.do_ss,
+                                p.sq - q0, tid);
+    cp_async_commit();
+    load_rows_f32<HD, THREADS>(qs, q + q0 * p.q_ss, p.q_ss, p.sq - q0, tid);
+  } else {
+    cp_async_commit();
+  }
+  cp_async_commit();
+  cp_async_wait<2>();
+  __syncthreads();
+  tile_split<THREADS>(reinterpret_cast<float*>(sm),
+                      reinterpret_cast<float*>(sm + (ks_lo - ks)), KB, tid);
+  tile_split<THREADS>(reinterpret_cast<float*>(sm + (vs - ks)),
+                      reinterpret_cast<float*>(sm + (vs_lo - ks)), VB, tid);
+  fence_async_smem();
+
+  float dk[MK][BN / 2], dv[MV][BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+#pragma unroll
+    for (int m = 0; m < MK; ++m) dk[m][i] = 0.f;
+#pragma unroll
+    for (int m = 0; m < MV; ++m) dv[m][i] = 0.f;
+  }
+  const RowFrag<QP> q_rows{q_sm + (wrow + g) * QP + t4};
+  const RowFrag<OP> do_rows{do_sm + (wrow + g) * OP + t4};
+
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int q0 = qt * BQ, rows = min(BQ, p.sq - q0);
+    if (tid < BQ) {  // the last tile's were read before its last barrier
+      lse_sm[tid] = tid < rows ? p.lse[bh * p.sq + q0 + tid] : 0.f;
+      d_sm[tid] = tid < rows ? p.delta[bh * p.sq + q0 + tid] : 0.f;
+    }
+    cp_async_wait<1>();  // dO of this tile (Q may still stream)
+    __syncthreads();
+    float s[BN / 2], dp[BN / 2];
+    gemm_tf32x3_rn<BN, HDV / 8>(dp, do_rows, vs, vs_lo, Steps<BN>{});
+    cp_async_wait<0>();  // Q
+    __syncthreads();
+    if constexpr (HD == 192)  // no registers for two steps in flight
+      gemm_tf32x3<BN, HD / 8>(s, q_rows, ks, ks_lo, Steps<BN>{}, false);
+    else
+      gemm_tf32x3_rn<BN, HD / 8>(s, q_rows, ks, ks_lo, Steps<BN>{});
+
+    // P and dS (rows: queries, columns: keys), stored transposed with
+    // their lo parts: element (query c, key r) of a [2][BN][128 B] tile
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int row = wrow + g + 8 * ((i % 4) / 2);
+      const int key = 8 * (i / 4) + 2 * t4 + (i & 1);
+      const bool ok = row < rows && bwd::attends(p, q0 + row, k0 + key);
+      const float pe = ok ? expf(s[i] * p.scale - lse_sm[row]) : 0.f;
+      const float ds = pe * (dp[i] - d_sm[row]);
+      const uint32_t at = swz_f32(key, row, BN);
+      store_split(sm + (pt - ks), sm + (pt_lo - ks), at, pe);
+      store_split(sm + (dst - ks), sm + (dst_lo - ks), at, ds);
+    }
+    fence_async_smem();
+    __syncthreads();
+
+    // each block into a fresh accumulator, added to dV^T / dK^T in
+    // float32 (rounded to nearest): the tensor cores truncate each
+    // wgmma's sum, and a running sum would drift by up to an ulp a wgmma
+    // over the query range
+#pragma unroll
+    for (int m = 0; m < MV; ++m) {
+      float t[BN / 2];
+      gemm_tf32x3<BN, BQ / 8>(
+          t, ColFrag<OP, HDV>{do_sm + t4 * OP + 64 * m + wrow + g,
+                              64 * m + wrow + g},
+          pt, pt_lo, Steps<BN>{}, false);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) dv[m][i] += t[i];
+    }
+    __syncthreads();  // dO is read: the next tile's may stream in
+    if (qt + 1 < qt_hi)
+      load_rows_f32<HDV, THREADS>(dos, dout + (q0 + BQ) * p.do_ss, p.do_ss,
+                                  p.sq - q0 - BQ, tid);
+    cp_async_commit();
+#pragma unroll
+    for (int m = 0; m < MK; ++m) {
+      float t[BN / 2];
+      gemm_tf32x3<BN, BQ / 8>(
+          t, ColFrag<QP, HD>{q_sm + t4 * QP + 64 * m + wrow + g,
+                             64 * m + wrow + g},
+          dst, dst_lo, Steps<BN>{}, false);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) dk[m][i] += t[i];
+    }
+    __syncthreads();  // Q, P^T and dS^T are read
+    if (qt + 1 < qt_hi)
+      load_rows_f32<HD, THREADS>(qs, q + (q0 + BQ) * p.q_ss, p.q_ss,
+                                 p.sq - q0 - BQ, tid);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // dK^T and dV^T fragments: row (column of dK, dV) 64 m + 16 w + g + 8
+  // (e / 2), column (key) 8 j + 2 t4 + (e & 1) of element 4 j + e
+  const long long part_row =
+      (static_cast<long long>(b) * p.sk + k0) * p.h + head;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int key = 8 * (i / 4) + 2 * t4 + (i & 1);
+    if (key >= keys) continue;
+    const int dr = wrow + g + 8 * ((i % 4) / 2);
+#pragma unroll
+    for (int m = 0; m < MK; ++m) {
+      const int d = 64 * m + dr;
+      if (d >= HD) continue;
+      const float x = dk[m][i] * p.scale;
+      if (dk_part != nullptr)
+        dk_part[(part_row + static_cast<long long>(key) * p.h) * HD + d] = x;
+      else
+        static_cast<float*>(p.dk)[b * p.dk_sb + (k0 + key) * p.dk_ss +
+                                  kvh * p.dk_sh + d] = x;
+    }
+#pragma unroll
+    for (int m = 0; m < MV; ++m) {
+      const int d = 64 * m + dr;
+      if (d >= HDV) continue;
+      if (dv_part != nullptr)
+        dv_part[(part_row + static_cast<long long>(key) * p.h) * HDV + d] =
+            dv[m][i];
+      else
+        static_cast<float*>(p.dv)[b * p.dv_sb + (k0 + key) * p.dv_ss +
+                                  kvh * p.dv_sh + d] = dv[m][i];
+    }
+  }
+}
+
+template <int HD, int HDV>
+__global__ void __launch_bounds__(THREADS)
+fa_bwd_dq_tf32_kernel(const Params p) {
+  constexpr int BN = bn<HD, HDV>();
+  constexpr int KB = BN * w32<HD>() * 4, VB = BN * w32<HDV>() * 4;
+  constexpr int DB = BQ * 128;  // dS: 64 query rows of up to 32 keys
+  constexpr int QP = HD + 4, OP = HDV + 4;
+  constexpr int MK = mblocks<HD>();
+  constexpr int NQ = HD > 192 ? 32 : 64;  // dQ^T's N a wgmma
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  const uint32_t raw = smem_u32(f32_smem);
+  const uint32_t ks = (raw + 1023u) & ~1023u, ks_lo = ks + KB;
+  const uint32_t vs = ks_lo + KB, vs_lo = vs + VB;
+  const uint32_t ds = vs_lo + VB, ds_lo = ds + DB;
+  const uint32_t qs = ds_lo + DB, dos = qs + BQ * QP * 4;
+  unsigned char* sm = f32_smem + (ks - raw);
+  const float* q_sm = reinterpret_cast<const float*>(sm + (qs - ks));
+  const float* do_sm = reinterpret_cast<const float*>(sm + (dos - ks));
+  // the tile's lse and D (in shared memory, not registers: the dQ^T
+  // accumulators past hd 128 leave none)
+  float* lse_sm = const_cast<float*>(do_sm) + BQ * OP;
+  float* d_sm = lse_sm + BQ;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4, wrow = warp * 16;
+  const int nq = (p.sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * BQ;
+  const long long bh = blockIdx.x;
+  const int b = blockIdx.x / p.h, head = blockIdx.x % p.h;
+  const int kvh = head / p.g;
+  const int rows = min(BQ, p.sq - q0);
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb +
+                   head * p.q_sh + q0 * p.q_ss;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb +
+                      head * p.do_sh + q0 * p.do_ss;
+  const float* k =
+      static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* v =
+      static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+
+  // the key tiles this query tile reaches (the forward's loop bounds)
+  const int nk = (p.sk + BN - 1) / BN;
+  int hi = nk;
+  if (p.causal) hi = min(nk, (q0 + rows + BN - 1) / BN);
+  int lo = 0;
+  if (p.window > 0) {
+    const int first = q0 - p.window + 1;
+    lo = first > 0 ? first / BN : 0;
+  }
+
+  // three commit groups: Q and dO, V, K; then one V and one K a tile
+  load_rows_f32<HD, THREADS>(qs, q, p.q_ss, rows, tid);
+  load_rows_f32<HDV, THREADS>(dos, dout, p.do_ss, rows, tid);
+  cp_async_commit();
+  if (lo < hi)
+    load_tile_f32<HDV, THREADS>(vs, v + lo * BN * p.v_ss, p.v_ss,
+                                p.sk - lo * BN, BN, tid);
+  cp_async_commit();
+  if (lo < hi)
+    load_tile_f32<HD, THREADS>(ks, k + lo * BN * p.k_ss, p.k_ss,
+                               p.sk - lo * BN, BN, tid);
+  cp_async_commit();
+
+  if (tid < BQ) {
+    lse_sm[tid] = tid < rows ? p.lse[bh * p.sq + q0 + tid] : 0.f;
+    d_sm[tid] = tid < rows ? p.delta[bh * p.sq + q0 + tid] : 0.f;
+  }
+  float dq[MK][BQ / 2];
+#pragma unroll
+  for (int m = 0; m < MK; ++m)
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) dq[m][i] = 0.f;
+  const RowFrag<QP> q_rows{q_sm + (wrow + g) * QP + t4};
+  const RowFrag<OP> do_rows{do_sm + (wrow + g) * OP + t4};
+
+  for (int kt = lo; kt < hi; ++kt) {
+    const int k0 = kt * BN;
+    cp_async_wait<1>();  // V of this tile (and Q, dO); K may still stream
+    __syncthreads();
+    tile_split<THREADS>(reinterpret_cast<float*>(sm + (vs - ks)),
+                        reinterpret_cast<float*>(sm + (vs_lo - ks)), VB, tid);
+    fence_async_smem();
+    __syncthreads();
+    float s[BN / 2], dp[BN / 2];
+    gemm_tf32x3_rn<BN, HDV / 8>(dp, do_rows, vs, vs_lo, Steps<BN>{});
+    __syncthreads();  // V is read: the next tile's may stream in
+    if (kt + 1 < hi)
+      load_tile_f32<HDV, THREADS>(vs, v + (k0 + BN) * p.v_ss, p.v_ss,
+                                  p.sk - k0 - BN, BN, tid);
+    cp_async_commit();
+    cp_async_wait<1>();  // K of this tile
+    __syncthreads();
+    tile_split<THREADS>(reinterpret_cast<float*>(sm),
+                        reinterpret_cast<float*>(sm + (ks_lo - ks)), KB, tid);
+    fence_async_smem();
+    __syncthreads();
+    gemm_tf32x3<BN, HD / 8>(s, q_rows, ks, ks_lo, Steps<BN>{}, false);
+
+    // dS (rows: queries, columns: the tile's keys) with its lo part
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int row = wrow + g + 8 * ((i % 4) / 2);
+      const int key = 8 * (i / 4) + 2 * t4 + (i & 1);
+      const bool ok = row < rows && bwd::attends(p, q0 + row, k0 + key);
+      const float pe = ok ? expf(s[i] * p.scale - lse_sm[row]) : 0.f;
+      const float x = pe * (dp[i] - d_sm[row]);
+      store_split(sm + (ds - ks), sm + (ds_lo - ks), swz_f32(row, key, BQ),
+                  x);
+    }
+    fence_async_smem();
+    __syncthreads();
+    // each block into a fresh accumulator, added to dQ^T in float32
+    // (rounded to nearest), as dK^T and dV^T are; at (256, 256) a block's
+    // 64 queries in two halves (NQ 32): with one product of 64 it spills
+#pragma unroll
+    for (int m = 0; m < MK; ++m)
+#pragma unroll
+      for (int nh = 0; nh < BQ / NQ; ++nh) {
+        float t[NQ / 2];
+        gemm_tf32x3<NQ, BN / 8>(
+            t, SwzColFrag<BN, HD>(sm, sm + (ks_lo - ks), t4, wrow + g, m),
+            ds + nh * NQ * 128, ds_lo + nh * NQ * 128, Steps<BQ>{}, false);
+#pragma unroll
+        for (int i = 0; i < NQ / 2; ++i) dq[m][nh * NQ / 2 + i] += t[i];
+      }
+    __syncthreads();  // K and dS are read
+    if (kt + 1 < hi)
+      load_tile_f32<HD, THREADS>(ks, k + (k0 + BN) * p.k_ss, p.k_ss,
+                                 p.sk - k0 - BN, BN, tid);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // dQ^T fragments: row (column of dQ) 64 m + 16 w + g + 8 (e / 2),
+  // column (query) 8 j + 2 t4 + (e & 1) of element 4 j + e
+  float* dqp = static_cast<float*>(p.dq) + b * p.dq_sb + head * p.dq_sh +
+               q0 * p.dq_ss;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) {
+    const int row = 8 * (i / 4) + 2 * t4 + (i & 1);
+    if (row >= rows) continue;
+#pragma unroll
+    for (int m = 0; m < MK; ++m) {
+      const int d = 64 * m + wrow + g + 8 * ((i % 4) / 2);
+      if (d < HD) dqp[row * p.dq_ss + d] = dq[m][i] * p.scale;
+    }
+  }
+}
+
+template <int HD, int HDV>
+cudaError_t launch(const Params& p, int batch, float* dk_part,
+                   float* dv_part, cudaStream_t stream) {
+  constexpr int BN = bn<HD, HDV>();
+  bwd::fa_bwd_preprocess_kernel<float>
+      <<<dim3((p.sq + BQ - 1) / BQ, batch * p.h), bwd::THREADS, 0, stream>>>(
+          p, HDV);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int dkdv_bytes = dkdv_smem_bytes<HD, HDV>();
+  auto dkdv = fa_bwd_dkdv_tf32_kernel<HD, HDV>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dkdv_bytes);
+  if (err != cudaSuccess) return err;
+  dkdv<<<dim3(batch * p.h, (p.sk + BN - 1) / BN), THREADS, dkdv_bytes,
+         stream>>>(p, p.g > 1 ? dk_part : nullptr,
+                   p.g > 1 ? dv_part : nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (p.g > 1) {
+    err = bwd::launch_reduce<float>(p, batch, HD, HDV, dk_part, dv_part,
+                                    stream);
+    if (err != cudaSuccess) return err;
+  }
+
+  constexpr int dq_bytes = dq_smem_bytes<HD, HDV>();
+  auto dqk = fa_bwd_dq_tf32_kernel<HD, HDV>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dq_bytes);
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3(batch * p.h, (p.sq + BQ - 1) / BQ), THREADS, dq_bytes,
+        stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const Params& p, int hd, int hdv, int batch,
+                     float* dk_part, float* dv_part, cudaStream_t stream) {
+  switch (pair(hd, hdv)) {
+    case pair(16, 16): return launch<16, 16>(p, batch, dk_part, dv_part, stream);
+    case pair(24, 16): return launch<24, 16>(p, batch, dk_part, dv_part, stream);
+    case pair(32, 32): return launch<32, 32>(p, batch, dk_part, dv_part, stream);
+    case pair(64, 64): return launch<64, 64>(p, batch, dk_part, dv_part, stream);
+    case pair(128, 128):
+      return launch<128, 128>(p, batch, dk_part, dv_part, stream);
+    case pair(192, 128):
+      return launch<192, 128>(p, batch, dk_part, dv_part, stream);
+    case pair(256, 256):
+      return launch<256, 256>(p, batch, dk_part, dv_part, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd_tf32
+
 }  // namespace
 
 extern "C" {
@@ -2445,6 +3002,38 @@ int fa_backward_tc(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   err = bwd_tc::dispatch(p, hd, hdv, batch, dk_part, dv_part, one_grid != 0,
                          static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// The float32 route on the tensor cores (split TF32): float32, (hd, hdv)
+// a pair of bwd_tf32::dispatch; the arguments of `fa_backward` without
+// dtype.  Every pointer on a 16-byte boundary and every stride a multiple
+// of 4 elements (16-byte cp.async), else cudaErrorMisalignedAddress.
+// Four kernels: the FMA route's preprocess (D), dK / dV, the GQA
+// reduction (H > Hkv), dQ.
+int fa_backward_tf32(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     float* delta, void* dq, void* dk, void* dv,
+                     float* dk_part, float* dv_part,
+                     const long long* strides, int batch, int sq, int sk,
+                     int h, int hkv, int hd, int hdv, int causal, int window,
+                     float scale, void* stream) {
+  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  for (int i = 0; i < 24; ++i)
+    if (strides[i] % 4 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  if (hkv > 0 && h != hkv && (dk_part == nullptr || dv_part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  bwd::Params p;
+  cudaError_t err = make_bwd_params(p, q, k, v, o, dout, lse, delta, dq, dk,
+                                    dv, strides, batch, sq, sk, h, hkv,
+                                    causal, window, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = bwd_tf32::dispatch(p, hd, hdv, batch, dk_part, dv_part,
+                           static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

@@ -343,6 +343,277 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// wait until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// --- the float32 route on the tensor cores (split TF32, "tf32x3")
+//
+// A TF32 product reads the sign, the exponent and the top 10 mantissa
+// bits of each 32-bit operand and ignores the low 13 (it reads trunc(x),
+// x with them cleared).  A float32 x is taken as hi + lo: hi = rna(x), x
+// rounded to the nearest TF32 value (ties away from zero, as
+// cvt.rna.tf32.f32), and lo = x - hi, exact in float32 and within half a
+// TF32 ulp of x, of which the tensor cores read trunc(lo).  A product a.b
+// is then hi_a.hi_b + hi_a.lo_b + lo_a.hi_b, three TF32 products summed
+// in float32: hi + trunc(lo) is within 2^-21 |x| of x and lo_a.lo_b,
+// dropped, below 2^-24 |a b|, errors of either sign, since lo has either
+// sign (hi = x and lo = x - trunc(x), as a split that truncates takes
+// them, has twice the error, all of it toward zero); about 22 of
+// float32's 24 bits, at a third of the 495 TF32 TFLOP/s.
+// tests/test_torch_tf32x3.py mirrors this split bit for bit on the CPU.
+
+// x rounded to the nearest TF32 value, ties away from zero
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// the split of four float32 values, an A fragment of one k8 step
+__device__ __forceinline__ void tf32_split(const float (&x)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float h = tf32_rna(x[i]);
+    hi[i] = __float_as_uint(h);
+    lo[i] = __float_as_uint(x[i] - h);
+  }
+}
+
+// d (64 x N f32) (+)= A (64 x 8 tf32, registers) . B^T (B N x 8, K-major
+// in shared memory, descriptor); scale_d = 0 overwrites d.  The A fragment
+// of a warp's 16 rows: a0 (row g, col t4), a1 (g + 8, t4), a2 (g, t4 + 4),
+// a3 (g + 8, t4 + 4), g = lane / 4, t4 = lane % 4.  32-bit operands have
+// no transpose bit: B is always K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// the three split products of one k8 step: d (+)= hi.B + hi.B_lo + lo.B,
+// B and B_lo the descriptors of a tile and its lo part (same layout)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32x3(float (&d)[N / 2],
+                                             const uint32_t (&hi)[4],
+                                             const uint32_t (&lo)[4],
+                                             uint64_t db, uint64_t db_lo,
+                                             int scale_d) {
+  wgmma_tf32<N>(d, hi, db, scale_d);
+  wgmma_tf32<N>(d, hi, db_lo, 1);
+  wgmma_tf32<N>(d, lo, db, 1);
+}
+
+// 4-byte cp.async (the transposing scatter of a float32 tile); src-size 0
+// fills zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// Copy rows [0, n_valid) of `rows` rows of W floats (row stride ss
+// elements) into the K-major tile at `dst` in the 128-byte swizzle,
+// [ceil(W / 32)][rows][128 B] (the layout `desc` reads, 32 floats a
+// row of an atom column), with NT threads; rows past n_valid become
+// zeros, columns past W of the last atom are not written
+template <int W, int NT>
+__device__ __forceinline__ void load_tile_f32(uint32_t dst, const float* src,
+                                              long long ss, int n_valid,
+                                              int rows, int tid) {
+  constexpr int C = W / 4;  // 16-byte chunks a row
+  // not unrolled: unrolled, the compiler keeps each copy's offsets in
+  // registers across the key loop, and the dQ kernels past hd 128 spill
+#pragma unroll 1
+  for (int i = tid; i < rows * C; i += NT) {
+    const int r = i / C, c = i % C;
+    const bool ok = r < n_valid;
+    cp_async16(dst + (c / 8) * rows * 128 + r * 128 + ((c % 8) ^ (r % 8)) * 16,
+               ok ? src + r * ss + c * 4 : src, ok);
+  }
+}
+
+// Copy rows [0, n_valid) of a 64-row tile of W floats into shared memory
+// as plain rows of pitch W + 4 floats (conflict-free A fragments); rows
+// past n_valid become zeros
+template <int W, int NT>
+__device__ __forceinline__ void load_rows_f32(uint32_t dst, const float* src,
+                                              long long ss, int n_valid,
+                                              int tid) {
+  constexpr int C = W / 4;
+  for (int i = tid; i < 64 * C; i += NT) {
+    const int r = i / C, c = i % C;
+    const bool ok = r < n_valid;
+    cp_async16(dst + (r * (W + 4) + c * 4) * 4,
+               ok ? src + r * ss + c * 4 : src, ok);
+  }
+}
+
+// The split of a tile as it landed, over `bytes`, 16 bytes a thread a
+// step: hi in place of the float32 values, lo at the same offsets of
+// `lo` (so in the same swizzle)
+template <int NT>
+__device__ __forceinline__ void tile_split(float* x, float* lo, int bytes,
+                                           int tid) {
+  for (int i = tid; i < bytes / 16; i += NT) {
+    const float4 v = reinterpret_cast<const float4*>(x)[i];
+    const float4 h = make_float4(tf32_rna(v.x), tf32_rna(v.y),
+                                 tf32_rna(v.z), tf32_rna(v.w));
+    reinterpret_cast<float4*>(x)[i] = h;
+    reinterpret_cast<float4*>(lo)[i] =
+        make_float4(v.x - h.x, v.y - h.y, v.z - h.z, v.w - h.w);
+  }
+}
+
+// the split of one float32 value stored into a tile and its lo part
+__device__ __forceinline__ void store_split(unsigned char* tile,
+                                            unsigned char* lo, uint32_t at,
+                                            float x) {
+  const float h = tf32_rna(x);
+  *reinterpret_cast<float*>(tile + at) = h;
+  *reinterpret_cast<float*>(lo + at) = x - h;
+}
+
+// step kk of a K-major tile of R rows: 32 bytes a step inside a 128-byte
+// row, R x 128 bytes between 32-float atom columns
+template <int R>
+struct Steps {
+  __device__ __forceinline__ uint32_t operator()(int kk) const {
+    return (kk / 4) * R * 128 + (kk % 4) * 32;
+  }
+};
+
+// d (64 x N) (+)= A (64 x 8 KS) . B over KS k8 steps, three TF32 wgmma a
+// step: frag(kk, hi, lo) gives this thread's A fragment of step kk, split,
+// B and B_lo are tiles whose step kk starts `off(kk)` bytes in; two
+// steps' fragments in flight
+template <int N, int KS, typename Frag, typename Off>
+__device__ __forceinline__ void gemm_tf32x3(float (&d)[N / 2], Frag frag,
+                                            uint32_t b, uint32_t b_lo,
+                                            Off off, bool accumulate) {
+  if (!accumulate) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  }
+  uint32_t hi[2][4], lo[2][4];
+  frag(0, hi[0], lo[0]);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_fence();
+    wgmma_tf32x3<N>(d, hi[kk & 1], lo[kk & 1], desc(b + off(kk), 16, 1024),
+                    desc(b_lo + off(kk), 16, 1024), accumulate || kk > 0);
+    wgmma_commit();
+    if (kk + 1 < KS) {
+      wgmma_wait<1>();  // step kk - 1 is done: its fragments are free
+      frag(kk + 1, hi[(kk + 1) & 1], lo[(kk + 1) & 1]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(d);
+}
+
+// d (64 x N) = A . B as gemm_tf32x3 computes it, but each k8 step's
+// three products into a fresh accumulator (two in flight), added to d in
+// float32, rounded to nearest.  The tensor cores align a wgmma's products
+// to the largest of them and the accumulator with a few guard bits and
+// truncate the sum toward zero, so a running sum over hd / 8 steps (32
+// at hd 256) drifts toward zero by up to an ulp of itself a wgmma; a
+// fresh one a step drifts by an ulp of the step's share, in either
+// direction from step to step.  (The backward's dS = P (dP - D) takes dP
+// against D = rowsum(dO o), a float32 sum: where a row attends few keys
+// dP - D is that drift alone.)
+template <int N, int KS, typename Frag, typename Off>
+__device__ __forceinline__ void gemm_tf32x3_rn(float (&d)[N / 2], Frag frag,
+                                               uint32_t b, uint32_t b_lo,
+                                               Off off) {
+  float part[2][N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = part[0][i] = part[1][i] = 0.f;
+  uint32_t hi[2][4], lo[2][4];
+  frag(0, hi[0], lo[0]);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_fence();
+    wgmma_tf32x3<N>(part[kk & 1], hi[kk & 1], lo[kk & 1],
+                    desc(b + off(kk), 16, 1024),
+                    desc(b_lo + off(kk), 16, 1024), 0);
+    wgmma_commit();
+    if (kk > 0) {
+      wgmma_wait<1>();  // step kk - 1 is done: add it, free its registers
+      fence_regs(part[(kk - 1) & 1]);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) d[i] += part[(kk - 1) & 1][i];
+    }
+    if (kk + 1 < KS) frag(kk + 1, hi[(kk + 1) & 1], lo[(kk + 1) & 1]);
+  }
+  wgmma_wait<0>();
+  fence_regs(part[(KS - 1) & 1]);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] += part[(KS - 1) & 1][i];
+}
+
+// Byte offset of element (r, c) of a K-major tile of `rows` rows in the
+// 128-byte swizzle ([c / 32][rows][128 B])
+__device__ __forceinline__ uint32_t swz_f32(int r, int c, int rows) {
+  return (c / 32) * rows * 128 + r * 128 + ((((c % 32) / 4) ^ (r % 8)) * 16) +
+         (c % 4) * 4;
+}
+
 }  // namespace tc
 
 }  // namespace

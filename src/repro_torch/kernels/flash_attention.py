@@ -13,10 +13,12 @@ k (B, Sk, Hkv, hd) and v (B, Sk, Hkv, hdv), and returns (B, Sq, H, hdv):
   gradient), picks a kernel by :func:`_route`, allocates the output in
   q's dtype, launches the kernel on the current stream, raises on a
   non-zero CUDA status and adds one to ``LAUNCHES["flash_attention"]``
-  (every launch) and, on the tensor-core route, to
-  ``LAUNCHES["flash_attention_tc"]``.  Both kernels bound their key loop
-  to the causal / window reach (skipping a fully masked tile is exact),
-  so ``cq``, ``ck`` and ``skip_masked_chunks`` do not change the result.
+  (every launch) and, on the tensor-core routes, to
+  ``LAUNCHES["flash_attention_tc"]`` (bfloat16) or
+  ``LAUNCHES["flash_attention_tf32x3"]`` (float32).  Every kernel bounds
+  its key loop to the causal / window reach (skipping a fully masked tile
+  is exact), so ``cq``, ``ck`` and ``skip_masked_chunks`` do not change
+  the result.
 
 The route rule (:func:`_route`): bfloat16 with (hd, hdv) in
 :data:`TC_HEAD_DIMS` takes the tensor cores (``wgmma``; q, k, v need
@@ -32,10 +34,15 @@ a q tile, one key tile each, widths padded to the next k16 step;
 :data:`SPLIT_PAIRS`, for a launch without a mask whose CTAs leave SMs
 idle (:func:`_split`), ``flash_attention_ws_kernel`` split over a
 cluster (its CTAs share a 128-row q tile and split its key range;
-``LAUNCHES["flash_attention_split"]``);
-float32, and bfloat16 with hd = 8, run ``flash_attention_kernel``
-(float32 FMAs).  Nothing falls back
-from one route to the other.  hd ≠ hdv is DeepSeek-V2's MLA: (192, 128)
+``LAUNCHES["flash_attention_split"]``); float32 with (hd, hdv) in
+:data:`TC_HEAD_DIMS` takes the tensor cores too (``"tf32x3"``, the same
+alignment in 16 bytes: strides in multiples of 4 elements):
+``flash_attention_tf32_kernel``, each float32 product as three TF32
+products of split operands (a = hi + lo: hi.hi + hi.lo + lo.hi), as
+accurate as float32's FMAs within the float32 tolerance; hd = 8 (either
+dtype) runs ``flash_attention_kernel`` (float32 FMAs), which any pair
+also takes when a caller names ``"fma"``.  Nothing falls back
+from one route to another.  hd ≠ hdv is DeepSeek-V2's MLA: (192, 128)
 published, (24, 16) in its smoke config; (256, 256) is RecurrentGemma's
 local attention; a pair outside :data:`HEAD_DIMS` has no kernel and
 raises ``ValueError`` from the shapes alone, before any device work.
@@ -49,7 +56,8 @@ The gradient: where grad mode is on and an operand requires grad,
 :class:`FlashAttentionFn`, whose forward launches the routed kernel with
 its per-row log-sum-exp (``lse``, float32 (B, H, Sq)) and whose backward
 launches the backward kernels (:func:`backward`), routed by the same
-rule, at every pair of :data:`HEAD_DIMS`:
+rule (but float32 at :data:`FMA_BACKWARD_PAIRS`, which keeps the FMA
+backward), at every pair of :data:`HEAD_DIMS`:
 
 * ``"tc"`` (bfloat16, (hd, hdv) in :data:`TC_HEAD_DIMS`):
   ``fa_backward_tc``, four kernels: ``D = rowsum(dO o)`` over hdv
@@ -69,10 +77,18 @@ rule, at every pair of :data:`HEAD_DIMS`:
   Hkv (:func:`_one_grid`), ``fa_backward_tc`` with ``one_grid``: D, then
   the dK / dV and the dQ CTAs in one grid, ``fa_bwd_dkdv_dq_tc_kernel``
   (``LAUNCHES["flash_attention_bwd_one_grid"]``);
-* ``"fma"`` (float32, and bfloat16 with hd 8): ``fa_backward``, three
-  kernels of float32 FMAs (``D``, dK / dV per query head and key tile,
-  dQ; 32-row streamed tiles past hd 128), and the same GQA reduction of
-  float32 partials where H > Hkv.
+* ``"tf32x3"`` (float32, (hd, hdv) in :data:`TC_HEAD_DIMS` but
+  :data:`FMA_BACKWARD_PAIRS`): ``fa_backward_tf32``, the FMA route's ``D``, then on the tensor cores
+  as split TF32 dK / dV per (query head, key tile of 32 keys, 16 at
+  (256, 256)) and dQ per query tile, one warpgroup a CTA, with the same
+  GQA reduction; operands aligned as the forward's tensor-core routes
+  want (a misaligned upstream gradient is copied, q, k and v raise);
+  ``LAUNCHES["flash_attention_bwd_tf32x3"]``;
+* ``"fma"`` (hd 8, either dtype; float32 at
+  :data:`FMA_BACKWARD_PAIRS`; any pair when named): ``fa_backward``,
+  three kernels of float32 FMAs (``D``, dK / dV per query head and key
+  tile, dQ; 32-row streamed tiles past hd 128), and the same GQA
+  reduction of float32 partials where H > Hkv.
 
 Both are deterministic (no float atomics); ``LAUNCHES
 ["flash_attention_bwd"]`` counts every backward call.
@@ -109,21 +125,28 @@ from repro_torch.kernels.build import CudaLibrary
 
 #: launches since the last :func:`reset_launches`: every forward launch,
 #: those of the tensor-core route, every backward call (each one call of
-#: ``fa_backward``, ``fa_backward_tc`` or ``fa_backward_narrow``: all its
-#: kernels), and those of the tensor-core route; of these, the narrow
-#: forward's and the one-launch backward's (:data:`NARROW_PAIRS`)
+#: ``fa_backward``, ``fa_backward_tc``, ``fa_backward_narrow`` or
+#: ``fa_backward_tf32``: all its kernels), and those of the tensor-core
+#: route; of these, the narrow forward's and the one-launch backward's
+#: (:data:`NARROW_PAIRS`); the float32 tensor-core route's forward
+#: launches and backward calls (``"tf32x3"``)
 LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
             "flash_attention_narrow": 0, "flash_attention_bwd_narrow": 0,
-            "flash_attention_split": 0, "flash_attention_bwd_one_grid": 0}
+            "flash_attention_split": 0, "flash_attention_bwd_one_grid": 0,
+            "flash_attention_tf32x3": 0, "flash_attention_bwd_tf32x3": 0}
 #: (hd, hdv) pairs the forward kernels are built for: q.k's head dim and
 #: v's; (24, 16) and (192, 128) are DeepSeek-V2-Lite's MLA (smoke,
 #: published), (256, 256) RecurrentGemma-9B's local attention
 HEAD_DIMS = ((8, 8), (16, 16), (24, 16), (32, 32), (64, 64), (128, 128),
              (192, 128), (256, 256))
-#: the pairs of the tensor-core forward and backward (bfloat16 only)
+#: the pairs of the tensor-core forward and backward: bfloat16 on
+#: ``"tc"``, float32 on ``"tf32x3"`` (split TF32)
 TC_HEAD_DIMS = tuple(p for p in HEAD_DIMS if p[0] >= 16)
-ROUTES = ("tc", "fma")
+ROUTES = ("tc", "tf32x3", "fma")
+#: the pairs whose float32 backward stays on the FMA kernels
+#: (:func:`_route`): there the "tf32x3" backward lost to them in turns
+FMA_BACKWARD_PAIRS = ((16, 16),)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the tensor-core pairs with a narrow CTA for short sequences: the forward
 #: ``flash_attention_narrow_kernel`` where Sk <= :data:`NARROW_MAX_LEN`,
@@ -142,6 +165,8 @@ SPLIT_PAIRS = ((64, 64),)
 #: the H100's SMs, and the most CTAs of a split cluster
 _SMS = 132
 _MAX_SPLIT = 4
+#: keys a tile of the float32 tensor-core forward
+_TF32_KEYS = 32
 #: rows and keys per tile of the backward kernels; threads of a CTA of the
 #: preprocess kernel and of the GQA reduction (four elements a thread)
 _TILE = 64
@@ -171,11 +196,12 @@ def _declare_forward(lib: ctypes.CDLL) -> None:
     # ..., lse, cluster, stream
     lib.fa_forward_split.argtypes = lib.fa_forward_tc.argtypes[:-1] + [i, p]
     lib.fa_forward_split.restype = ctypes.c_int
-    for fn in (lib.fa_forward_tc_attributes, lib.fa_forward_narrow_attributes):
+    lib.fa_forward_tf32.argtypes = lib.fa_forward_tc.argtypes
+    lib.fa_forward_tf32.restype = ctypes.c_int
+    for name in ("tc", "narrow", "split", "tf32"):
+        fn = getattr(lib, f"fa_forward_{name}_attributes")
         fn.argtypes = [i, i, ctypes.POINTER(i)]
         fn.restype = ctypes.c_int
-    lib.fa_forward_split_attributes.argtypes = [i, i, ctypes.POINTER(i)]
-    lib.fa_forward_split_attributes.restype = ctypes.c_int
 
 
 def _declare_backward(lib: ctypes.CDLL) -> None:
@@ -191,6 +217,9 @@ def _declare_backward(lib: ctypes.CDLL) -> None:
     # causal, window, scale, stream
     lib.fa_backward_narrow.argtypes = [p] * 9 + [strides] + [i] * 9 + [f, p]
     lib.fa_backward_narrow.restype = ctypes.c_int
+    # the arguments of fa_backward without dtype
+    lib.fa_backward_tf32.argtypes = [p] * 12 + [strides] + [i] * 9 + [f, p]
+    lib.fa_backward_tf32.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("flash_attention.cu", _declare_forward)
@@ -237,12 +266,33 @@ def _check_pair(hd: int, hdv: int) -> None:
             f"hdv {hdv}); the kernels take (hd, hdv) in {HEAD_DIMS}")
 
 
-def _route(dtype: torch.dtype, hd: int, hdv: int) -> str:
+def _route(dtype: torch.dtype, hd: int, hdv: int,
+           backward: bool = False) -> str:
     """The kernel for operands of ``dtype`` and head dims ``hd`` (q.k)
-    and ``hdv`` (v): ``"tc"`` (tensor cores) for bfloat16 with (hd, hdv)
-    in :data:`TC_HEAD_DIMS`, else ``"fma"`` (float32 FMAs)."""
-    return ("tc" if dtype == torch.bfloat16 and (hd, hdv) in TC_HEAD_DIMS
-            else "fma")
+    and ``hdv`` (v), with (hd, hdv) in :data:`TC_HEAD_DIMS`: ``"tc"``
+    (tensor cores, bf16 operands) for bfloat16, ``"tf32x3"`` (tensor
+    cores, each float32 product as three TF32 products of split
+    operands: float32-accurate) for float32; else ``"fma"`` (float32
+    FMAs: hd 8, and any other dtype).  ``backward``: the gradient's
+    kernels, where the float32 pairs of :data:`FMA_BACKWARD_PAIRS` keep
+    the FMA route.  Timed in turns with the FMA kernels on an H100 80GB
+    HBM3 at 700 W (``chip_smoke.py``'s kernels phase, PERF.md), the
+    float32 tensor-core kernels won at every row but one, the
+    launch-bound ones too: (24, 16) at (2, 256, 256, 4, 4) 0.0236
+    against 0.0290 ms forward and 0.0644 against 0.0709 backward (CUDA
+    events).  The one is the hd-16 backward at (1, 512, 512, 4, 2), the
+    smoke configs' attention (32 CTAs a kernel): 0.0990 against 0.0984
+    ms of device time, 0.1069 against 0.1058 by events; so (16, 16)
+    keeps the FMA backward.  The shapes alone decide, before any
+    launch."""
+    if (hd, hdv) not in TC_HEAD_DIMS:
+        return "fma"
+    if dtype == torch.bfloat16:
+        return "tc"
+    if dtype == torch.float32:
+        return ("fma" if backward and (hd, hdv) in FMA_BACKWARD_PAIRS
+                else "tf32x3")
+    return "fma"
 
 
 def _narrow(hd: int, hdv: int, sq: int, sk: int,
@@ -291,13 +341,15 @@ def _k16(w: int) -> int:
 
 def _tc_aligned(t: torch.Tensor) -> bool:
     """Does ``t`` start on a 16-byte boundary, with b, s and h strides (of
-    the dimensions longer than 1) in multiples of 8 elements?"""
+    the dimensions longer than 1) in multiples of 16 bytes (8 bfloat16
+    elements, 4 float32)?"""
+    n16 = 16 // t.element_size()
     return t.data_ptr() % 16 == 0 and all(
-        n <= 1 or st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]))
+        n <= 1 or st % n16 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
 def _check_tc(*tensors: torch.Tensor) -> None:
-    """The tensor-core route's 16-byte copies: raise unless every operand
+    """The tensor-core routes' 16-byte copies: raise unless every operand
     is :func:`_tc_aligned`."""
     for t in tensors:
         if t.data_ptr() % 16 != 0:
@@ -305,8 +357,26 @@ def _check_tc(*tensors: torch.Tensor) -> None:
                              "16-byte-aligned operands")
         if not _tc_aligned(t):
             raise ValueError(f"flash_attention: the tensor-core route needs "
-                             f"strides in multiples of 8 elements (16 "
+                             f"strides in multiples of "
+                             f"{16 // t.element_size()} elements (16 "
                              f"bytes), got {t.stride()}")
+
+
+def _check_named_route(route: str, dtype: torch.dtype, hd: int, hdv: int,
+                       what: str = "flash_attention") -> None:
+    """A tensor-core route named by a caller must be the one the rule
+    gives these operands (``"fma"`` may be named at any pair); ``what``
+    prefixes the error."""
+    if route not in ROUTES:
+        raise ValueError(f"{what}: route {route!r} not in {ROUTES}")
+    if route == "tc" and _route(dtype, hd, hdv) != "tc":
+        raise ValueError(f"{what}: the tensor-core route takes bfloat16 "
+                         f"with (hd, hdv) in {TC_HEAD_DIMS}, got {dtype}, "
+                         f"({hd}, {hdv})")
+    if route == "tf32x3" and _route(dtype, hd, hdv) != "tf32x3":
+        raise ValueError(f"{what}: the tf32x3 route takes float32 with (hd, "
+                         f"hdv) in {TC_HEAD_DIMS}, got {dtype}, ({hd}, "
+                         f"{hdv})")
 
 
 def _strides(*tensors: torch.Tensor) -> ctypes.Array:
@@ -319,8 +389,8 @@ def _strides(*tensors: torch.Tensor) -> ctypes.Array:
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
            window: int, q_offset: int, route: str) -> torch.Tensor:
-    """Check the operands and launch the ``route`` kernel ("tc" or
-    "fma") on CUDA tensors.  :func:`flash_attention` passes
+    """Check the operands and launch the ``route`` kernel ("tc",
+    "tf32x3" or "fma") on CUDA tensors.  :func:`flash_attention` passes
     :func:`_route`'s choice; a caller may name the other route only to
     time or test it.  Forward only: an operand that requires grad raises
     (:class:`FlashAttentionFn` is the differentiable entry)."""
@@ -341,11 +411,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, window, q_offset)
     b, sq, h, hd = q.shape
     sk, hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
-    if route == "tc":
-        if _route(q.dtype, hd, hdv) != "tc":
-            raise ValueError(f"flash_attention: the tensor-core route takes "
-                             f"bfloat16 with (hd, hdv) in {TC_HEAD_DIMS}, "
-                             f"got {q.dtype}, ({hd}, {hdv})")
+    if route != "fma":
+        _check_named_route(route, q.dtype, hd, hdv)
         _check_tc(q, k, v)
     lib = LIBRARY.load()
     out = torch.empty((b, sq, h, hdv), dtype=q.dtype, device=q.device)
@@ -362,6 +429,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         if route == "fma":
             rc = lib.fa_forward(*args, _DTYPES[q.dtype], stream)
+        elif route == "tf32x3":
+            rc = lib.fa_forward_tf32(*args, stream)
         elif narrow:
             rc = lib.fa_forward_narrow(*args, stream)
         elif split:
@@ -374,6 +443,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES["flash_attention"] += 1
     if route == "tc":
         LAUNCHES["flash_attention_tc"] += 1
+    if route == "tf32x3":
+        LAUNCHES["flash_attention_tf32x3"] += 1
     if narrow:
         LAUNCHES["flash_attention_narrow"] += 1
     if split:
@@ -383,6 +454,17 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _tf32_q_reg_steps(hd: int) -> int:
+    """Q's k8 steps the float32 tensor-core forward holds in registers:
+    12 of 24 at hd 192 (so that two CTAs share an SM), none elsewhere."""
+    return 12 if hd == 192 else 0
+
+
+def _w32(w: int) -> int:
+    """A width padded to whole 32-float (128-byte) rows of a swizzle atom."""
+    return _cdiv(w, 32) * 32
 
 
 def forward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
@@ -400,7 +482,9 @@ def forward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
     a ``cluster`` of four one-warpgroup CTAs a q tile, one key tile
     each.  At a pair of :data:`SPLIT_PAIRS` without a mask (``causal``
     False, ``window`` 0) :func:`_split` may split the warp-specialised CTA
-    over a ``cluster`` of that many CTAs.
+    over a ``cluster`` of that many CTAs.  The ``"tf32x3"`` route
+    (float32) is ``flash_attention_tf32_kernel``: one warpgroup a 64-row q
+    tile over tiles of ``keys`` (32) keys.
     ``hdv`` defaults to ``hd``.  Raises ``ValueError`` for a pair outside
     :data:`HEAD_DIMS`, an unknown route or a tensor-core route that the
     dtype or head dims do not take."""
@@ -408,12 +492,19 @@ def forward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
     _check_pair(hd, hdv)
     if route is None:
         route = _route(dtype, hd, hdv)
-    if route not in ROUTES:
-        raise ValueError(f"flash_attention: route {route!r} not in {ROUTES}")
-    if route == "tc" and _route(dtype, hd, hdv) != "tc":
-        raise ValueError(f"flash_attention: the tensor-core route takes "
-                         f"bfloat16 with (hd, hdv) in {TC_HEAD_DIMS}, got "
-                         f"{dtype}, ({hd}, {hdv})")
+    _check_named_route(route, dtype, hd, hdv)
+    if route == "tf32x3":
+        # K (32 keys, hd padded to whole 32-float atom rows) and V^T (hdv
+        # rows of 32 keys), each with its lo part; Q's rows past the k-steps
+        # held in registers (``q_reg_steps``), pitch their width + 4
+        # floats; 1,024 bytes of alignment slack
+        keys, qr = _TF32_KEYS, _tf32_q_reg_steps(hd)
+        return {"route": route, "kernel": "flash_attention_tf32_kernel",
+                "grid": (b * h, _cdiv(sq, _TILE)), "threads": 128,
+                "rows": _TILE, "keys": keys, "q_reg_steps": qr,
+                "smem_bytes": 2 * 4 * keys * (_w32(hd) + hdv)
+                + _TILE * (hd - 8 * qr + 4) * 4 + 1024,
+                "static_smem_bytes": 0}
     if route == "fma":   # float32 tiles: Q, K (padded), V, P, m / l / alpha
         floats = (_TILE * hd + _TILE * (hd + 1) + _TILE * hdv
                   + _TILE * (_TILE + 1) + 3 * _TILE)
@@ -509,26 +600,27 @@ def forward_tile_work(hd: int, hdv: int, *, narrow: bool | None = None,
             "hd_units_per_64_rows": hd + hdv}
 
 
-def tc_attributes(hd: int, hdv: int, narrow: bool = False,
-                  split: bool = False) -> dict:
-    """What the tensor-core forward's launch at (hd, hdv) uses, from the
+def tc_attributes(hd: int, hdv: int,
+                  kernel: str = "flash_attention_tc_kernel") -> dict:
+    """What a tensor-core forward's launch at (hd, hdv) uses, from the
     loaded library (card only): ``threads``, ``smem_bytes`` (dynamic) and
     ``rows`` from the source's constants, then ``static_smem_bytes``,
     ``registers`` and ``max_dynamic_smem_bytes`` from
     ``cudaFuncGetAttributes`` once the launch's attribute is set.
-    ``narrow``: the narrow CTA's launch (a pair of
-    :data:`NARROW_PAIRS`); ``split``: the warp-specialised CTA's split
-    over a cluster (a pair of :data:`SPLIT_PAIRS`)."""
-    pairs = (NARROW_PAIRS if narrow else SPLIT_PAIRS if split
-             else TC_HEAD_DIMS)
+    ``kernel`` is :func:`forward_plan`'s ``kernel``: the one-warpgroup or
+    (past hd 128) warp-specialised kernel, the narrow CTA (a pair of
+    :data:`NARROW_PAIRS`), the warp-specialised CTA's split over a
+    cluster (``flash_attention_ws_kernel`` at a pair of
+    :data:`SPLIT_PAIRS`) or the float32 route's
+    ``flash_attention_tf32_kernel``."""
+    split = kernel == "flash_attention_ws_kernel" and (hd, hdv) in SPLIT_PAIRS
+    entry, pairs = (("fa_forward_split_attributes", SPLIT_PAIRS) if split
+                    else _ATTRIBUTES.get(kernel, (None, ())))
     if (hd, hdv) not in pairs:
-        raise ValueError(f"flash_attention: no tensor-core forward at "
-                         f"(hd, hdv) = ({hd}, {hdv})")
+        raise ValueError(f"flash_attention: no tensor-core forward "
+                         f"{kernel} at (hd, hdv) = ({hd}, {hdv})")
     out = (ctypes.c_int * 6)()
-    lib = LIBRARY.load()
-    rc = (lib.fa_forward_narrow_attributes if narrow
-          else lib.fa_forward_split_attributes if split
-          else lib.fa_forward_tc_attributes)(hd, hdv, out)
+    rc = getattr(LIBRARY.load(), entry)(hd, hdv, out)
     if rc != 0:
         raise RuntimeError(f"flash_attention: attributes failed with "
                            f"status {rc}")
@@ -536,13 +628,26 @@ def tc_attributes(hd: int, hdv: int, narrow: bool = False,
                      "registers", "max_dynamic_smem_bytes"), out))
 
 
+# forward_plan's kernel -> the library's attribute entry and the pairs it
+# is built at (the split: tc_attributes)
+_ATTRIBUTES = {
+    "flash_attention_tc_kernel": ("fa_forward_tc_attributes", TC_HEAD_DIMS),
+    "flash_attention_ws_kernel": ("fa_forward_tc_attributes", TC_HEAD_DIMS),
+    "flash_attention_narrow_kernel": ("fa_forward_narrow_attributes",
+                                      NARROW_PAIRS),
+    "flash_attention_tf32_kernel": ("fa_forward_tf32_attributes",
+                                    TC_HEAD_DIMS),
+}
+
+
 def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
                   dtype: torch.dtype, route: str | None = None, *,
                   hdv: int | None = None) -> dict:
     """The backward's launches for these shapes, from the shapes alone:
-    ``route`` (None takes :func:`_route`), ``kernels`` as (name, grid) in
-    launch order, and ``scratch_floats``, the float32 elements of the dK
-    and dV partials, b·sk·h·(hd + hdv) where H > Hkv (0 where none).  At a
+    ``route`` (None takes :func:`_route`'s backward route), ``kernels``
+    as (name, grid) in launch order, and ``scratch_floats``, the float32
+    elements of the dK and dV partials, b·sk·h·(hd + hdv) where H > Hkv
+    (0 where none).  At a
     pair of :data:`NARROW_PAIRS` with sq and sk at most
     :data:`NARROW_MAX_LEN` the tensor-core route is one launch of
     ``fa_bwd_narrow_tc_kernel`` with no scratch: a ``cluster`` of four
@@ -550,21 +655,44 @@ def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
     ``threads`` and ``smem_bytes``.  Where :func:`_one_grid`, two
     launches: D, then ``fa_bwd_dkdv_dq_tc_kernel``,
     the dK / dV CTAs (grid rows below nk) and the dQ CTAs (the rest) in
-    one grid.  ``hdv`` (v's head dim) defaults to ``hd``.  Raises
-    ``ValueError`` for a pair outside :data:`HEAD_DIMS`, an unknown route
-    or a tensor-core route that the dtype or head dims do not take."""
+    one grid.  The ``"tf32x3"`` route (float32): the FMA route's
+    preprocess, then ``fa_bwd_dkdv_tf32_kernel`` over tiles of ``keys``
+    keys (:func:`_tf32_bwd_keys`), the reduction where H > Hkv, and
+    ``fa_bwd_dq_tf32_kernel``, one warpgroup a CTA; ``smem_bytes`` gives
+    the dK / dV and the dQ kernels' dynamic shared memory.  ``hdv`` (v's
+    head dim) defaults to ``hd``.  Raises ``ValueError`` for a pair
+    outside :data:`HEAD_DIMS`, an unknown route or a tensor-core route
+    that the dtype or head dims do not take."""
     hdv = hd if hdv is None else hdv
     _check_pair(hd, hdv)
     if route is None:
-        route = _route(dtype, hd, hdv)
-    if route not in ROUTES:
-        raise ValueError(f"flash_attention backward: route {route!r} not in "
-                         f"{ROUTES}")
-    if route == "tc" and _route(dtype, hd, hdv) != "tc":
-        raise ValueError(f"flash_attention backward: the tensor-core route "
-                         f"takes bfloat16 with (hd, hdv) in {TC_HEAD_DIMS}, "
-                         f"got {dtype}, ({hd}, {hdv})")
+        route = _route(dtype, hd, hdv, backward=True)
+    _check_named_route(route, dtype, hd, hdv, "flash_attention backward")
     nq, nk = _cdiv(sq, _TILE), _cdiv(sk, _TILE)
+    if route == "tf32x3":
+        keys = _tf32_bwd_keys(hd, hdv)
+        # K, V and their lo parts (keys x widths padded to 32 floats), Q
+        # and dO rows of pitch width + 4; P^T, dS^T and their lo parts
+        # (dK / dV) or dS and its lo part (dQ: 64 rows of 128 bytes) and
+        # the rows' lse and D; 1,024 bytes of alignment slack
+        shared = (2 * 4 * keys * (_w32(hd) + _w32(hdv))
+                  + _TILE * (hd + hdv + 8) * 4 + 1024)
+        kernels = [("fa_bwd_preprocess_kernel", (nq, b * h)),
+                   ("fa_bwd_dkdv_tf32_kernel", (b * h, _cdiv(sk, keys)))]
+        scratch = 0
+        if h != hkv:
+            scratch = b * sk * h * (hd + hdv)
+            kernels.append(("fa_bwd_gqa_reduce_kernel",
+                            (_cdiv(b * sk * hkv * max(hd, hdv) // 4,
+                                   _BWD_THREADS),)))
+        return {"route": route,
+                "kernels": kernels + [("fa_bwd_dq_tf32_kernel",
+                                       (b * h, nq))],
+                "scratch_floats": scratch, "threads": 128, "keys": keys,
+                "smem_bytes": {"dkdv": shared + 4 * 4 * keys * _TILE
+                               + 2 * _TILE * 4,
+                               "dq": shared + 2 * _TILE * 128
+                               + 2 * _TILE * 4}}
     if route == "tc" and _narrow(hd, hdv, sq, sk, backward=True):
         # a CTA: K and V of the whole head and its query tile's Q and dO
         # (hd and hdv wide), that tile's lse and D, each warpgroup's P^T,
@@ -601,6 +729,13 @@ def backward_plan(b: int, sq: int, sk: int, h: int, hkv: int, hd: int,
                                _BWD_THREADS),)))
     return {"route": route, "kernels": kernels + [last],
             "scratch_floats": scratch}
+
+
+def _tf32_bwd_keys(hd: int, hdv: int) -> int:
+    """Keys a tile of the float32 tensor-core backward (the N of S and dP,
+    the keys of a dK / dV CTA): 32, 16 at (256, 256) so that the tiles fit
+    a CTA's shared memory."""
+    return 16 if hd + hdv > 384 else 32
 
 
 def backward_tile_work(hd: int, hdv: int, *,
@@ -678,7 +813,7 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     b, sq, h, hd = q.shape
     sk, hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
     route = plan["route"]
-    if do.stride(3) != 1 or (route == "tc" and not _tc_aligned(do)):
+    if do.stride(3) != 1 or (route != "fma" and not _tc_aligned(do)):
         # a copy, not another route (a contiguous view may start off the
         # 16-byte boundary, so not .contiguous())
         do = do.clone(memory_format=torch.contiguous_format)
@@ -692,7 +827,7 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError("flash_attention backward: want a contiguous "
                          "float32 lse of shape (B, H, Sq) on q's device")
-    if route == "tc":
+    if route != "fma":
         _check_tc(q, k, v, o, do)
     lib = BWD_LIBRARY.load()
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -724,6 +859,8 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
             args = (*ins, delta.data_ptr(), *outs, *parts, *dims)
             rc = (lib.fa_backward_tc(*args, int(one_grid), stream)
                   if route == "tc"
+                  else lib.fa_backward_tf32(*args, stream)
+                  if route == "tf32x3"
                   else lib.fa_backward(*args, _DTYPES[q.dtype], stream))
     if rc != 0:
         raise RuntimeError(f"flash_attention backward: CUDA launch failed "
@@ -731,6 +868,8 @@ def backward(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     LAUNCHES["flash_attention_bwd"] += 1
     if route == "tc":
         LAUNCHES["flash_attention_bwd_tc"] += 1
+    if route == "tf32x3":
+        LAUNCHES["flash_attention_bwd_tf32x3"] += 1
     if narrow:
         LAUNCHES["flash_attention_bwd_narrow"] += 1
     if one_grid:
@@ -742,11 +881,14 @@ class FlashAttentionFn(torch.autograd.Function):
     """Flash attention on CUDA tensors with a kernel for its gradient:
     the forward saves q, k, v, the output and the per-row ``lse``; the
     backward is :func:`backward`.  Both take :func:`_route`'s route at
-    every (hd, hdv) pair of :data:`HEAD_DIMS`: the tensor cores for
-    bfloat16 with the pair in :data:`TC_HEAD_DIMS` (forward
+    every (hd, hdv) pair of :data:`HEAD_DIMS`: the tensor cores with the
+    pair in :data:`TC_HEAD_DIMS`, bfloat16 (forward
     ``flash_attention_tc_kernel`` or, past hd 128,
-    ``flash_attention_ws_kernel``; backward ``fa_backward_tc``), float32
-    FMAs otherwise.  ``q_offset`` is 0."""
+    ``flash_attention_ws_kernel``; backward ``fa_backward_tc``) or
+    float32 as split TF32 (``flash_attention_tf32_kernel``;
+    ``fa_backward_tf32``, but the FMA backward at
+    :data:`FMA_BACKWARD_PAIRS`), float32 FMAs at hd 8.  ``q_offset`` is
+    0."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):

@@ -294,24 +294,45 @@ def test_kernel_checks_refuse_cpu_operands():
 @pytest.mark.parametrize("hd", [hd for hd, _hdv in tfa.HEAD_DIMS])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_route_rule(dtype, hd):
-    """bf16 with hd >= 16 goes to the tensor-core kernel; float32 and bf16
-    with hd = 8 to the FMA kernel, at each (hd, hdv) pair.  The backward
-    follows the same rule at every pair, MLA's hd != hdv and hd 256
-    included, from the shapes alone (at a narrow pair's short heads, the
-    tensor-core route's one launch)."""
+    """With hd >= 16 (the pairs of TC_HEAD_DIMS) bf16 goes to the
+    tensor-core kernel and float32 to the split-TF32 tensor-core kernel
+    ("tf32x3"); hd = 8 (and float16, which no kernel takes) to the FMA
+    kernel, at each (hd, hdv) pair.  The backward follows the same rule
+    at every pair, MLA's hd != hdv and hd 256 included, but float32 at
+    FMA_BACKWARD_PAIRS ((16, 16), where the "tf32x3" backward lost in
+    turns), which keeps the FMA backward, from the shapes alone (at a
+    narrow pair's short heads, the tensor-core route's one launch); the
+    float32 tensor-core plans fit a CTA's 232,448 bytes at the serving
+    and training shapes, named where the rule keeps the FMA backward."""
     hdv = dict(tfa.HEAD_DIMS)[hd]
     route = tfa._route(getattr(torch, dtype), hd, hdv)
-    assert route == ("tc" if dtype == "bfloat16" and hd >= 16 else "fma")
+    assert route == ("fma" if hd < 16 or dtype == "float16"
+                     else "tc" if dtype == "bfloat16" else "tf32x3")
     assert route in tfa.ROUTES
+    bwd_route = tfa._route(getattr(torch, dtype), hd, hdv, backward=True)
+    assert tfa.FMA_BACKWARD_PAIRS == ((16, 16),)
+    assert bwd_route == ("fma" if dtype == "float32" and hd == 16
+                         else route)
     plan = tfa.backward_plan(2, 64, 64, 4, 2, hd, getattr(torch, dtype),
                              hdv=hdv)
-    assert plan["route"] == route
-    if route == "tc" and (hd, hdv) in tfa.NARROW_PAIRS:
+    assert plan["route"] == bwd_route
+    if bwd_route == "tc" and (hd, hdv) in tfa.NARROW_PAIRS:
         assert plan["kernels"] == [("fa_bwd_narrow_tc_kernel", (16,))]
     else:
-        assert plan["kernels"][1][0] == ("fa_bwd_dkdv_tc_kernel"
-                                         if route == "tc"
-                                         else "fa_bwd_dkdv_kernel")
+        assert plan["kernels"][1][0] == {
+            "tc": "fa_bwd_dkdv_tc_kernel", "tf32x3": "fa_bwd_dkdv_tf32_kernel",
+            "fma": "fa_bwd_dkdv_kernel"}[bwd_route]
+    if route == "tf32x3":
+        for b, s, h, hkv in ((1, 2048, 16, 16), (2, 1024, 12, 2),
+                             (1, 3072, 16, 1)):
+            fwd = tfa.forward_plan(b, s, s, h, hkv, hd, torch.float32,
+                                   hdv=hdv)
+            assert fwd["kernel"] == "flash_attention_tf32_kernel"
+            assert fwd["smem_bytes"] + fwd["static_smem_bytes"] <= 232448
+            bwd = tfa.backward_plan(b, s, s, h, hkv, hd, torch.float32,
+                                    "tf32x3", hdv=hdv)
+            assert bwd["kernels"][-1][0] == "fa_bwd_dq_tf32_kernel"
+            assert max(bwd["smem_bytes"].values()) <= 232448
 
 
 @pytest.mark.parametrize("hd,hdv", [(256, 128), (192, 192), (128, 64),
@@ -422,15 +443,41 @@ PAIR_PLANS = [
                                  ("fa_bwd_gqa_reduce_kernel", (38,)),
                                  ("fa_bwd_dq_tc_kernel", (4, 2))],
       "scratch_floats": 100 * 4 * (192 + 128)}),     # 9,600 / 256 -> 38
-    # the float32 FMA route at (256, 256) (a dK / dV CTA a query head and
-    # key tile, the same partials and reduction) and at MLA's smoke (24, 16)
+    # the float32 tensor-core route ("tf32x3", the rule's) at (256, 256):
+    # the FMA route's D, a dK / dV CTA a query head and 16-key tile (192 a
+    # head), the same partials and reduction, a dQ CTA a query tile; K, V
+    # and their lo parts (16 x 256 floats each), Q and dO rows (64 x 260),
+    # P^T, dS^T and their lo parts (16 x 64 each) or dS and its lo part (64
+    # x 32 each) and the rows' lse and D, 1,024 bytes of slack: 216,576
+    # bytes either kernel
     ("rg_f32", (1, 3072, 16, 1, 256, 256), torch.float32,
+     {"route": "tf32x3",
+      "kernels": [("fa_bwd_preprocess_kernel", (48, 16)),
+                  ("fa_bwd_dkdv_tf32_kernel", (16, 192)),
+                  ("fa_bwd_gqa_reduce_kernel", (768,)),
+                  ("fa_bwd_dq_tf32_kernel", (16, 48))],
+      "scratch_floats": 3072 * 16 * (256 + 256), "threads": 128, "keys": 16,
+      "smem_bytes": {"dkdv": 4 * (4 * 16 * 256 + 2 * 64 * 260 + 4 * 16 * 64
+                              + 2 * 64) + 1024,
+                     "dq": 4 * (4 * 16 * 256 + 2 * 64 * 260 + 2 * 64)
+                     + 2 * 64 * 128 + 1024}}),
+    # and at MLA's smoke (24, 16): 32-key tiles, widths padded to 32
+    ("mla_smoke", (2, 64, 4, 4, 24, 16), torch.float32,
+     {"route": "tf32x3",
+      "kernels": [("fa_bwd_preprocess_kernel", (1, 8)),
+                  ("fa_bwd_dkdv_tf32_kernel", (8, 2)),
+                  ("fa_bwd_dq_tf32_kernel", (8, 1))],
+      "scratch_floats": 0, "threads": 128, "keys": 32,
+      "smem_bytes": {"dkdv": 62976, "dq": 46592}}),
+    # the FMA route, named, at both (a dK / dV CTA a query head and 64-key
+    # tile, the same partials and reduction)
+    ("rg_f32_fma", (1, 3072, 16, 1, 256, 256), torch.float32,
      {"route": "fma", "kernels": [("fa_bwd_preprocess_kernel", (48, 16)),
                                   ("fa_bwd_dkdv_kernel", (48, 16)),
                                   ("fa_bwd_gqa_reduce_kernel", (768,)),
                                   ("fa_bwd_dq_kernel", (48, 16))],
       "scratch_floats": 3072 * 16 * (256 + 256)}),
-    ("mla_smoke", (2, 64, 4, 4, 24, 16), torch.float32,
+    ("mla_smoke_fma", (2, 64, 4, 4, 24, 16), torch.float32,
      {"route": "fma", "kernels": [("fa_bwd_preprocess_kernel", (1, 8)),
                                   ("fa_bwd_dkdv_kernel", (1, 8)),
                                   ("fa_bwd_dq_kernel", (1, 8))],
@@ -467,9 +514,14 @@ PAIR_PLANS = [
 def test_backward_plan_hand_counts_at_pairs(shape, dtype, want):
     """The backward's launches at hd != hdv and at (256, 256) against
     counts by hand: the scratch is b·sk·h·(hd + hdv) floats where H >
-    Hkv, none where H == Hkv."""
+    Hkv, none where H == Hkv.  The rule's route unless the FMA route is
+    named (a case ending in ``_fma``)."""
     b, s, h, hkv, hd, hdv = shape
-    assert tfa.backward_plan(b, s, s, h, hkv, hd, dtype, hdv=hdv) == want
+    rule = tfa._route(dtype, hd, hdv)
+    assert want["route"] in (rule, "fma")
+    assert tfa.backward_plan(b, s, s, h, hkv, hd, dtype,
+                             None if want["route"] == rule else "fma",
+                             hdv=hdv) == want
 
 
 # ((hd, hdv), dK / dV layout, its hd-units a warpgroup, dQ layout, its
@@ -593,7 +645,25 @@ FORWARD_PLANS = [
      {"route": "tc", "kernel": "flash_attention_tc_kernel", "grid": (8, 5),
       "threads": 128, "rows": 64, "smem_bytes": 2 * 64 * 5 * 64 + 1024,
       "static_smem_bytes": 0}),
-    ("mla_f32", (1, 2048, 16, 16, 192, 128), torch.float32, None,
+    # float32 at MLA's prefill: the rule's tensor-core kernel, one
+    # warpgroup a 64-row q tile over 32-key tiles; 12 of Q's 24 k-steps in
+    # registers, the other 96 columns in rows of 100 floats, K and its lo
+    # part (32 x 192), V^T and its lo part (128 x 32), 1,024 bytes of
+    # slack: two CTAs an SM
+    ("mla_f32_tf32x3", (1, 2048, 16, 16, 192, 128), torch.float32, None,
+     {"route": "tf32x3", "kernel": "flash_attention_tf32_kernel",
+      "grid": (16, 32), "threads": 128, "rows": 64, "keys": 32,
+      "q_reg_steps": 12,
+      "smem_bytes": 4 * (64 * 100 + 2 * 32 * 192 + 2 * 128 * 32) + 1024,
+      "static_smem_bytes": 0}),                                    # 108,544
+    ("rg_f32_tf32x3", (1, 3072, 16, 1, 256, 256), torch.float32, None,
+     {"route": "tf32x3", "kernel": "flash_attention_tf32_kernel",
+      "grid": (16, 48), "threads": 128, "rows": 64, "keys": 32,
+      "q_reg_steps": 0,
+      "smem_bytes": 4 * (64 * 260 + 2 * 32 * 256 + 2 * 256 * 32) + 1024,
+      "static_smem_bytes": 0}),                                    # 198,656
+    # the FMA kernel, named
+    ("mla_f32", (1, 2048, 16, 16, 192, 128), torch.float32, "fma",
      {"route": "fma", "kernel": "flash_attention_kernel", "grid": (32, 16),
       "threads": 256, "rows": 64,
       "smem_bytes": 4 * (64 * 192 + 64 * 193 + 64 * 128 + 64 * 65 + 3 * 64),
@@ -828,14 +898,17 @@ def test_plans_unchanged_off_the_narrow_shapes(pair):
     sides of NARROW_MAX_LEN, equal the plans from before the narrow
     kernels, except the narrow pair's tensor-core route at short shapes:
     its forward up to NARROW_MAX_LEN keys, its backward up to
-    NARROW_MAX_LEN queries and keys; and the one-grid backward of the
-    pair (64, 64) with H == Hkv (the same CTAs in one launch)."""
+    NARROW_MAX_LEN queries and keys; the one-grid backward of the
+    pair (64, 64) with H == Hkv (the same CTAs in one launch); and the
+    float32 tensor-core route (the rule's or named), which has its own
+    kernels at every shape."""
     hd, hdv = pair
     n = tfa.NARROW_MAX_LEN
-    narrowed = 0
+    narrowed = tf32 = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for route in (None, "tc", "fma"):
-            if route == "tc" and tfa._route(dtype, hd, hdv) != "tc":
+        for route in (None, "tc", "tf32x3", "fma"):
+            if route in ("tc", "tf32x3") and tfa._route(dtype, hd,
+                                                        hdv) != route:
                 continue
             for b, sq, sk, h, hkv in ((2, n, n, 4, 4), (1, n + 1, n, 4, 2),
                                       (1, n, n + 1, 8, 2), (1, 1, n, 4, 4),
@@ -844,6 +917,17 @@ def test_plans_unchanged_off_the_narrow_shapes(pair):
                 args = (b, sq, sk, h, hkv, hd, dtype, route, hdv)
                 plan = tfa.forward_plan(*args[:-1], hdv=hdv)
                 bplan = tfa.backward_plan(*args[:-1], hdv=hdv)
+                if (route or tfa._route(dtype, hd, hdv)) == "tf32x3":
+                    assert plan["kernel"] == "flash_attention_tf32_kernel"
+                    if (route or tfa._route(dtype, hd, hdv,
+                                            backward=True)) == "tf32x3":
+                        assert (bplan["kernels"][1][0]
+                                == "fa_bwd_dkdv_tf32_kernel")
+                    else:   # FMA_BACKWARD_PAIRS: the FMA backward
+                        assert bplan == _parent_backward_plan(
+                            *args[:-2], "fma", hdv)
+                    tf32 += 1
+                    continue
                 tc = (route or tfa._route(dtype, hd, hdv)) == "tc"
                 if tc and pair in tfa.NARROW_PAIRS and sk <= n:
                     assert plan["kernel"] == "flash_attention_narrow_kernel"
@@ -860,8 +944,10 @@ def test_plans_unchanged_off_the_narrow_shapes(pair):
                          (b * h, parent[1][1][1] + parent[2][1][1]))]
                 else:
                     assert bplan == _parent_backward_plan(*args)
-    # bf16 on the rule's route and named "tc", four shapes with sk <= n
+    # bf16 on the rule's route and named "tc", four shapes with sk <= n;
+    # float32 on the rule's route and named "tf32x3", six shapes
     assert narrowed == (8 if pair in tfa.NARROW_PAIRS else 0)
+    assert tf32 == (12 if pair in tfa.TC_HEAD_DIMS else 0)
 
 
 def test_tc_alignment_check():
@@ -929,14 +1015,19 @@ NEW_FORWARD_PLANS = [
 def test_forward_plan_hand_counts_split(shape, causal, want):
     """The forward's launch at the shape the split was built for, and
     beside it, against counts by hand; the float32 route of the same
-    shapes keeps the FMA kernel."""
+    shapes takes the split-TF32 kernel (no split), the FMA kernel when
+    named."""
     b, sq, sk, h, hkv, hd, hdv = shape
     plan = tfa.forward_plan(b, sq, sk, h, hkv, hd, torch.bfloat16, hdv=hdv,
                             causal=causal)
     assert plan == want
     assert plan["smem_bytes"] + plan["static_smem_bytes"] <= 232448
-    fma = tfa.forward_plan(b, sq, sk, h, hkv, hd, torch.float32, hdv=hdv,
+    f32 = tfa.forward_plan(b, sq, sk, h, hkv, hd, torch.float32, hdv=hdv,
                            causal=causal)
+    assert f32["kernel"] == "flash_attention_tf32_kernel"
+    assert f32["grid"] == (b * h, -(-sq // 64)) and "cluster" not in f32
+    fma = tfa.forward_plan(b, sq, sk, h, hkv, hd, torch.float32, "fma",
+                           hdv=hdv, causal=causal)
     assert fma["kernel"] == "flash_attention_kernel"
 
 
@@ -989,14 +1080,18 @@ NEW_BACKWARD_PLANS = [
 def test_backward_plan_hand_counts_one_grid(shape, causal, kernels):
     """The backward's launches at whisper-tiny's training shapes and beside
     them against counts by hand: no partials where H == Hkv; the float32
-    route keeps the FMA kernels."""
+    route takes the split-TF32 kernels (no one grid)."""
     b, sq, sk, h, hkv = shape
     plan = tfa.backward_plan(b, sq, sk, h, hkv, 64, torch.bfloat16)
     assert plan["kernels"] == kernels
     assert plan["scratch_floats"] == (0 if h == hkv
                                       else b * sk * h * 128)
-    assert tfa.backward_plan(b, sq, sk, h, hkv, 64,
-                             torch.float32)["route"] == "fma"
+    f32 = tfa.backward_plan(b, sq, sk, h, hkv, 64, torch.float32)
+    assert f32["route"] == "tf32x3"
+    assert [n for n, _ in f32["kernels"]] == (
+        ["fa_bwd_preprocess_kernel", "fa_bwd_dkdv_tf32_kernel"]
+        + (["fa_bwd_gqa_reduce_kernel"] if h != hkv else [])
+        + ["fa_bwd_dq_tf32_kernel"])
 
 
 def test_tile_work_of_the_new_kernels():
@@ -1022,16 +1117,19 @@ def test_plans_unchanged_off_the_new_routes(pair):
     not, with and without a window, equal the plans from before the
     narrow kernels except where a later route takes them: the narrow
     pair's short shapes, the split (a tensor-core forward at (64, 64)
-    without a mask, by _split) and the one-grid backward (at (64, 64),
-    H == Hkv)."""
+    without a mask, by _split), the one-grid backward (at (64, 64),
+    H == Hkv) and the float32 tensor-core route (its own kernels at every
+    shape and mask, never split, never one grid)."""
     hd, hdv = pair
     n = tfa.NARROW_MAX_LEN
-    moved = {"split": 0, "one_grid": 0}
+    moved = {"split": 0, "one_grid": 0, "tf32x3": 0}
     for dtype in (torch.float32, torch.bfloat16):
-        for route in (None, "tc", "fma"):
-            if route == "tc" and tfa._route(dtype, hd, hdv) != "tc":
+        for route in (None, "tc", "tf32x3", "fma"):
+            if route in ("tc", "tf32x3") and tfa._route(dtype, hd,
+                                                        hdv) != route:
                 continue
             tc = (route or tfa._route(dtype, hd, hdv)) == "tc"
+            tf32 = (route or tfa._route(dtype, hd, hdv)) == "tf32x3"
             for b, sq, sk, h, hkv in ((2, n + 1, n + 1, 4, 4),
                                       (1, 1500, 1500, 6, 6),
                                       (8, 1500, 1500, 6, 6),
@@ -1044,6 +1142,21 @@ def test_plans_unchanged_off_the_new_routes(pair):
                     kw = {"hdv": hdv, "causal": causal, "window": window}
                     plan = tfa.forward_plan(*args[:-1], **kw)
                     bplan = tfa.backward_plan(*args[:-1], hdv=hdv)
+                    if tf32:
+                        assert plan["kernel"] == (
+                            "flash_attention_tf32_kernel")
+                        assert "cluster" not in plan
+                        if (route or tfa._route(dtype, hd, hdv,
+                                                backward=True)) == "tf32x3":
+                            assert (bplan["kernels"][1][0],
+                                    bplan["kernels"][-1][0]) == (
+                                "fa_bwd_dkdv_tf32_kernel",
+                                "fa_bwd_dq_tf32_kernel")
+                        else:   # FMA_BACKWARD_PAIRS: the FMA backward
+                            assert bplan == _parent_backward_plan(
+                                *args[:-2], "fma", hdv)
+                        moved["tf32x3"] += 1
+                        continue
                     split = (tfa._split(b, sq, sk, h, hkv, hd, hdv, causal,
                                         window) if tc else 0)
                     if split:
@@ -1064,8 +1177,12 @@ def test_plans_unchanged_off_the_new_routes(pair):
     # (64, 64): (2, 257, 257, 4, 4) (24 CTAs) and whisper's serving encoder
     # (72) split; (3, 100, 400) is under 128 queries.  The one-grid
     # backward: the four shapes with H == Hkv, at each of the four masks
-    want = {(64, 64): {"split": 4, "one_grid": 32}}
-    assert moved == want.get(pair, {"split": 0, "one_grid": 0})
+    # float32 on the rule's route and named "tf32x3": the six shapes at
+    # each of the four masks, at every tensor-core pair
+    tf32 = 48 if pair in tfa.TC_HEAD_DIMS else 0
+    want = {(64, 64): {"split": 4, "one_grid": 32, "tf32x3": tf32}}
+    assert moved == want.get(pair, {"split": 0, "one_grid": 0,
+                                    "tf32x3": tf32})
 
 
 def test_backward_wrapper_marshals_the_one_grid_launch(monkeypatch):

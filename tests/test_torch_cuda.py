@@ -641,9 +641,12 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     got = tfa.flash_attention(q, k, v, causal=causal, window=window,
                               q_offset=q_offset)
     assert tfa.LAUNCHES["flash_attention"] == 1
-    # bf16 with hd >= 16 runs on the tensor cores; the rest on FMAs
+    # hd >= 16 runs on the tensor cores (bf16 "tc", float32 "tf32x3");
+    # hd 8 on FMAs
     tc = dtype == torch.bfloat16 and case[5] >= 16
     assert tfa.LAUNCHES["flash_attention_tc"] == int(tc)
+    assert tfa.LAUNCHES["flash_attention_tf32x3"] == int(
+        dtype == torch.float32 and case[5] >= 16)
     want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
                                     skip_masked_chunks=True)
     torch.cuda.synchronize()
@@ -668,7 +671,8 @@ MLA_FA_CASES = [
 ]
 MLA_PARAMS = [pytest.param(case, dtype, route, id=f"{name}-{route}-{i}")
               for i, case in enumerate(MLA_FA_CASES)
-              for name, dtype, route in (("f32", torch.float32, "fma"),
+              for name, dtype, route in (("f32", torch.float32, "tf32x3"),
+                                         ("f32", torch.float32, "fma"),
                                          ("bf16", torch.bfloat16, "fma"),
                                          ("bf16", torch.bfloat16, "tc"))]
 
@@ -688,6 +692,7 @@ def test_flash_attention_mla_head_dims_match_plain(cuda, case, dtype, route):
     got = tfa.launch(q, k, v, causal, window, q_offset, route)
     assert tfa.LAUNCHES["flash_attention"] == 1
     assert tfa.LAUNCHES["flash_attention_tc"] == int(route == "tc")
+    assert tfa.LAUNCHES["flash_attention_tf32x3"] == int(route == "tf32x3")
     want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
                                     skip_masked_chunks=True)
     torch.cuda.synchronize()
@@ -872,7 +877,9 @@ def test_flash_attention_fma_route_bf16(cuda, case):
                             "flash_attention_narrow": 0,
                             "flash_attention_bwd_narrow": 0,
                             "flash_attention_split": 0,
-                            "flash_attention_bwd_one_grid": 0}
+                            "flash_attention_bwd_one_grid": 0,
+                            "flash_attention_tf32x3": 0,
+                            "flash_attention_bwd_tf32x3": 0}
     want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
                                     skip_masked_chunks=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
@@ -894,28 +901,45 @@ def test_flash_attention_tc_reads_strided_views(cuda):
                                atol=2e-2)
 
 
-def test_flash_attention_tc_refuses_misaligned(cuda):
-    """The tensor-core route raises on operands its 16-byte copies cannot
-    read; it never falls back to the FMA kernel."""
-    q, k, v = _qkv((1, 8, 8, 4, 2, 16), torch.bfloat16, cuda)
-    buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
-    q_off = buf[1:].view(q.shape)                           # 2-byte offset
-    q_off.copy_(q)
+# the tensor-core routes' 16-byte rule: (route, dtype, the dtype the
+# route refuses, the words' integer view, a head stride that breaks the
+# rule, the rule's stride multiple, the refusal of the other dtype)
+ALIGN_ROUTES = [
+    pytest.param("tc", torch.bfloat16, torch.float32, torch.int16, 20, 8,
+                 "tensor-core route takes", id="tc"),
+    pytest.param("tf32x3", torch.float32, torch.bfloat16, torch.int32, 18, 4,
+                 "tf32x3 route takes", id="tf32x3"),
+]
+
+
+@pytest.mark.parametrize("route,dtype,other,words,stride,mult,refusal",
+                         ALIGN_ROUTES)
+def test_flash_attention_tc_refuses_misaligned(cuda, route, dtype, other,
+                                               words, stride, mult,
+                                               refusal):
+    """The tensor-core routes (bf16 "tc", float32 "tf32x3") raise on
+    operands their 16-byte copies cannot read (a start off the boundary,
+    a head stride that is no multiple of 16 bytes); they never fall back
+    to the FMA kernel."""
+    q, k, v = _qkv((1, 8, 8, 4, 2, 16), dtype, cuda)
     tfa.reset_launches()
     with pytest.raises(ValueError, match="16-byte"):
-        tfa.flash_attention(q_off, k, v)
-    wide = torch.zeros((1, 8, 2, 20), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        tfa.flash_attention(q, wide[..., :16], v)           # h stride 20
-    with pytest.raises(ValueError, match="tensor-core route takes"):
-        tfa.launch(q.float(), k.float(), v.float(), True, 0, 0, route="tc")
+        tfa.flash_attention(_misaligned(q), k, v)           # 2-byte offset
+    wide = torch.zeros((1, 8, 2, stride), dtype=dtype, device=cuda)
+    with pytest.raises(ValueError, match=f"multiples of {mult}"):
+        tfa.flash_attention(q, wide[..., :16], v)
+    with pytest.raises(ValueError, match=refusal):
+        tfa.launch(q.to(other), k.to(other), v.to(other), True, 0, 0,
+                   route=route)
     assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0,
                             "flash_attention_bwd": 0,
                             "flash_attention_bwd_tc": 0,
                             "flash_attention_narrow": 0,
                             "flash_attention_bwd_narrow": 0,
                             "flash_attention_split": 0,
-                            "flash_attention_bwd_one_grid": 0}
+                            "flash_attention_bwd_one_grid": 0,
+                            "flash_attention_tf32x3": 0,
+                            "flash_attention_bwd_tf32x3": 0}
 
 
 def test_flash_attention_wrapper_refuses(cuda):
@@ -1007,12 +1031,14 @@ BWD_CASES = [
     (1, 160, 160, 8, 2, 256, 256, True, 0),
     (1, 200, 200, 8, 2, 256, 256, False, 80),
 ]
-# (dtype, backward route): float32 takes the FMA route; bf16 both, the
-# tensor cores only with (hd, hdv) in TC_HEAD_DIMS
+# (dtype, backward route): float32 the split-TF32 tensor-core route and
+# the FMA route (named); bf16 both its routes; the tensor cores only with
+# (hd, hdv) in TC_HEAD_DIMS
 BWD_PARAMS = [
     pytest.param(case, dtype, route, id=f"{name}-{route}-{i}")
     for i, case in enumerate(BWD_CASES)
-    for name, dtype, route in (("f32", torch.float32, "fma"),
+    for name, dtype, route in (("f32", torch.float32, "tf32x3"),
+                               ("f32", torch.float32, "fma"),
                                ("bf16", torch.bfloat16, "fma"),
                                ("bf16", torch.bfloat16, "tc"))
     if route == "fma" or (case[5], case[6]) in tfa.TC_HEAD_DIMS
@@ -1040,14 +1066,18 @@ def _bwd_inputs(case, dtype, device, seed=0, hdv=None):
 def test_flash_attention_fn_grads_match_plain_autograd(cuda, case, dtype,
                                                        route, monkeypatch):
     """FlashAttentionFn (forward kernel with lse, backward kernels on the
-    given route) against autograd through ``flash_attention_ref`` on the
-    card; two backward runs give the same bits."""
+    given route; in float32 a forced FMA backward from the FMA forward)
+    against autograd through ``flash_attention_ref`` on the card; two
+    backward runs give the same bits."""
     import functools
 
     causal, window = case[7:]
     qkv, do = _bwd_inputs(case, dtype, cuda, hdv=case[6])
     monkeypatch.setattr(tfa, "backward",
                         functools.partial(tfa.backward, route=route))
+    if dtype == torch.float32 and route == "fma":
+        # the FMA pair: its backward from the FMA forward's o and lse
+        monkeypatch.setattr(tfa, "_route", lambda *_, **__: "fma")
     tfa.reset_launches()
     out = tfa.flash_attention(*qkv, causal=causal, window=window)
     got = torch.autograd.grad(out, qkv, do, retain_graph=True)
@@ -1056,6 +1086,8 @@ def test_flash_attention_fn_grads_match_plain_autograd(cuda, case, dtype,
     assert tfa.LAUNCHES["flash_attention_bwd"] == 2
     assert tfa.LAUNCHES["flash_attention_bwd_tc"] == (2 if route == "tc"
                                                       else 0)
+    assert tfa.LAUNCHES["flash_attention_bwd_tf32x3"] == (
+        2 if route == "tf32x3" else 0)
     ref_out = tref.flash_attention_ref(*qkv, causal, window, 0, 64, 64)
     want = torch.autograd.grad(ref_out, qkv, do)
     torch.cuda.synchronize()
@@ -1111,7 +1143,7 @@ def test_flash_attention_backward_tc_does_not_spill(cuda):
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "recurrentgemma-9b"])
 def test_launch_train_trains_on_card(cuda, tmp_path, arch):
     """``launch.train --smoke --steps 2`` on the card: the smoke config
-    (float32: the FMA backward at (24, 16) and (16, 16)) trains through
+    (float32: the split-TF32 backward at (24, 16) and (16, 16)) trains through
     the flash kernels, one forward and one backward an attention layer a
     step (remat off), and checkpoints."""
     from repro_torch.launch import train as train_cli
@@ -1152,15 +1184,21 @@ def test_flash_attention_fn_forward_equals_launch(cuda):
 
 
 def test_flash_attention_fn_takes_the_tc_backward_for_bf16(cuda):
-    """The route rule: bf16 with (hd, hdv) in TC_HEAD_DIMS trains through
-    the tensor-core backward, float32 through the FMA one."""
-    case = (1, 64, 64, 4, 2, 32, True, 0)
-    for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
-        qkv, do = _bwd_inputs(case, dtype, cuda)
-        tfa.reset_launches()
-        torch.autograd.grad(tfa.flash_attention(*qkv), qkv, do)
-        assert tfa.LAUNCHES["flash_attention_bwd"] == 1
-        assert tfa.LAUNCHES["flash_attention_bwd_tc"] == tc
+    """The route rule: with (hd, hdv) in TC_HEAD_DIMS bf16 trains through
+    the tensor-core backward, float32 through the split-TF32 one, but at
+    FMA_BACKWARD_PAIRS ((16, 16)) through the split-TF32 forward and the
+    FMA backward."""
+    for hd in (32, 16):
+        case = (1, 64, 64, 4, 2, hd, True, 0)
+        for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
+            qkv, do = _bwd_inputs(case, dtype, cuda)
+            tfa.reset_launches()
+            torch.autograd.grad(tfa.flash_attention(*qkv), qkv, do)
+            tf32_bwd = 1 - tc if hd == 32 else 0
+            assert tfa.LAUNCHES["flash_attention_bwd"] == 1
+            assert tfa.LAUNCHES["flash_attention_bwd_tc"] == tc
+            assert tfa.LAUNCHES["flash_attention_bwd_tf32x3"] == tf32_bwd
+            assert tfa.LAUNCHES["flash_attention_tf32x3"] == 1 - tc
 
 
 def _misaligned(t):
@@ -1172,39 +1210,45 @@ def _misaligned(t):
     return view
 
 
-def test_flash_attention_backward_tc_copies_misaligned_grad(cuda):
+@pytest.mark.parametrize("route,dtype,other,words,stride,mult,refusal",
+                         ALIGN_ROUTES)
+def test_flash_attention_backward_tc_copies_misaligned_grad(
+        cuda, route, dtype, other, words, stride, mult, refusal):
     """An upstream gradient off the 16-byte rule (an offset view, or a
-    head stride that is no multiple of 8) is copied, not refused: the
-    same bits as from the aligned gradient."""
+    head stride that is no multiple of 16 bytes) is copied, not refused,
+    on either tensor-core route: the same bits as from the aligned
+    gradient."""
     case = (2, 70, 70, 4, 2, 16, True, 0)
-    qkv, do = _bwd_inputs(case, torch.bfloat16, cuda)
+    qkv, do = _bwd_inputs(case, dtype, cuda)
     q, k, v = (t.detach() for t in qkv)
-    out, lse = tfa._forward(q, k, v, True, 0, 0, "tc", with_lse=True)
-    wide = torch.zeros((2, 70, 4, 20), dtype=torch.bfloat16, device=cuda)
+    out, lse = tfa._forward(q, k, v, True, 0, 0, route, with_lse=True)
+    wide = torch.zeros((2, 70, 4, stride), dtype=dtype, device=cuda)
     wide[..., :16] = do
     views = [_misaligned(do), wide[..., :16]]
     assert not any(tfa._tc_aligned(t) for t in views)
-    want = tfa.backward(do, q, k, v, out, lse, True, 0, route="tc")
+    want = tfa.backward(do, q, k, v, out, lse, True, 0, route=route)
     for view in views:
-        got = tfa.backward(view, q, k, v, out, lse, True, 0, route="tc")
+        got = tfa.backward(view, q, k, v, out, lse, True, 0, route=route)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
-            assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+            assert torch.equal(g.view(words), w.view(words))
 
 
-def test_flash_attention_backward_tc_refuses_misaligned_qkv(cuda):
-    """q, k or v off the 16-byte rule is refused on the tensor-core
+@pytest.mark.parametrize("route,dtype,other,words,stride,mult,refusal",
+                         ALIGN_ROUTES)
+def test_flash_attention_backward_tc_refuses_misaligned_qkv(
+        cuda, route, dtype, other, words, stride, mult, refusal):
+    """q, k or v off the 16-byte rule is refused on either tensor-core
     route (no copy, no other route)."""
-    qkv, do = _bwd_inputs((1, 64, 64, 4, 2, 16, True, 0), torch.bfloat16,
-                          cuda)
+    qkv, do = _bwd_inputs((1, 64, 64, 4, 2, 16, True, 0), dtype, cuda)
     q, k, v = (t.detach() for t in qkv)
-    out, lse = tfa._forward(q, k, v, True, 0, 0, "tc", with_lse=True)
+    out, lse = tfa._forward(q, k, v, True, 0, 0, route, with_lse=True)
     tfa.reset_launches()
     for i in range(3):
         ops = [q, k, v]
         ops[i] = _misaligned(ops[i])
         with pytest.raises(ValueError, match="tensor-core route"):
-            tfa.backward(do, *ops, out, lse, True, 0, route="tc")
+            tfa.backward(do, *ops, out, lse, True, 0, route=route)
     assert tfa.LAUNCHES["flash_attention_bwd"] == 0
 
 
@@ -1302,7 +1346,8 @@ RG_FA_CASES = [
 ]
 RG_PARAMS = [pytest.param(case, dtype, route, id=f"{name}-{route}-{i}")
              for i, case in enumerate(RG_FA_CASES)
-             for name, dtype, route in (("f32", torch.float32, "fma"),
+             for name, dtype, route in (("f32", torch.float32, "tf32x3"),
+                                        ("f32", torch.float32, "fma"),
                                         ("bf16", torch.bfloat16, "fma"),
                                         ("bf16", torch.bfloat16, "tc"))]
 
@@ -1327,6 +1372,7 @@ def test_flash_attention_256_matches_plain(cuda, case, dtype, route):
         got = tfa.launch(q, k, v, causal, window, q_offset, route)
     assert tfa.LAUNCHES["flash_attention"] == 1
     assert tfa.LAUNCHES["flash_attention_tc"] == int(route == "tc")
+    assert tfa.LAUNCHES["flash_attention_tf32x3"] == int(route == "tf32x3")
     want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
                                     skip_masked_chunks=True)
     torch.cuda.synchronize()
@@ -1577,7 +1623,7 @@ def test_forward_plan_smem_matches_ptxas_and_launch(cuda):
                                     hdv=hdv)
             narrow = plan["kernel"] == "flash_attention_narrow_kernel"
             assert narrow == (sk == 64 and (hd, hdv) in tfa.NARROW_PAIRS)
-            attrs = tfa.tc_attributes(hd, hdv, narrow=narrow)
+            attrs = tfa.tc_attributes(hd, hdv, plan["kernel"])
             assert attrs["smem_bytes"] == attrs["max_dynamic_smem_bytes"]
             assert (plan["smem_bytes"], plan["static_smem_bytes"],
                     plan["threads"], plan["rows"]) == (
@@ -1684,9 +1730,9 @@ def test_split_plan_smem_matches_launch(cuda):
     for (hd, hdv, mode), (name, body) in found.items():
         if mode == 0:
             continue
-        attrs = tfa.tc_attributes(hd, hdv, split=True)
         plan = tfa.forward_plan(1, 1500, 1500, 6, 6, hd, torch.bfloat16,
                                 hdv=hdv, causal=False)
+        attrs = tfa.tc_attributes(hd, hdv, plan["kernel"])
         assert plan["cluster"] == 3, (hd, plan)
         assert (plan["smem_bytes"], plan["static_smem_bytes"],
                 plan["threads"], plan["rows"]) == (
@@ -1829,28 +1875,180 @@ def test_flash_attention_one_grid_named_matches_separate(cuda, case):
                      0, one_grid=True)
 
 
-def test_new_flash_kernels_do_not_spill_or_serialise(cuda):
-    """ptxas -v: the one-grid backward (at each one-warpgroup pair) and
-    the split of the warp-specialised forward spill nothing, and no
-    "(C75xx)" note (wgmma serialised) names them."""
+# (library, the kernels' mangled-name pattern, how many instantiations):
+# the one-grid backward at each one-warpgroup pair, the split of the
+# warp-specialised forward, and the float32 tensor-core ("tf32x3")
+# forward and both backward kernels at every pair
+NEW_KERNELS = [
+    pytest.param("forward", r"flash_attention_ws_kernelILi64", 1,
+                 id="ws_split"),
+    pytest.param("backward", r"fa_bwd_dkdv_dq_tc_kernel", 5, id="one_grid"),
+    pytest.param("forward", r"flash_attention_tf32_kernel", 7,
+                 id="tf32x3_forward"),
+    pytest.param("backward", r"fa_bwd_(dkdv|dq)_tf32_kernel", 14,
+                 id="tf32x3_backward"),
+]
+
+
+@pytest.mark.parametrize("library,kernel,n", NEW_KERNELS)
+def test_new_flash_kernels_do_not_spill_or_serialise(cuda, library, kernel,
+                                                     n):
+    """ptxas -v: each kernel spills nothing, and no "(C75xx)" note
+    (wgmma serialised: C7520 in a divergent path, C7515 an accumulator
+    touched between issue and wait, C7512 too few registers) names it."""
     import re
 
-    for lib, kernel in ((tfa.LIBRARY, r"flash_attention_ws_kernelILi64"),
-                        (tfa.BWD_LIBRARY, r"fa_bwd_dkdv_dq_tc_kernel")):
-        lib.build()
-        with open(lib.log_path()) as f:
-            log = f.read()
-        found = {name: body for name, body in re.findall(
-            r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
-            log, re.S) if re.search(kernel, name)}
-        assert len(found) == (5 if lib is tfa.BWD_LIBRARY else 1), list(
-            found)
-        # C7520 / C7515 say "in the function", C7512 (too few registers)
-        # "for the function"
-        notes = re.findall(r"\((C75\d\d)\).*? (?:in|for) the function "
-                           r"'(\S+?)'", log)
-        for name, body in found.items():
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", body)
-            assert (int(m.group(1)), int(m.group(2))) == (0, 0), name
-            assert not [n for n in notes if n[1] == name], notes
+    lib = tfa.LIBRARY if library == "forward" else tfa.BWD_LIBRARY
+    lib.build()
+    with open(lib.log_path()) as f:
+        log = f.read()
+    found = {name: body for name, body in re.findall(
+        r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
+        log, re.S) if re.search(kernel, name)}
+    assert len(found) == n, list(found)
+    # C7520 / C7515 say "in the function", C7512 (too few registers)
+    # "for the function"
+    notes = re.findall(r"\((C75\d\d)\).*? (?:in|for) the function "
+                       r"'(\S+?)'", log)
+    for name, body in found.items():
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", body)
+        assert (int(m.group(1)), int(m.group(2))) == (0, 0), name
+        assert not [nt for nt in notes if nt[1] == name], notes
+
+
+# (B, Sq, Sk, H, Hkv, hd, hdv, causal, window, q_offset) for the float32
+# tensor-core route ("tf32x3") at every pair it takes: the serving and
+# training shapes cut short, GQA, ragged tiles (Sq and Sk off multiples
+# of 64 and of the 32-key tile), cross lengths, windows, appended queries
+# and decode steps
+TF32_FA_CASES = [
+    (2, 130, 130, 4, 2, 16, 16, True, 0, 0),
+    (1, 77, 200, 4, 4, 16, 16, False, 50, 100),
+    (2, 256, 256, 4, 4, 24, 16, True, 0, 0),
+    (1, 50, 90, 4, 2, 24, 16, True, 13, 40),
+    (3, 77, 77, 4, 2, 32, 32, True, 0, 0),
+    (1, 100, 150, 4, 4, 32, 32, False, 0, 0),
+    (1, 300, 300, 6, 6, 64, 64, False, 0, 0),
+    (2, 100, 300, 4, 4, 64, 64, False, 70, 200),
+    (1, 1000, 1000, 12, 2, 128, 128, True, 0, 0),
+    (1, 1000, 1000, 12, 2, 128, 128, True, 512, 0),
+    (1, 1, 2048, 12, 2, 128, 128, True, 0, 2047),
+    (1, 200, 100, 8, 2, 128, 128, False, 0, 0),
+    (2, 130, 130, 4, 4, 192, 128, True, 0, 0),
+    (1, 1000, 1000, 16, 16, 192, 128, True, 512, 0),
+    (1, 1, 300, 16, 16, 192, 128, True, 0, 299),
+    (1, 300, 300, 16, 1, 256, 256, True, 100, 0),
+    (2, 77, 200, 4, 2, 256, 256, True, 50, 70),
+    (1, 100, 300, 4, 4, 256, 256, False, 0, 0),
+]
+
+
+def _tf32_qkv(case, device):
+    b, sq, sk, h, hkv, hd, hdv = case[:7]
+    rng = np.random.default_rng(sum(case[:7]))
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+            for s in ((b, sq, h, hd), (b, sk, hkv, hd), (b, sk, hkv, hdv))]
+
+
+def _lse_plain(q, k, v, causal, window, q_offset):
+    """Each row's log-sum-exp of the scaled scores over the keys it
+    attends, in float64 (B, H, Sq), and which rows attend any key."""
+    g = q.shape[2] // k.shape[2]
+    kk = k.double().repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kk) / q.shape[-1] ** 0.5
+    qpos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    valid = torch.ones_like(qpos >= kpos)
+    if causal:
+        valid &= qpos >= kpos
+    if window > 0:
+        valid &= qpos - kpos < window
+    lse = torch.logsumexp(s.masked_fill(~valid, float("-inf")), -1)
+    return lse, valid.any(-1).expand_as(lse)
+
+
+@pytest.mark.parametrize("case", TF32_FA_CASES,
+                         ids=[f"tf32x3-{c[5]}-{c[6]}-{i}"
+                              for i, c in enumerate(TF32_FA_CASES)])
+def test_flash_attention_tf32x3_matches_plain(cuda, case):
+    """The float32 tensor-core forward (three TF32 wgmma a product of
+    split operands) against the plain version in float32 (FA_TOL, 2e-5):
+    the output and each row's lse, which the route rule picks for
+    float32 at every pair of TC_HEAD_DIMS; a second launch gives the
+    same bits."""
+    b, sq, sk, h, hkv, hd, hdv = case[:7]
+    causal, window, q_offset = case[7:]
+    q, k, v = _tf32_qkv(case, cuda)
+    assert tfa._route(torch.float32, hd, hdv) == "tf32x3"
+    tfa.reset_launches()
+    got, lse = tfa._forward(q, k, v, causal, window, q_offset, "tf32x3",
+                            with_lse=True)
+    assert tfa.LAUNCHES["flash_attention_tf32x3"] == 1
+    assert tfa.LAUNCHES["flash_attention_tc"] == 0
+    want = tref.flash_attention_ref(q, k, v, causal, window, q_offset,
+                                    skip_masked_chunks=True)
+    lse_want, live = _lse_plain(q, k, v, causal, window, q_offset)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (b, sq, h, hdv)
+    torch.testing.assert_close(got, want, rtol=FA_TOL[torch.float32],
+                               atol=FA_TOL[torch.float32])
+    torch.testing.assert_close(lse[live].double(), lse_want[live],
+                               rtol=FA_TOL[torch.float32],
+                               atol=FA_TOL[torch.float32])
+    assert torch.equal(got, tfa.launch(q, k, v, causal, window, q_offset,
+                                       "tf32x3"))
+
+
+def test_flash_attention_tf32x3_reads_strided_views(cuda):
+    """float32 q / k / v sliced out of a fused projection (B, S, H + 2
+    Hkv, hd) go through the float32 tensor-core kernel in place, forward
+    and backward, against the plain version."""
+    rng = np.random.default_rng(5)
+    qkv = torch.from_numpy(rng.normal(size=(2, 90, 8, 64)).astype(
+        np.float32)).to(cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    assert all(tfa._tc_aligned(t) for t in (q, k, v))
+    tfa.reset_launches()
+    got = tfa.flash_attention(q, k, v, causal=True)
+    assert tfa.LAUNCHES["flash_attention_tf32x3"] == 1
+    want = tref.flash_attention_ref(q, k, v, True)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    views = [t.detach().requires_grad_() for t in (q, k, v)]
+    do = torch.from_numpy(rng.normal(size=(2, 90, 4, 64)).astype(
+        np.float32)).to(cuda)
+    grads = torch.autograd.grad(tfa.flash_attention(*views), views, do)
+    assert tfa.LAUNCHES["flash_attention_bwd_tf32x3"] == 1
+    plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(tref.flash_attention_ref(*plain, True),
+                               plain, do)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, **BWD_TOL[torch.float32])
+
+
+def test_flash_attention_tf32x3_backward_is_deterministic(cuda):
+    """Two backward runs of the float32 tensor-core route give the same
+    bits, with the GQA reduction (H > Hkv) and without, at the pairs
+    past hd 128."""
+    for case in ((1, 300, 300, 16, 1, 256, 256, True, 100),
+                 (2, 200, 200, 4, 4, 192, 128, True, 0),
+                 (1, 260, 260, 12, 2, 128, 128, True, 0)):
+        qkv, do = _bwd_inputs(case, torch.float32, cuda, hdv=case[6])
+        out = tfa.flash_attention(*qkv, causal=case[7], window=case[8])
+        first = torch.autograd.grad(out, qkv, do, retain_graph=True)
+        second = torch.autograd.grad(out, qkv, do)
+        for a, b in zip(first, second):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_flash_attention_tf32x3_plans_match_the_library(cuda):
+    """forward_plan's shared memory for the float32 tensor-core kernel is
+    what the loaded library's launch sets, at every pair, under a CTA's
+    232,448 bytes."""
+    for hd, hdv in tfa.TC_HEAD_DIMS:
+        plan = tfa.forward_plan(1, 256, 256, 4, 4, hd, torch.float32,
+                                hdv=hdv)
+        attrs = tfa.tc_attributes(hd, hdv, plan["kernel"])
+        assert attrs["smem_bytes"] == plan["smem_bytes"] <= 232448
+        assert attrs["max_dynamic_smem_bytes"] >= plan["smem_bytes"]
+        assert attrs["threads"] == plan["threads"] == 128
